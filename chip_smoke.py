@@ -6,19 +6,29 @@
 1. builds the port's CUDA kernels from ``recommendsystem_tpu_torch/csrc/``
    (one nvcc per source, all at once);
 2. holds each kernel against its plain PyTorch version on the card, at the
-   shapes the serving path gives it (batch buckets 8, 200 and 256, and
-   65536; field attention also at F = 175), and times kernel, plain version
-   and a library yardstick that the port never calls: device time per call
-   (``ms``, calls run back to back behind a spin kernel) and, for the
-   kernel, the host's time to issue one call (``host_ms``);
-3. drives the main path: the full-width autoint ``ScoringService`` (24
+   shapes the serving and train paths give it (batch buckets 8, 200 and 256,
+   and 65536; field attention also at F = 175, with dropout 0.2, and its
+   backward; the unfold-scatter at B = 4096 and 65536; the lazy Adam over
+   one full storage), and times kernel, plain version and a library
+   yardstick that the port never calls: device time per call (``ms``, calls
+   run back to back behind a spin kernel) and, for the kernel, the host's
+   time to issue one call (``host_ms``);
+3. drives the serving path: the full-width autoint ``ScoringService`` (24
    tables of 265,000 rows x 8, seeded random weights) answers requests
    through ``score()`` and over HTTP, with counts of kernel launches set to 0
    just before and read just after; a second service with one id per feature
    drives the single-id fold; scores are checked finite, in [1e-6, 1],
    unchanged by padding, and equal to the same service run on the CPU
    through the plain versions;
-4. times the predict step at batch 65536.
+4. times the predict step at batch 65536;
+5. drives the train path: the full-width packed train step (B = 65536,
+   attention dropout 0.2, lazy Adam on the tables, dense Adam) for a few
+   steps with 5 ids per feature and with 1, counts set to 0 just before and
+   read just after; checks the loss finite and t and show equal to the live
+   counts; holds two steps on the card to the same two steps on the CPU
+   through the plain versions (B = 4096, same seeds, same dropout); times
+   the step as the median of 3 windows, each ending in a synchronize and a
+   host fetch of the last loss.
 
 Prints the card's name and power limit, one JSON line ``{"kernels": ...}``,
 and last ``{"ok": true, "device": {...}}``.  Details go to
@@ -47,6 +57,19 @@ BIG_BATCH = 65536
 FOLD_TOL = 1e-6                   # a sum of <= 5 float32 products, other order
 ATTN_TOL = 2e-5                   # softmax over <= 175 keys, 4-term dots
 SCORE_TOL = dict(rtol=1e-5, atol=2e-6)   # float32 products in another order
+GRAD_TOL = dict(rtol=1e-4, atol=2e-5)    # attention gradients: sums over <= 175 fields
+UNFOLD_TOL = 1e-5                 # atomics add each row's gradients in another order
+ADAM_W_TOL = 1e-7                 # powf against PyTorch's pow: one ulp of a bias correction
+ADAM_M_RTOL = 1e-6
+DROPOUT = 0.2
+TRAIN_STEPS = 3
+TRAIN_CHECK_BATCH = 4096
+# card against CPU after two train steps: losses as the CPU tests hold the
+# port to the JAX package; weights, params and moments with room for the
+# atomics' and the matmuls' other order of summation (see PERF.md)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_W_ATOL = 1e-5
+TRAIN_MOMENT_TOL = dict(rtol=1e-3, atol=1e-8)
 
 OUT_DIR = "chiprun_out"
 
@@ -151,46 +174,240 @@ def fold_case(name, tables, ids, mask, c, l, cycles_per_ms):
             "bound_ms": bms, "bound_by": by, "bytes": nbytes, "ops": ops}
 
 
-def attention_case(h, dh, f, b, seed, cycles_per_ms):
+def _batch_chunks(b, h, f):
+    """The plain attention versions materialise (h, F, F, B) tensors: run
+    them in batch chunks of at most ~1 GB each."""
+    chunk = max(1, min(b, (1 << 30) // (4 * h * f * f)))
+    return [slice(i, i + chunk) for i in range(0, b, chunk)]
+
+
+def attention_case(h, dh, f, b, seed, cycles_per_ms, rate=0.0):
+    """K5f at ``rate``; with dropout the kernel and the plain version draw
+    the same Philox mask from the same seed."""
     from recommendsystem_tpu_torch.kernels.field_attention import (
         field_attention, field_attention_reference)
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = (torch.relu(torch.randn((h, dh, f, b), generator=g, device="cuda"))
                for _ in range(3))
-    # the plain version materialises (h, F, F, B) scores: run it in batch
-    # chunks of at most ~1 GB each
-    chunk = max(1, min(b, (1 << 30) // (4 * h * f * f)))
+    dseed = (seed << 32) | 1
 
     def plain():
-        return torch.cat([field_attention_reference(q[..., i:i + chunk],
-                                                    k[..., i:i + chunk],
-                                                    v[..., i:i + chunk])
-                          for i in range(0, b, chunk)], dim=3)
+        return torch.cat([field_attention_reference(q[..., c], k[..., c], v[..., c],
+                                                    dseed, rate)
+                          for c in _batch_chunks(b, h, f)], dim=3)
 
-    kernel = lambda: field_attention(q, k, v)                     # noqa: E731
-    got, want = kernel(), plain()
+    kernel = lambda: field_attention(q, k, v, dseed, rate)        # noqa: E731
+    got = kernel()
+    # the plain version's chunks restart the sample index of the mask:
+    # compare on the first chunk only where dropout is on
+    c0 = _batch_chunks(b, h, f)[0]
+    want = plain() if rate == 0.0 else field_attention_reference(
+        q[..., c0].contiguous(), k[..., c0].contiguous(), v[..., c0].contiguous(),
+        dseed, rate)
     torch.cuda.synchronize()
-    err = float((got - want).abs().max())
+    err = float((got[..., :want.shape[3]] - want).abs().max())
     if not err <= ATTN_TOL:
-        raise AssertionError(f"field_attention F={f} b={b}: max abs err {err}")
+        raise AssertionError(f"field_attention F={f} b={b} rate={rate}: "
+                             f"max abs err {err}")
     # yardstick: SDPA on a (h*B, F, dh) view, laid out outside the timing
     q3, k3, v3 = (x.permute(0, 3, 2, 1).reshape(h * b, f, dh).contiguous()
                   for x in (q, k, v))
     library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-        q3, k3, v3)
-    lib_out = library().reshape(h, b, f, dh).permute(0, 3, 2, 1)
-    lib_err = float((lib_out - want).abs().max())
+        q3, k3, v3, dropout_p=rate)
+    lib_err = None
+    if rate == 0.0:
+        lib_out = library().reshape(h, b, f, dh).permute(0, 3, 2, 1)
+        lib_err = float((lib_out - want).abs().max())
     nbytes = 16 * h * dh * f * b
     ops = 4 * h * dh * f * f * b + 4 * h * f * f * b   # dots + softmax
     bms, by = bound(nbytes, ops)
     iters = 200 if b <= 256 else 20
     ms, host_ms = timed(kernel, iters, cycles_per_ms)
     return {"name": "field_attention", "b": b, "f": f, "h": h, "dh": dh,
-            "max_abs_err": err, "ms": ms, "host_ms": host_ms,
+            "rate": rate, "max_abs_err": err, "ms": ms, "host_ms": host_ms,
             "plain_ms": timed(plain, max(2, iters // 10), cycles_per_ms)[0],
             "library_ms": timed(library, iters, cycles_per_ms)[0],
             "library_max_abs_err": lib_err,
+            "bound_ms": bms, "bound_by": by, "bytes": nbytes, "ops": ops}
+
+
+def attention_bwd_case(h, dh, f, b, seed, cycles_per_ms, rate=DROPOUT):
+    """K5b against its plain version (the explicit formulas, batch-chunked
+    like the forward's), at ``rate`` with the mask regenerated from the
+    seed; yardstick: SDPA's backward on the (h*B, F, dh) view (at rate 0:
+    SDPA's dropout draws other bits)."""
+    from recommendsystem_tpu_torch.kernels.field_attention import (
+        field_attention_bwd, field_attention_bwd_reference, field_attention_fwd_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn((h, dh, f, b), generator=g, device="cuda")
+                   for _ in range(4))
+    dseed = (seed << 32) | 1
+    chunks = _batch_chunks(b, h, f)
+    # inputs of the backward: o and lse of the first chunk's plain forward,
+    # where the chunk's sample indices are the kernel's
+    c0 = chunks[0]
+    qc, kc, vc, doc = (x[..., c0].contiguous() for x in (q, k, v, do))
+    oc, lsec = field_attention_fwd_plain(qc, kc, vc, dseed, rate)
+    got = field_attention_bwd(qc, kc, vc, oc, lsec, doc, dseed, rate)
+    want = field_attention_bwd_reference(qc, kc, vc, oc, lsec, doc, dseed, rate)
+    torch.cuda.synchronize()
+    err = max(float((a - w).abs().max()) for a, w in zip(got, want))
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, **GRAD_TOL)
+    # timing at the full batch: o and lse from the plain forward per chunk
+    o = torch.empty_like(q)
+    lse = torch.empty((h, f, b), device="cuda")
+    for c in chunks:
+        o[..., c], lse[..., c] = field_attention_fwd_plain(
+            q[..., c].contiguous(), k[..., c].contiguous(), v[..., c].contiguous(),
+            dseed, rate)
+    kernel = lambda: field_attention_bwd(q, k, v, o, lse, do, dseed, rate)  # noqa: E731
+
+    def plain():
+        return [field_attention_bwd_reference(
+            q[..., c], k[..., c], v[..., c], o[..., c], lse[..., c], do[..., c],
+            dseed, rate) for c in chunks]
+
+    q3, k3, v3, do3 = (x.permute(0, 3, 2, 1).reshape(h * b, f, dh).contiguous()
+                       .requires_grad_(x is not do) for x in (q, k, v, do))
+    out3 = torch.nn.functional.scaled_dot_product_attention(q3, k3, v3)
+    library = lambda: torch.autograd.grad(out3, (q3, k3, v3), do3,  # noqa: E731
+                                          retain_graph=True)
+    # reads q, k, v, o, do and lse once, writes dq, dk, dv once; per
+    # (head, query, key, sample): scores, dp, and the dq, dk, dv terms
+    # (2 dh flops each), the exponential and the softmax-gradient terms
+    nbytes = 32 * h * dh * f * b + 4 * h * f * b
+    ops = (10 * dh + 5) * h * f * f * b
+    bms, by = bound(nbytes, ops)
+    iters = 20
+    ms, host_ms = timed(kernel, iters, cycles_per_ms)
+    return {"name": "field_attention_bwd", "b": b, "f": f, "h": h, "dh": dh,
+            "rate": rate, "max_abs_err": err, "ms": ms, "host_ms": host_ms,
+            "plain_ms": timed(plain, 2, cycles_per_ms)[0],
+            "library_ms": timed(library, iters, cycles_per_ms)[0],
+            "bound_ms": bms, "bound_by": by, "bytes": nbytes, "ops": ops}
+
+
+def unfold_case(name, eng, skey, batch, cycles_per_ms):
+    """K3 (5 ids) or K4 (1 id) on one full-width column's stream: the
+    column's gradient added into a zeroed (rows, D+1) accumulator, against
+    the plain payload + ``index_add_``; yardstick: ``index_add_`` of the
+    prebuilt payload alone."""
+    from recommendsystem_tpu_torch.embedding import packed
+
+    plans = packed.plan_segments(eng, batch, storages={skey})
+    (seg,) = plans[skey]
+    ids, mask = packed.storage_stream(eng, skey, plans[skey], batch)
+    rows, d = eng.storage[skey]
+    b = ids.shape[0] // seg.l
+    g = torch.randn((b, d), generator=torch.Generator(device="cuda").manual_seed(b),
+                    device="cuda")
+    got = torch.zeros((rows, d + 1), device="cuda")
+    want = torch.zeros((rows, d + 1), device="cuda")
+    if seg.l == 1:
+        kernel = lambda: packed.unfold_rows_scatter(got, g, ids, mask)  # noqa: E731
+        plain = lambda: packed.unfold_rows_scatter_plain(want, g, ids, mask)  # noqa: E731
+        payload = packed.unfold_payload(g, mask)
+    else:
+        kernel = lambda: packed.unfold_mean_scatter(got, g, ids, mask, seg.l)  # noqa: E731
+        plain = lambda: packed.unfold_mean_scatter_plain(want, g, ids, mask, seg.l)  # noqa: E731
+        payload = packed.unfold_payload(g.repeat(seg.l, 1), mask)
+    kernel()
+    plain()
+    torch.cuda.synchronize()
+    err = float((got[:, :d] - want[:, :d]).abs().max())
+    if not err <= UNFOLD_TOL or not torch.equal(got[:, d], want[:, d]):
+        raise AssertionError(f"{name} b={b}: max abs err {err}, counts "
+                             f"{float((got[:, d] - want[:, d]).abs().max())}")
+    lids = ids.long()
+    library = lambda: want.index_add_(0, lids, payload)            # noqa: E731
+    live = mask > 0
+    n_live = int(live.sum())
+    uniq = int(torch.unique(ids[live]).numel())
+    # ids and mask read once, the gradient once, each touched accumulator
+    # row read and written once; one add per live entry and lane
+    nbytes = 8 * ids.numel() + 4 * b * d + 2 * 4 * (d + 1) * uniq
+    ops = n_live * (d + 1)
+    bms, by = bound(nbytes, ops)
+    iters = 48
+    ms, host_ms = timed(kernel, iters, cycles_per_ms)
+    return {"name": name, "b": b, "l": seg.l, "d": d, "live": n_live, "rows_touched": uniq,
+            "max_abs_err": err, "ms": ms, "host_ms": host_ms,
+            "plain_ms": timed(plain, iters, cycles_per_ms)[0],
+            "library_ms": timed(library, iters, cycles_per_ms)[0],
+            "bound_ms": bms, "bound_by": by, "bytes": nbytes, "ops": ops}
+
+
+def adam_case(eng, skey, tstate, batch, cycles_per_ms):
+    """K8 over one full storage, with the counts and gradients that one
+    column of the train batch leaves in its accumulator, against the plain
+    ``SparseAdam.update``.  The pass clears the accumulator, so each timed
+    call first restores it: ``ms`` is the time of restore + pass less the
+    time of the restore alone.  Yardstick: ``torch.optim.Adam`` (foreach)
+    over the same table as one dense parameter, a non-lazy update."""
+    from recommendsystem_tpu_torch.embedding import packed
+
+    plans = packed.plan_segments(eng, batch, storages={skey})
+    (seg,) = plans[skey]
+    ids, mask = packed.storage_stream(eng, skey, plans[skey], batch)
+    rows, d = eng.storage[skey]
+    b = ids.shape[0] // seg.l
+    acc0 = torch.zeros((rows, d + 1), device="cuda")
+    g = torch.randn((b, d), generator=torch.Generator(device="cuda").manual_seed(3),
+                    device="cuda") * 1e-3
+    packed.unfold_mean_scatter_plain(acc0, g, ids, mask, seg.l)
+    opt = eng.sparse_opt
+
+    def copy(ts):
+        return {"w": ts["w"].clone(), "opt": {n: x.clone() for n, x in ts["opt"].items()},
+                "show": ts["show"].clone()}
+
+    got, want = copy(tstate), copy(tstate)
+    acc = acc0.clone()
+    packed.sparse_adam_update(opt, got, acc)
+    packed.sparse_adam_update_plain(opt, want, acc0.clone())
+    torch.cuda.synchronize()
+    err = float((got["w"] - want["w"]).abs().max())
+    torch.testing.assert_close(got["w"], want["w"], rtol=0, atol=ADAM_W_TOL)
+    for n in ("m", "v"):
+        torch.testing.assert_close(got["opt"][n], want["opt"][n], rtol=ADAM_M_RTOL, atol=0)
+    for a, w in ((got["opt"]["t"], want["opt"]["t"]), (got["show"], want["show"])):
+        torch.testing.assert_close(a, w, rtol=0, atol=0)
+    if acc.any():
+        raise AssertionError("sparse_adam_update left its accumulator non-zero")
+
+    def restore():
+        acc.copy_(acc0)
+
+    def kernel():
+        restore()
+        packed.sparse_adam_update(opt, got, acc)
+
+    def plain():
+        restore()
+        packed.sparse_adam_update_plain(opt, want, acc)
+
+    param = torch.nn.Parameter(tstate["w"].clone())
+    param.grad = acc0[:, :d].clone()
+    dense = torch.optim.Adam([param], lr=opt.learning_rate, foreach=True)
+    library = dense.step
+    live = int((acc0[:, d] > 0).sum())
+    # a live row reads acc (D+1), w, m, v (3 D), t and show, and writes all
+    # of them; a row with count 0 reads its count
+    nbytes = live * 4 * (2 * (d + 1) + 6 * d + 4) + (rows - live) * 4
+    ops = live * d * 14
+    bms, by = bound(nbytes, ops)
+    iters = 48
+    ms_restore = timed(restore, iters, cycles_per_ms)[0]
+    ms, host_ms = timed(kernel, iters, cycles_per_ms)
+    return {"name": "sparse_adam_update", "rows": rows, "d": d, "live_rows": live,
+            "max_abs_err": err, "ms": ms - ms_restore, "restore_ms": ms_restore,
+            "host_ms": host_ms,
+            "plain_ms": timed(plain, iters, cycles_per_ms)[0] - ms_restore,
+            "library_ms": timed(library, iters, cycles_per_ms)[0],
+            "library": "torch.optim.Adam(foreach=True), dense over the table",
             "bound_ms": bms, "bound_by": by, "bytes": nbytes, "ops": ops}
 
 
@@ -237,6 +454,124 @@ def http_score(svc, rows):
         thread.join(timeout=60)
 
 
+def _to(tree, device):
+    """A copy of a state tree (dicts of tensors and ints) on ``device``."""
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to(device, copy=True)
+    return tree
+
+
+def train_path(bundle, cpu_bundle, card):
+    """The packed train step at full width.  Counted window: a fresh state
+    takes ``TRAIN_STEPS`` steps on one B = 65536 batch with 5 ids per
+    feature (K1, K3, K5f/K5b at dropout 0.2, K8), then another fresh state
+    with 1 id (K2, K4); after each, t and show must equal the live counts.
+    Then two steps on the card against the same two on the CPU through the
+    plain versions, and the step timed."""
+    from recommendsystem_tpu_torch.data import synthetic_batch
+    from recommendsystem_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from recommendsystem_tpu_torch.train import make_train_step
+    from recommendsystem_tpu_torch.train.state import TrainState, create_train_state
+
+    eng = bundle.embedding
+    step = make_train_step(bundle)
+    out = {"batch": BIG_BATCH, "dropout": DROPOUT, "card": card}
+    data = {ipf: synthetic_batch(bundle, BIG_BATCH, seed=20 + ipf, ids_per_feature=ipf)
+            for ipf in (5, 1)}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    per_run, losses = {}, {}
+    for ipf in (5, 1):
+        before = launch_counts()
+        state = create_train_state(bundle, seed=2)
+        batch, dense, labels, weight = data[ipf]
+        run_losses = []
+        for i in range(TRAIN_STEPS):
+            state, info = step(state, batch, labels, weight, dense, seed=i)
+            run_losses.append(info["loss"])
+        torch.cuda.synchronize()
+        after = launch_counts()
+        per_run[ipf] = {k: after[k] - before[k] for k in after}
+        losses[ipf] = [float(x) for x in run_losses]
+        if not all(np.isfinite(losses[ipf])):
+            raise AssertionError(f"train loss not finite: {losses[ipf]}")
+        counts = eng.row_counts(batch)
+        for skey, tstate in state.tables.items():
+            if not (torch.equal(tstate["show"], TRAIN_STEPS * counts[skey])
+                    and torch.equal(tstate["opt"]["t"],
+                                    TRAIN_STEPS * (counts[skey] > 0).float())):
+                raise AssertionError(f"{skey}: t or show differ from the live counts")
+    out["launches"] = launch_counts()
+    out["launches_per_step"] = {f"ids{ipf}": {k: v / TRAIN_STEPS for k, v in c.items()}
+                                for ipf, c in per_run.items()}
+    out["losses"] = {f"ids{ipf}": v for ipf, v in losses.items()}
+    log("train launches:", json.dumps(out["launches"]))
+    for name, ipf in (("fold_mean", 5), ("unfold_mean", 5), ("field_attention", 5),
+                      ("field_attention_bwd", 5), ("sparse_adam_update", 5),
+                      ("fold_rows", 1), ("unfold_rows", 1)):
+        if per_run[ipf][name] < 1:
+            raise AssertionError(f"{name} was not launched on the train path")
+
+    # two steps on the card against the same two on the CPU (plain versions)
+    gstate = create_train_state(bundle, seed=3)
+    cstate = TrainState(**{f: _to(getattr(gstate, f), "cpu")
+                           for f in ("params", "opt_state", "tables", "step")})
+    gb, gdense, glabels, gweight = synthetic_batch(bundle, TRAIN_CHECK_BATCH, seed=31)
+    cb, cdense, clabels, cweight = synthetic_batch(cpu_bundle, TRAIN_CHECK_BATCH, seed=31)
+    cstep = make_train_step(cpu_bundle)
+    t0 = time.perf_counter()
+    diffs = {"loss_rel": 0.0, "params": 0.0, "w": 0.0}
+    for i in range(2):
+        gstate, ginfo = step(gstate, gb, glabels, gweight, gdense, seed=40 + i)
+        cstate, cinfo = cstep(cstate, cb, clabels, cweight, cdense, seed=40 + i)
+        gl, cl = float(ginfo["loss"]), float(cinfo["loss"])
+        np.testing.assert_allclose(gl, cl, rtol=TRAIN_LOSS_RTOL)
+        diffs["loss_rel"] = max(diffs["loss_rel"], abs(gl - cl) / abs(cl))
+    out["cpu_check_s"] = time.perf_counter() - t0
+    for k, v in cstate.params.items():
+        got = gstate.params[k].cpu()
+        np.testing.assert_allclose(got.numpy(), v.numpy(), rtol=0, atol=TRAIN_W_ATOL,
+                                   err_msg=k)
+        diffs["params"] = max(diffs["params"], float((got - v).abs().max()))
+    for skey, ct in cstate.tables.items():
+        gt = _to(gstate.tables[skey], "cpu")
+        np.testing.assert_allclose(gt["w"].numpy(), ct["w"].numpy(), rtol=0,
+                                   atol=TRAIN_W_ATOL, err_msg=skey)
+        diffs["w"] = max(diffs["w"], float((gt["w"] - ct["w"]).abs().max()))
+        for n in ("m", "v"):
+            np.testing.assert_allclose(gt["opt"][n].numpy(), ct["opt"][n].numpy(),
+                                       **TRAIN_MOMENT_TOL, err_msg=f"{skey} {n}")
+        np.testing.assert_array_equal(gt["opt"]["t"].numpy(), ct["opt"]["t"].numpy())
+        np.testing.assert_array_equal(gt["show"].numpy(), ct["show"].numpy())
+    out["card_vs_cpu_max_diff"] = diffs
+    log("train card vs cpu:", json.dumps(diffs))
+
+    # throughput: median of 3 windows, each ending in a host fetch of the loss
+    state = create_train_state(bundle, seed=4)
+    batch, dense, labels, weight = data[5]
+    seed = 0
+    for _ in range(3):
+        state, info = step(state, batch, labels, weight, dense, seed=seed)
+        seed += 1
+    float(info["loss"])
+    windows = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(8):
+            state, info = step(state, batch, labels, weight, dense, seed=seed)
+            seed += 1
+        float(info["loss"])
+        torch.cuda.synchronize()
+        windows.append((time.perf_counter() - t0) / 8)
+    ms = sorted(windows)[1] * 1e3
+    out.update({"metric": "torch_autoint_ctr_train_examples_per_sec", "unit": "examples/s",
+                "value": BIG_BATCH / ms * 1e3, "ms_per_step": ms,
+                "window_ms": [w * 1e3 for w in windows]})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available; this script runs on a card")
@@ -259,6 +594,8 @@ def main() -> int:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
+    torch.backends.cuda.matmul.allow_tf32 = False     # float32 as the CPU computes it
+    torch.backends.cudnn.allow_tf32 = False
 
     # -- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -287,6 +624,16 @@ def main() -> int:
                                    cycles_per_ms))
         for f in (24, 175):
             cases.append(attention_case(2, 4, f, b, f + b, cycles_per_ms))
+    # the train path's kernels, at the train batch
+    for b in (4096, BIG_BATCH):
+        for ipf, name in ((5, "unfold_mean"), (1, "unfold_rows")):
+            batch = synthetic_batch(bundle, b, seed=b + ipf + 1, ids_per_feature=ipf)[0]
+            cases.append(unfold_case(name, eng, skeys[0], batch, cycles_per_ms))
+    batch = synthetic_batch(bundle, BIG_BATCH, seed=5)[0]
+    cases.append(adam_case(eng, skeys[0], state.tables[skeys[0]], batch, cycles_per_ms))
+    cases.append(attention_case(2, 4, 24, BIG_BATCH, 99, cycles_per_ms, rate=DROPOUT))
+    cases.append(attention_bwd_case(2, 4, 24, BIG_BATCH, 7, cycles_per_ms))
+    cases.append(attention_bwd_case(2, 4, 175, 8192, 8, cycles_per_ms))
     for c in cases:
         log(json.dumps(c))
     report["cases"] = cases
@@ -361,10 +708,21 @@ def main() -> int:
                          "card": card}
     print(json.dumps({"predict": report["predict"]}), flush=True)
 
+    # -- 5. the main path: the full-width packed train step -------------------
+    del svc, svc1, cpu_svc, cpu_svc1
+    report["train"] = train_path(bundle, cpu_bundle, card)
+    training = report["train"]["launches"]
+    print(json.dumps({k: report["train"][k] for k in (
+        "metric", "value", "unit", "ms_per_step", "window_ms", "batch",
+        "launches_per_step", "card")}), flush=True)
+
     # -- report ----------------------------------------------------------------
+    # the serving kernels at the largest serving bucket, the train kernels at
+    # the train batch; attention at autoint's F = 24
     headline = {}
-    for c in cases:   # the largest serving bucket, at autoint's F = 24
-        if c["b"] == 256 and c.get("f", 24) == 24:
+    for c in cases:
+        serve = c["name"] in ("fold_mean", "fold_rows", "field_attention")
+        if c.get("b", BIG_BATCH) == (256 if serve else BIG_BATCH) and c.get("f", 24) == 24:
             headline[c["name"]] = c
     sources = {"fold_mean": ("recommendsystem_tpu_torch/csrc/fold.cu",
                              "recommendsystem_tpu/embedding/packed.py:273"),
@@ -372,17 +730,29 @@ def main() -> int:
                              "recommendsystem_tpu/embedding/packed.py:327"),
                "field_attention": (
                    "recommendsystem_tpu_torch/csrc/field_attention.cu",
-                   "recommendsystem_tpu/kernels/field_attention_pallas.py:98")}
+                   "recommendsystem_tpu/kernels/field_attention_pallas.py:98"),
+               "field_attention_bwd": (
+                   "recommendsystem_tpu_torch/csrc/field_attention.cu",
+                   "recommendsystem_tpu/kernels/field_attention_pallas.py:111"),
+               "unfold_mean": ("recommendsystem_tpu_torch/csrc/unfold_scatter.cu",
+                               "recommendsystem_tpu/embedding/packed.py:365"),
+               "unfold_rows": ("recommendsystem_tpu_torch/csrc/unfold_scatter.cu",
+                               "recommendsystem_tpu/embedding/packed.py:416"),
+               "sparse_adam_update": ("recommendsystem_tpu_torch/csrc/sparse_adam.cu",
+                                      "recommendsystem_tpu/embedding/packed.py:1099")}
     kernels = []
     for name, (source, replaces) in sources.items():
         c = headline[name]
+        launches = serving[name] + training[name]
+        if launches < 1:
+            raise AssertionError(f"{name} was not launched on the main paths")
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": serving[name],
+            "launches": launches,
             "max_abs_err": max(x["max_abs_err"] for x in cases if x["name"] == name),
             "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
-            "host_ms": c["host_ms"], "b": 256})
+            "host_ms": c["host_ms"], "b": c.get("b", BIG_BATCH)})
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump(report, fh, indent=1)

@@ -1,24 +1,30 @@
-"""Carry weights across from the JAX package, as numpy.
+"""Carry state across from the JAX package, as numpy.
 
-``from_jax_numpy(bundle, params, tables)`` takes what the JAX side hands
-over as numpy and imports no JAX:
+``from_jax_numpy(bundle, params, tables, step=0, opt_state=None)`` takes
+what the JAX side hands over as numpy and imports no JAX:
 
 - ``params``: the flax parameter tree as a nested dict of numpy arrays.
   Flax kernels are ``(in, out)``; the port's layers keep that layout and
   compute ``x @ kernel`` (and ``W.T @ x`` in the transposed InteractingLayer),
   so every array is copied as it is, with no transpose.  The flattened tree
   (keys joined with ".") is the state dict of ``bundle.module``.
-- ``tables``: per-storage ``(rows, D)`` numpy weights, as the JAX engine's
-  ``weights(state.tables)`` returns them.  JAX autoint tables are stored in
-  the packed-state layout (``w_p = [w | 0]`` lane groups); ``weights()``
-  unpacks them to ``(rows, D)``, which is the layout the port keeps.
+- ``tables``: per storage, either the ``(rows, D)`` weights that the JAX
+  engine's ``weights(state.tables)`` returns (the optimizer state then
+  starts at zero), or the whole per-row state that its
+  ``classic_state(state.tables)`` returns: ``{"w": (rows, D), "opt": {"m",
+  "v", "t"}, "show"}``.  JAX autoint tables are stored in the packed-state
+  layout (``w_p = [w | 0]``, ``m_p = [m | t]``, ``v_p = [v | show]`` lane
+  groups); both views unpack them to the per-row layout the port keeps.
+- ``opt_state``: optax's Adam state, as its ``ScaleByAdamState`` (or the
+  chain tuple that holds one) with numpy leaves; None starts the dense Adam
+  afresh.
 
 Returns the port's ``TrainState`` on the bundle's device.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -38,28 +44,74 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]
     return out
 
 
+def _adam_fields(opt_state) -> Mapping[str, Any]:
+    """{"count", "mu", "nu"} of an optax Adam state, found in a
+    ``ScaleByAdamState`` or a chain tuple holding one."""
+    if all(hasattr(opt_state, a) for a in ("count", "mu", "nu")):
+        return {"count": opt_state.count, "mu": opt_state.mu, "nu": opt_state.nu}
+    if isinstance(opt_state, (tuple, list)):
+        for part in opt_state:
+            try:
+                return _adam_fields(part)
+            except ValueError:
+                continue
+    raise ValueError(f"no Adam state (count, mu, nu) in {type(opt_state).__name__}")
+
+
+def _check_shapes(what: str, got: Dict[str, tuple], want: Dict[str, tuple]) -> None:
+    if got != want:
+        raise ValueError(f"{what} do not match the port's module: got "
+                         f"{sorted(got.items())}, expected {sorted(want.items())}")
+
+
 def from_jax_numpy(bundle: ModelBundle, params: Mapping[str, Any],
-                   tables: Mapping[str, np.ndarray], step: int = 0) -> TrainState:
+                   tables: Mapping[str, Any], step: int = 0,
+                   opt_state: Optional[Any] = None) -> TrainState:
     flat = _flatten(params)
     want = {k: tuple(p.shape) for k, p in bundle.module.named_parameters()}
-    got = {k: tuple(v.shape) for k, v in flat.items()}
-    if got != want:
-        raise ValueError(f"flax params do not match the port's module: "
-                         f"got {sorted(got.items())}, expected "
-                         f"{sorted(want.items())}")
-    storage = bundle.embedding.storage
-    if set(tables) != set(storage):
+    _check_shapes("flax params", {k: v.shape for k, v in flat.items()}, want)
+    eng = bundle.embedding
+    if set(tables) != set(eng.storage):
         raise ValueError(f"tables {sorted(tables)} do not match the engine's "
-                         f"storages {sorted(storage)}")
-    for skey, w in tables.items():
-        if tuple(np.shape(w)) != storage[skey]:
-            raise ValueError(f"table {skey}: shape {np.shape(w)}, expected "
-                             f"{storage[skey]}")
+                         f"storages {sorted(eng.storage)}")
 
     def to_dev(a):
         return torch.tensor(np.asarray(a, np.float32), device=bundle.device)
 
-    return TrainState(params={k: to_dev(v) for k, v in flat.items()},
-                      opt_state=None,
-                      tables={skey: {"w": to_dev(w)} for skey, w in tables.items()},
+    state_tables = {}
+    for skey, entry in tables.items():
+        rows, dim = eng.storage[skey]
+        w = entry["w"] if isinstance(entry, Mapping) else entry
+        if tuple(np.shape(w)) != (rows, dim):
+            raise ValueError(f"table {skey}: shape {np.shape(w)}, expected "
+                             f"{(rows, dim)}")
+        if isinstance(entry, Mapping):
+            tstate = {"w": to_dev(w),
+                      "opt": {n: to_dev(entry["opt"][n]) for n in ("m", "v", "t")},
+                      "show": to_dev(entry["show"])}
+            for name, t, shape in (("m", tstate["opt"]["m"], (rows, dim)),
+                                   ("v", tstate["opt"]["v"], (rows, dim)),
+                                   ("t", tstate["opt"]["t"], (rows, 1)),
+                                   ("show", tstate["show"], (rows, 1))):
+                if tuple(t.shape) != shape:
+                    raise ValueError(f"table {skey}: {name} of shape "
+                                     f"{tuple(t.shape)}, expected {shape}")
+        else:
+            tstate = {"w": to_dev(w),
+                      "opt": eng.sparse_opt.init_state((rows, dim), bundle.device),
+                      "show": torch.zeros((rows, 1), device=bundle.device)}
+        state_tables[skey] = tstate
+
+    dense = {k: to_dev(v) for k, v in flat.items()}
+    if opt_state is None:
+        opt = bundle.dense_optimizer.init(dense)
+    else:
+        fields = _adam_fields(opt_state)
+        mu, nu = _flatten(fields["mu"]), _flatten(fields["nu"])
+        _check_shapes("Adam mu", {k: v.shape for k, v in mu.items()}, want)
+        _check_shapes("Adam nu", {k: v.shape for k, v in nu.items()}, want)
+        opt = {"count": int(np.asarray(fields["count"])),
+               "mu": {k: to_dev(v) for k, v in mu.items()},
+               "nu": {k: to_dev(v) for k, v in nu.items()}}
+    return TrainState(params=dense, opt_state=opt, tables=state_tables,
                       step=step)

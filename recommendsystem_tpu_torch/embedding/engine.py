@@ -1,25 +1,32 @@
-"""EmbeddingFeatures: the sparse-embedding engine, local and forward only.
+"""EmbeddingFeatures: the sparse-embedding engine, local mode.
 
 Counterpart of ``recommendsystem_tpu/embedding/engine.py``.  Tables are
 grouped into storages exactly as the JAX engine groups them (same storage
 keys, member offsets and padded row counts), so weights carry across one to
-one (``bridge.py``).  The classic ``lookup`` (gather, then combine) is kept as
-the port's own oracle for the fused lookup in ``packed.py``.
+one (``bridge.py``).  Each storage's state keeps the classic per-row layout
+of the JAX engine's ``classic_state``: ``{"w": (rows, D), "opt": {"m":
+(rows, D), "v": (rows, D), "t": (rows, 1)}, "show": (rows, 1)}``, float32.
+On Hopper an 8-float row is one 32-byte sector, so the JAX package's
+128-lane packed-state layout buys nothing here.
 
-Not here yet: the per-row optimizer state and update paths, ``evict`` and
-the sharded paths (later slices of the port).
+The classic ``lookup`` (gather, then combine) and the classic update path
+(``row_counts``, ``flatten_raw_grads``, ``apply_gradients_scatter``) are
+kept as the port's own oracles for the fused lookup and the packed update in
+``packed.py``.  Not here yet: ``evict``, the dense update path and the
+sharded paths (later slices of the port).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from . import packed as packed_mod
 from .feature_column import EmbeddingColumn
+from .optimizers import SparseAdam
 
 
 @dataclasses.dataclass
@@ -87,9 +94,15 @@ class EmbeddingFeatures:
     ``table_map`` maps table_key -> (storage_key, row_offset, rows)."""
 
     def __init__(self, embedding_columns: List[EmbeddingColumn],
+                 sparse_opt: Optional[SparseAdam] = None,
                  name: str = "sparse_emb_input", group_tables: bool = False,
                  max_group_bytes: int = 40 << 20):
         self.name = name
+        self.sparse_opt = SparseAdam() if sparse_opt is None else sparse_opt
+        # per (storage, device): the (rows, D+1) [grad | count] accumulator
+        # of the packed update, all zero between steps (the lazy-Adam pass
+        # clears the rows it reads)
+        self._accumulators: Dict[Tuple[str, torch.device], torch.Tensor] = {}
         self.group_tables = group_tables
         self.max_group_bytes = max_group_bytes
         self.columns: Dict[str, EmbeddingColumn] = {}
@@ -155,22 +168,42 @@ class EmbeddingFeatures:
     # ---------------- state ----------------
 
     def init(self, generator: torch.Generator) -> Dict[str, Dict[str, torch.Tensor]]:
-        """Tables on the generator's device, drawn in sorted storage order:
-        truncated normal on [-2, 2] divided by sqrt(D), the TF
-        ``embedding_column`` default (``SparseAdam.table_init`` in the JAX
-        package).  Only ``w`` exists in this slice."""
+        """State on the generator's device, tables drawn in sorted storage
+        order by ``sparse_opt.table_init`` (truncated normal on [-2, 2]
+        divided by sqrt(D), the TF ``embedding_column`` default); zero
+        moments, step counters and show counts."""
         state = {}
         for skey, (rows, dim) in sorted(self.storage.items()):
-            w = torch.empty((rows, dim), dtype=torch.float32,
-                            device=generator.device)
-            torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
-                                        generator=generator)
-            state[skey] = {"w": w.div_(dim ** 0.5)}
+            state[skey] = {
+                "w": self.sparse_opt.table_init(generator, (rows, dim)),
+                "opt": self.sparse_opt.init_state((rows, dim),
+                                                  generator.device),
+                "show": torch.zeros((rows, 1), dtype=torch.float32,
+                                    device=generator.device)}
         return state
 
     def weights(self, state) -> Dict[str, torch.Tensor]:
         """(rows, D) weights per storage."""
         return {skey: t["w"] for skey, t in state.items()}
+
+    def classic_state(self, state):
+        """The classic per-row view of the state, which is the layout the
+        port keeps: the identity, so that tests read the state of both
+        packages through one name."""
+        return state
+
+    def accumulator(self, skey: str, device) -> torch.Tensor:
+        """The zeroed (rows, D+1) float32 [grad | count] accumulator of one
+        storage on ``device``, allocated on first use and reused: the
+        unfold-scatter kernels fill it and the lazy-Adam pass clears it."""
+        key = (skey, torch.device(device))
+        acc = self._accumulators.get(key)
+        if acc is None:
+            rows, dim = self.storage[skey]
+            acc = torch.zeros((rows, dim + 1), dtype=torch.float32,
+                              device=device)
+            self._accumulators[key] = acc
+        return acc
 
     # ---------------- classic lookup (the port's oracle) ----------------
 
@@ -234,3 +267,72 @@ class EmbeddingFeatures:
             else:
                 out[key] = _combine(raw[key], ids.mask, col.combiner)
         return out
+
+    # ---------------- classic update (the port's oracle) ----------------
+
+    def flatten_raw_grads(self, raw_grads: Dict[str, torch.Tensor],
+                          batch: Dict[str, IdBatch]):
+        """Group per-column (B, L, D) grads by table -> (table-local rows,
+        grads, mask) flat tensors."""
+        per_table: Dict[str, list] = {}
+        for key, g in raw_grads.items():
+            ids = batch[key]
+            tkey = self.columns[key].categorical_column.key
+            per_table.setdefault(tkey, []).append(
+                (ids.rows.reshape(-1), g.reshape(-1, g.shape[-1]),
+                 ids.mask.reshape(-1).float()))
+        return {tkey: tuple(torch.cat([p[i] for p in parts]) for i in range(3))
+                for tkey, parts in per_table.items()}
+
+    @staticmethod
+    def _dense_grad_and_count(rows, grads, mask, num_rows: int):
+        """One scatter-add builds the dense [G | count] accumulator of one
+        table: padding slots carry zero grads and a zero count."""
+        payload = torch.cat([grads.float(), mask[:, None]], dim=1)
+        acc = torch.zeros((num_rows, payload.shape[1]), dtype=torch.float32,
+                          device=payload.device)
+        acc.index_add_(0, rows.long(), payload)
+        return acc[:, :-1], acc[:, -1:]
+
+    def apply_gradients_scatter(self, state, flat):
+        """Classic sparse update: per-table scatter-adds build a dense
+        [grad | count] accumulator, then ``sparse_opt.update`` runs lazily
+        over each touched storage.  Returns a new state; ``state`` is not
+        modified."""
+        new_state = {}
+        for skey, tstate in state.items():
+            members = self._storage_members(skey)
+            if not any(tkey in flat for _, tkey, _ in members):
+                new_state[skey] = tstate
+                continue
+            dim = tstate["w"].shape[1]
+            g_parts, c_parts = [], []
+            for _, tkey, rows_t in members:
+                if tkey in flat:
+                    g_t, c_t = self._dense_grad_and_count(*flat[tkey], rows_t)
+                else:
+                    g_t = tstate["w"].new_zeros((rows_t, dim))
+                    c_t = tstate["w"].new_zeros((rows_t, 1))
+                g_parts.append(g_t)
+                c_parts.append(c_t)
+            grad, cnt = torch.cat(g_parts), torch.cat(c_parts)
+            w, opt = self.sparse_opt.update(tstate["w"], grad, tstate["opt"],
+                                            (cnt > 0).float())
+            new_state[skey] = {"w": w, "opt": opt, "show": tstate["show"] + cnt}
+        return new_state
+
+    def row_counts(self, batch: Dict[str, IdBatch]) -> Dict[str, torch.Tensor]:
+        """Per-storage appearance counts (rows, 1): the 'show' statistic
+        that drives lazy updates."""
+        device = next(iter(batch.values())).rows.device
+        counts = {skey: torch.zeros((rows,), dtype=torch.float32, device=device)
+                  for skey, (rows, _) in self.storage.items()}
+        for key, col in self.columns.items():
+            if key not in batch:
+                continue
+            skey, offset, _ = self.table_map[col.categorical_column.key]
+            ids = batch[key]
+            rows = ids.rows + offset if offset else ids.rows
+            counts[skey].index_add_(0, rows.reshape(-1).long(),
+                                    ids.mask.reshape(-1).float())
+        return {k: v[:, None] for k, v in counts.items()}

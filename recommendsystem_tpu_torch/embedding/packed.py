@@ -1,24 +1,35 @@
-"""Fused gather-and-fold embedding lookup: the forward half of
+"""Fused embedding lookup and packed update: the local path of
 ``recommendsystem_tpu/embedding/packed.py``.
 
 The JAX package gathers 128-lane physical rows and folds them in Pallas
-kernels, a layout the TPU's (8, 128) tiling asks for.  Here tables stay
-``(rows, D)`` float32 and contiguous, and the gather is fused into the fold
-kernels (``csrc/fold.cu``):
+kernels, and scatters 128-lane [grad | count] payloads, layouts the TPU's
+(8, 128) tiling asks for.  Here tables and their optimizer state stay
+``(rows, D)`` float32 and contiguous, and each kernel fuses the gather or
+the scatter it feeds or is fed by:
 
   fold_mean  (K1)  l-major ids/mask of C columns x L slots x B rows ->
-                   (C*B, D) masked sums over L
+                   (C*B, D) masked sums over L                (csrc/fold.cu)
   fold_rows  (K2)  (E,) ids/mask -> (E, D) masked rows; single-id mean
                    columns (l == 1) go here, as in the JAX package
+  unfold_mean_scatter (K3)  (B, D) grads of one column's sums, broadcast
+                   over its L slots, added with a count of 1 into the
+                   storage's (rows, D+1) [grad | count] accumulator
+                                                    (csrc/unfold_scatter.cu)
+  unfold_rows_scatter (K4)  the same per entry, for l == 1 and sequence
+                   columns
+  sparse_adam_update  (K8)  one lazy-Adam pass over a storage: rows with
+                   count > 0 step w, m, v, t and add to show; the
+                   accumulator is left zero                (csrc/sparse_adam.cu)
 
 The storage plan (``plan_segments``, ``storage_stream``), the stage functions
-(``gather_fold``, ``combine_from_acts``) and ``lookup_packed`` keep the JAX
-names and stream order.  The 128-lane pack sizes survive only to size the
-engine's storages as the JAX engine does (``gather_pack``, ``scatter_pack``).
+(``gather_fold``, ``combine_from_acts``, ``apply_gradients_packed``) and
+``lookup_packed`` keep the JAX names and stream order.  The 128-lane pack
+sizes survive only to size the engine's storages as the JAX engine does
+(``gather_pack``, ``scatter_pack``).
 
 Each kernel wrapper takes its plain PyTorch version for a CPU tensor and
 launches its kernel for a CUDA tensor; there is no fallback from one to the
-other.  The backward half (unfold, scatter, lazy Adam) comes with slice 2.
+other.
 """
 
 from __future__ import annotations
@@ -129,6 +140,143 @@ def fold_rows(table: torch.Tensor, ids: torch.Tensor,
     check(lib, code, "fold_rows")
     count_launch("fold_rows")
     return out
+
+
+# ---------------------------------------------------------------------------
+# K3 / K4: unfold fused with the scatter-add, and their plain versions
+# ---------------------------------------------------------------------------
+
+def unfold_payload(g: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """(E, D) per-entry grads and (E,) mask -> (E, D+1) [grad | count]
+    rows, zero where the mask is not > 0 (the JAX payload's semantics)."""
+    live = (mask > 0).to(g.dtype)[:, None]
+    return torch.cat([g * live, live], dim=1)
+
+
+def unfold_mean_scatter_plain(acc, g, ids, mask, l: int) -> None:
+    """acc[ids[j*B + b]] += [g[b] | 1] for every live slot, in place."""
+    acc.index_add_(0, ids.long(), unfold_payload(g.repeat(l, 1), mask))
+
+
+def unfold_rows_scatter_plain(acc, g, ids, mask) -> None:
+    """acc[ids[e]] += [g[e] | 1] for every live entry, in place."""
+    acc.index_add_(0, ids.long(), unfold_payload(g, mask))
+
+
+def _check_unfold_args(acc, g, ids, mask) -> None:
+    require(acc, "acc", torch.float32)
+    if acc.ndim != 2:
+        raise ValueError(f"acc: expected (rows, D+1), got {tuple(acc.shape)}")
+    d = acc.shape[1] - 1
+    require(g, "g", torch.float32, device=acc.device)
+    if g.ndim != 2 or g.shape[1] != d:
+        raise ValueError(f"g: expected (N, {d}), got {tuple(g.shape)}")
+    require(ids, "ids", torch.int32, device=acc.device)
+    if ids.ndim != 1:
+        raise ValueError(f"ids: expected (E,), got {tuple(ids.shape)}")
+    require(mask, "mask", torch.float32, ids.shape, acc.device)
+    if acc.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unfold: no kernel for device {acc.device}")
+
+
+def unfold_mean_scatter(acc, g, ids, mask, l: int) -> None:
+    """K3: add the (B, D) gradient ``g`` of one mean column's sums into
+    the (rows, D+1) accumulator ``acc`` at each live slot's id, with a
+    count of 1 per slot; ``ids``/``mask`` are the column's l-major (L*B,)
+    stream.  In place.  l == 1 goes to K4, as in the JAX package."""
+    if l == 1:
+        return unfold_rows_scatter(acc, g, ids, mask)
+    _check_unfold_args(acc, g, ids, mask)
+    b, d = g.shape
+    if ids.shape[0] != l * b:
+        raise ValueError(f"unfold_mean: {ids.shape[0]} ids for {l} slots of "
+                         f"{b} rows")
+    if acc.device.type == "cpu":
+        return unfold_mean_scatter_plain(acc, g, ids, mask, l)
+    if ids.numel() == 0:
+        return None
+    lib = library("unfold_scatter")
+    with torch.cuda.device(acc.device):
+        code = lib.unfold_mean_scatter_f32(acc.data_ptr(), g.data_ptr(),
+                                           ids.data_ptr(), mask.data_ptr(),
+                                           l, b, d, stream_handle(acc.device))
+    check(lib, code, "unfold_mean")
+    count_launch("unfold_mean")
+    return None
+
+
+def unfold_rows_scatter(acc, g, ids, mask) -> None:
+    """K4: add each live entry's gradient row ``g[e]`` and a count of 1
+    into ``acc[ids[e]]``.  In place."""
+    _check_unfold_args(acc, g, ids, mask)
+    e, d = g.shape
+    if ids.shape[0] != e:
+        raise ValueError(f"unfold_rows: {ids.shape[0]} ids for {e} rows")
+    if acc.device.type == "cpu":
+        return unfold_rows_scatter_plain(acc, g, ids, mask)
+    if e == 0:
+        return None
+    lib = library("unfold_scatter")
+    with torch.cuda.device(acc.device):
+        code = lib.unfold_rows_scatter_f32(acc.data_ptr(), g.data_ptr(),
+                                           ids.data_ptr(), mask.data_ptr(),
+                                           e, d, stream_handle(acc.device))
+    check(lib, code, "unfold_rows")
+    count_launch("unfold_rows")
+    return None
+
+
+# ---------------------------------------------------------------------------
+# K8: the lazy-Adam pass over one storage, and its plain version
+# ---------------------------------------------------------------------------
+
+def sparse_adam_update_plain(opt, tstate, acc) -> None:
+    """``SparseAdam.update`` on the accumulator's [G | count], written back
+    into ``tstate`` in place; ``acc`` is cleared."""
+    d = tstate["w"].shape[1]
+    cnt = acc[:, d:]
+    w, st = opt.update(tstate["w"], acc[:, :d], tstate["opt"],
+                       (cnt > 0).float())
+    tstate["show"].add_(cnt)
+    tstate["w"].copy_(w)
+    for name in ("m", "v", "t"):
+        tstate["opt"][name].copy_(st[name])
+    acc.zero_()
+
+
+def sparse_adam_update(opt, tstate, acc) -> None:
+    """K8: one lazy-Adam pass of ``opt`` (a ``SparseAdam``) over one
+    storage.  Rows whose count ``acc[r, D]`` is > 0 step t, m, v and w by
+    ``SparseAdam.update``'s arithmetic and add the count to show; the other
+    rows stay bit-identical.  Updates ``tstate`` (w, opt m/v/t, show) in
+    place and leaves ``acc`` zero."""
+    w = tstate["w"]
+    require(w, "w", torch.float32)
+    if w.ndim != 2:
+        raise ValueError(f"w: expected (rows, D), got {tuple(w.shape)}")
+    rows, d = w.shape
+    for name, t in (("m", tstate["opt"]["m"]), ("v", tstate["opt"]["v"])):
+        require(t, name, torch.float32, (rows, d), w.device)
+    for name, t in (("t", tstate["opt"]["t"]), ("show", tstate["show"])):
+        require(t, name, torch.float32, (rows, 1), w.device)
+    require(acc, "acc", torch.float32, (rows, d + 1), w.device)
+    if w.device.type == "cpu":
+        return sparse_adam_update_plain(opt, tstate, acc)
+    if w.device.type != "cuda":
+        raise ValueError(f"sparse_adam_update: no kernel for device {w.device}")
+    if rows == 0:
+        return None
+    lib = library("sparse_adam")
+    with torch.cuda.device(w.device):
+        code = lib.sparse_adam_update_f32(
+            w.data_ptr(), tstate["opt"]["m"].data_ptr(),
+            tstate["opt"]["v"].data_ptr(), tstate["opt"]["t"].data_ptr(),
+            tstate["show"].data_ptr(), acc.data_ptr(), rows, d,
+            opt.learning_rate, opt.beta1, 1 - opt.beta1, opt.beta2,
+            1 - opt.beta2, opt.epsilon, stream_handle(w.device))
+    check(lib, code, "sparse_adam_update")
+    count_launch("sparse_adam_update")
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -247,6 +395,38 @@ def combine_from_acts(eng, plans, ctx, batch):
                 emb = act.reshape(b, t, -1)
                 outputs[k] = (emb, batch[k].mask.bool())
     return outputs
+
+
+def apply_gradients_packed(eng, state, g_acts, plans, ctx, batch):
+    """Stage 3 (not differentiated): for each storage, unfold every
+    column's activation grads into the storage's [grad | count]
+    accumulator (K3 per mean column, K4 for l == 1 and sequence columns),
+    then one lazy-Adam pass (K8).  As in the JAX package, the unfold runs
+    per column (each column is one contiguous block of the stream).
+
+    Updates the tables of ``state`` in place (w, m, v, t, show; the JAX
+    package donates them instead) and returns ``state``.  ``g_acts``: per
+    storage, the gradients of ``ctx[skey]["acts"]``."""
+    for skey, segs in plans.items():
+        d = eng.storage[skey][1]
+        ids, mask = ctx[skey]["ids"], ctx[skey]["mask"]
+        acc = eng.accumulator(skey, ids.device)
+        for seg, g in zip(segs, g_acts[skey]):
+            g = g.contiguous()
+            if seg.kind == "mean":
+                c = len(seg.keys)
+                b = seg.size // (c * seg.l)
+                for ci in range(c):
+                    s0 = seg.start + ci * seg.l * b
+                    unfold_mean_scatter(acc, g[ci * b:(ci + 1) * b],
+                                        ids[s0:s0 + seg.l * b],
+                                        mask[s0:s0 + seg.l * b], seg.l)
+            else:
+                unfold_rows_scatter(acc, g.reshape(seg.size, d),
+                                    ids[seg.start:seg.start + seg.size],
+                                    mask[seg.start:seg.start + seg.size])
+        sparse_adam_update(eng.sparse_opt, state[skey], acc)
+    return state
 
 
 def lookup_packed(eng, tables, batch) -> Dict[str, Any]:

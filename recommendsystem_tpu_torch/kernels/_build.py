@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_U = ctypes.c_uint
 # C entry points per source: name -> argtypes (pointers and the stream as
 # c_void_p, so that ctypes does not cut them to 32 bits)
 SIGNATURES: Dict[str, Dict[str, list]] = {
@@ -41,11 +42,24 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "fold_rows_f32": [_P, _P, _P, _P, _L, _I, _P],
     },
     "field_attention": {
-        "field_attention_fwd_f32": [_P, _P, _P, _P, _I, _I, _I, _L, _F, _P],
+        "field_attention_fwd_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _F,
+                                    _I, _U, _U, _U, _F, _P],
+        "field_attention_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _L, _F, _I, _U, _U, _U, _F,
+                                    _P],
+    },
+    "unfold_scatter": {
+        "unfold_mean_scatter_f32": [_P, _P, _P, _P, _I, _L, _I, _P],
+        "unfold_rows_scatter_f32": [_P, _P, _P, _P, _L, _I, _P],
+    },
+    "sparse_adam": {
+        "sparse_adam_update_f32": [_P, _P, _P, _P, _P, _P, _L, _I, _F, _F,
+                                   _F, _F, _F, _F, _P],
     },
 }
 
-KERNELS = ("fold_mean", "fold_rows", "field_attention")
+KERNELS = ("fold_mean", "fold_rows", "field_attention", "field_attention_bwd",
+           "unfold_mean", "unfold_rows", "sparse_adam_update")
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 

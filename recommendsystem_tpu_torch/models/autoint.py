@@ -4,7 +4,10 @@ Counterpart of ``recommendsystem_tpu/models/autoint.py``.  Graph:
 per-feature embeddings stacked to (B, F, D) -> InteractingLayer branch
 (flattened) + deep MLP branch over the flat concat -> concat ``[deep,
 autoint_out]`` -> logits MLP -> clip(1e-6, 1.0).  Submodule names follow the
-flax ones (``interacting``, ``mlp``, ``logits``).
+flax ones (``interacting``, ``mlp``, ``logits``).  The clip is
+``minimum(maximum(x, lo), hi)``, as ``jnp.clip`` computes it, so that a
+sigmoid that saturates to exactly 1.0 passes half its gradient, as in JAX
+(``torch.clamp`` would pass all of it).
 """
 
 from __future__ import annotations
@@ -17,7 +20,10 @@ from torch import nn
 from ..core.config import ModelConfig, synthetic_ctr_config
 from ..core.device import resolve_device
 from ..embedding import EmbeddingFeatures, category_column, embedding_column
+from ..embedding.optimizers import SparseAdam
 from ..nn import InteractingLayer, MultiLayerDense
+from ..train import losses as L
+from ..train.adam import Adam
 from .base import ModelBundle, register_model
 from .plumbing import slice_wide_rows
 
@@ -29,6 +35,12 @@ DEFAULT_MODEL_PARAM = {
     "mlp": {"hidden_units": (32, 16), "activation": "relu"},
     "logits": {"hidden_units": (1,), "activation": "sigmoid"},
 }
+
+
+def clip(x: torch.Tensor, lo: float = 1e-6, hi: float = 1.0) -> torch.Tensor:
+    """``jnp.clip`` as JAX computes it, min(max(x, lo), hi): at a tie with
+    a bound the gradient splits in half."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
 
 
 class AutoIntModule(nn.Module):
@@ -56,26 +68,32 @@ class AutoIntModule(nn.Module):
                                       model_param["logits"]["activation"],
                                       device=device)
 
-    def forward(self, embs: Dict[str, torch.Tensor],
-                training: bool = False) -> Dict[str, torch.Tensor]:
+    def forward(self, embs: Dict[str, torch.Tensor], training: bool = False,
+                seed: int = 0) -> Dict[str, torch.Tensor]:
         structure, _, _ = slice_wide_rows(self.cfg, embs)
         all_inputs = torch.stack(structure, dim=1)             # (B, F, D)
         b = all_inputs.shape[0]
-        autoint_out = self.interacting(all_inputs, training=training).reshape(b, -1)
+        autoint_out = self.interacting(all_inputs, training=training,
+                                       seed=seed).reshape(b, -1)
         deep = self.mlp(all_inputs.reshape(b, -1))
         output = self.logits(torch.cat([deep, autoint_out], dim=1))
-        return {TASK: output.clamp(1e-6, 1.0)}
+        return {TASK: clip(output)}
 
 
 @register_model("autoint")
 def create_autoint(cfg: Optional[ModelConfig] = None,
                    model_param: Optional[dict] = None,
                    bucket_size: int = 265000,
+                   sparse_lr: float = 5e-5,
+                   dense_lr: float = 5e-5,
                    device="cuda") -> ModelBundle:
     """The autoint bundle on ``device`` (raises where CUDA is absent unless
     ``device="cpu"``).  Defaults: 24 mean columns of width 8 over
     ``bucket_size``-row tables, grouped into storages of at most 10 MB as in
-    the JAX package."""
+    the JAX package; lazy per-row Adam on the tables and Adam(5e-5, 0.9,
+    0.999, 1e-8) on the dense tower (the reference's learning rates,
+    ``models/autoint.py:70-113`` of the JAX package); loss
+    ``cross_entropy_sum_mean``."""
     dev = resolve_device(device)
     if cfg is None:
         cfg = synthetic_ctr_config(num_slots=24, emb_sizes=(8,), num_bias=0)
@@ -85,7 +103,11 @@ def create_autoint(cfg: Optional[ModelConfig] = None,
     cols = [embedding_column(category_column(cfg.table_slot(slot), bucket_size),
                              dim, combiner="mean", name=slot)
             for slot in cfg.sparse_slots]
-    emb = EmbeddingFeatures(cols, group_tables=True, max_group_bytes=10 << 20)
+    emb = EmbeddingFeatures(cols, SparseAdam(learning_rate=sparse_lr),
+                            group_tables=True, max_group_bytes=10 << 20)
     return ModelBundle(name="autoint",
                        module=AutoIntModule(cfg, model_param, device=dev),
-                       embedding=emb, tasks=(TASK,), device=dev, config=cfg)
+                       embedding=emb, tasks=(TASK,), device=dev, config=cfg,
+                       losses={TASK: L.cross_entropy_sum_mean},
+                       dense_optimizer=Adam(dense_lr, b1=0.9, b2=0.999,
+                                            eps=1e-8))

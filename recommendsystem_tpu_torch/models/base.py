@@ -2,12 +2,12 @@
 
 Counterpart of ``recommendsystem_tpu/models/base.py``.  A factory returns
 one ``ModelBundle``: the dense tower (an ``nn.Module`` mapping ``(embs,
-training)`` to ``{task: output}``), the embedding engine that feeds it, the
-task names and the device.  The tower is the template of the parameters: a
-``TrainState`` holds them as a dict and the steps apply the tower with
-``torch.func.functional_call``, as flax applies a module to a parameter
-tree.  The training fields (losses, metrics, dense optimizer) come with
-slice 2 of the port.
+training, seed)`` to ``{task: output}``), the embedding engine that feeds it
+(with its sparse optimizer), the task names, the losses and their weights,
+the dense optimizer and the device.  The tower is the template of the
+parameters: a ``TrainState`` holds them as a dict and the steps apply the
+tower with ``torch.func.functional_call``, as flax applies a module to a
+parameter tree.  Metrics come with the harness slice of the port.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from ..embedding.engine import EmbeddingFeatures
+from ..train.adam import Adam
 
 
 @dataclasses.dataclass
@@ -33,6 +34,10 @@ class ModelBundle:
     # batch column keys the model consumes besides the embedding columns
     dense_input_keys: tuple = ()
     config: Any = None
+    # task -> loss_fn(y_true, y_pred); per-task weights (default 1.0)
+    losses: Dict[str, Callable] = dataclasses.field(default_factory=dict)
+    loss_weights: Optional[Dict[str, float]] = None
+    dense_optimizer: Adam = dataclasses.field(default_factory=Adam)
 
     def init(self, seed: int):
         """(params, tables) drawn from one ``torch.Generator`` on the

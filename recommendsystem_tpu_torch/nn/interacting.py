@@ -8,7 +8,11 @@ to end, so the attention core is the batch-minor field-attention kernel
 - ONE set of relu Q/K/V/res projections shared across the ``layer_num``
   iterations;
 - heads split head-major from the unit dim, scores scaled by sqrt(d_head),
-  softmax over keys (K5);
+  softmax over keys (K5), and in training with ``use_dropout`` dropout on
+  the attention weights, drawn in the kernel from one seed per iteration:
+  ``(seed << 32) | i`` for iteration i of a step with seed ``seed``, so the
+  kernel's Philox key is (step seed, iteration), as the JAX layer derives
+  ``base + i`` (``nn/interacting.py:147-159``);
 - residual, relu and LayerNorm over the unit dim with eps 1e-3 (the Keras
   default).
 
@@ -67,7 +71,8 @@ class InteractingLayer(nn.Module):
                     getattr(self, b).zero_()
             self.ln_scale.fill_(1.0)
 
-    def _iteration_t(self, x_t: torch.Tensor, training: bool) -> torch.Tensor:
+    def _iteration_t(self, x_t: torch.Tensor, training: bool,
+                     seed: int) -> torch.Tensor:
         """One iteration, (d, F, B) -> (U, F, B)."""
         d, f, b = x_t.shape
         u, h = self.unit_num, self.head_num
@@ -80,7 +85,7 @@ class InteractingLayer(nn.Module):
         qt, kt, vt = (proj(self.wq, self.bq), proj(self.wk, self.bk),
                       proj(self.wv, self.bv))
         rate = self.dropout_rate if (self.use_dropout and training) else 0.0
-        o = field_attention(qt, kt, vt, 0, rate).reshape(u, f, b)
+        o = field_attention(qt, kt, vt, seed, rate).reshape(u, f, b)
         if self.use_res:
             o = o + torch.relu(self.wr.t() @ flat
                                + self.br[:, None]).reshape(u, f, b)
@@ -90,14 +95,18 @@ class InteractingLayer(nn.Module):
         return ((o - mu) * torch.rsqrt(var + self.ln_epsilon)
                 * self.ln_scale[:, None, None] + self.ln_bias[:, None, None])
 
-    def forward(self, inputs: torch.Tensor, training: bool = False) -> torch.Tensor:
-        """(B, F, D) -> (B, F, U)."""
+    def forward(self, inputs: torch.Tensor, training: bool = False,
+                seed: int = 0) -> torch.Tensor:
+        """(B, F, D) -> (B, F, U); ``seed`` (below 2**32) draws the
+        attention dropout of a training step."""
+        if not 0 <= seed < 1 << 32:
+            raise ValueError(f"seed {seed} not in [0, 2**32)")
         if inputs.ndim != 3:
             raise ValueError(
                 "The rank of input of InteractingLayer must be 3, but now is %d"
                 % inputs.ndim)
         # ONE entry and ONE exit transpose for the whole stack
         x_t = inputs.permute(2, 1, 0).contiguous()
-        for _ in range(self.layer_num):
-            x_t = self._iteration_t(x_t, training)
+        for i in range(self.layer_num):
+            x_t = self._iteration_t(x_t, training, (seed << 32) | i)
         return x_t.permute(2, 1, 0)

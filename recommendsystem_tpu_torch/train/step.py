@@ -1,42 +1,187 @@
-"""Predict step of the port.
+"""Train and predict steps of the port.
 
-Counterpart of the predict half of ``recommendsystem_tpu/train/step.py``:
-fused embedding lookup (``embedding/packed.py::lookup_packed``), then the
-dense tower in float32, then the bundle's ``predict_view``.  The train and
-eval steps come with slice 2.
+Counterpart of ``recommendsystem_tpu/train/step.py``, local mode:
+
+- ``make_train_step`` is the packed train step (``step_packed`` of the JAX
+  package, ``sparse_update="packed"``): fused gather and fold with no
+  gradient (K1 / K2), autograd of the loss with respect to the dense
+  parameters and the folded activations (the InteractingLayer's attention
+  runs K5f forward and K5b backward), dense Adam, then the unfold-scatter
+  (K3 / K4) and lazy-Adam (K8) pass over the tables;
+- ``make_scan_train_step`` runs it over K batches in a Python loop, in
+  place of the JAX package's ``lax.scan`` driver;
+- ``make_predict_step`` is the fused lookup, the dense tower in float32 and
+  the bundle's ``predict_view``.
+
+Keras-compile semantics as in the JAX package: the loss is the sum over
+tasks of ``loss_weight * loss``, where a loss that returns a scalar is taken
+as it is (autoint's ``cross_entropy_sum_mean``, so its sample weights do not
+reach it) and a per-sample loss is the sample-weighted mean.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import TYPE_CHECKING, Callable, Dict, Optional, Sequence
 
 import torch
 from torch.func import functional_call
 
 from ..embedding import packed as packed_mod
-from ..models.base import ModelBundle
 from .state import TrainState
 
+if TYPE_CHECKING:
+    from ..models.base import ModelBundle
 
-def apply_model(bundle: ModelBundle, params, embs, dense_inputs=None,
-                training: bool = False):
+
+def apply_model(bundle: "ModelBundle", params, embs, dense_inputs=None,
+                training: bool = False, seed: int = 0):
     """Apply the bundle's module to ``params`` in float32 (the bf16 compute
-    policy comes with a later slice)."""
-    kwargs = {}
+    policy comes with a later slice); ``seed`` draws a training step's
+    dropout."""
+    kwargs = {"training": training}
+    if training:
+        kwargs["seed"] = seed
     if dense_inputs is not None:
         kwargs["dense_inputs"] = dense_inputs
-    return functional_call(bundle.module, params, (embs,),
-                           {"training": training, **kwargs})
+    return functional_call(bundle.module, params, (embs,), kwargs)
+
+
+def _weighted_task_loss(loss_fn, y, pred, sample_weight):
+    """Keras loss reduction: scalar losses pass through; per-sample /
+    per-element losses are (sample-weighted) means."""
+    raw = loss_fn(y, pred)
+    if raw.ndim == 0:
+        return raw
+    if sample_weight is not None:
+        w = sample_weight.reshape(raw.shape[0], *([1] * (raw.ndim - 1)))
+        w = w.expand(raw.shape)
+        return (raw * w).sum() / torch.clamp(w.sum(), min=1e-12)
+    return raw.mean()
+
+
+def _model_outputs_and_loss(bundle, params, embs, labels, sample_weight,
+                            dense_inputs, training, seed):
+    outputs = apply_model(bundle, params, embs, dense_inputs, training, seed)
+    loss = 0.0
+    task_losses = {}
+    for task, loss_fn in bundle.losses.items():
+        lw = (bundle.loss_weights or {}).get(task, 1.0)
+        tl = _weighted_task_loss(loss_fn, labels[task], outputs[task],
+                                 sample_weight)
+        task_losses[task] = tl
+        loss = loss + lw * tl
+    return loss, {"task_losses": task_losses, "outputs": outputs}
+
+
+def _check_mode(mode: str) -> None:
+    if mode != "local":
+        raise NotImplementedError(f"mode {mode!r}: the sharded modes come "
+                                  f"with a later slice of the port")
+
+
+def _packed_plans(eng, batch):
+    pk, classic = packed_mod.storages_packed(eng)
+    unpacked = sorted({eng.table_map[eng.columns[k].categorical_column.key][0]
+                       for k in batch if k in eng.columns} & set(classic))
+    if unpacked:
+        raise NotImplementedError(
+            f"storages {unpacked} cannot take the packed update (dim > 127); "
+            f"the classic scatter step comes with a later slice of the port")
+    return packed_mod.plan_segments(eng, batch, storages=set(pk))
+
+
+def make_train_step(bundle: "ModelBundle", mode: str = "local") -> Callable:
+    """Returns ``step(state, batch, labels, sample_weight=None,
+    dense_inputs=None, seed=0) -> (state, info)``, the packed train step.
+
+    ``batch`` holds IdBatches and ``labels`` {task: (B, 1)} tensors on the
+    bundle's device; ``seed`` (an int below 2**32) draws the step's
+    attention dropout.  The step updates ``state``'s tables (w, m, v, t,
+    show), dense parameters and Adam moments in place, where the JAX
+    package donates them, and returns a ``TrainState`` over the same
+    tensors with ``step + 1``.  ``info`` holds the loss and the per-task
+    losses as 0-d tensors on the device (read them when needed: reading
+    waits for the step)."""
+    _check_mode(mode)
+    eng = bundle.embedding
+
+    def step(state: TrainState, batch, labels, sample_weight=None,
+             dense_inputs=None, seed: int = 0):
+        plans = _packed_plans(eng, batch)
+        # stage 1 (no gradient): fused gather + fold
+        with torch.no_grad():
+            ctx = packed_mod.gather_fold(eng, state.tables, batch, plans)
+        acts = {skey: [a.requires_grad_() for a in c["acts"]]
+                for skey, c in ctx.items()}
+        params = {k: p.detach().requires_grad_() for k, p in state.params.items()}
+
+        # stage 2: autograd w.r.t. the dense params and the folded acts
+        embs = packed_mod.combine_from_acts(
+            eng, plans, {s: {"acts": a} for s, a in acts.items()}, batch)
+        loss, aux = _model_outputs_and_loss(bundle, params, embs, labels,
+                                            sample_weight, dense_inputs,
+                                            True, seed)
+        act_list = [a for skey in acts for a in acts[skey]]
+        grads = torch.autograd.grad(loss, list(params.values()) + act_list)
+        gp = dict(zip(params, grads[:len(params)]))
+        it = iter(grads[len(params):])
+        g_acts = {skey: [next(it) for _ in acts[skey]] for skey in acts}
+
+        with torch.no_grad():
+            new_params = {k: p.detach() for k, p in params.items()}
+            new_params, opt_state = bundle.dense_optimizer.update_(
+                new_params, gp, state.opt_state)
+            # stage 3 (no gradient): unfold-scatter + lazy Adam, in place
+            tables = packed_mod.apply_gradients_packed(
+                eng, state.tables, g_acts, plans, ctx, batch)
+
+        info = {"loss": loss.detach(),
+                **{f"loss/{t}": v.detach()
+                   for t, v in aux["task_losses"].items()}}
+        return TrainState(params=new_params, opt_state=opt_state,
+                          tables=tables, step=state.step + 1), info
+
+    return step
+
+
+def make_scan_train_step(bundle: "ModelBundle", mode: str = "local") -> Callable:
+    """Multi-step driver: returns ``run(state, batches, labels,
+    sample_weights, dense_inputs, seeds) -> (state, infos)`` over K steps,
+    each data argument a sequence of K (``sample_weights`` and
+    ``dense_inputs`` may be None), ``infos`` each step's scalars stacked,
+    e.g. ``infos["loss"][k]``.  A Python loop over ``make_train_step``: the
+    same K steps one by one give the same result.  (A CUDA graph of the
+    step is the Hopper counterpart of the JAX package's one-dispatch scan;
+    it comes with a later slice.)"""
+    body = make_train_step(bundle, mode)
+
+    def run(state: TrainState, batches: Sequence, labels: Sequence,
+            sample_weights: Optional[Sequence] = None,
+            dense_inputs: Optional[Sequence] = None,
+            seeds: Sequence[int] = ()):
+        k = len(batches)
+        if not (len(labels) == len(seeds) == k):
+            raise ValueError(f"{k} batches, {len(labels)} labels and "
+                             f"{len(seeds)} seeds: expected one of each per step")
+        infos: Dict[str, list] = {}
+        for i in range(k):
+            state, info = body(
+                state, batches[i], labels[i],
+                None if sample_weights is None else sample_weights[i],
+                None if dense_inputs is None else dense_inputs[i], seeds[i])
+            for name, val in info.items():
+                infos.setdefault(name, []).append(val)
+        return state, {name: torch.stack(vals) for name, vals in infos.items()}
+
+    return run
 
 
 def _lookup_for_mode(bundle, tables, batch, mode: str = "local"):
-    if mode != "local":
-        raise NotImplementedError(f"lookup mode {mode!r}: the sharded modes "
-                                  f"come with a later slice of the port")
+    _check_mode(mode)
     return packed_mod.lookup_packed(bundle.embedding, tables, batch)
 
 
-def make_predict_step(bundle: ModelBundle, mode: str = "local") -> Callable:
+def make_predict_step(bundle: "ModelBundle", mode: str = "local") -> Callable:
     """Returns ``step(state, batch, dense_inputs) -> {task: (B, 1)}``,
     running under ``torch.inference_mode()``; ``batch`` holds IdBatches of
     tensors on the bundle's device."""

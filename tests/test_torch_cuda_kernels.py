@@ -7,16 +7,25 @@ no JAX, so it also runs where JAX is absent, without the suite's conftest:
     python -m pytest -p no:cacheprovider --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
 Tolerances: folds atol 1e-6 (sums of <= 5 float32 products in another
-order); attention atol 2e-5 (softmax over <= 175 keys in another order).
+order); attention atol 2e-5 (softmax over <= 175 keys in another order),
+its gradients rtol 1e-4 and atol 2e-5 (sums over <= 175 fields); the
+unfold-scatter's gradient sums atol 1e-5, or 1e-6 per entry that hits one
+row (atomics add in another order on every run), its counts exact; the
+lazy Adam's m and v rtol 1e-6 and w atol 1e-7 (``powf`` on the card against
+PyTorch's pow: one ulp in a bias correction), t and show exact.
 """
 
 import pytest
 import torch
 
 from recommendsystem_tpu_torch.embedding import packed
+from recommendsystem_tpu_torch.embedding.optimizers import SparseAdam
 from recommendsystem_tpu_torch.kernels import launch_counts, reset_launch_counts
 from recommendsystem_tpu_torch.kernels.field_attention import (
     field_attention,
+    field_attention_bwd,
+    field_attention_bwd_reference,
+    field_attention_fwd_plain,
     field_attention_reference,
 )
 
@@ -27,6 +36,7 @@ pytestmark = pytest.mark.cuda
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False    # plain versions in float32
     reset_launch_counts()
     return torch.device("cuda")
 
@@ -75,16 +85,142 @@ def test_field_attention_kernel(cuda, h, dh, f, b):
     assert launch_counts()["field_attention"] == 1
 
 
+@pytest.mark.parametrize("h,dh,f,b", [(2, 4, 24, 200), (2, 4, 175, 256),
+                                      (1, 8, 40, 33), (3, 2, 1, 5)])
+def test_field_attention_dropout_kernel(cuda, h, dh, f, b):
+    """Rate 0.2: the kernel draws the plain version's mask bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(f * b + 1)
+    q, k, v = (torch.randn((h, dh, f, b), generator=g, device=cuda) for _ in range(3))
+    seed = (123 << 32) | 4
+    got = field_attention(q, k, v, seed, 0.2)
+    torch.testing.assert_close(got, field_attention_reference(q, k, v, seed, 0.2),
+                               rtol=0, atol=2e-5)
+    o, lse = field_attention_fwd_plain(q, k, v, seed, 0.2)
+    torch.testing.assert_close(got, o, rtol=0, atol=2e-5)
+    assert launch_counts()["field_attention"] == 1
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("h,dh,f,b", [(2, 4, 24, 200), (2, 4, 175, 96),
+                                      (1, 8, 40, 33), (3, 2, 1, 5), (2, 32, 9, 64)])
+def test_field_attention_bwd_kernel(cuda, h, dh, f, b, rate):
+    g = torch.Generator(device=cuda).manual_seed(f * b + 2)
+    q, k, v, do = (torch.randn((h, dh, f, b), generator=g, device=cuda)
+                   for _ in range(4))
+    o, lse = field_attention_fwd_plain(q, k, v, 9, rate)
+    got = field_attention_bwd(q, k, v, o, lse, do, 9, rate)
+    want = field_attention_bwd_reference(q, k, v, o, lse, do, 9, rate)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=1e-4, atol=2e-5)
+    assert launch_counts()["field_attention_bwd"] == 1
+
+
+def test_field_attention_autograd_runs_both_kernels(cuda):
+    q, k, v = (torch.randn((2, 4, 24, 300), device=cuda, requires_grad=True)
+               for _ in range(3))
+    do = torch.randn((2, 4, 24, 300), device=cuda)
+    got = torch.autograd.grad(field_attention(q, k, v, 5, 0.2), (q, k, v), do)
+    want = torch.autograd.grad(field_attention_reference(q, k, v, 5, 0.2), (q, k, v), do)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=1e-4, atol=2e-5)
+    assert launch_counts()["field_attention"] == 1
+    assert launch_counts()["field_attention_bwd"] == 1
+
+
+def _unfold_inputs(dev, rows, l, b, seed, hot_row=False):
+    ids, mask = _stream(dev, rows, 1, l, b, seed)
+    if hot_row:
+        ids = torch.full_like(ids, 7)          # every entry on one row
+    g = torch.randn((b, 8), generator=torch.Generator(device=dev).manual_seed(seed),
+                    device=dev)
+    return g, ids, mask
+
+
+@pytest.mark.parametrize("l,b,hot", [(5, 8, False), (5, 4097, False),
+                                     (2, 200, False), (5, 4096, True)])
+def test_unfold_mean_scatter_kernel(cuda, l, b, hot):
+    g, ids, mask = _unfold_inputs(cuda, 1000, l, b, seed=b + l, hot_row=hot)
+    got = torch.zeros((1000, 9), device=cuda)
+    want = torch.zeros((1000, 9), device=cuda)
+    packed.unfold_mean_scatter(got, g, ids, mask, l)
+    packed.unfold_mean_scatter_plain(want, g, ids, mask, l)
+    torch.cuda.synchronize()
+    per_row = float(want[:, 8].max())
+    torch.testing.assert_close(got[:, :8], want[:, :8], rtol=0,
+                               atol=max(1e-5, 1e-6 * per_row))
+    torch.testing.assert_close(got[:, 8], want[:, 8], rtol=0, atol=0)
+    assert launch_counts()["unfold_mean"] == 1
+
+
+@pytest.mark.parametrize("e,hot", [(8, False), (4097, False), (65536, True)])
+def test_unfold_rows_scatter_kernel(cuda, e, hot):
+    g, ids, mask = _unfold_inputs(cuda, 500, 1, e, seed=e, hot_row=hot)
+    got = torch.zeros((500, 9), device=cuda)
+    want = torch.zeros((500, 9), device=cuda)
+    packed.unfold_rows_scatter(got, g, ids, mask)
+    packed.unfold_rows_scatter_plain(want, g, ids, mask)
+    torch.cuda.synchronize()
+    per_row = float(want[:, 8].max())
+    torch.testing.assert_close(got[:, :8], want[:, :8], rtol=0,
+                               atol=max(1e-5, 1e-6 * per_row))
+    torch.testing.assert_close(got[:, 8], want[:, 8], rtol=0, atol=0)
+    assert launch_counts()["unfold_rows"] == 1
+
+
+@pytest.mark.parametrize("rows,d,live", [(265104, 8, 0.3), (1000, 8, 1.0),
+                                         (999, 3, 0.5), (300, 40, 0.5), (64, 8, 0.0)])
+def test_sparse_adam_kernel(cuda, rows, d, live):
+    g = torch.Generator(device=cuda).manual_seed(rows + d)
+    cnt = torch.where(torch.rand((rows, 1), generator=g, device=cuda) < live,
+                      torch.randint(1, 5, (rows, 1), generator=g, device=cuda),
+                      0).float()
+    acc = torch.cat([torch.randn((rows, d), generator=g, device=cuda) * 1e-2
+                     * (cnt > 0), cnt], dim=1)
+
+    def state():
+        gs = torch.Generator(device=cuda).manual_seed(1)
+        return {"w": torch.randn((rows, d), generator=gs, device=cuda),
+                "opt": {"m": torch.randn((rows, d), generator=gs, device=cuda) * 1e-3,
+                        "v": torch.rand((rows, d), generator=gs, device=cuda) * 1e-5,
+                        "t": torch.randint(0, 4, (rows, 1), generator=gs,
+                                           device=cuda).float()},
+                "show": torch.randint(0, 9, (rows, 1), generator=gs,
+                                      device=cuda).float()}
+
+    before, got, want = state(), state(), state()
+    opt = SparseAdam(learning_rate=1e-3)
+    acc_k = acc.clone()
+    packed.sparse_adam_update(opt, got, acc_k)
+    packed.sparse_adam_update_plain(opt, want, acc.clone())
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got["w"], want["w"], rtol=0, atol=1e-7)
+    for name in ("m", "v"):
+        torch.testing.assert_close(got["opt"][name], want["opt"][name], rtol=1e-6, atol=0)
+    torch.testing.assert_close(got["opt"]["t"], want["opt"]["t"], rtol=0, atol=0)
+    torch.testing.assert_close(got["show"], want["show"], rtol=0, atol=0)
+    dead = cnt[:, 0] == 0
+    for a, b in ((got["w"], before["w"]), (got["opt"]["m"], before["opt"]["m"]),
+                 (got["opt"]["t"], before["opt"]["t"])):
+        torch.testing.assert_close(a[dead], b[dead], rtol=0, atol=0)
+    assert not acc_k.any()
+    assert launch_counts()["sparse_adam_update"] == 1
+
+
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda):
-    q = torch.randn(2, 4, 8, 16, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        field_attention(q, q, q)
     x = torch.randn(2, 5, 8, 16, device=cuda)
     with pytest.raises(ValueError, match="d_head"):
         field_attention(x, x, x)
+    q = torch.randn(2, 4, 8, 16, device=cuda)
+    with pytest.raises(ValueError, match="rate"):
+        field_attention(q, q, q, 0, 1.0)
     table = torch.randn(10, 8, device=cuda)
     with pytest.raises(ValueError):
         packed.fold_rows(table, torch.zeros(4, dtype=torch.int32),
                          torch.ones(4, device=cuda))       # ids on the CPU
-    assert launch_counts() == {"fold_mean": 0, "fold_rows": 0,
-                               "field_attention": 0}
+    acc = torch.zeros(10, 9, device=cuda)
+    with pytest.raises(ValueError):
+        packed.unfold_rows_scatter(acc, torch.ones(4, 8, device=cuda),
+                                   torch.zeros(4, dtype=torch.int32),
+                                   torch.ones(4, device=cuda))
+    assert set(launch_counts().values()) == {0}

@@ -1,6 +1,6 @@
 """The port stands alone: importing every module of it loads no JAX and
-nothing of the JAX package, and no source of it (or chip_smoke.py) names
-such an import."""
+nothing of the JAX package, and no source of it (nor chip_smoke.py, nor
+the port's scripts ``scripts/torch_*.py``) names such an import."""
 
 import ast
 import os
@@ -28,7 +28,8 @@ print("BAD", bad)
 
 
 def _sources():
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "scripts").glob("torch_*.py")))
 
 
 def test_import_loads_no_jax():
