@@ -28,10 +28,21 @@
    counts; holds two steps on the card to the same two steps on the CPU
    through the plain versions (B = 4096, same seeds, same dropout); times
    the step as the median of 3 windows, each ending in a synchronize and a
-   host fetch of the last loss.
+   host fetch of the last loss;
+6. drives the staytime serving path: the DIN-pool kernel against its plain
+   version on the model's strided views (B = 8, 256 and 16384, T = 50,
+   rows of all-0 masks and of full length), then the full-width staytime
+   ``ScoringService`` (91 tables of 81,924 x 32 in 46 storages, 3 behaviour
+   sequences of 50, seeded random weights) through ``score()`` and over
+   HTTP, counts set to 0 just before and read just after, some requests
+   without sequence features; the three heads checked finite and in range,
+   unchanged by padding and equal to the same service on the CPU; then the
+   predict step's launches per call and its examples/s at B = 16384.
 
-Prints the card's name and power limit, one JSON line ``{"kernels": ...}``,
-and last ``{"ok": true, "device": {...}}``.  Details go to
+Prints the card's name and power limit, one JSON line each for the autoint
+predict step, the train step and the staytime predict step, then
+``{"kernels": ...}`` (8 kernels), and last ``{"ok": true, "device":
+{...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Any failure ends the run with a traceback
 and a non-zero exit; without CUDA it exits non-zero before printing.
 """
@@ -70,6 +81,11 @@ TRAIN_CHECK_BATCH = 4096
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_W_ATOL = 1e-5
 TRAIN_MOMENT_TOL = dict(rtol=1e-3, atol=1e-8)
+DIN_TOL = 2e-5                    # softmax over T = 50, 64-term dots, other order
+DIN_BATCHES = (8, 256, 16384)
+STAYTIME_BATCH = 16384
+EV_TOL = dict(rtol=1e-5)          # expected value: a sum of 400 products
+EV_MAX = 180.5                    # the last bin centre
 
 OUT_DIR = "chiprun_out"
 
@@ -411,6 +427,181 @@ def adam_case(eng, skey, tstate, batch, cycles_per_ms):
             "bound_ms": bms, "bound_by": by, "bytes": nbytes, "ops": ops}
 
 
+def din_case(b, seed, cycles_per_ms):
+    """K7 against ``din_pool_plain`` on the model's views: query and facts
+    the first 16 lanes of 32-lane rows, T = 50; row 0's mask all 0 over
+    nonzero facts, every fourth row of full length.  Bound: the operations
+    the function needs in the folded form (h * 16 + 16 + h multiply-adds per
+    (sample, t), 2 * h * 16 per sample; the TPU kernel's count of the
+    unfolded features, ``din_pallas.py:64-67``, overstates them); bytes:
+    facts, mask, query and output once."""
+    from recommendsystem_tpu_torch.kernels.din import din_pool, din_pool_plain
+
+    t, h = 50, 16
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    query = torch.randn((b, 2 * h), generator=g, device="cuda")[:, :h]
+    facts = torch.randn((b, t, 2 * h), generator=g, device="cuda")[:, :, :h]
+    lens = torch.randint(1, t + 1, (b,), generator=g, device="cuda")
+    lens[::4] = t
+    lens[0] = 0
+    mask = (torch.arange(t, device="cuda")[None, :] < lens[:, None]).float()
+    w1 = torch.randn((4 * h, 16), generator=g, device="cuda") * 0.2
+    b1, w2, b2 = (torch.randn(shape, generator=g, device="cuda") * 0.3
+                  for shape in ((16,), (16, 1), (1,)))
+    args = (query, facts, mask, w1, b1, w2, b2)
+    got = din_pool(*args)
+    want = din_pool_plain(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    mean_err = float((got[0] - facts[0].mean(dim=0)).abs().max())
+    if not (err <= DIN_TOL and mean_err <= DIN_TOL):
+        raise AssertionError(f"din_pool b={b}: max abs err {err}, all-masked row "
+                             f"{mean_err}")
+    nbytes = 4 * (b * t * h + b * t + 2 * b * h)
+    ops = 2 * b * t * (h * 16 + 16 + h) + 2 * b * (2 * h * 16)
+    bms, by = bound(nbytes, ops)
+    iters = 240 if b <= 256 else 48
+    ms, host_ms = timed(lambda: din_pool(*args), iters, cycles_per_ms)
+    return {"name": "din_pool", "b": b, "t": t, "h": h, "max_abs_err": err,
+            "all_masked_row_err": mean_err, "ms": ms, "host_ms": host_ms,
+            "plain_ms": timed(lambda: din_pool_plain(*args), iters, cycles_per_ms)[0],
+            "library_ms": None, "bound_ms": bms, "bound_by": by, "bytes": nbytes,
+            "ops": ops}
+
+
+def staytime_rows(rng, n, slots, seq_slots):
+    """Request rows of raw feasigns for every staytime slot: 1..5 ids per
+    feature, one feature in five left out, and every third row without its
+    sequence features (the DIN pools then see all-0 masks)."""
+    rows = []
+    for i in range(n):
+        row = {}
+        for s in slots:
+            if rng.uniform() < 0.8 and not (i % 3 == 0 and s in seq_slots):
+                row[s] = [int(x) for x in rng.integers(0, 1 << 40, rng.integers(1, 6))]
+        rows.append(row)
+    return rows
+
+
+def check_staytime_scores(scores, n):
+    from recommendsystem_tpu_torch.models.staytime import T_LONG, T_SHORT, T_STAY
+
+    ev = np.asarray(scores[T_STAY])
+    if ev.shape != (n,) or not np.all(np.isfinite(ev)) or ev.min() < 0 or ev.max() > EV_MAX:
+        raise AssertionError(f"bad expected values: shape {ev.shape}, range "
+                             f"[{np.nanmin(ev)}, {np.nanmax(ev)}]")
+    for task in (T_SHORT, T_LONG):
+        p = np.asarray(scores[task])
+        if p.shape != (n,) or not np.all(np.isfinite(p)) or p.min() <= 0 or p.max() >= 1:
+            raise AssertionError(f"bad {task}: shape {p.shape}, range "
+                                 f"[{np.nanmin(p)}, {np.nanmax(p)}]")
+
+
+def assert_staytime_close(got, want, what):
+    from recommendsystem_tpu_torch.models.staytime import T_STAY
+
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: heads {sorted(got)} against {sorted(want)}")
+    for task in got:
+        np.testing.assert_allclose(np.asarray(got[task]), np.asarray(want[task]),
+                                   err_msg=f"{what}: {task}",
+                                   **(EV_TOL if task == T_STAY else SCORE_TOL))
+
+
+def staytime_path(card, cycles_per_ms):
+    """K7 against its plain version, then full-width staytime serving with
+    its own window of launch counts, then its predict step at B = 16384."""
+    from recommendsystem_tpu_torch.data import synthetic_batch
+    from recommendsystem_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from recommendsystem_tpu_torch.models import create_model
+    from recommendsystem_tpu_torch.models.staytime import StaytimeConfig
+    from recommendsystem_tpu_torch.serving import ScoringService
+    from recommendsystem_tpu_torch.train import make_predict_step
+    from recommendsystem_tpu_torch.train.state import TrainState, create_train_state
+
+    out = {"card": card}
+    out["cases"] = [din_case(b, 70 + b, cycles_per_ms) for b in DIN_BATCHES]
+    for c in out["cases"]:
+        log(json.dumps(c))
+
+    bundle = create_model("staytime", device="cuda")
+    state = create_train_state(bundle, seed=5)
+    eng = bundle.embedding
+    out["storages"] = len(eng.storage)
+    out["table_bytes"] = sum(r * d * 4 for r, d in eng.storage.values())
+    cfg = StaytimeConfig()
+    rng = np.random.default_rng(8)
+    rows200 = staytime_rows(rng, 200, cfg.slots, cfg.seq_slots)
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    svc = ScoringService(bundle, state, max_batch=256, ids_per_feature=5)
+    svc.warmup()
+    s200 = svc.score(rows200)
+    s3 = svc.score(rows200[:3])
+    over_http = http_score(svc, rows200[:50])
+    torch.cuda.synchronize()
+    serving = launch_counts()
+    out["serve_launches"] = serving
+    log("staytime serving launches:", json.dumps(serving))
+    for name in ("fold_mean", "fold_rows", "din_pool"):
+        if serving[name] < 1:
+            raise AssertionError(f"{name} was not launched on the staytime serving path")
+
+    check_staytime_scores(s200, 200)
+    assert_staytime_close(s3, {k: v[:3] for k, v in s200.items()}, "bucket 8 vs 256")
+    assert_staytime_close(over_http["scores"], {k: v[:50] for k, v in s200.items()},
+                          "over HTTP")
+    cpu_bundle = create_model("staytime", device="cpu")
+    cpu_state = TrainState(params={k: v.cpu() for k, v in state.params.items()},
+                           opt_state=None,
+                           tables={k: {"w": t["w"].cpu()} for k, t in state.tables.items()})
+    cpu_svc = ScoringService(cpu_bundle, cpu_state, max_batch=256, ids_per_feature=5,
+                             device="cpu")
+    assert_staytime_close(s200, cpu_svc.score(rows200), "card vs CPU")
+
+    # predict step: launches per call, agreement with the CPU, examples/s
+    step = make_predict_step(bundle)
+    per_call = {}
+    for ipf in (1, 5):
+        batch = synthetic_batch(bundle, STAYTIME_BATCH, seed=9, ids_per_feature=ipf)[0]
+        step(state, batch)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        pred = step(state, batch)
+        torch.cuda.synchronize()
+        per_call[f"ids{ipf}"] = launch_counts()
+    out["launches_per_call"] = per_call
+    want = {"ids5": {"fold_mean": 46, "fold_rows": 3, "din_pool": 3},
+            "ids1": {"fold_mean": 0, "fold_rows": 49, "din_pool": 3}}
+    for key, counts in want.items():
+        for name, n in counts.items():
+            if per_call[key][name] != n:
+                raise AssertionError(f"staytime predict {key}: {name} launched "
+                                     f"{per_call[key][name]} times, expected {n}")
+    n = STAYTIME_BATCH
+    got = {k: v.squeeze(1).cpu().numpy() for k, v in pred.items()}
+    check_staytime_scores(got, n)
+    cpu_batch = {k: v.to("cpu") for k, v in batch.items()}
+    cpu_pred = make_predict_step(cpu_bundle)(cpu_state, cpu_batch)
+    assert_staytime_close(got, {k: v.squeeze(1).numpy() for k, v in cpu_pred.items()},
+                          f"predict b={n}, card vs CPU")
+    iters = 20
+    for _ in range(3):
+        step(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step(state, batch)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / iters
+    out["predict"] = {"metric": "torch_staytime_predict_examples_per_sec",
+                      "unit": "examples/s", "value": n / dt, "batch": n,
+                      "ids_per_feature": 5, "ms_per_call": dt * 1e3,
+                      "launches_per_call": per_call, "card": card}
+    return out
+
+
 def raw_rows(rng, n, max_ids):
     """Request rows of raw int64 feasigns: 1..max_ids ids per feature, with
     one feature in five left out."""
@@ -716,13 +907,22 @@ def main() -> int:
         "metric", "value", "unit", "ms_per_step", "window_ms", "batch",
         "launches_per_step", "card")}), flush=True)
 
+    # -- 6. the main path: full-width staytime serving ------------------------
+    report["staytime"] = staytime_path(card, cycles_per_ms)
+    staytime = report["staytime"]["serve_launches"]
+    cases += report["staytime"]["cases"]
+    print(json.dumps({"staytime_predict": report["staytime"]["predict"]}), flush=True)
+
     # -- report ----------------------------------------------------------------
     # the serving kernels at the largest serving bucket, the train kernels at
-    # the train batch; attention at autoint's F = 24
+    # the train batch; attention at autoint's F = 24; the DIN pool at the
+    # staytime bulk batch
     headline = {}
     for c in cases:
         serve = c["name"] in ("fold_mean", "fold_rows", "field_attention")
-        if c.get("b", BIG_BATCH) == (256 if serve else BIG_BATCH) and c.get("f", 24) == 24:
+        want_b = STAYTIME_BATCH if c["name"] == "din_pool" else (
+            256 if serve else BIG_BATCH)
+        if c.get("b", BIG_BATCH) == want_b and c.get("f", 24) == 24:
             headline[c["name"]] = c
     sources = {"fold_mean": ("recommendsystem_tpu_torch/csrc/fold.cu",
                              "recommendsystem_tpu/embedding/packed.py:273"),
@@ -739,11 +939,13 @@ def main() -> int:
                "unfold_rows": ("recommendsystem_tpu_torch/csrc/unfold_scatter.cu",
                                "recommendsystem_tpu/embedding/packed.py:416"),
                "sparse_adam_update": ("recommendsystem_tpu_torch/csrc/sparse_adam.cu",
-                                      "recommendsystem_tpu/embedding/packed.py:1099")}
+                                      "recommendsystem_tpu/embedding/packed.py:1099"),
+               "din_pool": ("recommendsystem_tpu_torch/csrc/din_pool.cu",
+                            "recommendsystem_tpu/kernels/din_pallas.py:72")}
     kernels = []
     for name, (source, replaces) in sources.items():
         c = headline[name]
-        launches = serving[name] + training[name]
+        launches = serving[name] + training[name] + staytime[name]
         if launches < 1:
             raise AssertionError(f"{name} was not launched on the main paths")
         kernels.append({

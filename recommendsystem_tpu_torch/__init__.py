@@ -3,18 +3,24 @@
 The JAX package beside it stays the reference; this package mirrors its
 module paths so each counterpart is easy to find, and imports neither JAX nor
 any module of the JAX package.  What it covers so far is the autoint scoring
-path:
+path and packed train step, and the staytime scoring path:
 
 - ``core/``       configuration schema and device set-up;
-- ``embedding/``  feature columns, the local embedding engine and the fused
-  gather-and-fold lookup (CUDA kernels ``fold_mean`` / ``fold_rows``);
-- ``kernels/``    the field-attention kernel and the build of ``csrc/``;
-- ``nn/``         dense layers and the InteractingLayer;
-- ``models/``     the model bundle and autoint;
-- ``train/``      the predict step;
-- ``data/``       id padding and synthetic batches;
+- ``embedding/``  feature columns, the local embedding engine (lazy Adam and
+  AdaGrad table state), the fused gather-and-fold lookup and the packed
+  update (CUDA kernels ``fold_mean`` / ``fold_rows``, ``unfold_mean`` /
+  ``unfold_rows``, ``sparse_adam_update``);
+- ``kernels/``    the field-attention and DIN-pool kernels and the build of
+  ``csrc/``;
+- ``nn/``         dense layers, the InteractingLayer, DINPool, SENet, the FM
+  blocks and the DeepCross layer;
+- ``models/``     the model bundle, autoint and staytime;
+- ``train/``      the packed train step, the predict step, dense Adam and
+  the losses;
+- ``data/``       id padding, staytime labels and synthetic batches;
 - ``serving/``    the bucketed scoring service;
-- ``bridge.py``   weights carried across from the JAX package as numpy.
+- ``bridge.py``   weights and optimizer state carried across from the JAX
+  package as numpy.
 
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU,
 where every kernel runs as its plain PyTorch version.

@@ -10,11 +10,13 @@ what the JAX side hands over as numpy and imports no JAX:
   (keys joined with ".") is the state dict of ``bundle.module``.
 - ``tables``: per storage, either the ``(rows, D)`` weights that the JAX
   engine's ``weights(state.tables)`` returns (the optimizer state then
-  starts at zero), or the whole per-row state that its
-  ``classic_state(state.tables)`` returns: ``{"w": (rows, D), "opt": {"m",
-  "v", "t"}, "show"}``.  JAX autoint tables are stored in the packed-state
-  layout (``w_p = [w | 0]``, ``m_p = [m | t]``, ``v_p = [v | show]`` lane
-  groups); both views unpack them to the per-row layout the port keeps.
+  starts afresh from ``sparse_opt.init_state``), or the whole per-row state
+  that its ``classic_state(state.tables)`` returns: ``{"w": (rows, D),
+  "opt": {...}, "show"}``, where ``opt`` holds the sparse optimizer's
+  fields (Adam: ``m``, ``v``, ``t``; AdaGrad: ``g2sum``).  JAX autoint
+  tables are stored in the packed-state layout (``w_p = [w | 0]``, ``m_p =
+  [m | t]``, ``v_p = [v | show]`` lane groups); both views unpack them to
+  the per-row layout the port keeps.
 - ``opt_state``: optax's Adam state, as its ``ScaleByAdamState`` (or the
   chain tuple that holds one) with numpy leaves; None starts the dense Adam
   afresh.
@@ -86,13 +88,18 @@ def from_jax_numpy(bundle: ModelBundle, params: Mapping[str, Any],
             raise ValueError(f"table {skey}: shape {np.shape(w)}, expected "
                              f"{(rows, dim)}")
         if isinstance(entry, Mapping):
+            # the optimizer's fields and shapes, without allocating them
+            opt_shapes = {n: tuple(t.shape) for n, t in eng.sparse_opt.init_state(
+                (rows, dim), "meta").items()}
+            if set(entry["opt"]) != set(opt_shapes):
+                raise ValueError(f"table {skey}: optimizer state "
+                                 f"{sorted(entry['opt'])}, expected {sorted(opt_shapes)}")
             tstate = {"w": to_dev(w),
-                      "opt": {n: to_dev(entry["opt"][n]) for n in ("m", "v", "t")},
+                      "opt": {n: to_dev(entry["opt"][n]) for n in opt_shapes},
                       "show": to_dev(entry["show"])}
-            for name, t, shape in (("m", tstate["opt"]["m"], (rows, dim)),
-                                   ("v", tstate["opt"]["v"], (rows, dim)),
-                                   ("t", tstate["opt"]["t"], (rows, 1)),
-                                   ("show", tstate["show"], (rows, 1))):
+            for name, t, shape in ([(n, tstate["opt"][n], shp)
+                                    for n, shp in opt_shapes.items()]
+                                   + [("show", tstate["show"], (rows, 1))]):
                 if tuple(t.shape) != shape:
                     raise ValueError(f"table {skey}: {name} of shape "
                                      f"{tuple(t.shape)}, expected {shape}")

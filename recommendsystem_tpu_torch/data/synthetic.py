@@ -1,9 +1,10 @@
 """Synthetic CTR data for tests and the chip smoke run.
 
 Counterpart of ``recommendsystem_tpu/data/synthetic.py``: the same numpy
-draws in the same column order, so for one seed both packages see
-byte-identical batches.  The staytime and distillation label branches come
-with the models that need them.
+draws in the same column order, and labels drawn per ``bundle.losses`` in
+its order, so for one seed both packages see byte-identical batches.  The
+staytime task draws a watch duration and fills its three labels (and the
+sample weights) at once; the distillation branch comes with rough_rank.
 """
 
 from __future__ import annotations
@@ -14,7 +15,9 @@ import numpy as np
 import torch
 
 from ..embedding.engine import IdBatch
+from ..models import staytime as staytime_model
 from ..models.base import ModelBundle
+from .staytime_labels import staytime_labels
 
 
 def synthetic_batch(bundle: ModelBundle, batch_size: int, seed: int = 0,
@@ -59,13 +62,24 @@ def synthetic_batch(bundle: ModelBundle, batch_size: int, seed: int = 0,
                                 .astype(np.float32)).to(dev)
             for k in bundle.dense_input_keys}
 
-    labels: Dict[str, torch.Tensor] = {}
+    labels: Dict[str, np.ndarray] = {}
     p = 1.0 / (1.0 + np.exp(-(engagement * 4.0 - 2.0)))       # planted CTR signal
     click = (rng.uniform(size=batch_size) < p).astype(np.float32)[:, None]
     weight = np.ones((batch_size, 1), np.float32)
-    for task in bundle.tasks:
-        # fresh correlated binary label per head
-        flip = rng.uniform(size=(batch_size, 1)) < 0.15
-        labels[task] = torch.from_numpy(
-            np.where(flip, 1.0 - click, click).astype(np.float32)).to(dev)
-    return batch, dense_inputs, labels, torch.from_numpy(weight).to(dev)
+    for task in bundle.losses:
+        if task == staytime_model.T_STAY:
+            wt_ms = (engagement * 60_000
+                     * rng.uniform(0.5, 1.5, batch_size)).astype(np.int64)
+            st, weight = staytime_labels(wt_ms)
+            labels[staytime_model.T_STAY] = st["staytime"]
+            labels[staytime_model.T_SHORT] = st["shortplay"]
+            labels[staytime_model.T_LONG] = st["longplay"]
+        elif task in labels:
+            continue
+        else:
+            # fresh correlated binary label per head
+            flip = rng.uniform(size=(batch_size, 1)) < 0.15
+            labels[task] = np.where(flip, 1.0 - click, click).astype(np.float32)
+    return (batch, dense_inputs,
+            {k: torch.from_numpy(v).to(dev) for k, v in labels.items()},
+            torch.from_numpy(weight).to(dev))

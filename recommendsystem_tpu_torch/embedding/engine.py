@@ -4,10 +4,12 @@ Counterpart of ``recommendsystem_tpu/embedding/engine.py``.  Tables are
 grouped into storages exactly as the JAX engine groups them (same storage
 keys, member offsets and padded row counts), so weights carry across one to
 one (``bridge.py``).  Each storage's state keeps the classic per-row layout
-of the JAX engine's ``classic_state``: ``{"w": (rows, D), "opt": {"m":
-(rows, D), "v": (rows, D), "t": (rows, 1)}, "show": (rows, 1)}``, float32.
-On Hopper an 8-float row is one 32-byte sector, so the JAX package's
-128-lane packed-state layout buys nothing here.
+of the JAX engine's ``classic_state``: ``{"w": (rows, D), "opt": ...,
+"show": (rows, 1)}``, float32, where ``opt`` is the sparse optimizer's
+state: ``{"m": (rows, D), "v": (rows, D), "t": (rows, 1)}`` for
+``SparseAdam``, ``{"g2sum": (rows, 1)}`` for ``SparseAdaGrad``.  On Hopper
+an 8-float row is one 32-byte sector, so the JAX package's 128-lane
+packed-state layout buys nothing here.
 
 The classic ``lookup`` (gather, then combine) and the classic update path
 (``row_counts``, ``flatten_raw_grads``, ``apply_gradients_scatter``) are
@@ -20,13 +22,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
 from . import packed as packed_mod
 from .feature_column import EmbeddingColumn
-from .optimizers import SparseAdam
+from .optimizers import SparseAdaGrad, SparseAdam
 
 
 @dataclasses.dataclass
@@ -94,7 +96,7 @@ class EmbeddingFeatures:
     ``table_map`` maps table_key -> (storage_key, row_offset, rows)."""
 
     def __init__(self, embedding_columns: List[EmbeddingColumn],
-                 sparse_opt: Optional[SparseAdam] = None,
+                 sparse_opt: Optional[Union[SparseAdam, SparseAdaGrad]] = None,
                  name: str = "sparse_emb_input", group_tables: bool = False,
                  max_group_bytes: int = 40 << 20):
         self.name = name
@@ -169,9 +171,10 @@ class EmbeddingFeatures:
 
     def init(self, generator: torch.Generator) -> Dict[str, Dict[str, torch.Tensor]]:
         """State on the generator's device, tables drawn in sorted storage
-        order by ``sparse_opt.table_init`` (truncated normal on [-2, 2]
-        divided by sqrt(D), the TF ``embedding_column`` default); zero
-        moments, step counters and show counts."""
+        order by ``sparse_opt.table_init`` (Adam: truncated normal on
+        [-2, 2] divided by sqrt(D), the TF ``embedding_column`` default;
+        AdaGrad: uniform on +-initial_scale), ``sparse_opt.init_state`` and
+        zero show counts."""
         state = {}
         for skey, (rows, dim) in sorted(self.storage.items()):
             state[skey] = {

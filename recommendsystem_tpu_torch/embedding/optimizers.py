@@ -1,11 +1,13 @@
-"""Per-row sparse optimizer for embedding tables: lazy Adam.
+"""Per-row sparse optimizers for embedding tables: lazy Adam and AdaGrad.
 
-Counterpart of ``SparseAdam`` in ``recommendsystem_tpu/embedding/
-optimizers.py``: per-row state lives beside the table and updates are lazy,
-so only rows that appeared in the batch move.  ``row_mask`` is (rows, 1)
-float {0, 1}: 1 where the row appeared.  These are plain PyTorch and the
-oracle of the lazy-Adam kernel K8 (``embedding/packed.py::
-sparse_adam_update``).  AdaGrad comes with the staytime slice of the port.
+Counterpart of ``SparseAdam`` and ``SparseAdaGrad`` in
+``recommendsystem_tpu/embedding/optimizers.py``: per-row state lives beside
+the table and updates are lazy, so only rows that appeared in the batch
+move.  ``row_mask`` is (rows, 1) float {0, 1}: 1 where the row appeared.
+``SparseAdam`` is plain PyTorch and the oracle of the lazy-Adam kernel K8
+(``embedding/packed.py::sparse_adam_update``).  ``SparseAdaGrad`` has its
+table initialiser and its state so far (staytime serving); its update comes
+with the staytime train step.
 """
 
 from __future__ import annotations
@@ -67,3 +69,24 @@ class SparseAdam:
         return (w_rows - valid * step,
                 {"m": torch.where(live, m, state_rows["m"]),
                  "v": torch.where(live, v, state_rows["v"]), "t": t})
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseAdaGrad:
+    """Parameter-server AdaGrad: one ``g2sum`` accumulator per row."""
+
+    learning_rate: float = 5e-3
+    initial_g2sum: float = 0.1
+    initial_scale: float = 0.1
+
+    def init_state(self, shape, device=None) -> Dict[str, torch.Tensor]:
+        """``g2sum`` (rows, 1) at ``initial_g2sum``."""
+        return {"g2sum": torch.full((shape[0], 1), self.initial_g2sum,
+                                    dtype=torch.float32, device=device)}
+
+    def table_init(self, generator: torch.Generator, shape) -> torch.Tensor:
+        """Uniform on [-initial_scale, initial_scale), on the generator's
+        device."""
+        w = torch.empty(shape, dtype=torch.float32, device=generator.device)
+        return w.uniform_(-self.initial_scale, self.initial_scale,
+                          generator=generator)

@@ -56,10 +56,14 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "sparse_adam_update_f32": [_P, _P, _P, _P, _P, _P, _L, _I, _F, _F,
                                    _F, _F, _F, _F, _P],
     },
+    "din_pool": {
+        "din_pool_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _L, _L, _L,
+                         _L, _L, _P],
+    },
 }
 
 KERNELS = ("fold_mean", "fold_rows", "field_attention", "field_attention_bwd",
-           "unfold_mean", "unfold_rows", "sparse_adam_update")
+           "unfold_mean", "unfold_rows", "sparse_adam_update", "din_pool")
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 

@@ -1,0 +1,60 @@
+"""DIN target attention of the staytime model.
+
+Counterpart of ``DINPool``, ``MASK_PAD`` and ``sequence_mask`` in
+``recommendsystem_tpu/nn/din.py``: the single-query softmax DIN of the
+reference's ``staytime/layer.py:6-41``.  A scorer MLP [16 sigmoid, 1 linear]
+over [q, f, q - f, q * f] scores each fact; masked positions get
+``MASK_PAD`` (-2**32 + 1, which replaces the score), then a softmax over the
+sequence weights the sum of the facts.  The pool is K7 (``kernels/din.py``):
+the CUDA kernel on a card, its plain version on the CPU.  The kernel takes
+the staytime widths (H = 16, a scorer of width 16); on a card other widths
+raise.  ``DINAttention`` (the zero-mask variant) is used by no ported model
+yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..kernels.din import HIDDEN, MASK_PAD, din_pool  # noqa: F401
+from .mlp import glorot_uniform_
+
+
+def sequence_mask(lengths: torch.Tensor, maxlen: int) -> torch.Tensor:
+    """``tf.sequence_mask``: (B,) int -> (B, maxlen) bool."""
+    pos = torch.arange(maxlen, device=lengths.device)[None, :]
+    return pos < lengths[:, None]
+
+
+class DINPool(nn.Module):
+    """query (B, H); facts (B, T, H); mask (B, T) bool or None.  Returns
+    (B, H).  Parameters keep the flax names and layout: ``w1`` (4H,
+    hidden), ``b1`` (hidden,), ``w2`` (hidden, 1), ``b2`` (1,)."""
+
+    def __init__(self, in_dim: int, hidden: int = HIDDEN, device=None):
+        super().__init__()
+        self.w1 = nn.Parameter(torch.empty((4 * in_dim, hidden), device=device))
+        self.b1 = nn.Parameter(torch.empty((hidden,), device=device))
+        self.w2 = nn.Parameter(torch.empty((hidden, 1), device=device))
+        self.b2 = nn.Parameter(torch.empty((1,), device=device))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """Glorot-uniform scorer kernels and zero biases, as flax."""
+        glorot_uniform_(self.w1, generator)
+        glorot_uniform_(self.w2, generator)
+        with torch.no_grad():
+            self.b1.zero_()
+            self.b2.zero_()
+
+    def forward(self, query: torch.Tensor, facts: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if mask is None:
+            mask_f = torch.ones(facts.shape[:2], dtype=torch.float32,
+                                device=facts.device)
+        else:
+            mask_f = mask.to(torch.float32)
+        return din_pool(query, facts, mask_f, self.w1, self.b1, self.w2, self.b2)

@@ -5,9 +5,16 @@ of RAW feasigns, hash and pad them on the host, run the predict step on the
 card, return the named scores.
 
     python -m recommendsystem_tpu_torch.serving.server --model autoint --port 8000
+    python -m recommendsystem_tpu_torch.serving.server --model staytime --port 8000
 
     POST /score  {"rows": [{"1000": [123456789], ...}, ...]}
     ->           {"scores": {"<task>": [..]}, "batch": N}
+
+One score per served head: staytime answers its expected watch time and
+its shortplay and longplay probabilities under their task names.  A
+sequence column and the mean column of the same slot read one request
+feature, as in the JAX package, so a sequence slot carries at most
+``ids_per_feature`` ids.
 
 Requests pad to the smallest power-of-two batch bucket up to ``max_batch``,
 so the kernels see a few fixed shapes.  Restoring a checkpoint and the bf16
@@ -17,6 +24,7 @@ flags come with later slices of the port.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import logging
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -28,7 +36,7 @@ import torch
 from ..core.device import resolve_device
 from ..data.parse import pad_ids
 from ..embedding.engine import IdBatch, validate_batch
-from ..models import create_model
+from ..models import MODEL_REGISTRY, create_model
 from ..models.base import ModelBundle
 from ..train.state import TrainState, create_train_state
 from ..train.step import make_predict_step
@@ -171,7 +179,7 @@ def serve(service: ScoringService, port: int = 8000, host: str = "127.0.0.1"):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description="online scoring service")
-    ap.add_argument("--model", required=True)
+    ap.add_argument("--model", required=True, choices=sorted(MODEL_REGISTRY))
     ap.add_argument("--bucket-size", type=int, default=None)
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--max-batch", type=int, default=256)
@@ -182,6 +190,9 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO, force=True)
     kwargs = {}
     if args.bucket_size:
+        factory = inspect.signature(MODEL_REGISTRY[args.model])
+        if "bucket_size" not in factory.parameters:
+            ap.error(f"--bucket-size: model {args.model!r} takes no bucket size")
         kwargs["bucket_size"] = args.bucket_size
     bundle = create_model(args.model, device=args.device, **kwargs)
     state = create_train_state(bundle, seed=0)

@@ -27,6 +27,7 @@ import torch
 from torch.func import functional_call
 
 from ..embedding import packed as packed_mod
+from ..embedding.optimizers import SparseAdam
 from .state import TrainState
 
 if TYPE_CHECKING:
@@ -93,6 +94,8 @@ def _packed_plans(eng, batch):
 def make_train_step(bundle: "ModelBundle", mode: str = "local") -> Callable:
     """Returns ``step(state, batch, labels, sample_weight=None,
     dense_inputs=None, seed=0) -> (state, info)``, the packed train step.
+    The engine's sparse optimizer must be ``SparseAdam``: for any other
+    this raises ``NotImplementedError``.
 
     ``batch`` holds IdBatches and ``labels`` {task: (B, 1)} tensors on the
     bundle's device; ``seed`` (an int below 2**32) draws the step's
@@ -104,6 +107,12 @@ def make_train_step(bundle: "ModelBundle", mode: str = "local") -> Callable:
     waits for the step)."""
     _check_mode(mode)
     eng = bundle.embedding
+    if not isinstance(eng.sparse_opt, SparseAdam):
+        raise NotImplementedError(
+            f"sparse optimizer {type(eng.sparse_opt).__name__}: the packed "
+            f"train step runs the lazy-Adam pass (K8) only; the AdaGrad update "
+            f"on the classic scatter path comes with the staytime train slice "
+            f"of the port")
 
     def step(state: TrainState, batch, labels, sample_weight=None,
              dense_inputs=None, seed: int = 0):

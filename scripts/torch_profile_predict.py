@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Where the time of the port's autoint predict step goes, on one CUDA card.
+"""Where the time of the port's predict step goes, on one CUDA card.
 
-    python3 scripts/torch_profile_predict.py [--batch 65536 256] [--steps 10]
+    python3 scripts/torch_profile_predict.py [--model autoint] [--batch 65536 256] [--steps 10]
+    python3 scripts/torch_profile_predict.py --model staytime [--batch 16384 256]
 
-For each batch size: builds the full-width autoint bundle (24 tables of
-265,000 rows x 8, seeded random weights), warms the predict step up, then
+For each batch size: builds the model's full-width bundle (autoint: 24
+tables of 265,000 rows x 8; staytime: 91 tables of 81,920 rows x 32 and 3
+behaviour sequences of 50; seeded random weights, 5 ids per mean column),
+warms the predict step up, then
   - times ``steps`` calls on the host clock, ending in a synchronize;
   - traces the same number of calls with ``torch.profiler`` and sums the
     device time of every kernel: busy share = device time / wall time;
   - lists the kernels by device time (kernel names as the trace gives them).
 Prints one JSON line per batch size, with the card's name and power limit,
-and writes the tables to ``chiprun_out/profile_predict.txt``.
+and writes the tables to ``chiprun_out/profile_predict_<model>.txt``.
 """
 
 from __future__ import annotations
@@ -27,6 +30,9 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
+DEFAULT_BATCHES = {"autoint": [65536, 256], "staytime": [16384, 256]}
+
+
 def _device_us(evt) -> float:
     for attr in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, attr):
@@ -36,7 +42,8 @@ def _device_us(evt) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--batch", type=int, nargs="+", default=[65536, 256])
+    ap.add_argument("--model", default="autoint", choices=sorted(DEFAULT_BATCHES))
+    ap.add_argument("--batch", type=int, nargs="+", default=None)
     ap.add_argument("--steps", type=int, default=10)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -53,12 +60,13 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(card, flush=True)
-    bundle = create_model("autoint", device="cuda")
+    batches = args.batch or DEFAULT_BATCHES[args.model]
+    bundle = create_model(args.model, device="cuda")
     state = create_train_state(bundle, seed=0)
     step = make_predict_step(bundle)
     os.makedirs("chiprun_out", exist_ok=True)
     tables = []
-    for b in args.batch:
+    for b in batches:
         batch, _, _, _ = synthetic_batch(bundle, b, seed=1)
         for _ in range(3):
             step(state, batch)
@@ -83,16 +91,16 @@ def main(argv=None) -> int:
         top = [{"name": e.key[:90], "calls_per_step": e.count // args.steps,
                 "us_per_step": _device_us(e) / args.steps} for e in kernels[:12]]
         n_kernels = sum(e.count for e in kernels) // args.steps
-        row = {"batch": b, "ms_per_call": wall * 1e3,
+        row = {"model": args.model, "batch": b, "ms_per_call": wall * 1e3,
                "examples_per_s": b / wall, "traced_ms_per_call": traced_wall * 1e3,
                "device_busy_ms_per_call": busy_us / 1e3,
                "device_busy_share": busy_us / 1e3 / (traced_wall * 1e3),
                "device_kernels_per_call": n_kernels,
                "port_kernel_launches_per_call": counts, "card": card}
         print(json.dumps(row), flush=True)
-        tables.append(f"## batch {b} ({card})\n{json.dumps(row)}\n"
+        tables.append(f"## {args.model} batch {b} ({card})\n{json.dumps(row)}\n"
                       + "\n".join(json.dumps(t) for t in top) + "\n")
-    with open(os.path.join("chiprun_out", "profile_predict.txt"), "w") as fh:
+    with open(os.path.join("chiprun_out", f"profile_predict_{args.model}.txt"), "w") as fh:
         fh.write("\n".join(tables))
     print("\n".join(tables), file=sys.stderr)
     return 0

@@ -12,7 +12,9 @@ its gradients rtol 1e-4 and atol 2e-5 (sums over <= 175 fields); the
 unfold-scatter's gradient sums atol 1e-5, or 1e-6 per entry that hits one
 row (atomics add in another order on every run), its counts exact; the
 lazy Adam's m and v rtol 1e-6 and w atol 1e-7 (``powf`` on the card against
-PyTorch's pow: one ulp in a bias correction), t and show exact.
+PyTorch's pow: one ulp in a bias correction), t and show exact; the DIN
+pool atol 2e-5 (a softmax over T and 4H-term dots in another order, as the
+JAX package holds its own kernel), its gradients rtol 1e-4, atol 1e-5.
 """
 
 import pytest
@@ -20,6 +22,7 @@ import torch
 
 from recommendsystem_tpu_torch.embedding import packed
 from recommendsystem_tpu_torch.embedding.optimizers import SparseAdam
+from recommendsystem_tpu_torch.kernels.din import din_pool, din_pool_plain
 from recommendsystem_tpu_torch.kernels import launch_counts, reset_launch_counts
 from recommendsystem_tpu_torch.kernels.field_attention import (
     field_attention,
@@ -207,6 +210,62 @@ def test_sparse_adam_kernel(cuda, rows, d, live):
     assert launch_counts()["sparse_adam_update"] == 1
 
 
+def _din_inputs(dev, b, t, h, seed, requires_grad=False):
+    """Query and facts as the first H lanes of 2H-lane rows (the model's
+    views); row 0 of the mask all 0 over nonzero facts, the last row full."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, 2 * h), generator=g, device=dev)[:, :h]
+    f = torch.randn((b, t, 2 * h), generator=g, device=dev)[:, :, :h]
+    lens = torch.randint(1, t + 1, (b,), generator=g, device=dev)
+    lens[0], lens[-1] = 0, t
+    mask = (torch.arange(t, device=dev)[None, :] < lens[:, None]).float()
+    w1 = torch.randn((4 * h, 16), generator=g, device=dev) * 0.2
+    b1, w2, b2 = (torch.randn(shape, generator=g, device=dev) * 0.3
+                  for shape in ((16,), (16, 1), (1,)))
+    args = [q, f, mask, w1, b1, w2, b2]
+    if requires_grad:
+        for i in (0, 1, 3, 4, 5, 6):
+            args[i] = args[i].detach().requires_grad_()
+    return args
+
+
+@pytest.mark.parametrize("b,t,h", [(8, 50, 16), (256, 50, 16), (16384, 50, 16),
+                                   (33, 7, 16), (5, 70, 16), (9, 512, 16), (3, 1, 16)])
+def test_din_pool_kernel(cuda, b, t, h):
+    args = _din_inputs(cuda, b, t, h, seed=b + t)
+    assert not args[1].is_contiguous()
+    got = din_pool(*args)
+    want = din_pool_plain(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+    # the all-masked row is the mean of its facts
+    torch.testing.assert_close(got[0], args[1][0].mean(dim=0), rtol=0, atol=2e-5)
+    assert launch_counts()["din_pool"] == 1
+
+
+def test_din_pool_backward_through_the_function(cuda):
+    args = _din_inputs(cuda, 64, 50, 16, seed=3, requires_grad=True)
+    do = torch.randn((64, 16), device=cuda)
+    wrt = [args[i] for i in (0, 1, 3, 4, 5, 6)]
+    got = torch.autograd.grad(din_pool(*args), wrt, do)
+    want = torch.autograd.grad(din_pool_plain(*args), wrt, do)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-5)
+    assert launch_counts()["din_pool"] == 1
+
+
+def test_dinpool_layer_launches_the_kernel(cuda):
+    from recommendsystem_tpu_torch.nn import DINPool
+    pool = DINPool(16, device=cuda)
+    q, f, mask = _din_inputs(cuda, 40, 50, 16, seed=5)[:3]
+    with torch.inference_mode():
+        got = pool(q, f, mask.bool())
+    torch.testing.assert_close(got, din_pool_plain(q, f, mask, pool.w1, pool.b1,
+                                                   pool.w2, pool.b2),
+                               rtol=0, atol=2e-5)
+    assert launch_counts()["din_pool"] == 1
+
+
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = torch.randn(2, 5, 8, 16, device=cuda)
     with pytest.raises(ValueError, match="d_head"):
@@ -223,4 +282,13 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         packed.unfold_rows_scatter(acc, torch.ones(4, 8, device=cuda),
                                    torch.zeros(4, dtype=torch.int32),
                                    torch.ones(4, device=cuda))
+    q, f, mask, w1, b1, w2, b2 = _din_inputs(cuda, 4, 6, 16, seed=1)
+    with pytest.raises(ValueError, match="T <="):
+        din_pool(q, torch.zeros(4, 513, 16, device=cuda), torch.ones(4, 513, device=cuda),
+                 w1, b1, w2, b2)
+    with pytest.raises(ValueError, match="H 16"):
+        din_pool(q[:, :8], f[:, :, :8], mask, w1[:32], b1, w2, b2)
+    from recommendsystem_tpu_torch.nn import DINPool
+    with pytest.raises(ValueError, match="width 16"):
+        DINPool(16, hidden=8, device=cuda)(q, f, mask.bool())
     assert set(launch_counts().values()) == {0}
