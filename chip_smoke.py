@@ -14,7 +14,8 @@
    run back to back behind a spin kernel) and, for the kernel, the host's
    time to issue one call (``host_ms``);
 3. drives the serving path: the full-width autoint ``ScoringService`` (24
-   tables of 265,000 rows x 8, seeded random weights) answers requests
+   tables of 265,000 rows x 8, seeded random weights; its InteractingLayer
+   through K6) answers requests
    through ``score()`` and over HTTP, with counts of kernel launches set to 0
    just before and read just after; a second service with one id per feature
    drives the single-id fold; scores are checked finite, in [1e-6, 1],
@@ -22,7 +23,8 @@
    through the plain versions;
 4. times the predict step at batch 65536;
 5. drives the train path: the full-width packed train step (B = 65536,
-   attention dropout 0.2, lazy Adam on the tables, dense Adam) for a few
+   attention dropout 0.2, so the InteractingLayer takes K5f and K5b; lazy
+   Adam on the tables, dense Adam) for a few
    steps with 5 ids per feature and with 1, counts set to 0 just before and
    read just after; checks the loss finite and t and show equal to the live
    counts; holds two steps on the card to the same two steps on the CPU
@@ -37,12 +39,26 @@
    HTTP, counts set to 0 just before and read just after, some requests
    without sequence features; the three heads checked finite and in range,
    unchanged by padding and equal to the same service on the CPU; then the
-   predict step's launches per call and its examples/s at B = 16384.
+   predict step's launches per call and its examples/s at B = 16384;
+7. drives the fused InteractingLayer (K6): the kernel against its plain
+   version at F = 24 (B = 8, 256, 65536), F = 40 (B = 32768) and F = 180
+   (B = 8192), timed beside the layer's transposed path (projections, K5f,
+   LayerNorm: what K6 replaces), and its autograd Function's gradients
+   against the plain version's at B = 256; then, counts set to 0 just
+   before and read just after, the full-width ctr (24 tables of 265,000 x
+   48) and multi_head (40 tables of 265,000 x 8) ``ScoringService`` through
+   ``score()`` and over HTTP, each held to the CPU plain path and unchanged
+   by padding; full-width autoint served through the transposed path
+   against phase 3's scores; last the predict steps of autoint (B = 65536),
+   ctr and multi_head (B = 32768) and the 212-feature ctr shape (B = 8192,
+   32,768-id buckets, one id per column), each with K6 and through the
+   transposed path, timed in turns, with launches per call, and held to the
+   CPU at B = 64.
 
 Prints the card's name and power limit, one JSON line each for the autoint
-predict step, the train step and the staytime predict step, then
-``{"kernels": ...}`` (8 kernels), and last ``{"ok": true, "device":
-{...}}``.  Details go to
+predict step, the train step, the staytime predict step and the predict
+steps with and without K6 (``interacting_predict``), then ``{"kernels":
+...}`` (9 kernels), and last ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Any failure ends the run with a traceback
 and a non-zero exit; without CUDA it exits non-zero before printing.
 """
@@ -86,6 +102,13 @@ DIN_BATCHES = (8, 256, 16384)
 STAYTIME_BATCH = 16384
 EV_TOL = dict(rtol=1e-5)          # expected value: a sum of 400 products
 EV_MAX = 180.5                    # the last bin centre
+INTER_TOL = dict(rtol=2e-5, atol=2e-5)   # K6: the JAX package's own tolerance for it
+INTER_GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
+INTER_CASES = ((24, 8), (24, 256), (24, BIG_BATCH), (40, 32768), (180, 8192))  # (F, B)
+CTR_BATCH = 32768                 # bench.py:357-358
+CTR212_BATCH = 8192               # bench.py:325-327
+CTR212_BUCKET = 32768
+CHECK_BATCH = 64
 
 OUT_DIR = "chiprun_out"
 
@@ -497,7 +520,9 @@ def check_staytime_scores(scores, n):
                                  f"[{np.nanmin(p)}, {np.nanmax(p)}]")
 
 
-def assert_staytime_close(got, want, what):
+def assert_heads_close(got, want, what):
+    """Every head of ``got`` equal to ``want``'s: ``SCORE_TOL``, or
+    ``EV_TOL`` for staytime's expected value."""
     from recommendsystem_tpu_torch.models.staytime import T_STAY
 
     if set(got) != set(want):
@@ -506,6 +531,14 @@ def assert_staytime_close(got, want, what):
         np.testing.assert_allclose(np.asarray(got[task]), np.asarray(want[task]),
                                    err_msg=f"{what}: {task}",
                                    **(EV_TOL if task == T_STAY else SCORE_TOL))
+
+
+def _cpu_state(state):
+    """The weights of ``state`` on the CPU, for the plain path's services."""
+    from recommendsystem_tpu_torch.train.state import TrainState
+
+    return TrainState(params={k: v.cpu() for k, v in state.params.items()}, opt_state=None,
+                      tables={k: {"w": t["w"].cpu()} for k, t in state.tables.items()})
 
 
 def staytime_path(card, cycles_per_ms):
@@ -517,7 +550,7 @@ def staytime_path(card, cycles_per_ms):
     from recommendsystem_tpu_torch.models.staytime import StaytimeConfig
     from recommendsystem_tpu_torch.serving import ScoringService
     from recommendsystem_tpu_torch.train import make_predict_step
-    from recommendsystem_tpu_torch.train.state import TrainState, create_train_state
+    from recommendsystem_tpu_torch.train.state import create_train_state
 
     out = {"card": card}
     out["cases"] = [din_case(b, 70 + b, cycles_per_ms) for b in DIN_BATCHES]
@@ -549,16 +582,14 @@ def staytime_path(card, cycles_per_ms):
             raise AssertionError(f"{name} was not launched on the staytime serving path")
 
     check_staytime_scores(s200, 200)
-    assert_staytime_close(s3, {k: v[:3] for k, v in s200.items()}, "bucket 8 vs 256")
-    assert_staytime_close(over_http["scores"], {k: v[:50] for k, v in s200.items()},
+    assert_heads_close(s3, {k: v[:3] for k, v in s200.items()}, "bucket 8 vs 256")
+    assert_heads_close(over_http["scores"], {k: v[:50] for k, v in s200.items()},
                           "over HTTP")
     cpu_bundle = create_model("staytime", device="cpu")
-    cpu_state = TrainState(params={k: v.cpu() for k, v in state.params.items()},
-                           opt_state=None,
-                           tables={k: {"w": t["w"].cpu()} for k, t in state.tables.items()})
+    cpu_state = _cpu_state(state)
     cpu_svc = ScoringService(cpu_bundle, cpu_state, max_batch=256, ids_per_feature=5,
                              device="cpu")
-    assert_staytime_close(s200, cpu_svc.score(rows200), "card vs CPU")
+    assert_heads_close(s200, cpu_svc.score(rows200), "card vs CPU")
 
     # predict step: launches per call, agreement with the CPU, examples/s
     step = make_predict_step(bundle)
@@ -584,7 +615,7 @@ def staytime_path(card, cycles_per_ms):
     check_staytime_scores(got, n)
     cpu_batch = {k: v.to("cpu") for k, v in batch.items()}
     cpu_pred = make_predict_step(cpu_bundle)(cpu_state, cpu_batch)
-    assert_staytime_close(got, {k: v.squeeze(1).numpy() for k, v in cpu_pred.items()},
+    assert_heads_close(got, {k: v.squeeze(1).numpy() for k, v in cpu_pred.items()},
                           f"predict b={n}, card vs CPU")
     iters = 20
     for _ in range(3):
@@ -602,16 +633,16 @@ def staytime_path(card, cycles_per_ms):
     return out
 
 
-def raw_rows(rng, n, max_ids):
+def raw_rows(rng, n, max_ids, slots=tuple(str(1000 + s) for s in range(24))):
     """Request rows of raw int64 feasigns: 1..max_ids ids per feature, with
     one feature in five left out."""
     rows = []
     for _ in range(n):
         row = {}
-        for s in range(24):
+        for s in slots:
             if rng.uniform() < 0.8:
                 k = int(rng.integers(1, max_ids + 1))
-                row[str(1000 + s)] = [int(x) for x in rng.integers(0, 1 << 40, k)]
+                row[s] = [int(x) for x in rng.integers(0, 1 << 40, k)]
         rows.append(row)
     return rows
 
@@ -763,6 +794,254 @@ def train_path(bundle, cpu_bundle, card):
     return out
 
 
+def _interacting_inputs(b, f, seed, requires_grad=False):
+    from recommendsystem_tpu_torch.kernels.interacting import PARAM_NAMES
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((b, f, 8), generator=g, device="cuda")
+    p = {n: torch.randn((8, 8) if n.startswith("w") else (8,), generator=g,
+                        device="cuda") * (0.5 if n.startswith("w") else 0.2)
+         for n in PARAM_NAMES}
+    p["gamma"] = p["gamma"] + 1.0
+    if requires_grad:
+        for t in [x, *p.values()]:
+            t.requires_grad_()
+    return x, p
+
+
+def without_k6(bundle):
+    """``bundle`` with its InteractingLayer run through the layer's
+    transposed path (projections, K5f, LayerNorm), the path K6 replaces:
+    the yardstick of phase 7."""
+    layer = bundle.module.interacting
+    layer.forward = layer.forward_transposed
+    return bundle
+
+
+def interacting_case(f, b, seed, cycles_per_ms, h=2):
+    """K6 against its plain version at (B, F), and the layer's transposed
+    path (projections, K5f, LayerNorm) on the same weights as the
+    yardstick: no single PyTorch call computes the function, so
+    ``library_ms`` is None.  Bound: x read and the output written once, the
+    parameters once; 4 projections of 2*D*U per field and 2*H*F*dh*2 per
+    field for the scores and the weighted sum (the JAX kernel's
+    ``CostEstimate``)."""
+    from recommendsystem_tpu_torch.kernels.interacting import (
+        interacting_attention, interacting_attention_plain)
+    from recommendsystem_tpu_torch.nn import InteractingLayer
+
+    d = u = 8
+    x, p = _interacting_inputs(b, f, seed)
+    got = interacting_attention(x, p, h, 1e-3)
+    want = interacting_attention_plain(x, p, h, 1e-3)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, **INTER_TOL)
+    layer = InteractingLayer(d, unit_num=u, head_num=h, use_dropout=True, device="cuda")
+    names = {"gamma": "ln_scale", "beta": "ln_bias"}
+    with torch.no_grad():
+        for k, v in p.items():
+            getattr(layer, names.get(k, k)).copy_(v)
+
+    def unfused():
+        with torch.inference_mode():
+            return layer.forward_transposed(x)
+
+    unfused_err = float((unfused() - want).abs().max())
+    nbytes = 4 * (b * f * (d + u) + 4 * d * u + 6 * u)
+    ops = 2 * b * f * d * u * 4 + 2 * b * h * f * f * (u // h) * 2
+    bms, by = bound(nbytes, ops)
+    iters = 240 if b <= 256 else 20
+    # the plain version and the transposed path issue some 20-30 kernels a
+    # call: at most ~500 launches are queued behind the spin kernel, inside
+    # the card's queue of pending launches, so the card runs them back to
+    # back and the events read device time, not the host's issue pace
+    many = 16 if b <= 256 else 20
+    ms, host_ms = timed(lambda: interacting_attention(x, p, h, 1e-3), iters, cycles_per_ms)
+    unfused_ms, unfused_host_ms = timed(unfused, many, cycles_per_ms)
+    return {"name": "interacting_attention", "b": b, "f": f, "h": h, "max_abs_err": err,
+            "ms": ms, "host_ms": host_ms,
+            "plain_ms": timed(lambda: interacting_attention_plain(x, p, h, 1e-3),
+                              16 if b <= 256 else 2, cycles_per_ms)[0],
+            "unfused_ms": unfused_ms, "unfused_host_ms": unfused_host_ms,
+            "unfused_max_abs_err": unfused_err, "library_ms": None,
+            "bound_ms": bms, "bound_by": by, "bytes": nbytes, "ops": ops}
+
+
+def interacting_grad_check():
+    """The autograd Function (K6 forward, the plain version's recomputed
+    backward) against autograd through the plain version, B = 256, F = 24."""
+    from recommendsystem_tpu_torch.kernels.interacting import (
+        PARAM_NAMES, interacting_attention, interacting_attention_plain)
+
+    x, p = _interacting_inputs(256, 24, 123, requires_grad=True)
+    do = torch.randn((256, 24, 8), generator=torch.Generator(device="cuda").manual_seed(5),
+                     device="cuda")
+    wrt = [x] + [p[n] for n in PARAM_NAMES]
+    out = interacting_attention(x, p)
+    if not type(out.grad_fn).__name__.startswith("InteractingAttentionFunction"):
+        raise AssertionError("interacting_attention did not take its Function")
+    got = torch.autograd.grad(out, wrt, do)
+    want = torch.autograd.grad(interacting_attention_plain(x, p, 2, 1e-3), wrt, do)
+    err = 0.0
+    for name, a, w in zip(["x", *PARAM_NAMES], got, want):
+        torch.testing.assert_close(a, w, **INTER_GRAD_TOL, msg=lambda m: f"d{name}: {m}")
+        err = max(err, float((a - w).abs().max()))
+    return {"b": 256, "f": 24, "max_abs_err": err}
+
+
+def check_heads(scores, n, lo, hi, what):
+    """Every head finite, of n scores, within [lo, hi]."""
+    for task, v in scores.items():
+        a = np.asarray(v).reshape(-1)
+        if a.shape != (n,) or not np.all(np.isfinite(a)) or a.min() < lo or a.max() > hi:
+            raise AssertionError(f"{what} {task}: shape {a.shape}, range "
+                                 f"[{np.nanmin(a)}, {np.nanmax(a)}]")
+
+
+def fused_service_run(name, bundle, state, cpu_bundle, rows, lo, hi):
+    """``score()`` at buckets 256 and 8 and over HTTP, the heads checked
+    in [lo, hi], and the CPU plain path's scores of the same rows."""
+    from recommendsystem_tpu_torch.serving import ScoringService
+
+    svc = ScoringService(bundle, state, max_batch=256, ids_per_feature=5)
+    svc.warmup()
+    full = svc.score(rows)
+    three = svc.score(rows[:3])
+    over_http = http_score(svc, rows[:50])["scores"]
+    check_heads(full, len(rows), lo, hi, name)
+    assert_heads_close(three, {k: v[:3] for k, v in full.items()}, f"{name} bucket 8 vs 256")
+    assert_heads_close(over_http, {k: v[:50] for k, v in full.items()}, f"{name} over HTTP")
+    cpu = ScoringService(cpu_bundle, _cpu_state(state), max_batch=256, ids_per_feature=5,
+                         device="cpu").score(rows)
+    assert_heads_close(full, cpu, f"{name} card vs CPU")
+    return full
+
+
+def predict_pair(name, fused_bundle, unfused_bundle, cpu_bundle, state, batch,
+                 check_batch, lo, hi, card, iters=10):
+    """One model's predict step with K6 and through the transposed path
+    (``unfused_bundle``), on one state and one batch: launches per call, the
+    two steps' scores against each other, the
+    fused step against the CPU plain path at ``check_batch``, and the host
+    time per call (a window of ``iters`` calls ending in a synchronize),
+    three windows of each in turns."""
+    from recommendsystem_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from recommendsystem_tpu_torch.train import make_predict_step
+
+    steps = {"fused": make_predict_step(fused_bundle),
+             "unfused": make_predict_step(unfused_bundle)}
+    per_call, outs = {}, {}
+    for kind, step in steps.items():
+        step(state, batch)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        outs[kind] = {k: v.squeeze(1).cpu().numpy() for k, v in step(state, batch).items()}
+        torch.cuda.synchronize()
+        per_call[kind] = {k: v for k, v in launch_counts().items() if v}
+    b = next(iter(outs["fused"].values())).shape[0]
+    if per_call["fused"].get("interacting_attention") != 1 or "field_attention" in per_call["fused"]:
+        raise AssertionError(f"{name} fused predict: launches {per_call['fused']}")
+    if per_call["unfused"].get("field_attention") != 1 or \
+            "interacting_attention" in per_call["unfused"]:
+        raise AssertionError(f"{name} unfused predict: launches {per_call['unfused']}")
+    check_heads(outs["fused"], b, lo, hi, f"{name} predict")
+    assert_heads_close(outs["fused"], outs["unfused"], f"{name} predict, K6 vs K5")
+    small = steps["fused"](state, check_batch)
+    cpu_out = make_predict_step(cpu_bundle)(_cpu_state(state),
+                                            {k: v.to("cpu") for k, v in check_batch.items()})
+    assert_heads_close({k: v.cpu().numpy() for k, v in small.items()},
+                       {k: v.numpy() for k, v in cpu_out.items()},
+                       f"{name} predict b={CHECK_BATCH}, card vs CPU")
+    windows = {"fused": [], "unfused": []}
+    for order in (("unfused", "fused"), ("fused", "unfused"), ("unfused", "fused")):
+        for kind in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                steps[kind](state, batch)
+            torch.cuda.synchronize()
+            windows[kind].append((time.perf_counter() - t0) / iters * 1e3)
+    return {"batch": b, "ms_per_call": {k: sorted(v)[1] for k, v in windows.items()},
+            "window_ms": windows, "launches_per_call": per_call, "card": card}
+
+
+def interacting_path(card, cycles_per_ms, autoint, cpu_autoint, rows200, autoint_scores):
+    """Phase 7: K6 against its plain version; ctr and multi_head serving in
+    one window of launch counts; autoint served through the transposed path;
+    the predict steps with K6 and through the transposed path.  ``autoint``
+    is (bundle, state) of phase 3, whose scores of ``rows200`` (through K6)
+    are ``autoint_scores``; ``cpu_autoint`` its CPU bundle."""
+    from recommendsystem_tpu_torch.core.config import synthetic_ctr_config
+    from recommendsystem_tpu_torch.data import synthetic_batch
+    from recommendsystem_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from recommendsystem_tpu_torch.models import create_model
+    from recommendsystem_tpu_torch.models.autoint import TASK
+    from recommendsystem_tpu_torch.serving import ScoringService
+    from recommendsystem_tpu_torch.train.state import create_train_state
+
+    out = {"card": card}
+    out["cases"] = [interacting_case(f, b, 300 + f + b, cycles_per_ms)
+                    for f, b in INTER_CASES]
+    for c in out["cases"]:
+        log(json.dumps(c))
+    out["grad_check"] = interacting_grad_check()
+    log("interacting gradients:", json.dumps(out["grad_check"]))
+
+    def bundles(name, **kw):
+        # the CPU bundle runs K6's plain version
+        return {"fused": create_model(name, device="cuda", **kw),
+                "unfused": without_k6(create_model(name, device="cuda", **kw)),
+                "cpu": create_model(name, device="cpu", **kw)}
+
+    ctr = bundles("ctr")
+    mh = bundles("multi_head")
+    ctr_state = create_train_state(ctr["fused"], seed=6)
+    mh_state = create_train_state(mh["fused"], seed=7)
+    rng = np.random.default_rng(10)
+    ctr_rows = raw_rows(rng, 200, 5)
+    mh_rows = raw_rows(rng, 200, 5, tuple(str(2000 + s) for s in range(40)))
+    a_unfused = without_k6(create_model("autoint", bucket_size=FULL_BUCKET, device="cuda"))
+
+    # the main path of this phase: one window of counts
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    fused_service_run("ctr", ctr["fused"], ctr_state, ctr["cpu"], ctr_rows, 1e-6, 1.0)
+    fused_service_run("multi_head", mh["fused"], mh_state, mh["cpu"], mh_rows, 0.0, 1.0)
+    torch.cuda.synchronize()
+    serving = launch_counts()
+    out["serve_launches"] = serving
+    log("ctr and multi_head serving launches:", json.dumps(serving))
+    if serving["interacting_attention"] < 1 or serving["fold_mean"] < 1:
+        raise AssertionError("interacting_attention or fold_mean was not launched on "
+                             "the ctr and multi_head serving paths")
+    if serving["field_attention"] != 0:
+        raise AssertionError("the ctr and multi_head serving paths launched field_attention")
+    a_svc = ScoringService(a_unfused, autoint[1], max_batch=256, ids_per_feature=5)
+    a_svc.warmup()
+    np.testing.assert_allclose(a_svc.score(rows200)[TASK], autoint_scores,
+                               err_msg="autoint K6 vs K5", **SCORE_TOL)
+
+    # predict steps with K6 and without
+    ctr212 = bundles("ctr", cfg=synthetic_ctr_config(num_slots=180, num_bias=32),
+                     bucket_size=CTR212_BUCKET)
+    ctr212_state = create_train_state(ctr212["fused"], seed=8)
+    a = {"fused": autoint[0], "unfused": a_unfused, "cpu": cpu_autoint}
+    runs = (("autoint", a, autoint[1], BIG_BATCH, 5, 1e-6, 1.0),
+            ("ctr", ctr, ctr_state, CTR_BATCH, 5, 1e-6, 1.0),
+            ("multi_head", mh, mh_state, CTR_BATCH, 5, 0.0, 1.0),
+            ("ctr212", ctr212, ctr212_state, CTR212_BATCH, {}, 1e-6, 1.0))
+    out["predict"] = {}
+    for name, bset, state, b, ipf, lo, hi in runs:
+        batch = synthetic_batch(bset["fused"], b, seed=40, ids_per_feature=ipf)[0]
+        check = synthetic_batch(bset["fused"], CHECK_BATCH, seed=41, ids_per_feature=ipf)[0]
+        out["predict"][name] = predict_pair(name, bset["fused"], bset["unfused"], bset["cpu"],
+                                            state, batch, check, lo, hi, card)
+        log(f"{name} predict:", json.dumps(out["predict"][name]))
+    out["predict"]["ctr212"]["config"] = "synthetic_ctr_config(num_slots=180, num_bias=32)"
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available; this script runs on a card")
@@ -775,7 +1054,7 @@ def main() -> int:
     from recommendsystem_tpu_torch.models.autoint import TASK
     from recommendsystem_tpu_torch.serving import ScoringService
     from recommendsystem_tpu_torch.train import make_predict_step
-    from recommendsystem_tpu_torch.train.state import TrainState, create_train_state
+    from recommendsystem_tpu_torch.train.state import create_train_state
 
     card = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
@@ -832,9 +1111,7 @@ def main() -> int:
     # -- 3. the main path: full-width autoint serving ------------------------
     rng = np.random.default_rng(0)
     rows200 = raw_rows(rng, 200, 5)
-    cpu_state = TrainState(
-        params={k: v.cpu() for k, v in state.params.items()}, opt_state=None,
-        tables={k: {"w": t["w"].cpu()} for k, t in state.tables.items()})
+    cpu_state = _cpu_state(state)
     cpu_bundle = create_model("autoint", bucket_size=FULL_BUCKET, device="cpu")
 
     rows_single = raw_rows(rng, 100, 1)
@@ -865,7 +1142,7 @@ def main() -> int:
     report["serve_launches"] = {"main_path": serving, "ids_per_feature_5": serve5,
                                 "ids_per_feature_1": serve1}
     log("serving launches:", json.dumps(report["serve_launches"]))
-    for kname, counts in (("fold_mean", serve5), ("field_attention", serve5),
+    for kname, counts in (("fold_mean", serve5), ("interacting_attention", serve5),
                           ("fold_rows", serve1)):
         if counts[kname] < 1:
             raise AssertionError(f"{kname} was not launched on the serving path")
@@ -913,13 +1190,22 @@ def main() -> int:
     cases += report["staytime"]["cases"]
     print(json.dumps({"staytime_predict": report["staytime"]["predict"]}), flush=True)
 
+    # -- 7. the main path: K6 on the ctr, multi_head and autoint paths --------
+    report["interacting"] = interacting_path(card, cycles_per_ms, (bundle, state),
+                                             cpu_bundle, rows200, s200)
+    interacting = report["interacting"]["serve_launches"]
+    cases += report["interacting"]["cases"]
+    print(json.dumps({"interacting_predict": report["interacting"]["predict"]}), flush=True)
+
     # -- report ----------------------------------------------------------------
-    # the serving kernels at the largest serving bucket, the train kernels at
-    # the train batch; attention at autoint's F = 24; the DIN pool at the
-    # staytime bulk batch
+    # the serving folds at the largest serving bucket, the train kernels
+    # (K5 among them: the serving paths take K6) at the train batch, the
+    # last case there being K5f with dropout; attention at autoint's F = 24;
+    # the DIN pool at the staytime bulk batch; K6 at autoint's predict batch
+    # and F = 24
     headline = {}
     for c in cases:
-        serve = c["name"] in ("fold_mean", "fold_rows", "field_attention")
+        serve = c["name"] in ("fold_mean", "fold_rows")
         want_b = STAYTIME_BATCH if c["name"] == "din_pool" else (
             256 if serve else BIG_BATCH)
         if c.get("b", BIG_BATCH) == want_b and c.get("f", 24) == 24:
@@ -941,11 +1227,14 @@ def main() -> int:
                "sparse_adam_update": ("recommendsystem_tpu_torch/csrc/sparse_adam.cu",
                                       "recommendsystem_tpu/embedding/packed.py:1099"),
                "din_pool": ("recommendsystem_tpu_torch/csrc/din_pool.cu",
-                            "recommendsystem_tpu/kernels/din_pallas.py:72")}
+                            "recommendsystem_tpu/kernels/din_pallas.py:72"),
+               "interacting_attention": (
+                   "recommendsystem_tpu_torch/csrc/interacting.cu",
+                   "recommendsystem_tpu/kernels/interacting_pallas.py:107")}
     kernels = []
     for name, (source, replaces) in sources.items():
         c = headline[name]
-        launches = serving[name] + training[name] + staytime[name]
+        launches = serving[name] + training[name] + staytime[name] + interacting[name]
         if launches < 1:
             raise AssertionError(f"{name} was not launched on the main paths")
         kernels.append({

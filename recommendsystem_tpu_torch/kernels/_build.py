@@ -60,10 +60,14 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "din_pool_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _L, _L, _L,
                          _L, _L, _P],
     },
+    "interacting": {
+        "interacting_attention_f32": [_P] * 12 + [_L, _I, _I, _F, _F, _P],
+    },
 }
 
 KERNELS = ("fold_mean", "fold_rows", "field_attention", "field_attention_bwd",
-           "unfold_mean", "unfold_rows", "sparse_adam_update", "din_pool")
+           "unfold_mean", "unfold_rows", "sparse_adam_update", "din_pool",
+           "interacting_attention")
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 

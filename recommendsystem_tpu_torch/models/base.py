@@ -43,13 +43,15 @@ class ModelBundle:
         """(params, tables) drawn from one ``torch.Generator`` on the
         bundle's device seeded with ``seed``: the tables first (sorted
         storage order), then every submodule's ``reset_parameters`` in
-        registration order."""
+        registration order.  The params are copies: the module's own
+        parameters are only the template, so two states of one bundle share
+        no tensor (a train step updates its state in place)."""
         generator = torch.Generator(device=self.device).manual_seed(seed)
         tables = self.embedding.init(generator)
         for mod in self.module.modules():
             if mod is not self.module and hasattr(mod, "reset_parameters"):
                 mod.reset_parameters(generator)
-        params = {k: p.detach() for k, p in self.module.named_parameters()}
+        params = {k: p.detach().clone() for k, p in self.module.named_parameters()}
         return params, tables
 
     def predict_view(self, outputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

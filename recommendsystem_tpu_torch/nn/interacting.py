@@ -1,9 +1,10 @@
 """AutoInt interacting layer (multi-head self-attention over fields).
 
-Counterpart of ``recommendsystem_tpu/nn/interacting.py``, in the transposed
-``(d, F, B)`` form of its ``_xla_iteration_t``: batch is the minor dim end
-to end, so the attention core is the batch-minor field-attention kernel
-(K5, ``kernels/field_attention.py``) with no transpose per iteration.
+Counterpart of ``recommendsystem_tpu/nn/interacting.py`` in two forms: the
+fused iteration (K6) where it applies, else the transposed ``(d, F, B)``
+form of its ``_xla_iteration_t``, in which batch is the minor dim end to
+end, so the attention core is the batch-minor field-attention kernel (K5,
+``kernels/field_attention.py``) with no transpose per iteration.
 
 - ONE set of relu Q/K/V/res projections shared across the ``layer_num``
   iterations;
@@ -19,6 +20,17 @@ to end, so the attention core is the batch-minor field-attention kernel
 Parameters keep the flax names and layout: ``wq``/``wk``/``wv``/``wr`` are
 ``(d, U)`` and the projections compute ``W.T @ x``; ``ln_scale``/``ln_bias``
 are the LayerNorm's gamma/beta.
+
+The layer picks its kernel from what it sees, as the JAX layer under
+``set_backend("pallas")`` does (``nn/interacting.py:142-144,167-174``):
+with ``use_res`` set, unless the call trains with ``use_dropout``, and at
+the widths the fused kernel takes (``kernels.interacting.kernel_takes``:
+D = U = 8, F <= 256, the widths of every model that builds the layer),
+each iteration runs the fused kernel (K6, ``kernels/interacting.py``) in
+the ``(B, F, D)`` layout; any other call runs ``forward_transposed``.  The
+JAX package also asks for a batch that is a multiple of 128 before it
+prefers its flash attention; that rule follows the TPU's lane tile and is
+not carried over.
 """
 
 from __future__ import annotations
@@ -29,6 +41,7 @@ import torch
 from torch import nn
 
 from ..kernels.field_attention import field_attention
+from ..kernels.interacting import interacting_attention, kernel_takes
 from .mlp import glorot_uniform_
 
 
@@ -95,17 +108,37 @@ class InteractingLayer(nn.Module):
         return ((o - mu) * torch.rsqrt(var + self.ln_epsilon)
                 * self.ln_scale[:, None, None] + self.ln_bias[:, None, None])
 
-    def forward(self, inputs: torch.Tensor, training: bool = False,
-                seed: int = 0) -> torch.Tensor:
-        """(B, F, D) -> (B, F, U); ``seed`` (below 2**32) draws the
-        attention dropout of a training step."""
+    @staticmethod
+    def _check(inputs: torch.Tensor, seed: int) -> None:
         if not 0 <= seed < 1 << 32:
             raise ValueError(f"seed {seed} not in [0, 2**32)")
         if inputs.ndim != 3:
             raise ValueError(
                 "The rank of input of InteractingLayer must be 3, but now is %d"
                 % inputs.ndim)
-        # ONE entry and ONE exit transpose for the whole stack
+
+    def forward(self, inputs: torch.Tensor, training: bool = False,
+                seed: int = 0) -> torch.Tensor:
+        """(B, F, D) -> (B, F, U); ``seed`` (below 2**32) draws the
+        attention dropout of a training step."""
+        self._check(inputs, seed)
+        if not (self.use_res and not (self.use_dropout and training)
+                and kernel_takes(self.in_dim, self.unit_num, inputs.shape[1])):
+            return self.forward_transposed(inputs, training, seed)
+        p = {"wq": self.wq, "bq": self.bq, "wk": self.wk, "bk": self.bk,
+             "wv": self.wv, "bv": self.bv, "wr": self.wr, "br": self.br,
+             "gamma": self.ln_scale, "beta": self.ln_bias}
+        output = inputs.contiguous()
+        for _ in range(self.layer_num):
+            output = interacting_attention(output, p, self.head_num, self.ln_epsilon)
+        return output
+
+    def forward_transposed(self, inputs: torch.Tensor, training: bool = False,
+                           seed: int = 0) -> torch.Tensor:
+        """The layer in the transposed layout through K5, whatever the
+        widths: (B, F, D) -> (B, F, U) behind ONE entry and ONE exit
+        transpose for the whole stack."""
+        self._check(inputs, seed)
         x_t = inputs.permute(2, 1, 0).contiguous()
         for i in range(self.layer_num):
             x_t = self._iteration_t(x_t, training, (seed << 32) | i)

@@ -10,7 +10,7 @@ flattened flax parameter tree is a state dict of these modules.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Optional, Sequence
+from typing import Any, Callable, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -46,13 +46,36 @@ def glorot_uniform_(w: torch.Tensor,
         return w.uniform_(-a, a, generator=generator)
 
 
+def truncated_normal(stddev: float) -> Callable:
+    """flax's ``initializers.truncated_normal(stddev)``: N(0, 1) cut at
+    +-2, times ``stddev / 0.87962566103423978`` (the std of the cut normal),
+    as an initializer ``(w, generator) -> w``."""
+    def init_(w: torch.Tensor,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        with torch.no_grad():
+            torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+            return w.mul_(stddev / 0.87962566103423978)
+    return init_
+
+
 class Dense(nn.Module):
-    """Keras-parity Dense: ``activation(x @ kernel + bias)``."""
+    """Keras-parity Dense: ``activation(x @ kernel + bias)``.
+
+    ``kernel_init`` is an initializer ``(w, generator) -> w`` (glorot
+    uniform by default, or ``truncated_normal(stddev)``).
+    ``kernel_regularizer=(l1, l2)`` mirrors ``tf.keras.regularizers.L1L2``
+    as the flax layer does; it is stored here, and the penalty it adds to
+    the training loss comes with the train step of the models that use it
+    (``make_train_step`` refuses a module that holds one meanwhile)."""
 
     def __init__(self, in_features: int, features: int, activation: Any = None,
-                 use_bias: bool = True, device=None):
+                 use_bias: bool = True, kernel_init: Callable = glorot_uniform_,
+                 kernel_regularizer: Optional[Tuple[float, float]] = None,
+                 device=None):
         super().__init__()
         self.activation = resolve_activation(activation)
+        self.kernel_init = kernel_init
+        self.kernel_regularizer = kernel_regularizer
         self.kernel = nn.Parameter(torch.empty((in_features, features),
                                                device=device))
         self.bias = (nn.Parameter(torch.empty((features,), device=device))
@@ -60,7 +83,7 @@ class Dense(nn.Module):
         self.reset_parameters()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        glorot_uniform_(self.kernel, generator)
+        self.kernel_init(self.kernel, generator)
         if self.bias is not None:
             with torch.no_grad():
                 self.bias.zero_()

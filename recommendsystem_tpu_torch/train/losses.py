@@ -24,6 +24,13 @@ def cross_entropy_sum_mean(y_true: torch.Tensor, y_pred: torch.Tensor,
     return cross_entropy_elementwise(y_true, y_pred, a).sum(dim=1).mean(dim=0)
 
 
+def cross_entropy_per_sample(y_true: torch.Tensor, y_pred: torch.Tensor,
+                             a: float = 1.0) -> torch.Tensor:
+    """multi_head cross-entropy: summed over the label axis per sample,
+    (B, 1), no batch reduction."""
+    return cross_entropy_elementwise(y_true, y_pred, a).sum(dim=-1, keepdim=True)
+
+
 def cross_entropy_elementwise(y_true: torch.Tensor, y_pred: torch.Tensor,
                               a: float = 1.0) -> torch.Tensor:
     """staytime cross-entropy, elementwise with no reduction."""

@@ -94,8 +94,9 @@ def _packed_plans(eng, batch):
 def make_train_step(bundle: "ModelBundle", mode: str = "local") -> Callable:
     """Returns ``step(state, batch, labels, sample_weight=None,
     dense_inputs=None, seed=0) -> (state, info)``, the packed train step.
-    The engine's sparse optimizer must be ``SparseAdam``: for any other
-    this raises ``NotImplementedError``.
+    The engine's sparse optimizer must be ``SparseAdam`` and no Dense of
+    the module may carry a kernel regularizer: otherwise this raises
+    ``NotImplementedError``.
 
     ``batch`` holds IdBatches and ``labels`` {task: (B, 1)} tensors on the
     bundle's device; ``seed`` (an int below 2**32) draws the step's
@@ -113,6 +114,13 @@ def make_train_step(bundle: "ModelBundle", mode: str = "local") -> Callable:
             f"train step runs the lazy-Adam pass (K8) only; the AdaGrad update "
             f"on the classic scatter path comes with the staytime train slice "
             f"of the port")
+    regularized = [name for name, mod in bundle.module.named_modules()
+                   if getattr(mod, "kernel_regularizer", None) is not None]
+    if regularized:
+        raise NotImplementedError(
+            f"{bundle.name}: {len(regularized)} Dense layers ({regularized[0]}, "
+            f"...) carry L1L2 kernel penalties that the JAX loss adds; the "
+            f"penalties come with the ctr/multi_head training slice of the port")
 
     def step(state: TrainState, batch, labels, sample_weight=None,
              dense_inputs=None, seed: int = 0):

@@ -3,9 +3,11 @@
 
     python3 scripts/torch_profile_predict.py [--model autoint] [--batch 65536 256] [--steps 10]
     python3 scripts/torch_profile_predict.py --model staytime [--batch 16384 256]
+    python3 scripts/torch_profile_predict.py --model ctr [--batch 32768 256] [--without-k6]
 
 For each batch size: builds the model's full-width bundle (autoint: 24
-tables of 265,000 rows x 8; staytime: 91 tables of 81,920 rows x 32 and 3
+tables of 265,000 rows x 8; ctr: 24 tables of 265,000 x 48; multi_head: 40
+tables of 265,000 x 8; staytime: 91 tables of 81,920 rows x 32 and 3
 behaviour sequences of 50; seeded random weights, 5 ids per mean column),
 warms the predict step up, then
   - times ``steps`` calls on the host clock, ending in a synchronize;
@@ -13,7 +15,12 @@ warms the predict step up, then
     device time of every kernel: busy share = device time / wall time;
   - lists the kernels by device time (kernel names as the trace gives them).
 Prints one JSON line per batch size, with the card's name and power limit,
-and writes the tables to ``chiprun_out/profile_predict_<model>.txt``.
+and writes the tables to ``chiprun_out/profile_predict_<model>[_without_k6].txt``.
+
+``--without-k6`` profiles the path that K6 replaces, as the yardstick for
+it: the script runs the model's InteractingLayer through the layer's
+transposed path (projections, K5f, LayerNorm).  The port itself has no
+such option; the layer takes K6 wherever K6 applies.
 """
 
 from __future__ import annotations
@@ -30,7 +37,8 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-DEFAULT_BATCHES = {"autoint": [65536, 256], "staytime": [16384, 256]}
+DEFAULT_BATCHES = {"autoint": [65536, 256], "ctr": [32768, 256],
+                   "multi_head": [32768, 256], "staytime": [16384, 256]}
 
 
 def _device_us(evt) -> float:
@@ -45,7 +53,11 @@ def main(argv=None) -> int:
     ap.add_argument("--model", default="autoint", choices=sorted(DEFAULT_BATCHES))
     ap.add_argument("--batch", type=int, nargs="+", default=None)
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--without-k6", action="store_true",
+                    help="profile the InteractingLayer's transposed path instead of K6")
     args = ap.parse_args(argv)
+    if args.without_k6 and args.model == "staytime":
+        ap.error("--without-k6: staytime has no InteractingLayer")
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 2
@@ -62,6 +74,11 @@ def main(argv=None) -> int:
     print(card, flush=True)
     batches = args.batch or DEFAULT_BATCHES[args.model]
     bundle = create_model(args.model, device="cuda")
+    suffix = ""
+    if args.without_k6:
+        layer = bundle.module.interacting
+        layer.forward = layer.forward_transposed
+        suffix = "_without_k6"
     state = create_train_state(bundle, seed=0)
     step = make_predict_step(bundle)
     os.makedirs("chiprun_out", exist_ok=True)
@@ -91,16 +108,17 @@ def main(argv=None) -> int:
         top = [{"name": e.key[:90], "calls_per_step": e.count // args.steps,
                 "us_per_step": _device_us(e) / args.steps} for e in kernels[:12]]
         n_kernels = sum(e.count for e in kernels) // args.steps
-        row = {"model": args.model, "batch": b, "ms_per_call": wall * 1e3,
+        row = {"model": args.model + suffix, "batch": b, "ms_per_call": wall * 1e3,
                "examples_per_s": b / wall, "traced_ms_per_call": traced_wall * 1e3,
                "device_busy_ms_per_call": busy_us / 1e3,
                "device_busy_share": busy_us / 1e3 / (traced_wall * 1e3),
                "device_kernels_per_call": n_kernels,
                "port_kernel_launches_per_call": counts, "card": card}
         print(json.dumps(row), flush=True)
-        tables.append(f"## {args.model} batch {b} ({card})\n{json.dumps(row)}\n"
+        tables.append(f"## {args.model}{suffix} batch {b} ({card})\n{json.dumps(row)}\n"
                       + "\n".join(json.dumps(t) for t in top) + "\n")
-    with open(os.path.join("chiprun_out", f"profile_predict_{args.model}.txt"), "w") as fh:
+    with open(os.path.join("chiprun_out", f"profile_predict_{args.model}{suffix}.txt"),
+              "w") as fh:
         fh.write("\n".join(tables))
     print("\n".join(tables), file=sys.stderr)
     return 0

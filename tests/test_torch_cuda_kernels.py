@@ -14,7 +14,9 @@ row (atomics add in another order on every run), its counts exact; the
 lazy Adam's m and v rtol 1e-6 and w atol 1e-7 (``powf`` on the card against
 PyTorch's pow: one ulp in a bias correction), t and show exact; the DIN
 pool atol 2e-5 (a softmax over T and 4H-term dots in another order, as the
-JAX package holds its own kernel), its gradients rtol 1e-4, atol 1e-5.
+JAX package holds its own kernel), its gradients rtol 1e-4, atol 1e-5; the
+fused InteractingLayer iteration rtol and atol 2e-5 (the JAX package's own
+for it), its gradients rtol 1e-4, atol 1e-5.
 """
 
 import pytest
@@ -24,6 +26,11 @@ from recommendsystem_tpu_torch.embedding import packed
 from recommendsystem_tpu_torch.embedding.optimizers import SparseAdam
 from recommendsystem_tpu_torch.kernels.din import din_pool, din_pool_plain
 from recommendsystem_tpu_torch.kernels import launch_counts, reset_launch_counts
+from recommendsystem_tpu_torch.kernels.interacting import (
+    PARAM_NAMES,
+    interacting_attention,
+    interacting_attention_plain,
+)
 from recommendsystem_tpu_torch.kernels.field_attention import (
     field_attention,
     field_attention_bwd,
@@ -266,6 +273,58 @@ def test_dinpool_layer_launches_the_kernel(cuda):
     assert launch_counts()["din_pool"] == 1
 
 
+def _interacting_inputs(dev, b, f, seed, d=8, requires_grad=False):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, f, d), generator=g, device=dev)
+    p = {}
+    for name in PARAM_NAMES:
+        shape = (d, 8) if name.startswith("w") else (8,)
+        scale = 0.5 if name.startswith("w") else 0.2
+        p[name] = torch.randn(shape, generator=g, device=dev) * scale
+    p["gamma"] = p["gamma"] + 1.0
+    if requires_grad:
+        x.requires_grad_()
+        for t in p.values():
+            t.requires_grad_()
+    return x, p
+
+
+@pytest.mark.parametrize("b,f,h", [(8, 24, 2), (256, 24, 2), (1000, 40, 2),
+                                   (33, 180, 2), (5, 1, 2), (3, 256, 2),
+                                   (64, 13, 1), (64, 13, 4), (64, 13, 8), (1, 24, 2)])
+def test_interacting_attention_kernel(cuda, b, f, h):
+    x, p = _interacting_inputs(cuda, b, f, seed=b * f + h)
+    got = interacting_attention(x, p, h, 1e-3)
+    want = interacting_attention_plain(x, p, h, 1e-3)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    assert launch_counts()["interacting_attention"] == 1
+
+
+def test_interacting_attention_backward_through_the_function(cuda):
+    x, p = _interacting_inputs(cuda, 256, 24, seed=11, requires_grad=True)
+    do = torch.randn((256, 24, 8), device=cuda)
+    wrt = [x] + [p[n] for n in PARAM_NAMES]
+    got = torch.autograd.grad(interacting_attention(x, p), wrt, do)
+    want = torch.autograd.grad(interacting_attention_plain(x, p, 2, 1e-3), wrt, do)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-5)
+    assert launch_counts()["interacting_attention"] == 1
+
+
+def test_interacting_layer_launches_the_kernel(cuda):
+    from recommendsystem_tpu_torch.nn import InteractingLayer
+    layer = InteractingLayer(8, layer_num=2, unit_num=8, head_num=2, use_dropout=True,
+                             device=cuda)
+    x = torch.randn((300, 24, 8), device=cuda)
+    with torch.inference_mode():
+        got = layer(x)
+        assert launch_counts()["interacting_attention"] == 2
+        want = layer.forward_transposed(x)
+        assert launch_counts()["field_attention"] == 2
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = torch.randn(2, 5, 8, 16, device=cuda)
     with pytest.raises(ValueError, match="d_head"):
@@ -291,4 +350,12 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     from recommendsystem_tpu_torch.nn import DINPool
     with pytest.raises(ValueError, match="width 16"):
         DINPool(16, hidden=8, device=cuda)(q, f, mask.bool())
+    x, p = _interacting_inputs(cuda, 4, 24, seed=2, d=16)
+    with pytest.raises(ValueError, match="D = U = 8"):
+        interacting_attention(x, p)
+    x, p = _interacting_inputs(cuda, 2, 257, seed=3)
+    with pytest.raises(ValueError, match="F <= 256"):
+        interacting_attention(x, p)
+    with pytest.raises(ValueError, match="aligned"):
+        interacting_attention(x.reshape(-1)[1:1 + 2 * 24 * 8].reshape(2, 24, 8), p)
     assert set(launch_counts().values()) == {0}
