@@ -8,8 +8,10 @@
 2. holds each kernel against its plain PyTorch version on the card, at the
    shapes the serving and train paths give it (batch buckets 8, 200 and 256,
    and 65536; field attention also at F = 175, with dropout 0.2, and its
-   backward; the unfold-scatter at B = 4096 and 65536; the lazy Adam over
-   one full storage), and times kernel, plain version and a library
+   backward, checked bit-identical over two launches; the unfold-scatter at
+   B = 4096 and 65536; the lazy Adam as one grouped pass over autoint's 24
+   full storages, and over a group of mixed widths), and times kernel,
+   plain version and a library
    yardstick that the port never calls: device time per call (``ms``, calls
    run back to back behind a spin kernel) and, for the kernel, the host's
    time to issue one call (``host_ms``);
@@ -26,9 +28,10 @@
    attention dropout 0.2, so the InteractingLayer takes K5f and K5b; lazy
    Adam on the tables, dense Adam) for a few
    steps with 5 ids per feature and with 1, counts set to 0 just before and
-   read just after; checks the loss finite and t and show equal to the live
-   counts; holds two steps on the card to the same two steps on the CPU
-   through the plain versions (B = 4096, same seeds, same dropout); times
+   read just after; checks the loss finite, t and show equal to the live
+   counts, and one lazy-Adam launch and one attention backward a step;
+   holds two steps on the card to the same two steps on the CPU through
+   the plain versions (B = 4096, same seeds, same dropout); times
    the step as the median of 3 windows, each ending in a synchronize and a
    host fetch of the last loss;
 6. drives the staytime serving path: the DIN-pool kernel against its plain
@@ -290,11 +293,14 @@ def attention_bwd_case(h, dh, f, b, seed, cycles_per_ms, rate=DROPOUT):
     qc, kc, vc, doc = (x[..., c0].contiguous() for x in (q, k, v, do))
     oc, lsec = field_attention_fwd_plain(qc, kc, vc, dseed, rate)
     got = field_attention_bwd(qc, kc, vc, oc, lsec, doc, dseed, rate)
+    again = field_attention_bwd(qc, kc, vc, oc, lsec, doc, dseed, rate)
     want = field_attention_bwd_reference(qc, kc, vc, oc, lsec, doc, dseed, rate)
     torch.cuda.synchronize()
     err = max(float((a - w).abs().max()) for a, w in zip(got, want))
     for a, w in zip(got, want):
         torch.testing.assert_close(a, w, **GRAD_TOL)
+    if not all(torch.equal(a, c) for a, c in zip(got, again)):
+        raise AssertionError(f"field_attention_bwd F={f} b={b}: two launches differ")
     # timing at the full batch: o and lse from the plain forward per chunk
     o = torch.empty_like(q)
     lse = torch.empty((h, f, b), device="cuda")
@@ -323,7 +329,8 @@ def attention_bwd_case(h, dh, f, b, seed, cycles_per_ms, rate=DROPOUT):
     iters = 20
     ms, host_ms = timed(kernel, iters, cycles_per_ms)
     return {"name": "field_attention_bwd", "b": b, "f": f, "h": h, "dh": dh,
-            "rate": rate, "max_abs_err": err, "ms": ms, "host_ms": host_ms,
+            "rate": rate, "max_abs_err": err, "deterministic": True,
+            "ms": ms, "host_ms": host_ms,
             "plain_ms": timed(plain, 2, cycles_per_ms)[0],
             "library_ms": timed(library, iters, cycles_per_ms)[0],
             "bound_ms": bms, "bound_by": by, "bytes": nbytes, "ops": ops}
@@ -379,75 +386,152 @@ def unfold_case(name, eng, skey, batch, cycles_per_ms):
             "bound_ms": bms, "bound_by": by, "bytes": nbytes, "ops": ops}
 
 
-def adam_case(eng, skey, tstate, batch, cycles_per_ms):
-    """K8 over one full storage, with the counts and gradients that one
-    column of the train batch leaves in its accumulator, against the plain
-    ``SparseAdam.update``.  The pass clears the accumulator, so each timed
-    call first restores it: ``ms`` is the time of restore + pass less the
-    time of the restore alone.  Yardstick: ``torch.optim.Adam`` (foreach)
-    over the same table as one dense parameter, a non-lazy update."""
+def _check_adam(got, want, before, acc0, accs, what):
+    """K8's result against the plain version's: w within ADAM_W_TOL, m and v
+    within ADAM_M_RTOL, t and show exact, rows with count 0 bit-identical,
+    every accumulator left zero.  Returns the max abs error of w."""
+    err = 0.0
+    for g, w, b, a0, a in zip(got, want, before, acc0, accs):
+        err = max(err, float((g["w"] - w["w"]).abs().max()))
+        torch.testing.assert_close(g["w"], w["w"], rtol=0, atol=ADAM_W_TOL)
+        for n in ("m", "v"):
+            torch.testing.assert_close(g["opt"][n], w["opt"][n], rtol=ADAM_M_RTOL, atol=0)
+        for x, y in ((g["opt"]["t"], w["opt"]["t"]), (g["show"], w["show"])):
+            torch.testing.assert_close(x, y, rtol=0, atol=0)
+        dead = a0[:, -1] == 0
+        for x, y in ((g["w"], b["w"]), (g["opt"]["m"], b["opt"]["m"]),
+                     (g["opt"]["v"], b["opt"]["v"]), (g["opt"]["t"], b["opt"]["t"]),
+                     (g["show"], b["show"])):
+            if not torch.equal(x[dead], y[dead]):
+                raise AssertionError(f"{what}: a row with count 0 changed")
+        if a.any():
+            raise AssertionError(f"{what}: sparse_adam_update left an accumulator non-zero")
+    return err
+
+
+def _adam_bytes(acc0):
+    """A live row reads acc (D+1), w, m, v (3 D), t and show, and writes all
+    of them; a row with count 0 reads its count."""
+    nbytes = 0
+    for a in acc0:
+        d = a.shape[1] - 1
+        live = int((a[:, d] > 0).sum())
+        nbytes += live * 4 * (2 * (d + 1) + 6 * d + 4) + (a.shape[0] - live) * 4
+    return nbytes, sum(int((a[:, -1] > 0).sum()) * (a.shape[1] - 1) * 14 for a in acc0)
+
+
+def adam_case(eng, tables, batch, cycles_per_ms):
+    """K8 as the train step issues it: one grouped pass over every storage
+    (autoint's 24), with the counts and gradients that one train batch
+    leaves in the accumulators, against the plain ``SparseAdam.update`` on
+    each storage in turn; also one storage alone.  The pass clears the
+    accumulators, so each timed call first restores them with one copy
+    (the accumulators are views of one buffer): ``ms`` is the time of
+    restore + pass less the time of the restore alone.  Yardstick: one
+    ``torch.optim.Adam`` (foreach) step over the same tables as dense
+    parameters, a non-lazy update."""
     from recommendsystem_tpu_torch.embedding import packed
 
-    plans = packed.plan_segments(eng, batch, storages={skey})
-    (seg,) = plans[skey]
-    ids, mask = packed.storage_stream(eng, skey, plans[skey], batch)
-    rows, d = eng.storage[skey]
-    b = ids.shape[0] // seg.l
-    acc0 = torch.zeros((rows, d + 1), device="cuda")
-    g = torch.randn((b, d), generator=torch.Generator(device="cuda").manual_seed(3),
-                    device="cuda") * 1e-3
-    packed.unfold_mean_scatter_plain(acc0, g, ids, mask, seg.l)
+    skeys = sorted(tables)
+    plans = packed.plan_segments(eng, batch, storages=set(skeys))
+    sizes = [eng.storage[k][0] * (eng.storage[k][1] + 1) for k in skeys]
+    flat0 = torch.zeros(sum(sizes), device="cuda")
+    acc0 = [x.view(eng.storage[k][0], -1) for k, x in zip(skeys, flat0.split(sizes))]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for skey, a in zip(skeys, acc0):
+        (seg,) = plans[skey]
+        ids, mask = packed.storage_stream(eng, skey, plans[skey], batch)
+        g = torch.randn((ids.shape[0] // seg.l, a.shape[1] - 1), generator=gen,
+                        device="cuda") * 1e-3
+        packed.unfold_mean_scatter_plain(a, g, ids, mask, seg.l)
+    flat = flat0.clone()
+    accs = [x.view_as(a) for x, a in zip(flat.split(sizes), acc0)]
     opt = eng.sparse_opt
-
-    def copy(ts):
-        return {"w": ts["w"].clone(), "opt": {n: x.clone() for n, x in ts["opt"].items()},
-                "show": ts["show"].clone()}
-
-    got, want = copy(tstate), copy(tstate)
-    acc = acc0.clone()
-    packed.sparse_adam_update(opt, got, acc)
-    packed.sparse_adam_update_plain(opt, want, acc0.clone())
+    before = [tables[k] for k in skeys]
+    got = [_to(t, "cuda") for t in before]
+    want = [_to(t, "cuda") for t in before]
+    packed.sparse_adam_update_group(opt, got, accs)
+    for w, a in zip(want, acc0):
+        packed.sparse_adam_update_plain(opt, w, a.clone())
     torch.cuda.synchronize()
-    err = float((got["w"] - want["w"]).abs().max())
-    torch.testing.assert_close(got["w"], want["w"], rtol=0, atol=ADAM_W_TOL)
-    for n in ("m", "v"):
-        torch.testing.assert_close(got["opt"][n], want["opt"][n], rtol=ADAM_M_RTOL, atol=0)
-    for a, w in ((got["opt"]["t"], want["opt"]["t"]), (got["show"], want["show"])):
-        torch.testing.assert_close(a, w, rtol=0, atol=0)
-    if acc.any():
-        raise AssertionError("sparse_adam_update left its accumulator non-zero")
+    err = _check_adam(got, want, before, acc0, accs, "sparse_adam_update (24 storages)")
 
     def restore():
-        acc.copy_(acc0)
+        flat.copy_(flat0)
 
     def kernel():
         restore()
-        packed.sparse_adam_update(opt, got, acc)
+        packed.sparse_adam_update_group(opt, got, accs)
+
+    def single():
+        accs[0].copy_(acc0[0])
+        packed.sparse_adam_update(opt, got[0], accs[0])
 
     def plain():
         restore()
-        packed.sparse_adam_update_plain(opt, want, acc)
+        for w, a in zip(want, accs):
+            packed.sparse_adam_update_plain(opt, w, a)
 
-    param = torch.nn.Parameter(tstate["w"].clone())
-    param.grad = acc0[:, :d].clone()
-    dense = torch.optim.Adam([param], lr=opt.learning_rate, foreach=True)
-    library = dense.step
-    live = int((acc0[:, d] > 0).sum())
-    # a live row reads acc (D+1), w, m, v (3 D), t and show, and writes all
-    # of them; a row with count 0 reads its count
-    nbytes = live * 4 * (2 * (d + 1) + 6 * d + 4) + (rows - live) * 4
-    ops = live * d * 14
+    params = [torch.nn.Parameter(t["w"].clone()) for t in before]
+    for p, a in zip(params, acc0):
+        p.grad = a[:, :-1].clone()
+    dense = torch.optim.Adam(params, lr=opt.learning_rate, foreach=True)
+    nbytes, ops = _adam_bytes(acc0)
     bms, by = bound(nbytes, ops)
-    iters = 48
+    one_bytes, one_ops = _adam_bytes(acc0[:1])
+    iters = 24
     ms_restore = timed(restore, iters, cycles_per_ms)[0]
+    ms_restore1 = timed(lambda: accs[0].copy_(acc0[0]), iters, cycles_per_ms)[0]
     ms, host_ms = timed(kernel, iters, cycles_per_ms)
-    return {"name": "sparse_adam_update", "rows": rows, "d": d, "live_rows": live,
+    single_ms, single_host_ms = timed(single, iters, cycles_per_ms)
+    return {"name": "sparse_adam_update", "storages": len(skeys),
+            "rows": sum(a.shape[0] for a in acc0), "d": sorted({a.shape[1] - 1 for a in acc0}),
+            "live_rows": sum(int((a[:, -1] > 0).sum()) for a in acc0),
             "max_abs_err": err, "ms": ms - ms_restore, "restore_ms": ms_restore,
             "host_ms": host_ms,
-            "plain_ms": timed(plain, iters, cycles_per_ms)[0] - ms_restore,
-            "library_ms": timed(library, iters, cycles_per_ms)[0],
-            "library": "torch.optim.Adam(foreach=True), dense over the table",
+            "single_storage": {"ms": single_ms - ms_restore1, "restore_ms": ms_restore1,
+                               "host_ms": single_host_ms,
+                               "bound_ms": bound(one_bytes, one_ops)[0]},
+            "plain_ms": timed(plain, 4, cycles_per_ms)[0] - ms_restore,
+            "library_ms": timed(dense.step, iters, cycles_per_ms)[0],
+            "library": "torch.optim.Adam(foreach=True), dense over the tables",
             "bound_ms": bms, "bound_by": by, "bytes": nbytes, "ops": ops}
+
+
+def adam_mixed_case():
+    """K8 over one group of storages of D 8, 48, 56, 3 and 1 (rows odd,
+    100,003 to 2,001; a third of the rows live, the D = 1 storage all
+    dead) against the plain version: the grouped launch with storages of
+    other widths than autoint's."""
+    from recommendsystem_tpu_torch.embedding import packed
+    from recommendsystem_tpu_torch.embedding.optimizers import SparseAdam
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    before, acc0 = [], []
+    for rows, d, live in ((100003, 8, 0.3), (30001, 48, 0.3), (20011, 56, 0.3),
+                          (5003, 3, 0.3), (2001, 1, 0.0)):
+        cnt = torch.where(torch.rand((rows, 1), generator=gen, device="cuda") < live,
+                          torch.randint(1, 5, (rows, 1), generator=gen, device="cuda"),
+                          0).float()
+        acc0.append(torch.cat([torch.randn((rows, d), generator=gen, device="cuda")
+                               * 1e-2 * (cnt > 0), cnt], dim=1))
+        before.append({
+            "w": torch.randn((rows, d), generator=gen, device="cuda"),
+            "opt": {"m": torch.randn((rows, d), generator=gen, device="cuda") * 1e-3,
+                    "v": torch.rand((rows, d), generator=gen, device="cuda") * 1e-5,
+                    "t": torch.randint(0, 4, (rows, 1), generator=gen, device="cuda").float()},
+            "show": torch.randint(0, 9, (rows, 1), generator=gen, device="cuda").float()})
+    opt = SparseAdam(learning_rate=1e-3)
+    got = [_to(t, "cuda") for t in before]
+    want = [_to(t, "cuda") for t in before]
+    accs = [a.clone() for a in acc0]
+    packed.sparse_adam_update_group(opt, got, accs)
+    for w, a in zip(want, acc0):
+        packed.sparse_adam_update_plain(opt, w, a.clone())
+    torch.cuda.synchronize()
+    err = _check_adam(got, want, before, acc0, accs, "sparse_adam_update (mixed D)")
+    return {"name": "sparse_adam_update", "b": 0, "d": [8, 48, 56, 3, 1],
+            "max_abs_err": err}
 
 
 def din_case(b, seed, cycles_per_ms):
@@ -735,6 +819,12 @@ def train_path(bundle, cpu_bundle, card):
                       ("fold_rows", 1), ("unfold_rows", 1)):
         if per_run[ipf][name] < 1:
             raise AssertionError(f"{name} was not launched on the train path")
+    # one grouped lazy-Adam pass and one attention backward a step
+    for ipf in (5, 1):
+        for name in ("sparse_adam_update", "field_attention_bwd"):
+            if out["launches_per_step"][f"ids{ipf}"][name] != 1:
+                raise AssertionError(f"{name}: {out['launches_per_step'][f'ids{ipf}'][name]} "
+                                     f"launches a step with {ipf} ids, not 1")
 
     # two steps on the card against the same two on the CPU (plain versions)
     gstate = create_train_state(bundle, seed=3)
@@ -1100,7 +1190,8 @@ def main() -> int:
             batch = synthetic_batch(bundle, b, seed=b + ipf + 1, ids_per_feature=ipf)[0]
             cases.append(unfold_case(name, eng, skeys[0], batch, cycles_per_ms))
     batch = synthetic_batch(bundle, BIG_BATCH, seed=5)[0]
-    cases.append(adam_case(eng, skeys[0], state.tables[skeys[0]], batch, cycles_per_ms))
+    cases.append(adam_case(eng, state.tables, batch, cycles_per_ms))
+    cases.append(adam_mixed_case())
     cases.append(attention_case(2, 4, 24, BIG_BATCH, 99, cycles_per_ms, rate=DROPOUT))
     cases.append(attention_bwd_case(2, 4, 24, BIG_BATCH, 7, cycles_per_ms))
     cases.append(attention_bwd_case(2, 4, 175, 8192, 8, cycles_per_ms))

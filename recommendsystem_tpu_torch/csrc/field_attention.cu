@@ -5,8 +5,7 @@
 // Replaces recommendsystem_tpu/kernels/field_attention_pallas.py::
 // field_attention (:175; pallas_call in _call :209, bodies _fwd_kernel :98
 // and _bwd_kernel :111).  Layout as there, batch-minor: q/k/v/o/do and the
-// gradients are (head, dh, F, B) float32, contiguous; lse and the row dots
-// of the backward are (head, F, B).
+// gradients are (head, dh, F, B) float32, contiguous; lse is (head, F, B).
 //
 // Dropout.  The TPU kernel seeded its hardware generator per grid cell.
 // Here every weight (head, query fq, key fk, sample b) draws its own bits
@@ -23,7 +22,9 @@
 // flops, h*F*F*B exponentials and, with dropout, h*F*F*B/4 Philox draws;
 // at dh = 4 that is F/4 flops per byte against the card's 20, so autoint's
 // F = 24 is bound by bytes and the production ctr's F = 175 by operations.
-// The backward reads q, k, v, o, do, lse and writes dq, dk, dv.
+// The backward reads q, k, v, o, do, lse and writes dq, dk, dv
+// (32*h*dh*F*B + 4*h*F*B bytes) against (10*dh + 5)*h*F*F*B operations: at
+// autoint's dh = 4 and F = 24 its bytes bound it, at F = 175 its operations.
 //
 // Forward design: one thread per (head, query field, sample); a block is 32
 // samples (threadIdx.x, B fastest, so every load and store coalesces) by kFq
@@ -38,16 +39,28 @@
 //
 // Backward design: the TPU kernel summed dk and dv over query tiles across
 // sequential grid steps; blocks here run in no order, so no block may share
-// a dk or dv element with another.  One thread owns one (head, field f,
-// sample b) and computes everything of its field: dq[f] as the query
-// (a loop over all keys) and dk[f], dv[f] as the key (a loop over all
-// queries), recomputing p = exp(s - lse) for each pair on both sides.  So
-// every sum stays in one thread's registers, with no atomics and no order
-// between blocks, at the price of computing each score twice.  A first
-// kernel writes D = rowsum(do * o), which stands in for sum_k dp*p also
-// under dropout (sum_k m_k p_k (do.v_k) = do.o).  The other fields' rows
-// come from device memory through L1: the kFq threads of a block that read
-// one row read it at once.
+// a dq, dk or dv element with another.  A block owns one head and kLanes = 32
+// samples (threadIdx.x) for all F fields, so every sum stays inside it, and
+// each (query, key, sample) score, its exponential, its dropout draw and its
+// ds are computed once:
+//  - keys go in chunks of KC = min(32, 128 / dh) fields, whose k and v rows
+//    the block stages in shared memory;
+//  - within a chunk, queries go in tiles of kBY = 8 (threadIdx.y).  In the
+//    query phase the thread of (query, sample) loads its q, do and o rows,
+//    forms rowdot = do.o (which stands in for sum_k dp*p also under dropout:
+//    sum_k m_k p_k (do.v_k) = do.o) and walks the chunk's keys, 4 at a
+//    time: scores, p = exp2((s*scale - lse) log2 e), one Philox call with
+//    the forward's counter (b, fq, head, fk/4), ds = p (m do.v - rowdot);
+//    it sums ds*k
+//    into its dq and writes ds and p*m, with its q and do rows, to shared
+//    memory;
+//  - in the key phase the thread of (key, sample) sums ds*q into dk and
+//    p*m*do into dv, over the tile's queries in order, in registers that
+//    live across the chunk's query tiles;
+//  - dq of a query is summed over the chunks in order, in place in dq (its
+//    one owner reads back what it wrote), and scaled after the last chunk.
+// Every sum runs in a fixed order, with no atomics, so two launches give the
+// same bits.  Shared memory depends on dh alone (74-104 KB), so any F fits.
 
 #include <math.h>
 #include <stdint.h>
@@ -56,7 +69,7 @@
 
 namespace {
 
-constexpr int kLanes = 32;   // samples per block
+constexpr int kLanes = 32;   // samples per block (forward and backward)
 constexpr int kFq = 8;       // query fields per block
 
 constexpr uint32_t kPhiloxM0 = 0xD2511F53u;
@@ -189,123 +202,197 @@ field_attention_fwd_kernel(const float* __restrict__ q,
   }
 }
 
-// rowdot[h, f, b] = sum_d do[h, d, f, b] * o[h, d, f, b]
-__global__ void row_dot_kernel(const float* __restrict__ dout,
-                               const float* __restrict__ o,
-                               float* __restrict__ rowdot,
-                               long long h, int dh, long long fb) {
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= h * fb) return;
-  const long long hi = t / fb;
-  const long long x = t - hi * fb;
-  const float* dp = dout + hi * dh * fb + x;
-  const float* op = o + hi * dh * fb + x;
-  float s = 0.f;
-  for (int d = 0; d < dh; ++d) s += dp[d * fb] * op[d * fb];
-  rowdot[t] = s;
+constexpr int kBY = 8;    // backward: queries per tile (threadIdx.y)
+constexpr float kLog2e = 1.44269504f;   // exp(x) = exp2(x * log2 e): one ex2.approx
+
+// a sample's dh floats, contiguous in shared memory: one 16-byte access
+// per 4 floats
+template <int DH>
+__device__ __forceinline__ void load_row(const float* p, float (&r)[DH]) {
+  if constexpr (DH % 4 == 0) {
+#pragma unroll
+    for (int d = 0; d < DH; d += 4) {
+      const float4 t = *reinterpret_cast<const float4*>(p + d);
+      r[d] = t.x; r[d + 1] = t.y; r[d + 2] = t.z; r[d + 3] = t.w;
+    }
+  } else {
+#pragma unroll
+    for (int d = 0; d < DH; ++d) r[d] = p[d];
+  }
 }
 
+template <int DH>
+__device__ __forceinline__ void store_row(float* p, const float (&r)[DH]) {
+  if constexpr (DH % 4 == 0) {
+#pragma unroll
+    for (int d = 0; d < DH; d += 4) {
+      *reinterpret_cast<float4*>(p + d) = make_float4(r[d], r[d + 1], r[d + 2], r[d + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int d = 0; d < DH; ++d) p[d] = r[d];
+  }
+}
+
+template <int DH>
+struct BwdTile {
+  static constexpr int KC = 128 / DH < 32 ? 128 / DH : 32;   // keys per chunk
+  static constexpr int KPT = (KC + kBY - 1) / kBY;             // keys per thread
+  static constexpr int kFloats =
+      2 * DH * KC * kLanes + 2 * kBY * DH * kLanes + 2 * kBY * KC * kLanes;
+};
+
 template <int DH, bool kDrop>
-__global__ void __launch_bounds__(kLanes * kFq)
+__global__ void __launch_bounds__(kLanes * kBY)
 field_attention_bwd_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v,
+                           const float* __restrict__ o,
                            const float* __restrict__ dout,
                            const float* __restrict__ lse,
-                           const float* __restrict__ rowdot,
                            float* __restrict__ dq,
                            float* __restrict__ dk,
                            float* __restrict__ dv,
                            int f, long long b, float scale, Dropout drop) {
-  const int fi = blockIdx.y * kFq + threadIdx.y;
-  const long long bi = static_cast<long long>(blockIdx.x) * kLanes + threadIdx.x;
-  if (fi >= f || bi >= b) return;
-  const int h = blockIdx.z;
+  using T = BwdTile<DH>;
+  constexpr int KC = T::KC;
+  extern __shared__ float smem[];
+  // a sample's dh floats are contiguous, so a thread reads a row in dh / 4
+  // 16-byte accesses
+  float* ks = smem;                     // [KC][kLanes][DH] the chunk's keys
+  float* vs = ks + DH * KC * kLanes;    // [KC][kLanes][DH]
+  float* qs = vs + DH * KC * kLanes;    // [kBY][kLanes][DH] the tile's queries
+  float* dos = qs + kBY * DH * kLanes;  // [kBY][kLanes][DH]
+  // [kBY][KC][kLanes] (ds, p * m) of the tile's pairs
+  float2* dsp = reinterpret_cast<float2*>(dos + kBY * DH * kLanes);
+
+  const int x = threadIdx.x;
+  const int y = threadIdx.y;
+  const int tid = y * kLanes + x;
+  const int h = blockIdx.y;
+  const long long b0 = static_cast<long long>(blockIdx.x) * kLanes;
+  const long long bi = b0 + x;
+  const bool lane_ok = bi < b;
   const long long fb = static_cast<long long>(f) * b;
   const long long head = static_cast<long long>(h) * DH * fb;
-  const float* qh = q + head + bi;
-  const float* kh = k + head + bi;
-  const float* vh = v + head + bi;
-  const float* doh = dout + head + bi;
-  const float* lseh = lse + static_cast<long long>(h) * fb + bi;
-  const float* rdh = rowdot + static_cast<long long>(h) * fb + bi;
-  const long long own = static_cast<long long>(fi) * b;
 
-  float qf[DH], kf[DH], vf[DH], dof[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) {
-    qf[d] = qh[d * fb + own];
-    kf[d] = kh[d * fb + own];
-    vf[d] = vh[d * fb + own];
-    dof[d] = doh[d * fb + own];
-  }
-
-  // field fi as the query: dq = scale * sum_g ds[fi, g] k[g]
-  {
-    const float lse_f = lseh[own];
-    const float rd_f = rdh[own];
-    float acc[DH];
-#pragma unroll
-    for (int d = 0; d < DH; ++d) acc[d] = 0.f;
-    uint4 bits = make_uint4(0u, 0u, 0u, 0u);
-    for (int g = 0; g < f; ++g) {
-      const long long og = static_cast<long long>(g) * b;
-      float kg[DH];
-      float s = 0.f, dpv = 0.f;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) {
-        kg[d] = kh[d * fb + og];
-        s += qf[d] * kg[d];
-        dpv += dof[d] * vh[d * fb + og];
-      }
-      const float p = expf(s * scale - lse_f);
-      if (kDrop) {
-        if ((g & 3) == 0) bits = drop.bits(bi, fi, h, g >> 2);
-        dpv *= drop.scale(word(bits, g & 3));
-      }
-      const float ds = p * (dpv - rd_f);
-#pragma unroll
-      for (int d = 0; d < DH; ++d) acc[d] += ds * kg[d];
+  for (int kc0 = 0; kc0 < f; kc0 += KC) {
+    const int nk = min(KC, f - kc0);
+    const bool last_chunk = kc0 + KC >= f;
+    for (int i = tid; i < DH * KC * kLanes; i += kLanes * kBY) {
+      const int il = i % kLanes;
+      const int j = (i / kLanes) % KC;
+      const int d = i / (kLanes * KC);
+      const bool ok = j < nk && b0 + il < b;
+      const long long off = head + d * fb + static_cast<long long>(kc0 + j) * b + b0 + il;
+      ks[(j * kLanes + il) * DH + d] = ok ? k[off] : 0.f;
+      vs[(j * kLanes + il) * DH + d] = ok ? v[off] : 0.f;
     }
+    float ak[T::KPT][DH], av[T::KPT][DH];
 #pragma unroll
-    for (int d = 0; d < DH; ++d) dq[head + d * fb + own + bi] = acc[d] * scale;
-  }
-
-  // field fi as the key: dv = sum_g p[g, fi] m[g, fi] do[g],
-  //                      dk = scale * sum_g ds[g, fi] q[g]
-  {
-    float acc_k[DH], acc_v[DH];
+    for (int i = 0; i < T::KPT; ++i) {
 #pragma unroll
-    for (int d = 0; d < DH; ++d) acc_k[d] = acc_v[d] = 0.f;
-    for (int g = 0; g < f; ++g) {
-      const long long og = static_cast<long long>(g) * b;
-      float qg[DH], dog[DH];
-      float s = 0.f, dpv = 0.f;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) {
-        qg[d] = qh[d * fb + og];
-        dog[d] = doh[d * fb + og];
-        s += qg[d] * kf[d];
-        dpv += dog[d] * vf[d];
-      }
-      const float p = expf(s * scale - lseh[og]);
-      float pd = p;
-      if (kDrop) {
-        const float m = drop.scale(word(drop.bits(bi, g, h, fi >> 2), fi & 3));
-        pd = p * m;
-        dpv *= m;
-      }
-      const float ds = p * (dpv - rdh[og]);
-#pragma unroll
-      for (int d = 0; d < DH; ++d) {
-        acc_v[d] += pd * dog[d];
-        acc_k[d] += ds * qg[d];
-      }
+      for (int d = 0; d < DH; ++d) ak[i][d] = av[i][d] = 0.f;
     }
+    __syncthreads();
+
+    for (int fq0 = 0; fq0 < f; fq0 += kBY) {
+      // query phase: the thread of (query fq, sample bi)
+      const int fq = fq0 + y;
+      const bool q_ok = lane_ok && fq < f;
+      const long long own = head + static_cast<long long>(fq) * b + bi;
+      float qf[DH], dof[DH], acc[DH];
+      float rd = 0.f, lse_q = 0.f;
 #pragma unroll
-    for (int d = 0; d < DH; ++d) {
-      dk[head + d * fb + own + bi] = acc_k[d] * scale;
-      dv[head + d * fb + own + bi] = acc_v[d];
+      for (int d = 0; d < DH; ++d) {
+        qf[d] = q_ok ? q[own + d * fb] : 0.f;
+        dof[d] = q_ok ? dout[own + d * fb] : 0.f;
+        rd += q_ok ? dof[d] * o[own + d * fb] : 0.f;
+        acc[d] = 0.f;
+      }
+      store_row<DH>(qs + (y * kLanes + x) * DH, qf);
+      store_row<DH>(dos + (y * kLanes + x) * DH, dof);
+      if (q_ok) lse_q = lse[static_cast<long long>(h) * fb + static_cast<long long>(fq) * b + bi];
+      // keys in groups of 4, one Philox call a group (KC is a multiple of
+      // 4, so kc0 + j4 is too)
+      for (int j4 = 0; j4 < nk; j4 += 4) {
+        uint4 bits = make_uint4(0u, 0u, 0u, 0u);
+        if (kDrop && q_ok) bits = drop.bits(bi, fq, h, (kc0 + j4) >> 2);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int j = j4 + jj;
+          if (j < nk) {
+            float kr[DH], vr[DH];
+            load_row<DH>(ks + (j * kLanes + x) * DH, kr);
+            load_row<DH>(vs + (j * kLanes + x) * DH, vr);
+            float s = 0.f, dpv = 0.f;
+#pragma unroll
+            for (int d = 0; d < DH; ++d) {
+              s += qf[d] * kr[d];
+              dpv += dof[d] * vr[d];
+            }
+            const float p = q_ok ? exp2f((s * scale - lse_q) * kLog2e) : 0.f;
+            float pm = p;
+            if (kDrop) {
+              const float mk = drop.scale(word(bits, jj));
+              pm = p * mk;
+              dpv *= mk;
+            }
+            const float ds = p * (dpv - rd);
+#pragma unroll
+            for (int d = 0; d < DH; ++d) acc[d] += ds * kr[d];
+            dsp[(y * KC + j) * kLanes + x] = make_float2(ds, pm);
+          }
+        }
+      }
+      if (q_ok) {
+#pragma unroll
+        for (int d = 0; d < DH; ++d) {
+          float val = acc[d];
+          if (kc0 > 0) val += dq[own + d * fb];
+          dq[own + d * fb] = last_chunk ? val * scale : val;
+        }
+      }
+      __syncthreads();
+
+      // key phase: the thread of (key kc0 + y + kBY*i, sample bi), over the
+      // tile's queries in order
+      const int nq = min(kBY, f - fq0);
+      for (int r = 0; r < nq; ++r) {
+        float qr[DH], dr[DH];
+        load_row<DH>(qs + (r * kLanes + x) * DH, qr);
+        load_row<DH>(dos + (r * kLanes + x) * DH, dr);
+#pragma unroll
+        for (int i = 0; i < T::KPT; ++i) {
+          const int j = y + kBY * i;
+          if (j < nk) {
+            const float2 dp = dsp[(r * KC + j) * kLanes + x];
+            const float ds = dp.x;
+            const float pm = dp.y;
+#pragma unroll
+            for (int d = 0; d < DH; ++d) {
+              ak[i][d] += ds * qr[d];
+              av[i][d] += pm * dr[d];
+            }
+          }
+        }
+      }
+      __syncthreads();
+    }
+
+    if (lane_ok) {
+#pragma unroll
+      for (int i = 0; i < T::KPT; ++i) {
+        const int j = y + kBY * i;
+        if (j < nk) {
+          const long long key = head + static_cast<long long>(kc0 + j) * b + bi;
+#pragma unroll
+          for (int d = 0; d < DH; ++d) {
+            dk[key + d * fb] = ak[i][d] * scale;
+            dv[key + d * fb] = av[i][d];
+          }
+        }
+      }
     }
   }
 }
@@ -332,19 +419,21 @@ void launch_fwd(const float* q, const float* k, const float* v, float* o,
 }
 
 template <int DH>
-void launch_bwd(const float* q, const float* k, const float* v,
-                const float* dout, const float* lse, const float* rowdot,
-                float* dq, float* dk, float* dv, int h, int f, long long b,
-                float scale, const Dropout& drop, bool dropout,
-                cudaStream_t stream) {
-  const dim3 block(kLanes, kFq);
-  if (dropout) {
-    field_attention_bwd_kernel<DH, true><<<grid_for(h, f, b), block, 0, stream>>>(
-        q, k, v, dout, lse, rowdot, dq, dk, dv, f, b, scale, drop);
-  } else {
-    field_attention_bwd_kernel<DH, false><<<grid_for(h, f, b), block, 0, stream>>>(
-        q, k, v, dout, lse, rowdot, dq, dk, dv, f, b, scale, drop);
-  }
+int launch_bwd(const float* q, const float* k, const float* v, const float* o,
+               const float* dout, const float* lse, float* dq, float* dk,
+               float* dv, int h, int f, long long b, float scale,
+               const Dropout& drop, bool dropout, cudaStream_t stream) {
+  const int bytes = BwdTile<DH>::kFloats * static_cast<int>(sizeof(float));
+  auto kernel = dropout ? field_attention_bwd_kernel<DH, true>
+                        : field_attention_bwd_kernel<DH, false>;
+  const cudaError_t set = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const dim3 grid(static_cast<unsigned int>((b + kLanes - 1) / kLanes),
+                  static_cast<unsigned int>(h));
+  kernel<<<grid, dim3(kLanes, kBY), bytes, stream>>>(q, k, v, o, dout, lse, dq, dk,
+                                                  dv, f, b, scale, drop);
+  return static_cast<int>(cudaGetLastError());
 }
 
 Dropout make_dropout(unsigned int k0, unsigned int k1, unsigned int thresh,
@@ -382,32 +471,25 @@ RS_EXPORT int field_attention_fwd_f32(const float* q, const float* k,
   return static_cast<int>(cudaGetLastError());
 }
 
-// rowdot is (h, F, B) scratch that the first kernel fills.
+// o is the forward's output, lse its (h, F, B) log-sum-exp; dropout as in
+// the forward, from the same key.
 RS_EXPORT int field_attention_bwd_f32(const float* q, const float* k,
                                       const float* v, const float* o,
                                       const float* lse, const float* dout,
-                                      float* rowdot, float* dq, float* dk,
-                                      float* dv, int h, int dh, int f,
-                                      long long b, float scale, int dropout,
-                                      unsigned int k0, unsigned int k1,
-                                      unsigned int thresh, float keep_scale,
-                                      cudaStream_t stream) {
-  const long long fb = static_cast<long long>(f) * b;
-  const long long n = static_cast<long long>(h) * fb;
-  row_dot_kernel<<<static_cast<unsigned int>((n + 255) / 256), 256, 0, stream>>>(
-      dout, o, rowdot, h, dh, fb);
-  const int code = static_cast<int>(cudaGetLastError());
-  if (code != 0) return code;
+                                      float* dq, float* dk, float* dv, int h,
+                                      int dh, int f, long long b, float scale,
+                                      int dropout, unsigned int k0,
+                                      unsigned int k1, unsigned int thresh,
+                                      float keep_scale, cudaStream_t stream) {
   const Dropout drop = make_dropout(k0, k1, thresh, keep_scale);
   const bool on = dropout != 0;
   switch (dh) {
-    case 1: launch_bwd<1>(q, k, v, dout, lse, rowdot, dq, dk, dv, h, f, b, scale, drop, on, stream); break;
-    case 2: launch_bwd<2>(q, k, v, dout, lse, rowdot, dq, dk, dv, h, f, b, scale, drop, on, stream); break;
-    case 4: launch_bwd<4>(q, k, v, dout, lse, rowdot, dq, dk, dv, h, f, b, scale, drop, on, stream); break;
-    case 8: launch_bwd<8>(q, k, v, dout, lse, rowdot, dq, dk, dv, h, f, b, scale, drop, on, stream); break;
-    case 16: launch_bwd<16>(q, k, v, dout, lse, rowdot, dq, dk, dv, h, f, b, scale, drop, on, stream); break;
-    case 32: launch_bwd<32>(q, k, v, dout, lse, rowdot, dq, dk, dv, h, f, b, scale, drop, on, stream); break;
+    case 1: return launch_bwd<1>(q, k, v, o, dout, lse, dq, dk, dv, h, f, b, scale, drop, on, stream);
+    case 2: return launch_bwd<2>(q, k, v, o, dout, lse, dq, dk, dv, h, f, b, scale, drop, on, stream);
+    case 4: return launch_bwd<4>(q, k, v, o, dout, lse, dq, dk, dv, h, f, b, scale, drop, on, stream);
+    case 8: return launch_bwd<8>(q, k, v, o, dout, lse, dq, dk, dv, h, f, b, scale, drop, on, stream);
+    case 16: return launch_bwd<16>(q, k, v, o, dout, lse, dq, dk, dv, h, f, b, scale, drop, on, stream);
+    case 32: return launch_bwd<32>(q, k, v, o, dout, lse, dq, dk, dv, h, f, b, scale, drop, on, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

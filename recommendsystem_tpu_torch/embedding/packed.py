@@ -17,9 +17,10 @@ the scatter it feeds or is fed by:
                                                     (csrc/unfold_scatter.cu)
   unfold_rows_scatter (K4)  the same per entry, for l == 1 and sequence
                    columns
-  sparse_adam_update  (K8)  one lazy-Adam pass over a storage: rows with
-                   count > 0 step w, m, v, t and add to show; the
-                   accumulator is left zero                (csrc/sparse_adam.cu)
+  sparse_adam_update_group  (K8)  one lazy-Adam pass over every storage
+                   of a step, in one launch: rows with count > 0 step w, m,
+                   v, t and add to show; the accumulators are left zero
+                                                    (csrc/sparse_adam.cu)
 
 The storage plan (``plan_segments``, ``storage_stream``), the stage functions
 (``gather_fold``, ``combine_from_acts``, ``apply_gradients_packed``) and
@@ -34,6 +35,7 @@ other.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Any, Dict, List, Tuple
 
@@ -227,7 +229,7 @@ def unfold_rows_scatter(acc, g, ids, mask) -> None:
 
 
 # ---------------------------------------------------------------------------
-# K8: the lazy-Adam pass over one storage, and its plain version
+# K8: one lazy-Adam pass over a group of storages, and its plain version
 # ---------------------------------------------------------------------------
 
 def sparse_adam_update_plain(opt, tstate, acc) -> None:
@@ -244,39 +246,72 @@ def sparse_adam_update_plain(opt, tstate, acc) -> None:
     acc.zero_()
 
 
-def sparse_adam_update(opt, tstate, acc) -> None:
-    """K8: one lazy-Adam pass of ``opt`` (a ``SparseAdam``) over one
-    storage.  Rows whose count ``acc[r, D]`` is > 0 step t, m, v and w by
-    ``SparseAdam.update``'s arithmetic and add the count to show; the other
-    rows stay bit-identical.  Updates ``tstate`` (w, opt m/v/t, show) in
-    place and leaves ``acc`` zero."""
+def _check_adam_args(tstate, acc, device) -> None:
     w = tstate["w"]
-    require(w, "w", torch.float32)
+    require(w, "w", torch.float32, device=device)
     if w.ndim != 2:
         raise ValueError(f"w: expected (rows, D), got {tuple(w.shape)}")
     rows, d = w.shape
     for name, t in (("m", tstate["opt"]["m"]), ("v", tstate["opt"]["v"])):
-        require(t, name, torch.float32, (rows, d), w.device)
+        require(t, name, torch.float32, (rows, d), device)
     for name, t in (("t", tstate["opt"]["t"]), ("show", tstate["show"])):
-        require(t, name, torch.float32, (rows, 1), w.device)
-    require(acc, "acc", torch.float32, (rows, d + 1), w.device)
-    if w.device.type == "cpu":
-        return sparse_adam_update_plain(opt, tstate, acc)
-    if w.device.type != "cuda":
-        raise ValueError(f"sparse_adam_update: no kernel for device {w.device}")
-    if rows == 0:
+        require(t, name, torch.float32, (rows, 1), device)
+    require(acc, "acc", torch.float32, (rows, d + 1), device)
+
+
+def sparse_adam_update_group(opt, tstates, accs) -> None:
+    """K8: one lazy-Adam pass of ``opt`` (a ``SparseAdam``) over every
+    storage of ``tstates`` with its accumulator of ``accs``, on one device.
+    In each storage, rows whose count ``acc[r, D]`` is > 0 step t, m, v
+    and w by ``SparseAdam.update``'s arithmetic and add the count to show;
+    the other rows stay bit-identical.  Updates each ``tstate`` (w, opt
+    m/v/t, show) in place and leaves each ``acc`` zero.  On a card one
+    launch takes up to 64 storages, of any D up to 8191 (the kernel's
+    limits); a larger group is cut into launches of 64."""
+    tstates, accs = list(tstates), list(accs)
+    if len(tstates) != len(accs):
+        raise ValueError(f"{len(tstates)} storages for {len(accs)} accumulators")
+    if not tstates:
         return None
+    device = tstates[0]["w"].device
+    for tstate, acc in zip(tstates, accs):
+        _check_adam_args(tstate, acc, device)
+    if device.type == "cpu":
+        for tstate, acc in zip(tstates, accs):
+            sparse_adam_update_plain(opt, tstate, acc)
+        return None
+    if device.type != "cuda":
+        raise ValueError(f"sparse_adam_update: no kernel for device {device}")
     lib = library("sparse_adam")
-    with torch.cuda.device(w.device):
-        code = lib.sparse_adam_update_f32(
-            w.data_ptr(), tstate["opt"]["m"].data_ptr(),
-            tstate["opt"]["v"].data_ptr(), tstate["opt"]["t"].data_ptr(),
-            tstate["show"].data_ptr(), acc.data_ptr(), rows, d,
-            opt.learning_rate, opt.beta1, 1 - opt.beta1, opt.beta2,
-            1 - opt.beta2, opt.epsilon, stream_handle(w.device))
-    check(lib, code, "sparse_adam_update")
-    count_launch("sparse_adam_update")
+    max_d = lib.sparse_adam_max_d()
+    live = [(ts, acc) for ts, acc in zip(tstates, accs) if ts["w"].shape[0] > 0]
+    for ts, _ in live:
+        if ts["w"].shape[1] > max_d:
+            raise ValueError(f"sparse_adam_update: D {ts['w'].shape[1]} > {max_d}")
+    per_launch = lib.sparse_adam_max_storages()
+    for i in range(0, len(live), per_launch):
+        chunk = live[i:i + per_launch]
+        n = len(chunk)
+        ptrs = (ctypes.c_ulonglong * (6 * n))(*[
+            t.data_ptr() for ts, acc in chunk
+            for t in (ts["w"], ts["opt"]["m"], ts["opt"]["v"], ts["opt"]["t"],
+                      ts["show"], acc)])
+        rows = (ctypes.c_longlong * n)(*[ts["w"].shape[0] for ts, _ in chunk])
+        dims = (ctypes.c_int * n)(*[ts["w"].shape[1] for ts, _ in chunk])
+        with torch.cuda.device(device):
+            code = lib.sparse_adam_group_f32(
+                ctypes.addressof(ptrs), ctypes.addressof(rows),
+                ctypes.addressof(dims), n, opt.learning_rate, opt.beta1,
+                1 - opt.beta1, opt.beta2, 1 - opt.beta2, opt.epsilon,
+                stream_handle(device))
+        check(lib, code, "sparse_adam_update")
+        count_launch("sparse_adam_update")
     return None
+
+
+def sparse_adam_update(opt, tstate, acc) -> None:
+    """K8 over one storage: ``sparse_adam_update_group`` with one member."""
+    return sparse_adam_update_group(opt, [tstate], [acc])
 
 
 # ---------------------------------------------------------------------------
@@ -400,17 +435,19 @@ def combine_from_acts(eng, plans, ctx, batch):
 def apply_gradients_packed(eng, state, g_acts, plans, ctx, batch):
     """Stage 3 (not differentiated): for each storage, unfold every
     column's activation grads into the storage's [grad | count]
-    accumulator (K3 per mean column, K4 for l == 1 and sequence columns),
-    then one lazy-Adam pass (K8).  As in the JAX package, the unfold runs
-    per column (each column is one contiguous block of the stream).
+    accumulator (K3 per mean column, K4 for l == 1 and sequence columns);
+    then one lazy-Adam pass (K8) over all the storages at once.  As in the
+    JAX package, the unfold runs per column (each column is one contiguous
+    block of the stream).
 
     Updates the tables of ``state`` in place (w, m, v, t, show; the JAX
     package donates them instead) and returns ``state``.  ``g_acts``: per
     storage, the gradients of ``ctx[skey]["acts"]``."""
+    accs = {}
     for skey, segs in plans.items():
         d = eng.storage[skey][1]
         ids, mask = ctx[skey]["ids"], ctx[skey]["mask"]
-        acc = eng.accumulator(skey, ids.device)
+        acc = accs[skey] = eng.accumulator(skey, ids.device)
         for seg, g in zip(segs, g_acts[skey]):
             g = g.contiguous()
             if seg.kind == "mean":
@@ -425,7 +462,8 @@ def apply_gradients_packed(eng, state, g_acts, plans, ctx, batch):
                 unfold_rows_scatter(acc, g.reshape(seg.size, d),
                                     ids[seg.start:seg.start + seg.size],
                                     mask[seg.start:seg.start + seg.size])
-        sparse_adam_update(eng.sparse_opt, state[skey], acc)
+    sparse_adam_update_group(eng.sparse_opt, [state[k] for k in accs],
+                             list(accs.values()))
     return state
 
 

@@ -44,17 +44,17 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "field_attention": {
         "field_attention_fwd_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _F,
                                     _I, _U, _U, _U, _F, _P],
-        "field_attention_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                    _I, _I, _I, _L, _F, _I, _U, _U, _U, _F,
-                                    _P],
+        "field_attention_bwd_f32": [_P] * 9 + [_I, _I, _I, _L, _F, _I, _U, _U,
+                                               _U, _F, _P],
     },
     "unfold_scatter": {
         "unfold_mean_scatter_f32": [_P, _P, _P, _P, _I, _L, _I, _P],
         "unfold_rows_scatter_f32": [_P, _P, _P, _P, _L, _I, _P],
     },
     "sparse_adam": {
-        "sparse_adam_update_f32": [_P, _P, _P, _P, _P, _P, _L, _I, _F, _F,
-                                   _F, _F, _F, _F, _P],
+        "sparse_adam_group_f32": [_P, _P, _P, _I, _F, _F, _F, _F, _F, _F, _P],
+        "sparse_adam_max_storages": [],
+        "sparse_adam_max_d": [],
     },
     "din_pool": {
         "din_pool_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _L, _L, _L,

@@ -220,7 +220,9 @@ def _fwd(q, k, v, seed: int, rate: float, want_lse: bool):
 def field_attention_bwd(q, k, v, o, lse, do, seed: int = 0, rate: float = 0.0):
     """K5b: (dq, dk, dv) of field attention from the forward's inputs, its
     output ``o`` and log-sum-exp ``lse`` (h, F, B), and the output gradient
-    ``do``; the dropout mask is regenerated from ``seed`` and ``rate``."""
+    ``do``; the dropout mask is regenerated from ``seed`` and ``rate``.
+    The kernel computes each (query, key, sample) term once and sums in a
+    fixed order, so two calls on the same inputs give the same bits."""
     _check_qkv(q, k, v)
     _check_rate(rate)
     require(o, "o", torch.float32, q.shape, q.device)
@@ -232,12 +234,11 @@ def field_attention_bwd(q, k, v, o, lse, do, seed: int = 0, rate: float = 0.0):
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     if q.numel() == 0:
         return dq, dk, dv
-    rowdot = torch.empty((h, f, b), dtype=torch.float32, device=q.device)
     lib = library("field_attention")
     with torch.cuda.device(q.device):
         code = lib.field_attention_bwd_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), do.data_ptr(), rowdot.data_ptr(), dq.data_ptr(),
+            lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), h, dh, f, b, 1.0 / dh ** 0.5,
             *_dropout_args(seed, rate), stream_handle(q.device))
     check(lib, code, "field_attention_bwd")

@@ -280,3 +280,27 @@ def test_bridge_carries_the_whole_state():
         bridge.from_jax_numpy(pbundle, jax.tree.map(np.asarray, jstate.params),
                               jax.device_get(jbundle.embedding.classic_state(
                                   jstate.tables)), opt_state=(1, 2))
+
+
+def test_step_makes_one_grouped_lazy_adam_call(monkeypatch):
+    """Every storage the step touched goes through one grouped K8 call a
+    step, after all the unfold-scatters."""
+    pbundle = create_model("autoint", bucket_size=64, device="cpu")
+    pb, _, pl, pw = synthetic_batch(pbundle, 16, seed=2)
+    calls = []
+    real = packed.sparse_adam_update_group
+
+    def spy(opt, tstates, accs):
+        tstates, accs = list(tstates), list(accs)
+        calls.append(len(tstates))
+        assert all(a.any() for a in accs)       # filled before the pass
+        return real(opt, tstates, accs)
+
+    monkeypatch.setattr(packed, "sparse_adam_update_group", spy)
+    state = create_train_state(pbundle, seed=0)
+    step = make_train_step(pbundle)
+    for i in range(2):
+        state, _ = step(state, pb, pl, pw, seed=i)
+    assert calls == [len(pbundle.embedding.storage)] * 2
+    for skey in pbundle.embedding.storage:
+        assert not pbundle.embedding.accumulator(skey, "cpu").any()

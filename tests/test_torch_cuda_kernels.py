@@ -12,7 +12,8 @@ its gradients rtol 1e-4 and atol 2e-5 (sums over <= 175 fields); the
 unfold-scatter's gradient sums atol 1e-5, or 1e-6 per entry that hits one
 row (atomics add in another order on every run), its counts exact; the
 lazy Adam's m and v rtol 1e-6 and w atol 1e-7 (``powf`` on the card against
-PyTorch's pow: one ulp in a bias correction), t and show exact; the DIN
+PyTorch's pow: one ulp in a bias correction), t and show exact, rows with
+count 0 bit-identical; the DIN
 pool atol 2e-5 (a softmax over T and 4H-term dots in another order, as the
 JAX package holds its own kernel), its gradients rtol 1e-4, atol 1e-5; the
 fused InteractingLayer iteration rtol and atol 2e-5 (the JAX package's own
@@ -112,7 +113,9 @@ def test_field_attention_dropout_kernel(cuda, h, dh, f, b):
 
 @pytest.mark.parametrize("rate", [0.0, 0.2])
 @pytest.mark.parametrize("h,dh,f,b", [(2, 4, 24, 200), (2, 4, 175, 96),
-                                      (1, 8, 40, 33), (3, 2, 1, 5), (2, 32, 9, 64)])
+                                      (1, 8, 40, 33), (3, 2, 1, 5), (2, 32, 9, 64),
+                                      (2, 4, 1, 40), (1, 4, 256, 33), (1, 32, 70, 17),
+                                      (2, 1, 37, 70), (1, 16, 30, 45)])
 def test_field_attention_bwd_kernel(cuda, h, dh, f, b, rate):
     g = torch.Generator(device=cuda).manual_seed(f * b + 2)
     q, k, v, do = (torch.randn((h, dh, f, b), generator=g, device=cuda)
@@ -124,6 +127,19 @@ def test_field_attention_bwd_kernel(cuda, h, dh, f, b, rate):
     for a, w in zip(got, want):
         torch.testing.assert_close(a, w, rtol=1e-4, atol=2e-5)
     assert launch_counts()["field_attention_bwd"] == 1
+
+
+@pytest.mark.parametrize("f,b", [(24, 300), (175, 64)])
+def test_field_attention_bwd_is_deterministic(cuda, f, b):
+    """Every sum of K5b runs in a fixed order: two launches, the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(f + b)
+    q, k, v, do = (torch.randn((2, 4, f, b), generator=g, device=cuda) for _ in range(4))
+    o, lse = field_attention_fwd_plain(q, k, v, 3, 0.2)
+    first = field_attention_bwd(q, k, v, o, lse, do, 3, 0.2)
+    second = field_attention_bwd(q, k, v, o, lse, do, 3, 0.2)
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+    assert launch_counts()["field_attention_bwd"] == 2
 
 
 def test_field_attention_autograd_runs_both_kernels(cuda):
@@ -215,6 +231,58 @@ def test_sparse_adam_kernel(cuda, rows, d, live):
         torch.testing.assert_close(a[dead], b[dead], rtol=0, atol=0)
     assert not acc_k.any()
     assert launch_counts()["sparse_adam_update"] == 1
+
+
+def _adam_storage(dev, rows, d, live, seed):
+    """(state, accumulator) of one storage: a share ``live`` of rows with
+    counts 1..4 and gradients, the others all zero."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cnt = torch.where(torch.rand((rows, 1), generator=g, device=dev) < live,
+                      torch.randint(1, 5, (rows, 1), generator=g, device=dev), 0).float()
+    acc = torch.cat([torch.randn((rows, d), generator=g, device=dev) * 1e-2 * (cnt > 0),
+                     cnt], dim=1)
+    state = {"w": torch.randn((rows, d), generator=g, device=dev),
+             "opt": {"m": torch.randn((rows, d), generator=g, device=dev) * 1e-3,
+                     "v": torch.rand((rows, d), generator=g, device=dev) * 1e-5,
+                     "t": torch.randint(0, 4, (rows, 1), generator=g, device=dev).float()},
+             "show": torch.randint(0, 9, (rows, 1), generator=g, device=dev).float()}
+    return state, acc
+
+
+def _copy_state(s):
+    return {"w": s["w"].clone(), "opt": {n: x.clone() for n, x in s["opt"].items()},
+            "show": s["show"].clone()}
+
+
+@pytest.mark.parametrize("n,live", [(4, 0.0), (4, 0.3), (4, 1.0), (70, 0.3)])
+def test_sparse_adam_group_kernel(cuda, n, live):
+    """One grouped pass over storages of D 8, 48, 56, 3 and 1 with odd row
+    counts (70 storages: more than one launch takes) against the plain
+    version on each storage; dead rows bit-identical, accumulators zero."""
+    dims = (8, 48, 56, 3, 1)
+    storages = [_adam_storage(cuda, 2001 + 37 * i if i < 4 else 5 + i, dims[i % 5], live, i)
+                for i in range(n)]
+    before = [_copy_state(s) for s, _ in storages]
+    got = [_copy_state(s) for s, _ in storages]
+    accs = [a.clone() for _, a in storages]
+    opt = SparseAdam(learning_rate=1e-3)
+    packed.sparse_adam_update_group(opt, got, accs)
+    torch.cuda.synchronize()
+    assert launch_counts()["sparse_adam_update"] == -(-n // 64)
+    for (s, acc), g, b, a in zip(storages, got, before, accs):
+        want = _copy_state(s)
+        packed.sparse_adam_update_plain(opt, want, acc.clone())
+        torch.testing.assert_close(g["w"], want["w"], rtol=0, atol=1e-7)
+        for name in ("m", "v"):
+            torch.testing.assert_close(g["opt"][name], want["opt"][name], rtol=1e-6, atol=0)
+        torch.testing.assert_close(g["opt"]["t"], want["opt"]["t"], rtol=0, atol=0)
+        torch.testing.assert_close(g["show"], want["show"], rtol=0, atol=0)
+        dead = acc[:, -1] == 0
+        for x, y in ((g["w"], b["w"]), (g["opt"]["m"], b["opt"]["m"]),
+                     (g["opt"]["v"], b["opt"]["v"]), (g["opt"]["t"], b["opt"]["t"]),
+                     (g["show"], b["show"])):
+            assert torch.equal(x[dead], y[dead])
+        assert not a.any()
 
 
 def _din_inputs(dev, b, t, h, seed, requires_grad=False):
@@ -358,4 +426,7 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         interacting_attention(x, p)
     with pytest.raises(ValueError, match="aligned"):
         interacting_attention(x.reshape(-1)[1:1 + 2 * 24 * 8].reshape(2, 24, 8), p)
+    wide, wide_acc = _adam_storage(cuda, 2, 8192, 1.0, 0)
+    with pytest.raises(ValueError, match="D 8192"):
+        packed.sparse_adam_update(SparseAdam(), wide, wide_acc)
     assert set(launch_counts().values()) == {0}

@@ -173,3 +173,79 @@ def test_init_state_and_table_init():
     assert w.dtype == torch.float32 and w.shape == (4000, D)
     assert float(w.abs().max()) <= 2 / D ** 0.5            # truncated at 2 sigma
     np.testing.assert_allclose(float(w.std()), 0.88 / D ** 0.5, rtol=0.05)
+
+
+# storages of a group: (rows, D); odd row counts and two widths, as ctr's
+# 48-wide rows beside autoint's 8
+GROUP = ((13, 8), (7, 48), (31, 8), (5, 48))
+
+
+def _group(rng, shapes, live=0.4):
+    return [(_state(rng, rows, d), _acc(rng, rows, d, live)) for rows, d in shapes]
+
+
+@pytest.mark.parametrize("live", [0.0, 0.3, 1.0])
+def test_k8_group_equals_per_storage_plain_bit_for_bit(live):
+    """The grouped pass's CPU path over storages of D 8 and 48 against
+    ``sparse_adam_update_plain`` on each storage in turn."""
+    rng = np.random.default_rng(int(live * 10) + 21)
+    group = _group(rng, GROUP, live)
+    opt = SparseAdam(learning_rate=1e-3)
+    got = [(_torch(s), torch.tensor(a)) for s, a in group]
+    want = [(_torch(s), torch.tensor(a)) for s, a in group]
+    reset_launch_counts()
+    assert packed.sparse_adam_update_group(opt, [s for s, _ in got],
+                                           [a for _, a in got]) is None
+    assert launch_counts() == dict.fromkeys(KERNELS, 0)
+    for s, a in want:
+        packed.sparse_adam_update_plain(opt, s, a)
+    for (gs, ga), (ws, _), (before, acc) in zip(got, want, group):
+        torch.testing.assert_close(gs["w"], ws["w"], rtol=0, atol=0)
+        for name in ("m", "v", "t"):
+            torch.testing.assert_close(gs["opt"][name], ws["opt"][name], rtol=0, atol=0)
+        torch.testing.assert_close(gs["show"], ws["show"], rtol=0, atol=0)
+        assert not ga.any()
+        d = acc.shape[1] - 1
+        dead = acc[:, d] == 0
+        np.testing.assert_array_equal(gs["w"].numpy()[dead], before["w"][dead])
+
+
+@pytest.mark.parametrize("live", [0.3, 1.0])
+def test_k8_group_matches_jax_packed_adam_update(live):
+    """Each storage of a grouped pass against the JAX one-pass packed Adam
+    on the same state (``pack_state_entry`` / ``unpack_state_entry``); row
+    counts are multiples of the JAX scatter pack (14 rows a 128-lane row at
+    D = 8, 2 at D = 48)."""
+    rng = np.random.default_rng(int(live * 10) + 31)
+    shapes = ((42, 8), (18, 48), (70, 8), (26, 48))
+    group = _group(rng, shapes, live)
+    tstates = [_torch(s) for s, _ in group]
+    packed.sparse_adam_update_group(SparseAdam(), tstates,
+                                    [torch.tensor(a) for _, a in group])
+    for tstate, (before, acc), (rows, d) in zip(tstates, group, shapes):
+        ps = jpk.scatter_pack(d)
+        jacc = jnp.asarray(np.pad(acc.reshape(rows // ps, ps * (d + 1)),
+                                  ((0, 0), (0, 128 - ps * (d + 1)))))
+        jnew = jpk.packed_adam_update(JaxSparseAdam(), jpk.pack_state_entry(
+            {"w": jnp.asarray(before["w"]),
+             "opt": {n: jnp.asarray(x) for n, x in before["opt"].items()},
+             "show": jnp.asarray(before["show"])}, d), jacc, d)
+        _assert_state(_np(tstate), _np(jpk.unpack_state_entry(jnew, d)), before,
+                      acc[:, d:])
+
+
+def test_k8_group_checks_arguments():
+    rng = np.random.default_rng(5)
+    (s1, a1), (s2, a2) = _group(rng, GROUP[:2])
+    t1, t2 = _torch(s1), _torch(s2)
+    opt = SparseAdam()
+    with pytest.raises(ValueError, match="accumulators"):
+        packed.sparse_adam_update_group(opt, [t1, t2], [torch.tensor(a1)])
+    with pytest.raises(ValueError):              # the second storage's acc is the first's
+        packed.sparse_adam_update_group(opt, [t1, t2], [torch.tensor(a1)] * 2)
+    meta = {"w": t2["w"].to("meta"), "opt": {n: x.to("meta") for n, x in t2["opt"].items()},
+            "show": t2["show"].to("meta")}
+    with pytest.raises(ValueError):              # storages on two devices
+        packed.sparse_adam_update_group(opt, [t1, meta], [torch.tensor(a1),
+                                                          torch.tensor(a2).to("meta")])
+    assert packed.sparse_adam_update_group(opt, [], []) is None
