@@ -7,7 +7,9 @@
    (one nvcc per source, all at once);
 2. holds each kernel against its plain PyTorch version on the card, at the
    shapes the serving and train paths give it (batch buckets 8, 200 and 256,
-   and 65536; field attention also at F = 175, with dropout 0.2, and its
+   and 65536; the field-attention forward as the train step launches it,
+   with its log-sum-exp, held to the plain version's output and lse, also
+   at F = 175 and at B = 65536 with dropout 0.2 (F = 24 and 175); its
    backward, checked bit-identical over two launches; the unfold-scatter at
    B = 4096 and 65536; the lazy Adam as one grouped pass over autoint's 24
    full storages, and over a group of mixed widths), and times kernel,
@@ -224,10 +226,11 @@ def _batch_chunks(b, h, f):
 
 
 def attention_case(h, dh, f, b, seed, cycles_per_ms, rate=0.0):
-    """K5f at ``rate``; with dropout the kernel and the plain version draw
-    the same Philox mask from the same seed."""
-    from recommendsystem_tpu_torch.kernels.field_attention import (
-        field_attention, field_attention_reference)
+    """K5f at ``rate`` as the train step launches it, with the log-sum-exp
+    for K5b (``FieldAttentionFunction.forward``): output and lse against
+    ``field_attention_fwd_plain``'s; with dropout the kernel and the plain
+    version draw the same Philox mask from the same seed."""
+    from recommendsystem_tpu_torch.kernels.field_attention import _fwd, field_attention_fwd_plain
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = (torch.relu(torch.randn((h, dh, f, b), generator=g, device="cuda"))
@@ -235,23 +238,29 @@ def attention_case(h, dh, f, b, seed, cycles_per_ms, rate=0.0):
     dseed = (seed << 32) | 1
 
     def plain():
-        return torch.cat([field_attention_reference(q[..., c], k[..., c], v[..., c],
-                                                    dseed, rate)
-                          for c in _batch_chunks(b, h, f)], dim=3)
+        return [field_attention_fwd_plain(q[..., c], k[..., c], v[..., c], dseed, rate)
+                for c in _batch_chunks(b, h, f)]
 
-    kernel = lambda: field_attention(q, k, v, dseed, rate)        # noqa: E731
-    got = kernel()
+    kernel = lambda: _fwd(q, k, v, dseed, rate, want_lse=True)     # noqa: E731
+    got, got_lse = kernel()
     # the plain version's chunks restart the sample index of the mask:
     # compare on the first chunk only where dropout is on
-    c0 = _batch_chunks(b, h, f)[0]
-    want = plain() if rate == 0.0 else field_attention_reference(
-        q[..., c0].contiguous(), k[..., c0].contiguous(), v[..., c0].contiguous(),
-        dseed, rate)
+    if rate == 0.0:
+        outs = plain()
+        want = torch.cat([o for o, _ in outs], dim=3)
+        want_lse = torch.cat([s for _, s in outs], dim=2)
+    else:
+        c0 = _batch_chunks(b, h, f)[0]
+        want, want_lse = field_attention_fwd_plain(
+            q[..., c0].contiguous(), k[..., c0].contiguous(), v[..., c0].contiguous(),
+            dseed, rate)
     torch.cuda.synchronize()
-    err = float((got[..., :want.shape[3]] - want).abs().max())
-    if not err <= ATTN_TOL:
+    n = want.shape[3]
+    err = float((got[..., :n] - want).abs().max())
+    lse_err = float((got_lse[..., :n] - want_lse).abs().max())
+    if not (err <= ATTN_TOL and lse_err <= ATTN_TOL):
         raise AssertionError(f"field_attention F={f} b={b} rate={rate}: "
-                             f"max abs err {err}")
+                             f"max abs err {err}, lse {lse_err}")
     # yardstick: SDPA on a (h*B, F, dh) view, laid out outside the timing
     q3, k3, v3 = (x.permute(0, 3, 2, 1).reshape(h * b, f, dh).contiguous()
                   for x in (q, k, v))
@@ -261,13 +270,16 @@ def attention_case(h, dh, f, b, seed, cycles_per_ms, rate=0.0):
     if rate == 0.0:
         lib_out = library().reshape(h, b, f, dh).permute(0, 3, 2, 1)
         lib_err = float((lib_out - want).abs().max())
-    nbytes = 16 * h * dh * f * b
+    # q, k, v read once, o and lse written once
+    nbytes = 16 * h * dh * f * b + 4 * h * f * b
     ops = 4 * h * dh * f * f * b + 4 * h * f * f * b   # dots + softmax
     bms, by = bound(nbytes, ops)
     iters = 200 if b <= 256 else 20
     ms, host_ms = timed(kernel, iters, cycles_per_ms)
     return {"name": "field_attention", "b": b, "f": f, "h": h, "dh": dh,
-            "rate": rate, "max_abs_err": err, "ms": ms, "host_ms": host_ms,
+            "rate": rate, "lse": True, "max_abs_err": max(err, lse_err),
+            "out_max_abs_err": err, "lse_max_abs_err": lse_err,
+            "ms": ms, "host_ms": host_ms,
             "plain_ms": timed(plain, max(2, iters // 10), cycles_per_ms)[0],
             "library_ms": timed(library, iters, cycles_per_ms)[0],
             "library_max_abs_err": lib_err,
@@ -1192,6 +1204,7 @@ def main() -> int:
     batch = synthetic_batch(bundle, BIG_BATCH, seed=5)[0]
     cases.append(adam_case(eng, state.tables, batch, cycles_per_ms))
     cases.append(adam_mixed_case())
+    cases.append(attention_case(2, 4, 175, BIG_BATCH, 98, cycles_per_ms, rate=DROPOUT))
     cases.append(attention_case(2, 4, 24, BIG_BATCH, 99, cycles_per_ms, rate=DROPOUT))
     cases.append(attention_bwd_case(2, 4, 24, BIG_BATCH, 7, cycles_per_ms))
     cases.append(attention_bwd_case(2, 4, 175, 8192, 8, cycles_per_ms))

@@ -18,24 +18,58 @@
 // (kernels/field_attention.py) computes the same bits with integer ops.
 //
 // Bound on the H100 (3.35 TB/s HBM, 67 TFLOP/s float32).  The forward reads
-// q, k, v once and writes o once (16*h*dh*F*B bytes) against 4*h*dh*F*F*B
-// flops, h*F*F*B exponentials and, with dropout, h*F*F*B/4 Philox draws;
-// at dh = 4 that is F/4 flops per byte against the card's 20, so autoint's
-// F = 24 is bound by bytes and the production ctr's F = 175 by operations.
-// The backward reads q, k, v, o, do, lse and writes dq, dk, dv
+// q, k, v once and writes o once, and lse when asked (16*h*dh*F*B +
+// 4*h*F*B bytes), against 4*h*dh*F*F*B flops, h*F*F*B exponentials and,
+// with dropout, h*F*F*B/4 Philox draws; at dh = 4 that is F/4 flops per
+// byte against the card's 20, so autoint's F = 24 is bound by bytes (63.85
+// us at h = 2, B = 65536, with lse) and the production ctr's F = 175 by
+// operations.  The backward reads q, k, v, o, do, lse and writes dq, dk, dv
 // (32*h*dh*F*B + 4*h*F*B bytes) against (10*dh + 5)*h*F*F*B operations: at
 // autoint's dh = 4 and F = 24 its bytes bound it, at F = 175 its operations.
 //
-// Forward design: one thread per (head, query field, sample); a block is 32
-// samples (threadIdx.x, B fastest, so every load and store coalesces) by kFq
-// query fields (threadIdx.y).  The block walks the keys in tiles of KT
-// fields: it stages the tile's k and v for its 32 samples in shared memory
-// once, and all kFq query fields of the block read them there.  Softmax is
-// online across tiles (running max and sum, one rescale per tile); the
-// dropout mask multiplies the weight after the softmax, so the running sum
-// takes the unmasked weights.  With an lse pointer it also writes
-// lse = max + log(sum) for the backward.  Ragged B and F edges are masked
-// by predicates; the TPU's F padding and -1e9 key bias are not needed.
+// Forward design (K5f).  A block owns one head and kLanes = 32 samples
+// (threadIdx.x, B fastest, so every global load and store coalesces) for
+// all F query fields; its kQy = 8 warps (threadIdx.y) each take QPT query
+// fields of every sample (3 at dh <= 4, 2 at dh = 8, 1 above), so a query
+// tile is 8*QPT fields and F = 24 is one tile.  Where the grid of (32
+// samples, head) blocks would leave SMs idle (B <= 2048 at h = 2), a
+// thread takes one query and the tiles spread over grid z instead.  Keys go
+// in chunks of KC = max(4, 64 / dh) fields, whose k and v rows (a sample's
+// dh floats contiguous) the block copies into shared memory with 4-byte
+// cp.async (zero-filled past the ragged B and F edges; B-minor rows of a
+// ragged B are not 16-byte aligned), into one of two buffers while the
+// other is computed: the next chunk's copy is in flight while this one's
+// math runs (cp.async groups, then a block barrier).  Shared memory depends
+// on dh alone (34-37 KB; 74 KB at dh = 32), so any F fits.  At F = 24 (two
+// chunks, one tile) every k and v element is read from device memory once;
+// where F spans several chunks and several tiles (F > 24 at dh = 4) each
+// tile copies the chunks again, from L2.
+//
+// Softmax with no running max.  Every score of a query is at most M =
+// sum_d max(q_d kmax_d, q_d kmin_d), with kmax_d and kmin_d the largest and
+// smallest k_d over the sample's F keys: one pass over k in device memory
+// at the start (while the first chunk is in flight) finds them.  A thread
+// holds its queries pre-scaled by scale * log2(e), so scores come out in
+// base 2, and each weight is exp2(s - M) <= 1: one ex2.approx, no max, no
+// rescaling.  If M overshoots the largest score so far that a row's sum
+// falls below 2^-64, the thread does that row again exactly (max first,
+// from device memory): the result never depends on the bound.  Per (query,
+// key, sample) pair at dh = 4: 4 FMA (the score, its chain starting at -M),
+// 1 ex2, 1 add (sum), 1 select (dropout), 4 FMA (output): 11 instructions
+// (an online softmax needs ~20), plus a quarter of a Philox call under
+// dropout: the round keys come from the kernel's parameters (constant-bank
+// operands), so a round is 2 wide multiplies and 2 three-way XORs, ~40
+// instructions a call, ~10 a pair.  Each k and v row read from shared
+// memory serves QPT queries: 2 * 16 B / QPT = 10.7 B a pair.  The dropout
+// mask multiplies the weight after the softmax, so the sum takes the
+// unmasked weights; the keep scale 1 / (1 - rate) is applied once, to the
+// output.  lse is written in natural units, (M + log2(sum)) * ln 2, as K5b
+// reads it.  Registers (the build log's -Xptxas -v, as the launch bounds
+// allow): 64 for dh <= 8, so 4 blocks of 256 threads an SM; 72-80 with
+// dropout (3 blocks; at three queries a thread a few bytes spill); 107-128
+// for dh = 16 and 32 (2 blocks).  What holds it back now: instructions (~21
+// a pair with dropout at dh = 4, half of them Philox), and at F > 24 the
+// chunks copied again for every query tile.
 //
 // Backward design: the TPU kernel summed dk and dv over query tiles across
 // sequential grid steps; blocks here run in no order, so no block may share
@@ -70,140 +104,59 @@
 namespace {
 
 constexpr int kLanes = 32;   // samples per block (forward and backward)
-constexpr int kFq = 8;       // query fields per block
+constexpr int kQy = 8;       // forward: warps per block (threadIdx.y)
+constexpr float kLog2e = 1.44269504f;   // exp(x) = exp2(x * log2 e): one ex2.approx
+constexpr float kLn2 = 0.693147181f;
+constexpr float kTiny = 5.42101086e-20f;   // 2^-64: a row's sum below it is done again
 
 constexpr uint32_t kPhiloxM0 = 0xD2511F53u;
 constexpr uint32_t kPhiloxM1 = 0xCD9E8D57u;
 constexpr uint32_t kPhiloxW0 = 0x9E3779B9u;
 constexpr uint32_t kPhiloxW1 = 0xBB67AE85u;
 
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0, uint32_t k1) {
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    const uint32_t lo0 = kPhiloxM0 * c.x;
-    const uint32_t hi0 = __umulhi(kPhiloxM0, c.x);
-    const uint32_t lo1 = kPhiloxM1 * c.z;
-    const uint32_t hi1 = __umulhi(kPhiloxM1, c.z);
-    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
-    k0 += kPhiloxW0;
-    k1 += kPhiloxW1;
-  }
-  return c;
-}
-
 __device__ __forceinline__ uint32_t word(const uint4& r, int i) {
   return i == 0 ? r.x : i == 1 ? r.y : i == 2 ? r.z : r.w;
 }
 
+// Philox4x32-10 (Salmon et al., SC'11) with the round keys (k0 + i*W0,
+// k1 + i*W1), i = 0..9, worked out on the host: in the kernel's parameters
+// they are constant-bank operands, so a round is 2 wide multiplies and 2
+// three-way XORs
 struct Dropout {
-  uint32_t k0, k1, thresh;
+  uint32_t thresh;
   float keep_scale;
+  uint32_t rk[20];
   // the four keys 4*kg .. 4*kg+3 of query fq, head h, sample b
   __device__ __forceinline__ uint4 bits(long long b, int fq, int h, int kg) const {
-    return philox4x32_10(make_uint4(static_cast<uint32_t>(b), static_cast<uint32_t>(fq),
-                                    static_cast<uint32_t>(h), static_cast<uint32_t>(kg)),
-                         k0, k1);
+    uint4 c = make_uint4(static_cast<uint32_t>(b), static_cast<uint32_t>(fq),
+                         static_cast<uint32_t>(h), static_cast<uint32_t>(kg));
+#pragma unroll
+    for (int i = 0; i < 10; ++i) {
+      const uint32_t lo0 = kPhiloxM0 * c.x;
+      const uint32_t hi0 = __umulhi(kPhiloxM0, c.x);
+      const uint32_t lo1 = kPhiloxM1 * c.z;
+      const uint32_t hi1 = __umulhi(kPhiloxM1, c.z);
+      c = make_uint4(hi1 ^ c.y ^ rk[2 * i], lo1, hi0 ^ c.w ^ rk[2 * i + 1], lo0);
+    }
+    return c;
   }
   __device__ __forceinline__ float scale(uint32_t r) const {
     return r >= thresh ? keep_scale : 0.f;
   }
+  // bit i set where word i of r keeps its weight
+  __device__ __forceinline__ uint32_t keep_bits(const uint4& r) const {
+    return static_cast<uint32_t>(r.x >= thresh) | static_cast<uint32_t>(r.y >= thresh) << 1 |
+           static_cast<uint32_t>(r.z >= thresh) << 2 | static_cast<uint32_t>(r.w >= thresh) << 3;
+  }
 };
 
-template <int DH, int KT, bool kDrop>
-__global__ void __launch_bounds__(kLanes * kFq)
-field_attention_fwd_kernel(const float* __restrict__ q,
-                           const float* __restrict__ k,
-                           const float* __restrict__ v,
-                           float* __restrict__ o,
-                           float* __restrict__ lse,
-                           int f, long long b, float scale, Dropout drop) {
-  __shared__ float ks[DH][KT][kLanes];
-  __shared__ float vs[DH][KT][kLanes];
-
-  const int lane = threadIdx.x;
-  const int fq = blockIdx.y * kFq + threadIdx.y;
-  const long long b0 = static_cast<long long>(blockIdx.x) * kLanes;
-  const long long bi = b0 + lane;
-  const bool live = fq < f && bi < b;
-  const long long fb = static_cast<long long>(f) * b;
-  const long long head = static_cast<long long>(blockIdx.z) * DH * fb;
-  const float* qh = q + head;
-  const float* kh = k + head;
-  const float* vh = v + head;
-
-  float qr[DH];
-  float acc[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) {
-    qr[d] = live ? qh[d * fb + static_cast<long long>(fq) * b + bi] : 0.f;
-    acc[d] = 0.f;
-  }
-  float run_max = -INFINITY;
-  float run_sum = 0.f;
-
-  const int tid = threadIdx.y * kLanes + lane;
-  for (int k0 = 0; k0 < f; k0 += KT) {
-    const int nk = min(KT, f - k0);
-    for (int i = tid; i < DH * KT * kLanes; i += kLanes * kFq) {
-      const int il = i % kLanes;
-      const int j = (i / kLanes) % KT;
-      const int d = i / (kLanes * KT);
-      const bool ok = j < nk && b0 + il < b;
-      const long long off = d * fb + static_cast<long long>(k0 + j) * b + b0 + il;
-      ks[d][j][il] = ok ? kh[off] : 0.f;
-      vs[d][j][il] = ok ? vh[off] : 0.f;
-    }
-    __syncthreads();
-    if (live) {
-      float s[KT];
-      float tile_max = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < KT; ++j) {
-        if (j < nk) {
-          float dot = 0.f;
-#pragma unroll
-          for (int d = 0; d < DH; ++d) dot += qr[d] * ks[d][j][lane];
-          s[j] = dot * scale;
-          tile_max = fmaxf(tile_max, s[j]);
-        }
-      }
-      const float new_max = fmaxf(run_max, tile_max);
-      const float corr = expf(run_max - new_max);   // 0 on the first tile
-      run_sum *= corr;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) acc[d] *= corr;
-      uint4 bits = make_uint4(0u, 0u, 0u, 0u);
-#pragma unroll
-      for (int j = 0; j < KT; ++j) {
-        if (j < nk) {
-          // KT is a multiple of 4, so (k0 + j) % 4 == j % 4
-          if (kDrop && (j & 3) == 0) bits = drop.bits(bi, fq, blockIdx.z, (k0 + j) >> 2);
-          const float p = expf(s[j] - new_max);
-          run_sum += p;
-          const float pd = kDrop ? p * drop.scale(word(bits, j & 3)) : p;
-#pragma unroll
-          for (int d = 0; d < DH; ++d) acc[d] += pd * vs[d][j][lane];
-        }
-      }
-      run_max = new_max;
-    }
-    __syncthreads();
-  }
-  if (live) {
-    const float inv = 1.f / run_sum;
-#pragma unroll
-    for (int d = 0; d < DH; ++d) {
-      o[head + d * fb + static_cast<long long>(fq) * b + bi] = acc[d] * inv;
-    }
-    if (lse != nullptr) {
-      lse[static_cast<long long>(blockIdx.z) * fb + static_cast<long long>(fq) * b + bi] =
-          run_max + logf(run_sum);
-    }
-  }
+// 2^x in one MUFU op; subnormal results flush to 0 (a weight below 2^-126
+// of the row's largest)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
-
-constexpr int kBY = 8;    // backward: queries per tile (threadIdx.y)
-constexpr float kLog2e = 1.44269504f;   // exp(x) = exp2(x * log2 e): one ex2.approx
 
 // a sample's dh floats, contiguous in shared memory: one 16-byte access
 // per 4 floats
@@ -233,6 +186,284 @@ __device__ __forceinline__ void store_row(float* p, const float (&r)[DH]) {
     for (int d = 0; d < DH; ++d) p[d] = r[d];
   }
 }
+
+// 4 bytes global -> shared, asynchronously; zero-filled where !ok
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src, bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               ::"r"(s), "l"(src), "r"(ok ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <int DH>
+struct FwdTile {
+  static constexpr int KC = 64 / DH < 4 ? 4 : 64 / DH;          // keys per chunk
+  static constexpr int QPT = DH <= 4 ? 3 : DH == 8 ? 2 : 1;     // queries per thread
+  static constexpr int kChunkFloats = 2 * KC * kLanes * DH;     // one buffer: k and v
+  static constexpr int kParts = DH < kQy ? kQy / DH : 1;        // key slices of the bound pass
+  static constexpr int kBoundFloats = 2 * kParts * DH * kLanes; // their largest and smallest k
+};
+
+// the chunk of keys kc0 .. kc0+KC-1 of the block's samples into buf
+// ([k|v][KC][kLanes][DH]), one cp.async per element; a thread keeps its
+// sample (lane) and walks rows of (d, key), so its addresses step by B
+template <int DH>
+__device__ __forceinline__ void stage_chunk(float* buf, const float* kh, const float* vh,
+                                            int kc0, int f, long long b, long long b0,
+                                            long long fb, int tid) {
+  using T = FwdTile<DH>;
+  constexpr int kElems = DH * T::KC * kLanes;
+  constexpr int kRounds = kElems / (kLanes * kQy);
+  static_assert(kElems % (kLanes * kQy) == 0, "a chunk is whole rounds of the block");
+  const int il = tid % kLanes;
+  const bool lane_in = b0 + il < b;
+  const float* kb = kh + b0 + il;
+  const float* vb = vh + b0 + il;
+  float* vs = buf + kElems;
+#pragma unroll 1
+  for (int n = 0; n < kRounds; ++n) {
+    const int row = tid / kLanes + n * kQy;   // d * KC + j
+    const int j = row % T::KC;
+    const int d = row / T::KC;
+    const bool ok = lane_in && kc0 + j < f;
+    const long long off = d * fb + static_cast<long long>(kc0 + j) * b;
+    const int dst = (j * kLanes + il) * DH + d;
+    cp_async_f32(buf + dst, ok ? kb + off : kh, ok);
+    cp_async_f32(vs + dst, ok ? vb + off : vh, ok);
+  }
+}
+
+// query qf (pre-scaled, base 2) of sample bi done again exactly, from device
+// memory: the largest score first, then the weights; acc and sum are
+// replaced and neg_max is minus that largest score
+template <int DH, bool kDrop>
+__device__ __forceinline__ void exact_row(const float (&qf)[DH], float (&acc)[DH], float& sum,
+                                          float& neg_max, const float* kh, const float* vh,
+                                          int f, long long b, long long bi, long long fb,
+                                          int fq, int h, const Dropout& drop) {
+  float mx = -INFINITY;
+  for (int g = 0; g < f; ++g) {
+    float s = 0.f;
+#pragma unroll
+    for (int d = 0; d < DH; ++d) s = fmaf(qf[d], kh[d * fb + static_cast<long long>(g) * b + bi], s);
+    mx = fmaxf(mx, s);
+  }
+  sum = 0.f;
+#pragma unroll
+  for (int d = 0; d < DH; ++d) acc[d] = 0.f;
+  uint32_t keep = 0xFu;
+  for (int g = 0; g < f; ++g) {
+    if (kDrop && (g & 3) == 0) keep = drop.keep_bits(drop.bits(bi, fq, h, g >> 2));
+    const long long at = static_cast<long long>(g) * b + bi;
+    float s = -mx;
+#pragma unroll
+    for (int d = 0; d < DH; ++d) s = fmaf(qf[d], kh[d * fb + at], s);
+    const float p = ex2(s);
+    sum += p;
+    const float pd = (keep >> (g & 3)) & 1u ? p : 0.f;
+#pragma unroll
+    for (int d = 0; d < DH; ++d) acc[d] = fmaf(pd, vh[d * fb + at], acc[d]);
+  }
+  neg_max = -mx;
+}
+
+// blocks an SM the registers must allow: 64 registers a thread (80 with
+// dropout, whose Philox state spills at 64) for dh <= 8, 128 above
+template <int DH, bool kDrop>
+constexpr int fwd_min_blocks() { return DH > 8 ? 2 : kDrop ? 3 : 4; }
+
+template <int DH, int QPT, bool kDrop>
+__global__ void __launch_bounds__(kLanes * kQy, fwd_min_blocks<DH, kDrop>())
+field_attention_fwd_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           float* __restrict__ o,
+                           float* __restrict__ lse,
+                           int f, long long b, float scale, Dropout drop) {
+  using T = FwdTile<DH>;
+  constexpr int KC = T::KC;
+  constexpr int QT = kQy * QPT;            // queries per tile
+  constexpr int P = T::kParts;
+  extern __shared__ __align__(16) float smem[];   // [2][kChunkFloats], [2][P][DH][kLanes]
+  float* s_bound = smem + 2 * T::kChunkFloats;
+
+  const int lane = threadIdx.x;
+  const int y = threadIdx.y;
+  const int tid = y * kLanes + lane;
+  const int h = blockIdx.y;
+  const long long b0 = static_cast<long long>(blockIdx.x) * kLanes;
+  const long long bi = b0 + lane;
+  const bool lane_ok = bi < b;
+  const long long fb = static_cast<long long>(f) * b;
+  const long long head = static_cast<long long>(h) * DH * fb;
+  const float* kh = k + head;
+  const float* vh = v + head;
+  const float qscale = scale * kLog2e;
+  const int nchunks = (f + KC - 1) / KC;
+  // query tiles blockIdx.z, blockIdx.z + gridDim.z, ... (gridDim.z > 1 only
+  // where the grid would not fill the card)
+  const int ntiles = (f + QT - 1) / QT;
+  const int nmine = (ntiles - static_cast<int>(blockIdx.z) + static_cast<int>(gridDim.z) - 1) /
+                    static_cast<int>(gridDim.z);
+  const int nloads = nchunks == 1 ? 1 : nchunks * nmine;
+
+  // the first two chunks in flight before anything else
+  stage_chunk<DH>(smem, kh, vh, 0, f, b, b0, fb, tid);
+  cp_async_commit();
+  if (nloads > 1) {
+    stage_chunk<DH>(smem + T::kChunkFloats, kh, vh, (1 % nchunks) * KC, f, b, b0, fb, tid);
+    cp_async_commit();
+  }
+
+  for (int t = 0; t < nmine; ++t) {
+    // this thread's queries fq = fq0 + kQy*i: each is one warp's for every
+    // i, so a dead query (fq >= F) is dead for the whole warp
+    const int fq0 = (static_cast<int>(blockIdx.z) + t * static_cast<int>(gridDim.z)) * QT + y;
+    float qr[QPT][DH], acc[QPT][DH], nb[QPT], sm[QPT];
+#pragma unroll
+    for (int i = 0; i < QPT; ++i) {
+      const int fq = fq0 + kQy * i;
+      const bool ok = lane_ok && fq < f;
+#pragma unroll
+      for (int d = 0; d < DH; ++d) {
+        qr[i][d] = ok ? q[head + d * fb + static_cast<long long>(fq) * b + bi] * qscale : 0.f;
+        acc[i][d] = 0.f;
+      }
+      nb[i] = 0.f;
+      sm[i] = 0.f;
+    }
+    if (t == 0) {
+      // the bound pass, with the chunks and the queries in flight: the
+      // largest and the smallest k of each unit over the sample's keys, in
+      // P slices of keys
+      for (int idx = y; idx < DH * P; idx += kQy) {
+        const int d = idx % DH;
+        const int part = idx / DH;
+        float hi = lane_ok ? -INFINITY : 0.f;
+        float lo = lane_ok ? INFINITY : 0.f;
+        if (lane_ok) {
+#pragma unroll 8
+          for (int g = part; g < f; g += P) {   // 8 loads in flight
+            const float x = __ldg(kh + d * fb + static_cast<long long>(g) * b + bi);
+            hi = fmaxf(hi, x);
+            lo = fminf(lo, x);
+          }
+        }
+        s_bound[(part * DH + d) * kLanes + lane] = hi;
+        s_bound[((P + part) * DH + d) * kLanes + lane] = lo;
+      }
+      __syncthreads();
+    }
+    // every score of query i is at most sum_d max(q_d * kmax_d, q_d * kmin_d)
+#pragma unroll
+    for (int d = 0; d < DH; ++d) {
+      float hi = -INFINITY, lo = INFINITY;
+#pragma unroll
+      for (int part = 0; part < P; ++part) {
+        hi = fmaxf(hi, s_bound[(part * DH + d) * kLanes + lane]);
+        lo = fminf(lo, s_bound[((P + part) * DH + d) * kLanes + lane]);
+      }
+#pragma unroll
+      for (int i = 0; i < QPT; ++i) nb[i] -= qr[i][d] * (qr[i][d] >= 0.f ? hi : lo);
+    }
+
+    for (int c = 0; c < nchunks; ++c) {
+      // chunk it is in buffer it & 1; chunk it + 1, where there is one, is
+      // in flight in the other
+      const int it = t * nchunks + c;
+      const float* buf = smem + (nchunks > 1 ? it & 1 : 0) * T::kChunkFloats;
+      if (nchunks > 1 || t == 0) {
+        if (it + 1 < nloads) {
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        __syncthreads();
+      }
+      if (fq0 < f) {
+        const int kc0 = c * KC;
+        const int nk = min(KC, f - kc0);
+        const float* ks = buf;
+        const float* vs = buf + DH * KC * kLanes;
+        // keys in groups of 4, one Philox call per (query, group) (KC is a
+        // multiple of 4, so kc0 + j4 is too)
+        for (int j4 = 0; j4 < nk; j4 += 4) {
+          uint32_t keep = 0xFFFFFFFFu;    // bit 4*i + jj: query i keeps key j4 + jj
+          if (kDrop) {
+            keep = 0u;
+#pragma unroll
+            for (int i = 0; i < QPT; ++i) {
+              const int fq = fq0 + kQy * i;
+              if (fq < f) {
+                keep |= drop.keep_bits(drop.bits(bi, fq, h, (kc0 + j4) >> 2)) << (4 * i);
+              }
+            }
+          }
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const int j = j4 + jj;
+            if (j < nk) {
+              float kr[DH], vr[DH], pd[QPT];
+              load_row<DH>(ks + (j * kLanes + lane) * DH, kr);
+#pragma unroll
+              for (int i = 0; i < QPT; ++i) {
+                float s = nb[i];
+#pragma unroll
+                for (int d = 0; d < DH; ++d) s = fmaf(qr[i][d], kr[d], s);
+                const float p = ex2(s);       // s <= 0 up to rounding
+                sm[i] += p;
+                pd[i] = (keep >> (4 * i + jj)) & 1u ? p : 0.f;
+              }
+              load_row<DH>(vs + (j * kLanes + lane) * DH, vr);
+#pragma unroll
+              for (int i = 0; i < QPT; ++i) {
+#pragma unroll
+                for (int d = 0; d < DH; ++d) acc[i][d] = fmaf(pd[i], vr[d], acc[i][d]);
+              }
+            }
+          }
+        }
+      }
+      if (nchunks > 1) {
+        __syncthreads();   // every warp is done with buffer it & 1
+        if (it + 2 < nloads) {
+          stage_chunk<DH>(smem + (it & 1) * T::kChunkFloats, kh, vh, ((it + 2) % nchunks) * KC,
+                          f, b, b0, fb, tid);
+          cp_async_commit();
+        }
+      }
+    }
+    if (lane_ok) {
+#pragma unroll
+      for (int i = 0; i < QPT; ++i) {
+        const int fq = fq0 + kQy * i;
+        if (fq < f) {
+          // the bound overshot the largest score by more than 64 (base 2):
+          // this row again, exactly
+          if (sm[i] < kTiny) exact_row<DH, kDrop>(qr[i], acc[i], sm[i], nb[i], kh, vh, f, b,
+                                                  bi, fb, fq, h, drop);
+          const long long own = static_cast<long long>(fq) * b + bi;
+          const float w = (kDrop ? drop.keep_scale : 1.f) / sm[i];
+#pragma unroll
+          for (int d = 0; d < DH; ++d) o[head + d * fb + own] = acc[i][d] * w;
+          if (lse != nullptr) {
+            lse[static_cast<long long>(h) * fb + own] = (log2f(sm[i]) - nb[i]) * kLn2;
+          }
+        }
+      }
+    }
+  }
+}
+
+constexpr int kBY = 8;    // backward: queries per tile (threadIdx.y)
 
 template <int DH>
 struct BwdTile {
@@ -397,25 +628,40 @@ field_attention_bwd_kernel(const float* __restrict__ q,
   }
 }
 
-dim3 grid_for(int h, int f, long long b) {
-  return dim3(static_cast<unsigned int>((b + kLanes - 1) / kLanes),
-              static_cast<unsigned int>((f + kFq - 1) / kFq),
-              static_cast<unsigned int>(h));
+template <int DH, int QPT>
+int launch_fwd_q(const float* q, const float* k, const float* v, float* o, float* lse,
+                 int h, int f, long long b, float scale, const Dropout& drop, bool dropout,
+                 unsigned int zsplit, cudaStream_t stream) {
+  using T = FwdTile<DH>;
+  const int bytes = (2 * T::kChunkFloats + T::kBoundFloats) * static_cast<int>(sizeof(float));
+  auto kernel = dropout ? field_attention_fwd_kernel<DH, QPT, true>
+                        : field_attention_fwd_kernel<DH, QPT, false>;
+  const cudaError_t set = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const unsigned int z = zsplit ? static_cast<unsigned int>((f + kQy * QPT - 1) / (kQy * QPT)) : 1u;
+  const dim3 grid(static_cast<unsigned int>((b + kLanes - 1) / kLanes),
+                  static_cast<unsigned int>(h), z);
+  kernel<<<grid, dim3(kLanes, kQy), bytes, stream>>>(q, k, v, o, lse, f, b, scale, drop);
+  return static_cast<int>(cudaGetLastError());
 }
 
+// Where the (sample block, head) grid would leave SMs idle (small B), one
+// query per thread and the query tiles spread over grid z; else QPT
+// queries per thread and every tile in its block.
 template <int DH>
-void launch_fwd(const float* q, const float* k, const float* v, float* o,
-                float* lse, int h, int f, long long b, float scale,
-                const Dropout& drop, bool dropout, cudaStream_t stream) {
-  constexpr int KT = 128 / DH;   // k and v tiles: 2 * 128 * 32 * 4 B = 32 KB
-  const dim3 block(kLanes, kFq);
-  if (dropout) {
-    field_attention_fwd_kernel<DH, KT, true><<<grid_for(h, f, b), block, 0, stream>>>(
-        q, k, v, o, lse, f, b, scale, drop);
-  } else {
-    field_attention_fwd_kernel<DH, KT, false><<<grid_for(h, f, b), block, 0, stream>>>(
-        q, k, v, o, lse, f, b, scale, drop);
+int launch_fwd(const float* q, const float* k, const float* v, float* o,
+               float* lse, int h, int f, long long b, float scale,
+               const Dropout& drop, bool dropout, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if ((b + kLanes - 1) / kLanes * h < sms) {
+    return launch_fwd_q<DH, 1>(q, k, v, o, lse, h, f, b, scale, drop, dropout, 1u, stream);
   }
+  return launch_fwd_q<DH, FwdTile<DH>::QPT>(q, k, v, o, lse, h, f, b, scale, drop, dropout, 0u,
+                                            stream);
 }
 
 template <int DH>
@@ -439,10 +685,12 @@ int launch_bwd(const float* q, const float* k, const float* v, const float* o,
 Dropout make_dropout(unsigned int k0, unsigned int k1, unsigned int thresh,
                      float keep_scale) {
   Dropout drop;
-  drop.k0 = k0;
-  drop.k1 = k1;
   drop.thresh = thresh;
   drop.keep_scale = keep_scale;
+  for (int i = 0; i < 10; ++i) {
+    drop.rk[2 * i] = k0 + static_cast<uint32_t>(i) * kPhiloxW0;
+    drop.rk[2 * i + 1] = k1 + static_cast<uint32_t>(i) * kPhiloxW1;
+  }
   return drop;
 }
 
@@ -460,15 +708,14 @@ RS_EXPORT int field_attention_fwd_f32(const float* q, const float* k,
   const Dropout drop = make_dropout(k0, k1, thresh, keep_scale);
   const bool on = dropout != 0;
   switch (dh) {
-    case 1: launch_fwd<1>(q, k, v, o, lse, h, f, b, scale, drop, on, stream); break;
-    case 2: launch_fwd<2>(q, k, v, o, lse, h, f, b, scale, drop, on, stream); break;
-    case 4: launch_fwd<4>(q, k, v, o, lse, h, f, b, scale, drop, on, stream); break;
-    case 8: launch_fwd<8>(q, k, v, o, lse, h, f, b, scale, drop, on, stream); break;
-    case 16: launch_fwd<16>(q, k, v, o, lse, h, f, b, scale, drop, on, stream); break;
-    case 32: launch_fwd<32>(q, k, v, o, lse, h, f, b, scale, drop, on, stream); break;
+    case 1: return launch_fwd<1>(q, k, v, o, lse, h, f, b, scale, drop, on, stream);
+    case 2: return launch_fwd<2>(q, k, v, o, lse, h, f, b, scale, drop, on, stream);
+    case 4: return launch_fwd<4>(q, k, v, o, lse, h, f, b, scale, drop, on, stream);
+    case 8: return launch_fwd<8>(q, k, v, o, lse, h, f, b, scale, drop, on, stream);
+    case 16: return launch_fwd<16>(q, k, v, o, lse, h, f, b, scale, drop, on, stream);
+    case 32: return launch_fwd<32>(q, k, v, o, lse, h, f, b, scale, drop, on, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // o is the forward's output, lse its (h, F, B) log-sum-exp; dropout as in

@@ -15,27 +15,47 @@
 // Bound on the H100 (3.35 TB/s HBM, 67 TFLOP/s float32): at F = 24 the
 // bytes (x and out once, 64 B a field) and the operations (4 projections
 // of 2*D*U and 2*H*F*DH*2 for the attention, per field) come out nearly
-// equal (B = 65536: 100.7 MB, 30.05 us; 2.01 GFLOP, 30.05 us); at F = 180
-// the attention's F^2 term makes it operations-bound.
+// equal (B = 65536: 100.7 MB, 30.05 us; 2.01 GFLOP, 30.05 us); at F = 40
+// (B = 32768, 35.06 us) and F = 180 (B = 8192, 138.04 us) the attention's
+// F^2 term makes it operations-bound.
 //
 // Design.  The TPU kernel cut the batch into tiles held as (8, 128)-padded
-// VMEM intermediates; none of that is carried over.  A block holds S =
-// max(1, 256 / F) samples, one thread per (sample, query field).  It stages
-// the 4*D*U + 6*U parameters and its samples' x rows (contiguous, read as
-// float4) in shared memory.  Each thread computes its field's q and r rows
-// in registers and writes its k and v rows to shared memory; after one
-// barrier it reads its sample's F key and value rows as float4 broadcasts.
-// The softmax takes two passes over the keys, the maximum per head and then
-// the exponentials, their sum and the weighted sum of v, as the plain
-// version computes it; the scores are recomputed in the second pass (8
-// multiply-adds a key), which costs less than the rescaling exponential of
-// an online softmax.  One thread holds every head of its field, so the
-// LayerNorm over U runs in registers and the output row leaves as two
-// float4 stores.  expf and IEEE division, no fast math: the kernel holds
-// to the plain version within 2e-5.  Shared memory: (S*F*D + 2*S*(F*U + 4))
-// floats, 23 KB at F = 24 and 17 KB at F = 180; each sample's k and v rows
-// are padded by 4 floats so that the two samples a warp may span read
-// other banks.
+// VMEM intermediates; none of that is carried over.  A thread takes QP
+// query fields of one sample (QP = 2; 1 at H = 8, where its per-head state
+// would not fit 64 registers), TPS = ceil(F / QP) threads a sample, and a
+// block S = max(1, 256 / TPS) samples (21 at F = 24, 12 at F = 40, 2 at
+// F = 180), so a warp may span samples but is full but for the block's
+// last.  The 4*D*U + 6*U parameters sit in shared memory and every thread
+// reads them as 16-byte broadcasts, one weight row serving its QP fields.
+// Each thread reads its fields' x rows from device memory (32 B each),
+// computes k, v and r, writes them to shared memory, and keeps q in
+// registers, pre-scaled by log2(e) / sqrt(DH) after its ReLU so that scores
+// come out in base 2 with no division.
+//
+// Softmax with no running max.  q and k come out of a ReLU, so every score
+// of a head is at most M = sum_d q_d * kmax_d, with kmax_d the largest k_d
+// over the sample's F fields (one pass over the keys in shared memory after
+// the projections).  Each weight is then exp2(s - M) <= 1, in one pass over
+// the keys with no max, no rescaling and no second pass: per (query, key,
+// head) DH FMA for the score (its chain starts at -M), one ex2.approx, one
+// add to the sum and DH FMA into the output, 2*DH + 2 instructions, 20 a
+// (query, key) pair over H = 2 heads at DH = 4.  Each k and v row read from shared
+// memory serves QP queries; the threads of a sample read the same row, so a
+// warp's 16-byte read is one broadcast wavefront (each sample's rows are
+// padded by 4 floats, so the samples a warp spans use other banks).  If M
+// overshoots the true max so far that a head's sum falls below 2^-64 (only
+// for scores spread by more than 64 in base 2), the thread recomputes that
+// head exactly, max first: the result never depends on the bound.
+// Residual, ReLU and the LayerNorm over U run in registers (one reciprocal a
+// head, IEEE), and the output row leaves as two 16-byte stores.  The kernel
+// holds to the plain version within 2e-5 (ex2.approx: 2 ulp).  Shared
+// memory: (2*S*(F*U + 4) + S*F*U + S*U) floats, 48.5 KB at F = 24, 34 KB at
+// F = 180; registers: the build log's -Xptxas -v (the launch bounds cap
+// them at 64: 4 blocks of 256 threads an SM; at H <= 4 up to 24 bytes
+// spill).  What holds it back now:
+// instructions (20 a pair at F = 180, where the pairs are 97 % of the work)
+// and, at F = 24, the projections (4 x 64 FMA and 32 broadcast loads a
+// field) beside device memory.
 
 #include <cmath>
 
@@ -46,26 +66,93 @@ namespace {
 constexpr int D = 8;                 // input width
 constexpr int U = 8;                 // units
 constexpr int kMaxThreads = 256;
+constexpr float kLog2e = 1.44269504f;
+constexpr float kTiny = 5.42101086e-20f;   // 2^-64: a head's sum below it is recomputed
 
 template <int H>
-__global__ void __launch_bounds__(kMaxThreads)
+struct Tile {
+  static constexpr int DH = U / H;
+  static constexpr int QP = H == 8 ? 1 : 2;   // query fields a thread
+};
+
+// 2^x in one MUFU op; subnormal results flush to 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// N consecutive floats of shared memory, in 16-, 8- or 4-byte loads
+template <int N>
+__device__ __forceinline__ void load_vec(const float* p, float* r) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 4) {
+      const float4 t = *reinterpret_cast<const float4*>(p + i);
+      r[i] = t.x; r[i + 1] = t.y; r[i + 2] = t.z; r[i + 3] = t.w;
+    }
+  } else if constexpr (N == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    r[0] = t.x; r[1] = t.y;
+  } else {
+    r[0] = p[0];
+  }
+}
+
+__device__ __forceinline__ void store_row(float* p, const float (&r)[U]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(r[0], r[1], r[2], r[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(r[4], r[5], r[6], r[7]);
+}
+
+// relu(x W + b) of the thread's QP fields, W and b matrix m of shared memory
+template <int QP>
+__device__ __forceinline__ void project(const float (&xv)[QP][D], const float* w,
+                                        const float* bias, float (&res)[QP][U]) {
+#pragma unroll
+  for (int i = 0; i < QP; ++i) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) res[i][u] = 0.f;
+  }
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    float wr[U];
+    load_vec<U>(w + d * U, wr);
+#pragma unroll
+    for (int i = 0; i < QP; ++i) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) res[i][u] = fmaf(xv[i][d], wr[u], res[i][u]);
+    }
+  }
+  float bv[U];
+  load_vec<U>(bias, bv);
+#pragma unroll
+  for (int i = 0; i < QP; ++i) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) res[i][u] = fmaxf(res[i][u] + bv[u], 0.f);
+  }
+}
+
+template <int H>
+__global__ void __launch_bounds__(kMaxThreads, 4)
 interacting_kernel(const float* __restrict__ x, const float* __restrict__ wq,
                    const float* __restrict__ bq, const float* __restrict__ wk,
                    const float* __restrict__ bk, const float* __restrict__ wv,
                    const float* __restrict__ bv, const float* __restrict__ wr,
                    const float* __restrict__ br, const float* __restrict__ gamma,
                    const float* __restrict__ beta, float* __restrict__ out,
-                   long long b, int f, int s, float scale, float eps) {
-  constexpr int DH = U / H;
+                   long long b, int f, int s, int tps, float scale, float eps) {
+  constexpr int DH = Tile<H>::DH;
+  constexpr int QP = Tile<H>::QP;
   __shared__ __align__(16) float s_w[4][D * U];      // Wq, Wk, Wv, Wr
-  __shared__ float s_b[4][U];                        // bq, bk, bv, br
+  __shared__ __align__(16) float s_b[4][U];          // bq, bk, bv, br
   __shared__ float s_gamma[U];
   __shared__ float s_beta[U];
   extern __shared__ __align__(16) float smem[];
   const int kv_stride = f * U + 4;
-  float* s_x = smem;                                 // s * f * D
-  float* s_k = s_x + s * f * D;                      // s * kv_stride
+  float* s_k = smem;                                 // s * kv_stride
   float* s_v = s_k + s * kv_stride;                  // s * kv_stride
+  float* s_r = s_v + s * kv_stride;                  // s * f * U: the residual rows
+  float* s_kmax = s_r + s * f * U;                   // s * U
 
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
@@ -85,140 +172,167 @@ interacting_kernel(const float* __restrict__ x, const float* __restrict__ wq,
   }
   const long long s0 = static_cast<long long>(blockIdx.x) * s;
   const int ns = static_cast<int>(min(static_cast<long long>(s), b - s0));
-  const float4* xg = reinterpret_cast<const float4*>(x + s0 * f * D);
-  float4* xs = reinterpret_cast<float4*>(s_x);
-  for (int i = tid; i < ns * f * (D / 4); i += nthreads) xs[i] = xg[i];
+  const int sl = tid / tps;                          // sample in the block
+  const int f0 = (tid - sl * tps) * QP;              // first query field
+  const bool live = sl < ns;
   __syncthreads();
 
-  const int sl = tid / f;                            // sample in the block
-  const int fi = tid - sl * f;                       // query field
-  const bool live = sl < ns;
-  float q[U], r[U];
+  // projections: k, v and r of the thread's fields to shared memory, q kept
+  float qv[QP][U];
   if (live) {
-    float xv[D];
-    const float4* xr = reinterpret_cast<const float4*>(s_x + tid * D);
+    float xv[QP][D];
 #pragma unroll
-    for (int d4 = 0; d4 < D / 4; ++d4) {
-      const float4 t = xr[d4];
-      xv[4 * d4 + 0] = t.x;
-      xv[4 * d4 + 1] = t.y;
-      xv[4 * d4 + 2] = t.z;
-      xv[4 * d4 + 3] = t.w;
+    for (int i = 0; i < QP; ++i) {
+      const bool ok = f0 + i < f;
+      const float4* xr = reinterpret_cast<const float4*>(
+          x + ((s0 + sl) * f + (ok ? f0 + i : 0)) * D);
+      const float4 a = ok ? __ldg(xr) : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float4 c = ok ? __ldg(xr + 1) : make_float4(0.f, 0.f, 0.f, 0.f);
+      xv[i][0] = a.x; xv[i][1] = a.y; xv[i][2] = a.z; xv[i][3] = a.w;
+      xv[i][4] = c.x; xv[i][5] = c.y; xv[i][6] = c.z; xv[i][7] = c.w;
     }
-    float k[U], v[U];
+    float* dst[3] = {s_k + sl * kv_stride, s_v + sl * kv_stride, s_r + sl * f * U};
 #pragma unroll
-    for (int u = 0; u < U; ++u) q[u] = k[u] = v[u] = r[u] = 0.f;
+    for (int m = 1; m < 4; ++m) {
+      float res[QP][U];
+      project<QP>(xv, s_w[m], s_b[m], res);
 #pragma unroll
-    for (int d = 0; d < D; ++d) {
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        q[u] = fmaf(xv[d], s_w[0][d * U + u], q[u]);
-        k[u] = fmaf(xv[d], s_w[1][d * U + u], k[u]);
-        v[u] = fmaf(xv[d], s_w[2][d * U + u], v[u]);
-        r[u] = fmaf(xv[d], s_w[3][d * U + u], r[u]);
+      for (int i = 0; i < QP; ++i) {
+        if (f0 + i < f) store_row(dst[m - 1] + (f0 + i) * U, res[i]);
       }
     }
+    project<QP>(xv, s_w[0], s_b[0], qv);
+    const float qscale = kLog2e / scale;
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      q[u] = fmaxf(q[u] + s_b[0][u], 0.f);
-      k[u] = fmaxf(k[u] + s_b[1][u], 0.f);
-      v[u] = fmaxf(v[u] + s_b[2][u], 0.f);
-      r[u] = fmaxf(r[u] + s_b[3][u], 0.f);
-    }
-    float4* kd = reinterpret_cast<float4*>(s_k + sl * kv_stride + fi * U);
-    float4* vd = reinterpret_cast<float4*>(s_v + sl * kv_stride + fi * U);
+    for (int i = 0; i < QP; ++i) {
 #pragma unroll
-    for (int u4 = 0; u4 < U / 4; ++u4) {
-      kd[u4] = make_float4(k[4 * u4], k[4 * u4 + 1], k[4 * u4 + 2], k[4 * u4 + 3]);
-      vd[u4] = make_float4(v[4 * u4], v[4 * u4 + 1], v[4 * u4 + 2], v[4 * u4 + 3]);
+      for (int u = 0; u < U; ++u) qv[i][u] *= qscale;
     }
+  }
+  __syncthreads();
+  // the largest k of each sample and unit (k >= 0 after its ReLU)
+  for (int t = tid; t < ns * U; t += nthreads) {
+    const float* col = s_k + (t / U) * kv_stride + t % U;
+    float m = 0.f;
+#pragma unroll 8
+    for (int g = 0; g < f; ++g) m = fmaxf(m, col[g * U]);   // 8 loads in flight
+    s_kmax[t] = m;
   }
   __syncthreads();
   if (!live) return;
 
-  const float4* ks = reinterpret_cast<const float4*>(s_k + sl * kv_stride);
-  const float4* vs = reinterpret_cast<const float4*>(s_v + sl * kv_stride);
-
-  // pass 1: the maximum score of each head
-  float mx[H];
+  const float* ks = s_k + sl * kv_stride;
+  const float* vs = s_v + sl * kv_stride;
+  float neg_bound[QP][H];   // -M of each query and head
+  {
+    float kmax[U];
+    load_vec<U>(s_kmax + sl * U, kmax);
 #pragma unroll
-  for (int h = 0; h < H; ++h) mx[h] = -INFINITY;
+    for (int i = 0; i < QP; ++i) {
+#pragma unroll
+      for (int hh = 0; hh < H; ++hh) {
+        float m = 0.f;
+#pragma unroll
+        for (int j = 0; j < DH; ++j) m = fmaf(qv[i][hh * DH + j], kmax[hh * DH + j], m);
+        neg_bound[i][hh] = -m;
+      }
+    }
+  }
+  float acc[QP][U], sum[QP][H];
+#pragma unroll
+  for (int i = 0; i < QP; ++i) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) acc[i][u] = 0.f;
+#pragma unroll
+    for (int hh = 0; hh < H; ++hh) sum[i][hh] = 0.f;
+  }
   for (int g = 0; g < f; ++g) {
-    float kr[U];
 #pragma unroll
-    for (int u4 = 0; u4 < U / 4; ++u4) {
-      const float4 t = ks[g * (U / 4) + u4];
-      kr[4 * u4 + 0] = t.x;
-      kr[4 * u4 + 1] = t.y;
-      kr[4 * u4 + 2] = t.z;
-      kr[4 * u4 + 3] = t.w;
-    }
+    for (int hh = 0; hh < H; ++hh) {
+      float kr[DH], vr[DH], p[QP];
+      load_vec<DH>(ks + g * U + hh * DH, kr);
 #pragma unroll
-    for (int h = 0; h < H; ++h) {
-      float dot = 0.f;
+      for (int i = 0; i < QP; ++i) {
+        float sc = neg_bound[i][hh];
 #pragma unroll
-      for (int j = 0; j < DH; ++j) dot = fmaf(q[h * DH + j], kr[h * DH + j], dot);
-      mx[h] = fmaxf(mx[h], dot / scale);
-    }
-  }
-
-  // pass 2: exponentials, their sum and the weighted sum of v
-  float sum[H], acc[U];
+        for (int j = 0; j < DH; ++j) sc = fmaf(qv[i][hh * DH + j], kr[j], sc);
+        p[i] = ex2(sc);
+        sum[i][hh] += p[i];
+      }
+      load_vec<DH>(vs + g * U + hh * DH, vr);
 #pragma unroll
-  for (int h = 0; h < H; ++h) sum[h] = 0.f;
+      for (int i = 0; i < QP; ++i) {
 #pragma unroll
-  for (int u = 0; u < U; ++u) acc[u] = 0.f;
-  for (int g = 0; g < f; ++g) {
-    float kr[U], vr[U];
-#pragma unroll
-    for (int u4 = 0; u4 < U / 4; ++u4) {
-      const float4 t = ks[g * (U / 4) + u4];
-      kr[4 * u4 + 0] = t.x;
-      kr[4 * u4 + 1] = t.y;
-      kr[4 * u4 + 2] = t.z;
-      kr[4 * u4 + 3] = t.w;
-      const float4 w = vs[g * (U / 4) + u4];
-      vr[4 * u4 + 0] = w.x;
-      vr[4 * u4 + 1] = w.y;
-      vr[4 * u4 + 2] = w.z;
-      vr[4 * u4 + 3] = w.w;
-    }
-#pragma unroll
-    for (int h = 0; h < H; ++h) {
-      float dot = 0.f;
-#pragma unroll
-      for (int j = 0; j < DH; ++j) dot = fmaf(q[h * DH + j], kr[h * DH + j], dot);
-      const float e = expf(dot / scale - mx[h]);
-      sum[h] += e;
-#pragma unroll
-      for (int j = 0; j < DH; ++j) acc[h * DH + j] = fmaf(e, vr[h * DH + j], acc[h * DH + j]);
+        for (int j = 0; j < DH; ++j) acc[i][hh * DH + j] = fmaf(p[i], vr[j], acc[i][hh * DH + j]);
+      }
     }
   }
 
-  // residual, relu and the LayerNorm over U
-  float o[U];
-  float mu = 0.f;
 #pragma unroll
-  for (int u = 0; u < U; ++u) {
-    o[u] = fmaxf(acc[u] / sum[u / DH] + r[u], 0.f);
-    mu += o[u];
-  }
-  mu /= U;
-  float var = 0.f;
+  for (int i = 0; i < QP; ++i) {
+    const int fi = f0 + i;
+    if (fi >= f) continue;
+    // a head whose bound overshot: recompute it exactly, max first
 #pragma unroll
-  for (int u = 0; u < U; ++u) {
-    const float c = o[u] - mu;
-    var = fmaf(c, c, var);
-  }
-  var /= U;
-  const float inv = rsqrtf(var + eps);
-  float y[U];
+    for (int hh = 0; hh < H; ++hh) {
+      if (sum[i][hh] < kTiny) {
+        float mx = -INFINITY;
+        for (int g = 0; g < f; ++g) {
+          float kr[DH];
+          load_vec<DH>(ks + g * U + hh * DH, kr);
+          float sc = 0.f;
 #pragma unroll
-  for (int u = 0; u < U; ++u) y[u] = (o[u] - mu) * inv * s_gamma[u] + s_beta[u];
-  float4* dst = reinterpret_cast<float4*>(out + ((s0 + sl) * f + fi) * U);
+          for (int j = 0; j < DH; ++j) sc = fmaf(qv[i][hh * DH + j], kr[j], sc);
+          mx = fmaxf(mx, sc);
+        }
+        float l = 0.f, a[DH];
 #pragma unroll
-  for (int u4 = 0; u4 < U / 4; ++u4) {
-    dst[u4] = make_float4(y[4 * u4], y[4 * u4 + 1], y[4 * u4 + 2], y[4 * u4 + 3]);
+        for (int j = 0; j < DH; ++j) a[j] = 0.f;
+        for (int g = 0; g < f; ++g) {
+          float kr[DH], vr[DH];
+          load_vec<DH>(ks + g * U + hh * DH, kr);
+          load_vec<DH>(vs + g * U + hh * DH, vr);
+          float sc = -mx;
+#pragma unroll
+          for (int j = 0; j < DH; ++j) sc = fmaf(qv[i][hh * DH + j], kr[j], sc);
+          const float e = ex2(sc);
+          l += e;
+#pragma unroll
+          for (int j = 0; j < DH; ++j) a[j] = fmaf(e, vr[j], a[j]);
+        }
+        sum[i][hh] = l;
+#pragma unroll
+        for (int j = 0; j < DH; ++j) acc[i][hh * DH + j] = a[j];
+      }
+    }
+
+    // residual, relu and the LayerNorm over U
+    float r[U], o[U];
+    load_vec<U>(s_r + (sl * f + fi) * U, r);
+    float mu = 0.f;
+#pragma unroll
+    for (int hh = 0; hh < H; ++hh) {
+      const float inv = 1.f / sum[i][hh];
+#pragma unroll
+      for (int j = 0; j < DH; ++j) {
+        const int u = hh * DH + j;
+        o[u] = fmaxf(acc[i][u] * inv + r[u], 0.f);
+        mu += o[u];
+      }
+    }
+    mu /= U;
+    float var = 0.f;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const float c = o[u] - mu;
+      var = fmaf(c, c, var);
+    }
+    var /= U;
+    const float rs = rsqrtf(var + eps);
+    float yv[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) yv[u] = (o[u] - mu) * rs * s_gamma[u] + s_beta[u];
+    store_row(out + ((s0 + sl) * f + fi) * U, yv);
   }
 }
 
@@ -229,12 +343,19 @@ cudaError_t launch(const float* x, const float* wq, const float* bq,
                    const float* gamma, const float* beta, float* out,
                    long long b, int f, float scale, float eps,
                    cudaStream_t stream) {
-  const int s = f >= kMaxThreads ? 1 : kMaxThreads / f;
+  constexpr int QP = Tile<H>::QP;
+  const int tps = (f + QP - 1) / QP;
+  const int s = tps >= kMaxThreads ? 1 : kMaxThreads / tps;
   const unsigned int blocks = static_cast<unsigned int>((b + s - 1) / s);
-  const size_t smem = sizeof(float) * (static_cast<size_t>(s) * f * D
-                                       + 2 * static_cast<size_t>(s) * (f * U + 4));
-  interacting_kernel<H><<<blocks, s * f, smem, stream>>>(
-      x, wq, bq, wk, bk, wv, bv, wr, br, gamma, beta, out, b, f, s, scale, eps);
+  const size_t smem = sizeof(float) * (2 * static_cast<size_t>(s) * (f * U + 4)
+                                       + static_cast<size_t>(s) * f * U
+                                       + static_cast<size_t>(s) * U);
+  const cudaError_t set = cudaFuncSetAttribute(
+      interacting_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (set != cudaSuccess) return set;
+  interacting_kernel<H><<<blocks, s * tps, smem, stream>>>(
+      x, wq, bq, wk, bk, wv, bv, wr, br, gamma, beta, out, b, f, s, tps, scale, eps);
   return cudaGetLastError();
 }
 

@@ -4,11 +4,15 @@
     python3 scripts/torch_profile_predict.py [--model autoint] [--batch 65536 256] [--steps 10]
     python3 scripts/torch_profile_predict.py --model staytime [--batch 16384 256]
     python3 scripts/torch_profile_predict.py --model ctr [--batch 32768 256] [--without-k6]
+    python3 scripts/torch_profile_predict.py --model ctr212 [--batch 8192]
 
 For each batch size: builds the model's full-width bundle (autoint: 24
 tables of 265,000 rows x 8; ctr: 24 tables of 265,000 x 48; multi_head: 40
 tables of 265,000 x 8; staytime: 91 tables of 81,920 rows x 32 and 3
-behaviour sequences of 50; seeded random weights, 5 ids per mean column),
+behaviour sequences of 50; ctr212: the 212-feature ctr shape,
+``synthetic_ctr_config(num_slots=180, num_bias=32)`` over 32,768-id
+buckets with one id per column; seeded random weights, 5 ids per mean
+column elsewhere),
 warms the predict step up, then
   - times ``steps`` calls on the host clock, ending in a synchronize;
   - traces the same number of calls with ``torch.profiler`` and sums the
@@ -37,7 +41,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-DEFAULT_BATCHES = {"autoint": [65536, 256], "ctr": [32768, 256],
+DEFAULT_BATCHES = {"autoint": [65536, 256], "ctr": [32768, 256], "ctr212": [8192],
                    "multi_head": [32768, 256], "staytime": [16384, 256]}
 
 
@@ -63,6 +67,7 @@ def main(argv=None) -> int:
         return 2
     from torch.profiler import ProfilerActivity, profile
 
+    from recommendsystem_tpu_torch.core.config import synthetic_ctr_config
     from recommendsystem_tpu_torch.data import synthetic_batch
     from recommendsystem_tpu_torch.kernels import launch_counts, reset_launch_counts
     from recommendsystem_tpu_torch.models import create_model
@@ -73,7 +78,13 @@ def main(argv=None) -> int:
                           text=True, check=True).stdout.strip()
     print(card, flush=True)
     batches = args.batch or DEFAULT_BATCHES[args.model]
-    bundle = create_model(args.model, device="cuda")
+    if args.model == "ctr212":
+        bundle = create_model("ctr", cfg=synthetic_ctr_config(num_slots=180, num_bias=32),
+                              bucket_size=32768, device="cuda")
+        ids_per_feature = {}
+    else:
+        bundle = create_model(args.model, device="cuda")
+        ids_per_feature = 5
     suffix = ""
     if args.without_k6:
         layer = bundle.module.interacting
@@ -84,7 +95,7 @@ def main(argv=None) -> int:
     os.makedirs("chiprun_out", exist_ok=True)
     tables = []
     for b in batches:
-        batch, _, _, _ = synthetic_batch(bundle, b, seed=1)
+        batch, _, _, _ = synthetic_batch(bundle, b, seed=1, ids_per_feature=ids_per_feature)
         for _ in range(3):
             step(state, batch)
         torch.cuda.synchronize()

@@ -154,6 +154,100 @@ def test_field_attention_autograd_runs_both_kernels(cuda):
     assert launch_counts()["field_attention_bwd"] == 1
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("dh", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("f", [1, 24, 175, 256])
+def test_field_attention_fwd_lse_kernel(cuda, f, dh, rate):
+    """K5f as the train step launches it (with the log-sum-exp): output and
+    lse against the plain version's, at a B that is not a multiple of the
+    block's 32 samples."""
+    from recommendsystem_tpu_torch.kernels.field_attention import _fwd
+    b = 45
+    g = torch.Generator(device=cuda).manual_seed(f * dh + int(rate * 10))
+    q, k, v = (torch.randn((2, dh, f, b), generator=g, device=cuda) for _ in range(3))
+    seed = (77 << 32) | 3
+    got, got_lse = _fwd(q, k, v, seed, rate, want_lse=True)
+    want, want_lse = field_attention_fwd_plain(q, k, v, seed, rate)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+    torch.testing.assert_close(got_lse, want_lse, rtol=0, atol=2e-5)
+    assert launch_counts()["field_attention"] == 1
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("dh", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("f", [1, 24, 175])
+def test_field_attention_fwd_lse_kernel_wide_batch(cuda, f, dh, rate):
+    """As above at B = 4500 (141 blocks of 32 samples a head, more than the
+    card's SMs): each thread takes several queries and a block every query
+    tile, where the small batches spread the tiles over the grid."""
+    from recommendsystem_tpu_torch.kernels.field_attention import _fwd
+    b = 4500
+    g = torch.Generator(device=cuda).manual_seed(f * dh + int(rate * 10) + 1)
+    q, k, v = (torch.randn((2, dh, f, b), generator=g, device=cuda) for _ in range(3))
+    seed = (78 << 32) | 5
+    got, got_lse = _fwd(q, k, v, seed, rate, want_lse=True)
+    want, want_lse = field_attention_fwd_plain(q, k, v, seed, rate)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+    torch.testing.assert_close(got_lse, want_lse, rtol=0, atol=2e-5)
+    assert launch_counts()["field_attention"] == 1
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("b", [40, 4500])
+def test_field_attention_fwd_loose_bound(cuda, b, rate):
+    """Keys 0 and 1 hold (20, -20) and (-20, 20), the queries about (2, 2):
+    scores stay small, while the kernel's bound on a row's largest score,
+    sum_d max(q_d kmax_d, q_d kmin_d), is ~80 (base 2) higher.  The rows'
+    sums fall below 2^-64 and the kernel does them again exactly."""
+    from recommendsystem_tpu_torch.kernels.field_attention import _fwd
+    g = torch.Generator(device=cuda).manual_seed(b + 3)
+    q = torch.randn((2, 2, 24, b), generator=g, device=cuda) * 0.1 + 2.0
+    k = torch.randn((2, 2, 24, b), generator=g, device=cuda) * 0.3
+    v = torch.randn((2, 2, 24, b), generator=g, device=cuda)
+    k[:, :, 0] = torch.tensor([20.0, -20.0], device=cuda)[None, :, None]
+    k[:, :, 1] = torch.tensor([-20.0, 20.0], device=cuda)[None, :, None]
+    got, got_lse = _fwd(q, k, v, 11, rate, want_lse=True)
+    want, want_lse = field_attention_fwd_plain(q, k, v, 11, rate)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and torch.isfinite(got_lse).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+    torch.testing.assert_close(got_lse, want_lse, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("f,b,rate", [(24, 300, 0.2), (175, 300, 0.2), (40, 300, 0.0),
+                                      (24, 4500, 0.2), (175, 4500, 0.2)])
+def test_field_attention_fwd_is_deterministic(cuda, f, b, rate):
+    """K5f sums in a fixed order: two launches, the same bits."""
+    from recommendsystem_tpu_torch.kernels.field_attention import _fwd
+    g = torch.Generator(device=cuda).manual_seed(f + 11)
+    q, k, v = (torch.randn((2, 4, f, b), generator=g, device=cuda) for _ in range(3))
+    first = _fwd(q, k, v, 5, rate, want_lse=True)
+    second = _fwd(q, k, v, 5, rate, want_lse=True)
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+    assert launch_counts()["field_attention"] == 2
+
+
+@pytest.mark.parametrize("f,b", [(24, 200), (175, 70), (256, 33), (24, 4500)])
+def test_field_attention_bwd_from_the_kernel_lse(cuda, f, b):
+    """K5b fed K5f's own output and lse stays within the gradients'
+    tolerance of the plain backward fed the plain forward's."""
+    from recommendsystem_tpu_torch.kernels.field_attention import _fwd
+    g = torch.Generator(device=cuda).manual_seed(f * b + 5)
+    q, k, v, do = (torch.randn((2, 4, f, b), generator=g, device=cuda) for _ in range(4))
+    o, lse = _fwd(q, k, v, 6, 0.2, want_lse=True)
+    got = field_attention_bwd(q, k, v, o, lse, do, 6, 0.2)
+    po, plse = field_attention_fwd_plain(q, k, v, 6, 0.2)
+    want = field_attention_bwd_reference(q, k, v, po, plse, do, 6, 0.2)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=1e-4, atol=2e-5)
+    assert launch_counts()["field_attention"] == 1
+    assert launch_counts()["field_attention_bwd"] == 1
+
+
 def _unfold_inputs(dev, rows, l, b, seed, hot_row=False):
     ids, mask = _stream(dev, rows, 1, l, b, seed)
     if hot_row:
@@ -367,6 +461,57 @@ def test_interacting_attention_kernel(cuda, b, f, h):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
     assert launch_counts()["interacting_attention"] == 1
+
+
+@pytest.mark.parametrize("b,f,h", [(37, 180, 2), (9, 256, 2), (21, 180, 1),
+                                   (13, 180, 4), (11, 180, 8), (7, 256, 8),
+                                   (43, 40, 4), (22, 24, 1)])
+def test_interacting_attention_kernel_wide(cuda, b, f, h):
+    """K6 at the 212-feature ctr's F = 180 and at F = 256, ragged B (blocks
+    of several samples, the last one part full), every head count."""
+    x, p = _interacting_inputs(cuda, b, f, seed=b * f + h + 1)
+    got = interacting_attention(x, p, h, 1e-3)
+    want = interacting_attention_plain(x, p, h, 1e-3)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    assert launch_counts()["interacting_attention"] == 1
+
+
+@pytest.mark.parametrize("h", [1, 2, 4])
+def test_interacting_attention_kernel_loose_bound(cuda, h):
+    """q = k = v = relu(x) (identity projections); fields 0 and 1 hold 50 in
+    units 0 and 4 and in units 1 and 5, every other field about 2 there.
+    A query of fields 2.. then scores ~72 (base 2) on keys 0 and 1, while
+    the kernel's bound on its largest score (the sum over units of q times
+    the largest k) is ~144: its sums fall below 2^-64 and it recomputes
+    those heads exactly."""
+    b, f = 40, 24
+    x, p = _interacting_inputs(cuda, b, f, seed=h + 40)
+    eye = torch.eye(8, device=cuda)
+    for n in ("wq", "wk", "wv"):
+        p[n] = eye.clone()
+    for n in ("bq", "bk", "bv"):
+        p[n] = torch.zeros(8, device=cuda)
+    x = x * 0.3
+    x[:, 2:, [0, 1, 4, 5]] += 2.0
+    x[:, 0] = 0.0
+    x[:, 1] = 0.0
+    x[:, 0, [0, 4]] = 50.0
+    x[:, 1, [1, 5]] = 50.0
+    got = interacting_attention(x, p, h, 1e-3)
+    want = interacting_attention_plain(x, p, h, 1e-3)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("b,f", [(256, 24), (33, 180)])
+def test_interacting_attention_is_deterministic(cuda, b, f):
+    x, p = _interacting_inputs(cuda, b, f, seed=b + f)
+    first = interacting_attention(x, p, 2, 1e-3)
+    second = interacting_attention(x, p, 2, 1e-3)
+    assert torch.equal(first, second)
+    assert launch_counts()["interacting_attention"] == 2
 
 
 def test_interacting_attention_backward_through_the_function(cuda):
