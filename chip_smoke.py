@@ -11,8 +11,12 @@
    with its log-sum-exp, held to the plain version's output and lse, also
    at F = 175 and at B = 65536 with dropout 0.2 (F = 24 and 175); its
    backward, checked bit-identical over two launches; the unfold-scatter at
-   B = 4096 and 65536; the lazy Adam as one grouped pass over autoint's 24
-   full storages, and over a group of mixed widths), and times kernel,
+   B = 4096 and 65536; the fold and the unfold-scatter also as the steps
+   launch them, one grouped call over autoint's 24 columns at B = 256 and
+   65536 with 5 ids, tables and accumulators out of L2, and over a group of
+   mixed widths and lengths and a group of 65 members (two launches); the
+   lazy Adam as one grouped pass over autoint's 24 full storages, and over a
+   group of mixed widths), and times kernel,
    plain version and a library
    yardstick that the port never calls: device time per call (``ms``, calls
    run back to back behind a spin kernel) and, for the kernel, the host's
@@ -31,7 +35,8 @@
    Adam on the tables, dense Adam) for a few
    steps with 5 ids per feature and with 1, counts set to 0 just before and
    read just after; checks the loss finite, t and show equal to the live
-   counts, and one lazy-Adam launch and one attention backward a step;
+   counts, and one lazy-Adam launch and one attention backward a step (and
+   with 5 ids one grouped fold and one grouped unfold-scatter);
    holds two steps on the card to the same two steps on the CPU through
    the plain versions (B = 4096, same seeds, same dropout); times
    the step as the median of 3 windows, each ending in a synchronize and a
@@ -348,11 +353,45 @@ def attention_bwd_case(h, dh, f, b, seed, cycles_per_ms, rate=DROPOUT):
             "bound_ms": bms, "bound_by": by, "bytes": nbytes, "ops": ops}
 
 
+def _payload(g, mask):
+    """(E, D) per-entry grads and (E,) mask -> (E, D+1) [grad | count]
+    rows, zero where the mask is not > 0: what the yardstick's one
+    ``index_add_`` adds."""
+    live = (mask > 0).to(g.dtype)[:, None]
+    return torch.cat([g * live, live], dim=1)
+
+
+def _check_unfold(got, want, d, what):
+    """Gradient sums within UNFOLD_TOL, counts equal; returns the max abs
+    error of the sums."""
+    (gg, gc), (wg, wc) = (_acc_views(got, d), _acc_views(want, d))
+    err = float((gg - wg).abs().max()) if gg.numel() else 0.0
+    if not err <= UNFOLD_TOL or not torch.equal(gc, wc):
+        raise AssertionError(f"{what}: max abs err {err}, counts "
+                             f"{float((gc - wc).abs().max())}")
+    return err
+
+
+def _acc_views(acc, d):
+    from recommendsystem_tpu_torch.embedding.packed import accumulator_views
+
+    return accumulator_views(acc, d)
+
+
+def _unfold_bytes_ops(ids, mask, b, d):
+    """ids and mask read once, the gradient once, each touched accumulator
+    row read and written once; one add per live entry and lane."""
+    live = mask > 0
+    uniq = int(torch.unique(ids[live]).numel())
+    return 8 * ids.numel() + 4 * b * d + 2 * 4 * (d + 1) * uniq, int(live.sum()) * (d + 1)
+
+
 def unfold_case(name, eng, skey, batch, cycles_per_ms):
     """K3 (5 ids) or K4 (1 id) on one full-width column's stream: the
-    column's gradient added into a zeroed (rows, D+1) accumulator, against
-    the plain payload + ``index_add_``; yardstick: ``index_add_`` of the
-    prebuilt payload alone."""
+    column's gradient added into a zeroed accumulator (rows*(D+1) floats,
+    gradient block then counts), against the plain version (two
+    ``index_add_``); yardstick: one ``index_add_`` of the prebuilt (E, D+1)
+    [grad | count] payload into a (rows, D+1) buffer."""
     from recommendsystem_tpu_torch.embedding import packed
 
     plans = packed.plan_segments(eng, batch, storages={skey})
@@ -362,32 +401,27 @@ def unfold_case(name, eng, skey, batch, cycles_per_ms):
     b = ids.shape[0] // seg.l
     g = torch.randn((b, d), generator=torch.Generator(device="cuda").manual_seed(b),
                     device="cuda")
-    got = torch.zeros((rows, d + 1), device="cuda")
-    want = torch.zeros((rows, d + 1), device="cuda")
+    got = torch.zeros(rows * (d + 1), device="cuda")
+    want = torch.zeros(rows * (d + 1), device="cuda")
     if seg.l == 1:
         kernel = lambda: packed.unfold_rows_scatter(got, g, ids, mask)  # noqa: E731
         plain = lambda: packed.unfold_rows_scatter_plain(want, g, ids, mask)  # noqa: E731
-        payload = packed.unfold_payload(g, mask)
+        payload = _payload(g, mask)
     else:
         kernel = lambda: packed.unfold_mean_scatter(got, g, ids, mask, seg.l)  # noqa: E731
         plain = lambda: packed.unfold_mean_scatter_plain(want, g, ids, mask, seg.l)  # noqa: E731
-        payload = packed.unfold_payload(g.repeat(seg.l, 1), mask)
+        payload = _payload(g.repeat(seg.l, 1), mask)
     kernel()
     plain()
     torch.cuda.synchronize()
-    err = float((got[:, :d] - want[:, :d]).abs().max())
-    if not err <= UNFOLD_TOL or not torch.equal(got[:, d], want[:, d]):
-        raise AssertionError(f"{name} b={b}: max abs err {err}, counts "
-                             f"{float((got[:, d] - want[:, d]).abs().max())}")
+    err = _check_unfold(got, want, d, f"{name} b={b}")
     lids = ids.long()
-    library = lambda: want.index_add_(0, lids, payload)            # noqa: E731
+    lib_acc = torch.zeros((rows, d + 1), device="cuda")
+    library = lambda: lib_acc.index_add_(0, lids, payload)         # noqa: E731
     live = mask > 0
     n_live = int(live.sum())
     uniq = int(torch.unique(ids[live]).numel())
-    # ids and mask read once, the gradient once, each touched accumulator
-    # row read and written once; one add per live entry and lane
-    nbytes = 8 * ids.numel() + 4 * b * d + 2 * 4 * (d + 1) * uniq
-    ops = n_live * (d + 1)
+    nbytes, ops = _unfold_bytes_ops(ids, mask, b, d)
     bms, by = bound(nbytes, ops)
     iters = 48
     ms, host_ms = timed(kernel, iters, cycles_per_ms)
@@ -396,6 +430,206 @@ def unfold_case(name, eng, skey, batch, cycles_per_ms):
             "plain_ms": timed(plain, iters, cycles_per_ms)[0],
             "library_ms": timed(library, iters, cycles_per_ms)[0],
             "bound_ms": bms, "bound_by": by, "bytes": nbytes, "ops": ops}
+
+
+def _autoint_streams(bundle, b, seed):
+    """Per autoint storage (24, one mean column each, 5 ids): the storage
+    key, its stream (ids, mask) and its segment, for a batch of ``b``."""
+    from recommendsystem_tpu_torch.data import synthetic_batch
+    from recommendsystem_tpu_torch.embedding import packed
+
+    eng = bundle.embedding
+    batch = synthetic_batch(bundle, b, seed=seed, ids_per_feature=5)[0]
+    plans = packed.plan_segments(eng, batch)
+    out = []
+    for skey in sorted(plans):
+        (seg,) = plans[skey]
+        ids, mask = packed.storage_stream(eng, skey, plans[skey], batch)
+        out.append((skey, ids, mask, seg))
+    return out
+
+
+def _alternate(sets):
+    """A function that returns the members of ``sets`` in turn: timed calls
+    alternate between two copies of their tables or accumulators, so that
+    each call finds its own out of L2 (24 tables of 8.5 MB or accumulators
+    of 9.5 MB: 204-229 MB a call, against 50 MB of L2)."""
+    turn = [0]
+
+    def pick():
+        turn[0] ^= 1
+        return sets[turn[0]]
+    return pick
+
+
+def fold_group_case(bundle, state, b, cycles_per_ms):
+    """K1 as the predict and train steps launch it: one grouped call over
+    all 24 autoint mean columns (5 ids) at batch ``b``, against the plain
+    version of each column on the card.  Bound: the sum of the per-column
+    bounds (``fold_case``'s formula); yardstick: 24 ``embedding_bag``
+    calls, one a column."""
+    from recommendsystem_tpu_torch.embedding import packed
+
+    streams = _autoint_streams(bundle, b, seed=b + 11)
+    items = [(state.tables[skey]["w"], ids, mask, len(seg.keys), seg.l)
+             for skey, ids, mask, seg in streams]
+    got = packed.fold_mean_group(items)
+    want = [packed.fold_mean_plain(*item) for item in items]
+    torch.cuda.synchronize()
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    if not err <= FOLD_TOL:
+        raise AssertionError(f"fold_mean group b={b}: max abs err {err} > {FOLD_TOL}")
+    pick = _alternate([items, [(t.clone(), i, m, c, l) for t, i, m, c, l in items]])
+    bags = []
+    for table, ids, mask, c, l in items:
+        bags.append((ids.view(c, l, b).permute(0, 2, 1).reshape(c * b, l).contiguous(),
+                     mask.view(c, l, b).permute(0, 2, 1).reshape(c * b, l).contiguous()))
+
+    def library():
+        for (bag, wts), item in zip(bags, pick()):
+            torch.nn.functional.embedding_bag(bag, item[0], mode="sum",
+                                              per_sample_weights=wts)
+
+    bound_ms, nbytes, ops = 0.0, 0, 0
+    for table, ids, mask, c, l in items:
+        live = mask != 0
+        uniq = int(torch.unique(ids[live]).numel())
+        d = table.shape[1]
+        one = (ids.numel() * 4 + mask.numel() * 4 + uniq * d * 4 + c * b * d * 4,
+               2 * int(live.sum()) * d)
+        bound_ms += bound(*one)[0]
+        nbytes, ops = nbytes + one[0], ops + one[1]
+    iters = 240 if b <= 256 else 48
+    # the plain version and the yardstick issue 24 or more launches a call:
+    # at most 16 calls are queued behind the spin kernel, inside the card's
+    # queue of pending launches, so that the events read device time
+    few = 16
+    ms, host_ms = timed(lambda: packed.fold_mean_group(pick()), iters, cycles_per_ms)
+    return {"name": "fold_mean", "group": len(items), "b": b, "l": 5, "d": 8,
+            "max_abs_err": err, "ms": ms, "host_ms": host_ms,
+            "plain_ms": timed(lambda: [packed.fold_mean_plain(*it) for it in pick()],
+                              few, cycles_per_ms)[0],
+            "library_ms": timed(library, few, cycles_per_ms)[0],
+            "library": f"{len(items)} x embedding_bag",
+            "bound_ms": bound_ms, "bound_by": bound(nbytes, ops)[1],
+            "bytes": nbytes, "ops": ops}
+
+
+def unfold_group_case(bundle, b, cycles_per_ms):
+    """K3 as the train step launches it: one grouped call over all 24
+    autoint mean columns (5 ids) at batch ``b``, each column's gradient
+    into its own storage's accumulator, against the plain version on the
+    card.  Bound: the sum of the per-column bounds (``unfold_case``'s
+    formula); yardstick: 24 ``index_add_`` calls of prebuilt payloads."""
+    from recommendsystem_tpu_torch.embedding import packed
+
+    eng = bundle.embedding
+    streams = _autoint_streams(bundle, b, seed=b + 12)
+    gen = torch.Generator(device="cuda").manual_seed(b + 13)
+    items, libs = [], []
+    for skey, ids, mask, seg in streams:
+        rows, d = eng.storage[skey]
+        acc = torch.zeros(rows * (d + 1), device="cuda")
+        lib_acc = torch.zeros((rows, d + 1), device="cuda")
+        for ci in range(len(seg.keys)):          # a member a column
+            part = slice(ci * seg.l * b, (ci + 1) * seg.l * b)
+            g = torch.randn((b, d), generator=gen, device="cuda")
+            items.append((acc, g, ids[part], mask[part], seg.l))
+            libs.append((lib_acc, ids[part].long(),
+                         _payload(g.repeat(seg.l, 1), mask[part])))
+    packed.unfold_mean_scatter_group(items)
+    wants = {}
+    for acc, g, ids, mask, l in items:
+        want = wants.setdefault(acc.data_ptr(), (acc, torch.zeros_like(acc)))[1]
+        packed.unfold_mean_scatter_plain(want, g, ids, mask, l)
+    err = max(_check_unfold(acc, want, items[0][1].shape[1], f"unfold_mean group b={b}")
+              for acc, want in wants.values())
+    others = {p: torch.zeros_like(acc) for p, (acc, _) in wants.items()}
+    pick = _alternate([items, [(others[a.data_ptr()], g, i, m, l) for a, g, i, m, l in items]])
+
+    def library():
+        for acc, lids, payload in libs:
+            acc.index_add_(0, lids, payload)
+
+    bound_ms, nbytes, ops = 0.0, 0, 0
+    for acc, g, ids, mask, l in items:
+        one = _unfold_bytes_ops(ids, mask, b, g.shape[1])
+        bound_ms += bound(*one)[0]
+        nbytes, ops = nbytes + one[0], ops + one[1]
+    iters = 240 if b <= 256 else 48
+    few = 16           # launches queued behind the spin kernel: see fold_group_case
+    ms, host_ms = timed(lambda: packed.unfold_mean_scatter_group(pick()), iters,
+                        cycles_per_ms)
+    return {"name": "unfold_mean", "group": len(items), "b": b, "l": 5, "d": 8,
+            "max_abs_err": err, "ms": ms, "host_ms": host_ms,
+            "plain_ms": timed(lambda: [packed.unfold_mean_scatter_plain(*it) for it in pick()],
+                              few, cycles_per_ms)[0],
+            "library_ms": timed(library, few, cycles_per_ms)[0],
+            "library": f"{len(items)} x index_add_",
+            "bound_ms": bound_ms, "bound_by": bound(nbytes, ops)[1],
+            "bytes": nbytes, "ops": ops}
+
+
+def _group_members(members, rows, seed):
+    """Random (table, ids, mask, c, l) fold members and (acc, g, ids, mask,
+    l) unfold members of the (D, L, B) shapes given, c = 2 and 1; ragged
+    live counts, padding id 0 with mask 0."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    folds, unfolds = [], []
+    for d, l, b in members:
+        for c in (2, 1):
+            lens = torch.randint(0, l + 1, (c, 1, b), generator=gen, device="cuda")
+            mask = (torch.arange(l, device="cuda")[None, :, None] < lens).float()
+            ids = (torch.randint(0, rows, (c, l, b), generator=gen, device="cuda",
+                                 dtype=torch.int32) * mask.int())
+            if c == 2:
+                # rows at the scale of the tables' init (0.88 / sqrt(D)), as
+                # FOLD_TOL assumes products of magnitude < 1
+                table = torch.randn((rows, d), generator=gen, device="cuda") * (0.88 / d ** 0.5)
+                folds.append((table.clamp_(-2 / d ** 0.5, 2 / d ** 0.5),
+                              ids.reshape(-1), mask.reshape(-1), c, l))
+            else:
+                unfolds.append((torch.zeros(rows * (d + 1), device="cuda"),
+                                torch.randn((b, d), generator=gen, device="cuda"),
+                                ids.reshape(-1), mask.reshape(-1), l))
+    return folds, unfolds
+
+
+def group_check_case(name, members, launches):
+    """Grouped K1 and K3 over the members given, against their plain
+    versions, with the launches each must take."""
+    from recommendsystem_tpu_torch.embedding import packed
+    from recommendsystem_tpu_torch.kernels import launch_counts
+
+    folds, unfolds = _group_members(members, rows=20011, seed=len(members))
+    before = launch_counts()
+    got = packed.fold_mean_group(folds)
+    packed.unfold_mean_scatter_group(unfolds)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    for k in ("fold_mean", "unfold_mean"):
+        if after[k] - before[k] != launches:
+            raise AssertionError(f"{name}: {k} launched {after[k] - before[k]} times, "
+                                 f"not {launches}")
+    err = max([float((g - packed.fold_mean_plain(*it)).abs().max()) if g.numel() else 0.0
+               for g, it in zip(got, folds)])
+    if not err <= FOLD_TOL:
+        raise AssertionError(f"fold_mean {name}: max abs err {err} > {FOLD_TOL}")
+    uerr = 0.0
+    for acc, g, ids, mask, l in unfolds:
+        want = torch.zeros_like(acc)
+        packed.unfold_mean_scatter_plain(want, g, ids, mask, l)
+        uerr = max(uerr, _check_unfold(acc, want, g.shape[1], f"unfold_mean {name}"))
+    return [{"name": "fold_mean", "check": name, "members": len(folds), "b": 0,
+             "max_abs_err": err},
+            {"name": "unfold_mean", "check": name, "members": len(unfolds), "b": 0,
+             "max_abs_err": uerr}]
+
+
+# the mixed group: D 8, 16, 32 and 48, L 2, 5 and 10, one empty column
+MIXED_GROUP = ((8, 5, 4096), (16, 2, 300), (32, 10, 1000), (48, 5, 256), (8, 10, 0),
+               (48, 2, 777))
+GROUP_65 = tuple((8 * (1 + i % 3), 2 + i % 9, 64 + 7 * i) for i in range(65))
 
 
 def _check_adam(got, want, before, acc0, accs, what):
@@ -410,7 +644,7 @@ def _check_adam(got, want, before, acc0, accs, what):
             torch.testing.assert_close(g["opt"][n], w["opt"][n], rtol=ADAM_M_RTOL, atol=0)
         for x, y in ((g["opt"]["t"], w["opt"]["t"]), (g["show"], w["show"])):
             torch.testing.assert_close(x, y, rtol=0, atol=0)
-        dead = a0[:, -1] == 0
+        dead = _acc_views(a0, g["w"].shape[1])[1][:, 0] == 0
         for x, y in ((g["w"], b["w"]), (g["opt"]["m"], b["opt"]["m"]),
                      (g["opt"]["v"], b["opt"]["v"]), (g["opt"]["t"], b["opt"]["t"]),
                      (g["show"], b["show"])):
@@ -421,15 +655,16 @@ def _check_adam(got, want, before, acc0, accs, what):
     return err
 
 
-def _adam_bytes(acc0):
+def _adam_bytes(acc0, dims):
     """A live row reads acc (D+1), w, m, v (3 D), t and show, and writes all
     of them; a row with count 0 reads its count."""
-    nbytes = 0
-    for a in acc0:
-        d = a.shape[1] - 1
-        live = int((a[:, d] > 0).sum())
-        nbytes += live * 4 * (2 * (d + 1) + 6 * d + 4) + (a.shape[0] - live) * 4
-    return nbytes, sum(int((a[:, -1] > 0).sum()) * (a.shape[1] - 1) * 14 for a in acc0)
+    nbytes = ops = 0
+    for a, d in zip(acc0, dims):
+        cnt = _acc_views(a, d)[1]
+        live = int((cnt > 0).sum())
+        nbytes += live * 4 * (2 * (d + 1) + 6 * d + 4) + (cnt.shape[0] - live) * 4
+        ops += live * d * 14
+    return nbytes, ops
 
 
 def adam_case(eng, tables, batch, cycles_per_ms):
@@ -446,18 +681,18 @@ def adam_case(eng, tables, batch, cycles_per_ms):
 
     skeys = sorted(tables)
     plans = packed.plan_segments(eng, batch, storages=set(skeys))
+    dims = [eng.storage[k][1] for k in skeys]
     sizes = [eng.storage[k][0] * (eng.storage[k][1] + 1) for k in skeys]
     flat0 = torch.zeros(sum(sizes), device="cuda")
-    acc0 = [x.view(eng.storage[k][0], -1) for k, x in zip(skeys, flat0.split(sizes))]
+    acc0 = list(flat0.split(sizes))
     gen = torch.Generator(device="cuda").manual_seed(3)
-    for skey, a in zip(skeys, acc0):
+    for skey, a, d in zip(skeys, acc0, dims):
         (seg,) = plans[skey]
         ids, mask = packed.storage_stream(eng, skey, plans[skey], batch)
-        g = torch.randn((ids.shape[0] // seg.l, a.shape[1] - 1), generator=gen,
-                        device="cuda") * 1e-3
+        g = torch.randn((ids.shape[0] // seg.l, d), generator=gen, device="cuda") * 1e-3
         packed.unfold_mean_scatter_plain(a, g, ids, mask, seg.l)
     flat = flat0.clone()
-    accs = [x.view_as(a) for x, a in zip(flat.split(sizes), acc0)]
+    accs = list(flat.split(sizes))
     opt = eng.sparse_opt
     before = [tables[k] for k in skeys]
     got = [_to(t, "cuda") for t in before]
@@ -485,20 +720,21 @@ def adam_case(eng, tables, batch, cycles_per_ms):
             packed.sparse_adam_update_plain(opt, w, a)
 
     params = [torch.nn.Parameter(t["w"].clone()) for t in before]
-    for p, a in zip(params, acc0):
-        p.grad = a[:, :-1].clone()
+    for p, a, d in zip(params, acc0, dims):
+        p.grad = _acc_views(a, d)[0].clone()
     dense = torch.optim.Adam(params, lr=opt.learning_rate, foreach=True)
-    nbytes, ops = _adam_bytes(acc0)
+    nbytes, ops = _adam_bytes(acc0, dims)
     bms, by = bound(nbytes, ops)
-    one_bytes, one_ops = _adam_bytes(acc0[:1])
+    one_bytes, one_ops = _adam_bytes(acc0[:1], dims[:1])
     iters = 24
     ms_restore = timed(restore, iters, cycles_per_ms)[0]
     ms_restore1 = timed(lambda: accs[0].copy_(acc0[0]), iters, cycles_per_ms)[0]
     ms, host_ms = timed(kernel, iters, cycles_per_ms)
     single_ms, single_host_ms = timed(single, iters, cycles_per_ms)
     return {"name": "sparse_adam_update", "storages": len(skeys),
-            "rows": sum(a.shape[0] for a in acc0), "d": sorted({a.shape[1] - 1 for a in acc0}),
-            "live_rows": sum(int((a[:, -1] > 0).sum()) for a in acc0),
+            "rows": sum(eng.storage[k][0] for k in skeys), "d": sorted(set(dims)),
+            "live_rows": sum(int((_acc_views(a, d)[1] > 0).sum())
+                             for a, d in zip(acc0, dims)),
             "max_abs_err": err, "ms": ms - ms_restore, "restore_ms": ms_restore,
             "host_ms": host_ms,
             "single_storage": {"ms": single_ms - ms_restore1, "restore_ms": ms_restore1,
@@ -525,8 +761,8 @@ def adam_mixed_case():
         cnt = torch.where(torch.rand((rows, 1), generator=gen, device="cuda") < live,
                           torch.randint(1, 5, (rows, 1), generator=gen, device="cuda"),
                           0).float()
-        acc0.append(torch.cat([torch.randn((rows, d), generator=gen, device="cuda")
-                               * 1e-2 * (cnt > 0), cnt], dim=1))
+        acc0.append(torch.cat([(torch.randn((rows, d), generator=gen, device="cuda")
+                                * 1e-2 * (cnt > 0)).reshape(-1), cnt.reshape(-1)]))
         before.append({
             "w": torch.randn((rows, d), generator=gen, device="cuda"),
             "opt": {"m": torch.randn((rows, d), generator=gen, device="cuda") * 1e-3,
@@ -699,7 +935,7 @@ def staytime_path(card, cycles_per_ms):
         torch.cuda.synchronize()
         per_call[f"ids{ipf}"] = launch_counts()
     out["launches_per_call"] = per_call
-    want = {"ids5": {"fold_mean": 46, "fold_rows": 3, "din_pool": 3},
+    want = {"ids5": {"fold_mean": 1, "fold_rows": 3, "din_pool": 3},
             "ids1": {"fold_mean": 0, "fold_rows": 49, "din_pool": 3}}
     for key, counts in want.items():
         for name, n in counts.items():
@@ -831,9 +1067,12 @@ def train_path(bundle, cpu_bundle, card):
                       ("fold_rows", 1), ("unfold_rows", 1)):
         if per_run[ipf][name] < 1:
             raise AssertionError(f"{name} was not launched on the train path")
-    # one grouped lazy-Adam pass and one attention backward a step
-    for ipf in (5, 1):
-        for name in ("sparse_adam_update", "field_attention_bwd"):
+    # one grouped lazy-Adam pass and one attention backward a step; with 5
+    # ids one grouped fold and one grouped unfold-scatter
+    for ipf, names in ((5, ("sparse_adam_update", "field_attention_bwd", "fold_mean",
+                            "unfold_mean")),
+                       (1, ("sparse_adam_update", "field_attention_bwd"))):
+        for name in names:
             if out["launches_per_step"][f"ids{ipf}"][name] != 1:
                 raise AssertionError(f"{name}: {out['launches_per_step'][f'ids{ipf}'][name]} "
                                      f"launches a step with {ipf} ids, not 1")
@@ -1139,6 +1378,10 @@ def interacting_path(card, cycles_per_ms, autoint, cpu_autoint, rows200, autoint
         check = synthetic_batch(bset["fused"], CHECK_BATCH, seed=41, ids_per_feature=ipf)[0]
         out["predict"][name] = predict_pair(name, bset["fused"], bset["unfused"], bset["cpu"],
                                             state, batch, check, lo, hi, card)
+        for kind, counts in out["predict"][name]["launches_per_call"].items():
+            if ipf == 5 and counts.get("fold_mean") != 1:
+                raise AssertionError(f"{name} {kind} predict: fold_mean launched "
+                                     f"{counts.get('fold_mean')} times, not 1")
         log(f"{name} predict:", json.dumps(out["predict"][name]))
     out["predict"]["ctr212"]["config"] = "synthetic_ctr_config(num_slots=180, num_bias=32)"
     return out
@@ -1201,6 +1444,12 @@ def main() -> int:
         for ipf, name in ((5, "unfold_mean"), (1, "unfold_rows")):
             batch = synthetic_batch(bundle, b, seed=b + ipf + 1, ids_per_feature=ipf)[0]
             cases.append(unfold_case(name, eng, skeys[0], batch, cycles_per_ms))
+    # K1 and K3 as the steps launch them: one grouped call over 24 columns
+    for b in (256, BIG_BATCH):
+        cases.append(fold_group_case(bundle, state, b, cycles_per_ms))
+        cases.append(unfold_group_case(bundle, b, cycles_per_ms))
+    cases += group_check_case("mixed", MIXED_GROUP, 1)
+    cases += group_check_case("65 members", GROUP_65, 2)
     batch = synthetic_batch(bundle, BIG_BATCH, seed=5)[0]
     cases.append(adam_case(eng, state.tables, batch, cycles_per_ms))
     cases.append(adam_mixed_case())
@@ -1263,6 +1512,10 @@ def main() -> int:
             out = step(state, batch)[TASK]
             torch.cuda.synchronize()
             per_call[f"b{b}_ids{ipf}"] = launch_counts()
+    for b in (256, BIG_BATCH):
+        if per_call[f"b{b}_ids5"]["fold_mean"] != 1:
+            raise AssertionError(f"autoint predict b={b}: fold_mean launched "
+                                 f"{per_call[f'b{b}_ids5']['fold_mean']} times, not 1")
     check_scores(out.squeeze(1).cpu().numpy(), BIG_BATCH)   # b 65536, 5 ids
     cpu_batch = {k: v.to("cpu") for k, v in batch.items()}
     cpu_out = make_predict_step(cpu_bundle)(cpu_state, cpu_batch)[TASK]
@@ -1312,7 +1565,10 @@ def main() -> int:
         serve = c["name"] in ("fold_mean", "fold_rows")
         want_b = STAYTIME_BATCH if c["name"] == "din_pool" else (
             256 if serve else BIG_BATCH)
-        if c.get("b", BIG_BATCH) == want_b and c.get("f", 24) == 24:
+        # K1 and K3: their grouped call over the 24 columns, as the steps
+        # launch them
+        grouped = c["name"] not in ("fold_mean", "unfold_mean") or c.get("group") == 24
+        if c.get("b", BIG_BATCH) == want_b and c.get("f", 24) == 24 and grouped:
             headline[c["name"]] = c
     sources = {"fold_mean": ("recommendsystem_tpu_torch/csrc/fold.cu",
                              "recommendsystem_tpu/embedding/packed.py:273"),

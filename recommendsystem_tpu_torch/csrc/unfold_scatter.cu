@@ -8,71 +8,159 @@
 // the unfold wrote a (E, 128) payload of [grad | count] lane groups because
 // the scatter needed 128-lane rows.  Here the payload never exists: each
 // live entry adds its column's gradient and a count of 1.0 straight into a
-// per-storage (rows, D+1) float32 accumulator,
+// per-storage float32 accumulator of rows*(D+1) floats, laid out as a
+// (rows, D) block of gradient sums G followed by a (rows,) block of counts N:
 //
-//   acc[id, 0:D] += g[row(x), :]    acc[id, D] += 1.0    for mask[x] > 0
+//   G[id, :] += g[b, :]    N[id] += 1.0    for mask[j*B + b] > 0
 //
-// with row(x) = x mod B: unfold_mean's ids and mask are l-major (slot j of
-// sample b at j*B + b) and broadcast the (B, D) gradient of the column's sums
-// over its L slots; unfold_rows is the case L = 1 (one gradient row per
-// entry).  Entries with mask 0 (padding, id 0) are skipped, so they never
-// contend on row 0.
+// unfold_mean's ids and mask are l-major (slot j of sample b at j*B + b) and
+// broadcast the (B, D) gradient of the column's sums over its L slots;
+// unfold_rows is the case L = 1 (one gradient row per entry).  Entries with
+// mask 0 (padding, id 0) are skipped, so they never contend on row 0.
 //
-// Bound on the H100: atomics.  One column at B = 65536, L = 5, D = 8 reads
-// 1.3 MB of ids, 1.3 MB of mask and 2.1 MB of gradient, and adds into at
-// most 327,680 accumulator rows of 36 B; the 9.5 MB accumulator of a
-// 265,104-row storage sits in the 50 MB L2, so the float atomics (9 per
-// live slot: at most 2.9M, ~1.8M at the synthetic data's ragged lengths),
-// resolved in L2, bound it rather than device memory (4 us of bytes; the
-// kernel takes ~14 us alone, PERF.md).
-// Design: one thread per (entry, lane), lane fastest, so the D+1 threads of
-// an entry add into one contiguous accumulator row and neighbouring entries
-// read neighbouring ids, masks and gradient rows.  atomicAdd with its result
-// unused compiles to a fire-and-forget reduction (RED).  Sums of gradients
-// take a different order on every run; the counts are sums of 1.0 and stay
-// exact.
+// Bound on the H100: bytes by the formula (one column at B = 65536, L = 5,
+// D = 8 reads 1.3 MB of ids, 1.3 MB of mask and 2.1 MB of gradient, and
+// reads and writes the rows it touches: ~4 us), in practice the reductions
+// resolved in L2: with interleaved [grad | count] rows of 36 B (D = 8) no
+// vector reduction is aligned, and a live slot takes 9 scalar ones.  Design:
+//  - unfold_mean is one grouped launch over every mean column of a train
+//    step: the columns' pointers and sizes travel by value in the kernel's
+//    parameter struct (__grid_constant__), with a prefix table of block
+//    starts; blocks are numbered column by column, so that only a few
+//    columns' accumulators are live in the 50 MB L2 at a time;
+//  - within a column the blocks walk (slot j, sample b) in l-major order
+//    with 32-bit indices: the gradient row is b = e - (e / B) * B;
+//  - with G's rows 16-byte aligned (D % 4 == 0), an entry is D/4 threads,
+//    each loading its id and mask once and a float4 of the gradient row and
+//    issuing one 16-byte vector reduction into G (atomicAdd on a float4,
+//    sm_90); the first of them adds the count.  At D = 8 that is 3
+//    reductions a live slot instead of 9.  Other D take one float a thread.
+// Sums of gradients take a different order on every run; the counts are
+// sums of 1.0 and stay exact.
+
+#include <stdint.h>
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMaxColumns = 64;       // columns a launch takes
 
-__global__ void unfold_scatter_kernel(float* __restrict__ acc,
-                                      const float* __restrict__ g,
-                                      const int* __restrict__ ids,
-                                      const float* __restrict__ mask,
-                                      long long e, long long b, int d) {
-  const int width = d + 1;
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= e * width) return;
-  const long long x = t / width;
-  const int lane = static_cast<int>(t - x * width);
-  if (!(mask[x] > 0.f)) return;
-  const float val = lane < d ? g[(x % b) * d + lane] : 1.f;
-  atomicAdd(acc + static_cast<long long>(ids[x]) * width + lane, val);
+struct Column {
+  float* grads;     // G: (rows, D)
+  float* counts;    // N: (rows,)
+  const float* g;
+  const int* ids;
+  const float* mask;
+  int l;
+  int b;
+  int d;
+  int vec;          // 4: float4 lanes; 1: one float a lane
+};
+
+struct Group {
+  Column s[kMaxColumns];
+  int block_start[kMaxColumns + 1];   // prefix of blocks per column
+  int n;
+};
+// kept within the 4 KB of kernel parameters every CUDA 12 driver accepts
+static_assert(sizeof(Group) <= 4096, "Group exceeds 4 KB of kernel parameters");
+
+__device__ __forceinline__ void add_into(float* p, float v) { atomicAdd(p, v); }
+__device__ __forceinline__ void add_into(float4* p, float4 v) { atomicAdd(p, v); }
+
+template <int V>
+struct VecOf {
+  using type = float;
+};
+template <>
+struct VecOf<4> {
+  using type = float4;
+};
+
+// thread t of the column: entry t / (D/V), lanes V * (t % (D/V)) onward
+template <int V>
+__device__ __forceinline__ void unfold_column(const Column& c, int t) {
+  using Vec = typename VecOf<V>::type;
+  const int per_entry = c.d / V;
+  const int e = t / per_entry;
+  if (e >= c.l * c.b) return;
+  if (!(c.mask[e] > 0.f)) return;
+  const int lane = t - e * per_entry;
+  const int bi = e - (e / c.b) * c.b;
+  const size_t row = static_cast<size_t>(c.ids[e]);
+  const Vec val = reinterpret_cast<const Vec*>(c.g)[bi * per_entry + lane];
+  add_into(reinterpret_cast<Vec*>(c.grads) + row * per_entry + lane, val);
+  if (lane == 0) atomicAdd(c.counts + row, 1.f);
 }
 
-int launch(float* acc, const float* g, const int* ids, const float* mask,
-           long long e, long long b, int d, cudaStream_t stream) {
-  const long long n = e * (d + 1);
-  const unsigned int blocks = static_cast<unsigned int>((n + kThreads - 1) / kThreads);
-  unfold_scatter_kernel<<<blocks, kThreads, 0, stream>>>(acc, g, ids, mask, e, b, d);
+__global__ void __launch_bounds__(kThreads)
+unfold_group_kernel(const __grid_constant__ Group g) {
+  // the column of this block: the last one whose first block is <= it
+  const int blk = blockIdx.x;
+  int lo = 0, hi = g.n - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (g.block_start[mid] <= blk) lo = mid; else hi = mid - 1;
+  }
+  const Column& c = g.s[lo];
+  const int t = (blk - g.block_start[lo]) * kThreads + static_cast<int>(threadIdx.x);
+  if (c.vec == 4) {
+    unfold_column<4>(c, t);
+  } else {
+    unfold_column<1>(c, t);
+  }
+}
+
+bool aligned16(long long p) { return (static_cast<unsigned long long>(p) & 15ULL) == 0; }
+
+// desc: n columns of 8 host words: acc, rows, g, ids, mask, L, B, D
+int launch(const long long* desc, int n, cudaStream_t stream) {
+  if (n < 1 || n > kMaxColumns) return static_cast<int>(cudaErrorInvalidValue);
+  Group g;
+  long long blocks = 0;
+  for (int i = 0; i < n; ++i) {
+    const long long* w = desc + 8 * i;
+    const long long rows = w[1], l = w[5], b = w[6], d = w[7];
+    if (rows < 0 || l < 1 || b < 1 || d < 1 || l * b * d > 0x7fffffffLL) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    float* acc = reinterpret_cast<float*>(w[0]);
+    const int vec = (d % 4 == 0 && aligned16(w[0]) && aligned16(w[2])) ? 4 : 1;
+    g.s[i] = Column{acc, acc + rows * d, reinterpret_cast<const float*>(w[2]),
+                    reinterpret_cast<const int*>(w[3]), reinterpret_cast<const float*>(w[4]),
+                    static_cast<int>(l), static_cast<int>(b), static_cast<int>(d), vec};
+    g.block_start[i] = static_cast<int>(blocks);
+    blocks += (l * b * (d / vec) + kThreads - 1) / kThreads;
+    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  g.block_start[n] = static_cast<int>(blocks);
+  g.n = n;
+  unfold_group_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0, stream>>>(g);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// g: (B, D) gradient of one mean column's sums; ids, mask: (L*B,) l-major.
-RS_EXPORT int unfold_mean_scatter_f32(float* acc, const float* g, const int* ids,
-                                      const float* mask, int l, long long b,
-                                      int d, cudaStream_t stream) {
-  return launch(acc, g, ids, mask, static_cast<long long>(l) * b, b, d, stream);
+// Columns a launch takes: the wrapper cuts larger groups.
+RS_EXPORT int unfold_max_columns() { return kMaxColumns; }
+
+// n columns (1 <= n <= kMaxColumns), each 8 host words: acc (device
+// pointer), its rows, then g, ids, mask (device pointers), L, B, D; g is
+// (B, D), ids and mask (L*B,) l-major.  Each column needs L, B, D >= 1 and
+// L*B*D below 2^31 (the wrapper checks; refused here with
+// cudaErrorInvalidValue).
+RS_EXPORT int unfold_mean_group_f32(const long long* desc, int n, cudaStream_t stream) {
+  return launch(desc, n, stream);
 }
 
 // g: (E, D) one gradient row per entry; ids, mask: (E,).
-RS_EXPORT int unfold_rows_scatter_f32(float* acc, const float* g, const int* ids,
-                                      const float* mask, long long e, int d,
-                                      cudaStream_t stream) {
-  return launch(acc, g, ids, mask, e, e, d, stream);
+RS_EXPORT int unfold_rows_scatter_f32(float* acc, long long rows, const float* g,
+                                      const int* ids, const float* mask, long long e,
+                                      int d, cudaStream_t stream) {
+  const long long desc[8] = {reinterpret_cast<long long>(acc), rows,
+                             reinterpret_cast<long long>(g), reinterpret_cast<long long>(ids),
+                             reinterpret_cast<long long>(mask), 1, e, d};
+  return launch(desc, 1, stream);
 }

@@ -101,7 +101,7 @@ class EmbeddingFeatures:
                  max_group_bytes: int = 40 << 20):
         self.name = name
         self.sparse_opt = SparseAdam() if sparse_opt is None else sparse_opt
-        # per (storage, device): the (rows, D+1) [grad | count] accumulator
+        # per (storage, device): the rows*(D+1) [grad sums | counts] accumulator
         # of the packed update, all zero between steps (the lazy-Adam pass
         # clears the rows it reads)
         self._accumulators: Dict[Tuple[str, torch.device], torch.Tensor] = {}
@@ -196,14 +196,16 @@ class EmbeddingFeatures:
         return state
 
     def accumulator(self, skey: str, device) -> torch.Tensor:
-        """The zeroed (rows, D+1) float32 [grad | count] accumulator of one
-        storage on ``device``, allocated on first use and reused: the
-        unfold-scatter kernels fill it and the lazy-Adam pass clears it."""
+        """The zeroed float32 accumulator of one storage on ``device``:
+        rows*(D+1) floats, a (rows, D) block of gradient sums followed by a
+        (rows,) block of counts (``packed.accumulator_views``), allocated on
+        first use and reused: the unfold-scatter kernels fill it and the
+        lazy-Adam pass clears it."""
         key = (skey, torch.device(device))
         acc = self._accumulators.get(key)
         if acc is None:
             rows, dim = self.storage[skey]
-            acc = torch.zeros((rows, dim + 1), dtype=torch.float32,
+            acc = torch.zeros(rows * (dim + 1), dtype=torch.float32,
                               device=device)
             self._accumulators[key] = acc
         return acc

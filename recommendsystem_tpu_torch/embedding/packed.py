@@ -8,12 +8,14 @@ kernels, and scatters 128-lane [grad | count] payloads, layouts the TPU's
 the scatter it feeds or is fed by:
 
   fold_mean  (K1)  l-major ids/mask of C columns x L slots x B rows ->
-                   (C*B, D) masked sums over L                (csrc/fold.cu)
+                   (C*B, D) masked sums over L; ``fold_mean_group`` folds
+                   every mean segment of a step in one launch (csrc/fold.cu)
   fold_rows  (K2)  (E,) ids/mask -> (E, D) masked rows; single-id mean
                    columns (l == 1) go here, as in the JAX package
   unfold_mean_scatter (K3)  (B, D) grads of one column's sums, broadcast
                    over its L slots, added with a count of 1 into the
-                   storage's (rows, D+1) [grad | count] accumulator
+                   storage's accumulator; ``unfold_mean_scatter_group``
+                   takes every mean column of a step in one launch
                                                     (csrc/unfold_scatter.cu)
   unfold_rows_scatter (K4)  the same per entry, for l == 1 and sequence
                    columns
@@ -24,7 +26,13 @@ the scatter it feeds or is fed by:
 
 The storage plan (``plan_segments``, ``storage_stream``), the stage functions
 (``gather_fold``, ``combine_from_acts``, ``apply_gradients_packed``) and
-``lookup_packed`` keep the JAX names and stream order.  The 128-lane pack
+``lookup_packed`` keep the JAX names and stream order.  A storage's
+accumulator is one flat float32 tensor of rows*(D+1) words: a (rows, D)
+block of gradient sums followed by a (rows,) block of counts
+(``accumulator_views``), where the JAX package interleaves [grad | count]
+rows; the split keeps each gradient row 16-byte aligned for the card's
+vector reductions and lets the lazy-Adam pass read a dead row's count
+alone.  The 128-lane pack
 sizes survive only to size the engine's storages as the JAX engine does
 (``gather_pack``, ``scatter_pack``).
 
@@ -37,6 +45,8 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
+import struct
 from typing import Any, Dict, List, Tuple
 
 import torch
@@ -44,6 +54,7 @@ import torch
 from ..kernels._build import check, count_launch, library, require, stream_handle
 
 _LANES = 128
+_I32 = 1 << 31          # the grouped kernels index a member in 32 bits
 
 
 def gather_pack(d: int) -> int:
@@ -95,33 +106,82 @@ def _check_fold_args(table, ids, mask) -> None:
         raise ValueError(f"fold: no kernel for device {table.device}")
 
 
+def _launch_groups(lib, fn, what: str, words: List[int], per_member: int,
+                   per_launch: int, device) -> None:
+    """Launch ``fn`` over the members packed in ``words`` (``per_member``
+    64-bit words each), ``per_launch`` members a launch, counting each
+    launch as ``what``.  The words travel as one packed byte string: the C
+    launcher copies them into the kernel's parameter struct."""
+    n = len(words) // per_member
+    if n == 0:
+        return
+    with torch.cuda.device(device):
+        stream = stream_handle(device)
+        for i in range(0, n, per_launch):
+            k = min(per_launch, n - i)
+            chunk = words[i * per_member:(i + k) * per_member]
+            check(lib, fn(_pack_words(len(chunk)).pack(*chunk), k, stream), what)
+            count_launch(what)
+
+
+@functools.lru_cache(maxsize=None)
+def _pack_words(n: int) -> struct.Struct:
+    return struct.Struct(f"{n}q")
+
+
+def fold_mean_group(items) -> List[torch.Tensor]:
+    """K1 over a group: ``items`` are ``(table, ids, mask, c, l)``, each as
+    ``fold_mean`` takes them (any l >= 1), all on one device.  Returns one
+    (C*B, D) float32 tensor per item, in order: on a card, where the members
+    share D, views of one allocation (one allocation is cheaper to issue
+    than one a member).  On a card one launch takes up to 64 members (a
+    larger group is cut into launches of 64); members with no rows launch
+    nothing."""
+    items = list(items)
+    if not items:
+        return []
+    device = items[0][0].device
+    for table, ids, mask, c, l in items:
+        if table.device != device:
+            raise ValueError(f"fold_mean_group: members on {device} and {table.device}")
+        _check_fold_args(table, ids, mask)
+        if c < 1 or l < 1 or ids.shape[0] % (c * l):
+            raise ValueError(f"fold_mean: {ids.shape[0]} ids do not split into {c} "
+                             f"columns of {l} slots")
+    if device.type == "cpu":
+        return [fold_mean_plain(*item) for item in items]
+    shapes = [(ids.shape[0] // l, table.shape[1]) for table, ids, _, _, l in items]
+    if len({d for _, d in shapes}) == 1:
+        outs = torch.empty((sum(r for r, _ in shapes), shapes[0][1]), dtype=torch.float32,
+                           device=device).split([r for r, _ in shapes])
+    else:
+        outs = [torch.empty(shape, dtype=torch.float32, device=device) for shape in shapes]
+    words = []
+    for (table, ids, mask, c, l), out in zip(items, outs):
+        b, d = ids.shape[0] // (c * l), table.shape[1]
+        if out.numel() == 0:
+            continue
+        if c * l * b >= _I32 or c * b * d >= _I32:
+            raise ValueError(f"fold_mean: {c} x {l} x {b} ids of D {d} exceed the "
+                             f"kernel's 32-bit indices")
+        words += (table.data_ptr(), ids.data_ptr(), mask.data_ptr(), out.data_ptr(),
+                  c, l, b, d)
+    lib = library("fold")
+    _launch_groups(lib, lib.fold_mean_group_f32, "fold_mean", words, 8,
+                   lib.fold_mean_max_segments(), device)
+    return list(outs)
+
+
 def fold_mean(table: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor,
               c: int, l: int) -> torch.Tensor:
     """K1: gather + masked sum over the L slots of C mean columns.  ``ids``
     and ``mask`` are l-major per column: slot j of row b of column ci at
-    ``(ci*L + j)*B + b``.  Returns (C*B, D) float32."""
+    ``(ci*L + j)*B + b``.  Returns (C*B, D) float32: ``fold_mean_group``
+    with one member."""
     if l == 1:
         # single-id mean columns are per-row folds
         return fold_rows(table, ids, mask)
-    _check_fold_args(table, ids, mask)
-    e = ids.shape[0]
-    if e % (c * l):
-        raise ValueError(f"fold_mean: {e} ids do not split into {c} columns "
-                         f"of {l} slots")
-    if table.device.type == "cpu":
-        return fold_mean_plain(table, ids, mask, c, l)
-    b, d = e // (c * l), table.shape[1]
-    out = torch.empty((c * b, d), dtype=torch.float32, device=table.device)
-    if out.numel() == 0:
-        return out
-    lib = library("fold")
-    with torch.cuda.device(table.device):
-        code = lib.fold_mean_f32(table.data_ptr(), ids.data_ptr(),
-                                 mask.data_ptr(), out.data_ptr(), c, l, b, d,
-                                 stream_handle(table.device))
-    check(lib, code, "fold_mean")
-    count_launch("fold_mean")
-    return out
+    return fold_mean_group([(table, ids, mask, c, l)])[0]
 
 
 def fold_rows(table: torch.Tensor, ids: torch.Tensor,
@@ -148,81 +208,114 @@ def fold_rows(table: torch.Tensor, ids: torch.Tensor,
 # K3 / K4: unfold fused with the scatter-add, and their plain versions
 # ---------------------------------------------------------------------------
 
-def unfold_payload(g: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """(E, D) per-entry grads and (E,) mask -> (E, D+1) [grad | count]
-    rows, zero where the mask is not > 0 (the JAX payload's semantics)."""
-    live = (mask > 0).to(g.dtype)[:, None]
-    return torch.cat([g * live, live], dim=1)
-
-
-def unfold_mean_scatter_plain(acc, g, ids, mask, l: int) -> None:
-    """acc[ids[j*B + b]] += [g[b] | 1] for every live slot, in place."""
-    acc.index_add_(0, ids.long(), unfold_payload(g.repeat(l, 1), mask))
+def accumulator_views(acc: torch.Tensor, d: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (rows, D) gradient sums and (rows, 1) counts of a flat
+    accumulator of rows*(D+1) floats: views, no copy."""
+    rows = acc.shape[0] // (d + 1)
+    return acc[:rows * d].view(rows, d), acc[rows * d:].view(rows, 1)
 
 
 def unfold_rows_scatter_plain(acc, g, ids, mask) -> None:
-    """acc[ids[e]] += [g[e] | 1] for every live entry, in place."""
-    acc.index_add_(0, ids.long(), unfold_payload(g, mask))
+    """G[ids[e]] += g[e] and N[ids[e]] += 1 for every live entry, in place
+    (G, N: ``accumulator_views(acc, D)``)."""
+    grads, counts = accumulator_views(acc, g.shape[1])
+    live = (mask > 0).to(g.dtype)[:, None]
+    lids = ids.long()
+    grads.index_add_(0, lids, g * live)
+    counts.index_add_(0, lids, live)
+
+
+def unfold_mean_scatter_plain(acc, g, ids, mask, l: int) -> None:
+    """G[ids[j*B + b]] += g[b] and N[ids[j*B + b]] += 1 for every live
+    slot, in place."""
+    unfold_rows_scatter_plain(acc, g.repeat(l, 1), ids, mask)
 
 
 def _check_unfold_args(acc, g, ids, mask) -> None:
-    require(acc, "acc", torch.float32)
-    if acc.ndim != 2:
-        raise ValueError(f"acc: expected (rows, D+1), got {tuple(acc.shape)}")
-    d = acc.shape[1] - 1
-    require(g, "g", torch.float32, device=acc.device)
-    if g.ndim != 2 or g.shape[1] != d:
-        raise ValueError(f"g: expected (N, {d}), got {tuple(g.shape)}")
-    require(ids, "ids", torch.int32, device=acc.device)
+    require(g, "g", torch.float32)
+    if g.ndim != 2:
+        raise ValueError(f"g: expected (N, D), got {tuple(g.shape)}")
+    d = g.shape[1]
+    require(acc, "acc", torch.float32, device=g.device)
+    if acc.ndim != 1 or acc.shape[0] % (d + 1):
+        raise ValueError(f"acc: expected rows*(D+1) floats for D {d}, got "
+                         f"{tuple(acc.shape)}")
+    require(ids, "ids", torch.int32, device=g.device)
     if ids.ndim != 1:
         raise ValueError(f"ids: expected (E,), got {tuple(ids.shape)}")
-    require(mask, "mask", torch.float32, ids.shape, acc.device)
-    if acc.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unfold: no kernel for device {acc.device}")
+    require(mask, "mask", torch.float32, ids.shape, g.device)
+    if g.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unfold: no kernel for device {g.device}")
+
+
+def unfold_mean_scatter_group(items) -> None:
+    """K3 over a group: ``items`` are ``(acc, g, ids, mask, l)``, each as
+    ``unfold_mean_scatter`` takes them (any l >= 1), all on one device;
+    members may share an accumulator.  In place.  On a card one launch
+    takes up to 64 members (a larger group is cut into launches of 64);
+    members with no entries launch nothing."""
+    items = list(items)
+    if not items:
+        return None
+    device = items[0][0].device
+    for acc, g, ids, mask, l in items:
+        if acc.device != device:
+            raise ValueError(f"unfold_mean_group: members on {device} and {acc.device}")
+        _check_unfold_args(acc, g, ids, mask)
+        if l < 1 or ids.shape[0] != l * g.shape[0]:
+            raise ValueError(f"unfold_mean: {ids.shape[0]} ids for {l} slots of "
+                             f"{g.shape[0]} rows")
+    if device.type == "cpu":
+        for item in items:
+            unfold_mean_scatter_plain(*item)
+        return None
+    words = []
+    for acc, g, ids, mask, l in items:
+        b, d = g.shape
+        if b == 0 or d == 0:
+            continue
+        if l * b * d >= _I32:
+            raise ValueError(f"unfold_mean: {l} x {b} entries of D {d} exceed the "
+                             f"kernel's 32-bit indices")
+        words += (acc.data_ptr(), acc.shape[0] // (d + 1), g.data_ptr(), ids.data_ptr(),
+                  mask.data_ptr(), l, b, d)
+    lib = library("unfold_scatter")
+    _launch_groups(lib, lib.unfold_mean_group_f32, "unfold_mean", words, 8,
+                   lib.unfold_max_columns(), device)
+    return None
 
 
 def unfold_mean_scatter(acc, g, ids, mask, l: int) -> None:
     """K3: add the (B, D) gradient ``g`` of one mean column's sums into
-    the (rows, D+1) accumulator ``acc`` at each live slot's id, with a
-    count of 1 per slot; ``ids``/``mask`` are the column's l-major (L*B,)
-    stream.  In place.  l == 1 goes to K4, as in the JAX package."""
+    the flat accumulator ``acc`` (``accumulator_views``) at each live
+    slot's id, with a count of 1 per slot; ``ids``/``mask`` are the
+    column's l-major (L*B,) stream.  In place: ``unfold_mean_scatter_group``
+    with one member.  l == 1 goes to K4, as in the JAX package."""
     if l == 1:
         return unfold_rows_scatter(acc, g, ids, mask)
-    _check_unfold_args(acc, g, ids, mask)
-    b, d = g.shape
-    if ids.shape[0] != l * b:
-        raise ValueError(f"unfold_mean: {ids.shape[0]} ids for {l} slots of "
-                         f"{b} rows")
-    if acc.device.type == "cpu":
-        return unfold_mean_scatter_plain(acc, g, ids, mask, l)
-    if ids.numel() == 0:
-        return None
-    lib = library("unfold_scatter")
-    with torch.cuda.device(acc.device):
-        code = lib.unfold_mean_scatter_f32(acc.data_ptr(), g.data_ptr(),
-                                           ids.data_ptr(), mask.data_ptr(),
-                                           l, b, d, stream_handle(acc.device))
-    check(lib, code, "unfold_mean")
-    count_launch("unfold_mean")
-    return None
+    return unfold_mean_scatter_group([(acc, g, ids, mask, l)])
 
 
 def unfold_rows_scatter(acc, g, ids, mask) -> None:
     """K4: add each live entry's gradient row ``g[e]`` and a count of 1
-    into ``acc[ids[e]]``.  In place."""
+    into row ``ids[e]`` of the accumulator ``acc``.  In place."""
     _check_unfold_args(acc, g, ids, mask)
     e, d = g.shape
     if ids.shape[0] != e:
         raise ValueError(f"unfold_rows: {ids.shape[0]} ids for {e} rows")
     if acc.device.type == "cpu":
         return unfold_rows_scatter_plain(acc, g, ids, mask)
-    if e == 0:
+    if e == 0 or d == 0:
         return None
+    if e * d >= _I32:
+        raise ValueError(f"unfold_rows: {e} entries of D {d} exceed the kernel's "
+                         f"32-bit indices")
     lib = library("unfold_scatter")
     with torch.cuda.device(acc.device):
-        code = lib.unfold_rows_scatter_f32(acc.data_ptr(), g.data_ptr(),
-                                           ids.data_ptr(), mask.data_ptr(),
-                                           e, d, stream_handle(acc.device))
+        code = lib.unfold_rows_scatter_f32(acc.data_ptr(), acc.shape[0] // (d + 1),
+                                           g.data_ptr(), ids.data_ptr(),
+                                           mask.data_ptr(), e, d,
+                                           stream_handle(acc.device))
     check(lib, code, "unfold_rows")
     count_launch("unfold_rows")
     return None
@@ -233,12 +326,10 @@ def unfold_rows_scatter(acc, g, ids, mask) -> None:
 # ---------------------------------------------------------------------------
 
 def sparse_adam_update_plain(opt, tstate, acc) -> None:
-    """``SparseAdam.update`` on the accumulator's [G | count], written back
-    into ``tstate`` in place; ``acc`` is cleared."""
-    d = tstate["w"].shape[1]
-    cnt = acc[:, d:]
-    w, st = opt.update(tstate["w"], acc[:, :d], tstate["opt"],
-                       (cnt > 0).float())
+    """``SparseAdam.update`` on the accumulator's gradient sums and counts,
+    written back into ``tstate`` in place; ``acc`` is cleared."""
+    grads, cnt = accumulator_views(acc, tstate["w"].shape[1])
+    w, st = opt.update(tstate["w"], grads, tstate["opt"], (cnt > 0).float())
     tstate["show"].add_(cnt)
     tstate["w"].copy_(w)
     for name in ("m", "v", "t"):
@@ -256,14 +347,14 @@ def _check_adam_args(tstate, acc, device) -> None:
         require(t, name, torch.float32, (rows, d), device)
     for name, t in (("t", tstate["opt"]["t"]), ("show", tstate["show"])):
         require(t, name, torch.float32, (rows, 1), device)
-    require(acc, "acc", torch.float32, (rows, d + 1), device)
+    require(acc, "acc", torch.float32, (rows * (d + 1),), device)
 
 
 def sparse_adam_update_group(opt, tstates, accs) -> None:
     """K8: one lazy-Adam pass of ``opt`` (a ``SparseAdam``) over every
     storage of ``tstates`` with its accumulator of ``accs``, on one device.
-    In each storage, rows whose count ``acc[r, D]`` is > 0 step t, m, v
-    and w by ``SparseAdam.update``'s arithmetic and add the count to show;
+    In each storage, rows whose count (``accumulator_views``) is > 0 step
+    t, m, v and w by ``SparseAdam.update``'s arithmetic and add the count to show;
     the other rows stay bit-identical.  Updates each ``tstate`` (w, opt
     m/v/t, show) in place and leaves each ``acc`` zero.  On a card one
     launch takes up to 64 storages, of any D up to 8191 (the kernel's
@@ -385,23 +476,36 @@ def _offset_rows(eng, key: str, batch):
     return rows + offset if offset else rows
 
 
+def _part(x: torch.Tensor, start: int, size: int) -> torch.Tensor:
+    """``x[start:start + size]``, or ``x`` itself where that is all of it."""
+    return x if start == 0 and size == x.shape[0] else x[start:start + size]
+
+
 def gather_fold(eng, tables, batch, plans) -> Dict[str, Any]:
-    """Stage 1: fused gather + fold per segment.  Returns, per storage, the
-    folded activations (one array per segment) plus the stream's (ids,
-    mask).  ``tables``: the engine state dict ({skey: {"w": (rows, D)}})."""
-    out = {}
+    """Stage 1: fused gather + fold.  Every storage's stream is built
+    first; then one grouped K1 folds the mean segments (l > 1) of all the
+    storages, and K2 each single-id or sequence segment.  Returns, per
+    storage, the folded activations (one tensor per segment) plus the
+    stream's (ids, mask).  ``tables``: the engine state dict ({skey: {"w":
+    (rows, D)}})."""
+    out, means, rows = {}, [], []
     for skey, segs in plans.items():
         ids, mask = storage_stream(eng, skey, segs, batch)
         table = tables[skey]["w"]
-        acts = []
-        for seg in segs:
-            i_seg = ids[seg.start:seg.start + seg.size]
-            m_seg = mask[seg.start:seg.start + seg.size]
-            if seg.kind == "mean":
-                acts.append(fold_mean(table, i_seg, m_seg, len(seg.keys), seg.l))
+        acts = [None] * len(segs)
+        for i, seg in enumerate(segs):
+            member = (table, _part(ids, seg.start, seg.size),
+                      _part(mask, seg.start, seg.size))
+            if seg.kind == "mean" and seg.l > 1:
+                means.append((acts, i, member + (len(seg.keys), seg.l)))
             else:
-                acts.append(fold_rows(table, i_seg, m_seg))
+                rows.append((acts, i, member))
         out[skey] = {"acts": acts, "ids": ids, "mask": mask}
+    folded = fold_mean_group([member for _, _, member in means])
+    for (acts, i, _), act in zip(means, folded):
+        acts[i] = act
+    for acts, i, member in rows:
+        acts[i] = fold_rows(*member)
     return out
 
 
@@ -433,17 +537,17 @@ def combine_from_acts(eng, plans, ctx, batch):
 
 
 def apply_gradients_packed(eng, state, g_acts, plans, ctx, batch):
-    """Stage 3 (not differentiated): for each storage, unfold every
-    column's activation grads into the storage's [grad | count]
-    accumulator (K3 per mean column, K4 for l == 1 and sequence columns);
-    then one lazy-Adam pass (K8) over all the storages at once.  As in the
-    JAX package, the unfold runs per column (each column is one contiguous
-    block of the stream).
+    """Stage 3 (not differentiated): unfold every column's activation
+    grads into its storage's [grad | count] accumulator, then one lazy-Adam
+    pass (K8) over all the storages at once.  The mean columns with l > 1
+    of every storage go to one grouped K3 (one member a column: each column
+    is one contiguous block of the stream); the single-id columns and the
+    sequence columns then take K4 each.
 
     Updates the tables of ``state`` in place (w, m, v, t, show; the JAX
     package donates them instead) and returns ``state``.  ``g_acts``: per
     storage, the gradients of ``ctx[skey]["acts"]``."""
-    accs = {}
+    accs, means, rows = {}, [], []
     for skey, segs in plans.items():
         d = eng.storage[skey][1]
         ids, mask = ctx[skey]["ids"], ctx[skey]["mask"]
@@ -455,13 +559,19 @@ def apply_gradients_packed(eng, state, g_acts, plans, ctx, batch):
                 b = seg.size // (c * seg.l)
                 for ci in range(c):
                     s0 = seg.start + ci * seg.l * b
-                    unfold_mean_scatter(acc, g[ci * b:(ci + 1) * b],
-                                        ids[s0:s0 + seg.l * b],
-                                        mask[s0:s0 + seg.l * b], seg.l)
+                    member = (acc, _part(g, ci * b, b), _part(ids, s0, seg.l * b),
+                              _part(mask, s0, seg.l * b))
+                    if seg.l > 1:
+                        means.append(member + (seg.l,))
+                    else:
+                        rows.append(member)
             else:
-                unfold_rows_scatter(acc, g.reshape(seg.size, d),
-                                    ids[seg.start:seg.start + seg.size],
-                                    mask[seg.start:seg.start + seg.size])
+                rows.append((acc, g.reshape(seg.size, d),
+                             _part(ids, seg.start, seg.size),
+                             _part(mask, seg.start, seg.size)))
+    unfold_mean_scatter_group(means)
+    for member in rows:
+        unfold_rows_scatter(*member)
     sparse_adam_update_group(eng.sparse_opt, [state[k] for k in accs],
                              list(accs.values()))
     return state

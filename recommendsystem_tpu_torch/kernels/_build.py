@@ -38,7 +38,8 @@ _U = ctypes.c_uint
 # c_void_p, so that ctypes does not cut them to 32 bits)
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "fold": {
-        "fold_mean_f32": [_P, _P, _P, _P, _L, _I, _L, _I, _P],
+        "fold_mean_group_f32": [_P, _I, _P],
+        "fold_mean_max_segments": [],
         "fold_rows_f32": [_P, _P, _P, _P, _L, _I, _P],
     },
     "field_attention": {
@@ -48,8 +49,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                                                _U, _F, _P],
     },
     "unfold_scatter": {
-        "unfold_mean_scatter_f32": [_P, _P, _P, _P, _I, _L, _I, _P],
-        "unfold_rows_scatter_f32": [_P, _P, _P, _P, _L, _I, _P],
+        "unfold_mean_group_f32": [_P, _I, _P],
+        "unfold_max_columns": [],
+        "unfold_rows_scatter_f32": [_P, _L, _P, _P, _P, _L, _I, _P],
     },
     "sparse_adam": {
         "sparse_adam_group_f32": [_P, _P, _P, _I, _F, _F, _F, _F, _F, _F, _P],

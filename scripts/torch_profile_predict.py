@@ -17,7 +17,8 @@ warms the predict step up, then
   - times ``steps`` calls on the host clock, ending in a synchronize;
   - traces the same number of calls with ``torch.profiler`` and sums the
     device time of every kernel: busy share = device time / wall time;
-  - lists the kernels by device time (kernel names as the trace gives them).
+  - lists the kernels by device time (kernel names as the trace gives them)
+    and each port kernel's device time a call (``port_kernel_us_per_call``).
 Prints one JSON line per batch size, with the card's name and power limit,
 and writes the tables to ``chiprun_out/profile_predict_<model>[_without_k6].txt``.
 
@@ -50,6 +51,19 @@ def _device_us(evt) -> float:
         if hasattr(evt, attr):
             return float(getattr(evt, attr))
     return 0.0
+
+
+def _port_kernel_us(kernels, steps: int) -> dict:
+    """Device µs a call of each of the port's own kernels (those of
+    ``csrc/``, all in an anonymous namespace at the top level), whatever
+    their rank by time."""
+    out: dict = {}
+    for e in kernels:
+        name = e.key.removeprefix("void ")
+        if name.startswith("(anonymous namespace)::"):
+            short = name[len("(anonymous namespace)::"):].split("(")[0].split("<")[0]
+            out[short] = out.get(short, 0.0) + _device_us(e) / steps
+    return out
 
 
 def main(argv=None) -> int:
@@ -120,6 +134,7 @@ def main(argv=None) -> int:
                 "us_per_step": _device_us(e) / args.steps} for e in kernels[:12]]
         n_kernels = sum(e.count for e in kernels) // args.steps
         row = {"model": args.model + suffix, "batch": b, "ms_per_call": wall * 1e3,
+               "port_kernel_us_per_call": _port_kernel_us(kernels, args.steps),
                "examples_per_s": b / wall, "traced_ms_per_call": traced_wall * 1e3,
                "device_busy_ms_per_call": busy_us / 1e3,
                "device_busy_share": busy_us / 1e3 / (traced_wall * 1e3),

@@ -12,7 +12,8 @@ warms the packed train step up, then
   - traces ``steps`` more with ``torch.profiler`` and sums the device time
     of every kernel: busy share = device time / wall time of the traced
     window;
-  - lists the kernels by device time, and the port kernels' launches per
+  - lists the kernels by device time, each port kernel's device time a
+    step (``port_kernel_us_per_step``), and the port kernels' launches per
     step.
 Prints one JSON line per width, with the card's name and power limit, and
 writes the tables to ``chiprun_out/profile_train.txt``.
@@ -38,6 +39,19 @@ def _device_us(evt) -> float:
         if hasattr(evt, attr):
             return float(getattr(evt, attr))
     return 0.0
+
+
+def _port_kernel_us(kernels, steps: int) -> dict:
+    """Device µs a step of each of the port's own kernels (those of
+    ``csrc/``, all in an anonymous namespace at the top level), whatever
+    their rank by time."""
+    out: dict = {}
+    for e in kernels:
+        name = e.key.removeprefix("void ")
+        if name.startswith("(anonymous namespace)::"):
+            short = name[len("(anonymous namespace)::"):].split("(")[0].split("<")[0]
+            out[short] = out.get(short, 0.0) + _device_us(e) / steps
+    return out
 
 
 def main(argv=None) -> int:
@@ -100,6 +114,7 @@ def main(argv=None) -> int:
         top = [{"name": e.key[:90], "calls_per_step": e.count / args.steps,
                 "us_per_step": _device_us(e) / args.steps} for e in kernels[:16]]
         row = {"batch": args.batch, "ids_per_feature": ipf,
+               "port_kernel_us_per_step": _port_kernel_us(kernels, args.steps),
                "ms_per_step": wall * 1e3, "examples_per_s": args.batch / wall,
                "window_ms": [w * 1e3 for w in windows], "last_loss": loss,
                "traced_ms_per_step": traced_wall * 1e3,

@@ -248,44 +248,184 @@ def test_field_attention_bwd_from_the_kernel_lse(cuda, f, b):
     assert launch_counts()["field_attention_bwd"] == 1
 
 
-def _unfold_inputs(dev, rows, l, b, seed, hot_row=False):
+def _unfold_inputs(dev, rows, l, b, seed, hot_row=False, d=8):
     ids, mask = _stream(dev, rows, 1, l, b, seed)
     if hot_row:
         ids = torch.full_like(ids, 7)          # every entry on one row
-    g = torch.randn((b, 8), generator=torch.Generator(device=dev).manual_seed(seed),
+    g = torch.randn((b, d), generator=torch.Generator(device=dev).manual_seed(seed),
                     device=dev)
     return g, ids, mask
+
+
+def _assert_unfold(got, want, d):
+    """Gradient sums within 1e-5, or 1e-6 per entry on the busiest row;
+    counts exact."""
+    (gg, gc), (wg, wc) = packed.accumulator_views(got, d), packed.accumulator_views(want, d)
+    per_row = float(wc.max()) if wc.numel() else 0.0
+    torch.testing.assert_close(gg, wg, rtol=0, atol=max(1e-5, 1e-6 * per_row))
+    torch.testing.assert_close(gc, wc, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("l,b,hot", [(5, 8, False), (5, 4097, False),
                                      (2, 200, False), (5, 4096, True)])
 def test_unfold_mean_scatter_kernel(cuda, l, b, hot):
     g, ids, mask = _unfold_inputs(cuda, 1000, l, b, seed=b + l, hot_row=hot)
-    got = torch.zeros((1000, 9), device=cuda)
-    want = torch.zeros((1000, 9), device=cuda)
+    got = torch.zeros(1000 * 9, device=cuda)
+    want = torch.zeros(1000 * 9, device=cuda)
     packed.unfold_mean_scatter(got, g, ids, mask, l)
     packed.unfold_mean_scatter_plain(want, g, ids, mask, l)
     torch.cuda.synchronize()
-    per_row = float(want[:, 8].max())
-    torch.testing.assert_close(got[:, :8], want[:, :8], rtol=0,
-                               atol=max(1e-5, 1e-6 * per_row))
-    torch.testing.assert_close(got[:, 8], want[:, 8], rtol=0, atol=0)
+    _assert_unfold(got, want, 8)
     assert launch_counts()["unfold_mean"] == 1
 
 
 @pytest.mark.parametrize("e,hot", [(8, False), (4097, False), (65536, True)])
 def test_unfold_rows_scatter_kernel(cuda, e, hot):
     g, ids, mask = _unfold_inputs(cuda, 500, 1, e, seed=e, hot_row=hot)
-    got = torch.zeros((500, 9), device=cuda)
-    want = torch.zeros((500, 9), device=cuda)
+    got = torch.zeros(500 * 9, device=cuda)
+    want = torch.zeros(500 * 9, device=cuda)
     packed.unfold_rows_scatter(got, g, ids, mask)
     packed.unfold_rows_scatter_plain(want, g, ids, mask)
     torch.cuda.synchronize()
-    per_row = float(want[:, 8].max())
-    torch.testing.assert_close(got[:, :8], want[:, :8], rtol=0,
-                               atol=max(1e-5, 1e-6 * per_row))
-    torch.testing.assert_close(got[:, 8], want[:, 8], rtol=0, atol=0)
+    _assert_unfold(got, want, 8)
     assert launch_counts()["unfold_rows"] == 1
+
+
+# grouped K1 and K3: (D, L, B, hot) per member; D 3 and 5 take one float a
+# lane, the others float4 lanes; B 0 is an empty member
+GROUP_MEMBERS = [(8, 5, 300, False), (16, 2, 77, False), (32, 10, 129, False),
+                 (48, 7, 64, True), (56, 3, 1, False), (8, 10, 0, False),
+                 (3, 4, 50, False), (5, 9, 33, True)]
+
+
+def _table(dev, rows, d, seed):
+    """Rows at the scale of the tables' init (0.88 / sqrt(D), within 2 /
+    sqrt(D)), where the fold's tolerance is stated for sums of products of
+    magnitude < 1."""
+    t = torch.randn(rows, d, generator=torch.Generator(device=dev).manual_seed(seed),
+                    device=dev) * (0.88 / d ** 0.5)
+    return t.clamp_(-2 / d ** 0.5, 2 / d ** 0.5)
+
+
+def _fold_members(dev, members, rows=700, c=2):
+    items = []
+    for i, (d, l, b, hot) in enumerate(members):
+        table = _table(dev, rows, d, i)
+        ids, mask = _stream(dev, rows, c, l, b, seed=100 + i)
+        if hot:
+            ids = torch.where(mask > 0, torch.full_like(ids, 3), ids)
+        items.append((table, ids, mask, c, l))
+    return items
+
+
+def test_fold_mean_group_kernel(cuda):
+    """One grouped launch over members of D 8-56 (float4 lanes) and 3, 5
+    (one float a lane), L 2-10, a hot row and an empty member, each against
+    its plain version."""
+    items = _fold_members(cuda, GROUP_MEMBERS)
+    got = packed.fold_mean_group(items)
+    torch.cuda.synchronize()
+    assert launch_counts()["fold_mean"] == 1
+    assert len(got) == len(items)
+    for out, item in zip(got, items):
+        torch.testing.assert_close(out, packed.fold_mean_plain(*item), rtol=0, atol=1e-6)
+
+
+def test_fold_mean_group_unaligned_table(cuda):
+    """A table whose rows are not 16-byte aligned takes one float a lane."""
+    flat = torch.cat([torch.zeros(1, device=cuda), _table(cuda, 500, 8, 7).reshape(-1)])
+    table = flat[1:].view(500, 8)
+    ids, mask = _stream(cuda, 500, 3, 5, 90, seed=4)
+    (got,) = packed.fold_mean_group([(table, ids, mask, 3, 5)])
+    torch.testing.assert_close(got, packed.fold_mean_plain(table, ids, mask, 3, 5),
+                               rtol=0, atol=1e-6)
+
+
+def test_fold_mean_group_of_65_members(cuda):
+    """65 members: two launches of at most 64."""
+    members = [(8 * (1 + i % 3), 2 + i % 9, 20 + i, i % 7 == 0) for i in range(65)]
+    items = _fold_members(cuda, members, rows=300, c=1)
+    got = packed.fold_mean_group(items)
+    torch.cuda.synchronize()
+    assert launch_counts()["fold_mean"] == 2
+    for out, item in zip(got, items):
+        torch.testing.assert_close(out, packed.fold_mean_plain(*item), rtol=0, atol=1e-6)
+
+
+def _unfold_members(dev, members, rows=700):
+    items = []
+    for i, (d, l, b, hot) in enumerate(members):
+        g, ids, mask = _unfold_inputs(dev, rows, l, b, seed=200 + i, hot_row=hot, d=d)
+        items.append((torch.zeros(rows * (d + 1), device=dev), g, ids, mask, l))
+    return items
+
+
+def _check_unfold_group(items):
+    for acc, g, ids, mask, l in items:
+        want = torch.zeros_like(acc)
+        packed.unfold_mean_scatter_plain(want, g, ids, mask, l)
+        _assert_unfold(acc, want, g.shape[1])
+
+
+def test_unfold_mean_group_kernel(cuda):
+    """One grouped launch over members of D 8-56 and 3, 5, L 2-10, hot
+    rows and an empty member; two members share one accumulator."""
+    items = _unfold_members(cuda, GROUP_MEMBERS)
+    g, ids, mask = _unfold_inputs(cuda, 700, 4, 111, seed=9)
+    items.append((items[0][0], g, ids, mask, 4))       # the first member's accumulator
+    packed.unfold_mean_scatter_group(items)
+    torch.cuda.synchronize()
+    assert launch_counts()["unfold_mean"] == 1
+    want = torch.zeros_like(items[0][0])
+    for acc, g, ids, mask, l in (items[0], items[-1]):
+        packed.unfold_mean_scatter_plain(want, g, ids, mask, l)
+    _assert_unfold(items[0][0], want, 8)
+    _check_unfold_group(items[1:-1])
+
+
+def test_unfold_mean_group_of_65_members(cuda):
+    members = [(8 * (1 + i % 3), 2 + i % 9, 20 + i, i % 7 == 0) for i in range(65)]
+    items = _unfold_members(cuda, members, rows=300)
+    packed.unfold_mean_scatter_group(items)
+    torch.cuda.synchronize()
+    assert launch_counts()["unfold_mean"] == 2
+    _check_unfold_group(items)
+
+
+def test_unfold_mean_group_unaligned_gradient(cuda):
+    """A gradient whose rows are not 16-byte aligned takes one float a lane."""
+    g, ids, mask = _unfold_inputs(cuda, 400, 5, 70, seed=3)
+    g = torch.cat([torch.zeros(1, device=cuda), g.reshape(-1)])[1:].view(70, 8)
+    got = torch.zeros(400 * 9, device=cuda)
+    want = torch.zeros(400 * 9, device=cuda)
+    packed.unfold_mean_scatter_group([(got, g, ids, mask, 5)])
+    packed.unfold_mean_scatter_plain(want, g, ids, mask, 5)
+    _assert_unfold(got, want, 8)
+
+
+def test_train_step_launches_one_grouped_fold_and_unfold(cuda):
+    """A small autoint train step with 5 ids: one K1, one K3 and one K8
+    launch; with 1 id no K1 or K3, but K2 for the one single-id segment (the
+    24 small tables share one storage) and K4 for each of its 24 columns."""
+    from recommendsystem_tpu_torch.data import synthetic_batch
+    from recommendsystem_tpu_torch.models import create_model
+    from recommendsystem_tpu_torch.train import create_train_state, make_train_step
+
+    bundle = create_model("autoint", bucket_size=256, device="cuda")
+    step = make_train_step(bundle)
+    for ipf, want in ((5, {"fold_mean": 1, "unfold_mean": 1, "fold_rows": 0,
+                           "unfold_rows": 0, "sparse_adam_update": 1}),
+                      (1, {"fold_mean": 0, "unfold_mean": 0, "fold_rows": 1,
+                           "unfold_rows": 24, "sparse_adam_update": 1})):
+        state = create_train_state(bundle, seed=0)
+        batch, dense, labels, weight = synthetic_batch(bundle, 64, seed=1,
+                                                       ids_per_feature=ipf)
+        reset_launch_counts()
+        state, info = step(state, batch, labels, weight, dense, seed=0)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        assert {k: counts[k] for k in want} == want
+        assert torch.isfinite(info["loss"])
 
 
 @pytest.mark.parametrize("rows,d,live", [(265104, 8, 0.3), (1000, 8, 1.0),
@@ -295,8 +435,8 @@ def test_sparse_adam_kernel(cuda, rows, d, live):
     cnt = torch.where(torch.rand((rows, 1), generator=g, device=cuda) < live,
                       torch.randint(1, 5, (rows, 1), generator=g, device=cuda),
                       0).float()
-    acc = torch.cat([torch.randn((rows, d), generator=g, device=cuda) * 1e-2
-                     * (cnt > 0), cnt], dim=1)
+    acc = torch.cat([(torch.randn((rows, d), generator=g, device=cuda) * 1e-2
+                      * (cnt > 0)).reshape(-1), cnt.reshape(-1)])
 
     def state():
         gs = torch.Generator(device=cuda).manual_seed(1)
@@ -329,12 +469,13 @@ def test_sparse_adam_kernel(cuda, rows, d, live):
 
 def _adam_storage(dev, rows, d, live, seed):
     """(state, accumulator) of one storage: a share ``live`` of rows with
-    counts 1..4 and gradients, the others all zero."""
+    counts 1..4 and gradients, the others all zero; the accumulator flat,
+    its gradient block before its counts."""
     g = torch.Generator(device=dev).manual_seed(seed)
     cnt = torch.where(torch.rand((rows, 1), generator=g, device=dev) < live,
                       torch.randint(1, 5, (rows, 1), generator=g, device=dev), 0).float()
-    acc = torch.cat([torch.randn((rows, d), generator=g, device=dev) * 1e-2 * (cnt > 0),
-                     cnt], dim=1)
+    acc = torch.cat([(torch.randn((rows, d), generator=g, device=dev) * 1e-2
+                      * (cnt > 0)).reshape(-1), cnt.reshape(-1)])
     state = {"w": torch.randn((rows, d), generator=g, device=dev),
              "opt": {"m": torch.randn((rows, d), generator=g, device=dev) * 1e-3,
                      "v": torch.rand((rows, d), generator=g, device=dev) * 1e-5,
@@ -371,7 +512,7 @@ def test_sparse_adam_group_kernel(cuda, n, live):
             torch.testing.assert_close(g["opt"][name], want["opt"][name], rtol=1e-6, atol=0)
         torch.testing.assert_close(g["opt"]["t"], want["opt"]["t"], rtol=0, atol=0)
         torch.testing.assert_close(g["show"], want["show"], rtol=0, atol=0)
-        dead = acc[:, -1] == 0
+        dead = packed.accumulator_views(acc, s["w"].shape[1])[1][:, 0] == 0
         for x, y in ((g["w"], b["w"]), (g["opt"]["m"], b["opt"]["m"]),
                      (g["opt"]["v"], b["opt"]["v"]), (g["opt"]["t"], b["opt"]["t"]),
                      (g["show"], b["show"])):
@@ -549,7 +690,7 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         packed.fold_rows(table, torch.zeros(4, dtype=torch.int32),
                          torch.ones(4, device=cuda))       # ids on the CPU
-    acc = torch.zeros(10, 9, device=cuda)
+    acc = torch.zeros(10 * 9, device=cuda)
     with pytest.raises(ValueError):
         packed.unfold_rows_scatter(acc, torch.ones(4, 8, device=cuda),
                                    torch.zeros(4, dtype=torch.int32),

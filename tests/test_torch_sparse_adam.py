@@ -36,12 +36,19 @@ def _state(rng, rows=ROWS, d=D):
 
 
 def _acc(rng, rows=ROWS, d=D, live=0.4):
-    """(rows, D+1) [grad | count]: a share ``live`` of rows with counts 1..4
-    and gradients, the others all zero, as the unfold-scatter leaves it."""
+    """(rows, D+1) [grad | count] rows, the JAX package's layout: a share
+    ``live`` of rows with counts 1..4 and gradients, the others all zero, as
+    the unfold-scatter leaves it."""
     cnt = np.where(rng.uniform(size=(rows, 1)) < live,
                    rng.integers(1, 5, (rows, 1)), 0).astype(np.float32)
     g = rng.standard_normal((rows, d)).astype(np.float32) * 1e-2 * (cnt > 0)
     return np.concatenate([g, cnt], axis=1)
+
+
+def _flat(acc):
+    """The port's accumulator of the same sums: a flat tensor of the (rows,
+    D) gradient block followed by the (rows,) counts."""
+    return torch.tensor(np.concatenate([acc[:, :-1].ravel(), acc[:, -1]]))
 
 
 def _torch(state):
@@ -120,7 +127,7 @@ def test_k8_matches_jax_packed_adam_update(live):
          "opt": {n: jnp.asarray(x) for n, x in before["opt"].items()},
          "show": jnp.asarray(before["show"])}, D), jacc, D)
     want = _np(jpk.unpack_state_entry(jnew, D))
-    tstate, tacc = _torch(before), torch.tensor(acc)
+    tstate, tacc = _torch(before), _flat(acc)
     reset_launch_counts()
     assert packed.sparse_adam_update(opt, tstate, tacc) is None     # in place
     assert launch_counts() == dict.fromkeys(KERNELS, 0)
@@ -133,7 +140,7 @@ def test_k8_equals_its_oracle_bit_for_bit():
     before, acc = _state(rng), _acc(rng)
     opt = SparseAdam(learning_rate=1e-3)
     tstate = _torch(before)
-    packed.sparse_adam_update(opt, tstate, torch.tensor(acc))
+    packed.sparse_adam_update(opt, tstate, _flat(acc))
     w, st = opt.update(torch.tensor(before["w"]), torch.tensor(acc[:, :D]),
                        {n: torch.tensor(x) for n, x in before["opt"].items()},
                        torch.tensor((acc[:, D:] > 0).astype(np.float32)))
@@ -146,10 +153,10 @@ def test_k8_equals_its_oracle_bit_for_bit():
 
 def test_k8_checks_arguments():
     rng = np.random.default_rng(0)
-    tstate, acc = _torch(_state(rng)), torch.tensor(_acc(rng))
+    tstate, acc = _torch(_state(rng)), _flat(_acc(rng))
     opt = SparseAdam()
     with pytest.raises(ValueError):
-        packed.sparse_adam_update(opt, tstate, acc[:, :D].contiguous())
+        packed.sparse_adam_update(opt, tstate, acc[:ROWS * D])     # no counts
     bad = dict(tstate, show=tstate["show"].double())
     with pytest.raises(TypeError):
         packed.sparse_adam_update(opt, bad, acc)
@@ -191,8 +198,8 @@ def test_k8_group_equals_per_storage_plain_bit_for_bit(live):
     rng = np.random.default_rng(int(live * 10) + 21)
     group = _group(rng, GROUP, live)
     opt = SparseAdam(learning_rate=1e-3)
-    got = [(_torch(s), torch.tensor(a)) for s, a in group]
-    want = [(_torch(s), torch.tensor(a)) for s, a in group]
+    got = [(_torch(s), _flat(a)) for s, a in group]
+    want = [(_torch(s), _flat(a)) for s, a in group]
     reset_launch_counts()
     assert packed.sparse_adam_update_group(opt, [s for s, _ in got],
                                            [a for _, a in got]) is None
@@ -221,7 +228,7 @@ def test_k8_group_matches_jax_packed_adam_update(live):
     group = _group(rng, shapes, live)
     tstates = [_torch(s) for s, _ in group]
     packed.sparse_adam_update_group(SparseAdam(), tstates,
-                                    [torch.tensor(a) for _, a in group])
+                                    [_flat(a) for _, a in group])
     for tstate, (before, acc), (rows, d) in zip(tstates, group, shapes):
         ps = jpk.scatter_pack(d)
         jacc = jnp.asarray(np.pad(acc.reshape(rows // ps, ps * (d + 1)),
@@ -240,12 +247,12 @@ def test_k8_group_checks_arguments():
     t1, t2 = _torch(s1), _torch(s2)
     opt = SparseAdam()
     with pytest.raises(ValueError, match="accumulators"):
-        packed.sparse_adam_update_group(opt, [t1, t2], [torch.tensor(a1)])
+        packed.sparse_adam_update_group(opt, [t1, t2], [_flat(a1)])
     with pytest.raises(ValueError):              # the second storage's acc is the first's
-        packed.sparse_adam_update_group(opt, [t1, t2], [torch.tensor(a1)] * 2)
+        packed.sparse_adam_update_group(opt, [t1, t2], [_flat(a1)] * 2)
     meta = {"w": t2["w"].to("meta"), "opt": {n: x.to("meta") for n, x in t2["opt"].items()},
             "show": t2["show"].to("meta")}
     with pytest.raises(ValueError):              # storages on two devices
-        packed.sparse_adam_update_group(opt, [t1, meta], [torch.tensor(a1),
-                                                          torch.tensor(a2).to("meta")])
+        packed.sparse_adam_update_group(opt, [t1, meta], [_flat(a1),
+                                                          _flat(a2).to("meta")])
     assert packed.sparse_adam_update_group(opt, [], []) is None

@@ -5,7 +5,8 @@ The JAX side builds its (E, 128) [grad | count] payload with
 ``unfold_mean_ref`` / ``unfold_rows_ref``, scatters it into its (rows/Ps,
 128) accumulator (``apply_gradients_packed``, ``packed.py:661-671``) and
 unpacks that to (rows, D+1) (``packed.py:714-726``); the port adds straight
-into a (rows, D+1) accumulator.  Tolerance: G atol 1e-6 (each row sums at
+into a flat accumulator of a (rows, D) gradient block and a (rows,) count
+block, compared here as (rows, D+1) [grad | count] rows.  Tolerance: G atol 1e-6 (each row sums at
 most a few dozen float32 gradients of magnitude < 1, in another order);
 counts exact (sums of 1.0)."""
 
@@ -50,7 +51,17 @@ def _jax_scatter(pay, ids, rows):
     return np.asarray(acc[:, :ps * (D + 1)].reshape(rows, D + 1))
 
 
+def _acc():
+    return torch.zeros(ROWS * (D + 1))
+
+
+def _rows(acc):
+    """The port's flat accumulator as (rows, D+1) [grad | count] rows."""
+    return torch.cat(packed.accumulator_views(acc, D), dim=1).numpy()
+
+
 def _assert_acc(got, want):
+    got = _rows(got)
     np.testing.assert_allclose(got[:, :D], want[:, :D], rtol=0, atol=ATOL)
     np.testing.assert_array_equal(got[:, D], want[:, D])
 
@@ -66,11 +77,11 @@ def test_unfold_mean_scatter_matches_jax(c, l, b):
                         ids, ROWS)
     tg, tids, tmask = map(torch.from_numpy, (g, ids, mask))
     for fn in (packed.unfold_mean_scatter, packed.unfold_mean_scatter_plain):
-        acc = torch.zeros((ROWS, D + 1))
+        acc = _acc()
         for ci in range(c):
             s = slice(ci * l * b, (ci + 1) * l * b)
             fn(acc, tg[ci * b:(ci + 1) * b], tids[s], tmask[s], l)
-        _assert_acc(acc.numpy(), want)
+        _assert_acc(acc, want)
     assert want[:, D].sum() == mask.sum()      # every live slot counted once
 
 
@@ -86,9 +97,9 @@ def test_unfold_rows_scatter_matches_jax(e, hot):
              lambda a: packed.unfold_rows_scatter_plain(a, tg, tids, tmask),
              lambda a: packed.unfold_mean_scatter(a, tg, tids, tmask, 1))  # l == 1 -> K4
     for call in calls:
-        acc = torch.zeros((ROWS, D + 1))
+        acc = _acc()
         call(acc)
-        _assert_acc(acc.numpy(), want)
+        _assert_acc(acc, want)
 
 
 def test_unfold_adds_into_what_the_accumulator_holds():
@@ -96,7 +107,7 @@ def test_unfold_adds_into_what_the_accumulator_holds():
     ids, mask = _stream(rng, ROWS, 1, 5, 32)
     g = torch.from_numpy(rng.standard_normal((32, D)).astype(np.float32))
     tids, tmask = torch.from_numpy(ids), torch.from_numpy(mask)
-    once = torch.zeros((ROWS, D + 1))
+    once = _acc()
     packed.unfold_mean_scatter(once, g, tids, tmask, 5)
     twice = once.clone()
     packed.unfold_mean_scatter(twice, g, tids, tmask, 5)
@@ -105,14 +116,14 @@ def test_unfold_adds_into_what_the_accumulator_holds():
 
 def test_cpu_unfold_launches_nothing_and_checks_arguments():
     reset_launch_counts()
-    acc = torch.zeros((ROWS, D + 1))
+    acc = _acc()
     g = torch.ones((4, D))
     ids = torch.zeros(20, dtype=torch.int32)
     mask = torch.ones(20)
     packed.unfold_mean_scatter(acc, g, ids, mask, 5)
     packed.unfold_rows_scatter(acc, torch.ones((20, D)), ids, mask)
     assert launch_counts() == dict.fromkeys(KERNELS, 0)
-    assert acc[0, D] == 40
+    assert _rows(acc)[0, D] == 40
     with pytest.raises(TypeError):
         packed.unfold_mean_scatter(acc, g, ids.long(), mask, 5)
     with pytest.raises(ValueError):
@@ -120,7 +131,8 @@ def test_cpu_unfold_launches_nothing_and_checks_arguments():
     with pytest.raises(ValueError):
         packed.unfold_rows_scatter(acc, torch.ones((20, D - 1)), ids, mask)
     with pytest.raises(ValueError):
-        packed.unfold_rows_scatter(acc.t(), torch.ones((20, D)), ids, mask)
+        packed.unfold_rows_scatter(torch.zeros(2 * ROWS * (D + 1))[::2],
+                                   torch.ones((20, D)), ids, mask)   # not contiguous
     meta = [t.to("meta") for t in (acc, g, ids, mask)]
     with pytest.raises(ValueError, match="no kernel"):
         packed.unfold_mean_scatter(*meta, 5)
