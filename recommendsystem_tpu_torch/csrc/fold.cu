@@ -58,22 +58,9 @@ struct Segment {
   int vec;      // 4: float4 lanes; 1: one float a lane
 };
 
-struct Group {
-  Segment s[kMaxSegments];
-  int block_start[kMaxSegments + 1];  // prefix of blocks per segment
-  int n;
-};
+using Group = Grouped<Segment, kMaxSegments>;
 // kept within the 4 KB of kernel parameters every CUDA 12 driver accepts
 static_assert(sizeof(Group) <= 4096, "Group exceeds 4 KB of kernel parameters");
-
-template <int V>
-struct VecOf {
-  using type = float;
-};
-template <>
-struct VecOf<4> {
-  using type = float4;
-};
 
 __device__ __forceinline__ void zero(float& x) { x = 0.f; }
 __device__ __forceinline__ void zero(float4& x) { x = make_float4(0.f, 0.f, 0.f, 0.f); }
@@ -128,15 +115,10 @@ __device__ __forceinline__ void fold_segment(const Segment& s, int t) {
 
 __global__ void __launch_bounds__(kThreads)
 fold_mean_group_kernel(const __grid_constant__ Group g) {
-  // the segment of this block: the last one whose first block is <= it
   const int blk = blockIdx.x;
-  int lo = 0, hi = g.n - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (g.block_start[mid] <= blk) lo = mid; else hi = mid - 1;
-  }
-  const Segment& s = g.s[lo];
-  const int t = (blk - g.block_start[lo]) * kThreads + static_cast<int>(threadIdx.x);
+  const int member = g.member_of(blk);
+  const Segment& s = g.s[member];
+  const int t = (blk - g.block_start[member]) * kThreads + static_cast<int>(threadIdx.x);
   if (s.vec == 4) {
     fold_segment<4>(s, t);
   } else {
@@ -156,8 +138,6 @@ __global__ void fold_rows_kernel(const float* __restrict__ table,
   const float m = mask[r];
   out[t] = (m != 0.f) ? m * table[static_cast<long long>(ids[r]) * d + lane] : 0.f;
 }
-
-bool aligned16(unsigned long long p) { return (p & 15ULL) == 0; }
 
 }  // namespace
 
@@ -179,19 +159,17 @@ RS_EXPORT int fold_mean_group_f32(const long long* desc, int n, cudaStream_t str
         c * b * d > 0x7fffffffLL) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    const unsigned long long table = static_cast<unsigned long long>(w[0]);
-    const unsigned long long out = static_cast<unsigned long long>(w[3]);
+    const float* table = reinterpret_cast<const float*>(w[0]);
+    float* out = reinterpret_cast<float*>(w[3]);
     const int vec = (d % 4 == 0 && aligned16(table) && aligned16(out)) ? 4 : 1;
-    g.s[i] = Segment{reinterpret_cast<const float*>(w[0]), reinterpret_cast<const int*>(w[1]),
-                     reinterpret_cast<const float*>(w[2]), reinterpret_cast<float*>(w[3]),
-                     static_cast<int>(c * b), static_cast<int>(b), static_cast<int>(l),
-                     static_cast<int>(d), vec};
-    g.block_start[i] = static_cast<int>(blocks);
-    blocks += (c * b * (d / vec) + kThreads - 1) / kThreads;
-    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    const Segment s{table, reinterpret_cast<const int*>(w[1]),
+                    reinterpret_cast<const float*>(w[2]), out, static_cast<int>(c * b),
+                    static_cast<int>(b), static_cast<int>(l), static_cast<int>(d), vec};
+    if (!g.add(i, s, (c * b * (d / vec) + kThreads - 1) / kThreads, blocks)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
-  g.block_start[n] = static_cast<int>(blocks);
-  g.n = n;
+  g.close(n, blocks);
   fold_mean_group_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0, stream>>>(g);
   return static_cast<int>(cudaGetLastError());
 }

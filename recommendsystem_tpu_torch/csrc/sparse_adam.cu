@@ -42,7 +42,6 @@
 //    stored back as zeros.  A live row waits on device memory twice.
 
 #include <math.h>
-#include <stdint.h>
 
 #include "common.cuh"
 
@@ -51,7 +50,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxStorages = 64;      // storages a launch takes
 constexpr int kTileRows = kThreads;   // rows a block: one thread a row
-constexpr int kMaxD = 8191;           // widest row the wrapper passes
+// widest row: a tile's offsets, up to kTileRows * D, stay in 32 bits
+constexpr int kMaxD = 0x7fffffff / kTileRows;
 constexpr int kUnroll = 1;            // vectors in flight per thread (measured best)
 constexpr int kMinBlocks = 4;         // blocks an SM: at most 64 registers a thread
 
@@ -66,27 +66,11 @@ struct Storage {
   int d;
 };
 
-struct Group {
-  Storage s[kMaxStorages];
-  int block_start[kMaxStorages + 1];  // prefix of blocks per storage
-  int n;
+struct Group : Grouped<Storage, kMaxStorages> {
   float lr, b1, omb1, b2, omb2, eps;
 };
 // kept within the 4 KB of kernel parameters every CUDA 12 driver accepts
 static_assert(sizeof(Group) <= 4096, "Group exceeds 4 KB of kernel parameters");
-
-__device__ __forceinline__ bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
-template <int V>
-struct VecOf {
-  using type = float;
-};
-template <>
-struct VecOf<4> {
-  using type = float4;
-};
 
 // w, m, v and G of the tile's live rows (live_s, n_live of them, in row
 // order), V floats a thread at a time; G is stored back as zeros
@@ -159,16 +143,11 @@ sparse_adam_group_kernel(const __grid_constant__ Group g) {
   __shared__ int live_s[kTileRows];          // the tile's live rows, in order
   __shared__ int warp_live[kThreads / 32];
 
-  // the storage of this block: the last one whose first block is <= it
   const int blk = blockIdx.x;
-  int lo = 0, hi = g.n - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (g.block_start[mid] <= blk) lo = mid; else hi = mid - 1;
-  }
-  const Storage& st = g.s[lo];
+  const int member = g.member_of(blk);
+  const Storage& st = g.s[member];
   const int d = st.d;
-  const long long r0 = static_cast<long long>(blk - g.block_start[lo]) * kTileRows;
+  const long long r0 = static_cast<long long>(blk - g.block_start[member]) * kTileRows;
   const int nr = static_cast<int>(min(static_cast<long long>(kTileRows), st.rows - r0));
   float* counts = st.acc + static_cast<long long>(st.rows) * d;
 
@@ -239,16 +218,15 @@ RS_EXPORT int sparse_adam_group_f32(const unsigned long long* ptrs,
       return static_cast<int>(cudaErrorInvalidValue);
     }
     const unsigned long long* p = ptrs + 6 * s;
-    g.s[s] = Storage{reinterpret_cast<float*>(p[0]), reinterpret_cast<float*>(p[1]),
+    const Storage st{reinterpret_cast<float*>(p[0]), reinterpret_cast<float*>(p[1]),
                      reinterpret_cast<float*>(p[2]), reinterpret_cast<float*>(p[3]),
                      reinterpret_cast<float*>(p[4]), reinterpret_cast<float*>(p[5]),
                      static_cast<int>(rows[s]), d[s]};
-    g.block_start[s] = static_cast<int>(blocks);
-    blocks += (rows[s] + kTileRows - 1) / kTileRows;
-    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    if (!g.add(s, st, (rows[s] + kTileRows - 1) / kTileRows, blocks)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
-  g.block_start[n] = static_cast<int>(blocks);
-  g.n = n;
+  g.close(n, blocks);
   g.lr = lr;
   g.b1 = b1;
   g.omb1 = omb1;

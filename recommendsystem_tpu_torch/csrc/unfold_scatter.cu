@@ -8,8 +8,9 @@
 // the unfold wrote a (E, 128) payload of [grad | count] lane groups because
 // the scatter needed 128-lane rows.  Here the payload never exists: each
 // live entry adds its column's gradient and a count of 1.0 straight into a
-// per-storage float32 accumulator of rows*(D+1) floats, laid out as a
-// (rows, D) block of gradient sums G followed by a (rows,) block of counts N:
+// storage's float32 accumulator: a (rows, D) block of gradient sums G and a
+// (rows,) block of counts N (one allocation of rows*(D+1) floats, G then N;
+// the kernel takes the two pointers):
 //
 //   G[id, :] += g[b, :]    N[id] += 1.0    for mask[j*B + b] > 0
 //
@@ -38,8 +39,6 @@
 // Sums of gradients take a different order on every run; the counts are
 // sums of 1.0 and stay exact.
 
-#include <stdint.h>
-
 #include "common.cuh"
 
 namespace {
@@ -59,25 +58,12 @@ struct Column {
   int vec;          // 4: float4 lanes; 1: one float a lane
 };
 
-struct Group {
-  Column s[kMaxColumns];
-  int block_start[kMaxColumns + 1];   // prefix of blocks per column
-  int n;
-};
+using Group = Grouped<Column, kMaxColumns>;
 // kept within the 4 KB of kernel parameters every CUDA 12 driver accepts
 static_assert(sizeof(Group) <= 4096, "Group exceeds 4 KB of kernel parameters");
 
 __device__ __forceinline__ void add_into(float* p, float v) { atomicAdd(p, v); }
 __device__ __forceinline__ void add_into(float4* p, float4 v) { atomicAdd(p, v); }
-
-template <int V>
-struct VecOf {
-  using type = float;
-};
-template <>
-struct VecOf<4> {
-  using type = float4;
-};
 
 // thread t of the column: entry t / (D/V), lanes V * (t % (D/V)) onward
 template <int V>
@@ -97,15 +83,10 @@ __device__ __forceinline__ void unfold_column(const Column& c, int t) {
 
 __global__ void __launch_bounds__(kThreads)
 unfold_group_kernel(const __grid_constant__ Group g) {
-  // the column of this block: the last one whose first block is <= it
   const int blk = blockIdx.x;
-  int lo = 0, hi = g.n - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (g.block_start[mid] <= blk) lo = mid; else hi = mid - 1;
-  }
-  const Column& c = g.s[lo];
-  const int t = (blk - g.block_start[lo]) * kThreads + static_cast<int>(threadIdx.x);
+  const int member = g.member_of(blk);
+  const Column& c = g.s[member];
+  const int t = (blk - g.block_start[member]) * kThreads + static_cast<int>(threadIdx.x);
   if (c.vec == 4) {
     unfold_column<4>(c, t);
   } else {
@@ -113,30 +94,28 @@ unfold_group_kernel(const __grid_constant__ Group g) {
   }
 }
 
-bool aligned16(long long p) { return (static_cast<unsigned long long>(p) & 15ULL) == 0; }
-
-// desc: n columns of 8 host words: acc, rows, g, ids, mask, L, B, D
+// desc: n columns of 8 host words: grads, counts, g, ids, mask, L, B, D
 int launch(const long long* desc, int n, cudaStream_t stream) {
   if (n < 1 || n > kMaxColumns) return static_cast<int>(cudaErrorInvalidValue);
   Group g;
   long long blocks = 0;
   for (int i = 0; i < n; ++i) {
     const long long* w = desc + 8 * i;
-    const long long rows = w[1], l = w[5], b = w[6], d = w[7];
-    if (rows < 0 || l < 1 || b < 1 || d < 1 || l * b * d > 0x7fffffffLL) {
+    const long long l = w[5], b = w[6], d = w[7];
+    if (l < 1 || b < 1 || d < 1 || l * b * d > 0x7fffffffLL) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    float* acc = reinterpret_cast<float*>(w[0]);
-    const int vec = (d % 4 == 0 && aligned16(w[0]) && aligned16(w[2])) ? 4 : 1;
-    g.s[i] = Column{acc, acc + rows * d, reinterpret_cast<const float*>(w[2]),
-                    reinterpret_cast<const int*>(w[3]), reinterpret_cast<const float*>(w[4]),
-                    static_cast<int>(l), static_cast<int>(b), static_cast<int>(d), vec};
-    g.block_start[i] = static_cast<int>(blocks);
-    blocks += (l * b * (d / vec) + kThreads - 1) / kThreads;
-    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    float* grads = reinterpret_cast<float*>(w[0]);
+    const float* grad = reinterpret_cast<const float*>(w[2]);
+    const int vec = (d % 4 == 0 && aligned16(grads) && aligned16(grad)) ? 4 : 1;
+    const Column c{grads, reinterpret_cast<float*>(w[1]), grad,
+                   reinterpret_cast<const int*>(w[3]), reinterpret_cast<const float*>(w[4]),
+                   static_cast<int>(l), static_cast<int>(b), static_cast<int>(d), vec};
+    if (!g.add(i, c, (l * b * (d / vec) + kThreads - 1) / kThreads, blocks)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
-  g.block_start[n] = static_cast<int>(blocks);
-  g.n = n;
+  g.close(n, blocks);
   unfold_group_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0, stream>>>(g);
   return static_cast<int>(cudaGetLastError());
 }
@@ -146,20 +125,20 @@ int launch(const long long* desc, int n, cudaStream_t stream) {
 // Columns a launch takes: the wrapper cuts larger groups.
 RS_EXPORT int unfold_max_columns() { return kMaxColumns; }
 
-// n columns (1 <= n <= kMaxColumns), each 8 host words: acc (device
-// pointer), its rows, then g, ids, mask (device pointers), L, B, D; g is
-// (B, D), ids and mask (L*B,) l-major.  Each column needs L, B, D >= 1 and
-// L*B*D below 2^31 (the wrapper checks; refused here with
-// cudaErrorInvalidValue).
+// n columns (1 <= n <= kMaxColumns), each 8 host words: grads (rows, D),
+// counts (rows,), g, ids, mask (device pointers), then L, B, D; g is (B, D),
+// ids and mask (L*B,) l-major.  Each column needs L, B, D >= 1 and L*B*D
+// below 2^31 (the wrapper checks; refused here with cudaErrorInvalidValue).
 RS_EXPORT int unfold_mean_group_f32(const long long* desc, int n, cudaStream_t stream) {
   return launch(desc, n, stream);
 }
 
 // g: (E, D) one gradient row per entry; ids, mask: (E,).
-RS_EXPORT int unfold_rows_scatter_f32(float* acc, long long rows, const float* g,
+RS_EXPORT int unfold_rows_scatter_f32(float* grads, float* counts, const float* g,
                                       const int* ids, const float* mask, long long e,
                                       int d, cudaStream_t stream) {
-  const long long desc[8] = {reinterpret_cast<long long>(acc), rows,
+  const long long desc[8] = {reinterpret_cast<long long>(grads),
+                             reinterpret_cast<long long>(counts),
                              reinterpret_cast<long long>(g), reinterpret_cast<long long>(ids),
                              reinterpret_cast<long long>(mask), 1, e, d};
   return launch(desc, 1, stream);

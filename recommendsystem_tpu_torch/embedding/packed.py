@@ -14,7 +14,8 @@ the scatter it feeds or is fed by:
                    columns (l == 1) go here, as in the JAX package
   unfold_mean_scatter (K3)  (B, D) grads of one column's sums, broadcast
                    over its L slots, added with a count of 1 into the
-                   storage's accumulator; ``unfold_mean_scatter_group``
+                   storage's accumulator (its two views, gradient sums and
+                   counts); ``unfold_mean_scatter_group``
                    takes every mean column of a step in one launch
                                                     (csrc/unfold_scatter.cu)
   unfold_rows_scatter (K4)  the same per entry, for l == 1 and sequence
@@ -132,11 +133,9 @@ def _pack_words(n: int) -> struct.Struct:
 def fold_mean_group(items) -> List[torch.Tensor]:
     """K1 over a group: ``items`` are ``(table, ids, mask, c, l)``, each as
     ``fold_mean`` takes them (any l >= 1), all on one device.  Returns one
-    (C*B, D) float32 tensor per item, in order: on a card, where the members
-    share D, views of one allocation (one allocation is cheaper to issue
-    than one a member).  On a card one launch takes up to 64 members (a
-    larger group is cut into launches of 64); members with no rows launch
-    nothing."""
+    (C*B, D) float32 tensor per item, in order.  On a card one launch takes
+    up to 64 members (a larger group is cut into launches of 64); members
+    with no rows launch nothing."""
     items = list(items)
     if not items:
         return []
@@ -150,12 +149,8 @@ def fold_mean_group(items) -> List[torch.Tensor]:
                              f"columns of {l} slots")
     if device.type == "cpu":
         return [fold_mean_plain(*item) for item in items]
-    shapes = [(ids.shape[0] // l, table.shape[1]) for table, ids, _, _, l in items]
-    if len({d for _, d in shapes}) == 1:
-        outs = torch.empty((sum(r for r, _ in shapes), shapes[0][1]), dtype=torch.float32,
-                           device=device).split([r for r, _ in shapes])
-    else:
-        outs = [torch.empty(shape, dtype=torch.float32, device=device) for shape in shapes]
+    outs = [torch.empty((ids.shape[0] // l, table.shape[1]), dtype=torch.float32,
+                        device=device) for table, ids, _, _, l in items]
     words = []
     for (table, ids, mask, c, l), out in zip(items, outs):
         b, d = ids.shape[0] // (c * l), table.shape[1]
@@ -169,7 +164,7 @@ def fold_mean_group(items) -> List[torch.Tensor]:
     lib = library("fold")
     _launch_groups(lib, lib.fold_mean_group_f32, "fold_mean", words, 8,
                    lib.fold_mean_max_segments(), device)
-    return list(outs)
+    return outs
 
 
 def fold_mean(table: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor,
@@ -209,37 +204,40 @@ def fold_rows(table: torch.Tensor, ids: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def accumulator_views(acc: torch.Tensor, d: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The (rows, D) gradient sums and (rows, 1) counts of a flat
-    accumulator of rows*(D+1) floats: views, no copy."""
+    """The (rows, D) gradient sums G and (rows, 1) counts N of a flat
+    accumulator of rows*(D+1) floats: views, no copy.  The unfold-scatters
+    take the two views, which tie the accumulator to its storage's D."""
+    if acc.ndim != 1 or acc.shape[0] % (d + 1):
+        raise ValueError(f"acc: expected rows*(D+1) floats for D {d}, got "
+                         f"{tuple(acc.shape)}")
     rows = acc.shape[0] // (d + 1)
     return acc[:rows * d].view(rows, d), acc[rows * d:].view(rows, 1)
 
 
-def unfold_rows_scatter_plain(acc, g, ids, mask) -> None:
+def unfold_rows_scatter_plain(grads, counts, g, ids, mask) -> None:
     """G[ids[e]] += g[e] and N[ids[e]] += 1 for every live entry, in place
-    (G, N: ``accumulator_views(acc, D)``)."""
-    grads, counts = accumulator_views(acc, g.shape[1])
+    (G, N: ``grads``, ``counts``)."""
     live = (mask > 0).to(g.dtype)[:, None]
     lids = ids.long()
     grads.index_add_(0, lids, g * live)
     counts.index_add_(0, lids, live)
 
 
-def unfold_mean_scatter_plain(acc, g, ids, mask, l: int) -> None:
+def unfold_mean_scatter_plain(grads, counts, g, ids, mask, l: int) -> None:
     """G[ids[j*B + b]] += g[b] and N[ids[j*B + b]] += 1 for every live
     slot, in place."""
-    unfold_rows_scatter_plain(acc, g.repeat(l, 1), ids, mask)
+    unfold_rows_scatter_plain(grads, counts, g.repeat(l, 1), ids, mask)
 
 
-def _check_unfold_args(acc, g, ids, mask) -> None:
+def _check_unfold_args(grads, counts, g, ids, mask) -> None:
     require(g, "g", torch.float32)
     if g.ndim != 2:
         raise ValueError(f"g: expected (N, D), got {tuple(g.shape)}")
-    d = g.shape[1]
-    require(acc, "acc", torch.float32, device=g.device)
-    if acc.ndim != 1 or acc.shape[0] % (d + 1):
-        raise ValueError(f"acc: expected rows*(D+1) floats for D {d}, got "
-                         f"{tuple(acc.shape)}")
+    require(grads, "grads", torch.float32, device=g.device)
+    if grads.ndim != 2 or grads.shape[1] != g.shape[1]:
+        raise ValueError(f"grads: expected (rows, {g.shape[1]}) for g of D "
+                         f"{g.shape[1]}, got {tuple(grads.shape)}")
+    require(counts, "counts", torch.float32, (grads.shape[0], 1), g.device)
     require(ids, "ids", torch.int32, device=g.device)
     if ids.ndim != 1:
         raise ValueError(f"ids: expected (E,), got {tuple(ids.shape)}")
@@ -249,19 +247,19 @@ def _check_unfold_args(acc, g, ids, mask) -> None:
 
 
 def unfold_mean_scatter_group(items) -> None:
-    """K3 over a group: ``items`` are ``(acc, g, ids, mask, l)``, each as
-    ``unfold_mean_scatter`` takes them (any l >= 1), all on one device;
-    members may share an accumulator.  In place.  On a card one launch
-    takes up to 64 members (a larger group is cut into launches of 64);
-    members with no entries launch nothing."""
+    """K3 over a group: ``items`` are ``(grads, counts, g, ids, mask, l)``,
+    each as ``unfold_mean_scatter`` takes them (any l >= 1), all on one
+    device; members may share an accumulator.  In place.  On a card one
+    launch takes up to 64 members (a larger group is cut into launches of
+    64); members with no entries launch nothing."""
     items = list(items)
     if not items:
         return None
-    device = items[0][0].device
-    for acc, g, ids, mask, l in items:
-        if acc.device != device:
-            raise ValueError(f"unfold_mean_group: members on {device} and {acc.device}")
-        _check_unfold_args(acc, g, ids, mask)
+    device = items[0][2].device
+    for grads, counts, g, ids, mask, l in items:
+        if g.device != device:
+            raise ValueError(f"unfold_mean_group: members on {device} and {g.device}")
+        _check_unfold_args(grads, counts, g, ids, mask)
         if l < 1 or ids.shape[0] != l * g.shape[0]:
             raise ValueError(f"unfold_mean: {ids.shape[0]} ids for {l} slots of "
                              f"{g.shape[0]} rows")
@@ -270,14 +268,14 @@ def unfold_mean_scatter_group(items) -> None:
             unfold_mean_scatter_plain(*item)
         return None
     words = []
-    for acc, g, ids, mask, l in items:
+    for grads, counts, g, ids, mask, l in items:
         b, d = g.shape
         if b == 0 or d == 0:
             continue
         if l * b * d >= _I32:
             raise ValueError(f"unfold_mean: {l} x {b} entries of D {d} exceed the "
                              f"kernel's 32-bit indices")
-        words += (acc.data_ptr(), acc.shape[0] // (d + 1), g.data_ptr(), ids.data_ptr(),
+        words += (grads.data_ptr(), counts.data_ptr(), g.data_ptr(), ids.data_ptr(),
                   mask.data_ptr(), l, b, d)
     lib = library("unfold_scatter")
     _launch_groups(lib, lib.unfold_mean_group_f32, "unfold_mean", words, 8,
@@ -285,37 +283,38 @@ def unfold_mean_scatter_group(items) -> None:
     return None
 
 
-def unfold_mean_scatter(acc, g, ids, mask, l: int) -> None:
-    """K3: add the (B, D) gradient ``g`` of one mean column's sums into
-    the flat accumulator ``acc`` (``accumulator_views``) at each live
-    slot's id, with a count of 1 per slot; ``ids``/``mask`` are the
-    column's l-major (L*B,) stream.  In place: ``unfold_mean_scatter_group``
-    with one member.  l == 1 goes to K4, as in the JAX package."""
+def unfold_mean_scatter(grads, counts, g, ids, mask, l: int) -> None:
+    """K3: add the (B, D) gradient ``g`` of one mean column's sums into a
+    storage's accumulator, ``grads`` (rows, D) and ``counts`` (rows, 1)
+    (``accumulator_views``), at each live slot's id, with a count of 1 per
+    slot; ``ids``/``mask`` are the column's l-major (L*B,) stream.  In
+    place: ``unfold_mean_scatter_group`` with one member.  l == 1 goes to
+    K4, as in the JAX package."""
     if l == 1:
-        return unfold_rows_scatter(acc, g, ids, mask)
-    return unfold_mean_scatter_group([(acc, g, ids, mask, l)])
+        return unfold_rows_scatter(grads, counts, g, ids, mask)
+    return unfold_mean_scatter_group([(grads, counts, g, ids, mask, l)])
 
 
-def unfold_rows_scatter(acc, g, ids, mask) -> None:
+def unfold_rows_scatter(grads, counts, g, ids, mask) -> None:
     """K4: add each live entry's gradient row ``g[e]`` and a count of 1
-    into row ``ids[e]`` of the accumulator ``acc``.  In place."""
-    _check_unfold_args(acc, g, ids, mask)
+    into row ``ids[e]`` of ``grads`` and ``counts``.  In place."""
+    _check_unfold_args(grads, counts, g, ids, mask)
     e, d = g.shape
     if ids.shape[0] != e:
         raise ValueError(f"unfold_rows: {ids.shape[0]} ids for {e} rows")
-    if acc.device.type == "cpu":
-        return unfold_rows_scatter_plain(acc, g, ids, mask)
+    if g.device.type == "cpu":
+        return unfold_rows_scatter_plain(grads, counts, g, ids, mask)
     if e == 0 or d == 0:
         return None
     if e * d >= _I32:
         raise ValueError(f"unfold_rows: {e} entries of D {d} exceed the kernel's "
                          f"32-bit indices")
     lib = library("unfold_scatter")
-    with torch.cuda.device(acc.device):
-        code = lib.unfold_rows_scatter_f32(acc.data_ptr(), acc.shape[0] // (d + 1),
+    with torch.cuda.device(g.device):
+        code = lib.unfold_rows_scatter_f32(grads.data_ptr(), counts.data_ptr(),
                                            g.data_ptr(), ids.data_ptr(),
                                            mask.data_ptr(), e, d,
-                                           stream_handle(acc.device))
+                                           stream_handle(g.device))
     check(lib, code, "unfold_rows")
     count_launch("unfold_rows")
     return None
@@ -357,8 +356,8 @@ def sparse_adam_update_group(opt, tstates, accs) -> None:
     t, m, v and w by ``SparseAdam.update``'s arithmetic and add the count to show;
     the other rows stay bit-identical.  Updates each ``tstate`` (w, opt
     m/v/t, show) in place and leaves each ``acc`` zero.  On a card one
-    launch takes up to 64 storages, of any D up to 8191 (the kernel's
-    limits); a larger group is cut into launches of 64."""
+    launch takes up to 64 storages, of any D up to ``sparse_adam_max_d()``
+    (the kernel's limits); a larger group is cut into launches of 64."""
     tstates, accs = list(tstates), list(accs)
     if len(tstates) != len(accs):
         raise ValueError(f"{len(tstates)} storages for {len(accs)} accumulators")
@@ -476,11 +475,6 @@ def _offset_rows(eng, key: str, batch):
     return rows + offset if offset else rows
 
 
-def _part(x: torch.Tensor, start: int, size: int) -> torch.Tensor:
-    """``x[start:start + size]``, or ``x`` itself where that is all of it."""
-    return x if start == 0 and size == x.shape[0] else x[start:start + size]
-
-
 def gather_fold(eng, tables, batch, plans) -> Dict[str, Any]:
     """Stage 1: fused gather + fold.  Every storage's stream is built
     first; then one grouped K1 folds the mean segments (l > 1) of all the
@@ -494,8 +488,8 @@ def gather_fold(eng, tables, batch, plans) -> Dict[str, Any]:
         table = tables[skey]["w"]
         acts = [None] * len(segs)
         for i, seg in enumerate(segs):
-            member = (table, _part(ids, seg.start, seg.size),
-                      _part(mask, seg.start, seg.size))
+            part = slice(seg.start, seg.start + seg.size)
+            member = (table, ids[part], mask[part])
             if seg.kind == "mean" and seg.l > 1:
                 means.append((acts, i, member + (len(seg.keys), seg.l)))
             else:
@@ -551,24 +545,23 @@ def apply_gradients_packed(eng, state, g_acts, plans, ctx, batch):
     for skey, segs in plans.items():
         d = eng.storage[skey][1]
         ids, mask = ctx[skey]["ids"], ctx[skey]["mask"]
-        acc = accs[skey] = eng.accumulator(skey, ids.device)
+        accs[skey] = eng.accumulator(skey, ids.device)
+        views = accumulator_views(accs[skey], d)
         for seg, g in zip(segs, g_acts[skey]):
             g = g.contiguous()
             if seg.kind == "mean":
                 c = len(seg.keys)
                 b = seg.size // (c * seg.l)
                 for ci in range(c):
-                    s0 = seg.start + ci * seg.l * b
-                    member = (acc, _part(g, ci * b, b), _part(ids, s0, seg.l * b),
-                              _part(mask, s0, seg.l * b))
+                    part = slice(seg.start + ci * seg.l * b, seg.start + (ci + 1) * seg.l * b)
+                    member = views + (g[ci * b:(ci + 1) * b], ids[part], mask[part])
                     if seg.l > 1:
                         means.append(member + (seg.l,))
                     else:
                         rows.append(member)
             else:
-                rows.append((acc, g.reshape(seg.size, d),
-                             _part(ids, seg.start, seg.size),
-                             _part(mask, seg.start, seg.size)))
+                part = slice(seg.start, seg.start + seg.size)
+                rows.append(views + (g.reshape(seg.size, d), ids[part], mask[part]))
     unfold_mean_scatter_group(means)
     for member in rows:
         unfold_rows_scatter(*member)

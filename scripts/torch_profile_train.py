@@ -25,33 +25,16 @@ import argparse
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-
-def _device_us(evt) -> float:
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, attr):
-            return float(getattr(evt, attr))
-    return 0.0
-
-
-def _port_kernel_us(kernels, steps: int) -> dict:
-    """Device µs a step of each of the port's own kernels (those of
-    ``csrc/``, all in an anonymous namespace at the top level), whatever
-    their rank by time."""
-    out: dict = {}
-    for e in kernels:
-        name = e.key.removeprefix("void ")
-        if name.startswith("(anonymous namespace)::"):
-            short = name[len("(anonymous namespace)::"):].split("(")[0].split("<")[0]
-            out[short] = out.get(short, 0.0) + _device_us(e) / steps
-    return out
+from torch_profile_common import card as card_name  # noqa: E402
+from torch_profile_common import device_kernels, device_us, port_kernel_us  # noqa: E402
 
 
 def main(argv=None) -> int:
@@ -70,9 +53,7 @@ def main(argv=None) -> int:
     from recommendsystem_tpu_torch.models import create_model
     from recommendsystem_tpu_torch.train import create_train_state, make_train_step
 
-    card = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
+    card = card_name()
     print(card, flush=True)
     bundle = create_model("autoint", device="cuda")
     step = make_train_step(bundle)
@@ -107,14 +88,12 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             traced_wall = (time.perf_counter() - t0) / args.steps
         counts = {k: v / args.steps for k, v in launch_counts().items()}
-        kernels = [e for e in prof.key_averages()
-                   if _device_us(e) > 0 and e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_us = sum(_device_us(e) for e in kernels) / args.steps
-        kernels.sort(key=_device_us, reverse=True)
+        kernels = device_kernels(prof)
+        busy_us = sum(device_us(e) for e in kernels) / args.steps
         top = [{"name": e.key[:90], "calls_per_step": e.count / args.steps,
-                "us_per_step": _device_us(e) / args.steps} for e in kernels[:16]]
+                "us_per_step": device_us(e) / args.steps} for e in kernels[:16]]
         row = {"batch": args.batch, "ids_per_feature": ipf,
-               "port_kernel_us_per_step": _port_kernel_us(kernels, args.steps),
+               "port_kernel_us_per_step": port_kernel_us(kernels, args.steps),
                "ms_per_step": wall * 1e3, "examples_per_s": args.batch / wall,
                "window_ms": [w * 1e3 for w in windows], "last_loss": loss,
                "traced_ms_per_step": traced_wall * 1e3,

@@ -7,7 +7,8 @@ no JAX, so it also runs where JAX is absent, without the suite's conftest:
     python -m pytest -p no:cacheprovider --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
 Tolerances: folds atol 1e-6 (sums of <= 5 float32 products in another
-order); attention atol 2e-5 (softmax over <= 175 keys in another order),
+order), the grouped folds (L up to 10, rows of any scale) atol 1e-6 plus
+2L units of 2^-24 of each output's sum of |mask * row| (``_assert_fold``); attention atol 2e-5 (softmax over <= 175 keys in another order),
 its gradients rtol 1e-4 and atol 2e-5 (sums over <= 175 fields); the
 unfold-scatter's gradient sums atol 1e-5, or 1e-6 per entry that hits one
 row (atomics add in another order on every run), its counts exact; the
@@ -272,8 +273,8 @@ def test_unfold_mean_scatter_kernel(cuda, l, b, hot):
     g, ids, mask = _unfold_inputs(cuda, 1000, l, b, seed=b + l, hot_row=hot)
     got = torch.zeros(1000 * 9, device=cuda)
     want = torch.zeros(1000 * 9, device=cuda)
-    packed.unfold_mean_scatter(got, g, ids, mask, l)
-    packed.unfold_mean_scatter_plain(want, g, ids, mask, l)
+    packed.unfold_mean_scatter(*packed.accumulator_views(got, 8), g, ids, mask, l)
+    packed.unfold_mean_scatter_plain(*packed.accumulator_views(want, 8), g, ids, mask, l)
     torch.cuda.synchronize()
     _assert_unfold(got, want, 8)
     assert launch_counts()["unfold_mean"] == 1
@@ -284,8 +285,8 @@ def test_unfold_rows_scatter_kernel(cuda, e, hot):
     g, ids, mask = _unfold_inputs(cuda, 500, 1, e, seed=e, hot_row=hot)
     got = torch.zeros(500 * 9, device=cuda)
     want = torch.zeros(500 * 9, device=cuda)
-    packed.unfold_rows_scatter(got, g, ids, mask)
-    packed.unfold_rows_scatter_plain(want, g, ids, mask)
+    packed.unfold_rows_scatter(*packed.accumulator_views(got, 8), g, ids, mask)
+    packed.unfold_rows_scatter_plain(*packed.accumulator_views(want, 8), g, ids, mask)
     torch.cuda.synchronize()
     _assert_unfold(got, want, 8)
     assert launch_counts()["unfold_rows"] == 1
@@ -299,12 +300,22 @@ GROUP_MEMBERS = [(8, 5, 300, False), (16, 2, 77, False), (32, 10, 129, False),
 
 
 def _table(dev, rows, d, seed):
-    """Rows at the scale of the tables' init (0.88 / sqrt(D), within 2 /
-    sqrt(D)), where the fold's tolerance is stated for sums of products of
-    magnitude < 1."""
-    t = torch.randn(rows, d, generator=torch.Generator(device=dev).manual_seed(seed),
-                    device=dev) * (0.88 / d ** 0.5)
-    return t.clamp_(-2 / d ** 0.5, 2 / d ** 0.5)
+    return torch.randn(rows, d, generator=torch.Generator(device=dev).manual_seed(seed),
+                       device=dev)
+
+
+def _assert_fold(got, item):
+    """The grouped fold against its plain version: within 1e-6 plus 2L
+    units of 2^-24 of each output's sum of |mask * row| over its L slots.
+    Either side's float32 sum of L products (the kernel's with fused
+    multiply-adds, in slot order; the plain one in its own order) lies
+    within L such units of the exact sum."""
+    table, ids, mask, c, l = item
+    want = packed.fold_mean_plain(*item)
+    scale = packed.fold_mean_plain(table.abs(), ids, mask.abs(), c, l)
+    excess = (got - want).abs() - 2 * l * 2.0 ** -24 * scale
+    assert got.shape == want.shape
+    assert not excess.numel() or float(excess.max()) <= 1e-6
 
 
 def _fold_members(dev, members, rows=700, c=2):
@@ -328,7 +339,7 @@ def test_fold_mean_group_kernel(cuda):
     assert launch_counts()["fold_mean"] == 1
     assert len(got) == len(items)
     for out, item in zip(got, items):
-        torch.testing.assert_close(out, packed.fold_mean_plain(*item), rtol=0, atol=1e-6)
+        _assert_fold(out, item)
 
 
 def test_fold_mean_group_unaligned_table(cuda):
@@ -337,8 +348,7 @@ def test_fold_mean_group_unaligned_table(cuda):
     table = flat[1:].view(500, 8)
     ids, mask = _stream(cuda, 500, 3, 5, 90, seed=4)
     (got,) = packed.fold_mean_group([(table, ids, mask, 3, 5)])
-    torch.testing.assert_close(got, packed.fold_mean_plain(table, ids, mask, 3, 5),
-                               rtol=0, atol=1e-6)
+    _assert_fold(got, (table, ids, mask, 3, 5))
 
 
 def test_fold_mean_group_of_65_members(cuda):
@@ -349,22 +359,29 @@ def test_fold_mean_group_of_65_members(cuda):
     torch.cuda.synchronize()
     assert launch_counts()["fold_mean"] == 2
     for out, item in zip(got, items):
-        torch.testing.assert_close(out, packed.fold_mean_plain(*item), rtol=0, atol=1e-6)
+        _assert_fold(out, item)
 
 
 def _unfold_members(dev, members, rows=700):
     items = []
     for i, (d, l, b, hot) in enumerate(members):
         g, ids, mask = _unfold_inputs(dev, rows, l, b, seed=200 + i, hot_row=hot, d=d)
-        items.append((torch.zeros(rows * (d + 1), device=dev), g, ids, mask, l))
+        acc = torch.zeros(rows * (d + 1), device=dev)
+        items.append((*packed.accumulator_views(acc, d), g, ids, mask, l))
     return items
 
 
+def _flat(grads, counts):
+    """The flat accumulator that ``accumulator_views`` split."""
+    return torch.cat([grads.reshape(-1), counts.reshape(-1)])
+
+
 def _check_unfold_group(items):
-    for acc, g, ids, mask, l in items:
-        want = torch.zeros_like(acc)
-        packed.unfold_mean_scatter_plain(want, g, ids, mask, l)
-        _assert_unfold(acc, want, g.shape[1])
+    for grads, counts, g, ids, mask, l in items:
+        want = torch.zeros_like(_flat(grads, counts))
+        packed.unfold_mean_scatter_plain(*packed.accumulator_views(want, g.shape[1]),
+                                         g, ids, mask, l)
+        _assert_unfold(_flat(grads, counts), want, g.shape[1])
 
 
 def test_unfold_mean_group_kernel(cuda):
@@ -372,14 +389,14 @@ def test_unfold_mean_group_kernel(cuda):
     rows and an empty member; two members share one accumulator."""
     items = _unfold_members(cuda, GROUP_MEMBERS)
     g, ids, mask = _unfold_inputs(cuda, 700, 4, 111, seed=9)
-    items.append((items[0][0], g, ids, mask, 4))       # the first member's accumulator
+    items.append((*items[0][:2], g, ids, mask, 4))     # the first member's accumulator
     packed.unfold_mean_scatter_group(items)
     torch.cuda.synchronize()
     assert launch_counts()["unfold_mean"] == 1
-    want = torch.zeros_like(items[0][0])
-    for acc, g, ids, mask, l in (items[0], items[-1]):
-        packed.unfold_mean_scatter_plain(want, g, ids, mask, l)
-    _assert_unfold(items[0][0], want, 8)
+    want = torch.zeros_like(_flat(*items[0][:2]))
+    for _, _, g, ids, mask, l in (items[0], items[-1]):
+        packed.unfold_mean_scatter_plain(*packed.accumulator_views(want, 8), g, ids, mask, l)
+    _assert_unfold(_flat(*items[0][:2]), want, 8)
     _check_unfold_group(items[1:-1])
 
 
@@ -398,8 +415,8 @@ def test_unfold_mean_group_unaligned_gradient(cuda):
     g = torch.cat([torch.zeros(1, device=cuda), g.reshape(-1)])[1:].view(70, 8)
     got = torch.zeros(400 * 9, device=cuda)
     want = torch.zeros(400 * 9, device=cuda)
-    packed.unfold_mean_scatter_group([(got, g, ids, mask, 5)])
-    packed.unfold_mean_scatter_plain(want, g, ids, mask, 5)
+    packed.unfold_mean_scatter_group([(*packed.accumulator_views(got, 8), g, ids, mask, 5)])
+    packed.unfold_mean_scatter_plain(*packed.accumulator_views(want, 8), g, ids, mask, 5)
     _assert_unfold(got, want, 8)
 
 
@@ -692,7 +709,8 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                          torch.ones(4, device=cuda))       # ids on the CPU
     acc = torch.zeros(10 * 9, device=cuda)
     with pytest.raises(ValueError):
-        packed.unfold_rows_scatter(acc, torch.ones(4, 8, device=cuda),
+        packed.unfold_rows_scatter(*packed.accumulator_views(acc, 8),
+                                   torch.ones(4, 8, device=cuda),
                                    torch.zeros(4, dtype=torch.int32),
                                    torch.ones(4, device=cuda))
     q, f, mask, w1, b1, w2, b2 = _din_inputs(cuda, 4, 6, 16, seed=1)
@@ -712,7 +730,7 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         interacting_attention(x, p)
     with pytest.raises(ValueError, match="aligned"):
         interacting_attention(x.reshape(-1)[1:1 + 2 * 24 * 8].reshape(2, 24, 8), p)
-    wide, wide_acc = _adam_storage(cuda, 2, 8192, 1.0, 0)
-    with pytest.raises(ValueError, match="D 8192"):
+    wide, wide_acc = _adam_storage(cuda, 1, 1 << 23, 1.0, 0)     # 2^23 x 256 rows > 2^31
+    with pytest.raises(ValueError, match="D 8388608"):
         packed.sparse_adam_update(SparseAdam(), wide, wide_acc)
     assert set(launch_counts().values()) == {0}

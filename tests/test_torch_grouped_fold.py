@@ -113,8 +113,8 @@ def test_unfold_mean_scatter_group_matches_jax_per_member():
         for ci in range(c):
             part = slice(ci * l * b, (ci + 1) * l * b)
             gc = g[ci * b:(ci + 1) * b]
-            items.append((accs[d], torch.from_numpy(gc), torch.from_numpy(ids[part]),
-                          torch.from_numpy(mask[part]), l))
+            items.append((*packed.accumulator_views(accs[d], d), torch.from_numpy(gc),
+                          torch.from_numpy(ids[part]), torch.from_numpy(mask[part]), l))
             if b:
                 jaccs[d] = _jax_accumulate(jaccs[d], gc, ids[part], mask[part], 1, l)
     reset_launch_counts()
@@ -135,8 +135,8 @@ def test_unfold_mean_scatter_is_a_group_of_one():
     args = (torch.from_numpy(g[:b]), torch.from_numpy(ids[:l * b]),
             torch.from_numpy(mask[:l * b]), l)
     one, grouped = torch.zeros(ROWS * 9), torch.zeros(ROWS * 9)
-    packed.unfold_mean_scatter(one, *args)
-    packed.unfold_mean_scatter_group([(grouped, *args)])
+    packed.unfold_mean_scatter(*packed.accumulator_views(one, 8), *args)
+    packed.unfold_mean_scatter_group([(*packed.accumulator_views(grouped, 8), *args)])
     torch.testing.assert_close(one, grouped, rtol=0, atol=0)
 
 
@@ -153,18 +153,23 @@ def test_groups_check_their_members():
         packed.fold_mean_group([(table, ids, mask, 1, 5), (table.double(), ids, mask, 1, 5)])
     with pytest.raises(ValueError):                              # 10 ids != 3 x 5 x B
         packed.fold_mean_group([(table, ids, mask, 3, 5)])
-    acc = torch.zeros(64 * 9)
+    grads, counts = packed.accumulator_views(torch.zeros(64 * 9), 8)
     g = torch.ones(2, 8)
     with pytest.raises(ValueError, match="members on"):
-        packed.unfold_mean_scatter_group([(acc, g, ids, mask, 5),
-                                          (acc.to("meta"), g.to("meta"), ids.to("meta"),
-                                           mask.to("meta"), 5)])
+        packed.unfold_mean_scatter_group([(grads, counts, g, ids, mask, 5),
+                                          (grads.to("meta"), counts.to("meta"), g.to("meta"),
+                                           ids.to("meta"), mask.to("meta"), 5)])
     with pytest.raises(TypeError):                               # int64 ids
-        packed.unfold_mean_scatter_group([(acc, g, ids.long(), mask, 5)])
+        packed.unfold_mean_scatter_group([(grads, counts, g, ids.long(), mask, 5)])
     with pytest.raises(ValueError):                              # 10 ids != 4 x 2
-        packed.unfold_mean_scatter_group([(acc, g, ids, mask, 4)])
-    with pytest.raises(ValueError):                              # no (rows, 9) layout
-        packed.unfold_mean_scatter_group([(torch.zeros(64 * 9 + 1), g, ids, mask, 5)])
+        packed.unfold_mean_scatter_group([(grads, counts, g, ids, mask, 4)])
+    # a gradient of another D than the accumulator's: D 2 (its D+1 divides
+    # the 576 floats) and D 5
+    for d in (2, 5):
+        with pytest.raises(ValueError, match="grads"):
+            packed.unfold_mean_scatter_group([(grads, counts, torch.ones(5, d), ids, mask, 2)])
+    with pytest.raises(ValueError, match="counts"):              # another storage's rows
+        packed.unfold_mean_scatter_group([(grads, counts[:63], g, ids, mask, 5)])
 
 
 @pytest.fixture(scope="module")

@@ -55,6 +55,12 @@ def _acc():
     return torch.zeros(ROWS * (D + 1))
 
 
+def _views(acc):
+    """The (rows, D) gradient sums and (rows, 1) counts the unfold-scatters
+    take."""
+    return packed.accumulator_views(acc, D)
+
+
 def _rows(acc):
     """The port's flat accumulator as (rows, D+1) [grad | count] rows."""
     return torch.cat(packed.accumulator_views(acc, D), dim=1).numpy()
@@ -80,7 +86,7 @@ def test_unfold_mean_scatter_matches_jax(c, l, b):
         acc = _acc()
         for ci in range(c):
             s = slice(ci * l * b, (ci + 1) * l * b)
-            fn(acc, tg[ci * b:(ci + 1) * b], tids[s], tmask[s], l)
+            fn(*_views(acc), tg[ci * b:(ci + 1) * b], tids[s], tmask[s], l)
         _assert_acc(acc, want)
     assert want[:, D].sum() == mask.sum()      # every live slot counted once
 
@@ -93,9 +99,9 @@ def test_unfold_rows_scatter_matches_jax(e, hot):
     g = rng.standard_normal((e, D)).astype(np.float32)
     want = _jax_scatter(jpk.unfold_rows_ref(jnp.asarray(g), ids, mask), ids, ROWS)
     tg, tids, tmask = map(torch.from_numpy, (g, ids, mask))
-    calls = (lambda a: packed.unfold_rows_scatter(a, tg, tids, tmask),
-             lambda a: packed.unfold_rows_scatter_plain(a, tg, tids, tmask),
-             lambda a: packed.unfold_mean_scatter(a, tg, tids, tmask, 1))  # l == 1 -> K4
+    calls = (lambda a: packed.unfold_rows_scatter(*_views(a), tg, tids, tmask),
+             lambda a: packed.unfold_rows_scatter_plain(*_views(a), tg, tids, tmask),
+             lambda a: packed.unfold_mean_scatter(*_views(a), tg, tids, tmask, 1))  # K4
     for call in calls:
         acc = _acc()
         call(acc)
@@ -108,9 +114,9 @@ def test_unfold_adds_into_what_the_accumulator_holds():
     g = torch.from_numpy(rng.standard_normal((32, D)).astype(np.float32))
     tids, tmask = torch.from_numpy(ids), torch.from_numpy(mask)
     once = _acc()
-    packed.unfold_mean_scatter(once, g, tids, tmask, 5)
+    packed.unfold_mean_scatter(*_views(once), g, tids, tmask, 5)
     twice = once.clone()
-    packed.unfold_mean_scatter(twice, g, tids, tmask, 5)
+    packed.unfold_mean_scatter(*_views(twice), g, tids, tmask, 5)
     torch.testing.assert_close(twice, 2 * once, rtol=0, atol=ATOL)
 
 
@@ -120,20 +126,26 @@ def test_cpu_unfold_launches_nothing_and_checks_arguments():
     g = torch.ones((4, D))
     ids = torch.zeros(20, dtype=torch.int32)
     mask = torch.ones(20)
-    packed.unfold_mean_scatter(acc, g, ids, mask, 5)
-    packed.unfold_rows_scatter(acc, torch.ones((20, D)), ids, mask)
+    packed.unfold_mean_scatter(*_views(acc), g, ids, mask, 5)
+    packed.unfold_rows_scatter(*_views(acc), torch.ones((20, D)), ids, mask)
     assert launch_counts() == dict.fromkeys(KERNELS, 0)
     assert _rows(acc)[0, D] == 40
     with pytest.raises(TypeError):
-        packed.unfold_mean_scatter(acc, g, ids.long(), mask, 5)
+        packed.unfold_mean_scatter(*_views(acc), g, ids.long(), mask, 5)
     with pytest.raises(ValueError):
-        packed.unfold_mean_scatter(acc, g, ids, mask, 4)          # 20 != 4 * 4
+        packed.unfold_mean_scatter(*_views(acc), g, ids, mask, 4)          # 20 != 4 * 4
+    for d in (D - 1, 2):       # D 2: its D+1 divides the accumulator's 1260 floats
+        with pytest.raises(ValueError, match="grads"):
+            packed.unfold_rows_scatter(*_views(acc), torch.ones((20, d)), ids, mask)
+    with pytest.raises(ValueError, match="counts"):
+        packed.unfold_rows_scatter(_views(acc)[0], torch.zeros(ROWS + 1, 1),
+                                   torch.ones((20, D)), ids, mask)
+    with pytest.raises(ValueError, match="rows\\*\\(D\\+1\\)"):
+        packed.accumulator_views(torch.zeros(ROWS * (D + 1) + 1), D)
     with pytest.raises(ValueError):
-        packed.unfold_rows_scatter(acc, torch.ones((20, D - 1)), ids, mask)
-    with pytest.raises(ValueError):
-        packed.unfold_rows_scatter(torch.zeros(2 * ROWS * (D + 1))[::2],
+        packed.unfold_rows_scatter(*_views(torch.zeros(2 * ROWS * (D + 1))[::2]),
                                    torch.ones((20, D)), ids, mask)   # not contiguous
-    meta = [t.to("meta") for t in (acc, g, ids, mask)]
+    meta = [t.to("meta") for t in (*_views(acc), g, ids, mask)]
     with pytest.raises(ValueError, match="no kernel"):
         packed.unfold_mean_scatter(*meta, 5)
 
