@@ -11,10 +11,11 @@
    with its log-sum-exp, held to the plain version's output and lse, also
    at F = 175 and at B = 65536 with dropout 0.2 (F = 24 and 175); its
    backward, checked bit-identical over two launches; the unfold-scatter at
-   B = 4096 and 65536; the fold and the unfold-scatter also as the steps
+   B = 4096 and 65536; the folds and the unfold-scatter also as the steps
    launch them, one grouped call over autoint's 24 columns at B = 256 and
-   65536 with 5 ids, tables and accumulators out of L2, and over a group of
-   mixed widths and lengths and a group of 65 members (two launches); the
+   65536 with 5 ids (K1, K3) or 1 (K2), tables and accumulators out of L2,
+   and over a group of mixed widths and lengths and a group of 65 members
+   (two launches); the
    lazy Adam as one grouped pass over autoint's 24 full storages, and over a
    group of mixed widths), and times kernel,
    plain version and a library
@@ -43,13 +44,19 @@
    host fetch of the last loss;
 6. drives the staytime serving path: the DIN-pool kernel against its plain
    version on the model's strided views (B = 8, 256 and 16384, T = 50,
-   rows of all-0 masks and of full length), then the full-width staytime
-   ``ScoringService`` (91 tables of 81,924 x 32 in 46 storages, 3 behaviour
-   sequences of 50, seeded random weights) through ``score()`` and over
-   HTTP, counts set to 0 just before and read just after, some requests
-   without sequence features; the three heads checked finite and in range,
-   unchanged by padding and equal to the same service on the CPU; then the
-   predict step's launches per call and its examples/s at B = 16384;
+   rows of all-0 masks and of full length), and its gathered entry as the
+   predict step launches it (the full-width table out of L2, rows of all-0
+   masks over nonzero padding rows), timed beside the path it replaces (K2
+   then K7 on K2's rows); the fold of the 46 single-id segments as one
+   grouped K2 call and of one behaviour sequence (16384 x 50); then the
+   full-width staytime ``ScoringService`` (91 tables of 81,924 x 32 in 46
+   storages, 3 behaviour sequences of 50, seeded random weights) through
+   ``score()`` and over HTTP, counts set to 0 just before and read just
+   after, some requests without sequence features: K1 and K7, no K2 with
+   5 ids; the three heads checked finite and in range, unchanged by padding
+   and equal to the same service on the CPU; then the predict step's
+   launches per call (5 ids: one K1, no K2, three K7; 1 id: no K1, one K2,
+   three K7) and its examples/s at B = 16384;
 7. drives the fused InteractingLayer (K6): the kernel against its plain
    version at F = 24 (B = 8, 256, 65536), F = 40 (B = 32768) and F = 180
    (B = 8192), timed beside the layer's transposed path (projections, K5f,
@@ -439,14 +446,14 @@ def unfold_case(name, eng, skey, batch, cycles_per_ms):
             "bound_ms": bms, "bound_by": by, "bytes": nbytes, "ops": ops}
 
 
-def _autoint_streams(bundle, b, seed):
-    """Per autoint storage (24, one mean column each, 5 ids): the storage
-    key, its stream (ids, mask) and its segment, for a batch of ``b``."""
+def _autoint_streams(bundle, b, seed, ids_per_feature=5):
+    """Per autoint storage (24, one mean column each): the storage key, its
+    stream (ids, mask) and its segment, for a batch of ``b``."""
     from recommendsystem_tpu_torch.data import synthetic_batch
     from recommendsystem_tpu_torch.embedding import packed
 
     eng = bundle.embedding
-    batch = synthetic_batch(bundle, b, seed=seed, ids_per_feature=5)[0]
+    batch = synthetic_batch(bundle, b, seed=seed, ids_per_feature=ids_per_feature)[0]
     plans = packed.plan_segments(eng, batch)
     out = []
     for skey in sorted(plans):
@@ -540,6 +547,79 @@ def fold_group_case(bundle, state, b, cycles_per_ms):
             "bytes": nbytes, "ops": ops}
 
 
+def _check_rows_group(got, items, what):
+    """Each member of a grouped per-row fold against its plain version:
+    equal (one product, rounded once on either side).  Returns the max abs
+    error."""
+    from recommendsystem_tpu_torch.embedding import packed
+
+    err = 0.0
+    for out, item in zip(got, items):
+        want = packed.fold_rows_plain(*item)
+        if out.shape != want.shape:
+            raise AssertionError(f"{what}: shape {tuple(out.shape)}, expected "
+                                 f"{tuple(want.shape)}")
+        if out.numel():
+            err = max(err, float((out - want).abs().max()))
+    if err != 0.0:
+        raise AssertionError(f"{what}: max abs err {err}, expected 0")
+    return err
+
+
+def rows_group_case(what, items, pick, cycles_per_ms):
+    """K2 as a step launches it: one grouped call over ``items`` ((table,
+    ids, mask) members), against the plain version of each member on the
+    card.  ``pick`` returns the members of the timed calls in turn (copies
+    of the tables, so that each call finds its tables out of L2).  Bound:
+    each member's ids, mask, unique live rows and output once; yardstick:
+    one ``embedding_bag`` a member (bags of one, the mask as weights)."""
+    from recommendsystem_tpu_torch.embedding import packed
+
+    got = packed.fold_rows_group(items)
+    torch.cuda.synchronize()
+    err = _check_rows_group(got, items, what)
+    bags = [(ids.view(-1, 1), mask.view(-1, 1)) for _, ids, mask in items]
+
+    def library():
+        for (bag, wts), item in zip(bags, pick()):
+            torch.nn.functional.embedding_bag(bag, item[0], mode="sum",
+                                              per_sample_weights=wts)
+
+    bound_ms, nbytes, ops = 0.0, 0, 0
+    for table, ids, mask in items:
+        live = mask != 0
+        uniq = int(torch.unique(ids[live]).numel())
+        d = table.shape[1]
+        one = (ids.numel() * 8 + uniq * d * 4 + ids.numel() * d * 4, int(live.sum()) * d)
+        bound_ms += bound(*one)[0]
+        nbytes, ops = nbytes + one[0], ops + one[1]
+    e = max(ids.numel() for _, ids, _ in items)
+    iters = 240 if e <= 256 else 48
+    few = 16           # launches queued behind the spin kernel: see fold_group_case
+    ms, host_ms = timed(lambda: packed.fold_rows_group(pick()), iters, cycles_per_ms)
+    return {"name": "fold_rows", "case": what, "group": len(items),
+            "e": [ids.numel() for _, ids, _ in items][:3],
+            "d": sorted({t.shape[1] for t, _, _ in items}),
+            "max_abs_err": err, "ms": ms, "host_ms": host_ms,
+            "plain_ms": timed(lambda: [packed.fold_rows_plain(*it) for it in pick()],
+                              few, cycles_per_ms)[0],
+            "library_ms": timed(library, few, cycles_per_ms)[0],
+            "library": f"{len(items)} x embedding_bag",
+            "bound_ms": bound_ms, "bound_by": bound(nbytes, ops)[1],
+            "bytes": nbytes, "ops": ops}
+
+
+def autoint_rows_case(bundle, state, b, cycles_per_ms):
+    """K2 over autoint's 24 single-id columns (one a storage, D 8) at batch
+    ``b``, tables alternating between two copies (204 MB a call)."""
+    streams = _autoint_streams(bundle, b, seed=b + 21, ids_per_feature=1)
+    items = [(state.tables[skey]["w"], ids, mask) for skey, ids, mask, _ in streams]
+    pick = _alternate([items, [(t.clone(), i, m) for t, i, m in items]])
+    case = rows_group_case(f"autoint 24 columns, 1 id, b={b}", items, pick, cycles_per_ms)
+    case["b"] = b
+    return case
+
+
 def unfold_group_case(bundle, b, cycles_per_ms):
     """K3 as the train step launches it: one grouped call over all 24
     autoint mean columns (5 ids) at batch ``b``, each column's gradient
@@ -623,22 +703,26 @@ def _group_members(members, rows, seed):
 
 
 def group_check_case(name, members, launches):
-    """Grouped K1 and K3 over the members given, against their plain
-    versions, with the launches each must take."""
+    """Grouped K1, K2 (the same members' streams, one row an entry) and K3
+    over the members given, against their plain versions, with the
+    launches each must take."""
     from recommendsystem_tpu_torch.embedding import packed
     from recommendsystem_tpu_torch.kernels import launch_counts
 
     folds, unfolds = _group_members(members, rows=20011, seed=len(members))
+    rows = [(table, ids, mask) for table, ids, mask, _, _ in folds]
     before = launch_counts()
     got = packed.fold_mean_group(folds)
+    got_rows = packed.fold_rows_group(rows)
     packed.unfold_mean_scatter_group(unfolds)
     torch.cuda.synchronize()
     after = launch_counts()
-    for k in ("fold_mean", "unfold_mean"):
+    for k in ("fold_mean", "fold_rows", "unfold_mean"):
         if after[k] - before[k] != launches:
             raise AssertionError(f"{name}: {k} launched {after[k] - before[k]} times, "
                                  f"not {launches}")
     err = _check_fold_group(got, folds, f"fold_mean {name}")
+    rerr = _check_rows_group(got_rows, rows, f"fold_rows {name}")
     uerr = 0.0
     for grads, counts, g, ids, mask, l in unfolds:
         want = torch.zeros_like(_flat(grads, counts))
@@ -647,6 +731,8 @@ def group_check_case(name, members, launches):
                                        f"unfold_mean {name}"))
     return [{"name": "fold_mean", "check": name, "members": len(folds), "b": 0,
              "max_abs_err": err},
+            {"name": "fold_rows", "check": name, "members": len(rows), "b": 0,
+             "max_abs_err": rerr},
             {"name": "unfold_mean", "check": name, "members": len(unfolds), "b": 0,
              "max_abs_err": uerr}]
 
@@ -849,6 +935,126 @@ def din_case(b, seed, cycles_per_ms):
             "ops": ops}
 
 
+def din_gather_case(bundle, state, b, seed, cycles_per_ms):
+    """K7 as the predict step launches it: ``din_pool_gather`` on the first
+    behaviour sequence of a full-width staytime batch (T = 50, the
+    storage's (163,848 x 32) table, the facts lanes 0-16 of each row, the
+    query the first 16 lanes of 32-lane rows, the model's seeded pool
+    weights), against its plain version on the card.  Every third row's
+    mask is all 0 over its ids (padding over nonzero rows), so its output
+    must be 0.  The timed calls take four copies of the table in turn (84
+    MB), so that each finds its table out of L2.  Timed beside it: the
+    path it replaces, K2 (``fold_rows``) then K7 on the K2 rows
+    (``din_pool``).  Bound: ids and mask, the unique live half-rows (64
+    bytes), query and output once; operations as ``din_case``, but for the
+    live positions only (a masked one needs no score)."""
+    from recommendsystem_tpu_torch.data import synthetic_batch
+    from recommendsystem_tpu_torch.embedding import packed
+    from recommendsystem_tpu_torch.kernels.din import (din_pool, din_pool_gather,
+                                                       din_pool_gather_plain)
+
+    eng = bundle.embedding
+    batch = synthetic_batch(bundle, b, seed=seed, ids_per_feature=5)[0]
+    plans = packed.plan_segments(eng, batch)
+    skey, seg = next((k, g) for k in sorted(plans) for g in plans[k] if g.kind == "seq")
+    ids, mask = packed.storage_stream(eng, skey, plans[skey], batch)
+    part = slice(seg.start, seg.start + seg.size)
+    t = seg.l
+    ids, mask = ids[part].view(b, t), mask[part].view(b, t).clone()
+    mask[::3] = 0.0
+    dead = mask.sum(dim=1) == 0
+    table = state.tables[skey]["w"]
+    if not float(table[ids[dead].long()].abs().amax(dim=-1).min()) > 0.0:
+        raise AssertionError("din_pool_gather case: a padding id over a zero row")
+    h = 16
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    query = torch.randn((b, 2 * h), generator=g, device="cuda")[:, :h]
+    (slot,) = seg.keys
+    pool = "din_" + slot.removeprefix("seq_")
+    weights = [state.params[f"{pool}.{n}"] for n in ("w1", "b1", "w2", "b2")]
+    lanes = (0, h)
+    with torch.inference_mode():
+        got = din_pool_gather(query, table, ids, mask, lanes, *weights)
+        want = din_pool_gather_plain(query, table, ids, mask, lanes, *weights)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not (err <= DIN_TOL and not got[dead].any()):
+            raise AssertionError(f"din_pool_gather b={b}: max abs err {err}, rows of "
+                                 f"all-0 masks {float(got[dead].abs().max())}")
+        tables = [table] + [table.clone() for _ in range(3)]
+        turn = [0]
+
+        def pick():
+            turn[0] = (turn[0] + 1) % len(tables)
+            return tables[turn[0]]
+
+        flat_ids, flat_mask = ids.reshape(-1), mask.reshape(-1)
+
+        def parent_path():
+            rows = packed.fold_rows(pick(), flat_ids, flat_mask).view(b, t, -1)
+            return din_pool(query, rows[:, :, 0:h], mask, *weights)
+
+        live = mask != 0
+        uniq = int(torch.unique(ids[live]).numel())
+        nbytes = 4 * (2 * b * t + 2 * b * h) + uniq * h * 4 + sum(4 * w.numel() for w in weights)
+        # only a live position needs its score
+        ops = 2 * int(live.sum()) * (h * 16 + 16 + h) + 2 * b * (2 * h * 16)
+        bms, by = bound(nbytes, ops)
+        iters = 240 if b <= 256 else 48
+        ms, host_ms = timed(lambda: din_pool_gather(query, pick(), ids, mask, lanes,
+                                                    *weights), iters, cycles_per_ms)
+        path_ms, path_host_ms = timed(parent_path, iters, cycles_per_ms)
+        plain_ms = timed(lambda: din_pool_gather_plain(query, pick(), ids, mask, lanes,
+                                                       *weights), iters, cycles_per_ms)[0]
+    return {"name": "din_pool", "entry": "gather", "b": b, "t": t, "h": h,
+            "rows_all_masked": int(dead.sum()), "live": int(live.sum()),
+            "max_abs_err": err, "ms": ms, "host_ms": host_ms,
+            "path_ms": path_ms, "path_host_ms": path_host_ms,
+            "path": "fold_rows + din_pool (the path before this entry)",
+            "plain_ms": plain_ms, "library_ms": None, "bound_ms": bms, "bound_by": by,
+            "bytes": nbytes, "ops": ops}
+
+
+def staytime_rows_cases(bundle, state, cycles_per_ms):
+    """K2 as the staytime predict step launches it at B = 16384: one
+    grouped call over the 46 single-id mean segments (one a storage, D 32,
+    966 MB of tables: out of L2 on every call), and one sequence member of
+    16384 x 50 entries (the path before ``din_pool_gather``; its table's
+    four copies alternate)."""
+    from recommendsystem_tpu_torch.data import synthetic_batch
+    from recommendsystem_tpu_torch.embedding import packed
+
+    eng = bundle.embedding
+    b = STAYTIME_BATCH
+    batch = synthetic_batch(bundle, b, seed=31, ids_per_feature=1)[0]
+    plans = packed.plan_segments(eng, batch)
+    singles, seqs = [], []
+    for skey in sorted(plans):
+        ids, mask = packed.storage_stream(eng, skey, plans[skey], batch)
+        for seg in plans[skey]:
+            part = slice(seg.start, seg.start + seg.size)
+            item = (state.tables[skey]["w"], ids[part], mask[part])
+            (singles if seg.kind == "mean" else seqs).append(item)
+    if len(singles) != 46 or len(seqs) != 3:
+        raise AssertionError(f"staytime: {len(singles)} single-id and {len(seqs)} "
+                             f"sequence segments, expected 46 and 3")
+    cases = [rows_group_case(f"staytime 46 single-id segments, b={b}", singles,
+                             lambda: singles, cycles_per_ms)]
+    table, ids, mask = seqs[0]
+    copies = [table] + [table.clone() for _ in range(3)]
+    turn = [0]
+
+    def pick():
+        turn[0] = (turn[0] + 1) % len(copies)
+        return [(copies[turn[0]], ids, mask)]
+
+    cases.append(rows_group_case(f"staytime sequence, {b} x {ids.numel() // b}",
+                                 [seqs[0]], pick, cycles_per_ms))
+    for c in cases:
+        c["b"] = b
+    return cases
+
+
 def staytime_rows(rng, n, slots, seq_slots):
     """Request rows of raw feasigns for every staytime slot: 1..5 ids per
     feature, one feature in five left out, and every third row without its
@@ -910,12 +1116,14 @@ def staytime_path(card, cycles_per_ms):
     from recommendsystem_tpu_torch.train.state import create_train_state
 
     out = {"card": card}
-    out["cases"] = [din_case(b, 70 + b, cycles_per_ms) for b in DIN_BATCHES]
-    for c in out["cases"]:
-        log(json.dumps(c))
-
     bundle = create_model("staytime", device="cuda")
     state = create_train_state(bundle, seed=5)
+    out["cases"] = [din_case(b, 70 + b, cycles_per_ms) for b in DIN_BATCHES]
+    out["cases"] += [din_gather_case(bundle, state, b, 80 + b, cycles_per_ms)
+                     for b in DIN_BATCHES]
+    out["cases"] += staytime_rows_cases(bundle, state, cycles_per_ms)
+    for c in out["cases"]:
+        log(json.dumps(c))
     eng = bundle.embedding
     out["storages"] = len(eng.storage)
     out["table_bytes"] = sum(r * d * 4 for r, d in eng.storage.values())
@@ -934,7 +1142,9 @@ def staytime_path(card, cycles_per_ms):
     serving = launch_counts()
     out["serve_launches"] = serving
     log("staytime serving launches:", json.dumps(serving))
-    for name in ("fold_mean", "fold_rows", "din_pool"):
+    # 5 ids: the mean segments fold in K1, the sequences go to K7, which
+    # gathers them (no K2; the 1-id predict call below requires K2)
+    for name in ("fold_mean", "din_pool"):
         if serving[name] < 1:
             raise AssertionError(f"{name} was not launched on the staytime serving path")
 
@@ -960,8 +1170,8 @@ def staytime_path(card, cycles_per_ms):
         torch.cuda.synchronize()
         per_call[f"ids{ipf}"] = launch_counts()
     out["launches_per_call"] = per_call
-    want = {"ids5": {"fold_mean": 1, "fold_rows": 3, "din_pool": 3},
-            "ids1": {"fold_mean": 0, "fold_rows": 49, "din_pool": 3}}
+    want = {"ids5": {"fold_mean": 1, "fold_rows": 0, "din_pool": 3},
+            "ids1": {"fold_mean": 0, "fold_rows": 1, "din_pool": 3}}
     for key, counts in want.items():
         for name, n in counts.items():
             if per_call[key][name] != n:
@@ -1093,10 +1303,11 @@ def train_path(bundle, cpu_bundle, card):
         if per_run[ipf][name] < 1:
             raise AssertionError(f"{name} was not launched on the train path")
     # one grouped lazy-Adam pass and one attention backward a step; with 5
-    # ids one grouped fold and one grouped unfold-scatter
+    # ids one grouped fold and one grouped unfold-scatter, with 1 one grouped
+    # per-row fold
     for ipf, names in ((5, ("sparse_adam_update", "field_attention_bwd", "fold_mean",
                             "unfold_mean")),
-                       (1, ("sparse_adam_update", "field_attention_bwd"))):
+                       (1, ("sparse_adam_update", "field_attention_bwd", "fold_rows"))):
         for name in names:
             if out["launches_per_step"][f"ids{ipf}"][name] != 1:
                 raise AssertionError(f"{name}: {out['launches_per_step'][f'ids{ipf}'][name]} "
@@ -1407,6 +1618,10 @@ def interacting_path(card, cycles_per_ms, autoint, cpu_autoint, rows200, autoint
             if ipf == 5 and counts.get("fold_mean") != 1:
                 raise AssertionError(f"{name} {kind} predict: fold_mean launched "
                                      f"{counts.get('fold_mean')} times, not 1")
+            # one id a column: one grouped K2 call (36 launches before it)
+            if ipf != 5 and counts.get("fold_rows") != 1:
+                raise AssertionError(f"{name} {kind} predict: fold_rows launched "
+                                     f"{counts.get('fold_rows')} times, not 1")
         log(f"{name} predict:", json.dumps(out["predict"][name]))
     out["predict"]["ctr212"]["config"] = "synthetic_ctr_config(num_slots=180, num_bias=32)"
     return out
@@ -1472,6 +1687,7 @@ def main() -> int:
     # K1 and K3 as the steps launch them: one grouped call over 24 columns
     for b in (256, BIG_BATCH):
         cases.append(fold_group_case(bundle, state, b, cycles_per_ms))
+        cases.append(autoint_rows_case(bundle, state, b, cycles_per_ms))
         cases.append(unfold_group_case(bundle, b, cycles_per_ms))
     cases += group_check_case("mixed", MIXED_GROUP, 1)
     cases += group_check_case("65 members", GROUP_65, 2)
@@ -1538,9 +1754,10 @@ def main() -> int:
             torch.cuda.synchronize()
             per_call[f"b{b}_ids{ipf}"] = launch_counts()
     for b in (256, BIG_BATCH):
-        if per_call[f"b{b}_ids5"]["fold_mean"] != 1:
-            raise AssertionError(f"autoint predict b={b}: fold_mean launched "
-                                 f"{per_call[f'b{b}_ids5']['fold_mean']} times, not 1")
+        for ipf, name in ((5, "fold_mean"), (1, "fold_rows")):
+            if per_call[f"b{b}_ids{ipf}"][name] != 1:
+                raise AssertionError(f"autoint predict b={b}: {name} launched "
+                                     f"{per_call[f'b{b}_ids{ipf}'][name]} times, not 1")
     check_scores(out.squeeze(1).cpu().numpy(), BIG_BATCH)   # b 65536, 5 ids
     cpu_batch = {k: v.to("cpu") for k, v in batch.items()}
     cpu_out = make_predict_step(cpu_bundle)(cpu_state, cpu_batch)[TASK]
@@ -1590,9 +1807,13 @@ def main() -> int:
         serve = c["name"] in ("fold_mean", "fold_rows")
         want_b = STAYTIME_BATCH if c["name"] == "din_pool" else (
             256 if serve else BIG_BATCH)
-        # K1 and K3: their grouped call over the 24 columns, as the steps
-        # launch them
-        grouped = c["name"] not in ("fold_mean", "unfold_mean") or c.get("group") == 24
+        # K1, K2 and K3: their grouped call over autoint's 24 columns, as the
+        # steps launch them; K7 as the predict step launches it, gathering
+        # its facts
+        grouped = (c["name"] not in ("fold_mean", "fold_rows", "unfold_mean")
+                   or c.get("group") == 24)
+        if c["name"] == "din_pool":
+            grouped = c.get("entry") == "gather"
         if c.get("b", BIG_BATCH) == want_b and c.get("f", 24) == 24 and grouped:
             headline[c["name"]] = c
     sources = {"fold_mean": ("recommendsystem_tpu_torch/csrc/fold.cu",

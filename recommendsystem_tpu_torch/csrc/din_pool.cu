@@ -15,12 +15,24 @@
 // score rather than adding -inf, so a sample whose mask is all 0 gets a
 // uniform softmax and returns the mean of its T facts, as the reference does.
 //
+// Two entries share the scorer:
+//  - din_pool_f32 takes the facts as a (B, T, H) tensor (strided views);
+//  - din_pool_gather_f32 gathers them itself from the embedding table: fact
+//    t of sample b is m * table[ids[b, t], lane0 : lane0 + H], with m the
+//    mask, and 0 where m is 0 (no table read there), which is what the fold
+//    K2 (fold.cu) writes and the staytime model then slices.  On the
+//    serving path this removes K2's (B*T, D) rows from device memory: K2
+//    wrote them (105 MB a sequence at B = 16384, D = 32) and the pool read
+//    half of each back.
+//
 // Bound on the H100 (67 TFLOP/s float32, 3.35 TB/s): bytes.  In the folded
 // form below the function needs H*16 + 16 + H multiply-adds per (sample, t)
 // and 2*H*16 per sample: at B = 16384, T = 50, H = 16 that is 0.49 GFLOP
-// (7.3 us), against 57.8 MB read and written once (17.3 us).  The TPU
-// kernel's own count of the unfolded features (din_pallas.py:64-67), 1.73
-// GFLOP, overstates the work.
+// (7.3 us).  Facts given: 57.8 MB read and written once (17.3 us).
+// Gathered: ids and mask 6.6 MB, the live 64-byte half-rows at most 52.4
+// MB, query and output 2.1 MB (about 18 us).  The TPU kernel's own count of
+// the unfolded features (din_pallas.py:64-67), 1.73 GFLOP, overstates the
+// work.
 //
 // Design.  With W1 split by rows into the blocks Wa, Wb, Wc, Wd that meet
 // q, f, q - f and q * f, the pre-activation of hidden unit j is
@@ -29,19 +41,34 @@
 //                              M[k, j] = (Wb - Wc)[k, j] + q_k Wd[k, j],
 //
 // so a and M are built once per sample and each t costs H*16 multiply-adds,
-// a quarter of the features' product.  One warp per sample, 8 samples a
-// block: the block folds W1 into Wa + Wc, Wb - Wc and Wd in shared memory;
-// the warp builds its sample's a and M there; lane l scores t = l, l + 32,
-// ... with the 16 pre-activations in registers, reading M as float4
+// a quarter of the features' product.  One warp per sample, up to 8 samples
+// a block: the block folds W1 into Wa + Wc, Wb - Wc and Wd in shared
+// memory; the warp builds its sample's a and M there; lane l scores t = l,
+// l + 32, ... with the 16 pre-activations in registers, reading M as float4
 // broadcasts.  The scores stay in shared memory, the masked max and the
-// softmax sum are warp shuffles, and the pooling gives each fact row H
-// lanes on neighbouring addresses.  The scorer's sigmoid uses the fast
+// softmax sum are warp shuffles.  The scorer's sigmoid uses the fast
 // exponential and division (__expf, __fdividef): a few ulp on a value that
 // only weights the softmax.
 //
-// The model passes strided views (the first 16 of 32 lanes of a row), so
-// the kernel takes the row strides of q, facts and mask; the last dimension
-// of each must be contiguous.  Output (B, H) contiguous.
+// Facts given, lane l reads its row t straight from the facts tensor for
+// the score, and the pooling pass reads the facts again, H lanes per row.
+//
+// Gathered, the warp first copies its sample's T half-rows into a tile in
+// shared memory, 4 lanes a half-row, each lane one 16-byte chunk, so one
+// load instruction moves 8 half-rows (8 rows, 2 sectors each) and each lane
+// has up to 8 loads in flight before it stores any; the tile holds
+// m * row.  The scoring pass and the pooling pass then both read the tile,
+// so the table is read once per (sample, t).  The scoring pass skips the
+// masked positions (their score is MASK_PAD whatever the scorer says): a
+// warp whose live positions all lie below t = 32 makes one pass, not two.
+// The chunks of row t sit at chunk c ^ ((t >> 1) & 3), which keeps the
+// tile's stores and the scoring pass's reads (a row a lane) free of bank
+// conflicts.  The tile and the scores take (H + 1) * T floats a warp of
+// dynamic shared memory; above 48 KB a block takes fewer warps.
+//
+// The query is a strided view (the first 16 of 32 lanes of a mean row): the
+// kernels take its row stride; its last dimension must be contiguous.
+// Output (B, H) contiguous.
 
 #include <cmath>
 
@@ -52,103 +79,98 @@ namespace {
 constexpr int H = 16;                          // the query and fact width
 constexpr int kHidden = 16;
 constexpr int kWarps = 8;
+constexpr int kW = H * kHidden;                // one (H, 16) block of W1
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kMaskPad = -4294967296.0f;   // -(2^32) + 1 in float32
+constexpr int kChunks = H / 4;                 // 16-byte chunks of a fact row
+constexpr int kLoadRows = 32 / kChunks;        // fact rows a warp loads at once
+constexpr int kInFlight = 8;                   // loads a lane issues before storing
+// dynamic shared memory a block may take: below the 227 KB a block can
+// have, with room for the static scorer
+constexpr size_t kMaxDynamic = 200 * 1024;
 
-__global__ void __launch_bounds__(kWarps * 32)
-din_pool_kernel(const float* __restrict__ q, const float* __restrict__ facts,
-                const float* __restrict__ mask, const float* __restrict__ w1,
-                const float* __restrict__ b1, const float* __restrict__ w2,
-                const float* __restrict__ b2, float* __restrict__ out,
-                long long b, int t, long long qb, long long fb, long long ft,
-                long long mb, long long mt) {
-  constexpr int kW = H * kHidden;              // one (H, 16) block of W1
-  __shared__ __align__(16) float s_wq[kW];     // Wa + Wc
-  __shared__ __align__(16) float s_wf[kW];     // Wb - Wc
-  __shared__ __align__(16) float s_wd[kW];     // Wd
-  __shared__ __align__(16) float s_m[kWarps][kW];
-  __shared__ __align__(16) float s_a[kWarps][kHidden];
-  __shared__ float s_b1[kHidden];
-  __shared__ float s_w2[kHidden];
-  extern __shared__ float s_scores[];          // kWarps x t
+// The block's folded scorer and each warp's fold of its sample's query
+struct Scorer {
+  float wq[kW];                                // Wa + Wc
+  float wf[kW];                                // Wb - Wc
+  float wd[kW];                                // Wd
+  float m[kWarps][kW];
+  float a[kWarps][kHidden];
+  float b1[kHidden];
+  float w2[kHidden];
+};
+
+// the block folds W1 (4H, 16); the caller synchronises
+__device__ __forceinline__ void fold_weights(Scorer& sc, const float* __restrict__ w1,
+                                             const float* __restrict__ b1,
+                                             const float* __restrict__ w2) {
   for (int i = threadIdx.x; i < kW; i += blockDim.x) {
     const float wc = w1[2 * kW + i];
-    s_wq[i] = w1[i] + wc;
-    s_wf[i] = w1[kW + i] - wc;
-    s_wd[i] = w1[3 * kW + i];
+    sc.wq[i] = w1[i] + wc;
+    sc.wf[i] = w1[kW + i] - wc;
+    sc.wd[i] = w1[3 * kW + i];
   }
   if (threadIdx.x < kHidden) {
-    s_b1[threadIdx.x] = b1[threadIdx.x];
-    s_w2[threadIdx.x] = w2[threadIdx.x];
+    sc.b1[threadIdx.x] = b1[threadIdx.x];
+    sc.w2[threadIdx.x] = w2[threadIdx.x];
   }
-  const float bias2 = b2[0];
-  __syncthreads();
+}
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long sample = static_cast<long long>(blockIdx.x) * kWarps + warp;
-  if (sample >= b) return;                     // whole warps leave together
-  const float* qs = q + sample * qb;
-  const float* fs = facts + sample * fb;
-  const float* ms = mask + sample * mb;
-  float* m = s_m[warp];
-  float* p = s_scores + warp * t;
-
-  // this sample's a (16) and M (H x 16)
-  for (int i = lane; i < kW; i += 32) m[i] = fmaf(qs[i / kHidden], s_wd[i], s_wf[i]);
+// the warp builds its sample's a (16) and M (H x 16)
+__device__ __forceinline__ void fold_query(Scorer& sc, int warp, int lane,
+                                           const float* __restrict__ qs) {
+  float* m = sc.m[warp];
+  for (int i = lane; i < kW; i += 32) m[i] = fmaf(qs[i / kHidden], sc.wd[i], sc.wf[i]);
   if (lane < kHidden) {
     float a = 0.f;
 #pragma unroll
-    for (int k = 0; k < H; ++k) a = fmaf(qs[k], s_wq[k * kHidden + lane], a);
-    s_a[warp][lane] = s_b1[lane] + a;
+    for (int k = 0; k < H; ++k) a = fmaf(qs[k], sc.wq[k * kHidden + lane], a);
+    sc.a[warp][lane] = sc.b1[lane] + a;
   }
   __syncwarp();
+}
 
-  // scores, and the running max of this lane's scores
-  float mx = -INFINITY;
-  for (int ti = lane; ti < t; ti += 32) {
-    // M and a are read from shared memory on every pass: hoisted out of the
-    // loop, their H*16 + 16 values would take every register and spill
-    asm volatile("" ::: "memory");
-    const float* fr = fs + ti * ft;
-    float fv[H];
+// the score of one fact row under the warp's fold
+__device__ __forceinline__ float score(const Scorer& sc, int warp, const float (&fv)[H],
+                                       float bias2) {
+  // M and a are read from shared memory on every call: hoisted out of the
+  // caller's loop, their H*16 + 16 values would take every register and spill
+  asm volatile("" ::: "memory");
+  const float* m = sc.m[warp];
+  float acc[kHidden];
 #pragma unroll
-    for (int k = 0; k < H; ++k) fv[k] = fr[k];
-    float acc[kHidden];
-#pragma unroll
-    for (int j4 = 0; j4 < kHidden / 4; ++j4) {
-      const float4 a4 = reinterpret_cast<const float4*>(s_a[warp])[j4];
-      acc[4 * j4 + 0] = a4.x;
-      acc[4 * j4 + 1] = a4.y;
-      acc[4 * j4 + 2] = a4.z;
-      acc[4 * j4 + 3] = a4.w;
-    }
-#pragma unroll
-    for (int k = 0; k < H; ++k) {
-      const float4* row = reinterpret_cast<const float4*>(m + k * kHidden);
-#pragma unroll
-      for (int j4 = 0; j4 < kHidden / 4; ++j4) {
-        const float4 w = row[j4];
-        acc[4 * j4 + 0] = fmaf(fv[k], w.x, acc[4 * j4 + 0]);
-        acc[4 * j4 + 1] = fmaf(fv[k], w.y, acc[4 * j4 + 1]);
-        acc[4 * j4 + 2] = fmaf(fv[k], w.z, acc[4 * j4 + 2]);
-        acc[4 * j4 + 3] = fmaf(fv[k], w.w, acc[4 * j4 + 3]);
-      }
-    }
-    float s = 0.f;
-#pragma unroll
-    for (int j = 0; j < kHidden; ++j) {
-      s = fmaf(__fdividef(1.f, 1.f + __expf(-acc[j])), s_w2[j], s);
-    }
-    s += bias2;
-    if (!(ms[ti * mt] > 0.f)) s = kMaskPad;
-    p[ti] = s;
-    mx = fmaxf(mx, s);
+  for (int j4 = 0; j4 < kHidden / 4; ++j4) {
+    const float4 a4 = reinterpret_cast<const float4*>(sc.a[warp])[j4];
+    acc[4 * j4 + 0] = a4.x;
+    acc[4 * j4 + 1] = a4.y;
+    acc[4 * j4 + 2] = a4.z;
+    acc[4 * j4 + 3] = a4.w;
   }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
+  for (int k = 0; k < H; ++k) {
+    const float4* row = reinterpret_cast<const float4*>(m + k * kHidden);
+#pragma unroll
+    for (int j4 = 0; j4 < kHidden / 4; ++j4) {
+      const float4 w = row[j4];
+      acc[4 * j4 + 0] = fmaf(fv[k], w.x, acc[4 * j4 + 0]);
+      acc[4 * j4 + 1] = fmaf(fv[k], w.y, acc[4 * j4 + 1]);
+      acc[4 * j4 + 2] = fmaf(fv[k], w.z, acc[4 * j4 + 2]);
+      acc[4 * j4 + 3] = fmaf(fv[k], w.w, acc[4 * j4 + 3]);
+    }
+  }
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < kHidden; ++j) {
+    s = fmaf(__fdividef(1.f, 1.f + __expf(-acc[j])), sc.w2[j], s);
+  }
+  return s + bias2;
+}
 
-  // softmax: each lane exponentiates and normalises its own scores
+// p[0, t) from scores to softmax weights, in place; mx is this lane's max
+// of the scores it wrote (t = lane, lane + 32, ...)
+__device__ __forceinline__ void softmax(float* p, int t, int lane, float mx) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
   float sum = 0.f;
   for (int ti = lane; ti < t; ti += 32) {
     const float e = expf(p[ti] - mx);
@@ -159,6 +181,43 @@ din_pool_kernel(const float* __restrict__ q, const float* __restrict__ facts,
   for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(kFull, sum, off);
   for (int ti = lane; ti < t; ti += 32) p[ti] = p[ti] / sum;
   __syncwarp();
+}
+
+__global__ void __launch_bounds__(kWarps * 32)
+din_pool_kernel(const float* __restrict__ q, const float* __restrict__ facts,
+                const float* __restrict__ mask, const float* __restrict__ w1,
+                const float* __restrict__ b1, const float* __restrict__ w2,
+                const float* __restrict__ b2, float* __restrict__ out,
+                long long b, int t, long long qb, long long fb, long long ft,
+                long long mb, long long mt) {
+  __shared__ __align__(16) Scorer sc;
+  extern __shared__ float s_scores[];          // kWarps x t
+  fold_weights(sc, w1, b1, w2);
+  const float bias2 = b2[0];
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long sample = static_cast<long long>(blockIdx.x) * kWarps + warp;
+  if (sample >= b) return;                     // whole warps leave together
+  const float* fs = facts + sample * fb;
+  const float* ms = mask + sample * mb;
+  float* p = s_scores + warp * t;
+  fold_query(sc, warp, lane, q + sample * qb);
+
+  // scores, and the running max of this lane's scores
+  float mx = -INFINITY;
+  for (int ti = lane; ti < t; ti += 32) {
+    const float* fr = fs + ti * ft;
+    float fv[H];
+#pragma unroll
+    for (int k = 0; k < H; ++k) fv[k] = fr[k];
+    float s = score(sc, warp, fv, bias2);
+    if (!(ms[ti * mt] > 0.f)) s = kMaskPad;
+    p[ti] = s;
+    mx = fmaxf(mx, s);
+  }
+  softmax(p, t, lane, mx);
 
   // pooling: H lanes per fact row, 32 / H rows at a time
   constexpr int kRows = 32 / H;
@@ -168,6 +227,114 @@ din_pool_kernel(const float* __restrict__ q, const float* __restrict__ facts,
 #pragma unroll
   for (int off = H; off < 32; off <<= 1) o += __shfl_xor_sync(kFull, o, off);
   if (lane < H) out[sample * H + h] = o;
+}
+
+// where chunk c of tile row t sits
+__device__ __forceinline__ int swizzle(int t, int c) { return c ^ ((t >> 1) & 3); }
+
+__device__ __forceinline__ float4 scale(float m, const float4& v) {
+  return make_float4(m * v.x, m * v.y, m * v.z, m * v.w);
+}
+
+__global__ void __launch_bounds__(kWarps * 32)
+din_pool_gather_kernel(const float* __restrict__ q, const float* __restrict__ table,
+                       const int* __restrict__ ids, const float* __restrict__ mask,
+                       const float* __restrict__ w1, const float* __restrict__ b1,
+                       const float* __restrict__ w2, const float* __restrict__ b2,
+                       float* __restrict__ out, long long b, int t, long long qb,
+                       int d, int lane0) {
+  __shared__ __align__(16) Scorer sc;
+  // per warp: its (t, H) fact tile, then (after every warp's tile) its t
+  // scores
+  extern __shared__ __align__(16) float s_dyn[];
+  fold_weights(sc, w1, b1, w2);
+  const float bias2 = b2[0];
+  __syncthreads();
+
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long sample = static_cast<long long>(blockIdx.x) * warps + warp;
+  if (sample >= b) return;                     // whole warps leave together
+  float4* tile = reinterpret_cast<float4*>(s_dyn) + static_cast<size_t>(warp) * t * kChunks;
+  float* p = s_dyn + static_cast<size_t>(warps) * t * H + static_cast<size_t>(warp) * t;
+  const int* is = ids + sample * t;
+  const float* ms = mask + sample * t;
+  fold_query(sc, warp, lane, q + sample * qb);
+
+  // the facts: lane 4r + c copies chunk c of rows r, r + 8, ...; each
+  // tile row is m * row, and p[t] holds m until its score replaces it
+  const int r = lane / kChunks;
+  const int c = lane % kChunks;
+  const float4* chunks = reinterpret_cast<const float4*>(table + lane0) + c;
+  const size_t row4 = static_cast<size_t>(d / 4);
+  for (int t0 = 0; t0 < t; t0 += kLoadRows * kInFlight) {
+    float m[kInFlight];
+    int id[kInFlight];
+#pragma unroll
+    for (int i = 0; i < kInFlight; ++i) {
+      const int ti = t0 + i * kLoadRows + r;
+      m[i] = ti < t ? ms[ti] : 0.f;
+      id[i] = ti < t ? is[ti] : 0;
+    }
+    float4 v[kInFlight];
+#pragma unroll
+    for (int i = 0; i < kInFlight; ++i) {
+      v[i] = m[i] != 0.f ? __ldg(chunks + static_cast<size_t>(id[i]) * row4)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int i = 0; i < kInFlight; ++i) {
+      const int ti = t0 + i * kLoadRows + r;
+      if (ti < t) {
+        tile[ti * kChunks + swizzle(ti, c)] = scale(m[i], v[i]);
+        if (c == 0) p[ti] = m[i];
+      }
+    }
+  }
+  __syncwarp();
+
+  // scores from the tile, and the running max of this lane's scores; a
+  // masked position is not scored, MASK_PAD replaces its score
+  float mx = -INFINITY;
+  for (int ti = lane; ti < t; ti += 32) {
+    float s = kMaskPad;
+    if (p[ti] > 0.f) {
+      const float4* row = tile + ti * kChunks;
+      float fv[H];
+#pragma unroll
+      for (int k = 0; k < kChunks; ++k) {
+        const float4 x = row[swizzle(ti, k)];
+        fv[4 * k + 0] = x.x;
+        fv[4 * k + 1] = x.y;
+        fv[4 * k + 2] = x.z;
+        fv[4 * k + 3] = x.w;
+      }
+      s = score(sc, warp, fv, bias2);
+    }
+    p[ti] = s;
+    mx = fmaxf(mx, s);
+  }
+  softmax(p, t, lane, mx);
+
+  // pooling from the tile: lane 4r + c sums chunk c over rows r, r + 8, ...
+  float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int ti = r; ti < t; ti += kLoadRows) {
+    const float w = p[ti];
+    const float4 x = tile[ti * kChunks + swizzle(ti, c)];
+    o.x = fmaf(w, x.x, o.x);
+    o.y = fmaf(w, x.y, o.y);
+    o.z = fmaf(w, x.z, o.z);
+    o.w = fmaf(w, x.w, o.w);
+  }
+#pragma unroll
+  for (int off = kChunks; off < 32; off <<= 1) {
+    o.x += __shfl_xor_sync(kFull, o.x, off);
+    o.y += __shfl_xor_sync(kFull, o.y, off);
+    o.z += __shfl_xor_sync(kFull, o.z, off);
+    o.w += __shfl_xor_sync(kFull, o.w, off);
+  }
+  if (lane < kChunks) reinterpret_cast<float4*>(out + sample * H)[c] = o;
 }
 
 }  // namespace
@@ -185,5 +352,34 @@ RS_EXPORT int din_pool_f32(const float* q, const float* facts, const float* mask
   const size_t smem = sizeof(float) * kWarps * static_cast<size_t>(t);
   din_pool_kernel<<<blocks, kWarps * 32, smem, stream>>>(
       q, facts, mask, w1, b1, w2, b2, out, b, t, qb, fb, ft, mb, mt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// q (B, H) with row stride qb; table (rows, D) contiguous, 16-byte aligned,
+// D % 4 == 0; ids (B, T) int32 and mask (B, T) float contiguous; facts are
+// the lanes [lane0, lane0 + H) of each row, lane0 % 4 == 0; weights and out
+// as din_pool_f32.  T >= 1 (the wrapper caps T at 512).
+RS_EXPORT int din_pool_gather_f32(const float* q, const float* table, const int* ids,
+                                  const float* mask, const float* w1, const float* b1,
+                                  const float* w2, const float* b2, float* out,
+                                  long long b, int t, long long qb, int d, int lane0,
+                                  cudaStream_t stream) {
+  const size_t per_warp = sizeof(float) * (H + 1) * static_cast<size_t>(t);
+  if (t < 1 || d % 4 || lane0 % 4 || lane0 + H > d || !aligned16(table) ||
+      !aligned16(out) || per_warp > kMaxDynamic) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int warps = kWarps;
+  while (warps > 1 && warps * per_warp > kMaxDynamic) --warps;
+  const size_t smem = warps * per_warp;
+  // the static scorer and the dynamic tiles together pass the default 48
+  // KB from T = 66 on: opt in once to kMaxDynamic
+  static const cudaError_t raised = cudaFuncSetAttribute(
+      din_pool_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kMaxDynamic));
+  if (raised != cudaSuccess) return static_cast<int>(raised);
+  const unsigned int blocks = static_cast<unsigned int>((b + warps - 1) / warps);
+  din_pool_gather_kernel<<<blocks, warps * 32, smem, stream>>>(
+      q, table, ids, mask, w1, b1, w2, b2, out, b, t, qb, d, lane0);
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,23 +18,28 @@
 // (D*4 B: one 32-B sector at D=8) and writes D*4 B; L*D multiply-adds are
 // far below the float32 rate.
 //
-// fold_mean is one grouped launch over every mean segment of a call (a
-// predict or train step has 24-46 of them, each a few microseconds of
-// work): the segments' pointers and sizes travel by value in the kernel's
-// parameter struct (read from the constant bank through __grid_constant__),
-// with a prefix table of block starts by which a block finds its segment;
-// blocks are numbered segment by segment.  Within a segment:
+// Each is one grouped launch over the segments of a call (a predict or
+// train step has 24-49 of them, each a few microseconds of work): the
+// members' pointers and sizes travel by value in the kernel's parameter
+// struct (read from the constant bank through __grid_constant__), with a
+// prefix table of block starts by which a block finds its member; blocks
+// are numbered member by member.  Within a member:
 //  - a row is D/4 threads of 16-byte table loads when D % 4 == 0 and the
-//    table is 16-byte aligned, else D threads of one float each;
-//  - a thread first loads the ids and masks of up to kChunk slots of its
-//    row (l-major, so neighbouring rows read neighbouring words), then
-//    issues those slots' table loads, each predicated on mask != 0, before
-//    it sums any of them: kChunk loads in flight, not one;
-//  - the sum runs in slot order j = 0..L-1 as `acc += m * row` for each
-//    slot with m != 0; L > kChunk takes several chunks;
-//  - indices within a segment are 32-bit (the wrapper checks the sizes).
-// fold_rows keeps one thread per output element (row, lane).  No shared
-// memory: nothing is reused within a block.
+//    table and the output are 16-byte aligned, else D threads of one float
+//    each;
+//  - fold_mean: a thread first loads the ids and masks of up to kChunk
+//    slots of its row (l-major, so neighbouring rows read neighbouring
+//    words), then issues those slots' table loads, each predicated on
+//    mask != 0, before it sums any of them: kChunk loads in flight, not
+//    one; the sum runs in slot order j = 0..L-1 as `acc += m * row` for
+//    each slot with m != 0; L > kChunk takes several chunks;
+//  - fold_rows: a thread takes kRowsPerThread units (a unit is one thread's
+//    share of a row), kThreads apart so that neighbouring threads move
+//    neighbouring words; it loads their ids and masks, then issues their
+//    table loads, each predicated on mask != 0 (a masked entry reads no
+//    table sector), then stores m * row or 0;
+//  - indices within a member are 32-bit (the wrapper checks the sizes).
+// No shared memory: nothing is reused within a block.
 
 #include <stdint.h>
 
@@ -43,8 +48,9 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxSegments = 64;      // segments a launch takes
-constexpr int kChunk = 8;             // slots whose table loads fly together
+constexpr int kMaxMembers = 64;       // members a launch takes
+constexpr int kChunk = 8;             // fold_mean: slots whose table loads fly together
+constexpr int kRowsPerThread = 4;     // fold_rows: units whose table loads fly together
 
 struct Segment {
   const float* table;
@@ -58,9 +64,21 @@ struct Segment {
   int vec;      // 4: float4 lanes; 1: one float a lane
 };
 
-using Group = Grouped<Segment, kMaxSegments>;
+struct Rows {
+  const float* table;
+  const int* ids;
+  const float* mask;
+  float* out;
+  int e;        // entries (output rows)
+  int d;
+  int vec;      // 4: float4 lanes; 1: one float a lane
+};
+
+using Group = Grouped<Segment, kMaxMembers>;
+using RowsGroup = Grouped<Rows, kMaxMembers>;
 // kept within the 4 KB of kernel parameters every CUDA 12 driver accepts
 static_assert(sizeof(Group) <= 4096, "Group exceeds 4 KB of kernel parameters");
+static_assert(sizeof(RowsGroup) <= 4096, "RowsGroup exceeds 4 KB of kernel parameters");
 
 __device__ __forceinline__ void zero(float& x) { x = 0.f; }
 __device__ __forceinline__ void zero(float4& x) { x = make_float4(0.f, 0.f, 0.f, 0.f); }
@@ -126,30 +144,70 @@ fold_mean_group_kernel(const __grid_constant__ Group g) {
   }
 }
 
-__global__ void fold_rows_kernel(const float* __restrict__ table,
-                                 const int* __restrict__ ids,
-                                 const float* __restrict__ mask,
-                                 float* __restrict__ out,
-                                 long long e, int d) {
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= e * d) return;
-  const long long r = t / d;
-  const int lane = static_cast<int>(t - r * d);
-  const float m = mask[r];
-  out[t] = (m != 0.f) ? m * table[static_cast<long long>(ids[r]) * d + lane] : 0.f;
+// block blk of the member: units (blk * kRowsPerThread + k) * kThreads +
+// threadIdx.x, k < kRowsPerThread; unit u is row u / (D/V), lanes V * (u %
+// (D/V)) onward
+template <int V>
+__device__ __forceinline__ void fold_rows_member(const Rows& s, int blk) {
+  using Vec = typename VecOf<V>::type;
+  // unsigned: a unit past the member's end (units < 2^31) stays below 2^32
+  const unsigned per_row = static_cast<unsigned>(s.d / V);
+  const unsigned units = static_cast<unsigned>(s.e) * per_row;
+  const Vec* table = reinterpret_cast<const Vec*>(s.table);
+  unsigned u[kRowsPerThread];
+  int id[kRowsPerThread];
+  float m[kRowsPerThread];
+#pragma unroll
+  for (int k = 0; k < kRowsPerThread; ++k) {
+    u[k] = (static_cast<unsigned>(blk) * kRowsPerThread + k) * kThreads + threadIdx.x;
+    const unsigned x = u[k] / per_row;
+    m[k] = u[k] < units ? s.mask[x] : 0.f;
+    id[k] = u[k] < units ? s.ids[x] : 0;
+  }
+  Vec v[kRowsPerThread];
+#pragma unroll
+  for (int k = 0; k < kRowsPerThread; ++k) {
+    if (m[k] != 0.f) {
+      const unsigned lane = u[k] % per_row;
+      v[k] = table[static_cast<size_t>(id[k]) * per_row + lane];
+    } else {
+      zero(v[k]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kRowsPerThread; ++k) {
+    if (u[k] < units) {
+      Vec o;
+      zero(o);
+      if (m[k] != 0.f) add_scaled(o, m[k], v[k]);
+      reinterpret_cast<Vec*>(s.out)[u[k]] = o;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+fold_rows_group_kernel(const __grid_constant__ RowsGroup g) {
+  const int blk = blockIdx.x;
+  const int member = g.member_of(blk);
+  const Rows& s = g.s[member];
+  if (s.vec == 4) {
+    fold_rows_member<4>(s, blk - g.block_start[member]);
+  } else {
+    fold_rows_member<1>(s, blk - g.block_start[member]);
+  }
 }
 
 }  // namespace
 
-// Segments a launch takes: the wrapper cuts larger groups.
-RS_EXPORT int fold_mean_max_segments() { return kMaxSegments; }
+// Members a launch takes, of either group: the wrapper cuts larger groups.
+RS_EXPORT int fold_max_members() { return kMaxMembers; }
 
-// n segments (1 <= n <= kMaxSegments), each 8 host words: table, ids, mask,
+// n segments (1 <= n <= kMaxMembers), each 8 host words: table, ids, mask,
 // out (device pointers), then C, L, B, D.  Each segment needs C, L, B, D
 // >= 1 and C*L*B and C*B*D below 2^31 (the wrapper checks; refused here
 // with cudaErrorInvalidValue).
 RS_EXPORT int fold_mean_group_f32(const long long* desc, int n, cudaStream_t stream) {
-  if (n < 1 || n > kMaxSegments) return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 1 || n > kMaxMembers) return static_cast<int>(cudaErrorInvalidValue);
   Group g;
   long long blocks = 0;
   for (int i = 0; i < n; ++i) {
@@ -174,10 +232,31 @@ RS_EXPORT int fold_mean_group_f32(const long long* desc, int n, cudaStream_t str
   return static_cast<int>(cudaGetLastError());
 }
 
-RS_EXPORT int fold_rows_f32(const float* table, const int* ids,
-                            const float* mask, float* out, long long e, int d,
-                            cudaStream_t stream) {
-  const unsigned int blocks = static_cast<unsigned int>((e * d + kThreads - 1) / kThreads);
-  fold_rows_kernel<<<blocks, kThreads, 0, stream>>>(table, ids, mask, out, e, d);
+// n members (1 <= n <= kMaxMembers), each 6 host words: table, ids, mask,
+// out (device pointers), then E, D.  Each member needs E, D >= 1 and E*D
+// below 2^31 (the wrapper checks; refused here with cudaErrorInvalidValue).
+RS_EXPORT int fold_rows_group_f32(const long long* desc, int n, cudaStream_t stream) {
+  if (n < 1 || n > kMaxMembers) return static_cast<int>(cudaErrorInvalidValue);
+  RowsGroup g;
+  long long blocks = 0;
+  for (int i = 0; i < n; ++i) {
+    const long long* w = desc + 6 * i;
+    const long long e = w[4], d = w[5];
+    if (e < 1 || d < 1 || e * d > 0x7fffffffLL) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const float* table = reinterpret_cast<const float*>(w[0]);
+    float* out = reinterpret_cast<float*>(w[3]);
+    const int vec = (d % 4 == 0 && aligned16(table) && aligned16(out)) ? 4 : 1;
+    const Rows s{table, reinterpret_cast<const int*>(w[1]),
+                 reinterpret_cast<const float*>(w[2]), out, static_cast<int>(e),
+                 static_cast<int>(d), vec};
+    const long long per_block = static_cast<long long>(kThreads) * kRowsPerThread;
+    if (!g.add(i, s, (e * (d / vec) + per_block - 1) / per_block, blocks)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  g.close(n, blocks);
+  fold_rows_group_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0, stream>>>(g);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,7 +11,9 @@ the scatter it feeds or is fed by:
                    (C*B, D) masked sums over L; ``fold_mean_group`` folds
                    every mean segment of a step in one launch (csrc/fold.cu)
   fold_rows  (K2)  (E,) ids/mask -> (E, D) masked rows; single-id mean
-                   columns (l == 1) go here, as in the JAX package
+                   columns (l == 1) and sequence columns go here, as in the
+                   JAX package; ``fold_rows_group`` folds every such
+                   segment of a step in one launch (csrc/fold.cu)
   unfold_mean_scatter (K3)  (B, D) grads of one column's sums, broadcast
                    over its L slots, added with a count of 1 into the
                    storage's accumulator (its two views, gradient sums and
@@ -27,7 +29,10 @@ the scatter it feeds or is fed by:
 
 The storage plan (``plan_segments``, ``storage_stream``), the stage functions
 (``gather_fold``, ``combine_from_acts``, ``apply_gradients_packed``) and
-``lookup_packed`` keep the JAX names and stream order.  A storage's
+``lookup_packed`` keep the JAX names and stream order.  The predict step
+asks ``lookup_packed`` to defer the sequence columns: each comes as a
+``SequenceRows`` handle on the table and its stream, not gathered, and the
+DIN pool (K7) gathers the lanes it reads itself.  A storage's
 accumulator is one flat float32 tensor of rows*(D+1) words: a (rows, D)
 block of gradient sums followed by a (rows,) block of counts
 (``accumulator_views``), where the JAX package interleaves [grad | count]
@@ -130,6 +135,17 @@ def _pack_words(n: int) -> struct.Struct:
     return struct.Struct(f"{n}q")
 
 
+def _group_device(items, what: str):
+    """The one device of a fold group's members (``(table, ids, mask,
+    ...)``), each checked as the fold kernels take them."""
+    device = items[0][0].device
+    for table, ids, mask, *_ in items:
+        if table.device != device:
+            raise ValueError(f"{what}: members on {device} and {table.device}")
+        _check_fold_args(table, ids, mask)
+    return device
+
+
 def fold_mean_group(items) -> List[torch.Tensor]:
     """K1 over a group: ``items`` are ``(table, ids, mask, c, l)``, each as
     ``fold_mean`` takes them (any l >= 1), all on one device.  Returns one
@@ -139,11 +155,8 @@ def fold_mean_group(items) -> List[torch.Tensor]:
     items = list(items)
     if not items:
         return []
-    device = items[0][0].device
-    for table, ids, mask, c, l in items:
-        if table.device != device:
-            raise ValueError(f"fold_mean_group: members on {device} and {table.device}")
-        _check_fold_args(table, ids, mask)
+    device = _group_device(items, "fold_mean_group")
+    for _, ids, _, c, l in items:
         if c < 1 or l < 1 or ids.shape[0] % (c * l):
             raise ValueError(f"fold_mean: {ids.shape[0]} ids do not split into {c} "
                              f"columns of {l} slots")
@@ -163,7 +176,37 @@ def fold_mean_group(items) -> List[torch.Tensor]:
                   c, l, b, d)
     lib = library("fold")
     _launch_groups(lib, lib.fold_mean_group_f32, "fold_mean", words, 8,
-                   lib.fold_mean_max_segments(), device)
+                   lib.fold_max_members(), device)
+    return outs
+
+
+def fold_rows_group(items) -> List[torch.Tensor]:
+    """K2 over a group: ``items`` are ``(table, ids, mask)``, each as
+    ``fold_rows`` takes them, all on one device; the tables may differ in
+    D.  Returns one (E, D) float32 tensor per item, in order.  On a card
+    one launch takes up to 64 members (a larger group is cut into launches
+    of 64, each counted as one ``fold_rows`` launch); members with no
+    entries launch nothing."""
+    items = list(items)
+    if not items:
+        return []
+    device = _group_device(items, "fold_rows_group")
+    if device.type == "cpu":
+        return [fold_rows_plain(*item) for item in items]
+    outs = [torch.empty((ids.shape[0], table.shape[1]), dtype=torch.float32,
+                        device=device) for table, ids, _ in items]
+    words = []
+    for (table, ids, mask), out in zip(items, outs):
+        e, d = out.shape
+        if out.numel() == 0:
+            continue
+        if e * d >= _I32:
+            raise ValueError(f"fold_rows: {e} entries of D {d} exceed the kernel's "
+                             f"32-bit indices")
+        words += (table.data_ptr(), ids.data_ptr(), mask.data_ptr(), out.data_ptr(), e, d)
+    lib = library("fold")
+    _launch_groups(lib, lib.fold_rows_group_f32, "fold_rows", words, 6,
+                   lib.fold_max_members(), device)
     return outs
 
 
@@ -181,22 +224,9 @@ def fold_mean(table: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor,
 
 def fold_rows(table: torch.Tensor, ids: torch.Tensor,
               mask: torch.Tensor) -> torch.Tensor:
-    """K2: gather + per-entry mask.  Returns (E, D) float32."""
-    _check_fold_args(table, ids, mask)
-    if table.device.type == "cpu":
-        return fold_rows_plain(table, ids, mask)
-    e, d = ids.shape[0], table.shape[1]
-    out = torch.empty((e, d), dtype=torch.float32, device=table.device)
-    if out.numel() == 0:
-        return out
-    lib = library("fold")
-    with torch.cuda.device(table.device):
-        code = lib.fold_rows_f32(table.data_ptr(), ids.data_ptr(),
-                                 mask.data_ptr(), out.data_ptr(), e, d,
-                                 stream_handle(table.device))
-    check(lib, code, "fold_rows")
-    count_launch("fold_rows")
-    return out
+    """K2: gather + per-entry mask.  Returns (E, D) float32:
+    ``fold_rows_group`` with one member."""
+    return fold_rows_group([(table, ids, mask)])[0]
 
 
 # ---------------------------------------------------------------------------
@@ -475,13 +505,41 @@ def _offset_rows(eng, key: str, batch):
     return rows + offset if offset else rows
 
 
-def gather_fold(eng, tables, batch, plans) -> Dict[str, Any]:
+@dataclasses.dataclass(frozen=True)
+class SequenceRows:
+    """A sequence column's rows, not gathered: what ``lookup_packed(...,
+    defer_sequences=True)`` gives for it in place of ``(emb (B, T, D),
+    mask)``.  ``table`` is its storage's (rows, D) table, ``ids`` (B, T)
+    int32 its b-major stream ids (table offset added), ``mask`` (B, T)
+    float32; the column's facts are the lanes ``window`` of ``mask * row``,
+    as K2 writes them, and ``mask > 0`` marks the live ones.  The DIN pool
+    (``nn.DINPool``) takes a handle and gathers the lanes it reads itself
+    (K7's ``din_pool_gather``), which has no gradient: only the predict step
+    asks for handles, under ``inference_mode``, and the train step, which
+    differentiates the rows, never gets one."""
+
+    table: torch.Tensor
+    ids: torch.Tensor
+    mask: torch.Tensor
+    window: Tuple[int, int]
+
+    def lanes(self, start: int, stop: int) -> "SequenceRows":
+        """The lanes [start, stop) of this window: ``emb[:, :, start:stop]``
+        of the rows it stands for."""
+        lo, hi = self.window
+        if not 0 <= start < stop <= hi - lo:
+            raise ValueError(f"lanes [{start}, {stop}) outside a window of {hi - lo}")
+        return dataclasses.replace(self, window=(lo + start, lo + stop))
+
+
+def gather_fold(eng, tables, batch, plans, defer_sequences: bool = False) -> Dict[str, Any]:
     """Stage 1: fused gather + fold.  Every storage's stream is built
     first; then one grouped K1 folds the mean segments (l > 1) of all the
-    storages, and K2 each single-id or sequence segment.  Returns, per
-    storage, the folded activations (one tensor per segment) plus the
-    stream's (ids, mask).  ``tables``: the engine state dict ({skey: {"w":
-    (rows, D)}})."""
+    storages, and one grouped K2 every single-id or sequence segment.
+    Returns, per storage, the folded activations (one tensor per segment)
+    plus the stream's (ids, mask).  With ``defer_sequences`` a sequence
+    segment is not gathered: its activation is a ``SequenceRows`` handle.
+    ``tables``: the engine state dict ({skey: {"w": (rows, D)}})."""
     out, means, rows = {}, [], []
     for skey, segs in plans.items():
         ids, mask = storage_stream(eng, skey, segs, batch)
@@ -492,14 +550,16 @@ def gather_fold(eng, tables, batch, plans) -> Dict[str, Any]:
             member = (table, ids[part], mask[part])
             if seg.kind == "mean" and seg.l > 1:
                 means.append((acts, i, member + (len(seg.keys), seg.l)))
+            elif seg.kind == "seq" and defer_sequences:
+                shape = (seg.size // seg.l, seg.l)
+                acts[i] = SequenceRows(table, ids[part].view(shape), mask[part].view(shape),
+                                       (0, table.shape[1]))
             else:
                 rows.append((acts, i, member))
         out[skey] = {"acts": acts, "ids": ids, "mask": mask}
-    folded = fold_mean_group([member for _, _, member in means])
-    for (acts, i, _), act in zip(means, folded):
-        acts[i] = act
-    for acts, i, member in rows:
-        acts[i] = fold_rows(*member)
+    for group, fold in ((means, fold_mean_group), (rows, fold_rows_group)):
+        for (acts, i, _), act in zip(group, fold([member for _, _, member in group])):
+            acts[i] = act
     return out
 
 
@@ -522,6 +582,9 @@ def combine_from_acts(eng, plans, ctx, batch):
                     else:
                         outputs[k] = sums / torch.clamp(cnt, min=1.0)
                     x0 += b
+            elif isinstance(act, SequenceRows):
+                (k,) = seg.keys
+                outputs[k] = act
             else:
                 (k,) = seg.keys
                 b, t = batch[k].rows.shape
@@ -570,14 +633,16 @@ def apply_gradients_packed(eng, state, g_acts, plans, ctx, batch):
     return state
 
 
-def lookup_packed(eng, tables, batch) -> Dict[str, Any]:
+def lookup_packed(eng, tables, batch, defer_sequences: bool = False) -> Dict[str, Any]:
     """Forward-only lookup (eval / predict / serving): fused gather + fold
     for the storages ``storages_packed`` admits, the classic gather for the
-    rest.  Same outputs as ``EmbeddingFeatures.lookup``.  ``tables``: the
-    engine state dict."""
+    rest.  Same outputs as ``EmbeddingFeatures.lookup``; with
+    ``defer_sequences`` the packed sequence columns come as ``SequenceRows``
+    handles instead of ``(emb, mask)``.  ``tables``: the engine state
+    dict."""
     pk, _ = storages_packed(eng)
     plans = plan_segments(eng, batch, storages=set(pk))
-    ctx = gather_fold(eng, tables, batch, plans)
+    ctx = gather_fold(eng, tables, batch, plans, defer_sequences)
     out = combine_from_acts(eng, plans, ctx, batch)
     classic_batch = {
         k: v for k, v in batch.items()

@@ -39,8 +39,8 @@ _U = ctypes.c_uint
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "fold": {
         "fold_mean_group_f32": [_P, _I, _P],
-        "fold_mean_max_segments": [],
-        "fold_rows_f32": [_P, _P, _P, _P, _L, _I, _P],
+        "fold_rows_group_f32": [_P, _I, _P],
+        "fold_max_members": [],
     },
     "field_attention": {
         "field_attention_fwd_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _F,
@@ -61,6 +61,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "din_pool": {
         "din_pool_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _L, _L, _L,
                          _L, _L, _P],
+        "din_pool_gather_f32": [_P] * 9 + [_L, _I, _L, _I, _I, _P],
     },
     "interacting": {
         "interacting_attention_f32": [_P] * 12 + [_L, _I, _I, _F, _F, _P],

@@ -14,12 +14,21 @@ model's; on a card any other width raises.
 The query, the facts and the mask may be strided views (the staytime model
 passes the first 16 lanes of 32-lane rows): the kernel takes their row
 strides; their last dimension must be contiguous.
+
+``din_pool_gather`` is the same pool over facts it gathers itself from an
+embedding table: the lanes ``lanes`` of ``mask * table[ids]``, what the
+fold K2 writes and the model slices, without K2's rows in device memory.
+Its plain version is exactly that: ``fold_rows_plain``, the slice, then
+``din_pool_plain``.  It has no gradient: the predict step takes it (the
+staytime model's sequence columns come as ``embedding.packed.SequenceRows``
+handles there), the train step keeps ``din_pool``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..embedding.packed import fold_rows_plain
 from ._build import check, count_launch, library, require, stream_handle
 
 MASK_PAD = -(2.0 ** 32) + 1.0
@@ -42,30 +51,39 @@ def din_pool_plain(query, facts, mask, w1, b1, w2, b2) -> torch.Tensor:
     return (scores[:, :, None] * facts).sum(dim=1)
 
 
-def _check(query, facts, mask, w1, b1, w2, b2) -> None:
-    for name, x, ndim in (("query", query, 2), ("facts", facts, 3), ("mask", mask, 2)):
-        if not isinstance(x, torch.Tensor) or x.dtype != torch.float32 or x.ndim != ndim:
-            raise TypeError(f"din_pool: {name} must be a {ndim}-d float32 tensor")
-    b, t, h = facts.shape
-    dev = facts.device
+def _check_pool(what, query, mask, w1, b1, w2, b2, b, t, h, dev) -> None:
+    """What both entries check: query (B, H) and mask (B, T) float32 on the
+    facts' device, contiguous in their last dim; the scorer's shapes; on a
+    card the widths the kernels take."""
+    for name, x in (("query", query), ("mask", mask)):
+        if not isinstance(x, torch.Tensor) or x.dtype != torch.float32 or x.ndim != 2:
+            raise TypeError(f"{what}: {name} must be a 2-d float32 tensor")
     if tuple(query.shape) != (b, h) or tuple(mask.shape) != (b, t):
-        raise ValueError(f"din_pool: query {tuple(query.shape)} and mask "
+        raise ValueError(f"{what}: query {tuple(query.shape)} and mask "
                          f"{tuple(mask.shape)} do not fit facts {(b, t, h)}")
     hid = w1.shape[-1] if w1.ndim == 2 else -1
     for name, x, shape in (("w1", w1, (4 * h, hid)), ("b1", b1, (hid,)),
                            ("w2", w2, (hid, 1)), ("b2", b2, (1,))):
         require(x, name, torch.float32, shape, dev)
     if query.device != dev or mask.device != dev:
-        raise ValueError("din_pool: inputs on more than one device")
-    for name, x in (("query", query), ("facts", facts), ("mask", mask)):
+        raise ValueError(f"{what}: inputs on more than one device")
+    for name, x in (("query", query), ("mask", mask)):
         if x.shape[-1] > 1 and x.stride(-1) != 1:
-            raise ValueError(f"din_pool: {name} must be contiguous in its last dim")
+            raise ValueError(f"{what}: {name} must be contiguous in its last dim")
     if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"din_pool: no kernel for device {dev}")
+        raise ValueError(f"{what}: no kernel for device {dev}")
     if dev.type == "cuda" and (h != KERNEL_H or hid != HIDDEN or t > MAX_T):
-        raise ValueError(f"din_pool: the kernel takes H {KERNEL_H}, a scorer of "
+        raise ValueError(f"{what}: the kernel takes H {KERNEL_H}, a scorer of "
                          f"width {HIDDEN} and T <= {MAX_T}; got H {h}, width "
                          f"{hid}, T {t}")
+
+
+def _check(query, facts, mask, w1, b1, w2, b2) -> None:
+    if not isinstance(facts, torch.Tensor) or facts.dtype != torch.float32 or facts.ndim != 3:
+        raise TypeError("din_pool: facts must be a 3-d float32 tensor")
+    if facts.shape[-1] > 1 and facts.stride(-1) != 1:
+        raise ValueError("din_pool: facts must be contiguous in its last dim")
+    _check_pool("din_pool", query, mask, w1, b1, w2, b2, *facts.shape, facts.device)
 
 
 def _launch(query, facts, mask, w1, b1, w2, b2) -> torch.Tensor:
@@ -125,3 +143,70 @@ def din_pool(query: torch.Tensor, facts: torch.Tensor, mask: torch.Tensor,
             x.requires_grad for x in (query, facts, w1, b1, w2, b2)):
         return DinPoolFunction.apply(query, facts, mask, w1, b1, w2, b2)
     return _forward(query, facts, mask, w1, b1, w2, b2)
+
+
+def din_pool_gather_plain(query, table, ids, mask, lanes, w1, b1, w2, b2) -> torch.Tensor:
+    """``din_pool_plain`` over the facts ``fold_rows_plain(table, ids,
+    mask)[:, lo:hi]`` of the (B, T) ``ids`` and ``mask``."""
+    b, t = ids.shape
+    lo, hi = lanes
+    facts = fold_rows_plain(table, ids.reshape(-1), mask.reshape(-1))[:, lo:hi]
+    return din_pool_plain(query, facts.reshape(b, t, hi - lo), mask, w1, b1, w2, b2)
+
+
+def _check_gather(query, table, ids, mask, lanes, w1, b1, w2, b2) -> None:
+    require(table, "din_pool_gather: table", torch.float32)
+    if table.ndim != 2:
+        raise ValueError(f"din_pool_gather: table must be (rows, D), got "
+                         f"{tuple(table.shape)}")
+    dev = table.device
+    require(ids, "din_pool_gather: ids", torch.int32)
+    if ids.ndim != 2 or ids.device != dev:
+        raise ValueError(f"din_pool_gather: ids must be (B, T) on {dev}, got "
+                         f"{tuple(ids.shape)} on {ids.device}")
+    require(mask, "din_pool_gather: mask", torch.float32, ids.shape)
+    b, t = ids.shape
+    h = query.shape[-1]
+    lo, hi = lanes
+    # the kernel reads a fact as 16-byte chunks of its table row
+    if table.shape[1] % 4 or table.data_ptr() % 16 or lo % 4 or not (
+            0 <= lo and hi - lo == h and hi <= table.shape[1]):
+        raise ValueError(f"din_pool_gather: lanes [{lo}, {hi}) of a table of D "
+                         f"{table.shape[1]}, {table.data_ptr() % 16} bytes past 16-byte "
+                         f"alignment: needs D % 4 == 0, an aligned table and a window "
+                         f"of the query's width {h} starting at a multiple of 4")
+    _check_pool("din_pool_gather", query, mask, w1, b1, w2, b2, b, t, h, dev)
+
+
+def din_pool_gather(query: torch.Tensor, table: torch.Tensor, ids: torch.Tensor,
+                    mask: torch.Tensor, lanes, w1: torch.Tensor, b1: torch.Tensor,
+                    w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """K7 over gathered facts: ``din_pool(query, facts, mask, ...)`` with
+    ``facts = (mask[..., None] * table[ids])[:, :, lo:hi]`` for ``lanes =
+    (lo, hi)``.  ``table`` (rows, D) float32, 16-byte aligned, D % 4 == 0;
+    ``ids`` (B, T) int32 and ``mask`` (B, T) float32 {0, 1}, contiguous; a
+    window of the query's width starting at a multiple of 4; ``query`` (B,
+    H) may be a strided view.  A masked entry's fact is 0 and its table row
+    is not read.  Returns (B, H) float32, with no gradient: raises
+    ``RuntimeError`` where an input needs one."""
+    _check_gather(query, table, ids, mask, lanes, w1, b1, w2, b2)
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (query, table, w1, b1, w2, b2)):
+        raise RuntimeError("din_pool_gather has no gradient: train through din_pool "
+                           "on gathered facts")
+    if table.device.type == "cpu":
+        return din_pool_gather_plain(query, table, ids, mask, lanes, w1, b1, w2, b2)
+    b, t = ids.shape
+    out = torch.empty((b, query.shape[1]), dtype=torch.float32, device=table.device)
+    if out.numel() == 0 or t == 0:
+        return out.zero_()
+    lib = library("din_pool")
+    with torch.cuda.device(table.device):
+        code = lib.din_pool_gather_f32(
+            query.data_ptr(), table.data_ptr(), ids.data_ptr(), mask.data_ptr(),
+            w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+            b, t, query.stride(0), table.shape[1], lanes[0],
+            stream_handle(table.device))
+    check(lib, code, "din_pool_gather")
+    count_launch("din_pool")
+    return out

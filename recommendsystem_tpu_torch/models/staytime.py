@@ -3,8 +3,10 @@
 Counterpart of ``recommendsystem_tpu/models/staytime.py`` (the reference's
 ``staytime/VideoDnn.py``, ``config.py`` and ``model.py``).  Graph: 32-d slot
 embeddings split into general [0:16) and bias [16:) halves; DIN pooling
-(K7) over 3 behaviour sequences keyed to query slots; SENet (concat
-squeeze) over the general halves; user x item multiply; listwise FM; FFM
+(K7) over 3 behaviour sequences keyed to query slots (in the predict step
+each sequence comes as a ``SequenceRows`` handle and K7 gathers its general
+half from the table); SENet (concat squeeze) over the general halves;
+user x item multiply; listwise FM; FFM
 user x item pairs at dim 8; all concatenated; 3 PPNet-gated experts over
 (256, 128); 3-task MMoE gates (64, 32); the staytime head, DeepCross(3) and
 a 400-bin softmax whose expected value over the bin centres is the served
@@ -31,6 +33,7 @@ from torch import nn
 from ..core.device import resolve_device
 from ..embedding import EmbeddingFeatures, category_column, embedding_column
 from ..embedding.optimizers import SparseAdaGrad
+from ..embedding.packed import SequenceRows
 from ..nn import DINPool, DeepCrossLayer, Dense, FFMBlock, SENet, fm_cross_term
 from ..train import losses as L
 from ..train.adam import Adam
@@ -134,9 +137,14 @@ class StaytimeModule(nn.Module):
         seq_query = dict(c.seq_query)
         din_embs = []
         for s in c.seq_slots:
-            seq_emb, seq_mask = embs[f"seq_{s}"]
-            din_embs.append(getattr(self, f"din_{s}")(
-                general[seq_query[s]], seq_emb[:, :, 0:GENERAL], seq_mask))
+            seq = embs[f"seq_{s}"]
+            if isinstance(seq, SequenceRows):    # predict: K7 gathers the rows
+                facts, seq_mask = seq.lanes(0, GENERAL), None
+            else:
+                seq_emb, seq_mask = seq
+                facts = seq_emb[:, :, 0:GENERAL]
+            din_embs.append(getattr(self, f"din_{s}")(general[seq_query[s]], facts,
+                                                      seq_mask))
 
         general_reweight = self.senet(general_inputs)
         mu = torch.cat([general[s] for s in c.user_slots], dim=-1)

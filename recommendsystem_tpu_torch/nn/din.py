@@ -8,8 +8,9 @@ over [q, f, q - f, q * f] scores each fact; masked positions get
 sequence weights the sum of the facts.  The pool is K7 (``kernels/din.py``):
 the CUDA kernel on a card, its plain version on the CPU.  The kernel takes
 the staytime widths (H = 16, a scorer of width 16); on a card other widths
-raise.  ``DINAttention`` (the zero-mask variant) is used by no ported model
-yet.
+raise.  The facts may be a ``SequenceRows`` handle (the predict step's
+sequence columns): K7 then gathers them from the table itself.
+``DINAttention`` (the zero-mask variant) is used by no ported model yet.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..kernels.din import HIDDEN, MASK_PAD, din_pool  # noqa: F401
+from ..embedding.packed import SequenceRows
+from ..kernels.din import HIDDEN, MASK_PAD, din_pool, din_pool_gather  # noqa: F401
 from .mlp import glorot_uniform_
 
 
@@ -30,9 +32,11 @@ def sequence_mask(lengths: torch.Tensor, maxlen: int) -> torch.Tensor:
 
 
 class DINPool(nn.Module):
-    """query (B, H); facts (B, T, H); mask (B, T) bool or None.  Returns
-    (B, H).  Parameters keep the flax names and layout: ``w1`` (4H,
-    hidden), ``b1`` (hidden,), ``w2`` (hidden, 1), ``b2`` (1,)."""
+    """query (B, H); facts (B, T, H) and mask (B, T) bool or None, or facts
+    a ``SequenceRows`` handle whose window is H wide (it carries its mask;
+    no gradient).  Returns (B, H).  Parameters keep the flax names and
+    layout: ``w1`` (4H, hidden), ``b1`` (hidden,), ``w2`` (hidden, 1),
+    ``b2`` (1,)."""
 
     def __init__(self, in_dim: int, hidden: int = HIDDEN, device=None):
         super().__init__()
@@ -50,8 +54,13 @@ class DINPool(nn.Module):
             self.b1.zero_()
             self.b2.zero_()
 
-    def forward(self, query: torch.Tensor, facts: torch.Tensor,
+    def forward(self, query: torch.Tensor, facts,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if isinstance(facts, SequenceRows):
+            if mask is not None:
+                raise ValueError("DINPool: a SequenceRows handle carries its own mask")
+            return din_pool_gather(query, facts.table, facts.ids, facts.mask,
+                                   facts.window, self.w1, self.b1, self.w2, self.b2)
         if mask is None:
             mask_f = torch.ones(facts.shape[:2], dtype=torch.float32,
                                 device=facts.device)

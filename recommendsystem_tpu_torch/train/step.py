@@ -10,8 +10,9 @@ Counterpart of ``recommendsystem_tpu/train/step.py``, local mode:
   (K3 / K4) and lazy-Adam (K8) pass over the tables;
 - ``make_scan_train_step`` runs it over K batches in a Python loop, in
   place of the JAX package's ``lax.scan`` driver;
-- ``make_predict_step`` is the fused lookup, the dense tower in float32 and
-  the bundle's ``predict_view``.
+- ``make_predict_step`` is the fused lookup (sequence columns deferred to
+  the DIN pool), the dense tower in float32 and the bundle's
+  ``predict_view``.
 
 Keras-compile semantics as in the JAX package: the loss is the sum over
 tasks of ``loss_weight * loss``, where a loss that returns a scalar is taken
@@ -195,13 +196,15 @@ def make_scan_train_step(bundle: "ModelBundle", mode: str = "local") -> Callable
 
 def _lookup_for_mode(bundle, tables, batch, mode: str = "local"):
     _check_mode(mode)
-    return packed_mod.lookup_packed(bundle.embedding, tables, batch)
+    return packed_mod.lookup_packed(bundle.embedding, tables, batch, defer_sequences=True)
 
 
 def make_predict_step(bundle: "ModelBundle", mode: str = "local") -> Callable:
     """Returns ``step(state, batch, dense_inputs) -> {task: (B, 1)}``,
     running under ``torch.inference_mode()``; ``batch`` holds IdBatches of
-    tensors on the bundle's device."""
+    tensors on the bundle's device.  The lookup defers the sequence
+    columns: the model gets ``SequenceRows`` handles for them, and the DIN
+    pool (K7) gathers the rows it reads."""
 
     def step(state: TrainState, batch, dense_inputs=None):
         with torch.inference_mode():

@@ -7,7 +7,7 @@ no JAX, so it also runs where JAX is absent, without the suite's conftest:
     python -m pytest -p no:cacheprovider --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
 Tolerances: folds atol 1e-6 (sums of <= 5 float32 products in another
-order), the grouped folds (L up to 10, rows of any scale) atol 1e-6 plus
+order), the grouped per-row fold exact (one product, one rounding), the grouped folds (L up to 10, rows of any scale) atol 1e-6 plus
 2L units of 2^-24 of each output's sum of |mask * row| (``_assert_fold``); attention atol 2e-5 (softmax over <= 175 keys in another order),
 its gradients rtol 1e-4 and atol 2e-5 (sums over <= 175 fields); the
 unfold-scatter's gradient sums atol 1e-5, or 1e-6 per entry that hits one
@@ -26,7 +26,8 @@ import torch
 
 from recommendsystem_tpu_torch.embedding import packed
 from recommendsystem_tpu_torch.embedding.optimizers import SparseAdam
-from recommendsystem_tpu_torch.kernels.din import din_pool, din_pool_plain
+from recommendsystem_tpu_torch.kernels.din import (din_pool, din_pool_gather,
+                                                   din_pool_gather_plain, din_pool_plain)
 from recommendsystem_tpu_torch.kernels import launch_counts, reset_launch_counts
 from recommendsystem_tpu_torch.kernels.interacting import (
     PARAM_NAMES,
@@ -384,6 +385,61 @@ def _check_unfold_group(items):
         _assert_unfold(_flat(grads, counts), want, g.shape[1])
 
 
+def _rows_members(dev, members, rows=700):
+    """(table, ids, mask) members of (D, E, hot): a quarter of the entries
+    masked over random (nonzero-row) padding ids; hot members put every
+    live entry on row 3."""
+    items = []
+    for i, (d, e, hot) in enumerate(members):
+        g = torch.Generator(device=dev).manual_seed(300 + i)
+        ids = torch.randint(0, rows, (e,), generator=g, device=dev, dtype=torch.int32)
+        mask = (torch.rand((e,), generator=g, device=dev) > 0.25).float()
+        if hot:
+            ids = torch.where(mask > 0, torch.full_like(ids, 3), ids)
+        items.append((_table(dev, rows, d, i), ids, mask))
+    return items
+
+
+def _assert_rows(got, items):
+    """Each member of a grouped per-row fold equal to its plain version:
+    one product per output, rounded once on either side."""
+    assert len(got) == len(items)
+    for out, item in zip(got, items):
+        torch.testing.assert_close(out, packed.fold_rows_plain(*item), rtol=0, atol=0)
+
+
+# the grouped per-row fold: D 3 and 5 take one float a lane, the others
+# float4 lanes; E 0 is an empty member; the staytime sequence shape last
+ROWS_MEMBERS = [(8, 256, False), (32, 1000, False), (56, 77, True), (8, 0, False),
+                (3, 50, False), (5, 33, True), (16, 4097, False), (32, 64 * 50, False)]
+
+
+def test_fold_rows_group_kernel(cuda):
+    items = _rows_members(cuda, ROWS_MEMBERS)
+    got = packed.fold_rows_group(items)
+    torch.cuda.synchronize()
+    assert launch_counts()["fold_rows"] == 1
+    _assert_rows(got, items)
+
+
+def test_fold_rows_group_of_65_members(cuda):
+    """65 members: two launches of at most 64."""
+    items = _rows_members(cuda, [(8 * (1 + i % 4), 20 + 13 * i, i % 7 == 0)
+                                 for i in range(65)], rows=300)
+    got = packed.fold_rows_group(items)
+    torch.cuda.synchronize()
+    assert launch_counts()["fold_rows"] == 2
+    _assert_rows(got, items)
+
+
+def test_fold_rows_group_unaligned_table(cuda):
+    """A table whose rows are not 16-byte aligned takes one float a lane."""
+    flat = torch.cat([torch.zeros(1, device=cuda), _table(cuda, 500, 8, 7).reshape(-1)])
+    ((_, ids, mask),) = _rows_members(cuda, [(8, 333, False)], rows=500)
+    item = (flat[1:].view(500, 8), ids, mask)
+    _assert_rows(packed.fold_rows_group([item]), [item])
+
+
 def test_unfold_mean_group_kernel(cuda):
     """One grouped launch over members of D 8-56 and 3, 5, L 2-10, hot
     rows and an empty member; two members share one accumulator."""
@@ -570,6 +626,76 @@ def test_din_pool_kernel(cuda, b, t, h):
     assert launch_counts()["din_pool"] == 1
 
 
+def _gather_inputs(dev, b, t, seed, rows=5000, d=32):
+    """Query (the first 16 lanes of 32-lane rows), a (rows, D) table, (B, T)
+    ids and mask: ragged lengths, row 0 and every fifth row all masked, the
+    last row full, masked entries over random (nonzero) rows."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, 32), generator=g, device=dev)[:, :16]
+    table = torch.randn((rows, d), generator=g, device=dev)
+    ids = torch.randint(0, rows, (b, t), generator=g, device=dev, dtype=torch.int32)
+    lens = torch.randint(1, t + 1, (b,), generator=g, device=dev)
+    lens[::5], lens[-1] = 0, t
+    mask = (torch.arange(t, device=dev)[None, :] < lens[:, None]).float()
+    w1 = torch.randn((64, 16), generator=g, device=dev) * 0.2
+    b1, w2, b2 = (torch.randn(shape, generator=g, device=dev) * 0.3
+                  for shape in ((16,), (16, 1), (1,)))
+    return q, table, ids, mask, w1, b1, w2, b2
+
+
+@pytest.mark.parametrize("b,t,lanes", [(8, 50, (0, 16)), (256, 50, (0, 16)),
+                                       (16384, 50, (0, 16)), (33, 7, (16, 32)),
+                                       (5, 70, (8, 24)), (9, 512, (0, 16)), (3, 1, (0, 16)),
+                                       (100, 200, (0, 16))])
+def test_din_pool_gather_kernel(cuda, b, t, lanes):
+    """The gathered pool against its plain version (K2's rows, the window,
+    then the pool); T 70 takes two load passes, T 200 and 512 fewer warps a
+    block and more than 48 KB of shared memory."""
+    q, table, ids, mask, *w = _gather_inputs(cuda, b, t, seed=b + t)
+    with torch.inference_mode():
+        got = din_pool_gather(q, table, ids, mask, lanes, *w)
+    want = din_pool_gather_plain(q, table, ids, mask, lanes, *w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+    # no live entry: the mean of zero facts, not of the padding rows
+    dead = mask.sum(dim=1) == 0
+    assert bool(dead.any()) and not got[dead].any()
+    assert launch_counts()["din_pool"] == 1
+
+
+def test_staytime_predict_launches(cuda):
+    """A small staytime predict call: with 5 ids one K1 and no K2 (the
+    sequences go to K7, which gathers them), with 1 id one K2; three K7
+    launches either way; scores equal the CPU plain path's."""
+    import numpy as np
+
+    from recommendsystem_tpu_torch.data import synthetic_batch
+    from recommendsystem_tpu_torch.models import create_model
+    from recommendsystem_tpu_torch.models.staytime import StaytimeConfig
+    from recommendsystem_tpu_torch.train import create_train_state, make_predict_step
+    from recommendsystem_tpu_torch.train.state import TrainState
+
+    cfg = StaytimeConfig(bucket_size=1024, seq_max_len=50)
+    bundle = create_model("staytime", cfg=cfg, deep_hidden_units=(16, 8), device=cuda)
+    cpu = create_model("staytime", cfg=cfg, deep_hidden_units=(16, 8), device="cpu")
+    state = create_train_state(bundle, seed=0)
+    cpu_state = TrainState(params={k: v.cpu() for k, v in state.params.items()},
+                           opt_state=None,
+                           tables={k: {"w": t["w"].cpu()} for k, t in state.tables.items()})
+    for ipf, want in ((5, {"fold_mean": 1, "fold_rows": 0, "din_pool": 3}),
+                      (1, {"fold_mean": 0, "fold_rows": 1, "din_pool": 3})):
+        batch = synthetic_batch(bundle, 300, seed=ipf, ids_per_feature=ipf)[0]
+        reset_launch_counts()
+        out = make_predict_step(bundle)(state, batch)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        assert {k: counts[k] for k in want} == want
+        ref = make_predict_step(cpu)(cpu_state, {k: v.to("cpu") for k, v in batch.items()})
+        for k in out:
+            np.testing.assert_allclose(out[k].cpu().numpy(), ref[k].numpy(),
+                                       rtol=1e-5, atol=2e-6, err_msg=k)
+
+
 def test_din_pool_backward_through_the_function(cuda):
     args = _din_inputs(cuda, 64, 50, 16, seed=3, requires_grad=True)
     do = torch.randn((64, 16), device=cuda)
@@ -719,6 +845,21 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                  w1, b1, w2, b2)
     with pytest.raises(ValueError, match="H 16"):
         din_pool(q[:, :8], f[:, :, :8], mask, w1[:32], b1, w2, b2)
+    q, table, ids, mask, *w = _gather_inputs(cuda, 4, 6, seed=2)
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="T <="):
+            din_pool_gather(q, table, torch.zeros(4, 513, dtype=torch.int32, device=cuda),
+                            torch.ones(4, 513, device=cuda), (0, 16), *w)
+        with pytest.raises(ValueError):                       # ids on the CPU
+            din_pool_gather(q, table, ids.cpu(), mask, (0, 16), *w)
+        with pytest.raises(ValueError, match="more than one device"):   # query on the CPU
+            din_pool_gather(q.cpu(), table, ids, mask, (0, 16), *w)
+        with pytest.raises(ValueError, match="aligned"):
+            shifted = torch.cat([torch.zeros(1, device=cuda), table.reshape(-1)])[1:]
+            din_pool_gather(q, shifted.view(table.shape), ids, mask, (0, 16), *w)
+    with pytest.raises(ValueError, match="members on"):
+        packed.fold_rows_group([(table, ids.reshape(-1), mask.reshape(-1)),
+                                (table.cpu(), ids.reshape(-1).cpu(), mask.reshape(-1).cpu())])
     from recommendsystem_tpu_torch.nn import DINPool
     with pytest.raises(ValueError, match="width 16"):
         DINPool(16, hidden=8, device=cuda)(q, f, mask.bool())
