@@ -70,11 +70,25 @@
    ctr and multi_head (B = 32768) and the 212-feature ctr shape (B = 8192,
    32,768-id buckets, one id per column), each with K6 and through the
    transposed path, timed in turns, with launches per call, and held to the
-   CPU at B = 64.
+   CPU at B = 64;
+8. drives the train step of ctr (24 slots of 48-wide rows, B = 32768, 5
+   ids: one K1, K3, K5f, K5b and K8 a step), the 212-feature ctr (F = 180,
+   56-wide rows in 36 storages, B = 8192, one id a column: one K2, 180 K4,
+   one K5f, K5b and K8 a step), multi_head (B = 32768) and finish (B =
+   32768: one K1, K3 and K8, no K5), each in its own window of counts held
+   to those launches, with losses and the L1L2 penalty finite and t and
+   show equal to the live counts; times each step; times K3, K4 and K8 at
+   D 48, 56 and 32 and K5f and K5b at F 40 and 180 with dropout as these
+   steps launch them; holds two card steps of each model to the CPU plain
+   path at a smaller bucket and B = 64 (same seeds, same dropout); then
+   full-width finish serving (40 tables of 25,600 x 32) through ``score()``
+   and over HTTP, scores in (0, 1), unchanged by padding and equal to the
+   CPU's, and its predict step at B = 32768 (5 ids: one K1; 1 id: one K2).
 
 Prints the card's name and power limit, one JSON line each for the autoint
-predict step, the train step, the staytime predict step and the predict
-steps with and without K6 (``interacting_predict``), then ``{"kernels":
+predict step, the train step, the staytime predict step, the predict
+steps with and without K6 (``interacting_predict``) and the phase-8 train
+steps with finish's predict step (``tower_train``), then ``{"kernels":
 ...}`` (9 kernels), and last ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Any failure ends the run with a traceback
 and a non-zero exit; without CUDA it exits non-zero before printing.
@@ -127,6 +141,8 @@ CTR_BATCH = 32768                 # bench.py:357-358
 CTR212_BATCH = 8192               # bench.py:325-327
 CTR212_BUCKET = 32768
 CHECK_BATCH = 64
+FINISH_BATCH = 32768              # finish's train batch (bench.py:359)
+TOWER_CHECK_BATCH = 64            # phase 8's card-vs-CPU steps (see card_vs_cpu_margins)
 
 OUT_DIR = "chiprun_out"
 
@@ -446,9 +462,11 @@ def unfold_case(name, eng, skey, batch, cycles_per_ms):
             "bound_ms": bms, "bound_by": by, "bytes": nbytes, "ops": ops}
 
 
-def _autoint_streams(bundle, b, seed, ids_per_feature=5):
-    """Per autoint storage (24, one mean column each): the storage key, its
-    stream (ids, mask) and its segment, for a batch of ``b``."""
+def _storage_streams(bundle, b, seed, ids_per_feature=5):
+    """Per storage of a bundle whose storages hold one segment each
+    (autoint's 24 and ctr's 24 of one column each, finish's 40): the
+    storage key, its stream (ids, mask) and its segment, for a batch of
+    ``b``."""
     from recommendsystem_tpu_torch.data import synthetic_batch
     from recommendsystem_tpu_torch.embedding import packed
 
@@ -506,7 +524,7 @@ def fold_group_case(bundle, state, b, cycles_per_ms):
     calls, one a column."""
     from recommendsystem_tpu_torch.embedding import packed
 
-    streams = _autoint_streams(bundle, b, seed=b + 11)
+    streams = _storage_streams(bundle, b, seed=b + 11)
     items = [(state.tables[skey]["w"], ids, mask, len(seg.keys), seg.l)
              for skey, ids, mask, seg in streams]
     got = packed.fold_mean_group(items)
@@ -612,7 +630,7 @@ def rows_group_case(what, items, pick, cycles_per_ms):
 def autoint_rows_case(bundle, state, b, cycles_per_ms):
     """K2 over autoint's 24 single-id columns (one a storage, D 8) at batch
     ``b``, tables alternating between two copies (204 MB a call)."""
-    streams = _autoint_streams(bundle, b, seed=b + 21, ids_per_feature=1)
+    streams = _storage_streams(bundle, b, seed=b + 21, ids_per_feature=1)
     items = [(state.tables[skey]["w"], ids, mask) for skey, ids, mask, _ in streams]
     pick = _alternate([items, [(t.clone(), i, m) for t, i, m in items]])
     case = rows_group_case(f"autoint 24 columns, 1 id, b={b}", items, pick, cycles_per_ms)
@@ -621,15 +639,16 @@ def autoint_rows_case(bundle, state, b, cycles_per_ms):
 
 
 def unfold_group_case(bundle, b, cycles_per_ms):
-    """K3 as the train step launches it: one grouped call over all 24
-    autoint mean columns (5 ids) at batch ``b``, each column's gradient
-    into its own storage's accumulator, against the plain version on the
-    card.  Bound: the sum of the per-column bounds (``unfold_case``'s
-    formula); yardstick: 24 ``index_add_`` calls of prebuilt payloads."""
+    """K3 as the train step launches it: one grouped call over all the mean
+    columns (5 ids; autoint's 24 of D 8, ctr's 24 of D 48, finish's 40 of
+    D 32) at batch ``b``, each column's gradient into its own storage's
+    accumulator, against the plain version on the card.  Bound: the sum of
+    the per-column bounds (``unfold_case``'s formula); yardstick: one
+    ``index_add_`` call of a prebuilt payload a column."""
     from recommendsystem_tpu_torch.embedding import packed
 
     eng = bundle.embedding
-    streams = _autoint_streams(bundle, b, seed=b + 12)
+    streams = _storage_streams(bundle, b, seed=b + 12)
     gen = torch.Generator(device="cuda").manual_seed(b + 13)
     items, libs, accs = [], [], []
     for skey, ids, mask, seg in streams:
@@ -669,7 +688,8 @@ def unfold_group_case(bundle, b, cycles_per_ms):
     few = 16           # launches queued behind the spin kernel: see fold_group_case
     ms, host_ms = timed(lambda: packed.unfold_mean_scatter_group(pick()), iters,
                         cycles_per_ms)
-    return {"name": "unfold_mean", "group": len(items), "b": b, "l": 5, "d": 8,
+    return {"name": "unfold_mean", "group": len(items), "b": b, "l": items[0][5],
+            "d": sorted({it[2].shape[1] for it in items}),
             "max_abs_err": err, "ms": ms, "host_ms": host_ms,
             "plain_ms": timed(lambda: [packed.unfold_mean_scatter_plain(*it) for it in pick()],
                               few, cycles_per_ms)[0],
@@ -780,7 +800,8 @@ def _adam_bytes(acc0, dims):
 
 def adam_case(eng, tables, batch, cycles_per_ms):
     """K8 as the train step issues it: one grouped pass over every storage
-    (autoint's 24), with the counts and gradients that one train batch
+    (autoint's or ctr's 24, the 212-feature ctr's 36, finish's 40), with
+    the counts and gradients that one train batch
     leaves in the accumulators, against the plain ``SparseAdam.update`` on
     each storage in turn; also one storage alone.  The pass clears the
     accumulators, so each timed call first restores them with one copy
@@ -812,7 +833,8 @@ def adam_case(eng, tables, batch, cycles_per_ms):
     for w, a in zip(want, acc0):
         packed.sparse_adam_update_plain(opt, w, a.clone())
     torch.cuda.synchronize()
-    err = _check_adam(got, want, before, acc0, accs, "sparse_adam_update (24 storages)")
+    err = _check_adam(got, want, before, acc0, accs,
+                      f"sparse_adam_update ({len(skeys)} storages)")
 
     def restore():
         flat.copy_(flat0)
@@ -843,6 +865,7 @@ def adam_case(eng, tables, batch, cycles_per_ms):
     ms, host_ms = timed(kernel, iters, cycles_per_ms)
     single_ms, single_host_ms = timed(single, iters, cycles_per_ms)
     return {"name": "sparse_adam_update", "storages": len(skeys),
+            "b": next(iter(batch.values())).rows.shape[0],
             "rows": sum(eng.storage[k][0] for k in skeys), "d": sorted(set(dims)),
             "live_rows": sum(int((_acc_views(a, d)[1] > 0).sum())
                              for a, d in zip(acc0, dims)),
@@ -1252,6 +1275,67 @@ def _to(tree, device):
     return tree
 
 
+def _margin(got, want, atol, rtol):
+    """(largest |got - want| / (atol + rtol |want|) over the elements, how
+    many exceed 1, largest |got - want|): within the tolerance, as
+    ``np.testing.assert_allclose`` takes it, is a margin of at most 1."""
+    got, want = (torch.as_tensor(x, dtype=torch.float64) for x in (got, want))
+    diff = (got - want).abs()
+    r = torch.where(diff == 0, 0.0, diff / (atol + rtol * want.abs()))
+    return float(r.max()), int((r > 1).sum()), float(diff.max())
+
+
+def card_vs_cpu_margins(bundle, cpu_bundle, b, ipf, seed=31):
+    """Two train steps on the card and the same two on the CPU through the
+    plain versions, from one seeded state and one batch of ``b`` drawn from
+    ``seed`` (same step seeds, same dropout).  Returns, per quantity, its
+    margin against its ``TRAIN_*`` tolerance (``_margin``: losses and
+    ``regularization`` rtol TRAIN_LOSS_RTOL, dense params and table weights
+    atol TRAIN_W_ATOL, moments TRAIN_MOMENT_TOL; t and show must be equal),
+    the count of elements past it, and the largest difference."""
+    from recommendsystem_tpu_torch.data import synthetic_batch
+    from recommendsystem_tpu_torch.train import make_train_step
+    from recommendsystem_tpu_torch.train.state import TrainState, create_train_state
+
+    gstate = create_train_state(bundle, seed=3)
+    cstate = TrainState(**{f: _to(getattr(gstate, f), "cpu")
+                           for f in ("params", "opt_state", "tables", "step")})
+    gb, gdense, glabels, gweight = synthetic_batch(bundle, b, seed=seed, ids_per_feature=ipf)
+    cb, cdense, clabels, cweight = synthetic_batch(cpu_bundle, b, seed=seed, ids_per_feature=ipf)
+    step, cstep = make_train_step(bundle), make_train_step(cpu_bundle)
+    parts = {n: [] for n in ("loss", "regularization", "params", "w", "m", "v", "t", "show")}
+    for i in range(2):
+        gstate, ginfo = step(gstate, gb, glabels, gweight, gdense, seed=40 + i)
+        cstate, cinfo = cstep(cstate, cb, clabels, cweight, cdense, seed=40 + i)
+        for name in ("loss", "regularization"):
+            parts[name].append(_margin(float(ginfo[name]), float(cinfo[name]), 0.0,
+                                       TRAIN_LOSS_RTOL))
+    for k, v in cstate.params.items():
+        parts["params"].append(_margin(gstate.params[k].cpu(), v, TRAIN_W_ATOL, 0.0))
+    moment = (TRAIN_MOMENT_TOL["atol"], TRAIN_MOMENT_TOL["rtol"])
+    for skey, ct in cstate.tables.items():
+        gt = _to(gstate.tables[skey], "cpu")
+        parts["w"].append(_margin(gt["w"], ct["w"], TRAIN_W_ATOL, 0.0))
+        for n in ("m", "v"):
+            parts[n].append(_margin(gt["opt"][n], ct["opt"][n], *moment))
+        parts["t"].append(_margin(gt["opt"]["t"], ct["opt"]["t"], 0.0, 0.0))
+        parts["show"].append(_margin(gt["show"], ct["show"], 0.0, 0.0))
+    return {n: {"margin": max(p[0] for p in ps), "past": sum(p[1] for p in ps),
+                "max_diff": max(p[2] for p in ps)} for n, ps in parts.items()}
+
+
+def hold_card_to_cpu(bundle, cpu_bundle, b, ipf, what):
+    """``card_vs_cpu_margins``, failing unless every quantity is within its
+    tolerance (margin at most 1; t and show equal).  Returns the margins."""
+    margins = card_vs_cpu_margins(bundle, cpu_bundle, b, ipf)
+    log(f"{what} train card vs cpu:", json.dumps(margins))
+    bad = {n: m for n, m in margins.items() if m["past"]}
+    if bad:
+        raise AssertionError(f"{what}: two card steps differ from the CPU's past the "
+                             f"TRAIN_* tolerances: {bad}")
+    return margins
+
+
 def train_path(bundle, cpu_bundle, card):
     """The packed train step at full width.  Counted window: a fresh state
     takes ``TRAIN_STEPS`` steps on one B = 65536 batch with 5 ids per
@@ -1262,7 +1346,7 @@ def train_path(bundle, cpu_bundle, card):
     from recommendsystem_tpu_torch.data import synthetic_batch
     from recommendsystem_tpu_torch.kernels import launch_counts, reset_launch_counts
     from recommendsystem_tpu_torch.train import make_train_step
-    from recommendsystem_tpu_torch.train.state import TrainState, create_train_state
+    from recommendsystem_tpu_torch.train.state import create_train_state
 
     eng = bundle.embedding
     step = make_train_step(bundle)
@@ -1314,42 +1398,23 @@ def train_path(bundle, cpu_bundle, card):
                                      f"launches a step with {ipf} ids, not 1")
 
     # two steps on the card against the same two on the CPU (plain versions)
-    gstate = create_train_state(bundle, seed=3)
-    cstate = TrainState(**{f: _to(getattr(gstate, f), "cpu")
-                           for f in ("params", "opt_state", "tables", "step")})
-    gb, gdense, glabels, gweight = synthetic_batch(bundle, TRAIN_CHECK_BATCH, seed=31)
-    cb, cdense, clabels, cweight = synthetic_batch(cpu_bundle, TRAIN_CHECK_BATCH, seed=31)
-    cstep = make_train_step(cpu_bundle)
     t0 = time.perf_counter()
-    diffs = {"loss_rel": 0.0, "params": 0.0, "w": 0.0}
-    for i in range(2):
-        gstate, ginfo = step(gstate, gb, glabels, gweight, gdense, seed=40 + i)
-        cstate, cinfo = cstep(cstate, cb, clabels, cweight, cdense, seed=40 + i)
-        gl, cl = float(ginfo["loss"]), float(cinfo["loss"])
-        np.testing.assert_allclose(gl, cl, rtol=TRAIN_LOSS_RTOL)
-        diffs["loss_rel"] = max(diffs["loss_rel"], abs(gl - cl) / abs(cl))
+    out["card_vs_cpu"] = hold_card_to_cpu(bundle, cpu_bundle, TRAIN_CHECK_BATCH, 5, "autoint")
     out["cpu_check_s"] = time.perf_counter() - t0
-    for k, v in cstate.params.items():
-        got = gstate.params[k].cpu()
-        np.testing.assert_allclose(got.numpy(), v.numpy(), rtol=0, atol=TRAIN_W_ATOL,
-                                   err_msg=k)
-        diffs["params"] = max(diffs["params"], float((got - v).abs().max()))
-    for skey, ct in cstate.tables.items():
-        gt = _to(gstate.tables[skey], "cpu")
-        np.testing.assert_allclose(gt["w"].numpy(), ct["w"].numpy(), rtol=0,
-                                   atol=TRAIN_W_ATOL, err_msg=skey)
-        diffs["w"] = max(diffs["w"], float((gt["w"] - ct["w"]).abs().max()))
-        for n in ("m", "v"):
-            np.testing.assert_allclose(gt["opt"][n].numpy(), ct["opt"][n].numpy(),
-                                       **TRAIN_MOMENT_TOL, err_msg=f"{skey} {n}")
-        np.testing.assert_array_equal(gt["opt"]["t"].numpy(), ct["opt"]["t"].numpy())
-        np.testing.assert_array_equal(gt["show"].numpy(), ct["show"].numpy())
-    out["card_vs_cpu_max_diff"] = diffs
-    log("train card vs cpu:", json.dumps(diffs))
 
     # throughput: median of 3 windows, each ending in a host fetch of the loss
-    state = create_train_state(bundle, seed=4)
     batch, dense, labels, weight = data[5]
+    ms, windows = train_ms(step, create_train_state(bundle, seed=4), batch, labels, weight,
+                           dense)
+    out.update({"metric": "torch_autoint_ctr_train_examples_per_sec", "unit": "examples/s",
+                "value": BIG_BATCH / ms * 1e3, "ms_per_step": ms, "window_ms": windows})
+    return out
+
+
+def train_ms(step, state, batch, labels, weight, dense, per_window=8):
+    """Ms a train step: 3 warm-up steps, then the median of 3 windows of
+    ``per_window`` steps, each ending in a host fetch of the last loss and a
+    synchronize.  Returns (ms, each window's ms)."""
     seed = 0
     for _ in range(3):
         state, info = step(state, batch, labels, weight, dense, seed=seed)
@@ -1358,17 +1423,13 @@ def train_path(bundle, cpu_bundle, card):
     windows = []
     for _ in range(3):
         t0 = time.perf_counter()
-        for _ in range(8):
+        for _ in range(per_window):
             state, info = step(state, batch, labels, weight, dense, seed=seed)
             seed += 1
         float(info["loss"])
         torch.cuda.synchronize()
-        windows.append((time.perf_counter() - t0) / 8)
-    ms = sorted(windows)[1] * 1e3
-    out.update({"metric": "torch_autoint_ctr_train_examples_per_sec", "unit": "examples/s",
-                "value": BIG_BATCH / ms * 1e3, "ms_per_step": ms,
-                "window_ms": [w * 1e3 for w in windows]})
-    return out
+        windows.append((time.perf_counter() - t0) / per_window * 1e3)
+    return sorted(windows)[1], windows
 
 
 def _interacting_inputs(b, f, seed, requires_grad=False):
@@ -1627,6 +1688,168 @@ def interacting_path(card, cycles_per_ms, autoint, cpu_autoint, rows200, autoint
     return out
 
 
+def tower_train_path(card, cycles_per_ms):
+    """Phase 8: the packed train step of ctr (24 slots of 48-wide rows, B =
+    32768, 5 ids), the 212-feature ctr (F = 180, 56-wide rows in 36
+    storages, B = 8192, one id a column), multi_head (B = 32768) and finish
+    (B = 32768), at full width, with dropout 0.2 where the model has it.
+    Per model: a counted window of ``TRAIN_STEPS`` steps from a fresh state
+    (counts set to 0 just before, read just after, held to the launches a
+    step must take); losses and ``regularization`` finite, t and show equal
+    to the live counts; the step's ms; the kernels at the shapes this model
+    gives them (K3, K4, K8 at D 48, 56, 32; K5f and K5b at F 40 and 180);
+    then two steps on the card held to the CPU at a smaller bucket and
+    batch.  Returns the summed counts of the windows with the rest."""
+    from recommendsystem_tpu_torch.core.config import synthetic_ctr_config
+    from recommendsystem_tpu_torch.data import synthetic_batch
+    from recommendsystem_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from recommendsystem_tpu_torch.models import create_model
+    from recommendsystem_tpu_torch.train import make_train_step
+    from recommendsystem_tpu_torch.train.state import create_train_state
+
+    mean = {"fold_mean": 1, "unfold_mean": 1, "sparse_adam_update": 1}
+    attn = {"field_attention": 1, "field_attention_bwd": 1}
+    ctr212 = {"cfg": synthetic_ctr_config(num_slots=180, num_bias=32)}
+    # (label, model, factory kwargs, batch, ids a column, the card-vs-CPU
+    # bucket, launches a step)
+    runs = (("ctr", "ctr", {}, CTR_BATCH, 5, 16384, {**mean, **attn}),
+            ("ctr212", "ctr", {**ctr212, "bucket_size": CTR212_BUCKET}, CTR212_BATCH, {},
+             4096, {"fold_rows": 1, "unfold_rows": 180, "sparse_adam_update": 1, **attn}),
+            ("multi_head", "multi_head", {}, CTR_BATCH, 5, 16384, {**mean, **attn}),
+            ("finish", "finish", {}, FINISH_BATCH, 5, 8192, mean))
+    out = {"card": card, "launches": None, "train": {}, "cases": []}
+    for label, name, kw, b, ipf, check_bucket, want in runs:
+        bundle = create_model(name, device="cuda", **kw)
+        eng = bundle.embedding
+        step = make_train_step(bundle)
+        batch, dense, labels, weight = synthetic_batch(bundle, b, seed=50, ids_per_feature=ipf)
+        state = create_train_state(bundle, seed=9)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        infos = []
+        for i in range(TRAIN_STEPS):
+            state, info = step(state, batch, labels, weight, dense, seed=i)
+            infos.append(info)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        out["launches"] = {k: (out["launches"] or {}).get(k, 0) + v for k, v in counts.items()}
+        per_step = {k: v / TRAIN_STEPS for k, v in counts.items() if v}
+        if per_step != want:
+            raise AssertionError(f"{label} train: launches a step {per_step}, expected {want}")
+        losses = [[float(i["loss"]), float(i["regularization"])] for i in infos]
+        if not (np.all(np.isfinite(losses)) and all(r > 0 for _, r in losses)):
+            raise AssertionError(f"{label} train: losses and regularization {losses}")
+        live = eng.row_counts(batch)
+        for skey, tstate in state.tables.items():
+            if not (torch.equal(tstate["show"], TRAIN_STEPS * live[skey])
+                    and torch.equal(tstate["opt"]["t"], TRAIN_STEPS * (live[skey] > 0).float())):
+                raise AssertionError(f"{label} {skey}: t or show differ from the live counts")
+        ms, windows = train_ms(step, state, batch, labels, weight, dense, per_window=5)
+        res = {"metric": f"torch_{label}_train_examples_per_sec", "unit": "examples/s",
+               "value": b / ms * 1e3, "ms_per_step": ms, "window_ms": windows, "batch": b,
+               "storages": len(eng.storage), "d": sorted({d for _, d in eng.storage.values()}),
+               "launches_per_step": per_step, "losses_and_regularization": losses}
+        log(f"{label} train:", json.dumps(res))
+
+        # the kernels at this model's shapes, K8 on the trained tables
+        cases = []
+        if label in ("ctr", "finish"):
+            cases.append(unfold_group_case(bundle, b, cycles_per_ms))
+        if label == "ctr212":                    # K4: one column, as each of its 180 launches
+            key = sorted(batch)[0]
+            skey = eng.table_map[eng.columns[key].categorical_column.key][0]
+            cases.append(unfold_case("unfold_rows", eng, skey, {key: batch[key]}, cycles_per_ms))
+        if label != "multi_head":
+            cases.append(adam_case(eng, state.tables, batch, cycles_per_ms))
+        if label in ("ctr212", "multi_head"):
+            f = 180 if label == "ctr212" else 40
+            cases.append(attention_case(2, 4, f, b, 200 + f, cycles_per_ms, rate=DROPOUT))
+            cases.append(attention_bwd_case(2, 4, f, b, 210 + f, cycles_per_ms))
+        del state
+        for c in cases:
+            c["model"] = label
+            log(json.dumps(c))
+        out["cases"] += cases
+
+        small = dict(kw, bucket_size=check_bucket)
+        res["card_vs_cpu"] = hold_card_to_cpu(
+            create_model(name, device="cuda", **small), create_model(name, device="cpu", **small),
+            TOWER_CHECK_BATCH, ipf, label)
+        out["train"][label] = res
+        del bundle, step, batch, dense, labels, weight
+        torch.cuda.empty_cache()
+    return out
+
+
+def finish_serving_path(card):
+    """Phase 8, serving: the full-width finish ``ScoringService`` (40
+    tables of 25,600 x 32, one a storage) through ``score()`` and over HTTP
+    in one window of counts, scores in (0, 1), unchanged by padding and
+    equal to the CPU plain path's; then the predict step's launches per
+    call at B = 32768 (5 ids: one K1; 1 id: one K2), held to the CPU at B =
+    64, and its examples/s."""
+    from recommendsystem_tpu_torch.data import synthetic_batch
+    from recommendsystem_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from recommendsystem_tpu_torch.models import create_model
+    from recommendsystem_tpu_torch.train import make_predict_step
+    from recommendsystem_tpu_torch.train.state import create_train_state
+
+    bundle = create_model("finish", device="cuda")
+    cpu_bundle = create_model("finish", device="cpu")
+    state = create_train_state(bundle, seed=11)
+    rows = raw_rows(np.random.default_rng(12), 200, 5, tuple(str(3000 + s) for s in range(40)))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    scores = fused_service_run("finish", bundle, state, cpu_bundle, rows, 0.0, 1.0)
+    torch.cuda.synchronize()
+    serving = launch_counts()
+    log("finish serving launches:", json.dumps(serving))
+    if serving["fold_mean"] < 1 or any(v for k, v in serving.items() if k != "fold_mean"):
+        raise AssertionError(f"finish serving launched {serving}, expected fold_mean only")
+    for task, v in scores.items():
+        if not (0.0 < min(v) and max(v) < 1.0):
+            raise AssertionError(f"finish {task}: scores outside (0, 1)")
+
+    step = make_predict_step(bundle)
+    per_call, launches, batches = {}, dict(serving), {}
+    for ipf, want in ((5, {"fold_mean": 1}), (1, {"fold_rows": 1})):
+        batch = batches[ipf] = synthetic_batch(bundle, FINISH_BATCH, seed=13,
+                                               ids_per_feature=ipf)[0]
+        step(state, batch)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        pred = step(state, batch)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        launches = {k: launches[k] + v for k, v in counts.items()}
+        per_call[f"ids{ipf}"] = {k: v for k, v in counts.items() if v}
+        if per_call[f"ids{ipf}"] != want:
+            raise AssertionError(f"finish predict, {ipf} ids: launches {per_call[f'ids{ipf}']}")
+        check_heads({k: v.squeeze(1).cpu().numpy() for k, v in pred.items()}, FINISH_BATCH,
+                    0.0, 1.0, f"finish predict, {ipf} ids")
+        check = synthetic_batch(bundle, CHECK_BATCH, seed=14, ids_per_feature=ipf)[0]
+        cpu_out = make_predict_step(cpu_bundle)(_cpu_state(state),
+                                                {k: v.to("cpu") for k, v in check.items()})
+        assert_heads_close({k: v.cpu().numpy() for k, v in step(state, check).items()},
+                           {k: v.numpy() for k, v in cpu_out.items()},
+                           f"finish predict b={CHECK_BATCH}, {ipf} ids, card vs CPU")
+    batch = batches[5]
+    windows = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            step(state, batch)
+        torch.cuda.synchronize()
+        windows.append((time.perf_counter() - t0) / 10 * 1e3)
+    ms = sorted(windows)[1]
+    return {"launches": launches, "serve_launches": serving,
+            "predict": {"metric": "torch_finish_predict_examples_per_sec",
+                        "unit": "examples/s", "value": FINISH_BATCH / ms * 1e3,
+                        "ms_per_call": ms, "window_ms": windows, "batch": FINISH_BATCH,
+                        "ids_per_feature": 5, "launches_per_call": per_call, "card": card}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available; this script runs on a card")
@@ -1796,6 +2019,17 @@ def main() -> int:
     cases += report["interacting"]["cases"]
     print(json.dumps({"interacting_predict": report["interacting"]["predict"]}), flush=True)
 
+    # -- 8. the main path: ctr, multi_head and finish training; finish serving
+    report["towers"] = tower_train_path(card, cycles_per_ms)
+    report["finish"] = finish_serving_path(card)
+    towers = {k: v + report["finish"]["launches"][k]
+              for k, v in report["towers"]["launches"].items()}
+    cases += report["towers"]["cases"]
+    print(json.dumps({"tower_train": {k: {f: v[f] for f in (
+        "metric", "value", "unit", "ms_per_step", "window_ms", "batch", "launches_per_step")}
+        for k, v in report["towers"]["train"].items()},
+        "finish_predict": report["finish"]["predict"], "card": card}), flush=True)
+
     # -- report ----------------------------------------------------------------
     # the serving folds at the largest serving bucket, the train kernels
     # (K5 among them: the serving paths take K6) at the train batch, the
@@ -1840,7 +2074,8 @@ def main() -> int:
     kernels = []
     for name, (source, replaces) in sources.items():
         c = headline[name]
-        launches = serving[name] + training[name] + staytime[name] + interacting[name]
+        launches = (serving[name] + training[name] + staytime[name] + interacting[name]
+                    + towers[name])
         if launches < 1:
             raise AssertionError(f"{name} was not launched on the main paths")
         kernels.append({

@@ -2,8 +2,9 @@
 
 The JAX package beside it stays the reference; this package mirrors its
 module paths so each counterpart is easy to find, and imports neither JAX nor
-any module of the JAX package.  What it covers so far is the autoint scoring
-path and packed train step, and the staytime scoring path:
+any module of the JAX package.  What it covers so far is the scoring path of
+autoint, ctr, multi_head, finish and staytime, and the packed train step of
+autoint, ctr, multi_head and finish (with the L1L2 kernel penalties):
 
 - ``core/``       configuration schema and device set-up;
 - ``embedding/``  feature columns, the local embedding engine (lazy Adam and
@@ -12,9 +13,11 @@ path and packed train step, and the staytime scoring path:
   ``unfold_rows``, ``sparse_adam_update``);
 - ``kernels/``    the field-attention and DIN-pool kernels and the build of
   ``csrc/``;
-- ``nn/``         dense layers, the InteractingLayer, DINPool, SENet, the FM
-  blocks and the DeepCross layer;
-- ``models/``     the model bundle, autoint and staytime;
+- ``nn/``         dense layers and their L1L2 penalty, the InteractingLayer,
+  DINPool, SENet, PPNet, the FM blocks (DeepFM among them) and the
+  DeepCross layer;
+- ``models/``     the model bundle, autoint, ctr, multi_head, finish and
+  staytime;
 - ``train/``      the packed train step, the predict step, dense Adam and
   the losses;
 - ``data/``       id padding, staytime labels and synthetic batches;

@@ -1,7 +1,8 @@
-"""Model zoo of the port (autoint, ctr, multi_head and staytime so far)."""
+"""Model zoo of the port (autoint, ctr, finish, multi_head and staytime so far)."""
 
 from .base import MODEL_REGISTRY, ModelBundle, create_model, register_model  # noqa: F401
 from . import autoint  # noqa: F401
 from . import ctr  # noqa: F401
+from . import finish  # noqa: F401
 from . import multi_head  # noqa: F401
 from . import staytime  # noqa: F401

@@ -1,25 +1,29 @@
-"""Factorization-machine blocks of the staytime model.
+"""Factorization-machine blocks of the staytime and finish models.
 
-Counterpart of ``fm_cross_term`` and ``FFMBlock`` in
+Counterpart of ``fm_cross_term``, ``DeepFMLayer`` and ``FFMBlock`` in
 ``recommendsystem_tpu/nn/fm.py``:
 
 - ``fm_cross_term``: the listwise FM over a list of equal-width (B, D)
   field embeddings; returns the (B, D) cross term and the (B, 1) logit;
+- ``DeepFMLayer``: finish's FM over a flat (B, in) concat: the order-2
+  term through an ``(in, factor_dim)`` factor matrix ``weight``
+  (glorot-normal) plus the linear ``Dense(1)`` named ``deeepfmlinear`` (the
+  reference's spelling, so the flax tree carries across); (B, 1);
 - ``FFMBlock``: per (x, y) field pair, both projected to ``dim`` by their
   own Dense layers (``ffm_x_{x}_{y}_{dim}``, ``ffm_y_{x}_{y}_{dim}``) and
   multiplied.
 
-``FMLayer3D`` and ``DeepFMLayer`` come with the models that use them.
+``FMLayer3D`` comes with the model that uses it.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
-from .mlp import Dense
+from .mlp import Dense, glorot_normal_
 
 
 def fm_cross_term(field_embs: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -27,6 +31,26 @@ def fm_cross_term(field_embs: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, tor
     sum_embs = stacked.sum(dim=0)
     cross = sum_embs * sum_embs - (stacked * stacked).sum(dim=0)
     return cross, 0.5 * cross.sum(dim=-1, keepdim=True)
+
+
+class DeepFMLayer(nn.Module):
+    """0.5 * sum_f ((x W)_f^2 - (x^2 W^2)_f) + x @ k + b over a (B, in)
+    input, as the JAX layer computes it."""
+
+    def __init__(self, in_features: int, factor_dim: int = 8, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty((in_features, factor_dim), device=device))
+        self.deeepfmlinear = Dense(in_features, 1, device=device)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        glorot_normal_(self.weight, generator)
+
+    def forward(self, inputs: torch.Tensor) -> torch.Tensor:
+        sum_square = torch.square(inputs @ self.weight)
+        square_sum = torch.square(inputs) @ torch.square(self.weight)
+        high_order = 0.5 * (sum_square - square_sum).sum(dim=1, keepdim=True)
+        return high_order + self.deeepfmlinear(inputs)
 
 
 class FFMBlock(nn.Module):

@@ -6,11 +6,16 @@ zero biases, as ``tf.keras.layers.Dense``.  Kernels keep the flax layout
 across from the JAX package without a transpose.  Parameter names follow
 flax (``kernel``, ``bias``; ``dense_{i}`` inside ``MultiLayerDense``), so a
 flattened flax parameter tree is a state dict of these modules.
+
+``regularization(module, params)`` is the L1L2 penalty of every Dense that
+carries a ``kernel_regularizer``, computed from a parameter dict: the sum
+that the JAX ``Dense`` sows into its ``"losses"`` collection and the JAX
+train step adds to the loss.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Optional, Sequence, Tuple
+from typing import Any, Callable, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -46,16 +51,31 @@ def glorot_uniform_(w: torch.Tensor,
         return w.uniform_(-a, a, generator=generator)
 
 
+# the standard deviation of N(0, 1) cut at +-2
+_TRUNCATED_STD = 0.87962566103423978
+
+
 def truncated_normal(stddev: float) -> Callable:
     """flax's ``initializers.truncated_normal(stddev)``: N(0, 1) cut at
-    +-2, times ``stddev / 0.87962566103423978`` (the std of the cut normal),
-    as an initializer ``(w, generator) -> w``."""
+    +-2, times ``stddev`` (so the values' own std is 0.88 ``stddev``, as
+    Keras's ``TruncatedNormal``), as an initializer ``(w, generator) ->
+    w``."""
     def init_(w: torch.Tensor,
               generator: Optional[torch.Generator] = None) -> torch.Tensor:
         with torch.no_grad():
             torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
-            return w.mul_(stddev / 0.87962566103423978)
+            return w.mul_(stddev)
     return init_
+
+
+def glorot_normal_(w: torch.Tensor,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax's ``initializers.glorot_normal()`` of an ``(in, out)`` kernel:
+    N(0, 1) cut at +-2, scaled so that the values' std is sqrt(2 / (in +
+    out)) (``variance_scaling(1, "fan_avg", "truncated_normal")``)."""
+    fan_in, fan_out = w.shape
+    stddev = (2.0 / (fan_in + fan_out)) ** 0.5 / _TRUNCATED_STD
+    return truncated_normal(stddev)(w, generator)
 
 
 class Dense(nn.Module):
@@ -64,9 +84,11 @@ class Dense(nn.Module):
     ``kernel_init`` is an initializer ``(w, generator) -> w`` (glorot
     uniform by default, or ``truncated_normal(stddev)``).
     ``kernel_regularizer=(l1, l2)`` mirrors ``tf.keras.regularizers.L1L2``
-    as the flax layer does; it is stored here, and the penalty it adds to
-    the training loss comes with the train step of the models that use it
-    (``make_train_step`` refuses a module that holds one meanwhile)."""
+    as the flax layer does.  The layer only stores it: the train step adds
+    ``regularization(module, params)`` to its loss, from the step's
+    parameters, so a Dense that is built but never called (multi_head's
+    eighth expert) still counts, as in the JAX package, whose Dense sows
+    its penalty in the call that builds it."""
 
     def __init__(self, in_features: int, features: int, activation: Any = None,
                  use_bias: bool = True, kernel_init: Callable = glorot_uniform_,
@@ -111,3 +133,28 @@ class MultiLayerDense(nn.Module):
         for i in range(self.n):
             x = getattr(self, f"dense_{i}")(x)
         return x
+
+
+def regularization(module: nn.Module,
+                   params: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """The L1L2 kernel penalties of ``module``, a 0-d tensor: over every
+    Dense with a ``kernel_regularizer`` (l1, l2), l1 sum |K| + l2 sum K^2
+    of its kernel ``params["<name>.kernel"]``, as the JAX ``Dense`` sows
+    it.  |K| is ``where(K >= 0, K, -K)``, so that its derivative at 0 is +1
+    as ``jax.grad(jnp.abs)`` takes it (``torch.abs`` passes 0 there); a
+    term whose coefficient is 0 is left out (its value and gradient are 0
+    either way).  0 when no Dense carries one."""
+    terms = []
+    for name, mod in module.named_modules():
+        if not (isinstance(mod, Dense) and mod.kernel_regularizer is not None):
+            continue
+        l1, l2 = mod.kernel_regularizer
+        k = params[f"{name}.kernel"]
+        if l1:
+            terms.append(l1 * torch.where(k >= 0, k, -k).sum())
+        if l2:
+            terms.append(l2 * (k * k).sum())
+    if not terms:
+        some = next(iter(params.values()))
+        return torch.zeros((), dtype=some.dtype, device=some.device)
+    return sum(terms[1:], terms[0])

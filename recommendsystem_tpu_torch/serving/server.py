@@ -7,13 +7,14 @@ card, return the named scores.
     python -m recommendsystem_tpu_torch.serving.server --model autoint --port 8000
     python -m recommendsystem_tpu_torch.serving.server --model staytime --port 8000
     python -m recommendsystem_tpu_torch.serving.server --model ctr --port 8000
+    python -m recommendsystem_tpu_torch.serving.server --model finish --port 8000
 
     POST /score  {"rows": [{"1000": [123456789], ...}, ...]}
     ->           {"scores": {"<task>": [..]}, "batch": N}
 
 One score per served head: staytime answers its expected watch time and
 its shortplay and longplay probabilities under their task names, ctr its
-two click heads, multi_head its seven.  A
+two click heads, multi_head its seven, finish its finish rate.  A
 sequence column and the mean column of the same slot read one request
 feature, as in the JAX package, so a sequence slot carries at most
 ``ids_per_feature`` ids.

@@ -17,7 +17,9 @@ Counterpart of ``recommendsystem_tpu/train/step.py``, local mode:
 Keras-compile semantics as in the JAX package: the loss is the sum over
 tasks of ``loss_weight * loss``, where a loss that returns a scalar is taken
 as it is (autoint's ``cross_entropy_sum_mean``, so its sample weights do not
-reach it) and a per-sample loss is the sample-weighted mean.
+reach it) and a per-sample loss is the sample-weighted mean, plus the L1L2
+kernel penalties of the module's regularized Dense layers
+(``nn.regularization``, the JAX ``"losses"`` collection).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from torch.func import functional_call
 
 from ..embedding import packed as packed_mod
 from ..embedding.optimizers import SparseAdam
+from ..nn import regularization
 from .state import TrainState
 
 if TYPE_CHECKING:
@@ -72,7 +75,9 @@ def _model_outputs_and_loss(bundle, params, embs, labels, sample_weight,
                                  sample_weight)
         task_losses[task] = tl
         loss = loss + lw * tl
-    return loss, {"task_losses": task_losses, "outputs": outputs}
+    reg = regularization(bundle.module, params)
+    return loss + reg, {"task_losses": task_losses, "regularization": reg,
+                        "outputs": outputs}
 
 
 def _check_mode(mode: str) -> None:
@@ -95,18 +100,23 @@ def _packed_plans(eng, batch):
 def make_train_step(bundle: "ModelBundle", mode: str = "local") -> Callable:
     """Returns ``step(state, batch, labels, sample_weight=None,
     dense_inputs=None, seed=0) -> (state, info)``, the packed train step.
-    The engine's sparse optimizer must be ``SparseAdam`` and no Dense of
-    the module may carry a kernel regularizer: otherwise this raises
-    ``NotImplementedError``.
+    The engine's sparse optimizer must be ``SparseAdam``: otherwise this
+    raises ``NotImplementedError``.
 
     ``batch`` holds IdBatches and ``labels`` {task: (B, 1)} tensors on the
     bundle's device; ``seed`` (an int below 2**32) draws the step's
     attention dropout.  The step updates ``state``'s tables (w, m, v, t,
     show), dense parameters and Adam moments in place, where the JAX
     package donates them, and returns a ``TrainState`` over the same
-    tensors with ``step + 1``.  ``info`` holds the loss and the per-task
-    losses as 0-d tensors on the device (read them when needed: reading
-    waits for the step)."""
+    tensors with ``step + 1``.  ``info`` holds the loss, the per-task
+    losses and the L1L2 penalty (``regularization``, 0 for a module with
+    none) as 0-d tensors on the device (read them when needed: reading
+    waits for the step).
+
+    A dense parameter that does not reach the loss (multi_head's eighth
+    expert's bias; its kernel reaches it through its penalty alone) gets a
+    zero gradient, as ``jax.grad`` gives it, so Adam moves it as optax
+    does: not at all while its moments are 0."""
     _check_mode(mode)
     eng = bundle.embedding
     if not isinstance(eng.sparse_opt, SparseAdam):
@@ -115,13 +125,6 @@ def make_train_step(bundle: "ModelBundle", mode: str = "local") -> Callable:
             f"train step runs the lazy-Adam pass (K8) only; the AdaGrad update "
             f"on the classic scatter path comes with the staytime train slice "
             f"of the port")
-    regularized = [name for name, mod in bundle.module.named_modules()
-                   if getattr(mod, "kernel_regularizer", None) is not None]
-    if regularized:
-        raise NotImplementedError(
-            f"{bundle.name}: {len(regularized)} Dense layers ({regularized[0]}, "
-            f"...) carry L1L2 kernel penalties that the JAX loss adds; the "
-            f"penalties come with the ctr/multi_head training slice of the port")
 
     def step(state: TrainState, batch, labels, sample_weight=None,
              dense_inputs=None, seed: int = 0):
@@ -140,7 +143,8 @@ def make_train_step(bundle: "ModelBundle", mode: str = "local") -> Callable:
                                             sample_weight, dense_inputs,
                                             True, seed)
         act_list = [a for skey in acts for a in acts[skey]]
-        grads = torch.autograd.grad(loss, list(params.values()) + act_list)
+        grads = torch.autograd.grad(loss, list(params.values()) + act_list,
+                                    allow_unused=True, materialize_grads=True)
         gp = dict(zip(params, grads[:len(params)]))
         it = iter(grads[len(params):])
         g_acts = {skey: [next(it) for _ in acts[skey]] for skey in acts}
@@ -155,7 +159,8 @@ def make_train_step(bundle: "ModelBundle", mode: str = "local") -> Callable:
 
         info = {"loss": loss.detach(),
                 **{f"loss/{t}": v.detach()
-                   for t, v in aux["task_losses"].items()}}
+                   for t, v in aux["task_losses"].items()},
+                "regularization": aux["regularization"].detach()}
         return TrainState(params=new_params, opt_state=opt_state,
                           tables=tables, step=state.step + 1), info
 

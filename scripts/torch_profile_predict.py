@@ -5,14 +5,15 @@
     python3 scripts/torch_profile_predict.py --model staytime [--batch 16384 256]
     python3 scripts/torch_profile_predict.py --model ctr [--batch 32768 256] [--without-k6]
     python3 scripts/torch_profile_predict.py --model ctr212 [--batch 8192]
+    python3 scripts/torch_profile_predict.py --model finish [--batch 32768 256]
 
 For each batch size: builds the model's full-width bundle (autoint: 24
 tables of 265,000 rows x 8; ctr: 24 tables of 265,000 x 48; multi_head: 40
 tables of 265,000 x 8; staytime: 91 tables of 81,920 rows x 32 and 3
 behaviour sequences of 50; ctr212: the 212-feature ctr shape,
 ``synthetic_ctr_config(num_slots=180, num_bias=32)`` over 32,768-id
-buckets with one id per column; seeded random weights, 5 ids per mean
-column elsewhere),
+buckets with one id per column; finish: 40 tables of 25,600 x 32; seeded
+random weights, 5 ids per mean column elsewhere),
 warms the predict step up, then
   - times ``steps`` calls on the host clock, ending in a synchronize;
   - traces the same number of calls with ``torch.profiler`` and sums the
@@ -46,7 +47,8 @@ from torch_profile_common import device_kernels, device_us, port_kernel_us  # no
 
 
 DEFAULT_BATCHES = {"autoint": [65536, 256], "ctr": [32768, 256], "ctr212": [8192],
-                   "multi_head": [32768, 256], "staytime": [16384, 256]}
+                   "multi_head": [32768, 256], "staytime": [16384, 256],
+                   "finish": [32768, 256]}
 
 
 def main(argv=None) -> int:
@@ -57,8 +59,8 @@ def main(argv=None) -> int:
     ap.add_argument("--without-k6", action="store_true",
                     help="profile the InteractingLayer's transposed path instead of K6")
     args = ap.parse_args(argv)
-    if args.without_k6 and args.model == "staytime":
-        ap.error("--without-k6: staytime has no InteractingLayer")
+    if args.without_k6 and args.model in ("staytime", "finish"):
+        ap.error(f"--without-k6: {args.model} has no InteractingLayer")
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 2

@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
-"""Where the time of the port's autoint train step goes, on one CUDA card.
+"""Where the time of the port's packed train step goes, on one CUDA card.
 
-    python3 scripts/torch_profile_train.py [--batch 65536] [--ids 5 1] [--steps 8]
+    python3 scripts/torch_profile_train.py [--model autoint] [--batch B] [--ids 5 1] [--steps 8]
 
-For each ids-per-feature width: builds the full-width autoint bundle (24
-tables of 265,000 rows x 8, attention dropout 0.2, seeded random weights),
-warms the packed train step up, then
+``--model``: autoint (B = 65536, 5 and 1 ids), ctr (B = 32768), ctr212
+(the 212-feature ctr shape, ``synthetic_ctr_config(num_slots=180,
+num_bias=32)`` over 32,768-id buckets, B = 8192, one id a column),
+multi_head (B = 32768) or finish (B = 32768).  For each ids-per-feature
+width: builds the full-width bundle (attention dropout 0.2 where the model
+has it, seeded random weights), warms the packed train step up, then
   - times ``steps`` steps on the host clock in 3 windows, each ending in a
     synchronize and a host fetch of the last loss (ms per step and
     examples/s as the median window);
@@ -16,7 +19,7 @@ warms the packed train step up, then
     step (``port_kernel_us_per_step``), and the port kernels' launches per
     step.
 Prints one JSON line per width, with the card's name and power limit, and
-writes the tables to ``chiprun_out/profile_train.txt``.
+writes the tables to ``chiprun_out/profile_train_<model>.txt``.
 """
 
 from __future__ import annotations
@@ -37,17 +40,26 @@ from torch_profile_common import card as card_name  # noqa: E402
 from torch_profile_common import device_kernels, device_us, port_kernel_us  # noqa: E402
 
 
+# model -> (batch, ids per feature)
+DEFAULTS = {"autoint": (65536, [5, 1]), "ctr": (32768, [5]), "ctr212": (8192, [1]),
+            "multi_head": (32768, [5]), "finish": (32768, [5])}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--batch", type=int, default=65536)
-    ap.add_argument("--ids", type=int, nargs="+", default=[5, 1])
+    ap.add_argument("--model", default="autoint", choices=sorted(DEFAULTS))
+    ap.add_argument("--batch", type=int, default=None)
+    ap.add_argument("--ids", type=int, nargs="+", default=None)
     ap.add_argument("--steps", type=int, default=8)
     args = ap.parse_args(argv)
+    args.batch = args.batch or DEFAULTS[args.model][0]
+    args.ids = args.ids or DEFAULTS[args.model][1]
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 2
     from torch.profiler import ProfilerActivity, profile
 
+    from recommendsystem_tpu_torch.core.config import synthetic_ctr_config
     from recommendsystem_tpu_torch.data import synthetic_batch
     from recommendsystem_tpu_torch.kernels import launch_counts, reset_launch_counts
     from recommendsystem_tpu_torch.models import create_model
@@ -55,7 +67,11 @@ def main(argv=None) -> int:
 
     card = card_name()
     print(card, flush=True)
-    bundle = create_model("autoint", device="cuda")
+    if args.model == "ctr212":
+        bundle = create_model("ctr", cfg=synthetic_ctr_config(num_slots=180, num_bias=32),
+                              bucket_size=32768, device="cuda")
+    else:
+        bundle = create_model(args.model, device="cuda")
     step = make_train_step(bundle)
     os.makedirs("chiprun_out", exist_ok=True)
     tables = []
@@ -92,7 +108,7 @@ def main(argv=None) -> int:
         busy_us = sum(device_us(e) for e in kernels) / args.steps
         top = [{"name": e.key[:90], "calls_per_step": e.count / args.steps,
                 "us_per_step": device_us(e) / args.steps} for e in kernels[:16]]
-        row = {"batch": args.batch, "ids_per_feature": ipf,
+        row = {"model": args.model, "batch": args.batch, "ids_per_feature": ipf,
                "port_kernel_us_per_step": port_kernel_us(kernels, args.steps),
                "ms_per_step": wall * 1e3, "examples_per_s": args.batch / wall,
                "window_ms": [w * 1e3 for w in windows], "last_loss": loss,
@@ -104,10 +120,10 @@ def main(argv=None) -> int:
                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
                "card": card}
         print(json.dumps(row), flush=True)
-        tables.append(f"## batch {args.batch}, {ipf} ids per feature ({card})\n"
+        tables.append(f"## {args.model}, batch {args.batch}, {ipf} ids per feature ({card})\n"
                       f"{json.dumps(row)}\n" + "\n".join(json.dumps(t) for t in top)
                       + "\n")
-    with open(os.path.join("chiprun_out", "profile_train.txt"), "w") as fh:
+    with open(os.path.join("chiprun_out", f"profile_train_{args.model}.txt"), "w") as fh:
         fh.write("\n".join(tables))
     print("\n".join(tables), file=sys.stderr)
     return 0

@@ -3,8 +3,9 @@ and labels, the predict step (its InteractingLayer through K6) against the
 JAX step under its default backend and under ``set_backend("pallas")``,
 the scoring service, and ``production_ctr`` on a small
 ``model_parameter.json``-shaped dict, with weights carried by
-``bridge.from_jax_numpy``; the train step's refusal of the L1L2-regularized
-tower.
+``bridge.from_jax_numpy``; the train step's admission of the
+L1L2-regularized tower (``tests/test_torch_ctr_train.py`` holds its steps
+to JAX) and its refusal of the modes not ported.
 
 Configuration: ``synthetic_ctr_config(num_slots=8, num_bias=4)`` (F = 8,
 rows of the widest slot's total emb size, one bias feature of each type)
@@ -137,13 +138,17 @@ def test_score_matches_jax_service(pair):
 
 
 def test_train_step_refuses_the_regularized_tower(pair):
+    """The six L1L2-regularized Dense layers, which the step refused until
+    their penalties were ported: it takes them now, and still refuses any
+    mode but "local"."""
     pbundle = pair[2][0]
     regularized = [n for n, m in pbundle.module.named_modules()
                    if getattr(m, "kernel_regularizer", None) == (1e-5, 1e-5)]
     assert regularized == ["dnn_0", "dnn_1", "task0_dnn2_0", "task0_dnn2_1",
                            "task1_dnn2_0", "task1_dnn2_1"]
-    with pytest.raises(NotImplementedError, match="ctr/multi_head training slice"):
-        make_train_step(pbundle)
+    assert callable(make_train_step(pbundle))
+    with pytest.raises(NotImplementedError, match="mode 'sharded'"):
+        make_train_step(pbundle, mode="sharded")
 
 
 def test_default_widths_match_jax():
