@@ -142,7 +142,10 @@ CTR212_BATCH = 8192               # bench.py:325-327
 CTR212_BUCKET = 32768
 CHECK_BATCH = 64
 FINISH_BATCH = 32768              # finish's train batch (bench.py:359)
-TOWER_CHECK_BATCH = 64            # phase 8's card-vs-CPU steps (see card_vs_cpu_margins)
+# phase 8's card-vs-CPU steps, batch seed 31: a draw picked after others
+# failed by ReLU kinks (ctr, the 212-feature ctr and finish at some B 128
+# and 256 draws; PERF.md section 6, scripts/torch_train_margins.py --witness)
+TOWER_CHECK_BATCH = 64
 
 OUT_DIR = "chiprun_out"
 
@@ -1275,24 +1278,35 @@ def _to(tree, device):
     return tree
 
 
-def _margin(got, want, atol, rtol):
-    """(largest |got - want| / (atol + rtol |want|) over the elements, how
-    many exceed 1, largest |got - want|): within the tolerance, as
-    ``np.testing.assert_allclose`` takes it, is a margin of at most 1."""
+def _ratio(got, want, atol, rtol):
+    """|got - want| / (atol + rtol |want|) per element, float64: within the
+    tolerance, as ``np.testing.assert_allclose`` takes it, is at most 1.  The
+    shapes must be equal; a NaN or an infinity on either side is past the
+    tolerance (ratio inf), as are unequal entries where both tolerances
+    are 0."""
     got, want = (torch.as_tensor(x, dtype=torch.float64) for x in (got, want))
+    if got.shape != want.shape:
+        raise AssertionError(f"shape {tuple(got.shape)} against {tuple(want.shape)}")
     diff = (got - want).abs()
     r = torch.where(diff == 0, 0.0, diff / (atol + rtol * want.abs()))
-    return float(r.max()), int((r > 1).sum()), float(diff.max())
+    bad = ~(torch.isfinite(got) & torch.isfinite(want) & torch.isfinite(r))
+    return torch.where(bad, torch.inf, r)
 
 
-def card_vs_cpu_margins(bundle, cpu_bundle, b, ipf, seed=31):
+def _margin(got, want, atol, rtol):
+    """(largest ``_ratio``, how many elements are past 1, largest
+    |got - want|)."""
+    r = _ratio(got, want, atol, rtol)
+    diff = (torch.as_tensor(got, dtype=torch.float64)
+            - torch.as_tensor(want, dtype=torch.float64)).abs()
+    return float(r.max()), int((~(r <= 1)).sum()), float(diff.max())
+
+
+def two_train_steps(bundle, cpu_bundle, b, ipf, seed=31):
     """Two train steps on the card and the same two on the CPU through the
     plain versions, from one seeded state and one batch of ``b`` drawn from
-    ``seed`` (same step seeds, same dropout).  Returns, per quantity, its
-    margin against its ``TRAIN_*`` tolerance (``_margin``: losses and
-    ``regularization`` rtol TRAIN_LOSS_RTOL, dense params and table weights
-    atol TRAIN_W_ATOL, moments TRAIN_MOMENT_TOL; t and show must be equal),
-    the count of elements past it, and the largest difference."""
+    ``seed`` (same step seeds, same dropout).  Returns (card state, CPU
+    state, card infos, CPU infos)."""
     from recommendsystem_tpu_torch.data import synthetic_batch
     from recommendsystem_tpu_torch.train import make_train_step
     from recommendsystem_tpu_torch.train.state import TrainState, create_train_state
@@ -1303,13 +1317,29 @@ def card_vs_cpu_margins(bundle, cpu_bundle, b, ipf, seed=31):
     gb, gdense, glabels, gweight = synthetic_batch(bundle, b, seed=seed, ids_per_feature=ipf)
     cb, cdense, clabels, cweight = synthetic_batch(cpu_bundle, b, seed=seed, ids_per_feature=ipf)
     step, cstep = make_train_step(bundle), make_train_step(cpu_bundle)
-    parts = {n: [] for n in ("loss", "regularization", "params", "w", "m", "v", "t", "show")}
+    ginfos, cinfos = [], []
     for i in range(2):
         gstate, ginfo = step(gstate, gb, glabels, gweight, gdense, seed=40 + i)
         cstate, cinfo = cstep(cstate, cb, clabels, cweight, cdense, seed=40 + i)
+        ginfos.append(ginfo)
+        cinfos.append(cinfo)
+    return gstate, cstate, ginfos, cinfos
+
+
+def card_vs_cpu_margins(bundle, cpu_bundle, b, ipf, seed=31):
+    """``two_train_steps``, then per quantity its margin against its
+    ``TRAIN_*`` tolerance (``_margin``: losses and ``regularization`` rtol
+    TRAIN_LOSS_RTOL, dense params and table weights atol TRAIN_W_ATOL,
+    moments TRAIN_MOMENT_TOL; t and show must be equal), the count of
+    elements past it, and the largest difference."""
+    gstate, cstate, ginfos, cinfos = two_train_steps(bundle, cpu_bundle, b, ipf, seed)
+    parts = {n: [] for n in ("loss", "regularization", "params", "w", "m", "v", "t", "show")}
+    for ginfo, cinfo in zip(ginfos, cinfos):
         for name in ("loss", "regularization"):
             parts[name].append(_margin(float(ginfo[name]), float(cinfo[name]), 0.0,
                                        TRAIN_LOSS_RTOL))
+    if set(gstate.params) != set(cstate.params) or set(gstate.tables) != set(cstate.tables):
+        raise AssertionError("the card's state and the CPU's hold other parameters or tables")
     for k, v in cstate.params.items():
         parts["params"].append(_margin(gstate.params[k].cpu(), v, TRAIN_W_ATOL, 0.0))
     moment = (TRAIN_MOMENT_TOL["atol"], TRAIN_MOMENT_TOL["rtol"])

@@ -7,15 +7,16 @@ across from the JAX package without a transpose.  Parameter names follow
 flax (``kernel``, ``bias``; ``dense_{i}`` inside ``MultiLayerDense``), so a
 flattened flax parameter tree is a state dict of these modules.
 
-``regularization(module, params)`` is the L1L2 penalty of every Dense that
-carries a ``kernel_regularizer``, computed from a parameter dict: the sum
-that the JAX ``Dense`` sows into its ``"losses"`` collection and the JAX
-train step adds to the loss.
+``kernel_penalty(regularized_kernels(module), params)`` is the L1L2 penalty
+of every Dense that carries a ``kernel_regularizer``, computed from a
+parameter dict: the sum that the JAX ``Dense`` sows into its ``"losses"``
+collection and the JAX train step adds to the loss.  The train step finds
+those kernels once and computes the penalty each step.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Mapping, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -85,8 +86,8 @@ class Dense(nn.Module):
     uniform by default, or ``truncated_normal(stddev)``).
     ``kernel_regularizer=(l1, l2)`` mirrors ``tf.keras.regularizers.L1L2``
     as the flax layer does.  The layer only stores it: the train step adds
-    ``regularization(module, params)`` to its loss, from the step's
-    parameters, so a Dense that is built but never called (multi_head's
+    ``kernel_penalty`` to its loss, from the step's parameters, so a
+    Dense that is built but never called (multi_head's
     eighth expert) still counts, as in the JAX package, whose Dense sows
     its penalty in the call that builds it."""
 
@@ -135,26 +136,32 @@ class MultiLayerDense(nn.Module):
         return x
 
 
-def regularization(module: nn.Module,
-                   params: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    """The L1L2 kernel penalties of ``module``, a 0-d tensor: over every
-    Dense with a ``kernel_regularizer`` (l1, l2), l1 sum |K| + l2 sum K^2
-    of its kernel ``params["<name>.kernel"]``, as the JAX ``Dense`` sows
-    it.  |K| is ``where(K >= 0, K, -K)``, so that its derivative at 0 is +1
-    as ``jax.grad(jnp.abs)`` takes it (``torch.abs`` passes 0 there); a
-    term whose coefficient is 0 is left out (its value and gradient are 0
-    either way).  0 when no Dense carries one."""
-    terms = []
+def regularized_kernels(module: nn.Module) -> Dict[Tuple[float, float], List[str]]:
+    """The kernels that carry an L1L2 penalty in ``module``: {(l1, l2):
+    [parameter name of each such Dense's kernel]}, in module order; empty
+    when no Dense carries one.  The train step builds it once."""
+    groups: Dict[Tuple[float, float], List[str]] = {}
     for name, mod in module.named_modules():
-        if not (isinstance(mod, Dense) and mod.kernel_regularizer is not None):
-            continue
-        l1, l2 = mod.kernel_regularizer
-        k = params[f"{name}.kernel"]
+        if isinstance(mod, Dense) and mod.kernel_regularizer is not None:
+            groups.setdefault(tuple(mod.kernel_regularizer), []).append(f"{name}.kernel")
+    return groups
+
+
+def kernel_penalty(groups: Mapping[Tuple[float, float], Sequence[str]],
+                   params: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """l1 sum |K| + l2 sum K^2 over the kernels of ``groups`` (non-empty,
+    as ``regularized_kernels`` gives it), a 0-d tensor: the sum of what each
+    JAX ``Dense`` sows.  The kernels of one (l1, l2) are concatenated, so the
+    penalty takes a few kernels a group, not a few a layer.  |K| is
+    ``where(K >= 0, K, -K)``, so that its derivative at 0 is +1 as
+    ``jax.grad(jnp.abs)`` takes it (``torch.abs`` passes 0 there); a term
+    whose coefficient is 0 is left out (its value and gradient are 0 either
+    way)."""
+    terms = []
+    for (l1, l2), names in groups.items():
+        k = torch.cat([params[n].reshape(-1) for n in names])
         if l1:
             terms.append(l1 * torch.where(k >= 0, k, -k).sum())
         if l2:
             terms.append(l2 * (k * k).sum())
-    if not terms:
-        some = next(iter(params.values()))
-        return torch.zeros((), dtype=some.dtype, device=some.device)
     return sum(terms[1:], terms[0])

@@ -31,7 +31,7 @@ from torch.func import functional_call
 
 from ..embedding import packed as packed_mod
 from ..embedding.optimizers import SparseAdam
-from ..nn import regularization
+from ..nn import kernel_penalty, regularized_kernels
 from .state import TrainState
 
 if TYPE_CHECKING:
@@ -65,7 +65,10 @@ def _weighted_task_loss(loss_fn, y, pred, sample_weight):
 
 
 def _model_outputs_and_loss(bundle, params, embs, labels, sample_weight,
-                            dense_inputs, training, seed):
+                            dense_inputs, training, seed, penalized):
+    """The outputs and the loss; ``penalized`` is
+    ``nn.regularized_kernels(bundle.module)``: when it is empty, the loss
+    has no penalty term and ``regularization`` is None."""
     outputs = apply_model(bundle, params, embs, dense_inputs, training, seed)
     loss = 0.0
     task_losses = {}
@@ -75,9 +78,12 @@ def _model_outputs_and_loss(bundle, params, embs, labels, sample_weight,
                                  sample_weight)
         task_losses[task] = tl
         loss = loss + lw * tl
-    reg = regularization(bundle.module, params)
-    return loss + reg, {"task_losses": task_losses, "regularization": reg,
-                        "outputs": outputs}
+    reg = None
+    if penalized:
+        reg = kernel_penalty(penalized, params)
+        loss = loss + reg
+    return loss, {"task_losses": task_losses, "regularization": reg,
+                  "outputs": outputs}
 
 
 def _check_mode(mode: str) -> None:
@@ -109,9 +115,9 @@ def make_train_step(bundle: "ModelBundle", mode: str = "local") -> Callable:
     show), dense parameters and Adam moments in place, where the JAX
     package donates them, and returns a ``TrainState`` over the same
     tensors with ``step + 1``.  ``info`` holds the loss, the per-task
-    losses and the L1L2 penalty (``regularization``, 0 for a module with
-    none) as 0-d tensors on the device (read them when needed: reading
-    waits for the step).
+    losses and the L1L2 penalty (``regularization``; for a module with
+    none, one 0 made when the step is built) as 0-d tensors on the device
+    (read them when needed: reading waits for the step).
 
     A dense parameter that does not reach the loss (multi_head's eighth
     expert's bias; its kernel reaches it through its penalty alone) gets a
@@ -125,6 +131,8 @@ def make_train_step(bundle: "ModelBundle", mode: str = "local") -> Callable:
             f"train step runs the lazy-Adam pass (K8) only; the AdaGrad update "
             f"on the classic scatter path comes with the staytime train slice "
             f"of the port")
+    penalized = regularized_kernels(bundle.module)
+    no_penalty = torch.zeros((), device=bundle.device)
 
     def step(state: TrainState, batch, labels, sample_weight=None,
              dense_inputs=None, seed: int = 0):
@@ -141,7 +149,7 @@ def make_train_step(bundle: "ModelBundle", mode: str = "local") -> Callable:
             eng, plans, {s: {"acts": a} for s, a in acts.items()}, batch)
         loss, aux = _model_outputs_and_loss(bundle, params, embs, labels,
                                             sample_weight, dense_inputs,
-                                            True, seed)
+                                            True, seed, penalized)
         act_list = [a for skey in acts for a in acts[skey]]
         grads = torch.autograd.grad(loss, list(params.values()) + act_list,
                                     allow_unused=True, materialize_grads=True)
@@ -160,7 +168,8 @@ def make_train_step(bundle: "ModelBundle", mode: str = "local") -> Callable:
         info = {"loss": loss.detach(),
                 **{f"loss/{t}": v.detach()
                    for t, v in aux["task_losses"].items()},
-                "regularization": aux["regularization"].detach()}
+                "regularization": (no_penalty if aux["regularization"] is None
+                                   else aux["regularization"].detach())}
         return TrainState(params=new_params, opt_state=opt_state,
                           tables=tables, step=state.step + 1), info
 

@@ -20,6 +20,14 @@ has it, seeded random weights), warms the packed train step up, then
     step.
 Prints one JSON line per width, with the card's name and power limit, and
 writes the tables to ``chiprun_out/profile_train_<model>.txt``.
+
+``--penalty`` (ctr, ctr212, multi_head, finish) then measures what the L1L2
+kernel penalty costs: the step with it and the same step built without it
+(``regularized_kernels`` emptied), timed in turns, 3 windows each; and the
+penalty alone, forward and backward from the step's params, as the port
+computes it (one concatenation a coefficient pair) and as it was first
+written (the terms of each regularized Dense apart): device kernels a call
+from a trace, host µs a call (20 calls, then a synchronize).
 """
 
 from __future__ import annotations
@@ -45,12 +53,87 @@ DEFAULTS = {"autoint": (65536, [5, 1]), "ctr": (32768, [5]), "ctr212": (8192, [1
             "multi_head": (32768, [5]), "finish": (32768, [5])}
 
 
+def _per_layer_penalty(groups, params):
+    """The penalty with the terms of each regularized Dense apart."""
+    terms = []
+    for (l1, l2), names in groups.items():
+        for n in names:
+            k = params[n]
+            if l1:
+                terms.append(l1 * torch.where(k >= 0, k, -k).sum())
+            if l2:
+                terms.append(l2 * (k * k).sum())
+    return sum(terms[1:], terms[0])
+
+
+def penalty_cost(bundle, step, state, data, steps: int) -> dict:
+    """What the L1L2 penalty costs a step (see the module's docstring)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from recommendsystem_tpu_torch.nn import kernel_penalty, regularized_kernels
+    from recommendsystem_tpu_torch.train import make_train_step
+    from recommendsystem_tpu_torch.train import step as step_mod
+
+    groups = regularized_kernels(bundle.module)
+    step_mod.regularized_kernels = lambda module: {}
+    try:
+        bare = make_train_step(bundle)
+    finally:
+        step_mod.regularized_kernels = regularized_kernels
+    batch, labels, weight, dense = data
+    seed = 100
+
+    def window(fn):
+        nonlocal state, seed
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, info = fn(state, batch, labels, weight, dense, seed)
+            seed += 1
+        float(info["loss"])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / steps * 1e3
+
+    window(bare)
+    ms = {"with": [], "without": []}
+    for _ in range(3):
+        ms["with"].append(window(step))
+        ms["without"].append(window(bare))
+    out = {"regularized_kernels": sum(len(v) for v in groups.values()),
+           "coefficient_pairs": len(groups),
+           "step_ms": {k: statistics.median(v) for k, v in ms.items()}, "window_ms": ms}
+    keys = [n for names in groups.values() for n in names]
+    for label, fn in (("grouped", kernel_penalty), ("per_layer", _per_layer_penalty)):
+        params = {k: state.params[k].detach().requires_grad_() for k in keys}
+
+        def call():
+            reg = fn(groups, params)
+            return torch.autograd.grad(reg, list(params.values()))
+
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            call()
+        torch.cuda.synchronize()
+        host_us = (time.perf_counter() - t0) / 20 * 1e6
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                call()
+            torch.cuda.synchronize()
+        kernels = device_kernels(prof)
+        out[label] = {"kernels_per_call": sum(e.count for e in kernels) / 5,
+                      "device_us_per_call": sum(device_us(e) for e in kernels) / 5,
+                      "host_us_per_call": host_us}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", default="autoint", choices=sorted(DEFAULTS))
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--ids", type=int, nargs="+", default=None)
     ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--penalty", action="store_true")
     args = ap.parse_args(argv)
     args.batch = args.batch or DEFAULTS[args.model][0]
     args.ids = args.ids or DEFAULTS[args.model][1]
@@ -123,6 +206,12 @@ def main(argv=None) -> int:
         tables.append(f"## {args.model}, batch {args.batch}, {ipf} ids per feature ({card})\n"
                       f"{json.dumps(row)}\n" + "\n".join(json.dumps(t) for t in top)
                       + "\n")
+        if args.penalty:
+            row = penalty_cost(bundle, step, state, (batch, labels, weight, dense), args.steps)
+            row.update({"model": args.model, "batch": args.batch, "ids_per_feature": ipf,
+                        "card": card})
+            print(json.dumps(row), flush=True)
+            tables.append(f"## the L1L2 penalty\n{json.dumps(row)}\n")
     with open(os.path.join("chiprun_out", f"profile_train_{args.model}.txt"), "w") as fh:
         fh.write("\n".join(tables))
     print("\n".join(tables), file=sys.stderr)

@@ -32,6 +32,7 @@ from recommendsystem_tpu_torch.models import create_model
 from recommendsystem_tpu_torch.models.ctr import (REFERENCE_GATE_SLOTS, T_CLICK, T_EFFECT,
                                                   production_ctr)
 from recommendsystem_tpu_torch.nn import interacting as nn_interacting
+from recommendsystem_tpu_torch.nn import regularized_kernels
 from recommendsystem_tpu_torch.serving import ScoringService
 from recommendsystem_tpu_torch.serving import server as port_server
 from recommendsystem_tpu_torch.train import make_predict_step, make_train_step
@@ -138,17 +139,25 @@ def test_score_matches_jax_service(pair):
 
 
 def test_train_step_refuses_the_regularized_tower(pair):
-    """The six L1L2-regularized Dense layers, which the step refused until
-    their penalties were ported: it takes them now, and still refuses any
-    mode but "local"."""
+    """The tower of six L1L2-regularized Dense layers is refused in any mode
+    but "local" (the sharded modes come with a later slice)."""
     pbundle = pair[2][0]
     regularized = [n for n, m in pbundle.module.named_modules()
                    if getattr(m, "kernel_regularizer", None) == (1e-5, 1e-5)]
     assert regularized == ["dnn_0", "dnn_1", "task0_dnn2_0", "task0_dnn2_1",
                            "task1_dnn2_0", "task1_dnn2_1"]
-    assert callable(make_train_step(pbundle))
     with pytest.raises(NotImplementedError, match="mode 'sharded'"):
         make_train_step(pbundle, mode="sharded")
+
+
+def test_train_step_takes_the_regularized_tower(pair):
+    """In the local mode the step takes the tower and penalizes the six
+    kernels, all with one coefficient pair."""
+    pbundle = pair[2][0]
+    assert regularized_kernels(pbundle.module) == {(1e-5, 1e-5): [
+        f"{n}.kernel" for n in ("dnn_0", "dnn_1", "task0_dnn2_0", "task0_dnn2_1",
+                                "task1_dnn2_0", "task1_dnn2_1")]}
+    assert callable(make_train_step(pbundle))
 
 
 def test_default_widths_match_jax():

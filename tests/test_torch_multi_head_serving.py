@@ -26,7 +26,7 @@ from recommendsystem_tpu_torch import bridge
 from recommendsystem_tpu_torch.data import synthetic_batch
 from recommendsystem_tpu_torch.models import create_model
 from recommendsystem_tpu_torch.models.multi_head import TASKS
-from recommendsystem_tpu_torch.nn import Dense, truncated_normal
+from recommendsystem_tpu_torch.nn import Dense, regularized_kernels, truncated_normal
 from recommendsystem_tpu_torch.nn import interacting as nn_interacting
 from recommendsystem_tpu_torch.serving import ScoringService
 from recommendsystem_tpu_torch.train import (create_train_state, losses, make_predict_step,
@@ -161,15 +161,28 @@ def test_states_of_one_bundle_share_no_tensor():
 
 
 def test_train_step_refuses_the_regularized_tower(pair):
-    """The regularized experts, gates and deep tower, which the step
-    refused until their penalties were ported: it takes them now;
-    ``stacked_experts`` still raises."""
+    """The tower of regularized experts, gates and deep layers is refused in
+    any mode but "local", and its ``stacked_experts`` variant is not built."""
     pbundle = pair[2][0]
     assert pbundle.module.expert_0_fc1.kernel_regularizer == (0.0, 0.01)
     assert pbundle.module.dnn_0.kernel_regularizer == (1e-5, 1e-5)
-    assert callable(make_train_step(pbundle))
+    with pytest.raises(NotImplementedError, match="mode 'sharded'"):
+        make_train_step(pbundle, mode="sharded")
     with pytest.raises(NotImplementedError, match="moe_stacked"):
         create_model("multi_head", slots=SLOTS, stacked_experts=True, device="cpu")
+
+
+def test_train_step_takes_the_regularized_tower(pair):
+    """In the local mode the step takes the tower and penalizes the eight
+    experts' first kernels (the unused eighth too) and the seven gates with
+    L2 0.01, and the deep tower with L1L2 1e-5."""
+    pbundle = pair[2][0]
+    groups = regularized_kernels(pbundle.module)
+    assert set(groups) == {(0.0, 0.01), (1e-5, 1e-5)}
+    assert "expert_7_fc1.kernel" in groups[(0.0, 0.01)]
+    assert sum(len(v) for v in groups.values()) == len(
+        [m for m in pbundle.module.modules() if getattr(m, "kernel_regularizer", None)])
+    assert callable(make_train_step(pbundle))
 
 
 def test_default_widths_match_jax():

@@ -4,7 +4,7 @@
 The JAX ``Dense`` sows ``l1 * sum|K| + l2 * sum K^2`` into its ``"losses"``
 collection once a call, and the JAX step adds the sum of those leaves to
 the loss.  The port computes the same sum from the step's parameter dict
-(``nn.regularization``).  A kernel with entries planted at exactly 0 shows
+(``nn.kernel_penalty`` over ``nn.regularized_kernels``).  A kernel with entries planted at exactly 0 shows
 the |x| trap: ``jax.grad(jnp.abs)`` is 1 at 0, ``torch.abs``'s gradient 0.
 Tolerances: the penalty rtol 1e-5 (float32 sums in another order); its
 gradient rtol 1e-6 (one product, rounded once on either side).
@@ -25,7 +25,7 @@ from recommendsystem_tpu.train.step import make_train_step as jax_make_train_ste
 from recommendsystem_tpu_torch import bridge
 from recommendsystem_tpu_torch.data import synthetic_batch
 from recommendsystem_tpu_torch.models import create_model
-from recommendsystem_tpu_torch.nn import Dense, regularization
+from recommendsystem_tpu_torch.nn import Dense, kernel_penalty, regularized_kernels
 from recommendsystem_tpu_torch.train import make_train_step
 
 torch.set_num_threads(1)
@@ -87,7 +87,7 @@ def test_penalty_and_gradient_match_the_sowed_losses(reg):
             for n, v in bridge._flatten(params).items()}
     tower = _Tower(reg)
     assert set(flat) == {n for n, _ in tower.named_parameters()}
-    got = regularization(tower, flat)
+    got = kernel_penalty(regularized_kernels(tower), flat)
     assert got.ndim == 0
     np.testing.assert_allclose(float(got.detach()), float(want), rtol=REG_RTOL)
     grads = dict(zip(flat, torch.autograd.grad(got, list(flat.values()), allow_unused=True)))
@@ -107,9 +107,9 @@ def test_penalty_and_gradient_match_the_sowed_losses(reg):
 
 
 def test_unregularized_step_reports_zero_like_jax():
-    """autoint has no regularized Dense: the penalty is a 0-d zero on the
-    params' device, and the step's ``regularization`` equals the JAX step's
-    (0)."""
+    """autoint has no regularized Dense: the step adds no penalty, and its
+    ``regularization`` is a 0-d zero on the params' device, equal to the
+    JAX step's (0)."""
     jbundle = jax_create_model("autoint", bucket_size=64)
     pbundle = create_model("autoint", bucket_size=64, device="cpu")
     jb, _, jl, jw = jax_synthetic_batch(jbundle, 8, seed=1)
@@ -118,10 +118,10 @@ def test_unregularized_step_reports_zero_like_jax():
     pstate = bridge.from_jax_numpy(
         pbundle, jax.tree.map(np.asarray, jstate.params),
         {k: np.asarray(v) for k, v in jbundle.embedding.weights(jstate.tables).items()})
-    zero = regularization(pbundle.module, pstate.params)
-    assert zero.ndim == 0 and zero.device.type == "cpu" and float(zero) == 0.0
+    assert regularized_kernels(pbundle.module) == {}
     _, jinfo = jax_make_train_step(jbundle, donate=False, sparse_update="packed")(
         jstate, jb, jl, jw, None, jax.random.PRNGKey(0))
     _, pinfo = make_train_step(pbundle)(pstate, pb, pl, pw, seed=0)
     assert pinfo["regularization"].ndim == 0
+    assert pinfo["regularization"].device.type == "cpu"
     assert float(pinfo["regularization"]) == float(jinfo["regularization"]) == 0.0
