@@ -15,7 +15,9 @@
    launch them, one grouped call over autoint's 24 columns at B = 256 and
    65536 with 5 ids (K1, K3) or 1 (K2), tables and accumulators out of L2,
    and over a group of mixed widths and lengths and a group of 65 members
-   (two launches); the
+   (two launches); the per-row unfold-scatter (K4) as the 1-id step
+   launches it, one grouped call over autoint's 24 columns at B = 4096 and
+   65536, timed in turns with the 24 per-column launches it replaces; the
    lazy Adam as one grouped pass over autoint's 24 full storages, and over a
    group of mixed widths), and times kernel,
    plain version and a library
@@ -76,19 +78,33 @@
    56-wide rows in 36 storages, B = 8192, one id a column: one K2, 180 K4,
    one K5f, K5b and K8 a step), multi_head (B = 32768) and finish (B =
    32768: one K1, K3 and K8, no K5), each in its own window of counts held
-   to those launches, with losses and the L1L2 penalty finite and t and
+   to those launches (the 212-feature ctr's 180 single-id columns take one
+   grouped K4 launch; its grouped call is timed in turns with the 180
+   per-column launches it replaced), with losses and the L1L2 penalty finite and t and
    show equal to the live counts; times each step; times K3, K4 and K8 at
    D 48, 56 and 32 and K5f and K5b at F 40 and 180 with dropout as these
    steps launch them; holds two card steps of each model to the CPU plain
    path at a smaller bucket and B = 64 (same seeds, same dropout); then
    full-width finish serving (40 tables of 25,600 x 32) through ``score()``
    and over HTTP, scores in (0, 1), unchanged by padding and equal to the
-   CPU's, and its predict step at B = 32768 (5 ids: one K1; 1 id: one K2).
+   CPU's, and its predict step at B = 32768 (5 ids: one K1; 1 id: one K2);
+9. drives rough_rank at the JAX defaults (49 mean columns of 16-d rows over
+   25,600-id buckets in 25 storages, PLE towers, CrossNet teacher, the dense
+   flag 4575; B = 32768): a counted train window with 5 ids (one K1, K3 and
+   K8 a step) and one with 1 id (one K2, K4 and K8), losses finite, t and
+   show equal to the live counts, examples/s; K1, K3, K4 and K8 at its
+   shapes; two card steps held to the CPU at 2,048-id buckets and B = 64;
+   the service over buckets 8-256 with the flag in the requests (student
+   and teacher in (0, 1), the card equal to the CPU), and its predict step
+   at B = 32768 (one K1); then the stacked-expert variants of ctr,
+   multi_head and staytime, one serving call each at a small size, card
+   against CPU.
 
 Prints the card's name and power limit, one JSON line each for the autoint
 predict step, the train step, the staytime predict step, the predict
-steps with and without K6 (``interacting_predict``) and the phase-8 train
-steps with finish's predict step (``tower_train``), then ``{"kernels":
+steps with and without K6 (``interacting_predict``), the phase-8 train
+steps with finish's predict step (``tower_train``) and rough_rank's train
+and predict steps (``rough_rank``), then ``{"kernels":
 ...}`` (9 kernels), and last ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Any failure ends the run with a traceback
 and a non-zero exit; without CUDA it exits non-zero before printing.
@@ -142,6 +158,8 @@ CTR212_BATCH = 8192               # bench.py:325-327
 CTR212_BUCKET = 32768
 CHECK_BATCH = 64
 FINISH_BATCH = 32768              # finish's train batch (bench.py:359)
+ROUGH_BATCH = 32768               # rough_rank's train batch (bench.py:337, 360)
+ROUGH_CHECK_BUCKET = 2048         # the card-vs-CPU train check's buckets
 # phase 8's card-vs-CPU steps, batch seed 31: a draw picked after others
 # failed by ReLU kinks (ctr, the 212-feature ctr and finish at some B 128
 # and 256 draws; PERF.md section 6, scripts/torch_train_margins.py --witness)
@@ -558,7 +576,8 @@ def fold_group_case(bundle, state, b, cycles_per_ms):
     # queue of pending launches, so that the events read device time
     few = 16
     ms, host_ms = timed(lambda: packed.fold_mean_group(pick()), iters, cycles_per_ms)
-    return {"name": "fold_mean", "group": len(items), "b": b, "l": 5, "d": 8,
+    return {"name": "fold_mean", "group": len(items), "b": b,
+            "l": sorted({it[4] for it in items}), "d": sorted({it[0].shape[1] for it in items}),
             "max_abs_err": err, "ms": ms, "host_ms": host_ms,
             "plain_ms": timed(lambda: [packed.fold_mean_plain(*it) for it in pick()],
                               few, cycles_per_ms)[0],
@@ -696,6 +715,123 @@ def unfold_group_case(bundle, b, cycles_per_ms):
             "max_abs_err": err, "ms": ms, "host_ms": host_ms,
             "plain_ms": timed(lambda: [packed.unfold_mean_scatter_plain(*it) for it in pick()],
                               few, cycles_per_ms)[0],
+            "library_ms": timed(library, few, cycles_per_ms)[0],
+            "library": f"{len(items)} x index_add_",
+            "bound_ms": bound_ms, "bound_by": bound(nbytes, ops)[1],
+            "bytes": nbytes, "ops": ops}
+
+
+def _unfold_rows_members(bundle, batch, seed):
+    """K4's members as the train step hands them to its one grouped call:
+    every single-id column of ``batch`` (one id a column), one member a
+    column, each column's random (B, D) gradient into its storage's zeroed
+    accumulator (members of one storage share it).  Returns (members,
+    [(accumulator, D)])."""
+    from recommendsystem_tpu_torch.embedding import packed
+
+    eng = bundle.embedding
+    plans = packed.plan_segments(eng, batch)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    items, accs = [], []
+    for skey in sorted(plans):
+        rows, d = eng.storage[skey]
+        ids, mask = packed.storage_stream(eng, skey, plans[skey], batch)
+        acc = torch.zeros(rows * (d + 1), device="cuda")
+        accs.append((acc, d))
+        views = _acc_views(acc, d)
+        for seg in plans[skey]:
+            if seg.l != 1:
+                raise AssertionError(f"{skey}: a segment of {seg.l} ids, expected 1")
+            b = seg.size // len(seg.keys)
+            for ci in range(len(seg.keys)):
+                part = slice(seg.start + ci * b, seg.start + (ci + 1) * b)
+                items.append((*views, torch.randn((b, d), generator=gen, device="cuda"),
+                              ids[part], mask[part]))
+    return items, accs
+
+
+def unfold_rows_group_case(what, bundle, b, seed, cycles_per_ms):
+    """K4 as the train step launches it since it is grouped: one call over
+    every single-id column of a batch of ``b`` with one id a column (the
+    212-feature ctr's 180, autoint's 24), each into its storage's
+    accumulator, against the plain version on the card; timed in turns with
+    the per-column launches it replaces (``unfold_rows_scatter`` a column,
+    a group of one each: the kernel and launch a column that the step made
+    before), accumulators alternating between two copies so that each call
+    finds its own out of L2.  Bound: the sum of the per-column bounds
+    (``unfold_case``'s formula); yardstick: one ``index_add_`` of a
+    prebuilt payload a column.  A group of at most 64 members is also timed
+    in turns through K3's launcher with L = 1 (the same kernel and members,
+    from the 4 KB parameter struct in place of K4's ~30 KB one:
+    ``narrow_*``), to show what the wide struct costs a small group."""
+    from recommendsystem_tpu_torch.data import synthetic_batch
+    from recommendsystem_tpu_torch.embedding import packed
+    from recommendsystem_tpu_torch.kernels import launch_counts
+
+    batch = synthetic_batch(bundle, b, seed=seed, ids_per_feature=1)[0]
+    items, accs = _unfold_rows_members(bundle, batch, seed + 1)
+    before = launch_counts()["unfold_rows"]
+    packed.unfold_rows_scatter_group(items)
+    torch.cuda.synchronize()
+    launches = launch_counts()["unfold_rows"] - before
+    if launches != 1:
+        raise AssertionError(f"{what}: {len(items)} members took {launches} launches, not 1")
+    # a member's grads view starts its storage's accumulator
+    wants = {acc.data_ptr(): torch.zeros_like(acc) for acc, _ in accs}
+    for grads, _, g, ids, mask in items:
+        want = wants[grads.data_ptr()]
+        packed.unfold_rows_scatter_plain(*_acc_views(want, g.shape[1]), g, ids, mask)
+    err = max(_check_unfold(acc, wants[acc.data_ptr()], d, f"unfold_rows group, {what}")
+              for acc, d in accs)
+    others = {acc.data_ptr(): _acc_views(torch.zeros_like(acc), d) for acc, d in accs}
+    sets = [items, [(*others[gr.data_ptr()], g, i, m) for gr, _, g, i, m in items]]
+    pick = _alternate(sets)
+    pick_narrow = _alternate([[(*it, 1) for it in one] for one in sets])
+    libs = []
+    lib_accs = {}
+    for grads, _, g, ids, mask in items:
+        key = grads.data_ptr()
+        if key not in lib_accs:
+            lib_accs[key] = torch.zeros((grads.shape[0], g.shape[1] + 1), device="cuda")
+        libs.append((lib_accs[key], ids.long(), _payload(g, mask)))
+
+    def library():
+        for acc, lids, payload in libs:
+            acc.index_add_(0, lids, payload)
+
+    def per_column():
+        for item in pick():
+            packed.unfold_rows_scatter(*item)
+
+    bound_ms, nbytes, ops = 0.0, 0, 0
+    for _, _, g, ids, mask in items:
+        one = _unfold_bytes_ops(ids, mask, g.shape[0], g.shape[1])
+        bound_ms += bound(*one)[0]
+        nbytes, ops = nbytes + one[0], ops + one[1]
+    iters = 48
+    few = 4            # calls of one launch a member queued behind the spin kernel
+    grouped, narrow, columns = [], [], []
+    kinds = ("grouped", "narrow", "columns", "columns", "narrow", "grouped")
+    for kind in kinds if len(items) <= 64 else [k for k in kinds if k != "narrow"]:
+        if kind == "grouped":
+            grouped.append(timed(lambda: packed.unfold_rows_scatter_group(pick()), iters,
+                                 cycles_per_ms))
+        elif kind == "narrow":
+            narrow.append(timed(lambda: packed.unfold_mean_scatter_group(pick_narrow()),
+                                iters, cycles_per_ms))
+        else:
+            columns.append(timed(per_column, few, cycles_per_ms))
+    return {"name": "unfold_rows", "case": what, "group": len(items), "b": b, "l": 1,
+            "d": sorted({it[2].shape[1] for it in items}), "storages": len(accs),
+            "max_abs_err": err, "ms": min(m for m, _ in grouped),
+            "ms_runs": [m for m, _ in grouped], "host_ms": min(h for _, h in grouped),
+            "host_ms_runs": [h for _, h in grouped],
+            "per_column_ms_runs": [m for m, _ in columns],
+            "per_column_host_ms_runs": [h for _, h in columns],
+            "narrow_ms_runs": [m for m, _ in narrow],
+            "narrow_host_ms_runs": [h for _, h in narrow],
+            "plain_ms": timed(lambda: [packed.unfold_rows_scatter_plain(*it) for it in pick()],
+                              2, cycles_per_ms)[0],
             "library_ms": timed(library, few, cycles_per_ms)[0],
             "library": f"{len(items)} x index_add_",
             "bound_ms": bound_ms, "bound_by": bound(nbytes, ops)[1],
@@ -1247,7 +1383,9 @@ def check_scores(scores, n):
                              f"[{np.nanmin(s)}, {np.nanmax(s)}]")
 
 
-def http_score(svc, rows):
+def http_score(svc, rows, dense=None):
+    """``rows`` (and ``dense``, where given) POSTed to a server of ``svc``
+    on a free local port, after its health check; the reply."""
     from recommendsystem_tpu_torch.serving import serve
 
     httpd = serve(svc, port=0)
@@ -1258,8 +1396,9 @@ def http_score(svc, rows):
         with urllib.request.urlopen(f"{base}/healthz", timeout=60) as r:
             if json.loads(r.read())["status"] != "ok":
                 raise AssertionError("healthz not ok")
+        body = {"rows": rows} if dense is None else {"rows": rows, "dense": dense}
         req = urllib.request.Request(f"{base}/score",
-                                     data=json.dumps({"rows": rows}).encode(),
+                                     data=json.dumps(body).encode(),
                                      headers={"Content-Type": "application/json"})
         with urllib.request.urlopen(req, timeout=60) as r:
             return json.loads(r.read())
@@ -1418,10 +1557,11 @@ def train_path(bundle, cpu_bundle, card):
             raise AssertionError(f"{name} was not launched on the train path")
     # one grouped lazy-Adam pass and one attention backward a step; with 5
     # ids one grouped fold and one grouped unfold-scatter, with 1 one grouped
-    # per-row fold
+    # per-row fold and one grouped per-row unfold-scatter
     for ipf, names in ((5, ("sparse_adam_update", "field_attention_bwd", "fold_mean",
                             "unfold_mean")),
-                       (1, ("sparse_adam_update", "field_attention_bwd", "fold_rows"))):
+                       (1, ("sparse_adam_update", "field_attention_bwd", "fold_rows",
+                            "unfold_rows"))):
         for name in names:
             if out["launches_per_step"][f"ids{ipf}"][name] != 1:
                 raise AssertionError(f"{name}: {out['launches_per_step'][f'ids{ipf}'][name]} "
@@ -1567,21 +1707,25 @@ def check_heads(scores, n, lo, hi, what):
                                  f"[{np.nanmin(a)}, {np.nanmax(a)}]")
 
 
-def fused_service_run(name, bundle, state, cpu_bundle, rows, lo, hi):
+def fused_service_run(name, bundle, state, cpu_bundle, rows, lo, hi, dense=None):
     """``score()`` at buckets 256 and 8 and over HTTP, the heads checked
-    in [lo, hi], and the CPU plain path's scores of the same rows."""
+    in [lo, hi], and the CPU plain path's scores of the same rows;
+    ``dense``: the rows' dense fields, where the model takes some."""
     from recommendsystem_tpu_torch.serving import ScoringService
+
+    def part(n):
+        return None if dense is None else dense[:n]
 
     svc = ScoringService(bundle, state, max_batch=256, ids_per_feature=5)
     svc.warmup()
-    full = svc.score(rows)
-    three = svc.score(rows[:3])
-    over_http = http_score(svc, rows[:50])["scores"]
+    full = svc.score(rows, dense)
+    three = svc.score(rows[:3], part(3))
+    over_http = http_score(svc, rows[:50], part(50))["scores"]
     check_heads(full, len(rows), lo, hi, name)
     assert_heads_close(three, {k: v[:3] for k, v in full.items()}, f"{name} bucket 8 vs 256")
     assert_heads_close(over_http, {k: v[:50] for k, v in full.items()}, f"{name} over HTTP")
     cpu = ScoringService(cpu_bundle, _cpu_state(state), max_batch=256, ids_per_feature=5,
-                         device="cpu").score(rows)
+                         device="cpu").score(rows, dense)
     assert_heads_close(full, cpu, f"{name} card vs CPU")
     return full
 
@@ -1744,7 +1888,7 @@ def tower_train_path(card, cycles_per_ms):
     # bucket, launches a step)
     runs = (("ctr", "ctr", {}, CTR_BATCH, 5, 16384, {**mean, **attn}),
             ("ctr212", "ctr", {**ctr212, "bucket_size": CTR212_BUCKET}, CTR212_BATCH, {},
-             4096, {"fold_rows": 1, "unfold_rows": 180, "sparse_adam_update": 1, **attn}),
+             4096, {"fold_rows": 1, "unfold_rows": 1, "sparse_adam_update": 1, **attn}),
             ("multi_head", "multi_head", {}, CTR_BATCH, 5, 16384, {**mean, **attn}),
             ("finish", "finish", {}, FINISH_BATCH, 5, 8192, mean))
     out = {"card": card, "launches": None, "train": {}, "cases": []}
@@ -1785,10 +1929,14 @@ def tower_train_path(card, cycles_per_ms):
         cases = []
         if label in ("ctr", "finish"):
             cases.append(unfold_group_case(bundle, b, cycles_per_ms))
-        if label == "ctr212":                    # K4: one column, as each of its 180 launches
+        if label == "ctr212":
+            # K4: one column, as each of the 180 launches a step took before
+            # it was grouped, and the grouped call over all 180
             key = sorted(batch)[0]
             skey = eng.table_map[eng.columns[key].categorical_column.key][0]
             cases.append(unfold_case("unfold_rows", eng, skey, {key: batch[key]}, cycles_per_ms))
+            cases.append(unfold_rows_group_case("ctr212, 180 columns", bundle, b, 60,
+                                                cycles_per_ms))
         if label != "multi_head":
             cases.append(adam_case(eng, state.tables, batch, cycles_per_ms))
         if label in ("ctr212", "multi_head"):
@@ -1880,6 +2028,196 @@ def finish_serving_path(card):
                         "ids_per_feature": 5, "launches_per_call": per_call, "card": card}}
 
 
+def _rough_rows(rng, n):
+    """rough_rank request rows (its 49 default slots, 1-5 raw ids each,
+    one feature in five left out) and their dense fields: the flag 4575 at
+    0 or 1, every third request with none (the service then takes 0)."""
+    from recommendsystem_tpu_torch.models.rough_rank import FLAG_SLOT
+
+    slots = tuple(str(s) for s in range(1560, 1590)) + tuple(str(s) for s in range(1591, 1610))
+    rows = raw_rows(rng, n, 5, slots)
+    dense = [{} if i % 3 == 2 else {FLAG_SLOT: float(rng.integers(0, 2))} for i in range(n)]
+    return rows, dense
+
+
+def rough_rank_path(card, cycles_per_ms):
+    """Phase 9: rough_rank at the JAX defaults (49 mean columns of 16-d
+    rows over 25,600-id buckets in 25 storages, the dense flag 4575, B =
+    32768).  Train: a counted window of ``TRAIN_STEPS`` steps with 5 ids
+    (one K1, K3 and K8 a step, nothing else) and one with 1 id (one K2, K4
+    and K8), losses finite, t and show equal to the live counts; the step's
+    examples/s; two card steps held to the CPU at ``ROUGH_CHECK_BUCKET``
+    and B = 64.  The kernels at its shapes (K1 and K3 grouped over the 49
+    columns, K4 grouped at 1 id, K8 over the 25 storages).  Serve: the
+    service over buckets 8-256 with the flag in the requests, through
+    ``score()`` and over HTTP, student and teacher in (0, 1), the card
+    equal to the CPU; the predict step's launches and examples/s at B =
+    32768."""
+    from recommendsystem_tpu_torch.data import synthetic_batch
+    from recommendsystem_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from recommendsystem_tpu_torch.models import create_model
+    from recommendsystem_tpu_torch.train import make_predict_step, make_train_step
+    from recommendsystem_tpu_torch.train.state import create_train_state
+
+    bundle = create_model("rough_rank", device="cuda")
+    eng = bundle.embedding
+    step = make_train_step(bundle)
+    out = {"card": card, "batch": ROUGH_BATCH, "storages": len(eng.storage),
+           "rows": sorted({r for r, _ in eng.storage.values()}), "train": {}}
+    data = {ipf: synthetic_batch(bundle, ROUGH_BATCH, seed=70 + ipf, ids_per_feature=ipf)
+            for ipf in (5, 1)}
+    want = {5: {"fold_mean": 1, "unfold_mean": 1, "sparse_adam_update": 1},
+            1: {"fold_rows": 1, "unfold_rows": 1, "sparse_adam_update": 1}}
+    launches = None
+    for ipf in (5, 1):
+        batch, dense, labels, weight = data[ipf]
+        state = create_train_state(bundle, seed=12)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        infos = []
+        for i in range(TRAIN_STEPS):
+            state, info = step(state, batch, labels, weight, dense, seed=i)
+            infos.append(info)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        launches = {k: (launches or {}).get(k, 0) + v for k, v in counts.items()}
+        per_step = {k: v / TRAIN_STEPS for k, v in counts.items() if v}
+        if per_step != want[ipf]:
+            raise AssertionError(f"rough_rank train, {ipf} ids: launches a step {per_step}, "
+                                 f"expected {want[ipf]}")
+        losses = [{k: float(v) for k, v in i.items()} for i in infos]
+        if not all(np.isfinite(list(x.values())).all() for x in losses):
+            raise AssertionError(f"rough_rank train, {ipf} ids: losses {losses}")
+        live = eng.row_counts(batch)
+        for skey, tstate in state.tables.items():
+            if not (torch.equal(tstate["show"], TRAIN_STEPS * live[skey])
+                    and torch.equal(tstate["opt"]["t"], TRAIN_STEPS * (live[skey] > 0).float())):
+                raise AssertionError(f"rough_rank {skey}: t or show differ from the live counts")
+        ms, windows = train_ms(step, state, batch, labels, weight, dense, per_window=5)
+        out["train"][f"ids{ipf}"] = {
+            "metric": "torch_rough_rank_train_examples_per_sec", "unit": "examples/s",
+            "value": ROUGH_BATCH / ms * 1e3, "ms_per_step": ms, "window_ms": windows,
+            "batch": ROUGH_BATCH, "launches_per_step": per_step, "losses": losses}
+        log(f"rough_rank train, {ipf} ids:", json.dumps(out["train"][f"ids{ipf}"]))
+        if ipf == 5:
+            tables = state.tables
+    out["launches"] = launches
+
+    # the kernels at rough_rank's shapes
+    cases = [fold_group_case(bundle, create_train_state(bundle, seed=13), ROUGH_BATCH,
+                             cycles_per_ms),
+             unfold_group_case(bundle, ROUGH_BATCH, cycles_per_ms),
+             unfold_rows_group_case("rough_rank, 49 columns", bundle, ROUGH_BATCH, 74,
+                                    cycles_per_ms),
+             adam_case(eng, tables, data[5][0], cycles_per_ms)]
+    for c in cases:
+        c["model"] = "rough_rank"
+        log(json.dumps(c))
+    out["cases"] = cases
+    del tables
+
+    small = {"bucket_size": ROUGH_CHECK_BUCKET}
+    out["card_vs_cpu"] = {f"ids{ipf}": hold_card_to_cpu(
+        create_model("rough_rank", device="cuda", **small),
+        create_model("rough_rank", device="cpu", **small), TOWER_CHECK_BATCH, ipf,
+        f"rough_rank {ipf} ids") for ipf in (5, 1)}
+
+    # serving: buckets 8-256, the flag in the requests
+    state = create_train_state(bundle, seed=14)
+    cpu_bundle = create_model("rough_rank", device="cpu")
+    rows, dense = _rough_rows(np.random.default_rng(15), 200)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    scores = fused_service_run("rough_rank", bundle, state, cpu_bundle, rows, -np.inf, np.inf,
+                               dense)
+    torch.cuda.synchronize()
+    serving = launch_counts()
+    log("rough_rank serving launches:", json.dumps(serving))
+    if serving["fold_mean"] < 1 or any(v for k, v in serving.items() if k != "fold_mean"):
+        raise AssertionError(f"rough_rank serving launched {serving}, expected fold_mean only")
+    if set(scores) != {"student", "teacher", "user_emb", "item_emb"}:
+        raise AssertionError(f"rough_rank serves {sorted(scores)}")
+    for task in ("student", "teacher"):
+        if not (0.0 < min(scores[task]) and max(scores[task]) < 1.0):
+            raise AssertionError(f"rough_rank {task}: scores outside (0, 1)")
+    out["serve_launches"] = serving
+
+    predict = make_predict_step(bundle)
+    batch, pdense = synthetic_batch(bundle, ROUGH_BATCH, seed=16)[:2]
+    predict(state, batch, pdense)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    pred = predict(state, batch, pdense)
+    torch.cuda.synchronize()
+    per_call = {k: v for k, v in launch_counts().items() if v}
+    if per_call != {"fold_mean": 1}:
+        raise AssertionError(f"rough_rank predict: launches {per_call}")
+    check_heads({k: pred[k].squeeze(1).cpu().numpy() for k in ("student", "teacher")},
+                ROUGH_BATCH, 0.0, 1.0, "rough_rank predict")
+    check, cdense = synthetic_batch(bundle, CHECK_BATCH, seed=17)[:2]
+    cpu_out = make_predict_step(cpu_bundle)(
+        _cpu_state(state), {k: v.to("cpu") for k, v in check.items()},
+        {k: v.cpu() for k, v in cdense.items()})
+    assert_heads_close({k: v.cpu().numpy() for k, v in predict(state, check, cdense).items()},
+                       {k: v.numpy() for k, v in cpu_out.items()},
+                       f"rough_rank predict b={CHECK_BATCH}, card vs CPU")
+    windows = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            predict(state, batch, pdense)
+        torch.cuda.synchronize()
+        windows.append((time.perf_counter() - t0) / 10 * 1e3)
+    ms = sorted(windows)[1]
+    out["predict"] = {"metric": "torch_rough_rank_predict_examples_per_sec",
+                      "unit": "examples/s", "value": ROUGH_BATCH / ms * 1e3,
+                      "ms_per_call": ms, "window_ms": windows, "batch": ROUGH_BATCH,
+                      "launches_per_call": per_call, "card": card}
+    out["launches"] = {k: v + serving[k] + per_call.get(k, 0) for k, v in launches.items()}
+    return out
+
+
+def stacked_serving_path():
+    """The stacked-expert variants of ctr, multi_head and staytime, each at
+    a small size (4096-id buckets; staytime's sequences of 8): one serving
+    call of 64 requests on the card against the same on the CPU.  Returns
+    the launch counts of the three calls."""
+    from recommendsystem_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from recommendsystem_tpu_torch.models import create_model
+    from recommendsystem_tpu_torch.models.staytime import StaytimeConfig
+    from recommendsystem_tpu_torch.serving import ScoringService
+    from recommendsystem_tpu_torch.train.state import create_train_state
+
+    rng = np.random.default_rng(18)
+    cfg = StaytimeConfig(bucket_size=4096, seq_max_len=8)
+    runs = (("ctr", {"bucket_size": 4096}, raw_rows(rng, 64, 5)),
+            ("multi_head", {"bucket_size": 4096},
+             raw_rows(rng, 64, 5, tuple(str(2000 + s) for s in range(40)))),
+            ("staytime", {"cfg": cfg}, staytime_rows(rng, 64, cfg.slots, cfg.seq_slots)))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for name, kw, rows in runs:
+        bundle = create_model(name, stacked_experts=True, device="cuda", **kw)
+        cpu_bundle = create_model(name, stacked_experts=True, device="cpu", **kw)
+        state = create_train_state(bundle, seed=19)
+        got = ScoringService(bundle, state, max_batch=256, ids_per_feature=5).score(rows)
+        want = ScoringService(cpu_bundle, _cpu_state(state), max_batch=256, ids_per_feature=5,
+                              device="cpu").score(rows)
+        assert_heads_close(got, want, f"stacked {name}, card vs CPU")
+        if name == "staytime":
+            check_staytime_scores(got, len(rows))
+        else:
+            check_heads(got, len(rows), 0.0, 1.0, f"stacked {name}")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log("stacked serving launches:", json.dumps(counts))
+    for k in ("fold_mean", "interacting_attention", "din_pool"):
+        if counts[k] < 1:
+            raise AssertionError(f"stacked serving did not launch {k}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available; this script runs on a card")
@@ -1942,6 +2280,10 @@ def main() -> int:
         cases.append(fold_group_case(bundle, state, b, cycles_per_ms))
         cases.append(autoint_rows_case(bundle, state, b, cycles_per_ms))
         cases.append(unfold_group_case(bundle, b, cycles_per_ms))
+    # K4 as the 1-id train step launches it: one grouped call over 24 columns
+    for b in (4096, BIG_BATCH):
+        cases.append(unfold_rows_group_case(f"autoint 24 columns, b={b}", bundle, b, b + 31,
+                                            cycles_per_ms))
     cases += group_check_case("mixed", MIXED_GROUP, 1)
     cases += group_check_case("65 members", GROUP_65, 2)
     batch = synthetic_batch(bundle, BIG_BATCH, seed=5)[0]
@@ -2060,6 +2402,17 @@ def main() -> int:
         for k, v in report["towers"]["train"].items()},
         "finish_predict": report["finish"]["predict"], "card": card}), flush=True)
 
+    # -- 9. the main path: rough_rank training and serving; stacked experts --
+    report["rough_rank"] = rough_rank_path(card, cycles_per_ms)
+    rough = report["rough_rank"]["launches"]
+    cases += report["rough_rank"]["cases"]
+    stacked = report["stacked_serving"] = stacked_serving_path()
+    print(json.dumps({"rough_rank": {
+        "train": {k: {f: v[f] for f in ("metric", "value", "unit", "ms_per_step", "window_ms",
+                                         "batch", "launches_per_step")}
+                  for k, v in report["rough_rank"]["train"].items()},
+        "predict": report["rough_rank"]["predict"]}, "card": card}), flush=True)
+
     # -- report ----------------------------------------------------------------
     # the serving folds at the largest serving bucket, the train kernels
     # (K5 among them: the serving paths take K6) at the train batch, the
@@ -2071,10 +2424,10 @@ def main() -> int:
         serve = c["name"] in ("fold_mean", "fold_rows")
         want_b = STAYTIME_BATCH if c["name"] == "din_pool" else (
             256 if serve else BIG_BATCH)
-        # K1, K2 and K3: their grouped call over autoint's 24 columns, as the
-        # steps launch them; K7 as the predict step launches it, gathering
-        # its facts
-        grouped = (c["name"] not in ("fold_mean", "fold_rows", "unfold_mean")
+        # K1, K2, K3 and K4: their grouped call over autoint's 24 columns, as
+        # the steps launch them; K7 as the predict step launches it,
+        # gathering its facts
+        grouped = (c["name"] not in ("fold_mean", "fold_rows", "unfold_mean", "unfold_rows")
                    or c.get("group") == 24)
         if c["name"] == "din_pool":
             grouped = c.get("entry") == "gather"
@@ -2105,7 +2458,7 @@ def main() -> int:
     for name, (source, replaces) in sources.items():
         c = headline[name]
         launches = (serving[name] + training[name] + staytime[name] + interacting[name]
-                    + towers[name])
+                    + towers[name] + rough[name] + stacked[name])
         if launches < 1:
             raise AssertionError(f"{name} was not launched on the main paths")
         kernels.append({

@@ -4,7 +4,8 @@ Counterpart of ``recommendsystem_tpu/data/synthetic.py``: the same numpy
 draws in the same column order, and labels drawn per ``bundle.losses`` in
 its order, so for one seed both packages see byte-identical batches.  The
 staytime task draws a watch duration and fills its three labels (and the
-sample weights) at once; the distillation branch comes with rough_rank.
+sample weights) at once; rough_rank's ``distill`` head takes all-zero labels
+and draws nothing (its loss reads the per-sample KD term, not the label).
 """
 
 from __future__ import annotations
@@ -76,6 +77,8 @@ def synthetic_batch(bundle: ModelBundle, batch_size: int, seed: int = 0,
             labels[staytime_model.T_LONG] = st["longplay"]
         elif task in labels:
             continue
+        elif task == "distill":
+            labels[task] = np.zeros((batch_size, 1), np.float32)
         else:
             # fresh correlated binary label per head
             flip = rng.uniform(size=(batch_size, 1)) < 0.15

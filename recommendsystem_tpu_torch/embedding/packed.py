@@ -21,7 +21,8 @@ the scatter it feeds or is fed by:
                    takes every mean column of a step in one launch
                                                     (csrc/unfold_scatter.cu)
   unfold_rows_scatter (K4)  the same per entry, for l == 1 and sequence
-                   columns
+                   columns; ``unfold_rows_scatter_group`` takes every
+                   such column of a step in one launch
   sparse_adam_update_group  (K8)  one lazy-Adam pass over every storage
                    of a step, in one launch: rows with count > 0 step w, m,
                    v, t and add to show; the accumulators are left zero
@@ -259,21 +260,65 @@ def unfold_mean_scatter_plain(grads, counts, g, ids, mask, l: int) -> None:
     unfold_rows_scatter_plain(grads, counts, g.repeat(l, 1), ids, mask)
 
 
-def _check_unfold_args(grads, counts, g, ids, mask) -> None:
+def _check_unfold_args(grads, counts, g, ids, mask, checked=None) -> None:
+    """What K3 and K4 take of a member; ``checked``: a set of the (grads,
+    counts) views already checked in this group, by id (members of one
+    storage share them), to skip checking them again."""
     require(g, "g", torch.float32)
     if g.ndim != 2:
         raise ValueError(f"g: expected (N, D), got {tuple(g.shape)}")
-    require(grads, "grads", torch.float32, device=g.device)
-    if grads.ndim != 2 or grads.shape[1] != g.shape[1]:
+    views = (id(grads), id(counts))
+    if checked is None or views not in checked:
+        require(grads, "grads", torch.float32, device=g.device)
+        if grads.ndim != 2:
+            raise ValueError(f"grads: expected (rows, D), got {tuple(grads.shape)}")
+        require(counts, "counts", torch.float32, (grads.shape[0], 1), g.device)
+        if checked is not None:
+            checked.add(views)
+    if grads.shape[1] != g.shape[1]:
         raise ValueError(f"grads: expected (rows, {g.shape[1]}) for g of D "
                          f"{g.shape[1]}, got {tuple(grads.shape)}")
-    require(counts, "counts", torch.float32, (grads.shape[0], 1), g.device)
     require(ids, "ids", torch.int32, device=g.device)
     if ids.ndim != 1:
         raise ValueError(f"ids: expected (E,), got {tuple(ids.shape)}")
     require(mask, "mask", torch.float32, ids.shape, g.device)
     if g.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unfold: no kernel for device {g.device}")
+
+
+def _unfold_group_device(items, what: str, l_of) -> torch.device:
+    """The one device of an unfold group's members, each checked as K3 or
+    K4 takes it (``l_of(item)``: the member's L)."""
+    device = items[0][2].device
+    checked = set()
+    for item in items:
+        grads, counts, g, ids, mask = item[:5]
+        if g.device != device:
+            raise ValueError(f"{what}: members on {device} and {g.device}")
+        _check_unfold_args(grads, counts, g, ids, mask, checked)
+        l = l_of(item)
+        if l < 1 or ids.shape[0] != l * g.shape[0]:
+            raise ValueError(f"{what}: {ids.shape[0]} ids for {l} slots of "
+                             f"{g.shape[0]} rows")
+    return device
+
+
+def _unfold_words(items, l_of, what: str) -> List[int]:
+    """The launchers' 8 words a member (grads, counts, g, ids, mask, L, B,
+    D); members with no entries are left out."""
+    words = []
+    for item in items:
+        grads, counts, g, ids, mask = item[:5]
+        b, d = g.shape
+        l = l_of(item)
+        if b == 0 or d == 0:
+            continue
+        if l * b * d >= _I32:
+            raise ValueError(f"{what}: {l} x {b} entries of D {d} exceed the "
+                             f"kernel's 32-bit indices")
+        words += (grads.data_ptr(), counts.data_ptr(), g.data_ptr(), ids.data_ptr(),
+                  mask.data_ptr(), l, b, d)
+    return words
 
 
 def unfold_mean_scatter_group(items) -> None:
@@ -285,31 +330,37 @@ def unfold_mean_scatter_group(items) -> None:
     items = list(items)
     if not items:
         return None
-    device = items[0][2].device
-    for grads, counts, g, ids, mask, l in items:
-        if g.device != device:
-            raise ValueError(f"unfold_mean_group: members on {device} and {g.device}")
-        _check_unfold_args(grads, counts, g, ids, mask)
-        if l < 1 or ids.shape[0] != l * g.shape[0]:
-            raise ValueError(f"unfold_mean: {ids.shape[0]} ids for {l} slots of "
-                             f"{g.shape[0]} rows")
+    device = _unfold_group_device(items, "unfold_mean", lambda it: it[5])
     if device.type == "cpu":
         for item in items:
             unfold_mean_scatter_plain(*item)
         return None
-    words = []
-    for grads, counts, g, ids, mask, l in items:
-        b, d = g.shape
-        if b == 0 or d == 0:
-            continue
-        if l * b * d >= _I32:
-            raise ValueError(f"unfold_mean: {l} x {b} entries of D {d} exceed the "
-                             f"kernel's 32-bit indices")
-        words += (grads.data_ptr(), counts.data_ptr(), g.data_ptr(), ids.data_ptr(),
-                  mask.data_ptr(), l, b, d)
+    words = _unfold_words(items, lambda it: it[5], "unfold_mean")
     lib = library("unfold_scatter")
     _launch_groups(lib, lib.unfold_mean_group_f32, "unfold_mean", words, 8,
                    lib.unfold_max_columns(), device)
+    return None
+
+
+def unfold_rows_scatter_group(items) -> None:
+    """K4 over a group: ``items`` are ``(grads, counts, g, ids, mask)``, each
+    as ``unfold_rows_scatter`` takes them, all on one device; members may
+    share an accumulator and differ in D.  In place.  On a card one launch
+    takes up to 512 members (every single-id and sequence column of a
+    train step; a larger group is cut into launches of 512, each counted as
+    one ``unfold_rows`` launch); members with no entries launch nothing."""
+    items = list(items)
+    if not items:
+        return None
+    device = _unfold_group_device(items, "unfold_rows", lambda it: 1)
+    if device.type == "cpu":
+        for item in items:
+            unfold_rows_scatter_plain(*item)
+        return None
+    words = _unfold_words(items, lambda it: 1, "unfold_rows")
+    lib = library("unfold_scatter")
+    _launch_groups(lib, lib.unfold_rows_group_f32, "unfold_rows", words, 8,
+                   lib.unfold_rows_max_members(), device)
     return None
 
 
@@ -327,27 +378,9 @@ def unfold_mean_scatter(grads, counts, g, ids, mask, l: int) -> None:
 
 def unfold_rows_scatter(grads, counts, g, ids, mask) -> None:
     """K4: add each live entry's gradient row ``g[e]`` and a count of 1
-    into row ``ids[e]`` of ``grads`` and ``counts``.  In place."""
-    _check_unfold_args(grads, counts, g, ids, mask)
-    e, d = g.shape
-    if ids.shape[0] != e:
-        raise ValueError(f"unfold_rows: {ids.shape[0]} ids for {e} rows")
-    if g.device.type == "cpu":
-        return unfold_rows_scatter_plain(grads, counts, g, ids, mask)
-    if e == 0 or d == 0:
-        return None
-    if e * d >= _I32:
-        raise ValueError(f"unfold_rows: {e} entries of D {d} exceed the kernel's "
-                         f"32-bit indices")
-    lib = library("unfold_scatter")
-    with torch.cuda.device(g.device):
-        code = lib.unfold_rows_scatter_f32(grads.data_ptr(), counts.data_ptr(),
-                                           g.data_ptr(), ids.data_ptr(),
-                                           mask.data_ptr(), e, d,
-                                           stream_handle(g.device))
-    check(lib, code, "unfold_rows")
-    count_launch("unfold_rows")
-    return None
+    into row ``ids[e]`` of ``grads`` and ``counts``.  In place:
+    ``unfold_rows_scatter_group`` with one member."""
+    return unfold_rows_scatter_group([(grads, counts, g, ids, mask)])
 
 
 # ---------------------------------------------------------------------------
@@ -599,7 +632,7 @@ def apply_gradients_packed(eng, state, g_acts, plans, ctx, batch):
     pass (K8) over all the storages at once.  The mean columns with l > 1
     of every storage go to one grouped K3 (one member a column: each column
     is one contiguous block of the stream); the single-id columns and the
-    sequence columns then take K4 each.
+    sequence columns of every storage to one grouped K4.
 
     Updates the tables of ``state`` in place (w, m, v, t, show; the JAX
     package donates them instead) and returns ``state``.  ``g_acts``: per
@@ -626,8 +659,7 @@ def apply_gradients_packed(eng, state, g_acts, plans, ctx, batch):
                 part = slice(seg.start, seg.start + seg.size)
                 rows.append(views + (g.reshape(seg.size, d), ids[part], mask[part]))
     unfold_mean_scatter_group(means)
-    for member in rows:
-        unfold_rows_scatter(*member)
+    unfold_rows_scatter_group(rows)
     sparse_adam_update_group(eng.sparse_opt, [state[k] for k in accs],
                              list(accs.values()))
     return state

@@ -50,8 +50,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "unfold_scatter": {
         "unfold_mean_group_f32": [_P, _I, _P],
+        "unfold_rows_group_f32": [_P, _I, _P],
         "unfold_max_columns": [],
-        "unfold_rows_scatter_f32": [_P, _L, _P, _P, _P, _L, _I, _P],
+        "unfold_rows_max_members": [],
     },
     "sparse_adam": {
         "sparse_adam_group_f32": [_P, _P, _P, _I, _F, _F, _F, _F, _F, _F, _P],

@@ -20,9 +20,11 @@ Submodules and parameters carry the flax names (``senet``,
 ``dnn_{i}``, ``dnn_can``, ``gate_{i}_{j}_{1,2}``, ``expert_output_{i}_{j}``,
 ``gate_{i}_{j}``, ``gate_output_{i}``, ``task{i}_dnn2_{j}``,
 ``task{i}_out``), so a flattened flax tree is the module's state dict.  The
-L1L2 penalties are stored on their Dense layers; the train step that adds
-them comes with a later slice (``make_train_step`` refuses the model
-meanwhile).  ``stacked_experts`` waits for ``nn/moe_stacked.py``.
+L1L2 penalties are stored on their Dense layers; the train step adds them
+to the loss.  ``stacked_experts`` builds the three gated experts as one
+stack (``experts.gate_{j}_{1,2}``, ``experts.expert_output_{j}``, each
+kernel (3, in, out), as the JAX ``stacked_gated_experts`` leaves them),
+run as one batched product a layer.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from ..core.config import ModelConfig, load_model_parameter_json, synthetic_ctr_
 from ..core.device import resolve_device
 from ..embedding import EmbeddingFeatures, category_column, embedding_column
 from ..embedding.optimizers import SparseAdam
-from ..nn import Dense, InteractingLayer, PPNetGateBank, SENet
+from ..nn import Dense, InteractingLayer, PPNetGateBank, SENet, stacked_gated_experts
 from ..train import losses as L
 from ..train.adam import Adam
 from .autoint import clip
@@ -67,10 +69,12 @@ REFERENCE_GATE_SLOTS = ('1568', '1570', '1578', '1591', '1593', '1614',
 
 class CTRModule(nn.Module):
     def __init__(self, cfg: ModelConfig, gate_slots: Tuple[str, ...],
-                 attention_dropout_rate: float = 0.2, device=None):
+                 attention_dropout_rate: float = 0.2, stacked_experts: bool = False,
+                 device=None):
         super().__init__()
         self.cfg = cfg
         self.gate_slots = tuple(gate_slots)
+        self.stacked_experts = stacked_experts
 
         structure = [e - s for si in cfg.slot_intervals.values() for s, e in si.intervals]
         gate_width = sum(e - s for slot, si in cfg.slot_intervals.items()
@@ -98,13 +102,17 @@ class CTRModule(nn.Module):
             width = unit
         result_width = width + 8 * f + bias["multiply_user"]
         dense("dnn_can", bias["can"], CAN_WIDTH)
-        for i in range(NUM_EXPERTS):
-            width = result_width
-            for j, unit in enumerate(EXPERT_UNITS):
-                dense(f"gate_{i}_{j}_1", gate_width, unit, "relu")
-                dense(f"gate_{i}_{j}_2", unit, unit, "sigmoid")
-                dense(f"expert_output_{i}_{j}", width, unit, "relu")
-                width = unit
+        if stacked_experts:
+            self.experts = stacked_gated_experts(NUM_EXPERTS, EXPERT_UNITS, result_width,
+                                                 gate_width, device=device)
+        else:
+            for i in range(NUM_EXPERTS):
+                width = result_width
+                for j, unit in enumerate(EXPERT_UNITS):
+                    dense(f"gate_{i}_{j}_1", gate_width, unit, "relu")
+                    dense(f"gate_{i}_{j}_2", unit, unit, "sigmoid")
+                    dense(f"expert_output_{i}_{j}", width, unit, "relu")
+                    width = unit
         for i in range(len(TASKS)):
             width = result_width
             for j, unit in enumerate(GATE_UNITS):
@@ -150,15 +158,18 @@ class CTRModule(nn.Module):
 
         # MMoE experts with per-layer gates over the gate features
         gate_input = torch.cat(gate_list, dim=1)
-        expert_outs = []
-        for i in range(NUM_EXPERTS):
-            expert = result
-            for j in range(len(EXPERT_UNITS)):
-                g = getattr(self, f"gate_{i}_{j}_1")(gate_input)
-                g = 2 * getattr(self, f"gate_{i}_{j}_2")(g)
-                expert = g * getattr(self, f"expert_output_{i}_{j}")(expert)
-            expert_outs.append(expert)
-        experts = torch.stack(expert_outs, dim=1)                   # (B, E, 256)
+        if self.stacked_experts:
+            experts = self.experts(result, gate_input).transpose(0, 1)  # (B, E, 256)
+        else:
+            expert_outs = []
+            for i in range(NUM_EXPERTS):
+                expert = result
+                for j in range(len(EXPERT_UNITS)):
+                    g = getattr(self, f"gate_{i}_{j}_1")(gate_input)
+                    g = 2 * getattr(self, f"gate_{i}_{j}_2")(g)
+                    expert = g * getattr(self, f"expert_output_{i}_{j}")(expert)
+                expert_outs.append(expert)
+            experts = torch.stack(expert_outs, dim=1)               # (B, E, 256)
 
         outputs = {}
         n_out = len(OUTPUT_UNITS)
@@ -196,10 +207,8 @@ def create_ctr(cfg: Optional[ModelConfig] = None,
     ``synthetic_ctr_config(num_slots=24, num_bias=8)`` (48-wide rows, F =
     24), gate slots the first 8 sparse slots, ``bucket_size``-row tables
     grouped into storages of at most 40 MB, lazy per-row Adam on the tables
-    and Adam(5e-5, 0.9, 0.999, 1e-8) on the tower."""
-    if stacked_experts:
-        raise NotImplementedError("stacked_experts=True needs nn/moe_stacked.py, "
-                                  "which comes with a later slice of the port")
+    and Adam(5e-5, 0.9, 0.999, 1e-8) on the tower; ``stacked_experts``
+    stacks the MMoE's experts."""
     dev = resolve_device(device)
     if cfg is None:
         cfg = synthetic_ctr_config(num_slots=24, num_bias=8)
@@ -215,7 +224,8 @@ def create_ctr(cfg: Optional[ModelConfig] = None,
     return ModelBundle(
         name="ctr",
         module=CTRModule(cfg, tuple(gate_slots),
-                         attention_dropout_rate=attention_dropout_rate, device=dev),
+                         attention_dropout_rate=attention_dropout_rate,
+                         stacked_experts=stacked_experts, device=dev),
         embedding=emb, tasks=TASKS, device=dev, config=cfg,
         losses={T_CLICK: L.cross_entropy_sum_mean, T_EFFECT: L.cross_entropy_sum_mean},
         dense_optimizer=Adam(dense_lr, b1=0.9, b2=0.999, eps=1e-8))

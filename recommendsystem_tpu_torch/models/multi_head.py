@@ -12,8 +12,10 @@ sigmoid heads of ``TASKS``.  Sparse Adam 5e-5, dense Adam 1e-5,
 Parameters carry the flax names (``interacting``, ``dnn_{i}``,
 ``expert_{i}_fc1``, ``gate_{i}_fc2``, one Dense per task name), so a
 flattened flax tree is the module's state dict.  The L1L2 penalties are
-stored on their Dense layers; the train step that adds them comes with a
-later slice.  ``stacked_experts`` waits for ``nn/moe_stacked.py``.
+stored on their Dense layers; the train step adds them to the loss.
+``stacked_experts`` builds the 8 experts as one stacked Dense
+``experts_fc1`` (kernel (8, in, 32), as the JAX ``nn.vmap`` leaves it), of
+which the first 7 outputs are used; its L2 penalty covers all 8.
 """
 
 from __future__ import annotations
@@ -41,9 +43,11 @@ EXPERT_NUM = 7
 
 
 class MultiHeadModule(nn.Module):
-    def __init__(self, slots: Tuple[str, ...], dim: int = 8, device=None):
+    def __init__(self, slots: Tuple[str, ...], dim: int = 8, stacked_experts: bool = False,
+                 device=None):
         super().__init__()
         self.slots = tuple(slots)
+        self.stacked_experts = stacked_experts
         f = len(self.slots)
         self.interacting = InteractingLayer(
             dim, layer_num=1, unit_num=8, head_num=2, use_dropout=True,
@@ -56,10 +60,15 @@ class MultiHeadModule(nn.Module):
             width = unit
         result_width = width + 8 * f
         # 8 experts built, the first 7 consumed (the reference's multidnn.py:82-92)
-        for idx in range(EXPERT_NUM + 1):
-            setattr(self, f"expert_{idx}_fc1", Dense(
-                result_width, 32, "relu", kernel_init=_TN_INIT,
-                kernel_regularizer=_EXPERT_REG, device=device))
+        if stacked_experts:
+            self.experts_fc1 = Dense(result_width, 32, "relu", kernel_init=_TN_INIT,
+                                     kernel_regularizer=_EXPERT_REG, stack=EXPERT_NUM + 1,
+                                     device=device)
+        else:
+            for idx in range(EXPERT_NUM + 1):
+                setattr(self, f"expert_{idx}_fc1", Dense(
+                    result_width, 32, "relu", kernel_init=_TN_INIT,
+                    kernel_regularizer=_EXPERT_REG, device=device))
         for idx, task in enumerate(TASKS):
             setattr(self, f"gate_{idx}_fc2", Dense(
                 result_width, EXPERT_NUM, "softmax", kernel_init=_TN_INIT,
@@ -76,8 +85,11 @@ class MultiHeadModule(nn.Module):
         for i in range(len(DEEP_UNITS)):
             deep = getattr(self, f"dnn_{i}")(deep)
         result = torch.cat([deep, autoint_out], dim=1)
-        experts = torch.stack([getattr(self, f"expert_{idx}_fc1")(result)
-                               for idx in range(EXPERT_NUM)], dim=1)      # (B, 7, 32)
+        if self.stacked_experts:
+            experts = self.experts_fc1(result)[:EXPERT_NUM].transpose(0, 1)  # (B, 7, 32)
+        else:
+            experts = torch.stack([getattr(self, f"expert_{idx}_fc1")(result)
+                                   for idx in range(EXPERT_NUM)], dim=1)  # (B, 7, 32)
         outputs = {}
         for idx, task in enumerate(TASKS):
             gate = getattr(self, f"gate_{idx}_fc2")(result)                # (B, 7)
@@ -98,10 +110,8 @@ def create_multi_head(slots: Optional[Sequence[str]] = None,
     unless ``device="cpu"``).  Defaults as the JAX package's: 40 sorted
     slots ``2000..2039`` of ``dim`` 8 over ``bucket_size``-row tables,
     grouped into storages of at most 10 MB, lazy per-row Adam (5e-5) on the
-    tables and Adam(1e-5) on the tower."""
-    if stacked_experts:
-        raise NotImplementedError("stacked_experts=True needs nn/moe_stacked.py, "
-                                  "which comes with a later slice of the port")
+    tables and Adam(1e-5) on the tower; ``stacked_experts`` stacks the 8
+    experts."""
     dev = resolve_device(device)
     if slots is None:
         slots = [str(s) for s in range(2000, 2040)]
@@ -112,7 +122,7 @@ def create_multi_head(slots: Optional[Sequence[str]] = None,
                             group_tables=True, max_group_bytes=10 << 20)
     return ModelBundle(
         name="multi_head",
-        module=MultiHeadModule(slots, dim, device=dev),
+        module=MultiHeadModule(slots, dim, stacked_experts, device=dev),
         embedding=emb, tasks=TASKS, device=dev,
         losses={t: L.cross_entropy_per_sample for t in TASKS},
         dense_optimizer=Adam(dense_lr, b1=0.9, b2=0.999, eps=1e-8))

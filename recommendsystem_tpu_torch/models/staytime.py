@@ -19,7 +19,9 @@ Submodules and parameters carry the flax names (``din_2125``, ``senet``,
 ``*_pred``), so a flattened flax tree is the module's state dict.  Sparse
 AdaGrad (5e-3) on the tables and dense Adam (5e-4) on the tower, losses
 KL(2.0) + CE(2.0) + CE(1.0); the train step for them comes with a later
-slice of the port.  ``stacked_experts`` waits for ``nn/moe_stacked.py``.
+slice of the port.  ``stacked_experts`` builds the three PPNet-gated
+experts as one stack ``experts`` (each kernel (3, in, out), as the JAX
+``stacked_gated_experts`` leaves them).
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ from ..core.device import resolve_device
 from ..embedding import EmbeddingFeatures, category_column, embedding_column
 from ..embedding.optimizers import SparseAdaGrad
 from ..embedding.packed import SequenceRows
-from ..nn import DINPool, DeepCrossLayer, Dense, FFMBlock, SENet, fm_cross_term
+from ..nn import (DINPool, DeepCrossLayer, Dense, FFMBlock, SENet, fm_cross_term,
+                  stacked_gated_experts)
 from ..train import losses as L
 from ..train.adam import Adam
 from .base import ModelBundle, register_model
@@ -84,9 +87,11 @@ class StaytimeConfig:
 
 class StaytimeModule(nn.Module):
     def __init__(self, cfg: StaytimeConfig,
-                 deep_hidden_units: Tuple[int, ...] = (256, 128), device=None):
+                 deep_hidden_units: Tuple[int, ...] = (256, 128),
+                 stacked_experts: bool = False, device=None):
         super().__init__()
         self.cfg = cfg
+        self.stacked_experts = stacked_experts
         self.deep_hidden_units = tuple(deep_hidden_units)
         c = cfg
         for s in c.seq_slots:
@@ -99,14 +104,20 @@ class StaytimeModule(nn.Module):
                                    + len(c.seq_slots))
                         + 8 * len(c.user_slots) * len(c.item_slots))
         gate_width = (c.dim - GENERAL) * len(c.bias_slots)
-        for i in range(c.num_experts):
-            width = concat_width
-            for j, unit in enumerate(self.deep_hidden_units):
-                setattr(self, f"gate_{i}_{j}_1", Dense(gate_width, unit, "relu", device=device))
-                setattr(self, f"gate_{i}_{j}_2", Dense(unit, unit, "sigmoid", device=device))
-                setattr(self, f"expert_output_{i}_{j}",
-                        Dense(width, unit, "relu", device=device))
-                width = unit
+        if stacked_experts:
+            self.experts = stacked_gated_experts(c.num_experts, self.deep_hidden_units,
+                                                 concat_width, gate_width, device=device)
+        else:
+            for i in range(c.num_experts):
+                width = concat_width
+                for j, unit in enumerate(self.deep_hidden_units):
+                    setattr(self, f"gate_{i}_{j}_1", Dense(gate_width, unit, "relu",
+                                                           device=device))
+                    setattr(self, f"gate_{i}_{j}_2", Dense(unit, unit, "sigmoid",
+                                                           device=device))
+                    setattr(self, f"expert_output_{i}_{j}",
+                            Dense(width, unit, "relu", device=device))
+                    width = unit
         expert_width = self.deep_hidden_units[-1]
         for i in range(c.num_tasks):
             width = concat_width
@@ -158,15 +169,18 @@ class StaytimeModule(nn.Module):
         gate_input = torch.cat(bias_inputs, dim=-1)
 
         # PPNet-gated experts
-        expert_outs = []
-        for i in range(c.num_experts):
-            deep = concated
-            for j in range(len(self.deep_hidden_units)):
-                gate = getattr(self, f"gate_{i}_{j}_1")(gate_input)
-                gate = getattr(self, f"gate_{i}_{j}_2")(gate) * 2
-                deep = gate * getattr(self, f"expert_output_{i}_{j}")(deep)
-            expert_outs.append(deep)
-        experts = torch.stack(expert_outs, dim=1)                  # (B, E, D)
+        if self.stacked_experts:
+            experts = self.experts(concated, gate_input).transpose(0, 1)   # (B, E, D)
+        else:
+            expert_outs = []
+            for i in range(c.num_experts):
+                deep = concated
+                for j in range(len(self.deep_hidden_units)):
+                    gate = getattr(self, f"gate_{i}_{j}_1")(gate_input)
+                    gate = getattr(self, f"gate_{i}_{j}_2")(gate) * 2
+                    deep = gate * getattr(self, f"expert_output_{i}_{j}")(deep)
+                expert_outs.append(deep)
+            experts = torch.stack(expert_outs, dim=1)              # (B, E, D)
 
         # MMoE gates
         mmoe_outs = []
@@ -204,10 +218,8 @@ def create_staytime(cfg: Optional[StaytimeConfig] = None,
     ``device="cpu"``).  Defaults: 91 mean columns of width 32 over
     81,920-id buckets and 3 sequence columns of 50 that share the tables of
     their slots, grouped into storages of at most 30 MB as in the JAX
-    package (45 table pairs and one single table)."""
-    if stacked_experts:
-        raise NotImplementedError("stacked_experts=True needs nn/moe_stacked.py, "
-                                  "which comes with a later slice of the port")
+    package (45 table pairs and one single table); ``stacked_experts``
+    stacks the three gated experts."""
     dev = resolve_device(device)
     cfg = cfg or StaytimeConfig()
     cols = []
@@ -224,7 +236,7 @@ def create_staytime(cfg: Optional[StaytimeConfig] = None,
                             group_tables=True, max_group_bytes=30 << 20)
     return ModelBundle(
         name="staytime",
-        module=StaytimeModule(cfg, deep_hidden_units, device=dev),
+        module=StaytimeModule(cfg, deep_hidden_units, stacked_experts, device=dev),
         embedding=emb, tasks=(T_STAY, T_SHORT, T_LONG), device=dev, config=cfg,
         predict_outputs={T_STAY: f"{T_STAY}_pred", T_SHORT: T_SHORT, T_LONG: T_LONG},
         losses={T_STAY: L.kl_loss, T_SHORT: L.cross_entropy_elementwise,

@@ -7,11 +7,20 @@ across from the JAX package without a transpose.  Parameter names follow
 flax (``kernel``, ``bias``; ``dense_{i}`` inside ``MultiLayerDense``), so a
 flattened flax parameter tree is a state dict of these modules.
 
+``DNN`` is the generic MLP of rough_rank (glorot-normal kernels
+``kernel{i}``, zero biases ``bias{i}``, an ``output_activation`` for the
+last layer).  ``Dense`` and ``DNN`` take ``stack=E`` for E experts whose
+parameters are stacked on a leading axis, as flax's ``nn.vmap`` leaves
+them (a kernel of shape (E, in, out)): the layer then maps (B, in) or (E,
+B, in) to (E, B, out) in one batched product.
+
 ``kernel_penalty(regularized_kernels(module), params)`` is the L1L2 penalty
-of every Dense that carries a ``kernel_regularizer``, computed from a
-parameter dict: the sum that the JAX ``Dense`` sows into its ``"losses"``
-collection and the JAX train step adds to the loss.  The train step finds
-those kernels once and computes the penalty each step.
+of every layer that carries one (a Dense's ``kernel_regularizer``, a DNN's
+or CrossNet's ``l2_reg``), computed from a parameter dict: the sum that the
+JAX layers sow into their ``"losses"`` collection and the JAX train step
+adds to the loss (a stacked kernel's penalty summed over its experts, as
+the step sums every leaf).  The train step finds those kernels once and
+computes the penalty each step.
 """
 
 from __future__ import annotations
@@ -89,33 +98,61 @@ class Dense(nn.Module):
     ``kernel_penalty`` to its loss, from the step's parameters, so a
     Dense that is built but never called (multi_head's
     eighth expert) still counts, as in the JAX package, whose Dense sows
-    its penalty in the call that builds it."""
+    its penalty in the call that builds it.
+
+    ``stack=E`` stacks E such layers (flax's ``nn.vmap`` of a Dense): the
+    kernel is (E, in, out), each expert's drawn on its own, the bias (E,
+    out), and the layer maps (B, in) or (E, B, in) to (E, B, out)."""
 
     def __init__(self, in_features: int, features: int, activation: Any = None,
                  use_bias: bool = True, kernel_init: Callable = glorot_uniform_,
                  kernel_regularizer: Optional[Tuple[float, float]] = None,
-                 device=None):
+                 stack: Optional[int] = None, device=None):
         super().__init__()
         self.activation = resolve_activation(activation)
         self.kernel_init = kernel_init
         self.kernel_regularizer = kernel_regularizer
-        self.kernel = nn.Parameter(torch.empty((in_features, features),
+        lead = () if stack is None else (stack,)
+        self.kernel = nn.Parameter(torch.empty(lead + (in_features, features),
                                                device=device))
-        self.bias = (nn.Parameter(torch.empty((features,), device=device))
+        self.bias = (nn.Parameter(torch.empty(lead + (features,), device=device))
                      if use_bias else None)
         self.reset_parameters()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        self.kernel_init(self.kernel, generator)
+        init_kernel(self.kernel_init, self.kernel, generator)
         if self.bias is not None:
             with torch.no_grad():
                 self.bias.zero_()
 
+    def penalized_kernels(self) -> Dict[str, Tuple[float, float]]:
+        return {} if self.kernel_regularizer is None else {
+            "kernel": tuple(self.kernel_regularizer)}
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x @ self.kernel
-        if self.bias is not None:
-            y = y + self.bias
-        return self.activation(y)
+        return self.activation(affine(x, self.kernel, self.bias))
+
+
+def init_kernel(init: Callable, kernel: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> None:
+    """``init`` on an (in, out) kernel, or on each expert's (in, out) slice
+    of an (E, in, out) stack (each drawn with its own fans, as flax's
+    ``nn.vmap`` initializes each expert)."""
+    if kernel.ndim == 2:
+        init(kernel, generator)
+    else:
+        for e in range(kernel.shape[0]):
+            init(kernel[e], generator)
+
+
+def affine(x: torch.Tensor, kernel: torch.Tensor,
+           bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """``x @ kernel + bias``; for a stacked kernel (E, in, out) the bias is
+    (E, out) and the result (E, B, out)."""
+    y = x @ kernel
+    if bias is None:
+        return y
+    return y + (bias if bias.ndim == 1 else bias[:, None, :])
 
 
 class MultiLayerDense(nn.Module):
@@ -136,14 +173,90 @@ class MultiLayerDense(nn.Module):
         return x
 
 
+class DNN(nn.Module):
+    """The generic MLP of the reference's ``rough_rank/layer.py:33-117``
+    (``recommendsystem_tpu/nn/mlp.py::DNN``): per layer ``kernel{i}``
+    (in, out), glorot-normal, and ``bias{i}`` zeros; ``activation`` after
+    every layer but the last, which takes ``output_activation`` where one
+    is given; dropout of ``dropout_rate`` after each layer in training,
+    drawn from the ``generator`` of the call.  ``l2_reg`` puts an L2
+    penalty of ``l2_reg * sum K^2`` on every kernel.  ``stack=E`` stacks E
+    such MLPs (flax's ``nn.vmap`` of a DNN): kernels (E, in, out), biases
+    (E, out), and (B, in) maps to (E, B, out).  Batch normalization
+    (``use_bn``) would need running statistics that no step of the port
+    carries, and no model uses it: it raises."""
+
+    def __init__(self, in_features: int, hidden_units: Sequence[int],
+                 activation: Any = "relu", l2_reg: float = 0.0,
+                 dropout_rate: float = 0.0, use_bn: bool = False,
+                 output_activation: Any = None, stack: Optional[int] = None,
+                 device=None):
+        super().__init__()
+        if use_bn:
+            raise NotImplementedError("DNN(use_bn=True): batch normalization needs "
+                                      "running statistics that the port's steps do "
+                                      "not carry; no model uses it")
+        self.hidden_units = tuple(hidden_units)
+        self.l2_reg = l2_reg
+        self.dropout_rate = dropout_rate
+        n = len(self.hidden_units)
+        self.activations = [resolve_activation(
+            output_activation if output_activation is not None and i == n - 1
+            else activation) for i in range(n)]
+        lead = () if stack is None else (stack,)
+        for i, unit in enumerate(self.hidden_units):
+            setattr(self, f"kernel{i}", nn.Parameter(
+                torch.empty(lead + (in_features, unit), device=device)))
+            setattr(self, f"bias{i}", nn.Parameter(
+                torch.empty(lead + (unit,), device=device)))
+            in_features = unit
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        for i in range(len(self.hidden_units)):
+            init_kernel(glorot_normal_, getattr(self, f"kernel{i}"), generator)
+            with torch.no_grad():
+                getattr(self, f"bias{i}").zero_()
+
+    def penalized_kernels(self) -> Dict[str, Tuple[float, float]]:
+        if not self.l2_reg:
+            return {}
+        return {f"kernel{i}": (0.0, self.l2_reg) for i in range(len(self.hidden_units))}
+
+    def forward(self, x: torch.Tensor, training: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.after_first(affine(x, self.kernel0, self.bias0), training, generator)
+
+    def after_first(self, x: torch.Tensor, training: bool = False,
+                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The MLP from its first layer's ``inputs @ kernel0 + bias0`` on:
+        that layer's activation and dropout, then the deeper layers."""
+        for i, act in enumerate(self.activations):
+            if i:
+                x = affine(x, getattr(self, f"kernel{i}"), getattr(self, f"bias{i}"))
+            x = act(x)
+            if training and self.dropout_rate > 0:
+                keep = torch.rand(x.shape, generator=generator, device=x.device)
+                x = torch.where(keep >= self.dropout_rate, x / (1.0 - self.dropout_rate),
+                                torch.zeros((), device=x.device))
+        return x
+
+
 def regularized_kernels(module: nn.Module) -> Dict[Tuple[float, float], List[str]]:
     """The kernels that carry an L1L2 penalty in ``module``: {(l1, l2):
-    [parameter name of each such Dense's kernel]}, in module order; empty
-    when no Dense carries one.  The train step builds it once."""
+    [parameter name of each such kernel]}, in module order; empty when no
+    layer carries one.  A layer says which of its kernels carry one through
+    ``penalized_kernels()`` ({local name: (l1, l2)}: a Dense with a
+    ``kernel_regularizer``, a DNN or CrossNet with ``l2_reg``, stacked or
+    not).  The train step builds it once."""
     groups: Dict[Tuple[float, float], List[str]] = {}
     for name, mod in module.named_modules():
-        if isinstance(mod, Dense) and mod.kernel_regularizer is not None:
-            groups.setdefault(tuple(mod.kernel_regularizer), []).append(f"{name}.kernel")
+        found = getattr(mod, "penalized_kernels", None)
+        if found is None:
+            continue
+        for local, reg in found().items():
+            full = f"{name}.{local}" if name else local
+            groups.setdefault(tuple(float(r) for r in reg), []).append(full)
     return groups
 
 

@@ -6,7 +6,8 @@
 ``--model``: autoint (B = 65536, 5 and 1 ids), ctr (B = 32768), ctr212
 (the 212-feature ctr shape, ``synthetic_ctr_config(num_slots=180,
 num_bias=32)`` over 32,768-id buckets, B = 8192, one id a column),
-multi_head (B = 32768) or finish (B = 32768).  For each ids-per-feature
+multi_head (B = 32768), finish (B = 32768) or rough_rank (B = 32768, 5
+and 1 ids, the dense flag drawn with the batch).  For each ids-per-feature
 width: builds the full-width bundle (attention dropout 0.2 where the model
 has it, seeded random weights), warms the packed train step up, then
   - times ``steps`` steps on the host clock in 3 windows, each ending in a
@@ -50,7 +51,7 @@ from torch_profile_common import device_kernels, device_us, port_kernel_us  # no
 
 # model -> (batch, ids per feature)
 DEFAULTS = {"autoint": (65536, [5, 1]), "ctr": (32768, [5]), "ctr212": (8192, [1]),
-            "multi_head": (32768, [5]), "finish": (32768, [5])}
+            "multi_head": (32768, [5]), "finish": (32768, [5]), "rough_rank": (32768, [5, 1])}
 
 
 def _per_layer_penalty(groups, params):

@@ -138,7 +138,7 @@ def test_score_matches_jax_service(pair):
         np.testing.assert_allclose(alone[k][0], got[k][3], **TOL)
 
 
-def test_train_step_refuses_the_regularized_tower(pair):
+def test_train_step_refuses_modes_other_than_local(pair):
     """The tower of six L1L2-regularized Dense layers is refused in any mode
     but "local" (the sharded modes come with a later slice)."""
     pbundle = pair[2][0]
@@ -173,10 +173,20 @@ def test_default_widths_match_jax():
     assert pbundle.module.ppnet.dnn_ppnet_gate.kernel.shape[1] == 704
 
 
-def test_stacked_experts_raises():
-    with pytest.raises(NotImplementedError, match="moe_stacked"):
-        create_model("ctr", cfg=synthetic_ctr_config(**SMALL), bucket_size=BUCKET,
-                     stacked_experts=True, device="cpu")
+def test_stacked_experts_match_jax(monkeypatch):
+    """``stacked_experts=True`` builds the MMoE's three gated experts as
+    one stack (``experts.*``, kernels (3, in, out), as the
+    JAX ``stacked_gated_experts`` leaves them), and the predict step matches
+    the JAX stacked model's (``tests/test_torch_stacked_experts.py`` trains
+    it)."""
+    jbundle = jax_create_model("ctr", cfg=jax_synthetic_ctr_config(**SMALL),
+                               bucket_size=BUCKET, stacked_experts=True)
+    pbundle = create_model("ctr", cfg=synthetic_ctr_config(**SMALL), bucket_size=BUCKET,
+                           stacked_experts=True, device="cpu")
+    jstate, pstate = _bridged(jbundle, pbundle, 5)
+    assert pstate.params["experts.expert_output_1.kernel"].shape == (3, 512, 256)
+    assert not any(k.startswith("expert_output_") for k in pstate.params)
+    _predict_matches_jax(jbundle, jstate, pbundle, pstate, 6, None, monkeypatch)
 
 
 def test_server_builds_ctr_on_the_card_unless_asked(monkeypatch):

@@ -476,10 +476,59 @@ def test_unfold_mean_group_unaligned_gradient(cuda):
     _assert_unfold(got, want, 8)
 
 
+def _rows_unfold_members(dev, members, rows=700):
+    """K4 members (grads, counts, g, ids, mask) of (D, E, hot), each into
+    its own accumulator."""
+    return [item[:5] for item in _unfold_members(dev, [(d, 1, e, hot)
+                                                       for d, e, hot in members], rows)]
+
+
+def _check_rows_unfold(items):
+    """Each accumulator against the plain version of every member that adds
+    into it, in order."""
+    wants = {}
+    for grads, counts, g, ids, mask in items:
+        key = grads.data_ptr()
+        if key not in wants:
+            wants[key] = (grads, counts, torch.zeros_like(_flat(grads, counts)))
+        packed.unfold_rows_scatter_plain(*packed.accumulator_views(wants[key][2], g.shape[1]),
+                                         g, ids, mask)
+    for grads, counts, want in wants.values():
+        _assert_unfold(_flat(grads, counts), want, grads.shape[1])
+
+
+def test_unfold_rows_group_kernel(cuda):
+    """One grouped K4 launch over members of D 8-56 and 3, 5, hot rows and
+    an empty member; three members share one accumulator."""
+    items = _rows_unfold_members(cuda, [(8, 300, False), (16, 77, False), (56, 8192, False),
+                                        (48, 64, True), (8, 0, False), (3, 50, False),
+                                        (5, 33, True)])
+    for i in (1, 2):
+        g, ids, mask = _unfold_inputs(cuda, 700, 1, 90 + i, seed=40 + i)
+        items.append((*items[0][:2], g, ids, mask))
+    packed.unfold_rows_scatter_group(items)
+    torch.cuda.synchronize()
+    assert launch_counts()["unfold_rows"] == 1
+    _check_rows_unfold(items)
+
+
+@pytest.mark.parametrize("n,launches", [(64, 1), (65, 1), (180, 1), (512, 1), (513, 2)])
+def test_unfold_rows_group_takes_512_members_a_launch(cuda, n, launches):
+    """Up to 512 members a launch in the ~30 KB parameter struct (the
+    212-feature ctr's 180 columns: one launch), 513 in two."""
+    items = _rows_unfold_members(cuda, [(56 if i % 5 else 8, 40 + 3 * i, i % 11 == 0)
+                                        for i in range(n)], rows=300)
+    packed.unfold_rows_scatter_group(items)
+    torch.cuda.synchronize()
+    assert launch_counts()["unfold_rows"] == launches
+    _check_rows_unfold(items)
+
+
 def test_train_step_launches_one_grouped_fold_and_unfold(cuda):
     """A small autoint train step with 5 ids: one K1, one K3 and one K8
-    launch; with 1 id no K1 or K3, but K2 for the one single-id segment (the
-    24 small tables share one storage) and K4 for each of its 24 columns."""
+    launch; with 1 id no K1 or K3, but one K2 for the single-id segment
+    (the 24 small tables share one storage) and one grouped K4 for its 24
+    columns."""
     from recommendsystem_tpu_torch.data import synthetic_batch
     from recommendsystem_tpu_torch.models import create_model
     from recommendsystem_tpu_torch.train import create_train_state, make_train_step
@@ -489,7 +538,7 @@ def test_train_step_launches_one_grouped_fold_and_unfold(cuda):
     for ipf, want in ((5, {"fold_mean": 1, "unfold_mean": 1, "fold_rows": 0,
                            "unfold_rows": 0, "sparse_adam_update": 1}),
                       (1, {"fold_mean": 0, "unfold_mean": 0, "fold_rows": 1,
-                           "unfold_rows": 24, "sparse_adam_update": 1})):
+                           "unfold_rows": 1, "sparse_adam_update": 1})):
         state = create_train_state(bundle, seed=0)
         batch, dense, labels, weight = synthetic_batch(bundle, 64, seed=1,
                                                        ids_per_feature=ipf)

@@ -160,16 +160,34 @@ def test_states_of_one_bundle_share_no_tensor():
         assert torch.equal(v, before[k]), k
 
 
-def test_train_step_refuses_the_regularized_tower(pair):
+def test_train_step_refuses_modes_other_than_local(pair):
     """The tower of regularized experts, gates and deep layers is refused in
-    any mode but "local", and its ``stacked_experts`` variant is not built."""
+    any mode but "local"; its ``stacked_experts`` variant builds the 8
+    experts as one stacked Dense ``experts_fc1`` and scores as the JAX
+    stacked model does."""
     pbundle = pair[2][0]
     assert pbundle.module.expert_0_fc1.kernel_regularizer == (0.0, 0.01)
     assert pbundle.module.dnn_0.kernel_regularizer == (1e-5, 1e-5)
     with pytest.raises(NotImplementedError, match="mode 'sharded'"):
         make_train_step(pbundle, mode="sharded")
-    with pytest.raises(NotImplementedError, match="moe_stacked"):
-        create_model("multi_head", slots=SLOTS, stacked_experts=True, device="cpu")
+    jbundle = jax_create_model("multi_head", slots=SLOTS, bucket_size=BUCKET,
+                               stacked_experts=True)
+    sbundle = create_model("multi_head", slots=SLOTS, bucket_size=BUCKET,
+                           stacked_experts=True, device="cpu")
+    jbatch, _, _, _ = jax_synthetic_batch(jbundle, 8, seed=0)
+    jstate = jax_create_train_state(jbundle, jax.random.PRNGKey(4), jbatch)
+    sstate = bridge.from_jax_numpy(
+        sbundle, jax.tree.map(np.asarray, jstate.params),
+        {k: np.asarray(v) for k, v in jbundle.embedding.weights(jstate.tables).items()})
+    assert sstate.params["experts_fc1.kernel"].shape[0] == 8
+    assert regularized_kernels(sbundle.module)[(0.0, 0.01)][0] == "experts_fc1.kernel"
+    jb, _, _, _ = jax_synthetic_batch(jbundle, 24, seed=9)
+    pb, _, _, _ = synthetic_batch(sbundle, 24, seed=9)
+    want = jax_make_predict_step(jbundle)(jstate, jb, None)
+    got = make_predict_step(sbundle)(sstate, pb)
+    assert set(got) == set(want) == set(TASKS)
+    for t in TASKS:
+        np.testing.assert_allclose(got[t].numpy(), np.asarray(want[t]), err_msg=t, **TOL)
 
 
 def test_train_step_takes_the_regularized_tower(pair):

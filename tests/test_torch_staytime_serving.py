@@ -324,10 +324,22 @@ def test_train_step_refuses_adagrad_engines():
         make_train_step(pbundle)
 
 
-def test_stacked_experts_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="moe_stacked"):
-        create_model("staytime", cfg=StaytimeConfig(**SMALL), stacked_experts=True,
-                     device="cpu")
+def test_stacked_experts_match_jax():
+    """``stacked_experts=True`` builds the three gated experts as one stack ``experts`` (kernels (3, in, out))
+    and its predict step matches the JAX stacked model's."""
+    kw = dict(cfg=JaxStaytimeConfig(**SMALL), deep_hidden_units=HIDDEN, stacked_experts=True)
+    jbundle = jax_create_model("staytime", **kw)
+    pbundle = create_model("staytime", cfg=StaytimeConfig(**SMALL), deep_hidden_units=HIDDEN,
+                           stacked_experts=True, device="cpu")
+    jbatch, _, _, _ = jax_synthetic_batch(jbundle, 8, seed=0)
+    jstate = jax_create_train_state(jbundle, jax.random.PRNGKey(2), jbatch)
+    pstate = bridge.from_jax_numpy(
+        pbundle, jax.tree.map(np.asarray, jstate.params),
+        jax.tree.map(np.asarray, jbundle.embedding.classic_state(jstate.tables)))
+    assert pstate.params["experts.gate_1_2.kernel"].shape == (3, 8, 8)
+    (jb, _, _, _), (pb, _, _, _) = _same_batches(jbundle, pbundle, 32, 12, 5)
+    want = jax_make_predict_step(jbundle)(jstate, jb, None)
+    _compare_predictions(make_predict_step(pbundle)(pstate, pb), want, 32)
 
 
 def test_server_takes_staytime_without_bucket_size(monkeypatch):
