@@ -15,7 +15,7 @@
    launch them, one grouped call over autoint's 24 columns at B = 256 and
    65536 with 5 ids (K1, K3) or 1 (K2), tables and accumulators out of L2,
    and over a group of mixed widths and lengths and a group of 65 members
-   (two launches); the per-row unfold-scatter (K4) as the 1-id step
+   (two fold launches, one unfold-scatter); the per-row unfold-scatter (K4) as the 1-id step
    launches it, one grouped call over autoint's 24 columns at B = 4096 and
    65536, timed in turns with the 24 per-column launches it replaces; the
    lazy Adam as one grouped pass over autoint's 24 full storages, and over a
@@ -41,7 +41,11 @@
    counts, and one lazy-Adam launch and one attention backward a step (and
    with 5 ids one grouped fold and one grouped unfold-scatter);
    holds two steps on the card to the same two steps on the CPU through
-   the plain versions (B = 4096, same seeds, same dropout); times
+   the plain versions (B = 4096, same step seeds, same dropout, a batch
+   from each seed of ``CHECK_SEEDS``; ``witness`` puts every entry past a
+   ``TRAIN_*`` tolerance down to a ReLU input within rounding of 0 or a
+   gradient within rounding of 0, and the check fails on any entry it
+   cannot explain); times
    the step as the median of 3 windows, each ending in a synchronize and a
    host fetch of the last loss;
 6. drives the staytime serving path: the DIN-pool kernel against its plain
@@ -84,7 +88,8 @@
    show equal to the live counts; times each step; times K3, K4 and K8 at
    D 48, 56 and 32 and K5f and K5b at F 40 and 180 with dropout as these
    steps launch them; holds two card steps of each model to the CPU plain
-   path at a smaller bucket and B = 64 (same seeds, same dropout); then
+   path at a smaller bucket and B = 64 (same step seeds, same dropout,
+   each batch seed of ``CHECK_SEEDS``, as in phase 5); then
    full-width finish serving (40 tables of 25,600 x 32) through ``score()``
    and over HTTP, scores in (0, 1), unchanged by padding and equal to the
    CPU's, and its predict step at B = 32768 (5 ids: one K1; 1 id: one K2);
@@ -98,14 +103,27 @@
    and teacher in (0, 1), the card equal to the CPU), and its predict step
    at B = 32768 (one K1); then the stacked-expert variants of ctr,
    multi_head and staytime, one serving call each at a small size, card
-   against CPU.
+   against CPU;
+10. trains staytime at full width (the default ``StaytimeConfig``: 91 mean
+   columns of 32-d rows over 81,920-id buckets and 3 sequences of 50 in 46
+   storages, sparse AdaGrad, B = 16384): a counted window with 5 ids (one
+   K1, K2, K3, K4 and K9 and three K7 a step) and one with 1 id (one K2,
+   K4 and K9, three K7), losses finite, show equal to the live counts and
+   g2sum grown on the live rows alone, examples/s; the lazy AdaGrad pass
+   K9 over the 46 storages against its plain version with bound and
+   library times, and over mixed groups (one of 65 storages: two
+   launches); K3 over the 91 mean columns (one launch) and K4 over the
+   sequences and over the 94 single-id and sequence columns; two card
+   steps held to the CPU at 2,048-id buckets and B = 64, with 5 ids and
+   with 1.
 
 Prints the card's name and power limit, one JSON line each for the autoint
 predict step, the train step, the staytime predict step, the predict
 steps with and without K6 (``interacting_predict``), the phase-8 train
-steps with finish's predict step (``tower_train``) and rough_rank's train
-and predict steps (``rough_rank``), then ``{"kernels":
-...}`` (9 kernels), and last ``{"ok": true, "device": {...}}``.  Details go to
+steps with finish's predict step (``tower_train``), rough_rank's train
+and predict steps (``rough_rank``) and staytime's train steps
+(``staytime_train``), then ``{"kernels": ...}`` (10 kernels), and last
+``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Any failure ends the run with a traceback
 and a non-zero exit; without CUDA it exits non-zero before printing.
 """
@@ -122,6 +140,7 @@ import urllib.request
 
 import numpy as np
 import torch
+from torch.overrides import TorchFunctionMode
 
 H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12        # float32 outside the tensor cores
@@ -136,6 +155,8 @@ GRAD_TOL = dict(rtol=1e-4, atol=2e-5)    # attention gradients: sums over <= 175
 UNFOLD_TOL = 1e-5                 # atomics add each row's gradients in another order
 ADAM_W_TOL = 1e-7                 # powf against PyTorch's pow: one ulp of a bias correction
 ADAM_M_RTOL = 1e-6
+ADAGRAD_W_TOL = 1e-6              # K9: the squares summed in another order than the host's mean
+ADAGRAD_G2_RTOL = 1e-6
 DROPOUT = 0.2
 TRAIN_STEPS = 3
 TRAIN_CHECK_BATCH = 4096
@@ -160,10 +181,17 @@ CHECK_BATCH = 64
 FINISH_BATCH = 32768              # finish's train batch (bench.py:359)
 ROUGH_BATCH = 32768               # rough_rank's train batch (bench.py:337, 360)
 ROUGH_CHECK_BUCKET = 2048         # the card-vs-CPU train check's buckets
-# phase 8's card-vs-CPU steps, batch seed 31: a draw picked after others
-# failed by ReLU kinks (ctr, the 212-feature ctr and finish at some B 128
-# and 256 draws; PERF.md section 6, scripts/torch_train_margins.py --witness)
 TOWER_CHECK_BATCH = 64
+# every card-vs-CPU train check draws its batch from each of these seeds
+CHECK_SEEDS = (31, 32, 33)
+# the kink witness (``witness``): a ReLU input on either side of 0 between
+# the card and the CPU is a kink where both values lie within KINK_RTOL of
+# the call's largest |input| (or within the call's largest difference
+# elsewhere); two gradients of one tensor agree within rounding where they
+# differ by at most GRAD_ROUND of the tensor's largest |gradient|
+KINK_RTOL = 1e-4
+GRAD_ROUND = 1e-5
+STAYTIME_CHECK_BUCKET = 2048      # staytime's card-vs-CPU train check
 
 OUT_DIR = "chiprun_out"
 
@@ -663,27 +691,34 @@ def autoint_rows_case(bundle, state, b, cycles_per_ms):
 def unfold_group_case(bundle, b, cycles_per_ms):
     """K3 as the train step launches it: one grouped call over all the mean
     columns (5 ids; autoint's 24 of D 8, ctr's 24 of D 48, finish's 40 of
-    D 32) at batch ``b``, each column's gradient into its own storage's
-    accumulator, against the plain version on the card.  Bound: the sum of
-    the per-column bounds (``unfold_case``'s formula); yardstick: one
-    ``index_add_`` call of a prebuilt payload a column."""
+    D 32, staytime's 91 of D 32 in 46 storages) at batch ``b``, each
+    column's gradient into its storage's accumulator, against the plain
+    version on the card.  Bound: the sum of the per-column bounds
+    (``unfold_case``'s formula); yardstick: one ``index_add_`` call of a
+    prebuilt payload a column."""
+    from recommendsystem_tpu_torch.data import synthetic_batch
     from recommendsystem_tpu_torch.embedding import packed
 
     eng = bundle.embedding
-    streams = _storage_streams(bundle, b, seed=b + 12)
+    batch = synthetic_batch(bundle, b, seed=b + 12)[0]
+    plans = packed.plan_segments(eng, batch)
     gen = torch.Generator(device="cuda").manual_seed(b + 13)
     items, libs, accs = [], [], []
-    for skey, ids, mask, seg in streams:
+    for skey in sorted(plans):
         rows, d = eng.storage[skey]
+        ids, mask = packed.storage_stream(eng, skey, plans[skey], batch)
         acc = torch.zeros(rows * (d + 1), device="cuda")
         accs.append(acc)
         lib_acc = torch.zeros((rows, d + 1), device="cuda")
-        for ci in range(len(seg.keys)):          # a member a column
-            part = slice(ci * seg.l * b, (ci + 1) * seg.l * b)
-            g = torch.randn((b, d), generator=gen, device="cuda")
-            items.append((*_acc_views(acc, d), g, ids[part], mask[part], seg.l))
-            libs.append((lib_acc, ids[part].long(),
-                         _payload(g.repeat(seg.l, 1), mask[part])))
+        for seg in plans[skey]:
+            if seg.kind != "mean" or seg.l == 1:
+                continue
+            for ci in range(len(seg.keys)):          # a member a column
+                part = slice(seg.start + ci * seg.l * b, seg.start + (ci + 1) * seg.l * b)
+                g = torch.randn((b, d), generator=gen, device="cuda")
+                items.append((*_acc_views(acc, d), g, ids[part], mask[part], seg.l))
+                libs.append((lib_acc, ids[part].long(),
+                             _payload(g.repeat(seg.l, 1), mask[part])))
     packed.unfold_mean_scatter_group(items)
     d = items[0][2].shape[1]
     # a member's grads view starts its storage's accumulator
@@ -723,10 +758,10 @@ def unfold_group_case(bundle, b, cycles_per_ms):
 
 def _unfold_rows_members(bundle, batch, seed):
     """K4's members as the train step hands them to its one grouped call:
-    every single-id column of ``batch`` (one id a column), one member a
-    column, each column's random (B, D) gradient into its storage's zeroed
-    accumulator (members of one storage share it).  Returns (members,
-    [(accumulator, D)])."""
+    every single-id column and every sequence column of ``batch``, one
+    member a column, each column's random (entries, D) gradient into its
+    storage's zeroed accumulator (members of one storage share it).
+    Returns (members, [(accumulator, D)])."""
     from recommendsystem_tpu_torch.embedding import packed
 
     eng = bundle.embedding
@@ -740,8 +775,8 @@ def _unfold_rows_members(bundle, batch, seed):
         accs.append((acc, d))
         views = _acc_views(acc, d)
         for seg in plans[skey]:
-            if seg.l != 1:
-                raise AssertionError(f"{skey}: a segment of {seg.l} ids, expected 1")
+            if seg.kind == "mean" and seg.l != 1:
+                continue                               # K3's
             b = seg.size // len(seg.keys)
             for ci in range(len(seg.keys)):
                 part = slice(seg.start + ci * b, seg.start + (ci + 1) * b)
@@ -750,25 +785,23 @@ def _unfold_rows_members(bundle, batch, seed):
     return items, accs
 
 
-def unfold_rows_group_case(what, bundle, b, seed, cycles_per_ms):
+def unfold_rows_group_case(what, bundle, b, seed, cycles_per_ms, ipf=1):
     """K4 as the train step launches it since it is grouped: one call over
-    every single-id column of a batch of ``b`` with one id a column (the
-    212-feature ctr's 180, autoint's 24), each into its storage's
-    accumulator, against the plain version on the card; timed in turns with
-    the per-column launches it replaces (``unfold_rows_scatter`` a column,
-    a group of one each: the kernel and launch a column that the step made
-    before), accumulators alternating between two copies so that each call
-    finds its own out of L2.  Bound: the sum of the per-column bounds
-    (``unfold_case``'s formula); yardstick: one ``index_add_`` of a
-    prebuilt payload a column.  A group of at most 64 members is also timed
-    in turns through K3's launcher with L = 1 (the same kernel and members,
-    from the 4 KB parameter struct in place of K4's ~30 KB one:
-    ``narrow_*``), to show what the wide struct costs a small group."""
+    every single-id and sequence column of a batch of ``b`` with ``ipf``
+    ids a mean column (the 212-feature ctr's 180, autoint's 24, staytime's
+    91 and 3 sequences with 1 id, its 3 sequences with 5), each into its
+    storage's accumulator, against the plain version on the card; timed in
+    turns with the per-column launches it replaces (``unfold_rows_scatter``
+    a column, a group of one each: the kernel and launch a column that the
+    step made before), accumulators alternating between two copies so that
+    each call finds its own out of L2.  Bound: the sum of the per-column
+    bounds (``unfold_case``'s formula); yardstick: one ``index_add_`` of a
+    prebuilt payload a column."""
     from recommendsystem_tpu_torch.data import synthetic_batch
     from recommendsystem_tpu_torch.embedding import packed
     from recommendsystem_tpu_torch.kernels import launch_counts
 
-    batch = synthetic_batch(bundle, b, seed=seed, ids_per_feature=1)[0]
+    batch = synthetic_batch(bundle, b, seed=seed, ids_per_feature=ipf)[0]
     items, accs = _unfold_rows_members(bundle, batch, seed + 1)
     before = launch_counts()["unfold_rows"]
     packed.unfold_rows_scatter_group(items)
@@ -786,7 +819,6 @@ def unfold_rows_group_case(what, bundle, b, seed, cycles_per_ms):
     others = {acc.data_ptr(): _acc_views(torch.zeros_like(acc), d) for acc, d in accs}
     sets = [items, [(*others[gr.data_ptr()], g, i, m) for gr, _, g, i, m in items]]
     pick = _alternate(sets)
-    pick_narrow = _alternate([[(*it, 1) for it in one] for one in sets])
     libs = []
     lib_accs = {}
     for grads, _, g, ids, mask in items:
@@ -810,15 +842,11 @@ def unfold_rows_group_case(what, bundle, b, seed, cycles_per_ms):
         nbytes, ops = nbytes + one[0], ops + one[1]
     iters = 48
     few = 4            # calls of one launch a member queued behind the spin kernel
-    grouped, narrow, columns = [], [], []
-    kinds = ("grouped", "narrow", "columns", "columns", "narrow", "grouped")
-    for kind in kinds if len(items) <= 64 else [k for k in kinds if k != "narrow"]:
+    grouped, columns = [], []
+    for kind in ("grouped", "columns", "columns", "grouped"):
         if kind == "grouped":
             grouped.append(timed(lambda: packed.unfold_rows_scatter_group(pick()), iters,
                                  cycles_per_ms))
-        elif kind == "narrow":
-            narrow.append(timed(lambda: packed.unfold_mean_scatter_group(pick_narrow()),
-                                iters, cycles_per_ms))
         else:
             columns.append(timed(per_column, few, cycles_per_ms))
     return {"name": "unfold_rows", "case": what, "group": len(items), "b": b, "l": 1,
@@ -828,8 +856,6 @@ def unfold_rows_group_case(what, bundle, b, seed, cycles_per_ms):
             "host_ms_runs": [h for _, h in grouped],
             "per_column_ms_runs": [m for m, _ in columns],
             "per_column_host_ms_runs": [h for _, h in columns],
-            "narrow_ms_runs": [m for m, _ in narrow],
-            "narrow_host_ms_runs": [h for _, h in narrow],
             "plain_ms": timed(lambda: [packed.unfold_rows_scatter_plain(*it) for it in pick()],
                               2, cycles_per_ms)[0],
             "library_ms": timed(library, few, cycles_per_ms)[0],
@@ -864,7 +890,7 @@ def _group_members(members, rows, seed):
 def group_check_case(name, members, launches):
     """Grouped K1, K2 (the same members' streams, one row an entry) and K3
     over the members given, against their plain versions, with the
-    launches each must take."""
+    launches each must take (``launches``: {kernel: launches})."""
     from recommendsystem_tpu_torch.embedding import packed
     from recommendsystem_tpu_torch.kernels import launch_counts
 
@@ -876,10 +902,10 @@ def group_check_case(name, members, launches):
     packed.unfold_mean_scatter_group(unfolds)
     torch.cuda.synchronize()
     after = launch_counts()
-    for k in ("fold_mean", "fold_rows", "unfold_mean"):
-        if after[k] - before[k] != launches:
+    for k, n in launches.items():
+        if after[k] - before[k] != n:
             raise AssertionError(f"{name}: {k} launched {after[k] - before[k]} times, "
-                                 f"not {launches}")
+                                 f"not {n}")
     err = _check_fold_group(got, folds, f"fold_mean {name}")
     rerr = _check_rows_group(got_rows, rows, f"fold_rows {name}")
     uerr = 0.0
@@ -1053,6 +1079,181 @@ def adam_mixed_case():
     err = _check_adam(got, want, before, acc0, accs, "sparse_adam_update (mixed D)")
     return {"name": "sparse_adam_update", "b": 0, "d": [8, 48, 56, 3, 1],
             "max_abs_err": err}
+
+
+def _check_adagrad(got, want, before, acc0, accs, what):
+    """K9's result against the plain version's: w within ADAGRAD_W_TOL,
+    g2sum within ADAGRAD_G2_RTOL, show exact, rows with count 0
+    bit-identical, every accumulator left zero.  Returns the max abs error
+    of w."""
+    err = 0.0
+    for g, w, b, a0, a in zip(got, want, before, acc0, accs):
+        if g["w"].numel():
+            err = max(err, float((g["w"] - w["w"]).abs().max()))
+        torch.testing.assert_close(g["w"], w["w"], rtol=0, atol=ADAGRAD_W_TOL)
+        torch.testing.assert_close(g["opt"]["g2sum"], w["opt"]["g2sum"],
+                                   rtol=ADAGRAD_G2_RTOL, atol=0)
+        torch.testing.assert_close(g["show"], w["show"], rtol=0, atol=0)
+        dead = _acc_views(a0, g["w"].shape[1])[1][:, 0] == 0
+        for x, y in ((g["w"], b["w"]), (g["opt"]["g2sum"], b["opt"]["g2sum"]),
+                     (g["show"], b["show"])):
+            if not torch.equal(x[dead], y[dead]):
+                raise AssertionError(f"{what}: a row with count 0 changed")
+        if a.any():
+            raise AssertionError(f"{what}: sparse_adagrad_update left an accumulator non-zero")
+    return err
+
+
+def _adagrad_bytes(acc0, dims):
+    """A live row reads G and its count and writes them back zero, reads and
+    writes w, g2sum and show: 4 (4 D + 6) B; a row with count 0 reads its
+    count.  Operations: D squares and adds, a quotient, an add and a root,
+    and a product, quotient and difference a lane."""
+    nbytes = ops = 0
+    for a, d in zip(acc0, dims):
+        cnt = _acc_views(a, d)[1]
+        live = int((cnt > 0).sum())
+        nbytes += live * 4 * (4 * d + 6) + (cnt.shape[0] - live) * 4
+        ops += live * (5 * d + 3)
+    return nbytes, ops
+
+
+def _train_accumulators(eng, skeys, batch, seed):
+    """One flat buffer of the accumulators of ``skeys`` (views of it, in
+    order) holding what one train batch leaves there: random gradients of
+    each column's activations (scale 1e-2) scattered by the plain K3 and
+    K4 with their counts."""
+    from recommendsystem_tpu_torch.embedding import packed
+
+    plans = packed.plan_segments(eng, batch, storages=set(skeys))
+    dims = [eng.storage[k][1] for k in skeys]
+    sizes = [eng.storage[k][0] * (eng.storage[k][1] + 1) for k in skeys]
+    flat0 = torch.zeros(sum(sizes), device="cuda")
+    accs = list(flat0.split(sizes))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for skey, a, d in zip(skeys, accs, dims):
+        if skey not in plans:
+            continue
+        ids, mask = packed.storage_stream(eng, skey, plans[skey], batch)
+        views = _acc_views(a, d)
+        for seg in plans[skey]:
+            if seg.kind == "mean" and seg.l > 1:
+                b = seg.size // (len(seg.keys) * seg.l)
+                for ci in range(len(seg.keys)):
+                    part = slice(seg.start + ci * seg.l * b, seg.start + (ci + 1) * seg.l * b)
+                    g = torch.randn((b, d), generator=gen, device="cuda") * 1e-2
+                    packed.unfold_mean_scatter_plain(*views, g, ids[part], mask[part], seg.l)
+            else:
+                part = slice(seg.start, seg.start + seg.size)
+                g = torch.randn((seg.size, d), generator=gen, device="cuda") * 1e-2
+                packed.unfold_rows_scatter_plain(*views, g, ids[part], mask[part])
+    return flat0, accs, dims, sizes
+
+
+def adagrad_case(eng, tables, batch, cycles_per_ms):
+    """K9 as the train step issues it: one grouped pass over every storage
+    (staytime's 46), with the counts and gradients that one train batch
+    leaves in the accumulators (``_train_accumulators``), against
+    ``sparse_adagrad_update_plain`` on each storage in turn.  The pass
+    clears the accumulators, so each timed call first restores them with
+    one copy (the accumulators are views of one buffer): ``ms`` is the time
+    of restore + pass less the time of the restore alone.  Yardstick, not
+    the same function: one ``torch.optim.Adagrad`` (foreach) step over the
+    same tables as dense parameters (per-element state, every row)."""
+    from recommendsystem_tpu_torch.embedding import packed
+
+    skeys = sorted(tables)
+    flat0, acc0, dims, sizes = _train_accumulators(eng, skeys, batch, seed=23)
+    flat = flat0.clone()
+    accs = list(flat.split(sizes))
+    opt = eng.sparse_opt
+    before = [tables[k] for k in skeys]
+    got = [_to(t, "cuda") for t in before]
+    want = [_to(t, "cuda") for t in before]
+    packed.sparse_adagrad_update_group(opt, got, accs)
+    for w, a in zip(want, acc0):
+        packed.sparse_adagrad_update_plain(opt, w, a.clone())
+    torch.cuda.synchronize()
+    err = _check_adagrad(got, want, before, acc0, accs,
+                         f"sparse_adagrad_update ({len(skeys)} storages)")
+
+    def restore():
+        flat.copy_(flat0)
+
+    def kernel():
+        restore()
+        packed.sparse_adagrad_update_group(opt, got, accs)
+
+    def plain():
+        restore()
+        for w, a in zip(want, accs):
+            packed.sparse_adagrad_update_plain(opt, w, a)
+
+    params = [torch.nn.Parameter(t["w"].clone()) for t in before]
+    for p, a, d in zip(params, acc0, dims):
+        p.grad = _acc_views(a, d)[0].clone()
+    dense = torch.optim.Adagrad(params, lr=opt.learning_rate,
+                                initial_accumulator_value=opt.initial_g2sum, foreach=True)
+    nbytes, ops = _adagrad_bytes(acc0, dims)
+    bms, by = bound(nbytes, ops)
+    iters = 24
+    ms_restore = timed(restore, iters, cycles_per_ms)[0]
+    ms, host_ms = timed(kernel, iters, cycles_per_ms)
+    return {"name": "sparse_adagrad_update", "storages": len(skeys),
+            "b": next(iter(batch.values())).rows.shape[0],
+            "rows": sum(eng.storage[k][0] for k in skeys), "d": sorted(set(dims)),
+            "live_rows": sum(int((_acc_views(a, d)[1] > 0).sum())
+                             for a, d in zip(acc0, dims)),
+            "max_abs_err": err, "ms": ms - ms_restore, "restore_ms": ms_restore,
+            "host_ms": host_ms,
+            "plain_ms": timed(plain, 4, cycles_per_ms)[0] - ms_restore,
+            "library_ms": timed(dense.step, iters, cycles_per_ms)[0],
+            "library": "torch.optim.Adagrad(foreach=True) over the tables: not the same "
+                       "function (dense, per-element state)",
+            "bound_ms": bms, "bound_by": by, "bytes": nbytes, "ops": ops}
+
+
+def adagrad_mixed_case():
+    """K9 over groups of storages of D 8, 16, 32, 48 and 3 (odd rows, a
+    third of them live), one empty and one with no live row, in one launch,
+    and over a group of 65 storages in two, against the plain version."""
+    from recommendsystem_tpu_torch.embedding import packed
+    from recommendsystem_tpu_torch.embedding.optimizers import SparseAdaGrad
+    from recommendsystem_tpu_torch.kernels import launch_counts
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    opt = SparseAdaGrad(learning_rate=0.05)
+    err = 0.0
+    shapes = ((100003, 8, 0.3), (30001, 16, 0.3), (0, 32, 0.3), (20011, 32, 0.3),
+              (5003, 48, 0.3), (2001, 3, 0.3), (4099, 32, 0.0))
+    for group, launches in ((shapes, 1), ([(301 + 7 * i, (8, 16, 32, 48)[i % 4], 0.3)
+                                           for i in range(65)], 2)):
+        before, acc0 = [], []
+        for rows, d, live in group:
+            cnt = torch.where(torch.rand((rows, 1), generator=gen, device="cuda") < live,
+                              torch.randint(1, 5, (rows, 1), generator=gen, device="cuda"),
+                              0).float()
+            acc0.append(torch.cat([(torch.randn((rows, d), generator=gen, device="cuda")
+                                    * 1e-2 * (cnt > 0)).reshape(-1), cnt.reshape(-1)]))
+            before.append({
+                "w": torch.rand((rows, d), generator=gen, device="cuda") * 0.2 - 0.1,
+                "opt": {"g2sum": torch.rand((rows, 1), generator=gen, device="cuda") + 0.1},
+                "show": torch.randint(0, 9, (rows, 1), generator=gen, device="cuda").float()})
+        got = [_to(t, "cuda") for t in before]
+        want = [_to(t, "cuda") for t in before]
+        accs = [a.clone() for a in acc0]
+        n0 = launch_counts()["sparse_adagrad_update"]
+        packed.sparse_adagrad_update_group(opt, got, accs)
+        torch.cuda.synchronize()
+        if launch_counts()["sparse_adagrad_update"] - n0 != launches:
+            raise AssertionError(f"sparse_adagrad_update: {len(group)} storages took "
+                                 f"{launch_counts()['sparse_adagrad_update'] - n0} launches")
+        for w, a in zip(want, acc0):
+            packed.sparse_adagrad_update_plain(opt, w, a.clone())
+        err = max(err, _check_adagrad(got, want, before, acc0, accs,
+                                      f"sparse_adagrad_update ({len(group)} mixed)"))
+    return {"name": "sparse_adagrad_update", "b": 0, "d": [8, 16, 32, 48, 3],
+            "groups": [len(shapes), 65], "max_abs_err": err}
 
 
 def din_case(b, seed, cycles_per_ms):
@@ -1441,11 +1642,16 @@ def _margin(got, want, atol, rtol):
     return float(r.max()), int((~(r <= 1)).sum()), float(diff.max())
 
 
-def two_train_steps(bundle, cpu_bundle, b, ipf, seed=31):
+def two_train_steps(bundle, cpu_bundle, b, ipf, seed, record=None, on_init=None):
     """Two train steps on the card and the same two on the CPU through the
     plain versions, from one seeded state and one batch of ``b`` drawn from
-    ``seed`` (same step seeds, same dropout).  Returns (card state, CPU
-    state, card infos, CPU infos)."""
+    ``seed`` (same step seeds, same dropout); the card's two first.
+    ``record(side)``, where given, is a context that each side's steps run
+    in ("card", then "cpu"); ``on_init``, where given, sees the CPU's
+    initial state before any step.  Returns (card state, CPU state, card
+    infos, CPU infos)."""
+    from contextlib import nullcontext
+
     from recommendsystem_tpu_torch.data import synthetic_batch
     from recommendsystem_tpu_torch.train import make_train_step
     from recommendsystem_tpu_torch.train.state import TrainState, create_train_state
@@ -1453,56 +1659,326 @@ def two_train_steps(bundle, cpu_bundle, b, ipf, seed=31):
     gstate = create_train_state(bundle, seed=3)
     cstate = TrainState(**{f: _to(getattr(gstate, f), "cpu")
                            for f in ("params", "opt_state", "tables", "step")})
-    gb, gdense, glabels, gweight = synthetic_batch(bundle, b, seed=seed, ids_per_feature=ipf)
-    cb, cdense, clabels, cweight = synthetic_batch(cpu_bundle, b, seed=seed, ids_per_feature=ipf)
-    step, cstep = make_train_step(bundle), make_train_step(cpu_bundle)
-    ginfos, cinfos = [], []
-    for i in range(2):
-        gstate, ginfo = step(gstate, gb, glabels, gweight, gdense, seed=40 + i)
-        cstate, cinfo = cstep(cstate, cb, clabels, cweight, cdense, seed=40 + i)
-        ginfos.append(ginfo)
-        cinfos.append(cinfo)
+    if on_init is not None:
+        on_init(cstate)
+    out = []
+    for side, bnd, state in (("card", bundle, gstate), ("cpu", cpu_bundle, cstate)):
+        batch, dense, labels, weight = synthetic_batch(bnd, b, seed=seed, ids_per_feature=ipf)
+        step = make_train_step(bnd)
+        infos = []
+        with record(side) if record else nullcontext():
+            for i in range(2):
+                state, info = step(state, batch, labels, weight, dense, seed=40 + i)
+                infos.append(info)
+        out.append((state, infos))
+    (gstate, ginfos), (cstate, cinfos) = out
     return gstate, cstate, ginfos, cinfos
 
 
-def card_vs_cpu_margins(bundle, cpu_bundle, b, ipf, seed=31):
-    """``two_train_steps``, then per quantity its margin against its
-    ``TRAIN_*`` tolerance (``_margin``: losses and ``regularization`` rtol
-    TRAIN_LOSS_RTOL, dense params and table weights atol TRAIN_W_ATOL,
-    moments TRAIN_MOMENT_TOL; t and show must be equal), the count of
-    elements past it, and the largest difference."""
-    gstate, cstate, ginfos, cinfos = two_train_steps(bundle, cpu_bundle, b, ipf, seed)
-    parts = {n: [] for n in ("loss", "regularization", "params", "w", "m", "v", "t", "show")}
-    for ginfo, cinfo in zip(ginfos, cinfos):
-        for name in ("loss", "regularization"):
-            parts[name].append(_margin(float(ginfo[name]), float(cinfo[name]), 0.0,
-                                       TRAIN_LOSS_RTOL))
+def _table_tols(name):
+    """(atol, rtol) of a table quantity: w TRAIN_W_ATOL, the optimizer's
+    moments and g2sum TRAIN_MOMENT_TOL; t and show exact."""
+    if name == "w":
+        return TRAIN_W_ATOL, 0.0
+    if name in ("t", "show"):
+        return 0.0, 0.0
+    return TRAIN_MOMENT_TOL["atol"], TRAIN_MOMENT_TOL["rtol"]
+
+
+def _table_quantities(tstate):
+    """{name: (rows, ...) tensor} of one storage: w, show and each field of
+    the sparse optimizer's own state (Adam's m, v, t; AdaGrad's g2sum)."""
+    return {"w": tstate["w"], "show": tstate["show"], **tstate["opt"]}
+
+
+def _past(gstate, cstate, ginfos, cinfos):
+    """Where two card steps differ from the CPU's past the ``TRAIN_*``
+    tolerances (``_ratio`` above 1): {"loss": [(name, step)], "params":
+    {name: (entries past, bool mask)}, "tables": {(quantity, storage):
+    (rows past, bool row mask)}}, and the margins of every quantity
+    (``_margin``: largest ratio, elements past, largest difference)."""
     if set(gstate.params) != set(cstate.params) or set(gstate.tables) != set(cstate.tables):
         raise AssertionError("the card's state and the CPU's hold other parameters or tables")
+    parts, past = {}, {"loss": [], "params": {}, "tables": {}}
+    for i, (ginfo, cinfo) in enumerate(zip(ginfos, cinfos)):
+        for name in ("loss", "regularization"):
+            m = _margin(float(ginfo[name]), float(cinfo[name]), 0.0, TRAIN_LOSS_RTOL)
+            parts.setdefault(name, []).append(m)
+            if m[1]:
+                past["loss"].append((name, i + 1))
     for k, v in cstate.params.items():
-        parts["params"].append(_margin(gstate.params[k].cpu(), v, TRAIN_W_ATOL, 0.0))
-    moment = (TRAIN_MOMENT_TOL["atol"], TRAIN_MOMENT_TOL["rtol"])
+        got = gstate.params[k].cpu()
+        parts.setdefault("params", []).append(_margin(got, v, TRAIN_W_ATOL, 0.0))
+        over = ~(_ratio(got, v, TRAIN_W_ATOL, 0.0) <= 1)
+        if over.any():
+            past["params"][k] = (int(over.sum()), over)
     for skey, ct in cstate.tables.items():
-        gt = _to(gstate.tables[skey], "cpu")
-        parts["w"].append(_margin(gt["w"], ct["w"], TRAIN_W_ATOL, 0.0))
-        for n in ("m", "v"):
-            parts[n].append(_margin(gt["opt"][n], ct["opt"][n], *moment))
-        parts["t"].append(_margin(gt["opt"]["t"], ct["opt"]["t"], 0.0, 0.0))
-        parts["show"].append(_margin(gt["show"], ct["show"], 0.0, 0.0))
-    return {n: {"margin": max(p[0] for p in ps), "past": sum(p[1] for p in ps),
-                "max_diff": max(p[2] for p in ps)} for n, ps in parts.items()}
+        gq = _table_quantities(_to(gstate.tables[skey], "cpu"))
+        cq = _table_quantities(ct)
+        if set(gq) != set(cq):
+            raise AssertionError(f"{skey}: the card's optimizer state holds {sorted(gq)}, "
+                                 f"the CPU's {sorted(cq)}")
+        for name, want in cq.items():
+            parts.setdefault(name, []).append(_margin(gq[name], want, *_table_tols(name)))
+            over = ~(_ratio(gq[name], want, *_table_tols(name)) <= 1)
+            rows = over.reshape(over.shape[0], -1).any(dim=1)
+            if rows.any():
+                past["tables"][(name, skey)] = (int(rows.sum()), rows)
+    margins = {n: {"margin": max(p[0] for p in ps), "past": sum(p[1] for p in ps),
+                   "max_diff": max(p[2] for p in ps)} for n, ps in parts.items()}
+    return past, margins
+
+
+class _Recorder(TorchFunctionMode):
+    """Records a host copy of the input of every ``torch.relu`` call, by
+    side (``side``: "card" or "cpu", set by ``at``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.relu = {"card": [], "cpu": []}
+        self.side = None
+
+    def at(self, side):
+        self.side = side
+        return self
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func in (torch.relu, torch.nn.functional.relu, torch.Tensor.relu):
+            self.relu[self.side].append(args[0].detach().to("cpu", copy=True))
+        return func(*args, **(kwargs or {}))
+
+
+def _sample_of(shape, index, b):
+    """The sample an element of a ReLU input belongs to: the batch is the
+    leading dim of the towers' (B, ...), the second of stacked experts' (E,
+    B, ...), and the last, batch-minor, of the InteractingLayer's (U, F B)
+    and (U, F, B)."""
+    for axis in (0, 1):
+        if len(shape) > axis + 1 and shape[axis] == b:
+            return int(index[axis])
+    return int(index[-1]) % b
+
+
+def _recorded_steps(bundle, cpu_bundle, b, ipf, seed):
+    """``two_train_steps`` with each side's ReLU inputs, dense gradients (as
+    the dense optimizer takes them) and accumulated table gradients (G, as
+    the lazy pass takes it, by storage) recorded, a list a step."""
+    from recommendsystem_tpu_torch.embedding import packed
+
+    rec = _Recorder()
+    grads = {"card": [], "cpu": []}
+    tables = {"card": [], "cpu": []}
+    for side, bnd in (("card", bundle), ("cpu", cpu_bundle)):
+        update = bnd.dense_optimizer.update_
+
+        def record(params, g, state, side=side, update=update):
+            grads[side].append({k: v.detach().cpu() for k, v in g.items()})
+            return update(params, g, state)
+
+        object.__setattr__(bnd.dense_optimizer, "update_", record)   # a frozen dataclass
+    real = packed.sparse_update_group
+
+    def record_tables(opt, tstates, accs):
+        tstates, accs = list(tstates), list(accs)
+        tables[rec.side].append({id(ts["w"]): packed.accumulator_views(
+            acc, ts["w"].shape[1])[0].cpu() for ts, acc in zip(tstates, accs)})
+        return real(opt, tstates, accs)
+
+    packed.sparse_update_group = record_tables
+    init = []
+    try:
+        out = two_train_steps(bundle, cpu_bundle, b, ipf, seed, record=rec.at,
+                              on_init=lambda st: init.append(_to(vars(st), "cpu")))
+    finally:
+        packed.sparse_update_group = real
+        for bnd in (bundle, cpu_bundle):
+            if "update_" in vars(bnd.dense_optimizer):
+                object.__delattr__(bnd.dense_optimizer, "update_")
+    for side, st in (("card", out[0]), ("cpu", out[1])):
+        names = {id(t["w"]): skey for skey, t in st.tables.items()}
+        tables[side] = [{names[k]: v for k, v in step.items()} for step in tables[side]]
+    return out, rec.relu, grads, tables, init[0]
+
+
+def _replay(cpu_bundle, init, grads, tables, batch):
+    """The CPU's plain updates (dense Adam, the engine's lazy pass) applied
+    to the card's recorded gradients, step by step, from the initial state:
+    what the card's state must be if its updates are right.  Returns
+    (params, tables)."""
+    from recommendsystem_tpu_torch.embedding import packed
+
+    params, opt_state, tstates = _to(init["params"], "cpu"), _to(init["opt_state"], "cpu"), \
+        _to(init["tables"], "cpu")
+    eng = cpu_bundle.embedding
+    counts = eng.row_counts(batch)
+    for g in grads:
+        params, opt_state = cpu_bundle.dense_optimizer.update_(params, _to(g, "cpu"), opt_state)
+    for step in tables:
+        keys = sorted(step)
+        accs = [torch.cat([step[k].reshape(-1), counts[k].reshape(-1)]) for k in keys]
+        packed.sparse_update_group(eng.sparse_opt, [tstates[k] for k in keys], accs)
+    return params, tstates
+
+
+def _beyond_rounding(card, cpu):
+    """Where a gradient (one tensor, one step) differs between the card and
+    the CPU by more than GRAD_ROUND of the tensor's largest |gradient| on
+    the CPU: by more than two float32 sums of the same terms in other
+    orders differ."""
+    scale = float(cpu.abs().max()) if cpu.numel() else 0.0
+    return (card - cpu).abs() > GRAD_ROUND * scale
+
+
+def witness(bundle, cpu_bundle, b, ipf, seed):
+    """One draw of two card and two CPU train steps, with every entry past
+    its ``TRAIN_*`` tolerance put down to a cause or listed as unexplained.
+
+    A ReLU input whose sign differs between the card and the CPU (a flip)
+    is a kink where both values lie within KINK_RTOL of its call's largest
+    |input| or within the largest difference between the sides among the
+    call's elements that did not flip; a kink sends one sample's gradient
+    through one unit on one side only.  Where step 1 had a kink, every flip
+    of step 2 counts as one: the sides start step 2 apart by more than
+    rounding.  Every other flip is unexplained.  The gradients are
+    compared step by step (``_beyond_rounding``): dense ones as the dense
+    Adam takes them, a table row's as the lazy pass takes them (G).  The
+    card's updates are replayed on the CPU (``_replay``: the plain dense
+    Adam and lazy pass applied to the card's own gradients from the initial
+    state); where the card's state differs from the replay past a
+    ``TRAIN_*`` tolerance, its update is at fault, and that is never
+    explained.  Then, the updates being right:
+      - an entry (a dense parameter's, or a table row) whose gradients agree
+        within rounding in both steps is explained: the update turns a
+        rounding of a small gradient into a visible step (Adam's m /
+        sqrt(v) makes any gradient a step of about the learning rate);
+      - a table row whose gradients differ beyond rounding is explained
+        where a sample that looks it up has a kink; a dense entry where a
+        kink happened in the first step its gradients differ, or before;
+      - a loss or penalty past rtol TRAIN_LOSS_RTOL, a t or show that
+        differs, a flip that is not a kink, and any other entry past its
+        tolerance are unexplained.
+    Returns the draw's margins, its explanations by cause, the unexplained
+    entries (none where the draw passes), and the gradients of the first
+    unexplained ones."""
+    from recommendsystem_tpu_torch.data import synthetic_batch
+
+    (gstate, cstate, ginfos, cinfos), relu, grads, tables, init = _recorded_steps(
+        bundle, cpu_bundle, b, ipf, seed)
+    past, margins = _past(gstate, cstate, ginfos, cinfos)
+    out = {"margins": margins, "explained": {}, "unexplained": [], "details": []}
+    if not (past["loss"] or past["params"] or past["tables"]):
+        return out
+    unexplained, explained, details = out["unexplained"], out["explained"], out["details"]
+    unexplained += [f"{name} at step {step}" for name, step in past["loss"]]
+
+    # the card's updates against the CPU's plain updates of the card's own
+    # gradients: a fault in an update is never explained
+    batch = synthetic_batch(cpu_bundle, b, seed=seed, ids_per_feature=ipf)[0]
+    rparams, rtables = _replay(cpu_bundle, init, grads["card"], tables["card"], batch)
+    for k, v in rparams.items():
+        n = int((~(_ratio(gstate.params[k].cpu(), v, TRAIN_W_ATOL, 0.0) <= 1)).sum())
+        if n:
+            unexplained.append(f"param {k}: the card's update of its own gradients differs "
+                               f"from the plain one in {n} entries")
+    for skey, rt in rtables.items():
+        gq, rq = _table_quantities(_to(gstate.tables[skey], "cpu")), _table_quantities(rt)
+        for name, want in rq.items():
+            n = int((~(_ratio(gq[name], want, *_table_tols(name)) <= 1)).sum())
+            if n:
+                unexplained.append(f"{skey} {name}: the card's update of its own gradients "
+                                   f"differs from the plain one in {n} entries")
+
+    gs, cs = relu["card"], relu["cpu"]
+    if len(gs) != len(cs) or len(gs) % 2 or any(g.shape != c.shape for g, c in zip(gs, cs)):
+        raise AssertionError("the card and the CPU called ReLU on other shapes")
+    per_step = len(gs) // 2
+    kinks = {1: set(), 2: set()}
+    flips = {1: [], 2: []}
+    for i, (g, c) in enumerate(zip(gs, cs)):
+        flipped = (g > 0) != (c > 0)
+        if not flipped.any():
+            continue
+        step = i // per_step + 1
+        scale = float(c.abs().max())
+        near = max(KINK_RTOL * scale, float(torch.where(flipped, 0.0, (g - c).abs()).max()))
+        for idx in flipped.nonzero().tolist():
+            gv, cv = float(g[tuple(idx)]), float(c[tuple(idx)])
+            f = {"step": step, "call": i % per_step, "shape": list(g.shape),
+                 "sample": _sample_of(g.shape, idx, b), "card": gv, "cpu": cv,
+                 "scale": scale, "near": near}
+            flips[step].append(f)
+            # step 2 starts from what step 1's kinks set apart: its flips
+            # follow from them
+            if max(abs(gv), abs(cv)) <= near or (step == 2 and kinks[1]):
+                kinks[step].add(f["sample"])
+            else:
+                unexplained.append(f"step {step}: a ReLU input flipped far from 0: {f}")
+    out["kinks"] = {f"step{k}": sorted(v) for k, v in kinks.items()}
+    out["flips"] = {f"step{k}": v[:6] for k, v in flips.items()}
+
+    def note(cause):
+        explained[cause] = explained.get(cause, 0) + 1
+
+    # table rows, and the samples that look each up
+    eng = cpu_bundle.embedding
+    readers = {}
+    for key, col in eng.columns.items():
+        if key not in batch:
+            continue
+        skey, offset, _ = eng.table_map[col.categorical_column.key]
+        rows, mask = batch[key].rows.long() + offset, batch[key].mask > 0
+        for smp, r in mask.nonzero().tolist():
+            readers.setdefault((skey, int(rows[smp, r])), set()).add(smp)
+    kinked = kinks[1] | kinks[2]
+    beyond = {skey: [_beyond_rounding(gt[skey], ct[skey]).any(dim=1) if skey in ct else None
+                     for gt, ct in zip(tables["card"], tables["cpu"])]
+              for skey in cstate.tables}
+    for (name, skey), (_, rows) in past["tables"].items():
+        for r in rows.nonzero().flatten().tolist():
+            if name in ("t", "show"):
+                unexplained.append(f"{skey} {name} row {r} differs")
+            elif not any(bool(m[r]) for m in beyond[skey] if m is not None):
+                note(f"table {name}, gradients within rounding")
+            elif readers.get((skey, r), set()) & kinked:
+                note(f"table {name}, kink")
+            else:
+                unexplained.append(f"{skey} {name} row {r} (samples "
+                                   f"{sorted(readers.get((skey, r), set()))})")
+    # dense entries
+    for k, (_, over) in past["params"].items():
+        steps = [_beyond_rounding(gg[k], cg[k]) for gg, cg in zip(grads["card"], grads["cpu"])]
+        for idx in over.nonzero().tolist():
+            differs = [t for t, m in enumerate(steps) if bool(m[tuple(idx)])]
+            if not differs:
+                note("param, gradients within rounding")
+            elif kinks[1] or (differs[0] == 1 and kinks[2]):
+                note("param, kink")
+            else:
+                unexplained.append(f"param {k}{idx}")
+                if len(details) < 8:
+                    details.append({"param": k, "index": idx, "grads": [
+                        {"card": float(gg[k][tuple(idx)]), "cpu": float(cg[k][tuple(idx)]),
+                         "tensor_max": float(cg[k].abs().max())}
+                        for gg, cg in zip(grads["card"], grads["cpu"])]})
+    return out
 
 
 def hold_card_to_cpu(bundle, cpu_bundle, b, ipf, what):
-    """``card_vs_cpu_margins``, failing unless every quantity is within its
-    tolerance (margin at most 1; t and show equal).  Returns the margins."""
-    margins = card_vs_cpu_margins(bundle, cpu_bundle, b, ipf)
-    log(f"{what} train card vs cpu:", json.dumps(margins))
-    bad = {n: m for n, m in margins.items() if m["past"]}
-    if bad:
-        raise AssertionError(f"{what}: two card steps differ from the CPU's past the "
-                             f"TRAIN_* tolerances: {bad}")
-    return margins
+    """``witness`` at each batch seed of CHECK_SEEDS: two card steps against
+    the same two CPU steps, failing unless every quantity is within its
+    ``TRAIN_*`` tolerance or every entry past it is explained (a kink, or
+    gradients that agree within rounding, the card's updates being right).
+    Logs each draw's margins and explanations; returns them by seed."""
+    draws = {}
+    for seed in CHECK_SEEDS:
+        w = witness(bundle, cpu_bundle, b, ipf, seed)
+        draws[seed] = w
+        log(f"{what} train card vs cpu, B {b}, seed {seed}:", json.dumps(w))
+        if w["unexplained"]:
+            raise AssertionError(f"{what}, seed {seed}: two card steps differ from the CPU's "
+                                 f"past the TRAIN_* tolerances where no kink explains it: "
+                                 f"{w['unexplained'][:20]}")
+    return draws
 
 
 def train_path(bundle, cpu_bundle, card):
@@ -2218,6 +2694,106 @@ def stacked_serving_path():
     return counts
 
 
+# launches a staytime train step must take, by ids a mean column: K1 folds
+# the 91 mean columns (5 ids) and K2 the 3 sequences of 50 (with 1 id the
+# 91 single-id columns too), K7 pools each sequence on the facts given, K3
+# scatters the mean columns (one launch of up to 512), K4 the sequences
+# (and the single-id columns), K9 updates the 46 storages
+STAYTIME_TRAIN_LAUNCHES = {
+    5: {"fold_mean": 1, "fold_rows": 1, "din_pool": 3, "unfold_mean": 1, "unfold_rows": 1,
+        "sparse_adagrad_update": 1},
+    1: {"fold_rows": 1, "din_pool": 3, "unfold_rows": 1, "sparse_adagrad_update": 1}}
+
+
+def staytime_train_path(card, cycles_per_ms):
+    """Phase 10: the staytime train step at full width (the default
+    ``StaytimeConfig``: 91 mean columns of 32-d rows over 81,920-id buckets
+    and 3 sequences of 50 in 46 storages, sparse AdaGrad, B = 16384).  A
+    counted window of ``TRAIN_STEPS`` steps with 5 ids and one with 1 id,
+    each from a fresh state and held to ``STAYTIME_TRAIN_LAUNCHES``; losses
+    finite, show equal to the live counts, g2sum grown on live rows and
+    untouched on the others; examples/s.  The kernels at its shapes: K9
+    over the 46 storages with bound and library times, K9 over mixed
+    groups, K3 over the 91 mean columns, K4 over the 3 sequences (5 ids)
+    and over the 94 single-id and sequence columns (1 id).  Then two card
+    steps held to the CPU at ``STAYTIME_CHECK_BUCKET`` and B = 64, with 5
+    ids and with 1, over ``CHECK_SEEDS``."""
+    from recommendsystem_tpu_torch.data import synthetic_batch
+    from recommendsystem_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from recommendsystem_tpu_torch.models import create_model
+    from recommendsystem_tpu_torch.models.staytime import StaytimeConfig
+    from recommendsystem_tpu_torch.train import make_train_step
+    from recommendsystem_tpu_torch.train.state import create_train_state
+
+    bundle = create_model("staytime", device="cuda")
+    eng = bundle.embedding
+    init_g2 = eng.sparse_opt.initial_g2sum
+    step = make_train_step(bundle)
+    b = STAYTIME_BATCH
+    out = {"card": card, "batch": b, "storages": len(eng.storage),
+           "rows": sum(r for r, _ in eng.storage.values()), "train": {}}
+    launches = None
+    for ipf in (5, 1):
+        batch, dense, labels, weight = synthetic_batch(bundle, b, seed=90 + ipf,
+                                                       ids_per_feature=ipf)
+        state = create_train_state(bundle, seed=22)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        infos = []
+        for i in range(TRAIN_STEPS):
+            state, info = step(state, batch, labels, weight, dense, seed=i)
+            infos.append(info)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        launches = {k: (launches or {}).get(k, 0) + v for k, v in counts.items()}
+        per_step = {k: v / TRAIN_STEPS for k, v in counts.items() if v}
+        if per_step != STAYTIME_TRAIN_LAUNCHES[ipf]:
+            raise AssertionError(f"staytime train, {ipf} ids: launches a step {per_step}, "
+                                 f"expected {STAYTIME_TRAIN_LAUNCHES[ipf]}")
+        losses = [{k: float(v) for k, v in i.items()} for i in infos]
+        if not all(np.isfinite(list(x.values())).all() for x in losses):
+            raise AssertionError(f"staytime train, {ipf} ids: losses {losses}")
+        live = eng.row_counts(batch)
+        for skey, tstate in state.tables.items():
+            hit = live[skey] > 0
+            g2 = tstate["opt"]["g2sum"]
+            if not (torch.equal(tstate["show"], TRAIN_STEPS * live[skey])
+                    and bool((g2[~hit] == init_g2).all()) and bool((g2[hit] >= init_g2).all())):
+                raise AssertionError(f"staytime {skey}: show or g2sum differ from the live "
+                                     f"counts")
+        ms, windows = train_ms(step, state, batch, labels, weight, dense, per_window=5)
+        out["train"][f"ids{ipf}"] = {
+            "metric": "torch_staytime_train_examples_per_sec", "unit": "examples/s",
+            "value": b / ms * 1e3, "ms_per_step": ms, "window_ms": windows, "batch": b,
+            "launches_per_step": per_step, "losses": losses}
+        log(f"staytime train, {ipf} ids:", json.dumps(out["train"][f"ids{ipf}"]))
+        if ipf == 5:
+            tables, batch5 = state.tables, batch
+        del state
+    out["launches"] = launches
+
+    cases = [adagrad_case(eng, tables, batch5, cycles_per_ms), adagrad_mixed_case(),
+             unfold_group_case(bundle, b, cycles_per_ms),
+             unfold_rows_group_case("staytime, 3 sequences, 5 ids", bundle, b, 95,
+                                    cycles_per_ms, ipf=5),
+             unfold_rows_group_case("staytime, 94 columns, 1 id", bundle, b, 96,
+                                    cycles_per_ms, ipf=1)]
+    del tables, batch5
+    for c in cases:
+        c["model"] = "staytime"
+        log(json.dumps(c))
+    out["cases"] = cases
+    torch.cuda.empty_cache()
+
+    small = {"cfg": StaytimeConfig(bucket_size=STAYTIME_CHECK_BUCKET)}
+    gsmall = create_model("staytime", device="cuda", **small)
+    csmall = create_model("staytime", device="cpu", **small)
+    out["card_vs_cpu"] = {f"ids{ipf}": hold_card_to_cpu(gsmall, csmall, TOWER_CHECK_BATCH, ipf,
+                                                        f"staytime {ipf} ids")
+                          for ipf in (5, 1)}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available; this script runs on a card")
@@ -2284,8 +2860,11 @@ def main() -> int:
     for b in (4096, BIG_BATCH):
         cases.append(unfold_rows_group_case(f"autoint 24 columns, b={b}", bundle, b, b + 31,
                                             cycles_per_ms))
-    cases += group_check_case("mixed", MIXED_GROUP, 1)
-    cases += group_check_case("65 members", GROUP_65, 2)
+    cases += group_check_case("mixed", MIXED_GROUP,
+                              {"fold_mean": 1, "fold_rows": 1, "unfold_mean": 1})
+    # the folds take 64 members a launch, K3 512
+    cases += group_check_case("65 members", GROUP_65,
+                              {"fold_mean": 2, "fold_rows": 2, "unfold_mean": 1})
     batch = synthetic_batch(bundle, BIG_BATCH, seed=5)[0]
     cases.append(adam_case(eng, state.tables, batch, cycles_per_ms))
     cases.append(adam_mixed_case())
@@ -2413,6 +2992,15 @@ def main() -> int:
                   for k, v in report["rough_rank"]["train"].items()},
         "predict": report["rough_rank"]["predict"]}, "card": card}), flush=True)
 
+    # -- 10. the main path: full-width staytime training ---------------------
+    report["staytime_train"] = staytime_train_path(card, cycles_per_ms)
+    staytime_train = report["staytime_train"]["launches"]
+    cases += report["staytime_train"]["cases"]
+    print(json.dumps({"staytime_train": {
+        k: {f: v[f] for f in ("metric", "value", "unit", "ms_per_step", "window_ms", "batch",
+                              "launches_per_step")}
+        for k, v in report["staytime_train"]["train"].items()}, "card": card}), flush=True)
+
     # -- report ----------------------------------------------------------------
     # the serving folds at the largest serving bucket, the train kernels
     # (K5 among them: the serving paths take K6) at the train batch, the
@@ -2431,6 +3019,10 @@ def main() -> int:
                    or c.get("group") == 24)
         if c["name"] == "din_pool":
             grouped = c.get("entry") == "gather"
+        if c["name"] == "sparse_adagrad_update":
+            if c.get("storages") == 46:        # staytime's train step
+                headline[c["name"]] = c
+            continue
         if c.get("b", BIG_BATCH) == want_b and c.get("f", 24) == 24 and grouped:
             headline[c["name"]] = c
     sources = {"fold_mean": ("recommendsystem_tpu_torch/csrc/fold.cu",
@@ -2453,12 +3045,14 @@ def main() -> int:
                             "recommendsystem_tpu/kernels/din_pallas.py:72"),
                "interacting_attention": (
                    "recommendsystem_tpu_torch/csrc/interacting.cu",
-                   "recommendsystem_tpu/kernels/interacting_pallas.py:107")}
+                   "recommendsystem_tpu/kernels/interacting_pallas.py:107"),
+               "sparse_adagrad_update": ("recommendsystem_tpu_torch/csrc/sparse_adagrad.cu",
+                                         "recommendsystem_tpu/embedding/optimizers.py:99")}
     kernels = []
     for name, (source, replaces) in sources.items():
         c = headline[name]
         launches = (serving[name] + training[name] + staytime[name] + interacting[name]
-                    + towers[name] + rough[name] + stacked[name])
+                    + towers[name] + rough[name] + stacked[name] + staytime_train[name])
         if launches < 1:
             raise AssertionError(f"{name} was not launched on the main paths")
         kernels.append({

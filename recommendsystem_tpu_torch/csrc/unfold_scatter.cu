@@ -30,15 +30,14 @@
 //    the kernel's parameter struct (__grid_constant__), with a prefix table
 //    of block starts; blocks are numbered column by column, so that only a
 //    few columns' accumulators are live in the 50 MB L2 at a time;
-//  - unfold_rows takes up to 512 members a launch (the 212-feature ctr
-//    step has 180 single-id columns: one launch where 64 a launch took
-//    three).  Their table rides in a parameter struct of ~30 KB, which
-//    Hopper accepts under CUDA >= 12.1 (up to 32,764 bytes), rather than in
-//    a member table in device memory: that table would have to be copied
-//    to the card with the step's other inputs, in stream order, where the
-//    parameter struct travels with the launch itself and needs no
-//    allocation and no host sync.  unfold_mean keeps the 4 KB struct of
-//    64 columns (the wrapper cuts a larger group into launches of 64);
+//  - both take up to 512 members a launch (the 212-feature ctr step has
+//    180 single-id columns, staytime's 91 mean columns: one launch each
+//    where 64 a launch took three and two).  Their table rides in a
+//    parameter struct of ~30 KB, which Hopper accepts under CUDA >= 12.1
+//    (up to 32,764 bytes), rather than in a member table in device memory:
+//    that table would have to be copied to the card with the step's other
+//    inputs, in stream order, where the parameter struct travels with the
+//    launch itself and needs no allocation and no host sync;
 //  - within a column the blocks walk (slot j, sample b) in l-major order
 //    with 32-bit indices: the gradient row is b = e - (e / B) * B;
 //  - with G's rows 16-byte aligned (D % 4 == 0), an entry is D/4 threads,
@@ -54,8 +53,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxColumns = 64;       // columns a 4 KB launch takes
-constexpr int kMaxRowsMembers = 512;  // single-id or sequence columns a launch takes
+constexpr int kMaxMembers = 512;      // columns a launch takes
 
 struct Column {
   float* grads;     // G: (rows, D)
@@ -69,15 +67,12 @@ struct Column {
   int vec;          // 4: float4 lanes; 1: one float a lane
 };
 
-using Group = Grouped<Column, kMaxColumns>;
-using WideGroup = Grouped<Column, kMaxRowsMembers>;
-// kept within the 4 KB of kernel parameters every CUDA 12 driver accepts
-static_assert(sizeof(Group) <= 4096, "Group exceeds 4 KB of kernel parameters");
+using Group = Grouped<Column, kMaxMembers>;
 // kernel parameters past 4 KB: CUDA >= 12.1 on Volta and later, 32,764 bytes
 #if !defined(CUDART_VERSION) || CUDART_VERSION < 12010
 #error "unfold_scatter.cu needs CUDA 12.1 or later (kernel parameters past 4 KB)"
 #endif
-static_assert(sizeof(WideGroup) <= 32764, "WideGroup exceeds 32,764 bytes of kernel parameters");
+static_assert(sizeof(Group) <= 32764, "Group exceeds 32,764 bytes of kernel parameters");
 
 __device__ __forceinline__ void add_into(float* p, float v) { atomicAdd(p, v); }
 __device__ __forceinline__ void add_into(float4* p, float4 v) { atomicAdd(p, v); }
@@ -98,9 +93,8 @@ __device__ __forceinline__ void unfold_column(const Column& c, int t) {
   if (lane == 0) atomicAdd(c.counts + row, 1.f);
 }
 
-template <typename G>
 __global__ void __launch_bounds__(kThreads)
-unfold_group_kernel(const __grid_constant__ G g) {
+unfold_group_kernel(const __grid_constant__ Group g) {
   const int blk = blockIdx.x;
   const int member = g.member_of(blk);
   const Column& c = g.s[member];
@@ -113,9 +107,9 @@ unfold_group_kernel(const __grid_constant__ G g) {
 }
 
 // desc: n columns of 8 host words: grads, counts, g, ids, mask, L, B, D
-template <typename G>
 int launch_group(const long long* desc, int n, cudaStream_t stream) {
-  G g;
+  if (n < 1 || n > kMaxMembers) return static_cast<int>(cudaErrorInvalidValue);
+  Group g;
   long long blocks = 0;
   for (int i = 0; i < n; ++i) {
     const long long* w = desc + 8 * i;
@@ -134,30 +128,26 @@ int launch_group(const long long* desc, int n, cudaStream_t stream) {
     }
   }
   g.close(n, blocks);
-  unfold_group_kernel<G><<<static_cast<unsigned int>(blocks), kThreads, 0, stream>>>(g);
+  unfold_group_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0, stream>>>(g);
   return static_cast<int>(cudaGetLastError());
 }
 
-
 }  // namespace
 
-// Columns a launch takes: the wrappers cut larger groups.
-RS_EXPORT int unfold_max_columns() { return kMaxColumns; }
-RS_EXPORT int unfold_rows_max_members() { return kMaxRowsMembers; }
+// Members a launch takes: the wrappers cut larger groups.
+RS_EXPORT int unfold_max_members() { return kMaxMembers; }
 
-// n columns (1 <= n <= kMaxColumns), each 8 host words: grads (rows, D),
+// n columns (1 <= n <= kMaxMembers), each 8 host words: grads (rows, D),
 // counts (rows,), g, ids, mask (device pointers), then L, B, D; g is (B, D),
 // ids and mask (L*B,) l-major.  Each column needs L, B, D >= 1 and L*B*D
 // below 2^31 (the wrapper checks; refused here with cudaErrorInvalidValue).
 RS_EXPORT int unfold_mean_group_f32(const long long* desc, int n, cudaStream_t stream) {
-  if (n < 1 || n > kMaxColumns) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_group<Group>(desc, n, stream);
+  return launch_group(desc, n, stream);
 }
 
-// n members (1 <= n <= kMaxRowsMembers), each 8 host words as above with
-// L = 1 and B the member's entries E: g (E, D) one gradient row per entry,
-// ids and mask (E,).
+// n members (1 <= n <= kMaxMembers), each 8 host words as above with L = 1
+// and B the member's entries E: g (E, D) one gradient row per entry, ids and
+// mask (E,).
 RS_EXPORT int unfold_rows_group_f32(const long long* desc, int n, cudaStream_t stream) {
-  if (n < 1 || n > kMaxRowsMembers) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_group<WideGroup>(desc, n, stream);
+  return launch_group(desc, n, stream);
 }

@@ -14,8 +14,9 @@ packed-state layout buys nothing here.
 The classic ``lookup`` (gather, then combine) and the classic update path
 (``row_counts``, ``flatten_raw_grads``, ``apply_gradients_scatter``) are
 kept as the port's own oracles for the fused lookup and the packed update in
-``packed.py``.  Not here yet: ``evict``, the dense update path and the
-sharded paths (later slices of the port).
+``packed.py``.  ``evict`` and ``maybe_evict`` are the admission hook of the
+parameter server (rows seen too rarely start afresh).  Not here yet: the
+dense update path and the sharded paths (later slices of the port).
 """
 
 from __future__ import annotations
@@ -184,6 +185,40 @@ class EmbeddingFeatures:
                 "show": torch.zeros((rows, 1), dtype=torch.float32,
                                     device=generator.device)}
         return state
+
+    def evict(self, state, min_show: float,
+              generator: Optional[torch.Generator] = None):
+        """Rows seen fewer than ``min_show`` times start afresh: a new
+        ``sparse_opt.table_init`` draw from ``generator`` (one whole-table
+        draw a storage, in sorted storage order, as ``init`` draws), the
+        optimizer's ``init_state`` and a zero show count, so that a row
+        touched again is one created on first touch.  The other rows stay
+        bit-identical.  ``min_show < 0`` does nothing.  Updates ``state``'s
+        tensors in place, as the train step does, and returns ``state``;
+        ``generator`` (default: a CPU generator seeded 0) must be on the
+        state's device."""
+        if min_show < 0:
+            return state
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        for skey in sorted(state):
+            tstate = state[skey]
+            w = tstate["w"]
+            keep = tstate["show"] >= min_show                        # (rows, 1)
+            fresh = self.sparse_opt.table_init(generator, tuple(w.shape))
+            w.copy_(torch.where(keep, w, fresh))
+            init = self.sparse_opt.init_state(tuple(w.shape), w.device)
+            for name, cur in tstate["opt"].items():
+                cur.copy_(torch.where(keep, cur, init[name]))
+            tstate["show"].masked_fill_(~keep, 0.0)
+        return state
+
+    def maybe_evict(self, state, generator: Optional[torch.Generator] = None):
+        """The in-training admission hook: ``evict`` at the optimizer's own
+        ``feature_drop_show``; nothing for an optimizer without one or at
+        -1."""
+        return self.evict(state, getattr(self.sparse_opt, "feature_drop_show", -1.0),
+                          generator)
 
     def weights(self, state) -> Dict[str, torch.Tensor]:
         """(rows, D) weights per storage."""

@@ -4,10 +4,9 @@ Counterpart of ``SparseAdam`` and ``SparseAdaGrad`` in
 ``recommendsystem_tpu/embedding/optimizers.py``: per-row state lives beside
 the table and updates are lazy, so only rows that appeared in the batch
 move.  ``row_mask`` is (rows, 1) float {0, 1}: 1 where the row appeared.
-``SparseAdam`` is plain PyTorch and the oracle of the lazy-Adam kernel K8
-(``embedding/packed.py::sparse_adam_update``).  ``SparseAdaGrad`` has its
-table initialiser and its state so far (staytime serving); its update comes
-with the staytime train step.
+Both are plain PyTorch and the oracles of the lazy passes on the card:
+``SparseAdam`` of K8 (``embedding/packed.py::sparse_adam_update_group``),
+``SparseAdaGrad`` of K9 (``embedding/packed.py::sparse_adagrad_update_group``).
 """
 
 from __future__ import annotations
@@ -73,11 +72,15 @@ class SparseAdam:
 
 @dataclasses.dataclass(frozen=True)
 class SparseAdaGrad:
-    """Parameter-server AdaGrad: one ``g2sum`` accumulator per row."""
+    """Parameter-server AdaGrad: one ``g2sum`` accumulator per row, which
+    adds the mean of the row's squared gradient.  ``feature_drop_show`` is
+    the admission threshold of ``EmbeddingFeatures.maybe_evict`` (-1 keeps
+    every row)."""
 
     learning_rate: float = 5e-3
     initial_g2sum: float = 0.1
     initial_scale: float = 0.1
+    feature_drop_show: float = -1.0
 
     def init_state(self, shape, device=None) -> Dict[str, torch.Tensor]:
         """``g2sum`` (rows, 1) at ``initial_g2sum``."""
@@ -90,3 +93,21 @@ class SparseAdaGrad:
         w = torch.empty(shape, dtype=torch.float32, device=generator.device)
         return w.uniform_(-self.initial_scale, self.initial_scale,
                           generator=generator)
+
+    def update(self, w, grad, state, row_mask):
+        """Whole-table lazy update: rows with ``row_mask > 0`` add
+        mean(grad^2) to g2sum and step ``w -= lr * grad / sqrt(g2sum)``; the
+        others pass through bit-identical.  Returns (w, state)."""
+        live = row_mask > 0
+        g2 = torch.square(grad).mean(dim=-1, keepdim=True)
+        g2sum = torch.where(live, state["g2sum"] + g2, state["g2sum"])
+        step = self.learning_rate * grad / torch.sqrt(g2sum)
+        return torch.where(live, w - step, w), {"g2sum": g2sum}
+
+    def update_rows(self, w_rows, grad_rows, state_rows, valid):
+        """Row-sliced update of gathered rows; ``valid`` (n, 1) {0, 1} marks
+        real rows."""
+        g2 = torch.square(grad_rows).mean(dim=-1, keepdim=True)
+        g2sum = state_rows["g2sum"] + valid * g2
+        step = self.learning_rate * grad_rows / torch.sqrt(g2sum)
+        return w_rows - valid * step, {"g2sum": g2sum}

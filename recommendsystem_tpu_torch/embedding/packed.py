@@ -27,6 +27,10 @@ the scatter it feeds or is fed by:
                    of a step, in one launch: rows with count > 0 step w, m,
                    v, t and add to show; the accumulators are left zero
                                                     (csrc/sparse_adam.cu)
+  sparse_adagrad_update_group  (K9)  the same for ``SparseAdaGrad``: rows
+                   with count > 0 add mean(G^2) to g2sum, step w and add
+                   to show; the accumulators are left zero
+                                                    (csrc/sparse_adagrad.cu)
 
 The storage plan (``plan_segments``, ``storage_stream``), the stage functions
 (``gather_fold``, ``combine_from_acts``, ``apply_gradients_packed``) and
@@ -59,6 +63,7 @@ from typing import Any, Dict, List, Tuple
 import torch
 
 from ..kernels._build import check, count_launch, library, require, stream_handle
+from .optimizers import SparseAdaGrad, SparseAdam
 
 _LANES = 128
 _I32 = 1 << 31          # the grouped kernels index a member in 32 bits
@@ -325,8 +330,9 @@ def unfold_mean_scatter_group(items) -> None:
     """K3 over a group: ``items`` are ``(grads, counts, g, ids, mask, l)``,
     each as ``unfold_mean_scatter`` takes them (any l >= 1), all on one
     device; members may share an accumulator.  In place.  On a card one
-    launch takes up to 64 members (a larger group is cut into launches of
-    64); members with no entries launch nothing."""
+    launch takes up to 512 members (every mean column of a train step; a
+    larger group is cut into launches of 512, each counted as one
+    ``unfold_mean`` launch); members with no entries launch nothing."""
     items = list(items)
     if not items:
         return None
@@ -338,7 +344,7 @@ def unfold_mean_scatter_group(items) -> None:
     words = _unfold_words(items, lambda it: it[5], "unfold_mean")
     lib = library("unfold_scatter")
     _launch_groups(lib, lib.unfold_mean_group_f32, "unfold_mean", words, 8,
-                   lib.unfold_max_columns(), device)
+                   lib.unfold_max_members(), device)
     return None
 
 
@@ -360,7 +366,7 @@ def unfold_rows_scatter_group(items) -> None:
     words = _unfold_words(items, lambda it: 1, "unfold_rows")
     lib = library("unfold_scatter")
     _launch_groups(lib, lib.unfold_rows_group_f32, "unfold_rows", words, 8,
-                   lib.unfold_rows_max_members(), device)
+                   lib.unfold_max_members(), device)
     return None
 
 
@@ -399,17 +405,65 @@ def sparse_adam_update_plain(opt, tstate, acc) -> None:
     acc.zero_()
 
 
-def _check_adam_args(tstate, acc, device) -> None:
+def _check_lazy_args(tstate, acc, device, fields) -> None:
+    """What K8 and K9 take of a storage: w (rows, D), the optimizer's state
+    ``fields`` ((name, wide) pairs: (rows, D) where wide, else (rows, 1)),
+    show (rows, 1) and a flat accumulator of rows*(D+1), all float32 on
+    ``device``."""
     w = tstate["w"]
     require(w, "w", torch.float32, device=device)
     if w.ndim != 2:
         raise ValueError(f"w: expected (rows, D), got {tuple(w.shape)}")
     rows, d = w.shape
-    for name, t in (("m", tstate["opt"]["m"]), ("v", tstate["opt"]["v"])):
-        require(t, name, torch.float32, (rows, d), device)
-    for name, t in (("t", tstate["opt"]["t"]), ("show", tstate["show"])):
-        require(t, name, torch.float32, (rows, 1), device)
+    for name, wide in fields:
+        require(tstate["opt"][name], name, torch.float32, (rows, d if wide else 1), device)
+    require(tstate["show"], "show", torch.float32, (rows, 1), device)
     require(acc, "acc", torch.float32, (rows * (d + 1),), device)
+
+
+def _lazy_pass_group(what, lib_name, opt, tstates, accs, fields, plain, scalars) -> None:
+    """K8 or K9 over a group of storages (see ``sparse_adam_update_group``):
+    on the CPU ``plain`` a storage at a time; on a card the launcher
+    ``<lib_name>_group_f32`` (pointers w, the ``fields`` of the optimizer's
+    state in order, show, acc; rows; D; the count; ``scalars``; the stream),
+    up to ``<lib_name>_max_storages()`` storages a launch, each counted as
+    one ``what`` launch.  Storages with no rows launch nothing."""
+    tstates, accs = list(tstates), list(accs)
+    if len(tstates) != len(accs):
+        raise ValueError(f"{len(tstates)} storages for {len(accs)} accumulators")
+    if not tstates:
+        return None
+    device = tstates[0]["w"].device
+    for tstate, acc in zip(tstates, accs):
+        _check_lazy_args(tstate, acc, device, fields)
+    if device.type == "cpu":
+        for tstate, acc in zip(tstates, accs):
+            plain(opt, tstate, acc)
+        return None
+    if device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {device}")
+    lib = library(lib_name)
+    max_d = getattr(lib, f"{lib_name}_max_d")()
+    live = [(ts, acc) for ts, acc in zip(tstates, accs) if ts["w"].shape[0] > 0]
+    for ts, _ in live:
+        if ts["w"].shape[1] > max_d:
+            raise ValueError(f"{what}: D {ts['w'].shape[1]} > {max_d}")
+    per_launch = getattr(lib, f"{lib_name}_max_storages")()
+    launch = getattr(lib, f"{lib_name}_group_f32")
+    for i in range(0, len(live), per_launch):
+        chunk = live[i:i + per_launch]
+        n = len(chunk)
+        ptrs = [t.data_ptr() for ts, acc in chunk
+                for t in (ts["w"], *(ts["opt"][name] for name, _ in fields), ts["show"], acc)]
+        ptrs = (ctypes.c_ulonglong * len(ptrs))(*ptrs)
+        rows = (ctypes.c_longlong * n)(*[ts["w"].shape[0] for ts, _ in chunk])
+        dims = (ctypes.c_int * n)(*[ts["w"].shape[1] for ts, _ in chunk])
+        with torch.cuda.device(device):
+            code = launch(ctypes.addressof(ptrs), ctypes.addressof(rows),
+                          ctypes.addressof(dims), n, *scalars, stream_handle(device))
+        check(lib, code, what)
+        count_launch(what)
+    return None
 
 
 def sparse_adam_update_group(opt, tstates, accs) -> None:
@@ -421,50 +475,63 @@ def sparse_adam_update_group(opt, tstates, accs) -> None:
     m/v/t, show) in place and leaves each ``acc`` zero.  On a card one
     launch takes up to 64 storages, of any D up to ``sparse_adam_max_d()``
     (the kernel's limits); a larger group is cut into launches of 64."""
-    tstates, accs = list(tstates), list(accs)
-    if len(tstates) != len(accs):
-        raise ValueError(f"{len(tstates)} storages for {len(accs)} accumulators")
-    if not tstates:
-        return None
-    device = tstates[0]["w"].device
-    for tstate, acc in zip(tstates, accs):
-        _check_adam_args(tstate, acc, device)
-    if device.type == "cpu":
-        for tstate, acc in zip(tstates, accs):
-            sparse_adam_update_plain(opt, tstate, acc)
-        return None
-    if device.type != "cuda":
-        raise ValueError(f"sparse_adam_update: no kernel for device {device}")
-    lib = library("sparse_adam")
-    max_d = lib.sparse_adam_max_d()
-    live = [(ts, acc) for ts, acc in zip(tstates, accs) if ts["w"].shape[0] > 0]
-    for ts, _ in live:
-        if ts["w"].shape[1] > max_d:
-            raise ValueError(f"sparse_adam_update: D {ts['w'].shape[1]} > {max_d}")
-    per_launch = lib.sparse_adam_max_storages()
-    for i in range(0, len(live), per_launch):
-        chunk = live[i:i + per_launch]
-        n = len(chunk)
-        ptrs = (ctypes.c_ulonglong * (6 * n))(*[
-            t.data_ptr() for ts, acc in chunk
-            for t in (ts["w"], ts["opt"]["m"], ts["opt"]["v"], ts["opt"]["t"],
-                      ts["show"], acc)])
-        rows = (ctypes.c_longlong * n)(*[ts["w"].shape[0] for ts, _ in chunk])
-        dims = (ctypes.c_int * n)(*[ts["w"].shape[1] for ts, _ in chunk])
-        with torch.cuda.device(device):
-            code = lib.sparse_adam_group_f32(
-                ctypes.addressof(ptrs), ctypes.addressof(rows),
-                ctypes.addressof(dims), n, opt.learning_rate, opt.beta1,
-                1 - opt.beta1, opt.beta2, 1 - opt.beta2, opt.epsilon,
-                stream_handle(device))
-        check(lib, code, "sparse_adam_update")
-        count_launch("sparse_adam_update")
-    return None
+    return _lazy_pass_group(
+        "sparse_adam_update", "sparse_adam", opt, tstates, accs,
+        (("m", True), ("v", True), ("t", False)), sparse_adam_update_plain,
+        (opt.learning_rate, opt.beta1, 1 - opt.beta1, opt.beta2, 1 - opt.beta2, opt.epsilon))
 
 
 def sparse_adam_update(opt, tstate, acc) -> None:
     """K8 over one storage: ``sparse_adam_update_group`` with one member."""
     return sparse_adam_update_group(opt, [tstate], [acc])
+
+
+# ---------------------------------------------------------------------------
+# K9: one lazy-AdaGrad pass over a group of storages, and its plain version
+# ---------------------------------------------------------------------------
+
+def sparse_adagrad_update_plain(opt, tstate, acc) -> None:
+    """``SparseAdaGrad.update`` on the accumulator's gradient sums and
+    counts, written back into ``tstate`` in place; ``acc`` is cleared."""
+    grads, cnt = accumulator_views(acc, tstate["w"].shape[1])
+    w, st = opt.update(tstate["w"], grads, tstate["opt"], (cnt > 0).float())
+    tstate["show"].add_(cnt)
+    tstate["w"].copy_(w)
+    tstate["opt"]["g2sum"].copy_(st["g2sum"])
+    acc.zero_()
+
+
+def sparse_adagrad_update_group(opt, tstates, accs) -> None:
+    """K9: one lazy-AdaGrad pass of ``opt`` (a ``SparseAdaGrad``) over every
+    storage of ``tstates`` with its accumulator of ``accs``, on one device.
+    In each storage, rows whose count (``accumulator_views``) is > 0 add
+    mean(G^2) to g2sum, step w by ``SparseAdaGrad.update``'s arithmetic and
+    add the count to show; the other rows stay bit-identical.  Updates each
+    ``tstate`` (w, opt g2sum, show) in place and leaves each ``acc`` zero.
+    On a card one launch takes up to 64 storages, of any D up to
+    ``sparse_adagrad_max_d()`` (the kernel's limits); a larger group is
+    cut into launches of 64."""
+    return _lazy_pass_group("sparse_adagrad_update", "sparse_adagrad", opt, tstates, accs,
+                            (("g2sum", False),), sparse_adagrad_update_plain,
+                            (opt.learning_rate,))
+
+
+def sparse_adagrad_update(opt, tstate, acc) -> None:
+    """K9 over one storage: ``sparse_adagrad_update_group`` with one member."""
+    return sparse_adagrad_update_group(opt, [tstate], [acc])
+
+
+def sparse_update_group(opt, tstates, accs) -> None:
+    """The lazy pass of the engine's sparse optimizer over every storage of
+    a step: K8 for ``SparseAdam``, K9 for ``SparseAdaGrad``; any other
+    optimizer raises ``NotImplementedError``."""
+    if isinstance(opt, SparseAdam):
+        return sparse_adam_update_group(opt, tstates, accs)
+    if isinstance(opt, SparseAdaGrad):
+        return sparse_adagrad_update_group(opt, tstates, accs)
+    raise NotImplementedError(f"sparse optimizer {type(opt).__name__}: the packed "
+                              f"update has a lazy pass for SparseAdam (K8) and "
+                              f"SparseAdaGrad (K9) only")
 
 
 # ---------------------------------------------------------------------------
@@ -628,15 +695,17 @@ def combine_from_acts(eng, plans, ctx, batch):
 
 def apply_gradients_packed(eng, state, g_acts, plans, ctx, batch):
     """Stage 3 (not differentiated): unfold every column's activation
-    grads into its storage's [grad | count] accumulator, then one lazy-Adam
-    pass (K8) over all the storages at once.  The mean columns with l > 1
-    of every storage go to one grouped K3 (one member a column: each column
-    is one contiguous block of the stream); the single-id columns and the
-    sequence columns of every storage to one grouped K4.
+    grads into its storage's [grad | count] accumulator, then one lazy pass
+    of the engine's sparse optimizer over all the storages at once
+    (``sparse_update_group``: K8 for Adam, K9 for AdaGrad).  The mean
+    columns with l > 1 of every storage go to one grouped K3 (one member a
+    column: each column is one contiguous block of the stream); the
+    single-id columns and the sequence columns of every storage to one
+    grouped K4.
 
-    Updates the tables of ``state`` in place (w, m, v, t, show; the JAX
-    package donates them instead) and returns ``state``.  ``g_acts``: per
-    storage, the gradients of ``ctx[skey]["acts"]``."""
+    Updates the tables of ``state`` in place (w, the optimizer's state,
+    show; the JAX package donates them instead) and returns ``state``.
+    ``g_acts``: per storage, the gradients of ``ctx[skey]["acts"]``."""
     accs, means, rows = {}, [], []
     for skey, segs in plans.items():
         d = eng.storage[skey][1]
@@ -660,8 +729,7 @@ def apply_gradients_packed(eng, state, g_acts, plans, ctx, batch):
                 rows.append(views + (g.reshape(seg.size, d), ids[part], mask[part]))
     unfold_mean_scatter_group(means)
     unfold_rows_scatter_group(rows)
-    sparse_adam_update_group(eng.sparse_opt, [state[k] for k in accs],
-                             list(accs.values()))
+    sparse_update_group(eng.sparse_opt, [state[k] for k in accs], list(accs.values()))
     return state
 
 

@@ -51,13 +51,17 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "unfold_scatter": {
         "unfold_mean_group_f32": [_P, _I, _P],
         "unfold_rows_group_f32": [_P, _I, _P],
-        "unfold_max_columns": [],
-        "unfold_rows_max_members": [],
+        "unfold_max_members": [],
     },
     "sparse_adam": {
         "sparse_adam_group_f32": [_P, _P, _P, _I, _F, _F, _F, _F, _F, _F, _P],
         "sparse_adam_max_storages": [],
         "sparse_adam_max_d": [],
+    },
+    "sparse_adagrad": {
+        "sparse_adagrad_group_f32": [_P, _P, _P, _I, _F, _P],
+        "sparse_adagrad_max_storages": [],
+        "sparse_adagrad_max_d": [],
     },
     "din_pool": {
         "din_pool_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _L, _L, _L,
@@ -71,7 +75,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
 
 KERNELS = ("fold_mean", "fold_rows", "field_attention", "field_attention_bwd",
            "unfold_mean", "unfold_rows", "sparse_adam_update", "din_pool",
-           "interacting_attention")
+           "interacting_attention", "sparse_adagrad_update")
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 

@@ -18,8 +18,8 @@ Submodules and parameters carry the flax names (``din_2125``, ``senet``,
 ``gate_output_{i}``, ``dcn``, ``staytime_output``, ``tower_deep_*``,
 ``*_pred``), so a flattened flax tree is the module's state dict.  Sparse
 AdaGrad (5e-3) on the tables and dense Adam (5e-4) on the tower, losses
-KL(2.0) + CE(2.0) + CE(1.0); the train step for them comes with a later
-slice of the port.  ``stacked_experts`` builds the three PPNet-gated
+KL(2.0) + CE(2.0) + CE(1.0), with sample weights; the packed train step
+updates the tables by the lazy AdaGrad pass K9.  ``stacked_experts`` builds the three PPNet-gated
 experts as one stack ``experts`` (each kernel (3, in, out), as the JAX
 ``stacked_gated_experts`` leaves them).
 """

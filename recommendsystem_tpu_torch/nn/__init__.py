@@ -1,8 +1,8 @@
 """Layers of the port."""
 
 from .dcn import CrossNet, DeepCrossLayer  # noqa: F401
-from .din import MASK_PAD, DINPool, sequence_mask  # noqa: F401
-from .fm import DeepFMLayer, FFMBlock, fm_cross_term  # noqa: F401
+from .din import MASK_PAD, DINAttention, DINPool, sequence_mask  # noqa: F401
+from .fm import DeepFMLayer, FFMBlock, FMLayer3D, fm_cross_term  # noqa: F401
 from .interacting import InteractingLayer  # noqa: F401
 from .mlp import (DNN, Dense, MultiLayerDense, glorot_normal_, kernel_penalty,  # noqa: F401
                   regularized_kernels, resolve_activation, truncated_normal)

@@ -1,8 +1,8 @@
-"""DIN target attention of the staytime model.
+"""DIN target attention: the staytime pool and the general variant.
 
-Counterpart of ``DINPool``, ``MASK_PAD`` and ``sequence_mask`` in
-``recommendsystem_tpu/nn/din.py``: the single-query softmax DIN of the
-reference's ``staytime/layer.py:6-41``.  A scorer MLP [16 sigmoid, 1 linear]
+Counterpart of ``DINAttention``, ``DINPool``, ``MASK_PAD`` and
+``sequence_mask`` in ``recommendsystem_tpu/nn/din.py``.  ``DINPool`` is the
+single-query softmax DIN of the reference's ``staytime/layer.py:6-41``.  A scorer MLP [16 sigmoid, 1 linear]
 over [q, f, q - f, q * f] scores each fact; masked positions get
 ``MASK_PAD`` (-2**32 + 1, which replaces the score), then a softmax over the
 sequence weights the sum of the facts.  The pool is K7 (``kernels/din.py``):
@@ -10,19 +10,24 @@ the CUDA kernel on a card, its plain version on the CPU.  The kernel takes
 the staytime widths (H = 16, a scorer of width 16); on a card other widths
 raise.  The facts may be a ``SequenceRows`` handle (the predict step's
 sequence columns): K7 then gathers them from the table itself.
-``DINAttention`` (the zero-mask variant) is used by no ported model yet.
+
+``DINAttention`` is the general F-query variant of the reference's
+``din.py:6-47``, kept numerically distinct as in the JAX package: a scorer
+of Dense layers (``din_nn_{i}``, ReLU each) over [q, k, q * k], masked
+scores set to 0 (not ``MASK_PAD``) and no softmax, then a plain product
+with the values.  It has no kernel: no model of the zoo uses it.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
 from ..embedding.packed import SequenceRows
 from ..kernels.din import HIDDEN, MASK_PAD, din_pool, din_pool_gather  # noqa: F401
-from .mlp import glorot_uniform_
+from .mlp import Dense, glorot_uniform_
 
 
 def sequence_mask(lengths: torch.Tensor, maxlen: int) -> torch.Tensor:
@@ -67,3 +72,40 @@ class DINPool(nn.Module):
         else:
             mask_f = mask.to(torch.float32)
         return din_pool(query, facts, mask_f, self.w1, self.b1, self.w2, self.b2)
+
+
+class DINAttention(nn.Module):
+    """queries (B, H) or (B, F, H); keys and values (B, T, H); mask (B, T)
+    bool or None.  Returns (B, H) for 2-d queries, else (B, F, H).  The
+    scorer maps the 3H features through ``hidden_units`` (the last must be
+    1), each a ReLU ``Dense`` named ``din_nn_{i}`` as in flax."""
+
+    def __init__(self, in_dim: int, hidden_units: Sequence[int] = (16, 1), device=None):
+        super().__init__()
+        if not hidden_units or hidden_units[-1] != 1:
+            raise ValueError(f"DINAttention: the scorer must end in one unit, got "
+                             f"{tuple(hidden_units)}")
+        self.hidden_units = tuple(hidden_units)
+        width = 3 * in_dim
+        for i, unit in enumerate(self.hidden_units):
+            setattr(self, f"din_nn_{i}", Dense(width, unit, "relu", device=device))
+            width = unit
+
+    def forward(self, queries: torch.Tensor, keys: torch.Tensor, values: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        squeeze_f = queries.ndim == 2
+        if squeeze_f:
+            queries = queries[:, None, :]                          # (B, 1, H)
+        b, f, h = queries.shape
+        t = keys.shape[1]
+        q = queries[:, :, None, :].expand(b, f, t, h)
+        k = keys[:, None, :, :].expand(b, f, t, keys.shape[-1])
+        deep = torch.cat([q, k, q * k], dim=-1)                    # (B, F, T, 3H)
+        for i in range(len(self.hidden_units)):
+            deep = getattr(self, f"din_nn_{i}")(deep)
+        deep = deep.squeeze(-1)                                    # (B, F, T)
+        if mask is not None:
+            deep = torch.where(mask[:, None, :].expand(deep.shape), deep,
+                               torch.zeros_like(deep))             # zeroed, not MASK_PAD
+        out = torch.einsum("bft,bth->bfh", deep, values)
+        return out.squeeze(1) if squeeze_f else out

@@ -1,8 +1,10 @@
 """Factorization-machine blocks of the staytime and finish models.
 
-Counterpart of ``fm_cross_term``, ``DeepFMLayer`` and ``FFMBlock`` in
-``recommendsystem_tpu/nn/fm.py``:
+Counterpart of ``FMLayer3D``, ``fm_cross_term``, ``DeepFMLayer`` and
+``FFMBlock`` in ``recommendsystem_tpu/nn/fm.py``:
 
+- ``FMLayer3D``: the pairwise interaction sum of (B, F, D) field
+  embeddings, without a linear term: (B, 1); no parameters;
 - ``fm_cross_term``: the listwise FM over a list of equal-width (B, D)
   field embeddings; returns the (B, D) cross term and the (B, 1) logit;
 - ``DeepFMLayer``: finish's FM over a flat (B, in) concat: the order-2
@@ -12,8 +14,6 @@ Counterpart of ``fm_cross_term``, ``DeepFMLayer`` and ``FFMBlock`` in
 - ``FFMBlock``: per (x, y) field pair, both projected to ``dim`` by their
   own Dense layers (``ffm_x_{x}_{y}_{dim}``, ``ffm_y_{x}_{y}_{dim}``) and
   multiplied.
-
-``FMLayer3D`` comes with the model that uses it.
 """
 
 from __future__ import annotations
@@ -24,6 +24,18 @@ import torch
 from torch import nn
 
 from .mlp import Dense, glorot_normal_
+
+
+class FMLayer3D(nn.Module):
+    """0.5 * sum_d ((sum_f x)^2 - sum_f x^2) over a (B, F, D) input."""
+
+    def forward(self, inputs: torch.Tensor) -> torch.Tensor:
+        if inputs.ndim != 3:
+            raise ValueError(f"Unexpected inputs dimensions {inputs.ndim}, expect to be "
+                             f"3 dimensions")
+        square_of_sum = torch.square(inputs.sum(dim=1, keepdim=True))
+        sum_of_square = (inputs * inputs).sum(dim=1, keepdim=True)
+        return 0.5 * (square_of_sum - sum_of_square).sum(dim=-1)     # (B, 1)
 
 
 def fm_cross_term(field_embs: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -7,7 +7,8 @@ Counterpart of ``recommendsystem_tpu/train/step.py``, local mode:
   gradient (K1 / K2), autograd of the loss with respect to the dense
   parameters and the folded activations (the InteractingLayer's attention
   runs K5f forward and K5b backward), dense Adam, then the unfold-scatter
-  (K3 / K4) and lazy-Adam (K8) pass over the tables;
+  (K3 / K4) and the lazy pass of the engine's sparse optimizer over the
+  tables (K8 for ``SparseAdam``, K9 for staytime's ``SparseAdaGrad``);
 - ``make_scan_train_step`` runs it over K batches in a Python loop, in
   place of the JAX package's ``lax.scan`` driver;
 - ``make_predict_step`` is the fused lookup (sequence columns deferred to
@@ -18,8 +19,10 @@ Keras-compile semantics as in the JAX package: the loss is the sum over
 tasks of ``loss_weight * loss``, where a loss that returns a scalar is taken
 as it is (autoint's ``cross_entropy_sum_mean``, so its sample weights do not
 reach it) and a per-sample loss is the sample-weighted mean, plus the L1L2
-kernel penalties of the module's regularized Dense layers
-(``nn.regularization``, the JAX ``"losses"`` collection).
+kernel penalties that the JAX layers sow into their ``"losses"``
+collection: ``nn.kernel_penalty`` over ``nn.regularized_kernels`` of the
+module (the kernels of every ``Dense`` with a ``kernel_regularizer``, of
+``DNN`` and ``CrossNet`` with an ``l2_reg``, stacked kernels included).
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ import torch
 from torch.func import functional_call
 
 from ..embedding import packed as packed_mod
-from ..embedding.optimizers import SparseAdam
+from ..embedding.optimizers import SparseAdaGrad, SparseAdam
 from ..nn import kernel_penalty, regularized_kernels
 from .state import TrainState
 
@@ -106,14 +109,15 @@ def _packed_plans(eng, batch):
 def make_train_step(bundle: "ModelBundle", mode: str = "local") -> Callable:
     """Returns ``step(state, batch, labels, sample_weight=None,
     dense_inputs=None, seed=0) -> (state, info)``, the packed train step.
-    The engine's sparse optimizer must be ``SparseAdam``: otherwise this
-    raises ``NotImplementedError``.
+    The engine's sparse optimizer must have a lazy pass on the packed
+    update: ``SparseAdam`` (K8) or ``SparseAdaGrad`` (K9); any other raises
+    ``NotImplementedError``.
 
     ``batch`` holds IdBatches and ``labels`` {task: (B, 1)} tensors on the
     bundle's device; ``seed`` (an int below 2**32) draws the step's
-    attention dropout.  The step updates ``state``'s tables (w, m, v, t,
-    show), dense parameters and Adam moments in place, where the JAX
-    package donates them, and returns a ``TrainState`` over the same
+    attention dropout.  The step updates ``state``'s tables (w, the sparse
+    optimizer's state, show), dense parameters and Adam moments in place,
+    where the JAX package donates them, and returns a ``TrainState`` over the same
     tensors with ``step + 1``.  ``info`` holds the loss, the per-task
     losses and the L1L2 penalty (``regularization``; for a module with
     none, one 0 made when the step is built) as 0-d tensors on the device
@@ -125,12 +129,11 @@ def make_train_step(bundle: "ModelBundle", mode: str = "local") -> Callable:
     does: not at all while its moments are 0."""
     _check_mode(mode)
     eng = bundle.embedding
-    if not isinstance(eng.sparse_opt, SparseAdam):
+    if not isinstance(eng.sparse_opt, (SparseAdam, SparseAdaGrad)):
         raise NotImplementedError(
             f"sparse optimizer {type(eng.sparse_opt).__name__}: the packed "
-            f"train step runs the lazy-Adam pass (K8) only; the AdaGrad update "
-            f"on the classic scatter path comes with the staytime train slice "
-            f"of the port")
+            f"train step has a lazy pass for SparseAdam (K8) and SparseAdaGrad "
+            f"(K9) only")
     penalized = regularized_kernels(bundle.module)
     no_penalty = torch.zeros((), device=bundle.device)
 

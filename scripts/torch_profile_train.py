@@ -6,8 +6,9 @@
 ``--model``: autoint (B = 65536, 5 and 1 ids), ctr (B = 32768), ctr212
 (the 212-feature ctr shape, ``synthetic_ctr_config(num_slots=180,
 num_bias=32)`` over 32,768-id buckets, B = 8192, one id a column),
-multi_head (B = 32768), finish (B = 32768) or rough_rank (B = 32768, 5
-and 1 ids, the dense flag drawn with the batch).  For each ids-per-feature
+multi_head (B = 32768), finish (B = 32768), rough_rank (B = 32768, 5
+and 1 ids, the dense flag drawn with the batch) or staytime (the default
+``StaytimeConfig``, B = 16384, 5 and 1 ids).  For each ids-per-feature
 width: builds the full-width bundle (attention dropout 0.2 where the model
 has it, seeded random weights), warms the packed train step up, then
   - times ``steps`` steps on the host clock in 3 windows, each ending in a
@@ -19,6 +20,11 @@ has it, seeded random weights), warms the packed train step up, then
   - lists the kernels by device time, each port kernel's device time a
     step (``port_kernel_us_per_step``), and the port kernels' launches per
     step.
+For staytime the row also gives the device time of the DIN pools'
+backward (``din_backward_us_per_step``): the three pools of a step at its
+shapes (facts (B, 50, 16) from the step's batch), each backward through
+``DinPoolFunction``, which recomputes through the plain version, between
+CUDA events (launch gaps included), 5 calls after one warm-up.
 Prints one JSON line per width, with the card's name and power limit, and
 writes the tables to ``chiprun_out/profile_train_<model>.txt``.
 
@@ -51,7 +57,44 @@ from torch_profile_common import device_kernels, device_us, port_kernel_us  # no
 
 # model -> (batch, ids per feature)
 DEFAULTS = {"autoint": (65536, [5, 1]), "ctr": (32768, [5]), "ctr212": (8192, [1]),
-            "multi_head": (32768, [5]), "finish": (32768, [5]), "rough_rank": (32768, [5, 1])}
+            "multi_head": (32768, [5]), "finish": (32768, [5]), "rough_rank": (32768, [5, 1]),
+            "staytime": (16384, [5, 1])}
+
+
+def din_backward_us(bundle, state, batch) -> float:
+    """Device µs of the backward of a staytime step's three DIN pools (see
+    the module's docstring)."""
+    from recommendsystem_tpu_torch.embedding import packed
+    from recommendsystem_tpu_torch.kernels.din import din_pool
+    from recommendsystem_tpu_torch.models.staytime import GENERAL
+
+    eng, cfg = bundle.embedding, bundle.config
+    with torch.no_grad():
+        embs = packed.lookup_packed(eng, state.tables, batch)
+    calls = []
+    for s, q in cfg.seq_query:
+        emb, mask = embs[f"seq_{s}"]
+        facts = emb[:, :, :GENERAL].detach().requires_grad_()
+        query = embs[q][:, :GENERAL].detach().requires_grad_()
+        w = {n: state.params[f"din_{s}.{n}"].detach().requires_grad_()
+             for n in ("w1", "b1", "w2", "b2")}
+        out = din_pool(query, facts, mask.float(), w["w1"], w["b1"], w["w2"], w["b2"])
+        calls.append((out, [query, facts, *w.values()]))
+    grads = [torch.randn_like(out) for out, _ in calls]
+
+    def backward():
+        for (out, inputs), g in zip(calls, grads):
+            torch.autograd.grad(out, inputs, g, retain_graph=True)
+
+    backward()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        backward()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 5 * 1e3
 
 
 def _per_layer_penalty(groups, params):
@@ -203,6 +246,8 @@ def main(argv=None) -> int:
                "port_kernel_launches_per_step": counts,
                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
                "card": card}
+        if args.model == "staytime":
+            row["din_backward_us_per_step"] = din_backward_us(bundle, state, batch)
         print(json.dumps(row), flush=True)
         tables.append(f"## {args.model}, batch {args.batch}, {ipf} ids per feature ({card})\n"
                       f"{json.dumps(row)}\n" + "\n".join(json.dumps(t) for t in top)

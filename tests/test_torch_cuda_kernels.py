@@ -14,7 +14,9 @@ unfold-scatter's gradient sums atol 1e-5, or 1e-6 per entry that hits one
 row (atomics add in another order on every run), its counts exact; the
 lazy Adam's m and v rtol 1e-6 and w atol 1e-7 (``powf`` on the card against
 PyTorch's pow: one ulp in a bias correction), t and show exact, rows with
-count 0 bit-identical; the DIN
+count 0 bit-identical; the lazy AdaGrad's w atol 1e-6 and g2sum rtol 1e-6
+(the squares summed in another order), show exact, rows with count 0
+bit-identical; the DIN
 pool atol 2e-5 (a softmax over T and 4H-term dots in another order, as the
 JAX package holds its own kernel), its gradients rtol 1e-4, atol 1e-5; the
 fused InteractingLayer iteration rtol and atol 2e-5 (the JAX package's own
@@ -456,12 +458,15 @@ def test_unfold_mean_group_kernel(cuda):
     _check_unfold_group(items[1:-1])
 
 
-def test_unfold_mean_group_of_65_members(cuda):
-    members = [(8 * (1 + i % 3), 2 + i % 9, 20 + i, i % 7 == 0) for i in range(65)]
+@pytest.mark.parametrize("n,launches", [(64, 1), (65, 1), (91, 1), (512, 1), (513, 2)])
+def test_unfold_mean_group_takes_512_members_a_launch(cuda, n, launches):
+    """Up to 512 mean columns a launch in the ~30 KB parameter struct
+    (staytime's 91: one launch), 513 in two."""
+    members = [(8 * (1 + i % 3), 2 + i % 9, 20 + i % 50, i % 7 == 0) for i in range(n)]
     items = _unfold_members(cuda, members, rows=300)
     packed.unfold_mean_scatter_group(items)
     torch.cuda.synchronize()
-    assert launch_counts()["unfold_mean"] == 2
+    assert launch_counts()["unfold_mean"] == launches
     _check_unfold_group(items)
 
 
@@ -640,6 +645,113 @@ def test_sparse_adam_group_kernel(cuda, n, live):
                      (g["show"], b["show"])):
             assert torch.equal(x[dead], y[dead])
         assert not a.any()
+
+
+def _adagrad_storage(dev, rows, d, live, seed):
+    """(state, accumulator) of one AdaGrad storage, as ``_adam_storage``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cnt = torch.where(torch.rand((rows, 1), generator=g, device=dev) < live,
+                      torch.randint(1, 5, (rows, 1), generator=g, device=dev), 0).float()
+    acc = torch.cat([(torch.randn((rows, d), generator=g, device=dev) * 1e-2
+                      * (cnt > 0)).reshape(-1), cnt.reshape(-1)])
+    state = {"w": torch.rand((rows, d), generator=g, device=dev) * 0.2 - 0.1,
+             "opt": {"g2sum": torch.rand((rows, 1), generator=g, device=dev) * 0.4 + 0.1},
+             "show": torch.randint(0, 9, (rows, 1), generator=g, device=dev).float()}
+    return state, acc
+
+
+def _check_adagrad(got, want, before, acc0, acc):
+    """K9 against its plain version: w atol 1e-6, g2sum rtol 1e-6, show
+    exact, rows with count 0 bit-identical, the accumulator left zero."""
+    torch.testing.assert_close(got["w"], want["w"], rtol=0, atol=1e-6)
+    torch.testing.assert_close(got["opt"]["g2sum"], want["opt"]["g2sum"], rtol=1e-6, atol=0)
+    torch.testing.assert_close(got["show"], want["show"], rtol=0, atol=0)
+    dead = packed.accumulator_views(acc0, got["w"].shape[1])[1][:, 0] == 0
+    for x, y in ((got["w"], before["w"]), (got["opt"]["g2sum"], before["opt"]["g2sum"]),
+                 (got["show"], before["show"])):
+        assert torch.equal(x[dead], y[dead])
+    assert not acc.any()
+
+
+@pytest.mark.parametrize("n,live", [(5, 0.0), (5, 0.3), (5, 1.0), (65, 0.3)])
+def test_sparse_adagrad_group_kernel(cuda, n, live):
+    """One grouped K9 pass over storages of D 8, 16, 32 and 48 with odd row
+    counts, one with no live row and, in the groups of 5, one empty (65
+    storages: two launches), against ``sparse_adagrad_update_plain`` on
+    each; then a second pass on the cleared accumulators refilled, as the
+    next train step reuses them."""
+    from recommendsystem_tpu_torch.embedding.optimizers import SparseAdaGrad
+
+    dims = (8, 16, 32, 48, 32)
+    shapes = [(0 if i == 2 and n < 64 else 2001 + 37 * i if i < 5 else 5 + i, dims[i % 5],
+               0.0 if i == 3 else live) for i in range(n)]
+    launches = -(-sum(1 for r, _, _ in shapes if r) // 64)
+    opt = SparseAdaGrad(learning_rate=5e-3)
+    got = None
+    for rep in range(2):
+        storages = [_adagrad_storage(cuda, r, d, lv, 10 * rep + i)
+                    for i, (r, d, lv) in enumerate(shapes)]
+        if got is None:
+            got = [_copy_state(s) for s, _ in storages]
+        before = [_copy_state(g) for g in got]
+        accs = [a.clone() for _, a in storages]
+        reset_launch_counts()
+        packed.sparse_adagrad_update_group(opt, got, accs)
+        torch.cuda.synchronize()
+        assert launch_counts()["sparse_adagrad_update"] == launches
+        for (_, acc0), g, b, a in zip(storages, got, before, accs):
+            want = _copy_state(b)
+            packed.sparse_adagrad_update_plain(opt, want, acc0.clone())
+            _check_adagrad(g, want, b, acc0, a)
+
+
+def test_sparse_adagrad_kernel_unaligned_and_odd_widths(cuda):
+    """A storage of D 3 (one float a lane) and one of D 8 whose tables
+    start 4 bytes past a 16-byte boundary take the scalar path."""
+    from recommendsystem_tpu_torch.embedding.optimizers import SparseAdaGrad
+
+    opt = SparseAdaGrad(learning_rate=0.1)
+    for rows, d, offset in ((999, 3, 0), (500, 8, 1)):
+        state, acc0 = _adagrad_storage(cuda, rows, d, 0.5, rows)
+        buf = torch.zeros(rows * d + offset, device=cuda)
+        w = buf[offset:].view(rows, d)
+        w.copy_(state["w"])
+        got = {"w": w, "opt": {"g2sum": state["opt"]["g2sum"].clone()},
+               "show": state["show"].clone()}
+        want = _copy_state(state)
+        acc = acc0.clone()
+        packed.sparse_adagrad_update(opt, got, acc)
+        packed.sparse_adagrad_update_plain(opt, want, acc0.clone())
+        torch.cuda.synchronize()
+        _check_adagrad(got, want, state, acc0, acc)
+
+
+def test_staytime_train_step_launches(cuda):
+    """A small staytime train step: with 5 ids one K1, K2 (the sequences),
+    K3, K4 and K9 and three K7; with 1 id no K1 or K3.  Two steps on the
+    card stay finite and leave every accumulator zero."""
+    from recommendsystem_tpu_torch.data import synthetic_batch
+    from recommendsystem_tpu_torch.models import create_model
+    from recommendsystem_tpu_torch.models.staytime import StaytimeConfig
+    from recommendsystem_tpu_torch.train import create_train_state, make_train_step
+
+    bundle = create_model("staytime", cfg=StaytimeConfig(bucket_size=512, seq_max_len=8),
+                          deep_hidden_units=(16, 8), device="cuda")
+    step = make_train_step(bundle)
+    for ipf, want in ((5, {"fold_mean": 1, "fold_rows": 1, "din_pool": 3, "unfold_mean": 1,
+                           "unfold_rows": 1, "sparse_adagrad_update": 1}),
+                      (1, {"fold_rows": 1, "din_pool": 3, "unfold_rows": 1,
+                           "sparse_adagrad_update": 1})):
+        state = create_train_state(bundle, seed=0)
+        batch, dense, labels, weight = synthetic_batch(bundle, 64, seed=1, ids_per_feature=ipf)
+        reset_launch_counts()
+        state, info = step(state, batch, labels, weight, dense, seed=0)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in launch_counts().items() if v} == want
+        state, info = step(state, batch, labels, weight, dense, seed=1)
+        assert torch.isfinite(info["loss"])
+        for skey in bundle.embedding.storage:
+            assert not bundle.embedding.accumulator(skey, cuda).any()
 
 
 def _din_inputs(dev, b, t, h, seed, requires_grad=False):

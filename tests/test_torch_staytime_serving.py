@@ -318,9 +318,24 @@ def test_seeded_init_draws_adagrad_tables():
     assert not t["show"].any()
 
 
-def test_train_step_refuses_adagrad_engines():
+def test_train_step_takes_adagrad_and_refuses_an_optimizer_without_a_pass():
+    """The staytime engine's AdaGrad trains on the packed step (its lazy
+    pass is K9); an optimizer with no pass on the packed update raises."""
     _, pbundle = _bundles("cfg16")
-    with pytest.raises(NotImplementedError, match="SparseAdaGrad"):
+    from recommendsystem_tpu_torch.train import create_train_state
+    state = create_train_state(pbundle, seed=0)
+    pb, pd, pl, pw = synthetic_batch(pbundle, 8, seed=1)
+    before = {k: t["opt"]["g2sum"].clone() for k, t in state.tables.items()}
+    state, info = make_train_step(pbundle)(state, pb, pl, pw, pd, seed=0)
+    assert np.isfinite(float(info["loss"])) and state.step == 1
+    assert any((t["opt"]["g2sum"] > before[k]).any() for k, t in state.tables.items())
+
+    @dataclasses.dataclass(frozen=True)
+    class SparseSGD:
+        learning_rate: float = 0.1
+
+    pbundle.embedding.sparse_opt = SparseSGD()
+    with pytest.raises(NotImplementedError, match="SparseSGD"):
         make_train_step(pbundle)
 
 
