@@ -112,17 +112,36 @@
    g2sum grown on the live rows alone, examples/s; the lazy AdaGrad pass
    K9 over the 46 storages against its plain version with bound and
    library times, and over mixed groups (one of 65 storages: two
-   launches); K3 over the 91 mean columns (one launch) and K4 over the
+   launches), timed with their bounds; K3 over the 91 mean columns (one launch) and K4 over the
    sequences and over the 94 single-id and sequence columns; two card
    steps held to the CPU at 2,048-id buckets and B = 64, with 5 ids and
-   with 1.
+   with 1;
+11. drives the eval path of every model at full width and its train batch
+   (autoint B = 65536, phase 3's bundle; ctr, multi_head, finish and
+   rough_rank B = 32768; the 212-feature ctr B = 8192; staytime B = 16384
+   with 5 ids and with 1): ``evaluate`` over two batches in a window of
+   counts, held to the predict step's launches a call (``EVAL_LAUNCHES``:
+   no K3-K5, K8 or K9), AUC, accuracy and bin accuracy in [0, 1] and COPC,
+   CTR, MAE and MSE finite; the host syncs of an eval step and of a
+   predict call (none allowed); eval and predict steps timed in turns; the
+   metric update alone by CUDA events; at B = 64 and each ``CHECK_SEEDS``
+   the card's outputs held to the CPU plain path's and its metric states
+   to the CPU metric functions on the card's own outputs (counts exact,
+   sums rtol 1e-6); ``dump_predict`` with the labels at B = 256, its
+   scores parsed and held to the predict step's; the AUC update alone at
+   B = 65536 and 32768 against the CPU's; then staytime's streaming GAUC
+   over three batches with the reference example's mixed engines (the
+   step's launches; its histograms and ``oor`` equal to the card's and the
+   CPU's updates on the predict step's outputs; the saturating bins of
+   +-1e10, +-inf and NaN on the card and the CPU; offline against
+   streaming in a collision-free case; the updates' times).
 
 Prints the card's name and power limit, one JSON line each for the autoint
 predict step, the train step, the staytime predict step, the predict
 steps with and without K6 (``interacting_predict``), the phase-8 train
 steps with finish's predict step (``tower_train``), rough_rank's train
-and predict steps (``rough_rank``) and staytime's train steps
-(``staytime_train``), then ``{"kernels": ...}`` (10 kernels), and last
+and predict steps (``rough_rank``), staytime's train steps
+(``staytime_train``) and the eval path's times (``eval``), then ``{"kernels": ...}`` (10 kernels), and last
 ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Any failure ends the run with a traceback
 and a non-zero exit; without CUDA it exits non-zero before printing.
@@ -1213,19 +1232,22 @@ def adagrad_case(eng, tables, batch, cycles_per_ms):
             "bound_ms": bms, "bound_by": by, "bytes": nbytes, "ops": ops}
 
 
-def adagrad_mixed_case():
+def adagrad_mixed_case(cycles_per_ms):
     """K9 over groups of storages of D 8, 16, 32, 48 and 3 (odd rows, a
     third of them live), one empty and one with no live row, in one launch,
-    and over a group of 65 storages in two, against the plain version."""
+    and over a group of 65 storages in two, against the plain version; each
+    group timed as ``adagrad_case`` times the 46 storages (its accumulators
+    views of one buffer, restored by one copy before each call), with its
+    bound and ``torch.optim.Adagrad`` over its tables as the yardstick."""
     from recommendsystem_tpu_torch.embedding import packed
     from recommendsystem_tpu_torch.embedding.optimizers import SparseAdaGrad
     from recommendsystem_tpu_torch.kernels import launch_counts
 
     gen = torch.Generator(device="cuda").manual_seed(19)
     opt = SparseAdaGrad(learning_rate=0.05)
-    err = 0.0
     shapes = ((100003, 8, 0.3), (30001, 16, 0.3), (0, 32, 0.3), (20011, 32, 0.3),
               (5003, 48, 0.3), (2001, 3, 0.3), (4099, 32, 0.0))
+    out = []
     for group, launches in ((shapes, 1), ([(301 + 7 * i, (8, 16, 32, 48)[i % 4], 0.3)
                                            for i in range(65)], 2)):
         before, acc0 = [], []
@@ -1250,10 +1272,48 @@ def adagrad_mixed_case():
                                  f"{launch_counts()['sparse_adagrad_update'] - n0} launches")
         for w, a in zip(want, acc0):
             packed.sparse_adagrad_update_plain(opt, w, a.clone())
-        err = max(err, _check_adagrad(got, want, before, acc0, accs,
-                                      f"sparse_adagrad_update ({len(group)} mixed)"))
-    return {"name": "sparse_adagrad_update", "b": 0, "d": [8, 16, 32, 48, 3],
-            "groups": [len(shapes), 65], "max_abs_err": err}
+        err = _check_adagrad(got, want, before, acc0, accs,
+                             f"sparse_adagrad_update ({len(group)} mixed)")
+
+        dims = [d for _, d, _ in group]
+        sizes = [a.numel() for a in acc0]
+        flat0 = torch.cat(acc0)
+        flat = flat0.clone()
+        views = list(flat.split(sizes))
+
+        def restore():
+            flat.copy_(flat0)
+
+        def kernel():
+            restore()
+            packed.sparse_adagrad_update_group(opt, got, views)
+
+        def plain():
+            restore()
+            for w, a in zip(want, views):
+                packed.sparse_adagrad_update_plain(opt, w, a)
+
+        params = [torch.nn.Parameter(t["w"].clone()) for t in before if t["w"].numel()]
+        for p, a, d in zip(params, [a for a in acc0 if a.numel()],
+                           [d for (r, d, _) in group if r]):
+            p.grad = _acc_views(a, d)[0].clone()
+        dense = torch.optim.Adagrad(params, lr=opt.learning_rate,
+                                    initial_accumulator_value=opt.initial_g2sum, foreach=True)
+        nbytes, ops = _adagrad_bytes(acc0, dims)
+        bms, by = bound(nbytes, ops)
+        ms_restore = timed(restore, 24, cycles_per_ms)[0]
+        ms, host_ms = timed(kernel, 24, cycles_per_ms)
+        out.append({"name": "sparse_adagrad_update", "b": 0, "group": "mixed",
+                    "storages": len(group), "d": sorted(set(dims)), "launches": launches,
+                    "rows": sum(r for r, _, _ in group),
+                    "live_rows": sum(int((_acc_views(a, d)[1] > 0).sum())
+                                     for a, d in zip(acc0, dims)),
+                    "max_abs_err": err, "ms": ms - ms_restore, "restore_ms": ms_restore,
+                    "host_ms": host_ms,
+                    "plain_ms": timed(plain, 4, cycles_per_ms)[0] - ms_restore,
+                    "library_ms": timed(dense.step, 24, cycles_per_ms)[0],
+                    "bound_ms": bms, "bound_by": by, "bytes": nbytes, "ops": ops})
+    return out
 
 
 def din_case(b, seed, cycles_per_ms):
@@ -2772,7 +2832,8 @@ def staytime_train_path(card, cycles_per_ms):
         del state
     out["launches"] = launches
 
-    cases = [adagrad_case(eng, tables, batch5, cycles_per_ms), adagrad_mixed_case(),
+    cases = [adagrad_case(eng, tables, batch5, cycles_per_ms),
+             *adagrad_mixed_case(cycles_per_ms),
              unfold_group_case(bundle, b, cycles_per_ms),
              unfold_rows_group_case("staytime, 3 sequences, 5 ids", bundle, b, 95,
                                     cycles_per_ms, ipf=5),
@@ -2791,6 +2852,388 @@ def staytime_train_path(card, cycles_per_ms):
     out["card_vs_cpu"] = {f"ids{ipf}": hold_card_to_cpu(gsmall, csmall, TOWER_CHECK_BATCH, ipf,
                                                         f"staytime {ipf} ids")
                           for ipf in (5, 1)}
+    return out
+
+
+# -- phase 11: the eval path ---------------------------------------------------
+EVAL_BATCHES = 2                  # batches an evaluate() call in the counted window
+EVAL_SUM_RTOL = 1e-6              # metric sums: float32 sums of <= 64 terms, other order
+DUMP_BATCH = 256
+GAUC_BATCHES = 3
+# the eval step launches the predict step's kernels and no other
+EVAL_LAUNCHES = {
+    "k6": {"fold_mean": 1, "interacting_attention": 1},
+    "k6_rows": {"fold_rows": 1, "interacting_attention": 1},
+    "mean": {"fold_mean": 1},
+    "staytime5": {"fold_mean": 1, "din_pool": 3},
+    "staytime1": {"fold_rows": 1, "din_pool": 3}}
+# XLA's float-to-int32 conversion saturates: these predictions fall into
+# these bins of 8 over [0, 1) (NaN bin 0); 8 of them lie outside the range
+ODD_PREDS = (1e10, -1e10, float("inf"), -float("inf"), float("nan"), 3.7, -0.5, 0.999999,
+             1.0, 0.0, -1e-30, 0.5)
+ODD_BINS = (7, 0, 7, 0, 0, 7, 0, 7, 7, 0, 0, 4)
+ODD_OOR = 8.0
+# the collision-free case agrees with the offline GAUC as
+# tests/test_streaming_gauc.py holds them end to end
+GAUC_AGREE = 0.02
+
+
+def _count_syncs(fn):
+    """The host syncs of one call of ``fn``, counted under
+    ``torch.cuda.set_sync_debug_mode("warn")``: for each, the last
+    "file:line" frames of the Python stack that reached it.  (The first
+    use of the debug mode in a process reports one sync of its own, from
+    ``torch/cuda/__init__.py``: count each call twice.)"""
+    import traceback
+    import warnings
+
+    syncs = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            syncs.append(" < ".join(f"{os.path.relpath(f.filename)}:{f.lineno}"
+                                    for f in traceback.extract_stack()[-7:-1][::-1]))
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return syncs
+
+
+def _batch_to(item, device):
+    """(batch, dense_inputs, labels, weight) copied to ``device``."""
+    batch, dense, labels, weight = item
+    return ({k: v.to(device) for k, v in batch.items()},
+            None if dense is None else {k: v.to(device) for k, v in dense.items()},
+            {k: v.to(device) for k, v in labels.items()}, weight.to(device))
+
+
+def _check_metric_values(values, what):
+    """AUC, accuracy and bin accuracy in [0, 1]; COPC, CTR, MAE, MSE finite."""
+    for task, ms in values.items():
+        for name, v in ms.items():
+            ok = (0.0 <= v <= 1.0) if name in ("auc", "acc", "bin_acc") else np.isfinite(v)
+            if not ok:
+                raise AssertionError(f"{what} {task} {name} = {v}")
+
+
+def _check_states(got, want, what):
+    """Card states against the CPU's: counts exact (the weights are 1 and
+    the labels 0 or 1), sums of outputs at ``EVAL_SUM_RTOL``."""
+    counts = {"correct", "total", "tp", "fp", "tn", "fn", "label", "n"}
+    for task, states in want.items():
+        for i, (g, w) in enumerate(zip(got[task], states)):
+            for k in w:
+                gk, wk = g[k].cpu().numpy(), w[k].numpy()
+                if k in counts:
+                    np.testing.assert_array_equal(gk, wk, err_msg=f"{what} {task} #{i} {k}")
+                else:
+                    np.testing.assert_allclose(gk, wk, rtol=EVAL_SUM_RTOL,
+                                               err_msg=f"{what} {task} #{i} {k}")
+
+
+def eval_model(label, bundle, state, cpu_bundle, b, ipf, want, cycles_per_ms):
+    """One model's eval path at its train batch ``b``: ``evaluate`` over
+    ``EVAL_BATCHES`` batches in a window of counts (held to ``want`` a
+    step, as the predict step's one call), the metric values in range;
+    host syncs of one eval step and one predict call; eval and predict
+    steps timed in turns; the metric update alone by CUDA events; two
+    sides at B = 64 and each ``CHECK_SEEDS``: the card's outputs against
+    the CPU plain path's, the card's metric states against the CPU metric
+    functions on the card's own outputs; ``dump_predict`` with ``need_y``
+    at B = 256 held to the predict step's scores."""
+    from recommendsystem_tpu_torch.data import synthetic_batch
+    from recommendsystem_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from recommendsystem_tpu_torch.train import (dump_predict, evaluate, make_eval_step,
+                                                 make_predict_step)
+    from recommendsystem_tpu_torch.train import metrics as M
+
+    step, pstep = make_eval_step(bundle), make_predict_step(bundle)
+    data = [synthetic_batch(bundle, b, seed=110 + i, ids_per_feature=ipf)
+            for i in range(EVAL_BATCHES)]
+    batch, dense, labels, weight = data[0]
+    states0 = M.init_metrics(bundle.metrics, bundle.device)
+    step(state, batch, labels, weight, dense, states0)
+    pstep(state, batch, dense)
+    torch.cuda.synchronize()
+
+    reset_launch_counts()
+    values = evaluate(bundle, data, state)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    per_step = {k: v / EVAL_BATCHES for k, v in counts.items() if v}
+    reset_launch_counts()
+    pstep(state, batch, dense)
+    torch.cuda.synchronize()
+    per_predict = {k: v for k, v in launch_counts().items() if v}
+    if per_step != want or per_predict != want:
+        raise AssertionError(f"{label} eval: launches a step {per_step}, a predict call "
+                             f"{per_predict}, expected {want}")
+    _check_metric_values(values, f"{label} evaluate")
+
+    runs = {"predict": lambda: pstep(state, batch, dense),
+            "eval": lambda: step(state, batch, labels, weight, dense, states0)}
+    # each counted twice, in turns; the second count is the steady one
+    syncs = {}
+    for kind in ("predict", "eval", "predict", "eval"):
+        syncs[kind] = _count_syncs(runs[kind])
+    if syncs["eval"] or syncs["predict"]:
+        raise AssertionError(f"{label}: host syncs of an eval step {syncs['eval']}, of a "
+                             f"predict call {syncs['predict']}")
+
+    windows = {"predict": [], "eval": []}
+    for order in (("predict", "eval"), ("eval", "predict"), ("predict", "eval")):
+        for kind in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                runs[kind]()
+            torch.cuda.synchronize()
+            windows[kind].append((time.perf_counter() - t0) / 5 * 1e3)
+    ms = {k: sorted(v)[1] for k, v in windows.items()}
+    with torch.inference_mode():
+        outs = step(state, batch, labels, weight, dense, states0)[1]
+        update = lambda: M.update_metrics(bundle.metrics, states0,   # noqa: E731
+                                          {t: labels[t] for t in bundle.metrics},
+                                          {t: outs[t] for t in bundle.metrics}, weight)
+        update_ms, update_host_ms = timed(update, 10, cycles_per_ms)
+
+    # card against CPU
+    cpu_state = _cpu_state(state)
+    cpu_step = make_eval_step(cpu_bundle)
+    for seed in CHECK_SEEDS:
+        item = synthetic_batch(bundle, CHECK_BATCH, seed=seed, ids_per_feature=ipf)
+        g_states, g_out = step(state, item[0], item[2], item[3], item[1],
+                               M.init_metrics(bundle.metrics, bundle.device))
+        cb, cd, cl, cw = _batch_to(item, "cpu")
+        _, c_out = cpu_step(cpu_state, cb, cl, cw, cd, M.init_metrics(cpu_bundle.metrics, "cpu"))
+        for k in c_out:
+            np.testing.assert_allclose(g_out[k].cpu().numpy(), c_out[k].numpy(),
+                                       err_msg=f"{label} eval b={CHECK_BATCH} seed {seed}: {k}",
+                                       **SCORE_TOL)
+        want_states = M.update_metrics(cpu_bundle.metrics,
+                                       M.init_metrics(cpu_bundle.metrics, "cpu"),
+                                       {t: cl[t] for t in cpu_bundle.metrics},
+                                       {t: g_out[t].cpu() for t in cpu_bundle.metrics}, cw)
+        _check_states(g_states, want_states, f"{label} seed {seed}")
+
+    # dump_predict with the labels, held to the predict step's scores
+    items = [synthetic_batch(bundle, DUMP_BATCH, seed=120 + i, ids_per_feature=ipf)
+             for i in range(2)]
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, f"dump_{label}.tsv")
+    n = dump_predict(bundle, items, state, path, need_y=True)
+    with open(path) as fh:
+        rows = [line.rstrip("\n").split("\t") for line in fh]
+    os.remove(path)
+    preds = [pstep(state, it[0], it[1]) for it in items]
+    tasks = sorted(preds[0])
+    width = 1 + len(tasks) + sum(t in items[0][2] for t in tasks)
+    if n != 2 * DUMP_BATCH or len(rows) != n or any(len(r) != width for r in rows):
+        raise AssertionError(f"{label} dump_predict: {n} rows of {len(rows[0])} columns, "
+                             f"expected {2 * DUMP_BATCH} of {width}")
+    for j, t in enumerate(tasks):
+        got = np.array([float(r[1 + j]) for r in rows])
+        ref = np.concatenate([p[t].reshape(DUMP_BATCH, -1)[:, 0].cpu().numpy() for p in preds])
+        np.testing.assert_allclose(got, ref, err_msg=f"{label} dump_predict {t}", **SCORE_TOL)
+    return {"batch": b, "ids_per_feature": ipf if isinstance(ipf, int) else "1 a column",
+            "launches_per_step": per_step, "launches_per_predict": per_predict,
+            "launches": counts, "values": values,
+            "eval_ms": ms["eval"], "predict_ms": ms["predict"], "window_ms": windows,
+            "eval_examples_per_s": b / ms["eval"] * 1e3,
+            "predict_examples_per_s": b / ms["predict"] * 1e3,
+            "metric_update_ms": update_ms, "metric_update_host_ms": update_host_ms,
+            "syncs_per_eval_step": len(syncs["eval"]),
+            "syncs_per_predict": len(syncs["predict"]), "syncs_at": syncs, "dump_rows": n}
+
+
+def auc_update_case(b, seed, device, cycles_per_ms):
+    """The AUC update alone at batch ``b`` on ``device`` by CUDA events (it
+    builds (200, B) temporaries), against the CPU's on the same inputs."""
+    from recommendsystem_tpu_torch.train import metrics as M
+
+    rng = np.random.default_rng(seed)
+    y = torch.from_numpy(rng.integers(0, 2, (b, 1)).astype(np.float32))
+    p = torch.from_numpy(rng.uniform(0, 1, (b, 1)).astype(np.float32))
+    m = M.auc()
+    s0 = m.init(device)
+    yd, pd = y.to(device), p.to(device)
+    got = m.update(s0, yd, pd)
+    want = m.update(m.init("cpu"), y, p)
+    for k in want:
+        np.testing.assert_array_equal(got[k].cpu().numpy(), want[k].numpy(), err_msg=k)
+    ms, host_ms = timed(lambda: m.update(s0, yd, pd), 20, cycles_per_ms)
+    t = M.auc_thresholds().shape[0]
+    return {"name": "auc_update", "b": b, "ms": ms, "host_ms": host_ms,
+            "bytes_min": 2 * b * 4 + 4 * 2 * t * 4, "temporaries_bytes": 6 * t * b * 4}
+
+
+def gauc_path(bundle, state, cycles_per_ms):
+    """Streaming GAUC on full-width staytime over ``GAUC_BATCHES`` batches
+    of B = 16384, user ids from a seeded generator, the reference example's
+    mixed engines (``examples/train_staytime_gauc.py:69-74``): the GAUC
+    step's launches (the predict step's); its states equal to the card's
+    updates on the predict step's outputs, and those equal to the CPU's on
+    the same outputs; saturating bins on the card and the CPU; the
+    collision-free case, offline against streaming; the updates' times."""
+    from recommendsystem_tpu_torch.data import synthetic_batch
+    from recommendsystem_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from recommendsystem_tpu_torch.models.staytime import T_LONG, T_SHORT, T_STAY
+    from recommendsystem_tpu_torch.train import (StreamingGauc, StreamingSpearmanGauc,
+                                                 evaluate_gauc, evaluate_gauc_streaming,
+                                                 make_gauc_eval_step, make_predict_step)
+
+    b, dev = STAYTIME_BATCH, bundle.device
+    tasks = (T_STAY, T_SHORT, T_LONG)
+    stay = dict(pred_lo=-20.0, pred_hi=181.0, label_lo=0.0, label_hi=161.0)
+    gauc = {T_STAY: StreamingSpearmanGauc(**stay), T_SHORT: StreamingGauc(4096, 256),
+            T_LONG: StreamingGauc(4096, 256)}
+    rng = np.random.default_rng(130)
+    items = [(*synthetic_batch(bundle, b, seed=131 + i), {"user_id": rng.integers(0, 1 << 40, b)})
+             for i in range(GAUC_BATCHES)]
+    step = make_gauc_eval_step(bundle, gauc, tasks=tasks)
+    pstep = make_predict_step(bundle)
+    users = [torch.from_numpy(it[4]["user_id"]).to(dev) for it in items]
+    step(state, items[0][0], items[0][1], items[0][2], users[0],
+         {t: gauc[t].init(dev) for t in tasks})
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    states = {t: gauc[t].init(dev) for t in tasks}
+    for it, u in zip(items, users):
+        states = step(state, it[0], it[1], it[2], u, states)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    per_step = {k: v / GAUC_BATCHES for k, v in counts.items() if v}
+    if per_step != EVAL_LAUNCHES["staytime5"]:
+        raise AssertionError(f"staytime GAUC step: launches a step {per_step}")
+
+    card = {t: gauc[t].init(dev) for t in tasks}
+    cpu = {t: gauc[t].init("cpu") for t in tasks}
+    for it, u in zip(items, users):
+        out = pstep(state, it[0], it[1])
+        for t in tasks:
+            pred = out[t].reshape(b, -1)[:, -1]
+            y = it[2][t].reshape(b, -1)[:, -1]
+            card[t] = gauc[t].update(card[t], y, pred, u)
+            cpu[t] = gauc[t].update(cpu[t], y.cpu(), pred.cpu(), u.cpu())
+    for t in tasks:
+        for k in cpu[t]:
+            np.testing.assert_array_equal(states[t][k].cpu().numpy(), card[t][k].cpu().numpy(),
+                                          err_msg=f"GAUC step against the updates: {t} {k}")
+            np.testing.assert_array_equal(card[t][k].cpu().numpy(), cpu[t][k].numpy(),
+                                          err_msg=f"GAUC card against CPU: {t} {k}")
+    values = {t: float(gauc[t].compute(states[t])) for t in tasks}
+    oor = {t: float(states[t]["oor"]) for t in (T_SHORT, T_LONG)}
+
+    # saturating bins, card and CPU
+    odd = torch.tensor(ODD_PREDS, dtype=torch.float32)
+    y = (torch.arange(odd.numel()) % 2).float()
+    u = torch.arange(odd.numel())
+    g = StreamingGauc(num_buckets=16, num_bins=8, hash_ids=False)
+    sides = {d: g.update(g.init(d), y.to(d), odd.to(d), u.to(d)) for d in (dev, "cpu")}
+    for d, s in sides.items():
+        bins = (s["pos"] + s["neg"]).argmax(1)[:odd.numel()].cpu().tolist()
+        if bins != list(ODD_BINS) or float(s["oor"]) != ODD_OOR:
+            raise AssertionError(f"saturating bins on {d}: {bins}, oor {float(s['oor'])}")
+    sp = StreamingSpearmanGauc(num_buckets=4, pred_bins=8, label_bins=8, hash_ids=False, **stay)
+    hs = [sp.update(sp.init(d), (odd * 50).to(d), (odd * 100).to(d), (u % 3).to(d))["hist"].cpu()
+          for d in (dev, "cpu")]
+    if not torch.equal(hs[0], hs[1]):
+        raise AssertionError("saturating Spearman bins: card and CPU differ")
+
+    # collision-free: one user a bucket, narrow bins
+    rng = np.random.default_rng(140)
+    free = [(*it[:4], {"user_id": rng.integers(0, 64, b)}) for it in items]
+    offline = evaluate_gauc(bundle, free, state, spearman_tasks=(T_STAY,))
+    streaming = evaluate_gauc_streaming(
+        bundle, free, state, tasks=tasks,
+        gauc={T_STAY: StreamingSpearmanGauc(num_buckets=64, pred_bins=1024, label_bins=1024,
+                                            hash_ids=False, **stay),
+              T_SHORT: StreamingGauc(64, 65536, hash_ids=False),
+              T_LONG: StreamingGauc(64, 65536, hash_ids=False)})
+    for t in tasks:
+        if not abs(offline[t] - streaming[t]) < GAUC_AGREE:
+            raise AssertionError(f"collision-free GAUC {t}: offline {offline[t]}, "
+                                 f"streaming {streaming[t]}")
+
+    out = pstep(state, items[0][0], items[0][1])
+    times = []
+    for t, what in ((T_SHORT, "StreamingGauc(4096, 256)"),
+                    (T_STAY, "StreamingSpearmanGauc(1024, 32, 32)")):
+        pred = out[t].reshape(b, -1)[:, -1].contiguous()
+        y = items[0][2][t].reshape(b, -1)[:, -1].contiguous()
+        s0 = gauc[t].init(dev)
+        ms, host_ms = timed(lambda: gauc[t].update(s0, y, pred, users[0]), 20, cycles_per_ms)
+        times.append({"name": "gauc_update", "engine": what, "b": b, "ms": ms,
+                      "host_ms": host_ms})
+    return {"batches": GAUC_BATCHES, "batch": b, "launches": counts,
+            "launches_per_step": per_step, "values": values, "oor": oor,
+            "collision_free": {"offline": offline, "streaming": streaming},
+            "update_times": times}
+
+
+def eval_path(card, cycles_per_ms, autoint):
+    """Phase 11: the eval path of every model at its train batch
+    (``eval_model``), the AUC update alone at B = 65536 and 32768, and
+    staytime's streaming GAUC (``gauc_path``).  ``autoint`` is phase 3's
+    (bundle, state, CPU bundle), reused; the others are built here, one at a
+    time.  Returns the summed counts of the windows with the rest."""
+    from recommendsystem_tpu_torch.core.config import synthetic_ctr_config
+    from recommendsystem_tpu_torch.models import create_model
+    from recommendsystem_tpu_torch.train.state import create_train_state
+
+    ctr212 = {"cfg": synthetic_ctr_config(num_slots=180, num_bias=32),
+              "bucket_size": CTR212_BUCKET}
+    # (label, model, factory kwargs, batch, ids a column, launches a step)
+    runs = (("ctr", "ctr", {}, CTR_BATCH, 5, EVAL_LAUNCHES["k6"]),
+            ("multi_head", "multi_head", {}, CTR_BATCH, 5, EVAL_LAUNCHES["k6"]),
+            ("finish", "finish", {}, FINISH_BATCH, 5, EVAL_LAUNCHES["mean"]),
+            ("rough_rank", "rough_rank", {}, ROUGH_BATCH, 5, EVAL_LAUNCHES["mean"]),
+            ("ctr212", "ctr", ctr212, CTR212_BATCH, {}, EVAL_LAUNCHES["k6_rows"]),
+            ("staytime", "staytime", {}, STAYTIME_BATCH, 5, EVAL_LAUNCHES["staytime5"]))
+    out = {"card": card, "models": {}}
+    launches = None
+
+    def add(counts):
+        nonlocal launches
+        launches = {k: (launches or {}).get(k, 0) + v for k, v in counts.items()}
+
+    a_bundle, a_state, a_cpu = autoint
+    res = out["models"]["autoint"] = eval_model("autoint", a_bundle, a_state, a_cpu,
+                                                BIG_BATCH, 5, EVAL_LAUNCHES["k6"],
+                                                cycles_per_ms)
+    add(res["launches"])
+    log("autoint eval:", json.dumps(res))
+    for label, name, kw, b, ipf, want in runs:
+        bundle = create_model(name, device="cuda", **kw)
+        cpu_bundle = create_model(name, device="cpu", **kw)
+        state = create_train_state(bundle, seed=100)
+        res = out["models"][label] = eval_model(label, bundle, state, cpu_bundle, b, ipf,
+                                                want, cycles_per_ms)
+        add(res["launches"])
+        log(f"{label} eval:", json.dumps(res))
+        if label == "staytime":
+            res = out["models"]["staytime_1id"] = eval_model(
+                "staytime_1id", bundle, state, cpu_bundle, b, 1, EVAL_LAUNCHES["staytime1"],
+                cycles_per_ms)
+            add(res["launches"])
+            log("staytime, 1 id, eval:", json.dumps(res))
+            out["gauc"] = gauc_path(bundle, state, cycles_per_ms)
+            add(out["gauc"]["launches"])
+            log("staytime GAUC:", json.dumps(out["gauc"]))
+        del bundle, cpu_bundle, state
+        torch.cuda.empty_cache()
+    out["auc_update"] = [auc_update_case(b, 150 + i, a_bundle.device, cycles_per_ms)
+                         for i, b in enumerate((BIG_BATCH, CTR_BATCH))]
+    log("AUC update:", json.dumps(out["auc_update"]))
+    out["launches"] = launches
     return out
 
 
@@ -3001,6 +3444,18 @@ def main() -> int:
                               "launches_per_step")}
         for k, v in report["staytime_train"]["train"].items()}, "card": card}), flush=True)
 
+    # -- 11. the main path: the eval path of every model; streaming GAUC -----
+    report["eval"] = eval_path(card, cycles_per_ms, (bundle, state, cpu_bundle))
+    evaluation = report["eval"]["launches"]
+    print(json.dumps({"eval": {
+        "models": {k: {f: v[f] for f in (
+            "batch", "ids_per_feature", "eval_examples_per_s", "predict_examples_per_s",
+            "eval_ms", "predict_ms", "metric_update_ms", "syncs_per_eval_step",
+            "syncs_per_predict", "launches_per_step")}
+            for k, v in report["eval"]["models"].items()},
+        "auc_update": report["eval"]["auc_update"],
+        "gauc_update": report["eval"]["gauc"]["update_times"], "card": card}}), flush=True)
+
     # -- report ----------------------------------------------------------------
     # the serving folds at the largest serving bucket, the train kernels
     # (K5 among them: the serving paths take K6) at the train batch, the
@@ -3052,7 +3507,8 @@ def main() -> int:
     for name, (source, replaces) in sources.items():
         c = headline[name]
         launches = (serving[name] + training[name] + staytime[name] + interacting[name]
-                    + towers[name] + rough[name] + stacked[name] + staytime_train[name])
+                    + towers[name] + rough[name] + stacked[name] + staytime_train[name]
+                    + evaluation[name])
         if launches < 1:
             raise AssertionError(f"{name} was not launched on the main paths")
         kernels.append({

@@ -2,9 +2,10 @@
 
 The JAX package beside it stays the reference; this package mirrors its
 module paths so each counterpart is easy to find, and imports neither JAX nor
-any module of the JAX package.  What it covers so far is the scoring path of
-autoint, ctr, multi_head, finish and staytime, and the packed train step of
-autoint, ctr, multi_head and finish (with the L1L2 kernel penalties):
+any module of the JAX package.  What it covers so far is the scoring path,
+the packed train step (with the L1L2 kernel penalties) and the eval path of
+autoint, ctr, multi_head, finish, rough_rank and staytime, and the offline
+fusion search:
 
 - ``core/``       configuration schema and device set-up;
 - ``embedding/``  feature columns, the local embedding engine (lazy Adam and
@@ -16,10 +17,14 @@ autoint, ctr, multi_head and finish (with the L1L2 kernel penalties):
 - ``nn/``         dense layers and their L1L2 penalty, the InteractingLayer,
   DINPool, SENet, PPNet, the FM blocks (DeepFM among them) and the
   DeepCross layer;
-- ``models/``     the model bundle, autoint, ctr, multi_head, finish and
-  staytime;
-- ``train/``      the packed train step, the predict step, dense Adam and
-  the losses;
+- ``models/``     the model bundle (with its eval metrics), autoint, ctr,
+  multi_head, finish, rough_rank and staytime;
+- ``train/``      the packed train step, the eval and predict steps, dense
+  Adam, the losses, the streaming metrics and GAUCs, and the eval harness
+  (``evaluate``, ``predict``, ``dump_predict``, ``evaluate_gauc``,
+  ``evaluate_gauc_streaming``);
+- ``search/``     the offline fusion search (PSO, GP, the GAUC engine; numpy,
+  ``python -m recommendsystem_tpu_torch.search.cli``);
 - ``data/``       id padding, staytime labels and synthetic batches;
 - ``serving/``    the bucketed scoring service;
 - ``bridge.py``   weights and optimizer state carried across from the JAX

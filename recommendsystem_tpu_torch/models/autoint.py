@@ -23,6 +23,7 @@ from ..embedding import EmbeddingFeatures, category_column, embedding_column
 from ..embedding.optimizers import SparseAdam
 from ..nn import InteractingLayer, MultiLayerDense
 from ..train import losses as L
+from ..train import metrics as M
 from ..train.adam import Adam
 from .base import ModelBundle, register_model
 from .plumbing import slice_wide_rows
@@ -39,8 +40,9 @@ DEFAULT_MODEL_PARAM = {
 
 def clip(x: torch.Tensor, lo: float = 1e-6, hi: float = 1.0) -> torch.Tensor:
     """``jnp.clip`` as JAX computes it, min(max(x, lo), hi): at a tie with
-    a bound the gradient splits in half."""
-    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+    a bound the gradient splits in half.  The bounds are filled on x's
+    device (``new_tensor`` would copy them from the host, a sync each)."""
+    return torch.minimum(torch.maximum(x, x.new_full((), lo)), x.new_full((), hi))
 
 
 class AutoIntModule(nn.Module):
@@ -109,5 +111,6 @@ def create_autoint(cfg: Optional[ModelConfig] = None,
                        module=AutoIntModule(cfg, model_param, device=dev),
                        embedding=emb, tasks=(TASK,), device=dev, config=cfg,
                        losses={TASK: L.cross_entropy_sum_mean},
+                       metrics={TASK: [M.binary_accuracy(), M.auc(), M.copc()]},
                        dense_optimizer=Adam(dense_lr, b1=0.9, b2=0.999,
                                             eps=1e-8))

@@ -4,10 +4,11 @@ Counterpart of ``recommendsystem_tpu/models/base.py``.  A factory returns
 one ``ModelBundle``: the dense tower (an ``nn.Module`` mapping ``(embs,
 training, seed)`` to ``{task: output}``), the embedding engine that feeds it
 (with its sparse optimizer), the task names, the losses and their weights,
-the dense optimizer and the device.  The tower is the template of the
-parameters: a ``TrainState`` holds them as a dict and the steps apply the
-tower with ``torch.func.functional_call``, as flax applies a module to a
-parameter tree.  Metrics come with the harness slice of the port.
+the dense optimizer, the device and the eval metrics ({task: [Metric]},
+``train/metrics.py``, the JAX factories' lists).  The tower is the template
+of the parameters: a ``TrainState`` holds them as a dict and the steps
+apply the tower with ``torch.func.functional_call``, as flax applies a
+module to a parameter tree.
 """
 
 from __future__ import annotations
@@ -38,6 +39,8 @@ class ModelBundle:
     losses: Dict[str, Callable] = dataclasses.field(default_factory=dict)
     loss_weights: Optional[Dict[str, float]] = None
     dense_optimizer: Adam = dataclasses.field(default_factory=Adam)
+    # task -> [Metric] that the eval step updates on the full outputs
+    metrics: Dict[str, list] = dataclasses.field(default_factory=dict)
 
     def init(self, seed: int):
         """(params, tables) drawn from one ``torch.Generator`` on the

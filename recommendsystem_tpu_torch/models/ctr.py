@@ -40,6 +40,7 @@ from ..embedding import EmbeddingFeatures, category_column, embedding_column
 from ..embedding.optimizers import SparseAdam
 from ..nn import Dense, InteractingLayer, PPNetGateBank, SENet, stacked_gated_experts
 from ..train import losses as L
+from ..train import metrics as M
 from ..train.adam import Adam
 from .autoint import clip
 from .base import ModelBundle, register_model
@@ -221,6 +222,8 @@ def create_ctr(cfg: Optional[ModelConfig] = None,
                              dim, combiner="mean", name=slot)
             for slot in cfg.sparse_slots]
     emb = EmbeddingFeatures(cols, SparseAdam(learning_rate=sparse_lr), group_tables=True)
+    # the two tasks share the Metric objects; each task's states are its own
+    metrics = [M.binary_accuracy(), M.auc(), M.copc()]
     return ModelBundle(
         name="ctr",
         module=CTRModule(cfg, tuple(gate_slots),
@@ -228,6 +231,7 @@ def create_ctr(cfg: Optional[ModelConfig] = None,
                          stacked_experts=stacked_experts, device=dev),
         embedding=emb, tasks=TASKS, device=dev, config=cfg,
         losses={T_CLICK: L.cross_entropy_sum_mean, T_EFFECT: L.cross_entropy_sum_mean},
+        metrics={T_CLICK: list(metrics), T_EFFECT: list(metrics)},
         dense_optimizer=Adam(dense_lr, b1=0.9, b2=0.999, eps=1e-8))
 
 

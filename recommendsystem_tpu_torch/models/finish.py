@@ -28,6 +28,7 @@ from ..embedding import EmbeddingFeatures, category_column, embedding_column
 from ..embedding.optimizers import SparseAdam
 from ..nn import DeepFMLayer, Dense
 from ..train import losses as L
+from ..train import metrics as M
 from ..train.adam import Adam
 from .base import ModelBundle, register_model
 
@@ -116,4 +117,5 @@ def create_finish(slots: Optional[Sequence[str]] = None,
                             tuple(deep_hidden_units), device=dev),
         embedding=emb, tasks=(TASK,), device=dev,
         losses={TASK: L.cross_entropy_sum_mean},
+        metrics={TASK: [M.binary_accuracy(), M.auc()]},
         dense_optimizer=Adam(dense_lr, b1=0.9, b2=0.999, eps=1e-8))

@@ -30,6 +30,7 @@ from ..embedding import EmbeddingFeatures, category_column, embedding_column
 from ..embedding.optimizers import SparseAdam
 from ..nn import Dense, InteractingLayer, truncated_normal
 from ..train import losses as L
+from ..train import metrics as M
 from ..train.adam import Adam
 from .base import ModelBundle, register_model
 
@@ -125,4 +126,5 @@ def create_multi_head(slots: Optional[Sequence[str]] = None,
         module=MultiHeadModule(slots, dim, stacked_experts, device=dev),
         embedding=emb, tasks=TASKS, device=dev,
         losses={t: L.cross_entropy_per_sample for t in TASKS},
+        metrics={t: [M.binary_accuracy(), M.auc(), M.copc()] for t in TASKS},
         dense_optimizer=Adam(dense_lr, b1=0.9, b2=0.999, eps=1e-8))

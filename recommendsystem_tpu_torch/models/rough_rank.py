@@ -37,6 +37,7 @@ from ..embedding import EmbeddingFeatures, category_column, embedding_column
 from ..embedding.optimizers import SparseAdam
 from ..nn import DNN, PLE, CrossNet, Dense, PLEStacked, kd_loss
 from ..train import losses as L
+from ..train import metrics as M
 from ..train.adam import Adam
 from .base import ModelBundle, register_model
 
@@ -158,6 +159,8 @@ def create_rough_rank(user_slots: Optional[Sequence[str]] = None,
         losses={"student": L.binary_cross_entropy,
                 "teacher": L.binary_cross_entropy,
                 "distill": L.y_pred_loss},
+        metrics={"student": [M.binary_accuracy(), M.auc(), M.ctr(), M.copc()],
+                 "teacher": [M.binary_accuracy(), M.auc(), M.ctr(), M.copc()]},
         dense_optimizer=Adam(dense_lr, b1=0.9, b2=0.999, eps=1e-8),
         dense_input_keys=(FLAG_SLOT,),
         predict_outputs={"student": "student", "teacher": "teacher",

@@ -39,6 +39,7 @@ from ..embedding.packed import SequenceRows
 from ..nn import (DINPool, DeepCrossLayer, Dense, FFMBlock, SENet, fm_cross_term,
                   stacked_gated_experts)
 from ..train import losses as L
+from ..train import metrics as M
 from ..train.adam import Adam
 from .base import ModelBundle, register_model
 
@@ -242,4 +243,7 @@ def create_staytime(cfg: Optional[StaytimeConfig] = None,
         losses={T_STAY: L.kl_loss, T_SHORT: L.cross_entropy_elementwise,
                 T_LONG: L.cross_entropy_elementwise},
         loss_weights={T_STAY: 2.0, T_SHORT: 2.0, T_LONG: 1.0},
+        metrics={T_STAY: [M.bin_accuracy(BIN_LIST), M.ev_mae(), M.ev_mse()],
+                 T_SHORT: [M.binary_accuracy(), M.auc()],
+                 T_LONG: [M.binary_accuracy(), M.auc()]},
         dense_optimizer=Adam(dense_lr, b1=0.9, b2=0.999, eps=1e-8))

@@ -1,10 +1,22 @@
 """Train state and steps of the port: the packed train step, its
-multi-step driver and the predict step."""
+multi-step driver, the eval and predict steps, the streaming metrics and
+GAUCs, and the eval harness (``evaluate``, ``predict``, ``dump_predict``,
+``evaluate_gauc``, ``evaluate_gauc_streaming``)."""
 
+from . import losses  # noqa: F401
+from . import metrics  # noqa: F401
 from .state import TrainState, create_train_state  # noqa: F401
 from .step import (  # noqa: F401
     apply_model,
+    make_eval_step,
     make_predict_step,
     make_scan_train_step,
     make_train_step,
+)
+from .harness import dump_predict, evaluate, predict  # noqa: F401
+from .streaming_gauc import StreamingGauc, StreamingSpearmanGauc  # noqa: F401
+from .gauc_eval import (  # noqa: F401
+    evaluate_gauc,
+    evaluate_gauc_streaming,
+    make_gauc_eval_step,
 )

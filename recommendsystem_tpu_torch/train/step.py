@@ -1,4 +1,4 @@
-"""Train and predict steps of the port.
+"""Train, eval and predict steps of the port.
 
 Counterpart of ``recommendsystem_tpu/train/step.py``, local mode:
 
@@ -13,7 +13,9 @@ Counterpart of ``recommendsystem_tpu/train/step.py``, local mode:
   place of the JAX package's ``lax.scan`` driver;
 - ``make_predict_step`` is the fused lookup (sequence columns deferred to
   the DIN pool), the dense tower in float32 and the bundle's
-  ``predict_view``.
+  ``predict_view``;
+- ``make_eval_step`` is the predict step's lookup and tower, then the
+  bundle's streaming metrics on the full outputs.
 
 Keras-compile semantics as in the JAX package: the loss is the sum over
 tasks of ``loss_weight * loss``, where a loss that returns a scalar is taken
@@ -35,6 +37,7 @@ from torch.func import functional_call
 from ..embedding import packed as packed_mod
 from ..embedding.optimizers import SparseAdaGrad, SparseAdam
 from ..nn import kernel_penalty, regularized_kernels
+from . import metrics as M
 from .state import TrainState
 
 if TYPE_CHECKING:
@@ -214,6 +217,33 @@ def make_scan_train_step(bundle: "ModelBundle", mode: str = "local") -> Callable
 def _lookup_for_mode(bundle, tables, batch, mode: str = "local"):
     _check_mode(mode)
     return packed_mod.lookup_packed(bundle.embedding, tables, batch, defer_sequences=True)
+
+
+def make_eval_step(bundle: "ModelBundle", mode: str = "local") -> Callable:
+    """Returns ``step(state, batch, labels, sample_weight, dense_inputs,
+    metric_states) -> (metric_states, outputs)`` under
+    ``torch.inference_mode()``: the predict step's lookup (so the same
+    kernels launch), the tower with ``training=False``, then
+    ``metrics.update_metrics`` over ``bundle.metrics`` on the full outputs
+    (not ``predict_view``: staytime's stay head is scored on its train
+    output, the distribution and the value).  ``sample_weight``: None, one
+    (B, 1) tensor, or {task: tensor}.  ``metric_states`` come from
+    ``metrics.init_metrics(bundle.metrics, bundle.device)``; the step makes
+    no host sync."""
+
+    def step(state: TrainState, batch, labels, sample_weight, dense_inputs,
+             metric_states):
+        with torch.inference_mode():
+            embs = _lookup_for_mode(bundle, state.tables, batch, mode)
+            outputs = apply_model(bundle, state.params, embs, dense_inputs,
+                                  training=False)
+            y = {t: labels[t] for t in bundle.metrics}
+            preds = {t: outputs[t] for t in bundle.metrics}
+            metric_states = M.update_metrics(bundle.metrics, metric_states, y, preds,
+                                             sample_weight)
+        return metric_states, outputs
+
+    return step
 
 
 def make_predict_step(bundle: "ModelBundle", mode: str = "local") -> Callable:
