@@ -134,14 +134,32 @@
    step's launches; its histograms and ``oor`` equal to the card's and the
    CPU's updates on the predict step's outputs; the saturating bins of
    +-1e10, +-inf and NaN on the card and the CPU; offline against
-   streaming in a collision-free case; the updates' times).
+   streaming in a collision-free case; the updates' times);
+12. drives the daily path at full width: two days of staytime TFRecord
+   shards (2 x 2,048 records a day, the default ``StaytimeConfig``'s 91
+   slots, 1-5 ids each) written through the port's codec; the Python
+   loader (parse, pin, copy to the card) and the C++ loader timed over one
+   day, their first batches equal; ``python -m
+   recommendsystem_tpu_torch.train.daily``'s ``main`` with ``--backtest
+   --evict-min-show 1 --predict-out`` at B = 1024 in a window of counts
+   (each step ``fit`` takes held to ``STAYTIME_TRAIN_LAUNCHES[5]`` and timed
+   by CUDA events; the marker, a checkpoint a day, a second run that trains
+   nothing, the last checkpoint equal to the returned state bit for bit,
+   ``backtest.jsonl``'s keys and finite values, a dump line a record); one
+   day of finish (the ctr parse, K8); the checkpoint's bytes, save and
+   restore seconds; the server's ``main --checkpoint`` on a free port
+   (``/healthz`` the restored step, ``/score`` of 200 rows equal to a
+   service over the restored state); the checkpoint restored onto the CPU,
+   one predict call held to the card's.
 
 Prints the card's name and power limit, one JSON line each for the autoint
 predict step, the train step, the staytime predict step, the predict
 steps with and without K6 (``interacting_predict``), the phase-8 train
 steps with finish's predict step (``tower_train``), rough_rank's train
 and predict steps (``rough_rank``), staytime's train steps
-(``staytime_train``) and the eval path's times (``eval``), then ``{"kernels": ...}`` (10 kernels), and last
+(``staytime_train``), the eval path's times (``eval``) and the daily
+path's loader, train-step and checkpoint numbers (``daily``), then
+``{"kernels": ...}`` (10 kernels), and last
 ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Any failure ends the run with a traceback
 and a non-zero exit; without CUDA it exits non-zero before printing.
@@ -151,6 +169,7 @@ from __future__ import annotations
 
 import json
 import os
+import socket
 import subprocess
 import sys
 import threading
@@ -3237,6 +3256,371 @@ def eval_path(card, cycles_per_ms, autoint):
     return out
 
 
+# -- phase 12: the daily path -------------------------------------------------
+DAILY_DAYS = ("20260801", "20260802")
+DAILY_SHARDS = 2                  # TFRecord shards a day
+DAILY_PER_SHARD = 2048            # records a shard
+DAILY_BATCH = 1024
+DAILY_PREDICT_BATCH = 64          # the card's predict call held to the CPU's
+FINISH_DAILY_LAUNCHES = {"fold_mean": 1, "unfold_mean": 1, "sparse_adam_update": 1}
+
+
+def _daily_records(root, day, make, seed):
+    """``DAILY_SHARDS`` TFRecord shards of ``DAILY_PER_SHARD`` records under
+    ``root/day``, each record ``make(rng, i)`` encoded by the port's
+    ``encode_example``."""
+    from recommendsystem_tpu_torch.data.example_proto import encode_example
+    from recommendsystem_tpu_torch.data.tfrecord import write_tfrecord
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, day))
+    for p in range(DAILY_SHARDS):
+        write_tfrecord(os.path.join(root, day, f"part-{p:05d}"),
+                       [encode_example(make(rng, p * DAILY_PER_SHARD + i))
+                        for i in range(DAILY_PER_SHARD)])
+
+
+def _slot_ids(rng, slots, feats, present=0.9):
+    """1-5 raw feasigns for each slot, one slot in ten left out."""
+    ids = rng.integers(0, 1 << 62, (len(slots), 5))
+    n = rng.integers(1, 6, len(slots))
+    keep = rng.uniform(size=len(slots)) < present
+    for j, s in enumerate(slots):
+        if keep[j]:
+            feats[s] = ids[j, :n[j]].tolist()
+    return feats
+
+
+def _staytime_record(slots, day):
+    def make(rng, i):
+        return _slot_ids(rng, slots, {
+            "extra_info": [(f"{day}-{i}" if i % 7 else
+                            f"{day}-{i}_video_homepage_landing").encode()],
+            "video_duration": [int(rng.integers(5_000, 60_000))],
+            "watch_duration": [int(rng.integers(0, 60_000))]})
+    return make
+
+
+def _finish_record(slots, day):
+    def make(rng, i):
+        return _slot_ids(rng, slots, {"label": [int(rng.integers(0, 2))],
+                                      "extra_info": [f"{day}-{i}".encode()]})
+    return make
+
+
+class _StepRecorder:
+    """Wraps ``harness.make_train_step`` so that each step ``fit`` takes
+    records its launches (the counts before and after the call, host-side)
+    and two CUDA events around it, recorded on the stream with no host
+    sync: after the run, each step's device-timeline ms."""
+
+    def __init__(self):
+        self.steps = []
+
+    def wrap(self, make):
+        from recommendsystem_tpu_torch.kernels import launch_counts
+
+        def make_recorded(bundle, mode="local"):
+            step = make(bundle, mode)
+
+            def recorded(state, batch, *args, **kwargs):
+                before = launch_counts()
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                out = step(state, batch, *args, **kwargs)
+                end.record()
+                after = launch_counts()
+                self.steps.append(({k: after[k] - before[k] for k in after
+                                    if after[k] != before[k]}, start, end,
+                                   next(iter(batch.values())).rows.shape[0]))
+                return out
+            return recorded
+        return make_recorded
+
+    def times_ms(self):
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for _, s, e, _ in self.steps]
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}{k}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def _assert_same_state(got, want, what):
+    """Every tensor of two train states bit for bit, the ints equal."""
+    if got.step != want.step or got.opt_state["count"] != want.opt_state["count"]:
+        raise AssertionError(f"{what}: step or Adam count differ")
+    g = dict(_leaves({"p": got.params, "o": got.opt_state, "t": got.tables}))
+    w = dict(_leaves({"p": want.params, "o": want.opt_state, "t": want.tables}))
+    if g.keys() != w.keys():
+        raise AssertionError(f"{what}: the states hold other entries")
+    for k, v in w.items():
+        same = torch.equal(g[k], v) if isinstance(v, torch.Tensor) else g[k] == v
+        if not same:
+            raise AssertionError(f"{what}: {k} differs")
+
+
+def _daily_run(name, data, state_dir, days, extra, want_launches, recorder):
+    """``daily.main`` over ``days`` with ``extra`` flags in a window of
+    counts, then the checks every run shares: each step's launches, the
+    marker, a checkpoint a day, a second run that trains nothing.  Returns
+    (final state, the window's counts, the run's wall s)."""
+    from recommendsystem_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from recommendsystem_tpu_torch.train import daily
+
+    argv = ["--model", name, "--data-dir", data, "--state-dir", state_dir,
+            "--batch-size", str(DAILY_BATCH), "--today", days[-1], "--log-every", "2",
+            *extra]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    first = len(recorder.steps)
+    t0 = time.perf_counter()
+    state = daily.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if daily.main(argv) is not None:
+        raise AssertionError(f"daily {name}: a second run trained again")
+    counts = launch_counts()
+    steps = recorder.steps[first:]
+    per_day = DAILY_SHARDS * DAILY_PER_SHARD // DAILY_BATCH
+    if len(steps) != per_day * len(days) or state.step != len(steps):
+        raise AssertionError(f"daily {name}: {len(steps)} steps, state at {state.step}")
+    for i, (got, _, _, rows) in enumerate(steps):
+        if got != want_launches or rows != DAILY_BATCH:
+            raise AssertionError(f"daily {name}, step {i}: launches {got} over {rows} "
+                                 f"rows, expected {want_launches}")
+    if daily.read_marker(state_dir) != days[-1]:
+        raise AssertionError(f"daily {name}: marker {daily.read_marker(state_dir)}")
+    ckpts = sorted(os.listdir(os.path.join(state_dir, "ckpt")), key=int)
+    if ckpts != [str(per_day * (i + 1)) for i in range(len(days))]:
+        raise AssertionError(f"daily {name}: checkpoints {ckpts}")
+    return state, counts, wall
+
+
+def daily_path(card):
+    """Phase 12: the daily training path at full width.  Two days of
+    staytime records (``DAILY_SHARDS`` shards of ``DAILY_PER_SHARD`` a day:
+    the default ``StaytimeConfig``'s 91 slots, 1-5 ids each, watch
+    duration and extra info) written by the port's ``encode_example`` and
+    ``write_tfrecord``; the Python loader (parse, pin, copy to the card)
+    and the C++ loader timed over one day, their first batches equal;
+    ``train.daily.main`` with ``--backtest --evict-min-show 1
+    --predict-out`` at B = ``DAILY_BATCH`` (each step's launches
+    ``STAYTIME_TRAIN_LAUNCHES[5]``, the marker, a checkpoint a day, a
+    second run a no-op, the last checkpoint equal to the returned state bit
+    for bit, ``backtest.jsonl`` with the JAX keys and finite values, a dump
+    line a record); one day of finish (the ctr parse, K8); the checkpoint
+    saved and restored, timed; the server's ``main --checkpoint`` on a free
+    port answering ``/healthz`` with the restored step and ``/score`` for
+    200 rows equal to a service over the restored state; the checkpoint
+    restored onto the CPU, one predict call held to the card's.  Returns
+    the summed counts of the windows with the rest."""
+    import shutil
+    import tempfile
+
+    from recommendsystem_tpu_torch.data.loader import dataset_reader, list_files
+    from recommendsystem_tpu_torch.data.native_loader import NativeRecordLoader, get_lib
+    from recommendsystem_tpu_torch.data.parse import make_staytime_parse_fn
+    from recommendsystem_tpu_torch.data import synthetic_batch
+    from recommendsystem_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from recommendsystem_tpu_torch.models import create_model
+    from recommendsystem_tpu_torch.models.staytime import T_STAY
+    from recommendsystem_tpu_torch.serving import ScoringService
+    from recommendsystem_tpu_torch.serving import server
+    from recommendsystem_tpu_torch.train import harness, make_predict_step
+    from recommendsystem_tpu_torch.train.checkpoint import (restore_checkpoint,
+                                                            save_checkpoint)
+    from recommendsystem_tpu_torch.train.state import create_train_state
+
+    out = {"card": card, "batch": DAILY_BATCH, "records_a_day": DAILY_SHARDS * DAILY_PER_SHARD}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_daily_")
+    recorder = _StepRecorder()
+    real_make = harness.make_train_step
+    launches = None
+
+    def add(counts):
+        nonlocal launches
+        launches = {k: (launches or {}).get(k, 0) + v for k, v in counts.items()}
+
+    try:
+        cpu_bundle = create_model("staytime", device="cpu")
+        slots = cpu_bundle.config.slots
+        data = os.path.join(tmp, "staytime")
+        t0 = time.perf_counter()
+        for i, day in enumerate(DAILY_DAYS):
+            _daily_records(data, day, _staytime_record(slots, day), seed=120 + i)
+        out["write_s"] = time.perf_counter() - t0
+
+        # the data plane alone over one day: the Python loader to the card,
+        # the C++ loader to host tensors
+        parse_fn = make_staytime_parse_fn(cpu_bundle.embedding)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        py = list(dataset_reader(data, DAILY_DAYS[:1], "part-*", DAILY_BATCH, parse_fn,
+                                 device="cuda"))
+        torch.cuda.synchronize()
+        py_s = time.perf_counter() - t0
+        files = list_files(data, days=DAILY_DAYS[:1], match_pattern="part-*")
+        t0 = time.perf_counter()
+        get_lib()                        # the one g++ build, outside the timed read
+        native_build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        native = list(NativeRecordLoader(files, cpu_bundle.embedding, DAILY_BATCH,
+                                         scalar_features=["watch_duration"]))
+        native_s = time.perf_counter() - t0
+        n = out["records_a_day"]
+        if sum(b[3].shape[0] for b in py) != n or sum(
+                b["1568"].rows.shape[0] for b, _ in native) != n:
+            raise AssertionError("the loaders did not read every record of the day")
+        for key, ib in py[0][0].items():
+            if not (torch.equal(ib.rows.cpu(), native[0][0][key].rows)
+                    and torch.equal(ib.mask.cpu(), native[0][0][key].mask)):
+                raise AssertionError(f"the C++ loader's {key} differs from the Python's")
+        out["loader"] = {"python_examples_per_s": n / py_s, "python_s": py_s,
+                         "native_examples_per_s": n / native_s, "native_s": native_s,
+                         "native_build_s": native_build_s}
+        del py, native
+
+        harness.make_train_step = recorder.wrap(real_make)
+        state_dir = os.path.join(tmp, "staytime_state")
+        pred = os.path.join(tmp, "staytime_pred.tsv")
+        state, counts, wall = _daily_run(
+            "staytime", data, state_dir, DAILY_DAYS,
+            ["--backtest", "--evict-min-show", "1", "--predict-out", pred],
+            STAYTIME_TRAIN_LAUNCHES[5], recorder)
+        add(counts)
+        step_ms = recorder.times_ms()
+        out["staytime"] = {"launches": counts, "wall_s": wall, "step_ms": step_ms,
+                           "train_examples_per_s": DAILY_BATCH / float(np.median(step_ms)) * 1e3,
+                           "day_examples_per_s": len(DAILY_DAYS) * n / wall}
+        bundle = create_model("staytime", device="cuda")
+        keys = {"day", "step"} | {f"{t}/{m.name}" for t, ms in bundle.metrics.items()
+                                  for m in ms}
+        lines = [json.loads(x) for x in
+                 open(os.path.join(state_dir, "backtest.jsonl")).read().splitlines()]
+        if ([x["day"] for x in lines] != list(DAILY_DAYS[1:]) or set(lines[0]) != keys
+                or not all(np.isfinite(v) for k, v in lines[0].items() if k != "day")):
+            raise AssertionError(f"staytime backtest.jsonl: {lines}")
+        out["staytime"]["backtest"] = lines
+        dump = [x.split("\t") for x in open(pred).read().splitlines()]
+        if len(dump) != n or len({r[0] for r in dump}) != n or not all(
+                len(r) == 4 and all(np.isfinite(float(v)) for v in r[1:]) for r in dump):
+            raise AssertionError(f"staytime dump: {len(dump)} lines, first {dump[:2]}")
+
+        # the checkpoint: the last one equals the returned state; a save and
+        # a restore timed
+        ckpt = os.path.join(state_dir, "ckpt")
+        target = create_train_state(bundle, seed=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored = restore_checkpoint(ckpt, target)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        _assert_same_state(restored, state, "staytime checkpoint")
+        del target
+        t0 = time.perf_counter()
+        saved = save_checkpoint(os.path.join(tmp, "timed"), state)
+        save_s = time.perf_counter() - t0
+        out["checkpoint"] = {"bytes": os.path.getsize(os.path.join(saved, "state.pt")),
+                             "save_s": save_s, "restore_s": restore_s}
+        shutil.rmtree(os.path.join(tmp, "timed"))
+        del state
+
+        # one day of finish through the ctr parse and K8
+        fdata = os.path.join(tmp, "finish")
+        fslots = [str(s) for s in range(3000, 3040)]
+        _daily_records(fdata, DAILY_DAYS[0], _finish_record(fslots, DAILY_DAYS[0]), seed=130)
+        fstate_dir = os.path.join(tmp, "finish_state")
+        fpred = os.path.join(tmp, "finish_pred.tsv")
+        fstate, counts, fwall = _daily_run(
+            "finish", fdata, fstate_dir, DAILY_DAYS[:1],
+            ["--backtest", "--evict-min-show", "1", "--predict-out", fpred],
+            FINISH_DAILY_LAUNCHES, recorder)
+        add(counts)
+        fstep_ms = recorder.times_ms()[len(step_ms):]
+        fbundle = create_model("finish", device="cuda")
+        _assert_same_state(restore_checkpoint(os.path.join(fstate_dir, "ckpt"),
+                                              create_train_state(fbundle, seed=0)),
+                           fstate, "finish checkpoint")
+        fdump = open(fpred).read().splitlines()
+        if len(fdump) != n:
+            raise AssertionError(f"finish dump: {len(fdump)} lines")
+        out["finish"] = {"launches": counts, "wall_s": fwall, "step_ms": fstep_ms,
+                         "train_examples_per_s": DAILY_BATCH / float(np.median(fstep_ms)) * 1e3}
+        del fstate, fbundle
+        harness.make_train_step = real_make
+
+        # the server's main serves the staytime checkpoint
+        started, ready = {}, threading.Event()
+        real_serve = server.serve
+
+        def serve(service, port=8000, host="127.0.0.1"):
+            started["httpd"] = real_serve(service, port, host)
+            ready.set()
+            return started["httpd"]
+
+        server.serve = serve
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        thread = threading.Thread(target=server.main, args=(
+            ["--model", "staytime", "--checkpoint", ckpt, "--port", str(port)],), daemon=True)
+        thread.start()
+        try:
+            if not ready.wait(300):
+                raise AssertionError("the server did not start")
+            base = f"http://127.0.0.1:{port}"
+            with urllib.request.urlopen(f"{base}/healthz", timeout=60) as r:
+                health = json.loads(r.read())
+            rows = staytime_rows(np.random.default_rng(12), 200, slots,
+                                 cpu_bundle.config.seq_slots)
+            req = urllib.request.Request(f"{base}/score", data=json.dumps(
+                {"rows": rows}).encode(), headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as r:
+                scored = json.loads(r.read())
+        finally:
+            server.serve = real_serve
+            if "httpd" in started:
+                started["httpd"].shutdown()
+                started["httpd"].server_close()
+            thread.join(60)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        add(counts)
+        if thread.is_alive() or health != {"status": "ok", "model": "staytime",
+                                           "step": restored.step}:
+            raise AssertionError(f"server: healthz {health}")
+        want = ScoringService(bundle, restored, max_batch=256).score(rows)
+        check_staytime_scores(scored["scores"], 200)
+        for task in want:
+            np.testing.assert_allclose(scored["scores"][task], want[task], **SCORE_TOL,
+                                       err_msg=f"served {task}")
+        out["serving"] = {"launches": counts, "healthz": health}
+
+        # the same checkpoint on the CPU
+        cpu_state = restore_checkpoint(ckpt, create_train_state(cpu_bundle, seed=0))
+        batch, dense, _, _ = synthetic_batch(cpu_bundle, DAILY_PREDICT_BATCH, seed=13)
+        cpu_out = make_predict_step(cpu_bundle)(cpu_state, batch, dense)
+        card_out = make_predict_step(bundle)(restored, {k: v.to(bundle.device) for k, v in
+                                                        batch.items()}, dense)
+        for task, v in cpu_out.items():
+            np.testing.assert_allclose(card_out[task].cpu().numpy(), v.numpy(), **SCORE_TOL,
+                                       err_msg=f"CPU restore {task}")
+        if not np.isfinite(card_out[T_STAY].cpu().numpy()).all():
+            raise AssertionError("card predictions not finite")
+    finally:
+        harness.make_train_step = real_make
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available; this script runs on a card")
@@ -3456,6 +3840,16 @@ def main() -> int:
         "auc_update": report["eval"]["auc_update"],
         "gauc_update": report["eval"]["gauc"]["update_times"], "card": card}}), flush=True)
 
+    # -- 12. the main path: the daily trainer, the checkpoint, the server ----
+    report["daily"] = daily_path(card)
+    daily = report["daily"]["launches"]
+    print(json.dumps({"daily": {
+        "loader": report["daily"]["loader"], "checkpoint": report["daily"]["checkpoint"],
+        **{m: {f: report["daily"][m][f] for f in ("train_examples_per_s", "step_ms", "wall_s")}
+           for m in ("staytime", "finish")},
+        "staytime_day_examples_per_s": report["daily"]["staytime"]["day_examples_per_s"],
+        "batch": DAILY_BATCH, "card": card}}), flush=True)
+
     # -- report ----------------------------------------------------------------
     # the serving folds at the largest serving bucket, the train kernels
     # (K5 among them: the serving paths take K6) at the train batch, the
@@ -3508,7 +3902,7 @@ def main() -> int:
         c = headline[name]
         launches = (serving[name] + training[name] + staytime[name] + interacting[name]
                     + towers[name] + rough[name] + stacked[name] + staytime_train[name]
-                    + evaluation[name])
+                    + evaluation[name] + daily[name])
         if launches < 1:
             raise AssertionError(f"{name} was not launched on the main paths")
         kernels.append({

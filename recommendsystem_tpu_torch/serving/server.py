@@ -8,6 +8,8 @@ card, return the named scores.
     python -m recommendsystem_tpu_torch.serving.server --model staytime --port 8000
     python -m recommendsystem_tpu_torch.serving.server --model ctr --port 8000
     python -m recommendsystem_tpu_torch.serving.server --model finish --port 8000
+    python -m recommendsystem_tpu_torch.serving.server --model staytime \
+        --checkpoint /state/ckpt --port 8000
 
     POST /score  {"rows": [{"1000": [123456789], ...}, ...]}
     ->           {"scores": {"<task>": [..]}, "batch": N}
@@ -20,8 +22,10 @@ feature, as in the JAX package, so a sequence slot carries at most
 ``ids_per_feature`` ids.
 
 Requests pad to the smallest power-of-two batch bucket up to ``max_batch``,
-so the kernels see a few fixed shapes.  Restoring a checkpoint and the bf16
-flags come with later slices of the port.
+so the kernels see a few fixed shapes.  ``--checkpoint DIR`` serves the
+latest state that ``train.checkpoint.save_checkpoint`` wrote under DIR (the
+daily trainer's ``<state-dir>/ckpt``); without it the weights are seed 0's.
+The bf16 flags come with a later slice of the port.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from ..data.parse import pad_ids
 from ..embedding.engine import IdBatch, validate_batch
 from ..models import MODEL_REGISTRY, create_model
 from ..models.base import ModelBundle
+from ..train.checkpoint import restore_checkpoint
 from ..train.state import TrainState, create_train_state
 from ..train.step import make_predict_step
 
@@ -183,6 +188,8 @@ def serve(service: ScoringService, port: int = 8000, host: str = "127.0.0.1"):
 def main(argv=None):
     ap = argparse.ArgumentParser(description="online scoring service")
     ap.add_argument("--model", required=True, choices=sorted(MODEL_REGISTRY))
+    ap.add_argument("--checkpoint", default=None,
+                    help="directory of checkpoints to serve (the latest step)")
     ap.add_argument("--bucket-size", type=int, default=None)
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--max-batch", type=int, default=256)
@@ -199,6 +206,9 @@ def main(argv=None):
         kwargs["bucket_size"] = args.bucket_size
     bundle = create_model(args.model, device=args.device, **kwargs)
     state = create_train_state(bundle, seed=0)
+    if args.checkpoint:
+        state = restore_checkpoint(args.checkpoint, state)
+        log.info("restored checkpoint at step %d", state.step)
     service = ScoringService(bundle, state, max_batch=args.max_batch,
                              device=args.device)
     service.warmup()

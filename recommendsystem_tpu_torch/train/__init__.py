@@ -1,7 +1,8 @@
 """Train state and steps of the port: the packed train step, its
 multi-step driver, the eval and predict steps, the streaming metrics and
-GAUCs, and the eval harness (``evaluate``, ``predict``, ``dump_predict``,
-``evaluate_gauc``, ``evaluate_gauc_streaming``)."""
+GAUCs, the harness (``fit``, ``evaluate``, ``predict``, ``dump_predict``,
+``evaluate_gauc``, ``evaluate_gauc_streaming``), the checkpoint and the
+daily trainer (``python -m recommendsystem_tpu_torch.train.daily``)."""
 
 from . import losses  # noqa: F401
 from . import metrics  # noqa: F401
@@ -13,10 +14,11 @@ from .step import (  # noqa: F401
     make_scan_train_step,
     make_train_step,
 )
-from .harness import dump_predict, evaluate, predict  # noqa: F401
+from .harness import dump_predict, evaluate, fit, predict  # noqa: F401
 from .streaming_gauc import StreamingGauc, StreamingSpearmanGauc  # noqa: F401
 from .gauc_eval import (  # noqa: F401
     evaluate_gauc,
     evaluate_gauc_streaming,
     make_gauc_eval_step,
 )
+from .checkpoint import restore_checkpoint, save_checkpoint  # noqa: F401

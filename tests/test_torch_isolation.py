@@ -12,7 +12,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "recommendsystem_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "recommendsystem_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "recommendsystem_tpu")
 
 _PROBE = """
 import importlib, pkgutil, sys
