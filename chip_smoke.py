@@ -150,15 +150,34 @@
    restore seconds; the server's ``main --checkpoint`` on a free port
    (``/healthz`` the restored step, ``/score`` of 200 rows equal to a
    service over the restored state); the checkpoint restored onto the CPU,
-   one predict call held to the card's.
+   one predict call held to the card's;
+13. drives storage precision at full width: staytime with
+   ``table_dtype="auto"`` (46 storages of 32-wide bf16 rows) served through
+   ``score()`` and over HTTP and held to the CPU, its predict step's
+   launches a call, two counted train windows (5 ids and 1, B = 16384)
+   held to ``STAYTIME_TRAIN_LAUNCHES``, ``evaluate`` held to
+   ``EVAL_LAUNCHES``; autoint with bf16 tables and bf16 moments (B = 65536)
+   in two counted windows held to phase 5's launches a step, served and
+   held to the CPU; K1, K2, K7's gathering entry, K8 (bf16 moments and
+   float32 ones) and K9 over the bf16 tables against their plain versions,
+   each bf16 entry they store by the bf16 rule (``_bf16_off``: the plain
+   version's float32 value rounded, or one ulp from it at a rounding
+   midpoint), timed with bounds on bf16 bytes and the library yardsticks;
+   two card steps of each model held to the CPU one step at a time
+   (``hold_bf16_to_cpu``); one step of each classic sparse update
+   (``scatter``, ``dense``, the packed step over ``packed=False``
+   storages, the touched-rows update) held to the CPU with its launches
+   (``classic_paths``); the server's ``main --table-dtype auto`` answering
+   ``/score`` as the service does.
 
 Prints the card's name and power limit, one JSON line each for the autoint
 predict step, the train step, the staytime predict step, the predict
 steps with and without K6 (``interacting_predict``), the phase-8 train
 steps with finish's predict step (``tower_train``), rough_rank's train
 and predict steps (``rough_rank``), staytime's train steps
-(``staytime_train``), the eval path's times (``eval``) and the daily
-path's loader, train-step and checkpoint numbers (``daily``), then
+(``staytime_train``), the eval path's times (``eval``), the daily
+path's loader, train-step and checkpoint numbers (``daily``) and phase
+13's table sizes, train steps and classic-update launches (``bf16``), then
 ``{"kernels": ...}`` (10 kernels), and last
 ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Any failure ends the run with a traceback
@@ -167,6 +186,7 @@ and a non-zero exit; without CUDA it exits non-zero before printing.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import socket
@@ -277,6 +297,27 @@ def timed(fn, iters: int, cycles_per_ms: float):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters, host_ms / iters
+
+
+def _dtype_name(t) -> str:
+    """"bf16" or "fp32": a case's table type."""
+    return "bf16" if t.dtype == torch.bfloat16 else "fp32"
+
+
+def _float32_twins(tstates):
+    """float32 copies of storages' states: the plain update of a twin
+    stores the float32 values that a bf16 update rounds."""
+    return [{"w": t["w"].float().clone(), "opt": {n: x.float().clone() for n, x in t["opt"].items()},
+             "show": t["show"].clone()} for t in tstates]
+
+
+def _check_bf16(got, twin, atol, rtol, what):
+    """A kernel's bf16 quantity against the plain version's float32 value
+    before rounding (a twin's): the bf16 rule (``_bf16_off``)."""
+    off = _bf16_off(got, twin, atol, rtol)
+    if bool(off.any()):
+        raise AssertionError(f"{what}: {int(off.sum())} bf16 entries off the plain "
+                             f"version's rounding")
 
 
 def bound(nbytes: float, ops: float):
@@ -614,13 +655,27 @@ def fold_group_case(bundle, state, b, cycles_per_ms):
     streams = _storage_streams(bundle, b, seed=b + 11)
     items = [(state.tables[skey]["w"], ids, mask, len(seg.keys), seg.l)
              for skey, ids, mask, seg in streams]
-    got = packed.fold_mean_group(items)
-    err = _check_fold_group(got, items, f"fold_mean group b={b}")
     pick = _alternate([items, [(t.clone(), i, m, c, l) for t, i, m, c, l in items]])
+    return fold_items_case(f"fold_mean group b={b}", items, b, pick, cycles_per_ms)
+
+
+def fold_items_case(what, items, b, pick, cycles_per_ms):
+    """K1 as a step launches it: one grouped call over ``items`` ((table,
+    ids, mask, c, l) members of batch ``b``), against the plain version of
+    each member on the card.  ``pick`` returns the members of the timed
+    calls in turn (copies of the tables, so that each call finds its
+    tables out of L2).  Bound: the sum of the per-member bounds
+    (``fold_case``'s formula, the table's rows at its own width); yardstick:
+    one ``embedding_bag`` a member."""
+    from recommendsystem_tpu_torch.embedding import packed
+
+    got = packed.fold_mean_group(items)
+    err = _check_fold_group(got, items, what)
     bags = []
     for table, ids, mask, c, l in items:
         bags.append((ids.view(c, l, b).permute(0, 2, 1).reshape(c * b, l).contiguous(),
-                     mask.view(c, l, b).permute(0, 2, 1).reshape(c * b, l).contiguous()))
+                     mask.view(c, l, b).permute(0, 2, 1).reshape(c * b, l).contiguous()
+                     .to(table.dtype)))
 
     def library():
         for (bag, wts), item in zip(bags, pick()):
@@ -632,8 +687,8 @@ def fold_group_case(bundle, state, b, cycles_per_ms):
         live = mask != 0
         uniq = int(torch.unique(ids[live]).numel())
         d = table.shape[1]
-        one = (ids.numel() * 4 + mask.numel() * 4 + uniq * d * 4 + c * b * d * 4,
-               2 * int(live.sum()) * d)
+        one = (ids.numel() * 4 + mask.numel() * 4 + uniq * d * table.element_size()
+               + c * b * d * 4, 2 * int(live.sum()) * d)
         bound_ms += bound(*one)[0]
         nbytes, ops = nbytes + one[0], ops + one[1]
     iters = 240 if b <= 256 else 48
@@ -644,6 +699,7 @@ def fold_group_case(bundle, state, b, cycles_per_ms):
     ms, host_ms = timed(lambda: packed.fold_mean_group(pick()), iters, cycles_per_ms)
     return {"name": "fold_mean", "group": len(items), "b": b,
             "l": sorted({it[4] for it in items}), "d": sorted({it[0].shape[1] for it in items}),
+            "dtype": _dtype_name(items[0][0]),
             "max_abs_err": err, "ms": ms, "host_ms": host_ms,
             "plain_ms": timed(lambda: [packed.fold_mean_plain(*it) for it in pick()],
                               few, cycles_per_ms)[0],
@@ -684,7 +740,7 @@ def rows_group_case(what, items, pick, cycles_per_ms):
     got = packed.fold_rows_group(items)
     torch.cuda.synchronize()
     err = _check_rows_group(got, items, what)
-    bags = [(ids.view(-1, 1), mask.view(-1, 1)) for _, ids, mask in items]
+    bags = [(ids.view(-1, 1), mask.view(-1, 1).to(table.dtype)) for table, ids, mask in items]
 
     def library():
         for (bag, wts), item in zip(bags, pick()):
@@ -696,7 +752,8 @@ def rows_group_case(what, items, pick, cycles_per_ms):
         live = mask != 0
         uniq = int(torch.unique(ids[live]).numel())
         d = table.shape[1]
-        one = (ids.numel() * 8 + uniq * d * 4 + ids.numel() * d * 4, int(live.sum()) * d)
+        one = (ids.numel() * 8 + uniq * d * table.element_size() + ids.numel() * d * 4,
+               int(live.sum()) * d)
         bound_ms += bound(*one)[0]
         nbytes, ops = nbytes + one[0], ops + one[1]
     e = max(ids.numel() for _, ids, _ in items)
@@ -704,6 +761,7 @@ def rows_group_case(what, items, pick, cycles_per_ms):
     few = 16           # launches queued behind the spin kernel: see fold_group_case
     ms, host_ms = timed(lambda: packed.fold_rows_group(pick()), iters, cycles_per_ms)
     return {"name": "fold_rows", "case": what, "group": len(items),
+            "dtype": _dtype_name(items[0][0]),
             "e": [ids.numel() for _, ids, _ in items][:3],
             "d": sorted({t.shape[1] for t, _, _ in items}),
             "max_abs_err": err, "ms": ms, "host_ms": host_ms,
@@ -966,16 +1024,24 @@ MIXED_GROUP = ((8, 5, 4096), (16, 2, 300), (32, 10, 1000), (48, 5, 256), (8, 10,
 GROUP_65 = tuple((8 * (1 + i % 3), 2 + i % 9, 64 + 7 * i) for i in range(65))
 
 
-def _check_adam(got, want, before, acc0, accs, what):
+def _check_adam(got, want, before, acc0, accs, what, twins=None):
     """K8's result against the plain version's: w within ADAM_W_TOL, m and v
-    within ADAM_M_RTOL, t and show exact, rows with count 0 bit-identical,
-    every accumulator left zero.  Returns the max abs error of w."""
+    within ADAM_M_RTOL (bf16 ones by the bf16 rule against ``twins``, the
+    plain version's float32 values), t and show exact, rows with count 0
+    bit-identical, every accumulator left zero.  Returns the max abs error
+    of w."""
     err = 0.0
-    for g, w, b, a0, a in zip(got, want, before, acc0, accs):
-        err = max(err, float((g["w"] - w["w"]).abs().max()))
-        torch.testing.assert_close(g["w"], w["w"], rtol=0, atol=ADAM_W_TOL)
+    for i, (g, w, b, a0, a) in enumerate(zip(got, want, before, acc0, accs)):
+        err = max(err, float((g["w"].float() - w["w"].float()).abs().max()))
+        if g["w"].dtype == torch.bfloat16:
+            _check_bf16(g["w"], twins[i]["w"], ADAM_W_TOL, 0.0, f"{what} w")
+        else:
+            torch.testing.assert_close(g["w"], w["w"], rtol=0, atol=ADAM_W_TOL)
         for n in ("m", "v"):
-            torch.testing.assert_close(g["opt"][n], w["opt"][n], rtol=ADAM_M_RTOL, atol=0)
+            if g["opt"][n].dtype == torch.bfloat16:
+                _check_bf16(g["opt"][n], twins[i]["opt"][n], 0.0, ADAM_M_RTOL, f"{what} {n}")
+            else:
+                torch.testing.assert_close(g["opt"][n], w["opt"][n], rtol=ADAM_M_RTOL, atol=0)
         for x, y in ((g["opt"]["t"], w["opt"]["t"]), (g["show"], w["show"])):
             torch.testing.assert_close(x, y, rtol=0, atol=0)
         dead = _acc_views(a0, g["w"].shape[1])[1][:, 0] == 0
@@ -989,14 +1055,17 @@ def _check_adam(got, want, before, acc0, accs, what):
     return err
 
 
-def _adam_bytes(acc0, dims):
-    """A live row reads acc (D+1), w, m, v (3 D), t and show, and writes all
-    of them; a row with count 0 reads its count."""
+def _adam_bytes(acc0, dims, sizes=None):
+    """A live row reads acc (D+1), w, m, v (D each), t and show, and writes
+    all of them; a row with count 0 reads its count.  ``sizes``: each
+    storage's bytes a value of w and of m and v (default float32's 4)."""
     nbytes = ops = 0
-    for a, d in zip(acc0, dims):
+    for i, (a, d) in enumerate(zip(acc0, dims)):
+        sw, sm = sizes[i] if sizes else (4, 4)
         cnt = _acc_views(a, d)[1]
         live = int((cnt > 0).sum())
-        nbytes += live * 4 * (2 * (d + 1) + 6 * d + 4) + (cnt.shape[0] - live) * 4
+        nbytes += (live * (4 * (2 * (d + 1) + 4) + 2 * d * (sw + 2 * sm))
+                   + (cnt.shape[0] - live) * 4)
         ops += live * d * 14
     return nbytes, ops
 
@@ -1035,9 +1104,14 @@ def adam_case(eng, tables, batch, cycles_per_ms):
     packed.sparse_adam_update_group(opt, got, accs)
     for w, a in zip(want, acc0):
         packed.sparse_adam_update_plain(opt, w, a.clone())
+    twins = _float32_twins(before)
+    for w, a in zip(twins, acc0):
+        packed.sparse_adam_update_plain(dataclasses.replace(opt, state_dtype=torch.float32),
+                                        w, a.clone())
     torch.cuda.synchronize()
     err = _check_adam(got, want, before, acc0, accs,
-                      f"sparse_adam_update ({len(skeys)} storages)")
+                      f"sparse_adam_update ({len(skeys)} storages)", twins)
+    del twins
 
     def restore():
         flat.copy_(flat0)
@@ -1057,17 +1131,20 @@ def adam_case(eng, tables, batch, cycles_per_ms):
 
     params = [torch.nn.Parameter(t["w"].clone()) for t in before]
     for p, a, d in zip(params, acc0, dims):
-        p.grad = _acc_views(a, d)[0].clone()
+        p.grad = _acc_views(a, d)[0].to(p.dtype, copy=True)
     dense = torch.optim.Adam(params, lr=opt.learning_rate, foreach=True)
-    nbytes, ops = _adam_bytes(acc0, dims)
+    sizes = [(t["w"].element_size(), t["opt"]["m"].element_size()) for t in before]
+    nbytes, ops = _adam_bytes(acc0, dims, sizes)
     bms, by = bound(nbytes, ops)
-    one_bytes, one_ops = _adam_bytes(acc0[:1], dims[:1])
+    one_bytes, one_ops = _adam_bytes(acc0[:1], dims[:1], sizes[:1])
     iters = 24
     ms_restore = timed(restore, iters, cycles_per_ms)[0]
     ms_restore1 = timed(lambda: accs[0].copy_(acc0[0]), iters, cycles_per_ms)[0]
     ms, host_ms = timed(kernel, iters, cycles_per_ms)
     single_ms, single_host_ms = timed(single, iters, cycles_per_ms)
     return {"name": "sparse_adam_update", "storages": len(skeys),
+            "dtype": _dtype_name(before[0]["w"]),
+            "moments": _dtype_name(before[0]["opt"]["m"]),
             "b": next(iter(batch.values())).rows.shape[0],
             "rows": sum(eng.storage[k][0] for k in skeys), "d": sorted(set(dims)),
             "live_rows": sum(int((_acc_views(a, d)[1] > 0).sum())
@@ -1119,16 +1196,20 @@ def adam_mixed_case():
             "max_abs_err": err}
 
 
-def _check_adagrad(got, want, before, acc0, accs, what):
-    """K9's result against the plain version's: w within ADAGRAD_W_TOL,
-    g2sum within ADAGRAD_G2_RTOL, show exact, rows with count 0
+def _check_adagrad(got, want, before, acc0, accs, what, twins=None):
+    """K9's result against the plain version's: w within ADAGRAD_W_TOL (a
+    bf16 w by the bf16 rule against ``twins``, the plain version's float32
+    values), g2sum within ADAGRAD_G2_RTOL, show exact, rows with count 0
     bit-identical, every accumulator left zero.  Returns the max abs error
     of w."""
     err = 0.0
-    for g, w, b, a0, a in zip(got, want, before, acc0, accs):
+    for i, (g, w, b, a0, a) in enumerate(zip(got, want, before, acc0, accs)):
         if g["w"].numel():
-            err = max(err, float((g["w"] - w["w"]).abs().max()))
-        torch.testing.assert_close(g["w"], w["w"], rtol=0, atol=ADAGRAD_W_TOL)
+            err = max(err, float((g["w"].float() - w["w"].float()).abs().max()))
+        if g["w"].dtype == torch.bfloat16:
+            _check_bf16(g["w"], twins[i]["w"], ADAGRAD_W_TOL, 0.0, f"{what} w")
+        else:
+            torch.testing.assert_close(g["w"], w["w"], rtol=0, atol=ADAGRAD_W_TOL)
         torch.testing.assert_close(g["opt"]["g2sum"], w["opt"]["g2sum"],
                                    rtol=ADAGRAD_G2_RTOL, atol=0)
         torch.testing.assert_close(g["show"], w["show"], rtol=0, atol=0)
@@ -1142,16 +1223,19 @@ def _check_adagrad(got, want, before, acc0, accs, what):
     return err
 
 
-def _adagrad_bytes(acc0, dims):
+def _adagrad_bytes(acc0, dims, sizes=None):
     """A live row reads G and its count and writes them back zero, reads and
-    writes w, g2sum and show: 4 (4 D + 6) B; a row with count 0 reads its
-    count.  Operations: D squares and adds, a quotient, an add and a root,
-    and a product, quotient and difference a lane."""
+    writes w, g2sum and show: 4 (2 D + 6) + 2 D sw B (sw: the bytes of a
+    value of w, each storage's in ``sizes``, default float32's 4); a row
+    with count 0 reads its count.  Operations: D squares and adds, a
+    quotient, an add and a root, and a product, quotient and difference a
+    lane."""
     nbytes = ops = 0
-    for a, d in zip(acc0, dims):
+    for i, (a, d) in enumerate(zip(acc0, dims)):
+        sw = sizes[i] if sizes else 4
         cnt = _acc_views(a, d)[1]
         live = int((cnt > 0).sum())
-        nbytes += live * 4 * (4 * d + 6) + (cnt.shape[0] - live) * 4
+        nbytes += live * (4 * (2 * d + 6) + 2 * d * sw) + (cnt.shape[0] - live) * 4
         ops += live * (5 * d + 3)
     return nbytes, ops
 
@@ -1211,9 +1295,13 @@ def adagrad_case(eng, tables, batch, cycles_per_ms):
     packed.sparse_adagrad_update_group(opt, got, accs)
     for w, a in zip(want, acc0):
         packed.sparse_adagrad_update_plain(opt, w, a.clone())
+    twins = _float32_twins(before)
+    for w, a in zip(twins, acc0):
+        packed.sparse_adagrad_update_plain(opt, w, a.clone())
     torch.cuda.synchronize()
     err = _check_adagrad(got, want, before, acc0, accs,
-                         f"sparse_adagrad_update ({len(skeys)} storages)")
+                         f"sparse_adagrad_update ({len(skeys)} storages)", twins)
+    del twins
 
     def restore():
         flat.copy_(flat0)
@@ -1229,15 +1317,16 @@ def adagrad_case(eng, tables, batch, cycles_per_ms):
 
     params = [torch.nn.Parameter(t["w"].clone()) for t in before]
     for p, a, d in zip(params, acc0, dims):
-        p.grad = _acc_views(a, d)[0].clone()
+        p.grad = _acc_views(a, d)[0].to(p.dtype, copy=True)
     dense = torch.optim.Adagrad(params, lr=opt.learning_rate,
                                 initial_accumulator_value=opt.initial_g2sum, foreach=True)
-    nbytes, ops = _adagrad_bytes(acc0, dims)
+    nbytes, ops = _adagrad_bytes(acc0, dims, [t["w"].element_size() for t in before])
     bms, by = bound(nbytes, ops)
     iters = 24
     ms_restore = timed(restore, iters, cycles_per_ms)[0]
     ms, host_ms = timed(kernel, iters, cycles_per_ms)
     return {"name": "sparse_adagrad_update", "storages": len(skeys),
+            "dtype": _dtype_name(before[0]["w"]),
             "b": next(iter(batch.values())).rows.shape[0],
             "rows": sum(eng.storage[k][0] for k in skeys), "d": sorted(set(dims)),
             "live_rows": sum(int((_acc_views(a, d)[1] > 0).sum())
@@ -1315,7 +1404,7 @@ def adagrad_mixed_case(cycles_per_ms):
         params = [torch.nn.Parameter(t["w"].clone()) for t in before if t["w"].numel()]
         for p, a, d in zip(params, [a for a in acc0 if a.numel()],
                            [d for (r, d, _) in group if r]):
-            p.grad = _acc_views(a, d)[0].clone()
+            p.grad = _acc_views(a, d)[0].to(p.dtype, copy=True)
         dense = torch.optim.Adagrad(params, lr=opt.learning_rate,
                                     initial_accumulator_value=opt.initial_g2sum, foreach=True)
         nbytes, ops = _adagrad_bytes(acc0, dims)
@@ -1438,7 +1527,8 @@ def din_gather_case(bundle, state, b, seed, cycles_per_ms):
 
         live = mask != 0
         uniq = int(torch.unique(ids[live]).numel())
-        nbytes = 4 * (2 * b * t + 2 * b * h) + uniq * h * 4 + sum(4 * w.numel() for w in weights)
+        nbytes = (4 * (2 * b * t + 2 * b * h) + uniq * h * table.element_size()
+                  + sum(4 * w.numel() for w in weights))
         # only a live position needs its score
         ops = 2 * int(live.sum()) * (h * 16 + 16 + h) + 2 * b * (2 * h * 16)
         bms, by = bound(nbytes, ops)
@@ -1449,12 +1539,38 @@ def din_gather_case(bundle, state, b, seed, cycles_per_ms):
         plain_ms = timed(lambda: din_pool_gather_plain(query, pick(), ids, mask, lanes,
                                                        *weights), iters, cycles_per_ms)[0]
     return {"name": "din_pool", "entry": "gather", "b": b, "t": t, "h": h,
+            "dtype": _dtype_name(table),
             "rows_all_masked": int(dead.sum()), "live": int(live.sum()),
             "max_abs_err": err, "ms": ms, "host_ms": host_ms,
             "path_ms": path_ms, "path_host_ms": path_host_ms,
             "path": "fold_rows + din_pool (the path before this entry)",
             "plain_ms": plain_ms, "library_ms": None, "bound_ms": bms, "bound_by": by,
             "bytes": nbytes, "ops": ops}
+
+
+def staytime_fold_case(bundle, state, cycles_per_ms):
+    """K1 as the staytime predict and train steps launch it at B = 16384
+    with 5 ids: one grouped call over the 46 mean segments (a storage's
+    mean columns of one L fold as one member), its tables out of L2 on
+    every call (477-954 MB)."""
+    from recommendsystem_tpu_torch.data import synthetic_batch
+    from recommendsystem_tpu_torch.embedding import packed
+
+    eng, b = bundle.embedding, STAYTIME_BATCH
+    batch = synthetic_batch(bundle, b, seed=61, ids_per_feature=5)[0]
+    plans = packed.plan_segments(eng, batch)
+    means = []
+    for skey in sorted(plans):
+        ids, mask = packed.storage_stream(eng, skey, plans[skey], batch)
+        for seg in plans[skey]:
+            if seg.kind == "mean":
+                part = slice(seg.start, seg.start + seg.size)
+                means.append((state.tables[skey]["w"], ids[part], mask[part],
+                              len(seg.keys), seg.l))
+    if len(means) != 46:
+        raise AssertionError(f"staytime: {len(means)} mean segments, expected 46")
+    return fold_items_case(f"staytime 46 mean segments, b={b}", means, b, lambda: means,
+                           cycles_per_ms)
 
 
 def staytime_rows_cases(bundle, state, cycles_per_ms):
@@ -1564,6 +1680,7 @@ def staytime_path(card, cycles_per_ms):
     out["cases"] += [din_gather_case(bundle, state, b, 80 + b, cycles_per_ms)
                      for b in DIN_BATCHES]
     out["cases"] += staytime_rows_cases(bundle, state, cycles_per_ms)
+    out["cases"].append(staytime_fold_case(bundle, state, cycles_per_ms))
     for c in out["cases"]:
         log(json.dumps(c))
     eng = bundle.embedding
@@ -1721,37 +1838,61 @@ def _margin(got, want, atol, rtol):
     return float(r.max()), int((~(r <= 1)).sum()), float(diff.max())
 
 
-def two_train_steps(bundle, cpu_bundle, b, ipf, seed, record=None, on_init=None):
+def two_train_steps(bundle, cpu_bundle, b, ipf, seed, record=None, on_init=None,
+                    steps=2, init=None, first=0, sparse_update=None, on_step=None):
     """Two train steps on the card and the same two on the CPU through the
     plain versions, from one seeded state and one batch of ``b`` drawn from
     ``seed`` (same step seeds, same dropout); the card's two first.
     ``record(side)``, where given, is a context that each side's steps run
     in ("card", then "cpu"); ``on_init``, where given, sees the CPU's
-    initial state before any step.  Returns (card state, CPU state, card
-    infos, CPU infos)."""
+    initial state before any step; ``on_step(side)`` is called before each
+    step.  ``steps`` steps in place of two, from ``init`` (a state, copied
+    to each side) in place of the seeded state, the first with step seed 40
+    + ``first``, by the train step's ``sparse_update``.  Returns (card state,
+    CPU state, card infos, CPU infos)."""
     from contextlib import nullcontext
 
     from recommendsystem_tpu_torch.data import synthetic_batch
     from recommendsystem_tpu_torch.train import make_train_step
     from recommendsystem_tpu_torch.train.state import TrainState, create_train_state
 
-    gstate = create_train_state(bundle, seed=3)
-    cstate = TrainState(**{f: _to(getattr(gstate, f), "cpu")
-                           for f in ("params", "opt_state", "tables", "step")})
+    fields = ("params", "opt_state", "tables", "step")
+    if init is None:
+        init = create_train_state(bundle, seed=3)
+    gstate = TrainState(**{f: _to(getattr(init, f), bundle.device) for f in fields})
+    cstate = TrainState(**{f: _to(getattr(init, f), "cpu") for f in fields})
     if on_init is not None:
         on_init(cstate)
     out = []
     for side, bnd, state in (("card", bundle, gstate), ("cpu", cpu_bundle, cstate)):
         batch, dense, labels, weight = synthetic_batch(bnd, b, seed=seed, ids_per_feature=ipf)
-        step = make_train_step(bnd)
+        step = make_train_step(bnd, sparse_update=sparse_update)
         infos = []
         with record(side) if record else nullcontext():
-            for i in range(2):
-                state, info = step(state, batch, labels, weight, dense, seed=40 + i)
+            for i in range(steps):
+                if on_step is not None:
+                    on_step(side)
+                state, info = step(state, batch, labels, weight, dense, seed=40 + first + i)
                 infos.append(info)
         out.append((state, infos))
     (gstate, ginfos), (cstate, cinfos) = out
     return gstate, cstate, ginfos, cinfos
+
+
+def _bf16_off(got, want, atol, rtol):
+    """Where a bf16 quantity ``got`` breaks the bf16 rule against the float32
+    values ``want`` that it should store: an entry must equal ``want``
+    rounded to nearest even, or lie one bf16 ulp from it with ``want``
+    within ``atol + rtol |want|`` (a float32 tolerance) of the midpoint
+    between the two, where either rounding is right.  A bool mask."""
+    want = torch.as_tensor(want, dtype=torch.float32)
+    rounded = want.to(torch.bfloat16)
+    differ = got != rounded
+    g, r, p = got.double(), rounded.double(), want.double()
+    bits = lambda x: x.float().view(torch.int32).to(torch.int64) >> 16   # noqa: E731
+    adjacent = (torch.sign(g) == torch.sign(r)) & ((bits(g) - bits(r)).abs() == 1)
+    near = (p - (g + r) / 2).abs() <= atol + rtol * p.abs()
+    return differ & ~(adjacent & near)
 
 
 def _table_tols(name):
@@ -1838,10 +1979,13 @@ def _sample_of(shape, index, b):
     return int(index[-1]) % b
 
 
-def _recorded_steps(bundle, cpu_bundle, b, ipf, seed):
-    """``two_train_steps`` with each side's ReLU inputs, dense gradients (as
-    the dense optimizer takes them) and accumulated table gradients (G, as
-    the lazy pass takes it, by storage) recorded, a list a step."""
+def _recorded_steps(bundle, cpu_bundle, b, ipf, seed, **steps_kw):
+    """``two_train_steps`` (``steps_kw`` passed on) with each side's ReLU
+    inputs, dense gradients (as the dense optimizer takes them) and table
+    gradients recorded, a list a step: G by storage, as the lazy pass
+    takes it; as the touched-rows update's payloads sum it; or, on the
+    classic paths, as ``sparse_opt.update`` takes it (the gradient of a
+    whole float32 table)."""
     from recommendsystem_tpu_torch.embedding import packed
 
     rec = _Recorder()
@@ -1855,21 +1999,52 @@ def _recorded_steps(bundle, cpu_bundle, b, ipf, seed):
             return update(params, g, state)
 
         object.__setattr__(bnd.dense_optimizer, "update_", record)   # a frozen dataclass
-    real = packed.sparse_update_group
+    real_group, real_rows = packed.sparse_update_group, packed.row_update_packed_storage
+    inside = [False]          # the plain lazy pass calls sparse_opt.update: not again
+
+    def put(w, g):
+        tables[rec.side][-1][id(w)] = g.detach().float().cpu()
 
     def record_tables(opt, tstates, accs):
         tstates, accs = list(tstates), list(accs)
-        tables[rec.side].append({id(ts["w"]): packed.accumulator_views(
-            acc, ts["w"].shape[1])[0].cpu() for ts, acc in zip(tstates, accs)})
-        return real(opt, tstates, accs)
+        for ts, acc in zip(tstates, accs):
+            put(ts["w"], packed.accumulator_views(acc, ts["w"].shape[1])[0])
+        inside[0] = True
+        try:
+            return real_group(opt, tstates, accs)
+        finally:
+            inside[0] = False
 
+    def record_rows(opt, tstate, ids, pay):
+        d = tstate["w"].shape[1]
+        put(tstate["w"], torch.zeros((tstate["w"].shape[0], d), device=pay.device).index_add_(
+            0, ids.long(), pay[:, :d].float()))
+        return real_rows(opt, tstate, ids, pay)
+
+    def recording(opt):
+        real = opt.update
+
+        def update(w, grad, state, row_mask):
+            if not inside[0]:
+                put(w, grad)
+            return real(w, grad, state, row_mask)
+        return update
+
+    opts = {id(bnd.embedding.sparse_opt): bnd.embedding.sparse_opt
+            for bnd in (bundle, cpu_bundle)}
+    for opt in opts.values():
+        object.__setattr__(opt, "update", recording(opt))
     packed.sparse_update_group = record_tables
+    packed.row_update_packed_storage = record_rows
     init = []
     try:
         out = two_train_steps(bundle, cpu_bundle, b, ipf, seed, record=rec.at,
-                              on_init=lambda st: init.append(_to(vars(st), "cpu")))
+                              on_init=lambda st: init.append(_to(vars(st), "cpu")),
+                              on_step=lambda side: tables[side].append({}), **steps_kw)
     finally:
-        packed.sparse_update_group = real
+        packed.sparse_update_group, packed.row_update_packed_storage = real_group, real_rows
+        for opt in opts.values():
+            object.__delattr__(opt, "update")
         for bnd in (bundle, cpu_bundle):
             if "update_" in vars(bnd.dense_optimizer):
                 object.__delattr__(bnd.dense_optimizer, "update_")
@@ -1882,20 +2057,26 @@ def _recorded_steps(bundle, cpu_bundle, b, ipf, seed):
 def _replay(cpu_bundle, init, grads, tables, batch):
     """The CPU's plain updates (dense Adam, the engine's lazy pass) applied
     to the card's recorded gradients, step by step, from the initial state:
-    what the card's state must be if its updates are right.  Returns
+    what the card's state must be if its updates are right.  The tables
+    replay in float32 (bf16 ones widened, Adam's moments kept float32): a
+    bf16 table's replay is the float32 value it must round.  Returns
     (params, tables)."""
-    from recommendsystem_tpu_torch.embedding import packed
+    from recommendsystem_tpu_torch.embedding import SparseAdam, packed
 
-    params, opt_state, tstates = _to(init["params"], "cpu"), _to(init["opt_state"], "cpu"), \
-        _to(init["tables"], "cpu")
+    params, opt_state = _to(init["params"], "cpu"), _to(init["opt_state"], "cpu")
+    tstates = {k: {"w": t["w"].float(), "opt": {n: x.float() for n, x in t["opt"].items()},
+                   "show": t["show"].clone()} for k, t in _to(init["tables"], "cpu").items()}
     eng = cpu_bundle.embedding
+    opt = eng.sparse_opt
+    if isinstance(opt, SparseAdam):
+        opt = dataclasses.replace(opt, state_dtype=torch.float32)
     counts = eng.row_counts(batch)
     for g in grads:
         params, opt_state = cpu_bundle.dense_optimizer.update_(params, _to(g, "cpu"), opt_state)
     for step in tables:
         keys = sorted(step)
         accs = [torch.cat([step[k].reshape(-1), counts[k].reshape(-1)]) for k in keys]
-        packed.sparse_update_group(eng.sparse_opt, [tstates[k] for k in keys], accs)
+        packed.sparse_update_group(opt, [tstates[k] for k in keys], accs)
     return params, tstates
 
 
@@ -1908,7 +2089,8 @@ def _beyond_rounding(card, cpu):
     return (card - cpu).abs() > GRAD_ROUND * scale
 
 
-def witness(bundle, cpu_bundle, b, ipf, seed):
+def witness(bundle, cpu_bundle, b, ipf, seed, steps=2, init=None, first=0,
+            sparse_update=None, keep_state=False):
     """One draw of two card and two CPU train steps, with every entry past
     its ``TRAIN_*`` tolerance put down to a cause or listed as unexplained.
 
@@ -1936,15 +2118,28 @@ def witness(bundle, cpu_bundle, b, ipf, seed):
       - a loss or penalty past rtol TRAIN_LOSS_RTOL, a t or show that
         differs, a flip that is not a kink, and any other entry past its
         tolerance are unexplained.
-    Returns the draw's margins, its explanations by cause, the unexplained
-    entries (none where the draw passes), and the gradients of the first
-    unexplained ones."""
+    A bf16 table quantity is held to the replay by the bf16 rule
+    (``_bf16_off``) at its ``TRAIN_*`` tolerance; in a one-step draw a bf16
+    entry past its tolerance is explained as a rounding where the card's
+    and the CPU's stored values both keep the rule against the replay (the
+    card's float32 value before rounding): each is the replay rounded, or
+    one bf16 ulp from it with the replay within the quantity's tolerance of
+    the midpoint, where two float32 values within that tolerance of each
+    other may round apart.  ``steps``, ``init``,
+    ``first`` and ``sparse_update`` go to ``two_train_steps``; with
+    ``keep_state`` the CPU's state after the steps is returned too, as
+    ``cpu_state``.  Returns the draw's margins, its explanations by cause,
+    the unexplained entries (none where the draw passes), and the gradients
+    of the first unexplained ones."""
     from recommendsystem_tpu_torch.data import synthetic_batch
 
     (gstate, cstate, ginfos, cinfos), relu, grads, tables, init = _recorded_steps(
-        bundle, cpu_bundle, b, ipf, seed)
+        bundle, cpu_bundle, b, ipf, seed, steps=steps, init=init, first=first,
+        sparse_update=sparse_update)
     past, margins = _past(gstate, cstate, ginfos, cinfos)
     out = {"margins": margins, "explained": {}, "unexplained": [], "details": []}
+    if keep_state:
+        out["cpu_state"] = cstate
     if not (past["loss"] or past["params"] or past["tables"]):
         return out
     unexplained, explained, details = out["unexplained"], out["explained"], out["details"]
@@ -1962,17 +2157,20 @@ def witness(bundle, cpu_bundle, b, ipf, seed):
     for skey, rt in rtables.items():
         gq, rq = _table_quantities(_to(gstate.tables[skey], "cpu")), _table_quantities(rt)
         for name, want in rq.items():
-            n = int((~(_ratio(gq[name], want, *_table_tols(name)) <= 1)).sum())
+            if gq[name].dtype == torch.bfloat16:
+                n = int(_bf16_off(gq[name], want, *_table_tols(name)).sum())
+            else:
+                n = int((~(_ratio(gq[name], want, *_table_tols(name)) <= 1)).sum())
             if n:
                 unexplained.append(f"{skey} {name}: the card's update of its own gradients "
                                    f"differs from the plain one in {n} entries")
 
     gs, cs = relu["card"], relu["cpu"]
-    if len(gs) != len(cs) or len(gs) % 2 or any(g.shape != c.shape for g, c in zip(gs, cs)):
+    if len(gs) != len(cs) or len(gs) % steps or any(g.shape != c.shape for g, c in zip(gs, cs)):
         raise AssertionError("the card and the CPU called ReLU on other shapes")
-    per_step = len(gs) // 2
-    kinks = {1: set(), 2: set()}
-    flips = {1: [], 2: []}
+    per_step = len(gs) // steps
+    kinks = {s: set() for s in range(1, steps + 1)}
+    flips = {s: [] for s in range(1, steps + 1)}
     for i, (g, c) in enumerate(zip(gs, cs)):
         flipped = (g > 0) != (c > 0)
         if not flipped.any():
@@ -1988,7 +2186,7 @@ def witness(bundle, cpu_bundle, b, ipf, seed):
             flips[step].append(f)
             # step 2 starts from what step 1's kinks set apart: its flips
             # follow from them
-            if max(abs(gv), abs(cv)) <= near or (step == 2 and kinks[1]):
+            if max(abs(gv), abs(cv)) <= near or any(kinks[s] for s in range(1, step)):
                 kinks[step].add(f["sample"])
             else:
                 unexplained.append(f"step {step}: a ReLU input flipped far from 0: {f}")
@@ -2008,14 +2206,28 @@ def witness(bundle, cpu_bundle, b, ipf, seed):
         rows, mask = batch[key].rows.long() + offset, batch[key].mask > 0
         for smp, r in mask.nonzero().tolist():
             readers.setdefault((skey, int(rows[smp, r])), set()).add(smp)
-    kinked = kinks[1] | kinks[2]
+    kinked = set().union(*kinks.values())
     beyond = {skey: [_beyond_rounding(gt[skey], ct[skey]).any(dim=1) if skey in ct else None
                      for gt, ct in zip(tables["card"], tables["cpu"])]
               for skey in cstate.tables}
     for (name, skey), (_, rows) in past["tables"].items():
+        rounding = None
+        gq = _table_quantities(gstate.tables[skey])[name].cpu()
+        if gq.dtype == torch.bfloat16 and steps == 1:
+            # rows whose every difference is one rounding apart: the card's
+            # float32 value (the replay's) lies within the quantity's
+            # tolerance of the midpoint between the card's and the CPU's
+            # bf16 values, which the CPU's float32 value lies as close to
+            cq = _table_quantities(cstate.tables[skey])[name]
+            rq = _table_quantities(rtables[skey])[name]
+            off = _bf16_off(gq, rq, *_table_tols(name)) | (
+                _bf16_off(cq, rq, *_table_tols(name)) & (gq != cq))
+            rounding = ~off.reshape(off.shape[0], -1).any(dim=1)
         for r in rows.nonzero().flatten().tolist():
             if name in ("t", "show"):
                 unexplained.append(f"{skey} {name} row {r} differs")
+            elif rounding is not None and bool(rounding[r]):
+                note(f"table {name}, bf16 rounding")
             elif not any(bool(m[r]) for m in beyond[skey] if m is not None):
                 note(f"table {name}, gradients within rounding")
             elif readers.get((skey, r), set()) & kinked:
@@ -2030,7 +2242,7 @@ def witness(bundle, cpu_bundle, b, ipf, seed):
             differs = [t for t, m in enumerate(steps) if bool(m[tuple(idx)])]
             if not differs:
                 note("param, gradients within rounding")
-            elif kinks[1] or (differs[0] == 1 and kinks[2]):
+            elif any(kinks[s] for s in range(1, differs[0] + 2)):
                 note("param, kink")
             else:
                 unexplained.append(f"param {k}{idx}")
@@ -3430,7 +3642,6 @@ def daily_path(card):
     from recommendsystem_tpu_torch.models import create_model
     from recommendsystem_tpu_torch.models.staytime import T_STAY
     from recommendsystem_tpu_torch.serving import ScoringService
-    from recommendsystem_tpu_torch.serving import server
     from recommendsystem_tpu_torch.train import harness, make_predict_step
     from recommendsystem_tpu_torch.train.checkpoint import (restore_checkpoint,
                                                             save_checkpoint)
@@ -3555,46 +3766,15 @@ def daily_path(card):
         harness.make_train_step = real_make
 
         # the server's main serves the staytime checkpoint
-        started, ready = {}, threading.Event()
-        real_serve = server.serve
-
-        def serve(service, port=8000, host="127.0.0.1"):
-            started["httpd"] = real_serve(service, port, host)
-            ready.set()
-            return started["httpd"]
-
-        server.serve = serve
-        with socket.socket() as sock:
-            sock.bind(("127.0.0.1", 0))
-            port = sock.getsockname()[1]
+        rows = staytime_rows(np.random.default_rng(12), 200, slots,
+                             cpu_bundle.config.seq_slots)
         torch.cuda.synchronize()
         reset_launch_counts()
-        thread = threading.Thread(target=server.main, args=(
-            ["--model", "staytime", "--checkpoint", ckpt, "--port", str(port)],), daemon=True)
-        thread.start()
-        try:
-            if not ready.wait(300):
-                raise AssertionError("the server did not start")
-            base = f"http://127.0.0.1:{port}"
-            with urllib.request.urlopen(f"{base}/healthz", timeout=60) as r:
-                health = json.loads(r.read())
-            rows = staytime_rows(np.random.default_rng(12), 200, slots,
-                                 cpu_bundle.config.seq_slots)
-            req = urllib.request.Request(f"{base}/score", data=json.dumps(
-                {"rows": rows}).encode(), headers={"Content-Type": "application/json"})
-            with urllib.request.urlopen(req, timeout=60) as r:
-                scored = json.loads(r.read())
-        finally:
-            server.serve = real_serve
-            if "httpd" in started:
-                started["httpd"].shutdown()
-                started["httpd"].server_close()
-            thread.join(60)
+        health, scored = serve_main(["--model", "staytime", "--checkpoint", ckpt], rows)
         torch.cuda.synchronize()
         counts = launch_counts()
         add(counts)
-        if thread.is_alive() or health != {"status": "ok", "model": "staytime",
-                                           "step": restored.step}:
+        if health != {"status": "ok", "model": "staytime", "step": restored.step}:
             raise AssertionError(f"server: healthz {health}")
         want = ScoringService(bundle, restored, max_batch=256).score(rows)
         check_staytime_scores(scored["scores"], 200)
@@ -3617,6 +3797,389 @@ def daily_path(card):
     finally:
         harness.make_train_step = real_make
         shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = launches
+    return out
+
+
+# -- phase 13: bf16 tables and moments; the classic sparse updates ----------
+BF16_TRAIN_BATCH = {"staytime": STAYTIME_BATCH, "autoint": BIG_BATCH}
+CLASSIC_BUCKET = 4001             # autoint's tables off both packings: no storage packs
+
+
+def _table_bytes(state):
+    """Bytes of w and of each of the sparse optimizer's fields and show,
+    summed over a state's tables."""
+    out = {}
+    for t in state.tables.values():
+        for name, x in [("w", t["w"]), *t["opt"].items(), ("show", t["show"])]:
+            out[name] = out.get(name, 0) + x.numel() * x.element_size()
+    return out
+
+
+def hold_bf16_to_cpu(bundle, cpu_bundle, b, ipf, what):
+    """Two card steps over bf16 tables held to the CPU, each from one state
+    on both sides: the first from the seeded state, the second from the
+    CPU's state after the first (an entry the two round to neighbouring
+    bf16 values would set every later step of its samples apart by more
+    than rounding).  Each step is one ``witness`` draw at batch seed
+    ``CHECK_SEEDS[0]``: its entries past a ``TRAIN_*`` tolerance explained
+    (a bf16 entry one rounding apart is one whose gradients agree within
+    rounding), the card's updates replayed on the CPU in float32 and its
+    bf16 entries held to the replay by the bf16 rule.  Returns the draws."""
+    draws, init = [], None
+    for i in range(2):
+        w = witness(bundle, cpu_bundle, b, ipf, CHECK_SEEDS[0], steps=1, init=init, first=i,
+                    keep_state=True)
+        init = w.pop("cpu_state")
+        draws.append(w)
+        log(f"{what} bf16 train card vs cpu, B {b}, step {i + 1}:", json.dumps(w))
+        if w["unexplained"]:
+            raise AssertionError(f"{what} bf16, step {i + 1}: the card's step differs from "
+                                 f"the CPU's where nothing explains it: {w['unexplained'][:20]}")
+    return draws
+
+
+def _bf16_train_windows(bundle, ipfs, want, seed):
+    """A counted window of ``TRAIN_STEPS`` steps for each ``ipfs``, each from
+    a fresh state, its launches a step held to ``want[ipf]`` (the float32
+    model's), its losses finite; the share of the live rows' stored w
+    entries that the first step changed (a bf16 entry keeps its value where
+    its update is below half its ulp); the 5-id window timed.  Returns
+    (per-ipf results, the launches, the 5-id window's state and batch)."""
+    from recommendsystem_tpu_torch.data import synthetic_batch
+    from recommendsystem_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from recommendsystem_tpu_torch.train import make_train_step
+    from recommendsystem_tpu_torch.train.state import create_train_state
+
+    step = make_train_step(bundle)
+    b = BF16_TRAIN_BATCH[bundle.name]
+    out, launches = {}, {}
+    for ipf in ipfs:
+        batch, dense, labels, weight = synthetic_batch(bundle, b, seed=seed + ipf,
+                                                       ids_per_feature=ipf)
+        state = create_train_state(bundle, seed=seed)
+        w0 = {k: t["w"].clone() for k, t in state.tables.items()}
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        infos = []
+        for i in range(TRAIN_STEPS):
+            state, info = step(state, batch, labels, weight, dense, seed=i)
+            infos.append(info)
+            if i == 0:
+                w1 = {k: t["w"].clone() for k, t in state.tables.items()}
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        live = bundle.embedding.row_counts(batch)
+        entries = sum(int((live[k] > 0).sum()) * w0[k].shape[1] for k in w0)
+        moved = sum(int((w1[k] != w0[k]).sum()) for k in w0)
+        del w0, w1
+        launches = {k: launches.get(k, 0) + v for k, v in counts.items()}
+        per_step = {k: v / TRAIN_STEPS for k, v in counts.items() if v}
+        if per_step != {k: v for k, v in want[ipf].items() if v}:
+            raise AssertionError(f"{bundle.name} bf16, {ipf} ids: launches a step {per_step}, "
+                                 f"the float32 model's {want[ipf]}")
+        losses = [float(i["loss"]) for i in infos]
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"{bundle.name} bf16, {ipf} ids: losses {losses}")
+        out[f"ids{ipf}"] = {"launches_per_step": per_step, "losses": losses, "batch": b,
+                            "w_live_entries": entries, "w_moved_step1": moved}
+        if ipf == 5:
+            ms, windows = train_ms(step, state, batch, labels, weight, dense, per_window=5)
+            out["ids5"].update({"metric": f"torch_{bundle.name}_bf16_train_examples_per_sec",
+                                "unit": "examples/s", "value": b / ms * 1e3,
+                                "ms_per_step": ms, "window_ms": windows})
+            kept = state, batch
+        log(f"{bundle.name} bf16 train, {ipf} ids:", json.dumps(out[f"ids{ipf}"]))
+    return (out, launches, *kept)
+
+
+def _count(fn):
+    """``fn()``'s launches, between a synchronize before and after."""
+    from recommendsystem_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, launch_counts()
+
+
+def _add(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def serve_main(argv, rows):
+    """``serving.server.main(argv)`` on a free local port (``--port``
+    added) in a thread: its ``/healthz`` and its reply to ``rows`` POSTed to
+    ``/score``, then the server shut down."""
+    from recommendsystem_tpu_torch.serving import server
+
+    started, ready = {}, threading.Event()
+    real_serve = server.serve
+
+    def serve(service, port=8000, host="127.0.0.1"):
+        started["httpd"] = real_serve(service, port, host)
+        ready.set()
+        return started["httpd"]
+
+    server.serve = serve
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    thread = threading.Thread(target=server.main, args=(argv + ["--port", str(port)],),
+                              daemon=True)
+    thread.start()
+    try:
+        if not ready.wait(300):
+            raise AssertionError("the server did not start")
+        base = f"http://127.0.0.1:{port}"
+        with urllib.request.urlopen(f"{base}/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        req = urllib.request.Request(f"{base}/score", data=json.dumps({"rows": rows}).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            scored = json.loads(r.read())
+    finally:
+        server.serve = real_serve
+        if "httpd" in started:
+            started["httpd"].shutdown()
+            started["httpd"].server_close()
+        thread.join(60)
+    if thread.is_alive():
+        raise AssertionError("the server did not stop")
+    return health, scored
+
+
+def classic_paths(card):
+    """One train step of each classic sparse update on the card, held to the
+    same step on the CPU (``witness``, B = 64, batch seed
+    ``CHECK_SEEDS[0]``), autoint at 2,048-id buckets: ``sparse_update=
+    "scatter"``; ``"dense"``; the packed step over an engine built with
+    ``packed=False`` at ``CLASSIC_BUCKET`` (no storage packs: the step's
+    in-step classic gather and scatter); the touched-rows update
+    (``row_update_min_rows = 0``).  Each in its own window of counts: the
+    classic updates launch no K1-K4 or K8 (the tower's K5f and K5b still
+    run); the touched-rows update folds by K1 and launches no K3 or K8."""
+    from recommendsystem_tpu_torch.embedding import EmbeddingFeatures, packed
+    from recommendsystem_tpu_torch.models import create_model
+
+    def pair(bucket, **engine_kw):
+        out = []
+        for dev in ("cuda", "cpu"):
+            bnd = create_model("autoint", bucket_size=bucket, device=dev)
+            if engine_kw:
+                eng = bnd.embedding
+                bnd.embedding = EmbeddingFeatures(list(eng.columns.values()), eng.sparse_opt,
+                                                  group_tables=True,
+                                                  max_group_bytes=eng.max_group_bytes,
+                                                  **engine_kw)
+            out.append(bnd)
+        return out
+
+    sparse = ("fold_mean", "fold_rows", "unfold_mean", "unfold_rows", "sparse_adam_update")
+    unpacked = pair(CLASSIC_BUCKET, packed=False)
+    if packed.storages_packed(unpacked[0].embedding)[0]:
+        raise AssertionError("classic paths: a storage of the packed=False engine packs")
+    rows_mode = pair(ROUGH_CHECK_BUCKET)
+    for bnd in rows_mode:
+        bnd.embedding.row_update_min_rows = 0
+    cases = (("scatter", pair(ROUGH_CHECK_BUCKET), "scatter", dict.fromkeys(sparse, 0)),
+             ("dense", pair(ROUGH_CHECK_BUCKET), "dense", dict.fromkeys(sparse, 0)),
+             ("packed, packed=False", unpacked, "packed", dict.fromkeys(sparse, 0)),
+             ("touched rows", rows_mode, "packed",
+              {"unfold_mean": 0, "unfold_rows": 0, "sparse_adam_update": 0}))
+    out, launches = {}, {}
+    for name, (gb, cb), update, want in cases:
+        w, counts = _count(lambda: witness(gb, cb, TOWER_CHECK_BATCH, 5, CHECK_SEEDS[0],
+                                           steps=1, sparse_update=update))
+        _add(launches, counts)
+        log(f"classic path {name}, card vs cpu:", json.dumps(w), json.dumps(counts))
+        if w["unexplained"]:
+            raise AssertionError(f"classic path {name}: the card's step differs from the "
+                                 f"CPU's where nothing explains it: {w['unexplained'][:20]}")
+        wrong = {k: counts[k] for k, v in want.items() if counts[k] != v}
+        if wrong or counts["field_attention_bwd"] < 1 or (
+                name == "touched rows" and counts["fold_mean"] < 1):
+            raise AssertionError(f"classic path {name}: launches {counts}")
+        out[name] = {"margins": w["margins"], "explained": w["explained"],
+                     "launches": {k: v for k, v in counts.items() if v}}
+    return out, launches
+
+
+def bf16_path(card, cycles_per_ms, autoint_launches):
+    """Phase 13: storage precision at full width.  Staytime with
+    ``table_dtype="auto"`` (all 46 storages of 32-wide rows in bf16, sparse
+    AdaGrad): serving through ``score()`` and over HTTP held to the CPU,
+    its predict step's launches a call; two counted train windows (5 ids
+    and 1, B = 16384) held to ``STAYTIME_TRAIN_LAUNCHES``; ``evaluate`` held
+    to ``EVAL_LAUNCHES``; K1, K2, K7 and K9 at its shapes over the bf16
+    tables with bounds on bf16 bytes; two card steps held to the CPU at
+    2,048-id buckets (``hold_bf16_to_cpu``).  Autoint with bf16 tables and
+    bf16 moments (24 x 265,104 x 8): two counted train windows (B = 65536)
+    held to the float32 model's launches a step (``autoint_launches``,
+    phase 5's), serving held to the CPU, K8 (bf16 w with bf16 moments and
+    with float32 ones), K1 and K2 at its shapes, two card steps held to the
+    CPU.  Then the classic sparse updates (``classic_paths``) and the
+    server's ``main --table-dtype auto``."""
+    from recommendsystem_tpu_torch.data import synthetic_batch
+    from recommendsystem_tpu_torch.embedding import packed
+    from recommendsystem_tpu_torch.models import create_model
+    from recommendsystem_tpu_torch.models.autoint import TASK
+    from recommendsystem_tpu_torch.models.staytime import StaytimeConfig
+    from recommendsystem_tpu_torch.serving import ScoringService
+    from recommendsystem_tpu_torch.train import evaluate, make_predict_step
+    from recommendsystem_tpu_torch.train.state import create_train_state
+
+    out = {"card": card, "tables": {}, "train": {}}
+    launches, cases = {}, []
+
+    # -- staytime, table_dtype="auto" --------------------------------------
+    st = create_model("staytime", table_dtype="auto", device="cuda")
+    st_cpu = create_model("staytime", table_dtype="auto", device="cpu")
+    if {t for t in (st.embedding.storage_dtype(d) for _, d in st.embedding.storage.values())} \
+            != {torch.bfloat16}:
+        raise AssertionError("staytime auto: a storage is not bf16")
+    state = create_train_state(st, seed=0)
+    out["tables"]["staytime_auto"] = {
+        **_table_bytes(state), "w_fp32": sum(r * d * 4 for r, d in st.embedding.storage.values()),
+        "storages": len(st.embedding.storage),
+        "rows": sum(r for r, _ in st.embedding.storage.values())}
+    cfg = StaytimeConfig()
+    rows200 = staytime_rows(np.random.default_rng(13), 200, cfg.slots, cfg.seq_slots)
+
+    def serve_staytime():
+        svc = ScoringService(st, state, max_batch=256, ids_per_feature=5)
+        svc.warmup()
+        return svc.score(rows200), http_score(svc, rows200[:50])
+
+    (s200, over_http), counts = _count(serve_staytime)
+    _add(launches, counts)
+    check_staytime_scores(s200, 200)
+    assert_heads_close(over_http["scores"], {k: v[:50] for k, v in s200.items()}, "over HTTP")
+    cpu_state = _cpu_state(state)
+    assert_heads_close(s200, ScoringService(st_cpu, cpu_state, max_batch=256, ids_per_feature=5,
+                                            device="cpu").score(rows200), "bf16 card vs CPU")
+    per_call = {}
+    step = make_predict_step(st)
+    for ipf, want in ((5, EVAL_LAUNCHES["staytime5"]), (1, EVAL_LAUNCHES["staytime1"])):
+        batch = synthetic_batch(st, 256, seed=14, ids_per_feature=ipf)[0]
+        pred, counts = _count(lambda: step(state, batch))
+        _add(launches, counts)
+        per_call[f"ids{ipf}"] = {k: v for k, v in counts.items() if v}
+        if per_call[f"ids{ipf}"] != want:
+            raise AssertionError(f"staytime bf16 predict, {ipf} ids: {per_call[f'ids{ipf}']}")
+    cpu_pred = make_predict_step(st_cpu)(cpu_state, {k: v.to("cpu") for k, v in batch.items()})
+    assert_heads_close({k: v.squeeze(1).cpu().numpy() for k, v in pred.items()},
+                       {k: v.squeeze(1).numpy() for k, v in cpu_pred.items()},
+                       "bf16 predict, card vs CPU")
+    out["staytime_serve"] = {"launches": {k: v for k, v in launches.items() if v},
+                             "predict_launches_per_call": per_call}
+    del cpu_state, cpu_pred
+
+    res, counts, tstate, batch5 = _bf16_train_windows(st, (5, 1), STAYTIME_TRAIN_LAUNCHES, 90)
+    _add(launches, counts)
+    out["train"]["staytime_auto"] = res
+    eval_data = [synthetic_batch(st, STAYTIME_BATCH, seed=70 + i) for i in range(EVAL_BATCHES)]
+    values, counts = _count(lambda: evaluate(st, eval_data, tstate))
+    _add(launches, counts)
+    per_step = {k: v / EVAL_BATCHES for k, v in counts.items() if v}
+    if per_step != EVAL_LAUNCHES["staytime5"]:
+        raise AssertionError(f"staytime bf16 eval: launches a step {per_step}")
+    _check_metric_values(values, "staytime bf16 evaluate")
+    out["staytime_eval"] = {"launches_per_step": per_step, "batch": STAYTIME_BATCH}
+    del eval_data
+
+    # its kernels over the bf16 tables, as its steps launch them
+    b = STAYTIME_BATCH
+    st_cases = [staytime_fold_case(st, tstate, cycles_per_ms),
+                *staytime_rows_cases(st, tstate, cycles_per_ms),
+                din_gather_case(st, tstate, b, 62, cycles_per_ms),
+                adagrad_case(st.embedding, tstate.tables, batch5, cycles_per_ms)]
+    for c in st_cases:
+        c.update(model="staytime auto", b=c.get("b", b))
+    cases += st_cases
+    del tstate, batch5, state
+    torch.cuda.empty_cache()
+    small = {"cfg": StaytimeConfig(bucket_size=STAYTIME_CHECK_BUCKET), "table_dtype": "auto"}
+    out["staytime_card_vs_cpu"] = hold_bf16_to_cpu(
+        create_model("staytime", device="cuda", **small),
+        create_model("staytime", device="cpu", **small), TOWER_CHECK_BATCH, 5, "staytime auto")
+    del st, st_cpu
+    torch.cuda.empty_cache()
+
+    # -- autoint, bf16 tables and bf16 moments ------------------------------
+    bf16 = dict(table_dtype=torch.bfloat16, opt_state_dtype=torch.bfloat16)
+    ai = create_model("autoint", bucket_size=FULL_BUCKET, device="cuda", **bf16)
+    want = {int(k.removeprefix("ids")): v for k, v in autoint_launches.items()}
+    res, counts, astate, _ = _bf16_train_windows(ai, (5, 1), want, 80)
+    _add(launches, counts)
+    out["train"]["autoint_bf16"] = res
+    out["tables"]["autoint_bf16"] = {
+        **_table_bytes(astate),
+        "w_fp32": sum(r * d * 4 for r, d in ai.embedding.storage.values()),
+        "storages": len(ai.embedding.storage),
+        "rows": sum(r for r, _ in ai.embedding.storage.values())}
+    rng = np.random.default_rng(15)
+    rows = raw_rows(rng, 200, 5)
+
+    def serve_autoint():
+        svc = ScoringService(ai, astate, max_batch=256, ids_per_feature=5)
+        svc.warmup()
+        return svc.score(rows)[TASK]
+
+    scores, counts = _count(serve_autoint)
+    _add(launches, counts)
+    if counts["fold_mean"] < 1 or counts["interacting_attention"] < 1:
+        raise AssertionError(f"autoint bf16 serving: launches {counts}")
+    check_scores(scores, 200)
+    ai_cpu = create_model("autoint", bucket_size=FULL_BUCKET, device="cpu", **bf16)
+    np.testing.assert_allclose(scores, ScoringService(
+        ai_cpu, _cpu_state(astate), max_batch=256, ids_per_feature=5,
+        device="cpu").score(rows)[TASK], **SCORE_TOL)
+    out["autoint_serve"] = {"launches": {k: v for k, v in counts.items() if v}}
+    del ai_cpu
+    # K8 over bf16 moments and over float32 ones; K1 and K2 at the train batch
+    f32_moments = {k: {**t, "opt": {**t["opt"], "m": t["opt"]["m"].float(),
+                                    "v": t["opt"]["v"].float()}}
+                   for k, t in astate.tables.items()}
+    abatch = synthetic_batch(ai, BIG_BATCH, seed=5)[0]      # phase 2's K8 batch
+    ai_cases = [adam_case(ai.embedding, astate.tables, abatch, cycles_per_ms)]
+    # the plain version keeps the moments' type by the optimizer's state_dtype
+    real_opt = ai.embedding.sparse_opt
+    ai.embedding.sparse_opt = dataclasses.replace(real_opt, state_dtype=torch.float32)
+    try:
+        ai_cases.append(adam_case(ai.embedding, f32_moments, abatch, cycles_per_ms))
+    finally:
+        ai.embedding.sparse_opt = real_opt
+    del f32_moments
+    ai_cases += [fold_group_case(ai, astate, BIG_BATCH, cycles_per_ms),
+                 autoint_rows_case(ai, astate, BIG_BATCH, cycles_per_ms)]
+    for c in ai_cases:
+        c["model"] = "autoint bf16"
+    cases += ai_cases
+    del astate, abatch, ai
+    torch.cuda.empty_cache()
+    small = dict(bucket_size=ROUGH_CHECK_BUCKET, **bf16)
+    out["autoint_card_vs_cpu"] = hold_bf16_to_cpu(
+        create_model("autoint", device="cuda", **small),
+        create_model("autoint", device="cpu", **small), TOWER_CHECK_BATCH, 5, "autoint bf16")
+
+    # -- the classic sparse updates; the server's --table-dtype ------------
+    out["classic"], counts = classic_paths(card)
+    _add(launches, counts)
+    served, counts = _count(lambda: serve_main(
+        ["--model", "staytime", "--table-dtype", "auto"], rows200))
+    _add(launches, counts)
+    health, scored = served
+    if health != {"status": "ok", "model": "staytime", "step": 0}:
+        raise AssertionError(f"server --table-dtype auto: healthz {health}")
+    check_staytime_scores(scored["scores"], 200)
+    assert_heads_close(scored["scores"], s200, "server --table-dtype auto")
+    out["server"] = {"launches": {k: v for k, v in counts.items() if v}}
+    for c in cases:
+        log(json.dumps(c))
+    out["cases"] = cases
     out["launches"] = launches
     return out
 
@@ -3850,6 +4413,19 @@ def main() -> int:
         "staytime_day_examples_per_s": report["daily"]["staytime"]["day_examples_per_s"],
         "batch": DAILY_BATCH, "card": card}}), flush=True)
 
+    # -- 13. the main path: bf16 tables and moments; the classic updates ------
+    report["bf16"] = bf16_path(card, cycles_per_ms, report["train"]["launches_per_step"])
+    bf16 = report["bf16"]["launches"]
+    cases += report["bf16"]["cases"]
+    print(json.dumps({"bf16": {
+        "tables": report["bf16"]["tables"],
+        "train": {m: {k: {f: v.get(f) for f in ("value", "ms_per_step", "batch",
+                                                "launches_per_step", "w_live_entries",
+                                                "w_moved_step1")}
+                      for k, v in r.items()} for m, r in report["bf16"]["train"].items()},
+        "classic": {k: v["launches"] for k, v in report["bf16"]["classic"].items()},
+        "card": card}}), flush=True)
+
     # -- report ----------------------------------------------------------------
     # the serving folds at the largest serving bucket, the train kernels
     # (K5 among them: the serving paths take K6) at the train batch, the
@@ -3857,7 +4433,8 @@ def main() -> int:
     # the DIN pool at the staytime bulk batch; K6 at autoint's predict batch
     # and F = 24
     headline = {}
-    for c in cases:
+    fp32 = [c for c in cases if c.get("dtype", "fp32") == "fp32"]
+    for c in fp32:
         serve = c["name"] in ("fold_mean", "fold_rows")
         want_b = STAYTIME_BATCH if c["name"] == "din_pool" else (
             256 if serve else BIG_BATCH)
@@ -3902,13 +4479,13 @@ def main() -> int:
         c = headline[name]
         launches = (serving[name] + training[name] + staytime[name] + interacting[name]
                     + towers[name] + rough[name] + stacked[name] + staytime_train[name]
-                    + evaluation[name] + daily[name])
+                    + evaluation[name] + daily[name] + bf16.get(name, 0))
         if launches < 1:
             raise AssertionError(f"{name} was not launched on the main paths")
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches,
-            "max_abs_err": max(x["max_abs_err"] for x in cases if x["name"] == name),
+            "max_abs_err": max(x["max_abs_err"] for x in fp32 if x["name"] == name),
             "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
             "host_ms": c["host_ms"], "b": c.get("b", BIG_BATCH)})

@@ -16,7 +16,12 @@ what the JAX side hands over as numpy and imports no JAX:
   fields (Adam: ``m``, ``v``, ``t``; AdaGrad: ``g2sum``).  JAX autoint
   tables are stored in the packed-state layout (``w_p = [w | 0]``, ``m_p =
   [m | t]``, ``v_p = [v | show]`` lane groups); both views unpack them to
-  the per-row layout the port keeps.
+  the per-row layout the port keeps.  Each table array must come in the
+  type the port's engine stores it in (``storage_dtype`` for w, the
+  optimizer's ``init_state`` types for its fields, float32 for show), else
+  a ``ValueError`` names it: the JAX package hands bf16 tables and moments
+  over as numpy ``ml_dtypes.bfloat16`` arrays, which widen to float32
+  exactly and are stored in bf16 again.
 - ``opt_state``: optax's Adam state, as its ``ScaleByAdamState`` (or the
   chain tuple that holds one) with numpy leaves; None starts the dense Adam
   afresh.
@@ -80,6 +85,16 @@ def from_jax_numpy(bundle: ModelBundle, params: Mapping[str, Any],
     def to_dev(a):
         return torch.tensor(np.asarray(a, np.float32), device=bundle.device)
 
+    def table_field(skey, name, a, dtype):
+        """A table array on the device in ``dtype``, which must be its own
+        type already (bf16 through float32: exact both ways)."""
+        got = np.asarray(a).dtype.name
+        want = "bfloat16" if dtype == torch.bfloat16 else "float32"
+        if got != want:
+            raise ValueError(f"table {skey}: {name} is {got}, the engine stores it "
+                             f"in {want}")
+        return to_dev(a).to(dtype)
+
     state_tables = {}
     for skey, entry in tables.items():
         rows, dim = eng.storage[skey]
@@ -87,16 +102,18 @@ def from_jax_numpy(bundle: ModelBundle, params: Mapping[str, Any],
         if tuple(np.shape(w)) != (rows, dim):
             raise ValueError(f"table {skey}: shape {np.shape(w)}, expected "
                              f"{(rows, dim)}")
+        w_dtype = eng.storage_dtype(dim)
         if isinstance(entry, Mapping):
-            # the optimizer's fields and shapes, without allocating them
-            opt_shapes = {n: tuple(t.shape) for n, t in eng.sparse_opt.init_state(
-                (rows, dim), "meta").items()}
+            # the optimizer's fields, shapes and types, without allocating them
+            meta = eng.sparse_opt.init_state((rows, dim), "meta")
+            opt_shapes = {n: tuple(t.shape) for n, t in meta.items()}
             if set(entry["opt"]) != set(opt_shapes):
                 raise ValueError(f"table {skey}: optimizer state "
                                  f"{sorted(entry['opt'])}, expected {sorted(opt_shapes)}")
-            tstate = {"w": to_dev(w),
-                      "opt": {n: to_dev(entry["opt"][n]) for n in opt_shapes},
-                      "show": to_dev(entry["show"])}
+            tstate = {"w": table_field(skey, "w", w, w_dtype),
+                      "opt": {n: table_field(skey, n, entry["opt"][n], meta[n].dtype)
+                              for n in opt_shapes},
+                      "show": table_field(skey, "show", entry["show"], torch.float32)}
             for name, t, shape in ([(n, tstate["opt"][n], shp)
                                     for n, shp in opt_shapes.items()]
                                    + [("show", tstate["show"], (rows, 1))]):
@@ -104,7 +121,7 @@ def from_jax_numpy(bundle: ModelBundle, params: Mapping[str, Any],
                     raise ValueError(f"table {skey}: {name} of shape "
                                      f"{tuple(t.shape)}, expected {shape}")
         else:
-            tstate = {"w": to_dev(w),
+            tstate = {"w": table_field(skey, "w", w, w_dtype),
                       "opt": eng.sparse_opt.init_state((rows, dim), bundle.device),
                       "show": torch.zeros((rows, 1), device=bundle.device)}
         state_tables[skey] = tstate

@@ -17,20 +17,23 @@
 //
 // Two entries share the scorer:
 //  - din_pool_f32 takes the facts as a (B, T, H) tensor (strided views);
-//  - din_pool_gather_f32 gathers them itself from the embedding table: fact
-//    t of sample b is m * table[ids[b, t], lane0 : lane0 + H], with m the
-//    mask, and 0 where m is 0 (no table read there), which is what the fold
-//    K2 (fold.cu) writes and the staytime model then slices.  On the
-//    serving path this removes K2's (B*T, D) rows from device memory: K2
-//    wrote them (105 MB a sequence at B = 16384, D = 32) and the pool read
-//    half of each back.
+//  - din_pool_gather_f32 and din_pool_gather_bf16 gather them themselves
+//    from the embedding table (float32 or bfloat16 rows): fact t of sample
+//    b is m * table[ids[b, t], lane0 : lane0 + H], with m the mask, and 0
+//    where m is 0 (no table read there), which is what the fold K2
+//    (fold.cu) writes and the staytime model then slices.  On the serving
+//    path this removes K2's (B*T, D) rows from device memory: K2 wrote them
+//    (105 MB a sequence at B = 16384, D = 32) and the pool read half of
+//    each back.  A bf16 lane becomes float32 as it is loaded (exactly), so
+//    the tile, the scores and the pooling stay float32.
 //
 // Bound on the H100 (67 TFLOP/s float32, 3.35 TB/s): bytes.  In the folded
 // form below the function needs H*16 + 16 + H multiply-adds per (sample, t)
 // and 2*H*16 per sample: at B = 16384, T = 50, H = 16 that is 0.49 GFLOP
 // (7.3 us).  Facts given: 57.8 MB read and written once (17.3 us).
 // Gathered: ids and mask 6.6 MB, the live 64-byte half-rows at most 52.4
-// MB, query and output 2.1 MB (about 18 us).  The TPU kernel's own count of
+// MB (32-byte windows, 26.2 MB, from a bf16 table), query and output 2.1 MB
+// (about 18 us; 10 from bf16).  The TPU kernel's own count of
 // the unfolded features (din_pallas.py:64-67), 1.73 GFLOP, overstates the
 // work.
 //
@@ -54,10 +57,11 @@
 // the score, and the pooling pass reads the facts again, H lanes per row.
 //
 // Gathered, the warp first copies its sample's T half-rows into a tile in
-// shared memory, 4 lanes a half-row, each lane one 16-byte chunk, so one
-// load instruction moves 8 half-rows (8 rows, 2 sectors each) and each lane
-// has up to 8 loads in flight before it stores any; the tile holds
-// m * row.  The scoring pass and the pooling pass then both read the tile,
+// shared memory, 4 lanes a half-row, each lane one chunk of 4 lanes (16
+// bytes of a float32 row, 8 of a bf16 one), so one load instruction moves 8
+// half-rows (8 rows, 2 sectors each; 1 from bf16) and each lane has up to 8
+// loads in flight before it stores any; the tile holds m * row in
+// float32.  The scoring pass and the pooling pass then both read the tile,
 // so the table is read once per (sample, t).  The scoring pass skips the
 // masked positions (their score is MASK_PAD whatever the scorer says): a
 // warp whose live positions all lie below t = 32 makes one pass, not two.
@@ -236,8 +240,9 @@ __device__ __forceinline__ float4 scale(float m, const float4& v) {
   return make_float4(m * v.x, m * v.y, m * v.z, m * v.w);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
-din_pool_gather_kernel(const float* __restrict__ q, const float* __restrict__ table,
+din_pool_gather_kernel(const float* __restrict__ q, const T* __restrict__ table,
                        const int* __restrict__ ids, const float* __restrict__ mask,
                        const float* __restrict__ w1, const float* __restrict__ b1,
                        const float* __restrict__ w2, const float* __restrict__ b2,
@@ -266,7 +271,8 @@ din_pool_gather_kernel(const float* __restrict__ q, const float* __restrict__ ta
   // tile row is m * row, and p[t] holds m until its score replaces it
   const int r = lane / kChunks;
   const int c = lane % kChunks;
-  const float4* chunks = reinterpret_cast<const float4*>(table + lane0) + c;
+  using Raw = typename Lanes<T, 4>::Raw;
+  const Raw* chunks = reinterpret_cast<const Raw*>(table + lane0) + c;
   const size_t row4 = static_cast<size_t>(d / 4);
   for (int t0 = 0; t0 < t; t0 += kLoadRows * kInFlight) {
     float m[kInFlight];
@@ -277,17 +283,18 @@ din_pool_gather_kernel(const float* __restrict__ q, const float* __restrict__ ta
       m[i] = ti < t ? ms[ti] : 0.f;
       id[i] = ti < t ? is[ti] : 0;
     }
-    float4 v[kInFlight];
+    Raw v[kInFlight];
 #pragma unroll
     for (int i = 0; i < kInFlight; ++i) {
-      v[i] = m[i] != 0.f ? __ldg(chunks + static_cast<size_t>(id[i]) * row4)
-                         : make_float4(0.f, 0.f, 0.f, 0.f);
+      v[i] = m[i] != 0.f ? __ldg(chunks + static_cast<size_t>(id[i]) * row4) : Raw{};
     }
 #pragma unroll
     for (int i = 0; i < kInFlight; ++i) {
       const int ti = t0 + i * kLoadRows + r;
       if (ti < t) {
-        tile[ti * kChunks + swizzle(ti, c)] = scale(m[i], v[i]);
+        float f[4];
+        Lanes<T, 4>::widen(v[i], f);
+        tile[ti * kChunks + swizzle(ti, c)] = scale(m[i], make_float4(f[0], f[1], f[2], f[3]));
         if (c == 0) p[ti] = m[i];
       }
     }
@@ -355,15 +362,14 @@ RS_EXPORT int din_pool_f32(const float* q, const float* facts, const float* mask
   return static_cast<int>(cudaGetLastError());
 }
 
-// q (B, H) with row stride qb; table (rows, D) contiguous, 16-byte aligned,
-// D % 4 == 0; ids (B, T) int32 and mask (B, T) float contiguous; facts are
-// the lanes [lane0, lane0 + H) of each row, lane0 % 4 == 0; weights and out
-// as din_pool_f32.  T >= 1 (the wrapper caps T at 512).
-RS_EXPORT int din_pool_gather_f32(const float* q, const float* table, const int* ids,
-                                  const float* mask, const float* w1, const float* b1,
-                                  const float* w2, const float* b2, float* out,
-                                  long long b, int t, long long qb, int d, int lane0,
-                                  cudaStream_t stream) {
+namespace {
+
+// the gathering launch over a table of T: see din_pool_gather_f32
+template <typename T>
+int launch_gather(const float* q, const T* table, const int* ids, const float* mask,
+                  const float* w1, const float* b1, const float* w2, const float* b2,
+                  float* out, long long b, int t, long long qb, int d, int lane0,
+                  cudaStream_t stream) {
   const size_t per_warp = sizeof(float) * (H + 1) * static_cast<size_t>(t);
   if (t < 1 || d % 4 || lane0 % 4 || lane0 + H > d || !aligned16(table) ||
       !aligned16(out) || per_warp > kMaxDynamic) {
@@ -375,11 +381,36 @@ RS_EXPORT int din_pool_gather_f32(const float* q, const float* table, const int*
   // the static scorer and the dynamic tiles together pass the default 48
   // KB from T = 66 on: opt in once to kMaxDynamic
   static const cudaError_t raised = cudaFuncSetAttribute(
-      din_pool_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      din_pool_gather_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kMaxDynamic));
   if (raised != cudaSuccess) return static_cast<int>(raised);
   const unsigned int blocks = static_cast<unsigned int>((b + warps - 1) / warps);
-  din_pool_gather_kernel<<<blocks, warps * 32, smem, stream>>>(
+  din_pool_gather_kernel<T><<<blocks, warps * 32, smem, stream>>>(
       q, table, ids, mask, w1, b1, w2, b2, out, b, t, qb, d, lane0);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// q (B, H) with row stride qb; table (rows, D) float32 contiguous, 16-byte
+// aligned, D % 4 == 0; ids (B, T) int32 and mask (B, T) float contiguous;
+// facts are the lanes [lane0, lane0 + H) of each row, lane0 % 4 == 0;
+// weights and out as din_pool_f32.  T >= 1 (the wrapper caps T at 512).
+RS_EXPORT int din_pool_gather_f32(const float* q, const float* table, const int* ids,
+                                  const float* mask, const float* w1, const float* b1,
+                                  const float* w2, const float* b2, float* out,
+                                  long long b, int t, long long qb, int d, int lane0,
+                                  cudaStream_t stream) {
+  return launch_gather(q, table, ids, mask, w1, b1, w2, b2, out, b, t, qb, d, lane0, stream);
+}
+
+// din_pool_gather_f32 over a (rows, D) bfloat16 table, with the same
+// conditions.
+RS_EXPORT int din_pool_gather_bf16(const float* q, const void* table, const int* ids,
+                                   const float* mask, const float* w1, const float* b1,
+                                   const float* w2, const float* b2, float* out,
+                                   long long b, int t, long long qb, int d, int lane0,
+                                   cudaStream_t stream) {
+  return launch_gather(q, static_cast<const bf16*>(table), ids, mask, w1, b1, w2, b2, out,
+                       b, t, qb, d, lane0, stream);
 }

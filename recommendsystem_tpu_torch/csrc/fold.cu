@@ -5,9 +5,11 @@
 // kernel at packed.py:273, pallas_call at :307) and ::fold_rows (:327,
 // pallas_call at :347).  On the TPU the table was first gathered as 128-lane
 // physical rows by an XLA take (packed.py:589) and the kernel selected each
-// id's D-lane group in VMEM.  Here the table stays (rows, D) float32 and
-// contiguous, and the gather is fused into the fold: the (E, 128) wide
-// stream never exists.
+// id's D-lane group in VMEM.  Here the table stays (rows, D), float32 or
+// bfloat16, contiguous, and the gather is fused into the fold: the (E, 128)
+// wide stream never exists.  A bf16 lane becomes float32 as it is loaded
+// (exactly: its bits are the float's high half); the sums and the output
+// are float32, as the JAX kernels convert lanes at use (packed.py:130).
 //
 //   fold_mean: out[c*B + b, :] = sum_j mask[c, j, b] * table[ids[c, j, b], :]
 //              ids/mask l-major: slot j of row b of column c at (c*L + j)*B + b
@@ -15,8 +17,8 @@
 //
 // Bound on the H100 (3.35 TB/s HBM, 67 TFLOP/s float32): bytes.  Per output
 // row the fold reads L ids and L masks (4 B each) and up to L table rows
-// (D*4 B: one 32-B sector at D=8) and writes D*4 B; L*D multiply-adds are
-// far below the float32 rate.
+// (D*4 B: one 32-B sector at D=8; D*2 B for a bf16 table) and writes D*4 B;
+// L*D multiply-adds are far below the float32 rate.
 //
 // Each is one grouped launch over the segments of a call (a predict or
 // train step has 24-49 of them, each a few microseconds of work): the
@@ -24,9 +26,11 @@
 // struct (read from the constant bank through __grid_constant__), with a
 // prefix table of block starts by which a block finds its member; blocks
 // are numbered member by member.  Within a member:
-//  - a row is D/4 threads of 16-byte table loads when D % 4 == 0 and the
-//    table and the output are 16-byte aligned, else D threads of one float
-//    each;
+//  - a row is D/V threads of 16-byte table loads when the table and the
+//    output are 16-byte aligned and V divides D (V = 4 float32 lanes, or 8
+//    bf16 lanes: D 8, 16, 32, 48, 56), else D threads of one lane each; the
+//    table's type rides in each member's descriptor, so one launch may hold
+//    float32 and bf16 members;
 //  - fold_mean: a thread first loads the ids and masks of up to kChunk
 //    slots of its row (l-major, so neighbouring rows read neighbouring
 //    words), then issues those slots' table loads, each predicated on
@@ -53,7 +57,7 @@ constexpr int kChunk = 8;             // fold_mean: slots whose table loads fly 
 constexpr int kRowsPerThread = 4;     // fold_rows: units whose table loads fly together
 
 struct Segment {
-  const float* table;
+  const void* table;
   const int* ids;
   const float* mask;
   float* out;
@@ -61,17 +65,19 @@ struct Segment {
   int b;
   int l;
   int d;
-  int vec;      // 4: float4 lanes; 1: one float a lane
+  int vec;      // lanes a thread moves: 4 (float32) or 8 (bf16) in 16 bytes, or 1
+  int bf16;     // 1: the table's rows are bfloat16
 };
 
 struct Rows {
-  const float* table;
+  const void* table;
   const int* ids;
   const float* mask;
   float* out;
   int e;        // entries (output rows)
   int d;
-  int vec;      // 4: float4 lanes; 1: one float a lane
+  int vec;      // lanes a thread moves: 4 (float32) or 8 (bf16) in 16 bytes, or 1
+  int bf16;     // 1: the table's rows are bfloat16
 };
 
 using Group = Grouped<Segment, kMaxMembers>;
@@ -80,20 +86,11 @@ using RowsGroup = Grouped<Rows, kMaxMembers>;
 static_assert(sizeof(Group) <= 4096, "Group exceeds 4 KB of kernel parameters");
 static_assert(sizeof(RowsGroup) <= 4096, "RowsGroup exceeds 4 KB of kernel parameters");
 
-__device__ __forceinline__ void zero(float& x) { x = 0.f; }
-__device__ __forceinline__ void zero(float4& x) { x = make_float4(0.f, 0.f, 0.f, 0.f); }
-__device__ __forceinline__ void add_scaled(float& acc, float m, float v) { acc += m * v; }
-__device__ __forceinline__ void add_scaled(float4& acc, float m, const float4& v) {
-  acc.x += m * v.x;
-  acc.y += m * v.y;
-  acc.z += m * v.z;
-  acc.w += m * v.w;
-}
-
-// thread t of the segment: row t / (D/V), lanes V * (t % (D/V)) onward
-template <int V>
+// thread t of the segment: row t / (D/V), lanes V * (t % (D/V)) onward; the
+// table's lanes are of type T, the sums and the output float32
+template <typename T, int V>
 __device__ __forceinline__ void fold_segment(const Segment& s, int t) {
-  using Vec = typename VecOf<V>::type;
+  using Raw = typename Lanes<T, V>::Raw;
   const int per_row = s.d / V;
   const int x = t / per_row;
   if (x >= s.rows) return;
@@ -102,9 +99,10 @@ __device__ __forceinline__ void fold_segment(const Segment& s, int t) {
   const int bi = x - ci * s.b;
   const int* ids = s.ids + ci * s.l * s.b + bi;
   const float* mask = s.mask + ci * s.l * s.b + bi;
-  const Vec* table = reinterpret_cast<const Vec*>(s.table) + lane;
-  Vec acc;
-  zero(acc);
+  const Raw* table = reinterpret_cast<const Raw*>(s.table) + lane;
+  float acc[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) acc[k] = 0.f;
   for (int j0 = 0; j0 < s.l; j0 += kChunk) {
     int id[kChunk];
     float m[kChunk];
@@ -114,21 +112,27 @@ __device__ __forceinline__ void fold_segment(const Segment& s, int t) {
       m[k] = j < s.l ? mask[j * s.b] : 0.f;
       id[k] = j < s.l ? ids[j * s.b] : 0;
     }
-    Vec v[kChunk];
+    Raw v[kChunk];
 #pragma unroll
     for (int k = 0; k < kChunk; ++k) {
       if (m[k] != 0.f) {
         v[k] = table[static_cast<size_t>(id[k]) * per_row];
       } else {
-        zero(v[k]);
+        v[k] = Raw{};
       }
     }
 #pragma unroll
     for (int k = 0; k < kChunk; ++k) {
-      if (m[k] != 0.f) add_scaled(acc, m[k], v[k]);
+      if (m[k] != 0.f) {
+        float f[V];
+        Lanes<T, V>::widen(v[k], f);
+#pragma unroll
+        for (int i = 0; i < V; ++i) acc[i] += m[k] * f[i];
+      }
     }
   }
-  reinterpret_cast<Vec*>(s.out)[x * per_row + lane] = acc;
+  reinterpret_cast<typename Lanes<float, V>::Raw*>(s.out)[x * per_row + lane] =
+      Lanes<float, V>::narrow(acc);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -137,23 +141,29 @@ fold_mean_group_kernel(const __grid_constant__ Group g) {
   const int member = g.member_of(blk);
   const Segment& s = g.s[member];
   const int t = (blk - g.block_start[member]) * kThreads + static_cast<int>(threadIdx.x);
-  if (s.vec == 4) {
-    fold_segment<4>(s, t);
+  if (s.bf16) {
+    if (s.vec == 8) {
+      fold_segment<bf16, 8>(s, t);
+    } else {
+      fold_segment<bf16, 1>(s, t);
+    }
+  } else if (s.vec == 4) {
+    fold_segment<float, 4>(s, t);
   } else {
-    fold_segment<1>(s, t);
+    fold_segment<float, 1>(s, t);
   }
 }
 
 // block blk of the member: units (blk * kRowsPerThread + k) * kThreads +
 // threadIdx.x, k < kRowsPerThread; unit u is row u / (D/V), lanes V * (u %
 // (D/V)) onward
-template <int V>
+template <typename T, int V>
 __device__ __forceinline__ void fold_rows_member(const Rows& s, int blk) {
-  using Vec = typename VecOf<V>::type;
+  using Raw = typename Lanes<T, V>::Raw;
   // unsigned: a unit past the member's end (units < 2^31) stays below 2^32
   const unsigned per_row = static_cast<unsigned>(s.d / V);
   const unsigned units = static_cast<unsigned>(s.e) * per_row;
-  const Vec* table = reinterpret_cast<const Vec*>(s.table);
+  const Raw* table = reinterpret_cast<const Raw*>(s.table);
   unsigned u[kRowsPerThread];
   int id[kRowsPerThread];
   float m[kRowsPerThread];
@@ -164,23 +174,29 @@ __device__ __forceinline__ void fold_rows_member(const Rows& s, int blk) {
     m[k] = u[k] < units ? s.mask[x] : 0.f;
     id[k] = u[k] < units ? s.ids[x] : 0;
   }
-  Vec v[kRowsPerThread];
+  Raw v[kRowsPerThread];
 #pragma unroll
   for (int k = 0; k < kRowsPerThread; ++k) {
     if (m[k] != 0.f) {
       const unsigned lane = u[k] % per_row;
       v[k] = table[static_cast<size_t>(id[k]) * per_row + lane];
     } else {
-      zero(v[k]);
+      v[k] = Raw{};
     }
   }
 #pragma unroll
   for (int k = 0; k < kRowsPerThread; ++k) {
     if (u[k] < units) {
-      Vec o;
-      zero(o);
-      if (m[k] != 0.f) add_scaled(o, m[k], v[k]);
-      reinterpret_cast<Vec*>(s.out)[u[k]] = o;
+      float o[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) o[i] = 0.f;
+      if (m[k] != 0.f) {
+        float f[V];
+        Lanes<T, V>::widen(v[k], f);
+#pragma unroll
+        for (int i = 0; i < V; ++i) o[i] += m[k] * f[i];
+      }
+      reinterpret_cast<typename Lanes<float, V>::Raw*>(s.out)[u[k]] = Lanes<float, V>::narrow(o);
     }
   }
 }
@@ -190,11 +206,25 @@ fold_rows_group_kernel(const __grid_constant__ RowsGroup g) {
   const int blk = blockIdx.x;
   const int member = g.member_of(blk);
   const Rows& s = g.s[member];
-  if (s.vec == 4) {
-    fold_rows_member<4>(s, blk - g.block_start[member]);
+  const int b = blk - g.block_start[member];
+  if (s.bf16) {
+    if (s.vec == 8) {
+      fold_rows_member<bf16, 8>(s, b);
+    } else {
+      fold_rows_member<bf16, 1>(s, b);
+    }
+  } else if (s.vec == 4) {
+    fold_rows_member<float, 4>(s, b);
   } else {
-    fold_rows_member<1>(s, blk - g.block_start[member]);
+    fold_rows_member<float, 1>(s, b);
   }
+}
+
+// lanes a thread moves for a table of D lanes (bf16 or not) into out: 16
+// bytes of the table where V divides D and both are 16-byte aligned
+int vec_of(long long d, bool is_bf16, const void* table, const void* out) {
+  const int v = is_bf16 ? 8 : 4;
+  return (d % v == 0 && aligned16(table) && aligned16(out)) ? v : 1;
 }
 
 }  // namespace
@@ -202,27 +232,28 @@ fold_rows_group_kernel(const __grid_constant__ RowsGroup g) {
 // Members a launch takes, of either group: the wrapper cuts larger groups.
 RS_EXPORT int fold_max_members() { return kMaxMembers; }
 
-// n segments (1 <= n <= kMaxMembers), each 8 host words: table, ids, mask,
-// out (device pointers), then C, L, B, D.  Each segment needs C, L, B, D
-// >= 1 and C*L*B and C*B*D below 2^31 (the wrapper checks; refused here
-// with cudaErrorInvalidValue).
-RS_EXPORT int fold_mean_group_f32(const long long* desc, int n, cudaStream_t stream) {
+// n segments (1 <= n <= kMaxMembers), each 9 host words: table, ids, mask,
+// out (device pointers), then C, L, B, D and the table's type (0 float32, 1
+// bfloat16).  Each segment needs C, L, B, D >= 1 and C*L*B and C*B*D below
+// 2^31 (the wrapper checks; refused here with cudaErrorInvalidValue).
+RS_EXPORT int fold_mean_group(const long long* desc, int n, cudaStream_t stream) {
   if (n < 1 || n > kMaxMembers) return static_cast<int>(cudaErrorInvalidValue);
   Group g;
   long long blocks = 0;
   for (int i = 0; i < n; ++i) {
-    const long long* w = desc + 8 * i;
-    const long long c = w[4], l = w[5], b = w[6], d = w[7];
+    const long long* w = desc + 9 * i;
+    const long long c = w[4], l = w[5], b = w[6], d = w[7], type = w[8];
     if (c < 1 || l < 1 || b < 1 || d < 1 || c * l * b > 0x7fffffffLL ||
-        c * b * d > 0x7fffffffLL) {
+        c * b * d > 0x7fffffffLL || (type != 0 && type != 1)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    const float* table = reinterpret_cast<const float*>(w[0]);
+    const void* table = reinterpret_cast<const void*>(w[0]);
     float* out = reinterpret_cast<float*>(w[3]);
-    const int vec = (d % 4 == 0 && aligned16(table) && aligned16(out)) ? 4 : 1;
+    const int vec = vec_of(d, type == 1, table, out);
     const Segment s{table, reinterpret_cast<const int*>(w[1]),
                     reinterpret_cast<const float*>(w[2]), out, static_cast<int>(c * b),
-                    static_cast<int>(b), static_cast<int>(l), static_cast<int>(d), vec};
+                    static_cast<int>(b), static_cast<int>(l), static_cast<int>(d), vec,
+                    static_cast<int>(type)};
     if (!g.add(i, s, (c * b * (d / vec) + kThreads - 1) / kThreads, blocks)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -232,25 +263,26 @@ RS_EXPORT int fold_mean_group_f32(const long long* desc, int n, cudaStream_t str
   return static_cast<int>(cudaGetLastError());
 }
 
-// n members (1 <= n <= kMaxMembers), each 6 host words: table, ids, mask,
-// out (device pointers), then E, D.  Each member needs E, D >= 1 and E*D
-// below 2^31 (the wrapper checks; refused here with cudaErrorInvalidValue).
-RS_EXPORT int fold_rows_group_f32(const long long* desc, int n, cudaStream_t stream) {
+// n members (1 <= n <= kMaxMembers), each 7 host words: table, ids, mask,
+// out (device pointers), then E, D and the table's type (0 float32, 1
+// bfloat16).  Each member needs E, D >= 1 and E*D below 2^31 (the wrapper
+// checks; refused here with cudaErrorInvalidValue).
+RS_EXPORT int fold_rows_group(const long long* desc, int n, cudaStream_t stream) {
   if (n < 1 || n > kMaxMembers) return static_cast<int>(cudaErrorInvalidValue);
   RowsGroup g;
   long long blocks = 0;
   for (int i = 0; i < n; ++i) {
-    const long long* w = desc + 6 * i;
-    const long long e = w[4], d = w[5];
-    if (e < 1 || d < 1 || e * d > 0x7fffffffLL) {
+    const long long* w = desc + 7 * i;
+    const long long e = w[4], d = w[5], type = w[6];
+    if (e < 1 || d < 1 || e * d > 0x7fffffffLL || (type != 0 && type != 1)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    const float* table = reinterpret_cast<const float*>(w[0]);
+    const void* table = reinterpret_cast<const void*>(w[0]);
     float* out = reinterpret_cast<float*>(w[3]);
-    const int vec = (d % 4 == 0 && aligned16(table) && aligned16(out)) ? 4 : 1;
+    const int vec = vec_of(d, type == 1, table, out);
     const Rows s{table, reinterpret_cast<const int*>(w[1]),
                  reinterpret_cast<const float*>(w[2]), out, static_cast<int>(e),
-                 static_cast<int>(d), vec};
+                 static_cast<int>(d), vec, static_cast<int>(type)};
     const long long per_block = static_cast<long long>(kThreads) * kRowsPerThread;
     if (!g.add(i, s, (e * (d / vec) + per_block - 1) / per_block, blocks)) {
       return static_cast<int>(cudaErrorInvalidValue);

@@ -6,9 +6,10 @@
 // apply_gradients_packed (:714-731) applies
 // recommendsystem_tpu/embedding/optimizers.py::SparseAdaGrad.update (:99) to
 // each storage and adds the counts to show.  Here each storage keeps the
-// classic per-row layout: w (rows, D), g2sum and show (rows, 1) float32, all
-// contiguous; acc is the accumulator that the unfold-scatter kernels filled,
-// rows*(D+1) floats laid out as a (rows, D) block of gradient sums G
+// classic per-row layout: w (rows, D) float32 or bfloat16, g2sum and show
+// (rows, 1) float32, all contiguous; acc is the accumulator that the
+// unfold-scatter kernels filled, rows*(D+1) floats laid out as a (rows, D)
+// block of gradient sums G
 // followed by a (rows,) block of counts N.  For a row with count
 // c = N[r] > 0:
 //
@@ -16,6 +17,9 @@
 //   w[r, l] -= lr * G[r, l] / sqrt(g2sum)
 //   show += c;  G[r, :] = 0;  N[r] = 0
 //
+// The arithmetic is float32: a bf16 w is widened as it is loaded (exactly)
+// and rounded to nearest even as it is stored (__float2bfloat16_rn, as
+// torch's .to(torch.bfloat16) and XLA's convert round).
 // A row with count 0 reads its count and nothing else, and writes nothing:
 // w, g2sum and show stay bit-identical, and its accumulator row is already
 // zero.  Zeroing the live rows here means the next step needs no memset of
@@ -25,9 +29,10 @@
 // them into an FMA and each rounds as float32 does; the sum's order differs
 // from the host's vectorised mean, by a rounding of g2sum at most.
 //
-// Bound on the H100: bytes.  A live row moves 4 * (4 D + 6) B (G and its
-// count read and zeroed; w, g2sum and show read and written), a dead row its
-// count.  Design, as K8 (csrc/sparse_adam.cu):
+// Bound on the H100: bytes.  A live row moves 4 * (2 D + 6) B (G and its
+// count read and zeroed; g2sum and show read and written) and 2 D sw B of w
+// read and written (sw: 4 float32, 2 bf16), a dead row its count.
+// Design, as K8 (csrc/sparse_adam.cu):
 //  - one launch for a group of up to kMaxStorages storages: their pointers,
 //    rows and D travel by value in the kernel's parameter struct (read from
 //    the constant bank through __grid_constant__), with a prefix table of
@@ -40,8 +45,9 @@
 //    else one float at a time), sums the squares in lane order, updates
 //    g2sum and show, clears the count and leaves the row's sqrt(g2sum) in
 //    shared memory;
-//  - then w and G of the live rows move as 16-byte vectors in one trip,
-//    a thread a vector: w steps, G is stored back as zeros.  G's second
+//  - then w and G of the live rows move 4 lanes a thread (16 bytes of G,
+//    16 or 8 of w) in one trip: w steps, G is stored back as zeros.  The
+//    storage's type of w rides in the parameter struct.  G's second
 //    read finds the lines the first one brought into L1.
 
 #include "common.cuh"
@@ -55,7 +61,7 @@ constexpr int kTileRows = kThreads;   // rows a block: one thread a row
 constexpr int kMaxD = 0x7fffffff / kTileRows;
 
 struct Storage {
-  float* w;
+  void* w;
   float* g2sum;
   float* show;
   float* acc;
@@ -65,6 +71,7 @@ struct Storage {
 
 struct Group : Grouped<Storage, kMaxStorages> {
   float lr;
+  unsigned char w_bf16[kMaxStorages];  // 1: the storage's w is bfloat16
 };
 // kept within the 4 KB of kernel parameters every CUDA 12 driver accepts
 static_assert(sizeof(Group) <= 4096, "Group exceeds 4 KB of kernel parameters");
@@ -85,31 +92,46 @@ __device__ __forceinline__ float sum_squares(const float* grow, int d) {
 }
 
 // w and G of the tile's live rows (live_s, n_live of them, in row order),
-// V floats a thread at a time; G is stored back as zeros
-template <int V>
+// V lanes a thread at a time, w of type TW; G is stored back as zeros
+template <int V, typename TW>
 __device__ __forceinline__ void adagrad_rows(const Storage& st, float lr, long long r0,
                                              int n_live, const int* live_s,
                                              const float* root_s) {
-  using Vec = typename VecOf<V>::type;
+  using W = Lanes<TW, V>;
+  using G = Lanes<float, V>;
   const int per_row = st.d / V;
   const int units = n_live * per_row;
-  Vec* w = reinterpret_cast<Vec*>(st.w + r0 * st.d);
-  Vec* gsum = reinterpret_cast<Vec*>(st.acc + r0 * st.d);
+  auto* w = reinterpret_cast<typename W::Raw*>(static_cast<TW*>(st.w) + r0 * st.d);
+  auto* gsum = reinterpret_cast<typename G::Raw*>(st.acc + r0 * st.d);
   for (int u = threadIdx.x; u < units; u += kThreads) {
     const int li = u / per_row;
     const int at = live_s[li] * per_row + (u - li * per_row);
-    Vec wv = w[at];
-    Vec gv = gsum[at];
+    const typename W::Raw wv = w[at];
+    const typename G::Raw gv = gsum[at];
     const float root = root_s[li];
-    float* wf = reinterpret_cast<float*>(&wv);
-    float* gf = reinterpret_cast<float*>(&gv);
+    float wf[V], gf[V];
+    W::widen(wv, wf);
+    G::widen(gv, gf);
 #pragma unroll
     for (int l = 0; l < V; ++l) {
       wf[l] = __fsub_rn(wf[l], __fdiv_rn(__fmul_rn(lr, gf[l]), root));
       gf[l] = 0.f;
     }
-    w[at] = wv;
-    gsum[at] = gv;
+    w[at] = W::narrow(wf);
+    gsum[at] = G::narrow(gf);
+  }
+}
+
+// adagrad_rows 4 lanes a thread where vec (D % 4 == 0, G's tile rows
+// 16-byte aligned) holds and w's are aligned to 4 lanes of its type, else
+// one lane a thread
+template <typename TW>
+__device__ __forceinline__ void rows_of(const Storage& st, float lr, long long r0, int n_live,
+                                        const int* live_s, const float* root_s, bool vec) {
+  if (vec && aligned_to(static_cast<TW*>(st.w) + r0 * st.d, 4 * sizeof(TW))) {
+    adagrad_rows<4, TW>(st, lr, r0, n_live, live_s, root_s);
+  } else {
+    adagrad_rows<1, TW>(st, lr, r0, n_live, live_s, root_s);
   }
 }
 
@@ -126,7 +148,7 @@ sparse_adagrad_group_kernel(const __grid_constant__ Group g) {
   const long long r0 = static_cast<long long>(blk - g.block_start[member]) * kTileRows;
   const int nr = static_cast<int>(min(static_cast<long long>(kTileRows), st.rows - r0));
   float* counts = st.acc + static_cast<long long>(st.rows) * d;
-  const bool vec = (d & 3) == 0 && aligned16(st.w + r0 * d) && aligned16(st.acc + r0 * d);
+  const bool vec = (d & 3) == 0 && aligned16(st.acc + r0 * d);
 
   // 1. thread r looks at row r's count
   const int r = threadIdx.x;
@@ -164,10 +186,10 @@ sparse_adagrad_group_kernel(const __grid_constant__ Group g) {
   __syncthreads();
 
   // 4. w and G of the live rows
-  if (vec) {
-    adagrad_rows<4>(st, g.lr, r0, n_live, live_s, root_s);
+  if (g.w_bf16[member]) {
+    rows_of<bf16>(st, g.lr, r0, n_live, live_s, root_s, vec);
   } else {
-    adagrad_rows<1>(st, g.lr, r0, n_live, live_s, root_s);
+    rows_of<float>(st, g.lr, r0, n_live, live_s, root_s, vec);
   }
 }
 
@@ -178,19 +200,22 @@ RS_EXPORT int sparse_adagrad_max_storages() { return kMaxStorages; }
 RS_EXPORT int sparse_adagrad_max_d() { return kMaxD; }
 
 // n storages (1 <= n <= kMaxStorages): ptrs holds n x 4 device pointers
-// (w, g2sum, show, acc), rows and d one entry each, all in host memory.
-RS_EXPORT int sparse_adagrad_group_f32(const unsigned long long* ptrs,
-                                       const long long* rows, const int* d, int n,
-                                       float lr, cudaStream_t stream) {
+// (w, g2sum, show, acc), rows, d and kind one entry each (kind 1: w is
+// bfloat16, 0: float32), all in host memory.
+RS_EXPORT int sparse_adagrad_group(const unsigned long long* ptrs, const long long* rows,
+                                   const int* d, const int* kind, int n, float lr,
+                                   cudaStream_t stream) {
   if (n < 1 || n > kMaxStorages) return static_cast<int>(cudaErrorInvalidValue);
   Group g;
   long long blocks = 0;
   for (int s = 0; s < n; ++s) {
-    if (d[s] < 1 || d[s] > kMaxD || rows[s] < 0 || rows[s] > 0x7fffffffLL) {
+    if (d[s] < 1 || d[s] > kMaxD || rows[s] < 0 || rows[s] > 0x7fffffffLL || kind[s] < 0 ||
+        kind[s] > 1) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     const unsigned long long* p = ptrs + 4 * s;
-    const Storage st{reinterpret_cast<float*>(p[0]), reinterpret_cast<float*>(p[1]),
+    g.w_bf16[s] = static_cast<unsigned char>(kind[s]);
+    const Storage st{reinterpret_cast<void*>(p[0]), reinterpret_cast<float*>(p[1]),
                      reinterpret_cast<float*>(p[2]), reinterpret_cast<float*>(p[3]),
                      static_cast<int>(rows[s]), d[s]};
     if (!g.add(s, st, (rows[s] + kTileRows - 1) / kTileRows, blocks)) {

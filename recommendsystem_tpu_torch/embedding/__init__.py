@@ -7,4 +7,5 @@ from .feature_column import (  # noqa: F401
     category_column,
     embedding_column,
 )
+from .optimizers import SparseAdaGrad, SparseAdam, make_sparse_optimizer  # noqa: F401
 from .engine import EmbeddingFeatures, IdBatch, validate_batch  # noqa: F401

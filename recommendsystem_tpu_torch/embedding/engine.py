@@ -5,18 +5,28 @@ grouped into storages exactly as the JAX engine groups them (same storage
 keys, member offsets and padded row counts), so weights carry across one to
 one (``bridge.py``).  Each storage's state keeps the classic per-row layout
 of the JAX engine's ``classic_state``: ``{"w": (rows, D), "opt": ...,
-"show": (rows, 1)}``, float32, where ``opt`` is the sparse optimizer's
-state: ``{"m": (rows, D), "v": (rows, D), "t": (rows, 1)}`` for
-``SparseAdam``, ``{"g2sum": (rows, 1)}`` for ``SparseAdaGrad``.  On Hopper
-an 8-float row is one 32-byte sector, so the JAX package's 128-lane
-packed-state layout buys nothing here.
+"show": (rows, 1)}``, where ``opt`` is the sparse optimizer's state:
+``{"m": (rows, D), "v": (rows, D), "t": (rows, 1)}`` for ``SparseAdam``,
+``{"g2sum": (rows, 1)}`` for ``SparseAdaGrad``.  On Hopper an 8-float row
+is one 32-byte sector, so the JAX package's 128-lane packed-state layout
+buys nothing here.
 
-The classic ``lookup`` (gather, then combine) and the classic update path
-(``row_counts``, ``flatten_raw_grads``, ``apply_gradients_scatter``) are
-kept as the port's own oracles for the fused lookup and the packed update in
-``packed.py``.  ``evict`` and ``maybe_evict`` are the admission hook of the
-parameter server (rows seen too rarely start afresh).  Not here yet: the
-dense update path and the sharded paths (later slices of the port).
+Storage precision, as in the JAX engine: ``table_dtype`` (float32,
+bfloat16, or ``"auto"``: bf16 for rows of D >= 32) is the type w is stored
+in, ``SparseAdam.state_dtype`` that of m and v; t, show and g2sum are
+float32.  Lookups return float32 and every update computes in float32,
+rounding only what it stores.
+
+The classic ``lookup`` (gather, then combine) and the classic update paths
+(``row_counts``, ``flatten_raw_grads``, ``apply_gradients_scatter``, and
+``apply_gradients`` over gradients of the whole tables) are the train
+step's ``"scatter"`` and ``"dense"`` variants, the packed step's path for
+the storages that cannot pack, and the port's oracles for the fused lookup
+and the packed update in ``packed.py``.  ``packed=False`` leaves member
+offsets unaligned, as the JAX engine does, so that no storage packs.
+``evict`` and ``maybe_evict`` are the admission hook of the parameter
+server (rows seen too rarely start afresh).  Not here yet: the sharded
+paths (a later slice of the port).
 """
 
 from __future__ import annotations
@@ -94,14 +104,35 @@ def _combine(emb: torch.Tensor, mask: torch.Tensor, combiner: str) -> torch.Tens
 class EmbeddingFeatures:
     """A collection of embedding columns backed by per-slot tables, grouped
     into storages: ``storage`` maps storage_key -> (total_rows, dim);
-    ``table_map`` maps table_key -> (storage_key, row_offset, rows)."""
+    ``table_map`` maps table_key -> (storage_key, row_offset, rows).
+    ``table_dtype`` is the type w is stored in (``storage_dtype``: float32,
+    bfloat16, or by width for ``"auto"``); ``packed=False`` leaves member
+    offsets unaligned, so that no storage takes the fold path; the sparse
+    optimizer's ``state_dtype`` (Adam) stores its moments.  Storages and
+    offsets equal the JAX engine's for the same arguments."""
 
     def __init__(self, embedding_columns: List[EmbeddingColumn],
                  sparse_opt: Optional[Union[SparseAdam, SparseAdaGrad]] = None,
                  name: str = "sparse_emb_input", group_tables: bool = False,
-                 max_group_bytes: int = 40 << 20):
+                 table_dtype: Union[torch.dtype, str] = torch.float32,
+                 packed: bool = True, max_group_bytes: int = 40 << 20):
         self.name = name
         self.sparse_opt = SparseAdam() if sparse_opt is None else sparse_opt
+        if table_dtype not in (torch.float32, torch.bfloat16, "auto"):
+            raise ValueError(f"table_dtype {table_dtype!r}: expected torch.float32, "
+                             f"torch.bfloat16 or 'auto'")
+        # w's storage type; "auto": bf16 for rows of D >= 32, float32 for
+        # narrower ones, where a row's bytes fit one sector either way
+        self.table_dtype = table_dtype
+        # packed=True aligns member offsets to the JAX engine's lane packings
+        # (``stride_of``), which the fold path needs; False leaves them as
+        # they come, so that every storage takes the classic path
+        self.packed = packed
+        # the touched-rows crossover of the packed step: where the
+        # ``packed.state_packable`` storages of a step hold this many rows,
+        # they take ``packed.row_update_packed_storage`` instead of the
+        # accumulator and the lazy pass; off, as in the JAX engine
+        self.row_update_min_rows = 1 << 62
         # per (storage, device): the rows*(D+1) [grad sums | counts] accumulator
         # of the packed update, all zero between steps (the lazy-Adam pass
         # clears the rows it reads)
@@ -131,8 +162,9 @@ class EmbeddingFeatures:
         def stride_of(rows: int, dim: int) -> int:
             """Member stride: rows padded to a multiple of both 128-lane
             packings of the JAX engine, so that storages and offsets here
-            equal its own (the port itself keeps tables (rows, D))."""
-            if not packed_mod.packable(dim):
+            equal its own (the port itself keeps tables (rows, D)); with
+            ``packed=False`` the rows as they come."""
+            if not packed or not packed_mod.packable(dim):
                 return rows
             a = math.lcm(packed_mod.gather_pack(dim),
                          packed_mod.scatter_pack(dim))
@@ -146,6 +178,8 @@ class EmbeddingFeatures:
                 stride = stride_of(rows, dim)
                 per_chunk = len(members)
                 if max_group_bytes:
+                    # 4 bytes a value whatever table_dtype, as the JAX
+                    # engine reckons, so that both group alike
                     bytes_per = stride * dim * 4
                     per_chunk = max(1, min(per_chunk,
                                            max_group_bytes // max(1, bytes_per)))
@@ -170,16 +204,24 @@ class EmbeddingFeatures:
 
     # ---------------- state ----------------
 
+    def storage_dtype(self, dim: int) -> torch.dtype:
+        """The type w of a storage of rows of ``dim`` is stored in."""
+        if self.table_dtype == "auto":
+            return torch.bfloat16 if dim >= 32 else torch.float32
+        return self.table_dtype
+
     def init(self, generator: torch.Generator) -> Dict[str, Dict[str, torch.Tensor]]:
         """State on the generator's device, tables drawn in sorted storage
         order by ``sparse_opt.table_init`` (Adam: truncated normal on
         [-2, 2] divided by sqrt(D), the TF ``embedding_column`` default;
-        AdaGrad: uniform on +-initial_scale), ``sparse_opt.init_state`` and
-        zero show counts."""
+        AdaGrad: uniform on +-initial_scale) in float32 and stored in
+        ``storage_dtype``, ``sparse_opt.init_state`` and zero show
+        counts."""
         state = {}
         for skey, (rows, dim) in sorted(self.storage.items()):
             state[skey] = {
-                "w": self.sparse_opt.table_init(generator, (rows, dim)),
+                "w": self.sparse_opt.table_init(generator, (rows, dim),
+                                                dtype=self.storage_dtype(dim)),
                 "opt": self.sparse_opt.init_state((rows, dim),
                                                   generator.device),
                 "show": torch.zeros((rows, 1), dtype=torch.float32,
@@ -190,8 +232,9 @@ class EmbeddingFeatures:
               generator: Optional[torch.Generator] = None):
         """Rows seen fewer than ``min_show`` times start afresh: a new
         ``sparse_opt.table_init`` draw from ``generator`` (one whole-table
-        draw a storage, in sorted storage order, as ``init`` draws), the
-        optimizer's ``init_state`` and a zero show count, so that a row
+        draw a storage, in sorted storage order, as ``init`` draws, in w's
+        type), the optimizer's ``init_state`` (in each field's type) and a
+        zero show count, so that a row
         touched again is one created on first touch.  The other rows stay
         bit-identical.  ``min_show < 0`` does nothing.  Updates ``state``'s
         tensors in place, as the train step does, and returns ``state``;
@@ -205,11 +248,11 @@ class EmbeddingFeatures:
             tstate = state[skey]
             w = tstate["w"]
             keep = tstate["show"] >= min_show                        # (rows, 1)
-            fresh = self.sparse_opt.table_init(generator, tuple(w.shape))
+            fresh = self.sparse_opt.table_init(generator, tuple(w.shape), dtype=w.dtype)
             w.copy_(torch.where(keep, w, fresh))
             init = self.sparse_opt.init_state(tuple(w.shape), w.device)
             for name, cur in tstate["opt"].items():
-                cur.copy_(torch.where(keep, cur, init[name]))
+                cur.copy_(torch.where(keep, cur, init[name].to(cur.dtype)))
             tstate["show"].masked_fill_(~keep, 0.0)
         return state
 
@@ -221,8 +264,13 @@ class EmbeddingFeatures:
                           generator)
 
     def weights(self, state) -> Dict[str, torch.Tensor]:
-        """(rows, D) weights per storage."""
+        """(rows, D) weights per storage, in their storage type."""
         return {skey: t["w"] for skey, t in state.items()}
+
+    def raw_weights(self, state) -> Dict[str, torch.Tensor]:
+        """The weights as stored: ``weights``, since the port keeps every
+        storage in the classic (rows, D) layout."""
+        return self.weights(state)
 
     def classic_state(self, state):
         """The classic per-row view of the state, which is the layout the
@@ -337,8 +385,9 @@ class EmbeddingFeatures:
     def apply_gradients_scatter(self, state, flat):
         """Classic sparse update: per-table scatter-adds build a dense
         [grad | count] accumulator, then ``sparse_opt.update`` runs lazily
-        over each touched storage.  Returns a new state; ``state`` is not
-        modified."""
+        over each touched storage, in float32 from the stored w, which comes
+        back in its own type.  Returns a new state; ``state`` is not
+        modified (the untouched storages' entries are its own)."""
         new_state = {}
         for skey, tstate in state.items():
             members = self._storage_members(skey)
@@ -351,14 +400,15 @@ class EmbeddingFeatures:
                 if tkey in flat:
                     g_t, c_t = self._dense_grad_and_count(*flat[tkey], rows_t)
                 else:
-                    g_t = tstate["w"].new_zeros((rows_t, dim))
-                    c_t = tstate["w"].new_zeros((rows_t, 1))
+                    g_t = tstate["w"].new_zeros((rows_t, dim), dtype=torch.float32)
+                    c_t = tstate["w"].new_zeros((rows_t, 1), dtype=torch.float32)
                 g_parts.append(g_t)
                 c_parts.append(c_t)
             grad, cnt = torch.cat(g_parts), torch.cat(c_parts)
-            w, opt = self.sparse_opt.update(tstate["w"], grad, tstate["opt"],
+            w, opt = self.sparse_opt.update(tstate["w"].float(), grad, tstate["opt"],
                                             (cnt > 0).float())
-            new_state[skey] = {"w": w, "opt": opt, "show": tstate["show"] + cnt}
+            new_state[skey] = {"w": w.to(tstate["w"].dtype), "opt": opt,
+                               "show": tstate["show"] + cnt}
         return new_state
 
     def row_counts(self, batch: Dict[str, IdBatch]) -> Dict[str, torch.Tensor]:
@@ -376,3 +426,25 @@ class EmbeddingFeatures:
             counts[skey].index_add_(0, rows.reshape(-1).long(),
                                     ids.mask.reshape(-1).float())
         return {k: v[:, None] for k, v in counts.items()}
+
+    def apply_gradients(self, state, grads: Dict[str, torch.Tensor],
+                        counts: Dict[str, torch.Tensor]):
+        """The dense update path: ``grads`` {storage: (rows, D)} are the
+        gradients of the loss with respect to the stored weights (in w's
+        type: a bf16 table's gradient arrives in bf16, as the JAX package's
+        does through its cast), ``counts`` ``row_counts(batch)``.  Each
+        storage with a gradient takes ``sparse_opt.update`` over the whole
+        table, rows with a count > 0 stepping, in float32 from the stored w,
+        which comes back in its own type; show adds the counts.  Returns a
+        new state; ``state`` is not modified."""
+        new_state = {}
+        for skey, tstate in state.items():
+            g = grads.get(skey)
+            if g is None:
+                new_state[skey] = tstate
+                continue
+            w, opt = self.sparse_opt.update(tstate["w"].float(), g, tstate["opt"],
+                                            (counts[skey] > 0).float())
+            new_state[skey] = {"w": w.to(tstate["w"].dtype), "opt": opt,
+                               "show": tstate["show"] + counts[skey]}
+        return new_state

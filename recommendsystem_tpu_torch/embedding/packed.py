@@ -4,8 +4,13 @@
 The JAX package gathers 128-lane physical rows and folds them in Pallas
 kernels, and scatters 128-lane [grad | count] payloads, layouts the TPU's
 (8, 128) tiling asks for.  Here tables and their optimizer state stay
-``(rows, D)`` float32 and contiguous, and each kernel fuses the gather or
-the scatter it feeds or is fed by:
+``(rows, D)`` and contiguous, and each kernel fuses the gather or the
+scatter it feeds or is fed by.  A table is float32 or bfloat16 (the
+engine's ``table_dtype``), Adam's moments float32 or bfloat16
+(``SparseAdam.state_dtype``); the arithmetic is float32 everywhere, a bf16
+value is widened where it is read and rounded to nearest even where it is
+stored, and the folds' outputs, the accumulators, t, show and g2sum are
+float32:
 
   fold_mean  (K1)  l-major ids/mask of C columns x L slots x B rows ->
                    (C*B, D) masked sums over L; ``fold_mean_group`` folds
@@ -47,6 +52,12 @@ alone.  The 128-lane pack
 sizes survive only to size the engine's storages as the JAX engine does
 (``gather_pack``, ``scatter_pack``).
 
+``row_update_packed_storage`` is the JAX package's touched-rows update
+(sort, segment sum, update of the unique rows only), which the step takes
+for the ``state_packable`` storages once they hold
+``EmbeddingFeatures.row_update_min_rows`` rows; it is plain PyTorch, as the
+JAX package's is plain jnp.
+
 Each kernel wrapper takes its plain PyTorch version for a CPU tensor and
 launches its kernel for a CUDA tensor; there is no fallback from one to the
 other.
@@ -67,6 +78,14 @@ from .optimizers import SparseAdaGrad, SparseAdam
 
 _LANES = 128
 _I32 = 1 << 31          # the grouped kernels index a member in 32 bits
+# what the kernels read and write: tables (w) and Adam's moments
+ROW_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _is_bf16(t: torch.Tensor) -> int:
+    """A member's type word for the launchers: 1 for bfloat16, 0 for
+    float32."""
+    return int(t.dtype == torch.bfloat16)
 
 
 def gather_pack(d: int) -> int:
@@ -92,22 +111,23 @@ def packable(d: int) -> bool:
 
 def fold_mean_plain(table: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor,
                     c: int, l: int) -> torch.Tensor:
-    """(rows, D) table, l-major (C*L*B,) ids and mask -> (C*B, D) sums over
-    L of ``mask * table[id]``."""
+    """(rows, D) table, l-major (C*L*B,) ids and mask -> (C*B, D) float32
+    sums over L of ``mask * table[id]``."""
     d = table.shape[1]
     b = ids.shape[0] // (c * l)
-    rows = table[ids.long()] * mask[:, None]
+    rows = table[ids.long()].float() * mask[:, None]
     return rows.reshape(c, l, b, d).sum(1).reshape(c * b, d)
 
 
 def fold_rows_plain(table: torch.Tensor, ids: torch.Tensor,
                     mask: torch.Tensor) -> torch.Tensor:
-    """(rows, D) table, (E,) ids and mask -> (E, D) ``mask * table[id]``."""
-    return table[ids.long()] * mask[:, None]
+    """(rows, D) table, (E,) ids and mask -> (E, D) float32 ``mask *
+    table[id]``."""
+    return table[ids.long()].float() * mask[:, None]
 
 
 def _check_fold_args(table, ids, mask) -> None:
-    require(table, "table", torch.float32)
+    require(table, "table", ROW_DTYPES)
     if table.ndim != 2:
         raise ValueError(f"table: expected (rows, D), got {tuple(table.shape)}")
     require(ids, "ids", torch.int32, device=table.device)
@@ -154,10 +174,11 @@ def _group_device(items, what: str):
 
 def fold_mean_group(items) -> List[torch.Tensor]:
     """K1 over a group: ``items`` are ``(table, ids, mask, c, l)``, each as
-    ``fold_mean`` takes them (any l >= 1), all on one device.  Returns one
-    (C*B, D) float32 tensor per item, in order.  On a card one launch takes
-    up to 64 members (a larger group is cut into launches of 64); members
-    with no rows launch nothing."""
+    ``fold_mean`` takes them (any l >= 1), all on one device; float32 and
+    bf16 tables may share a group.  Returns one (C*B, D) float32 tensor per
+    item, in order.  On a card one launch takes up to 64 members (a larger
+    group is cut into launches of 64); members with no rows launch
+    nothing."""
     items = list(items)
     if not items:
         return []
@@ -179,9 +200,9 @@ def fold_mean_group(items) -> List[torch.Tensor]:
             raise ValueError(f"fold_mean: {c} x {l} x {b} ids of D {d} exceed the "
                              f"kernel's 32-bit indices")
         words += (table.data_ptr(), ids.data_ptr(), mask.data_ptr(), out.data_ptr(),
-                  c, l, b, d)
+                  c, l, b, d, _is_bf16(table))
     lib = library("fold")
-    _launch_groups(lib, lib.fold_mean_group_f32, "fold_mean", words, 8,
+    _launch_groups(lib, lib.fold_mean_group, "fold_mean", words, 9,
                    lib.fold_max_members(), device)
     return outs
 
@@ -189,10 +210,10 @@ def fold_mean_group(items) -> List[torch.Tensor]:
 def fold_rows_group(items) -> List[torch.Tensor]:
     """K2 over a group: ``items`` are ``(table, ids, mask)``, each as
     ``fold_rows`` takes them, all on one device; the tables may differ in
-    D.  Returns one (E, D) float32 tensor per item, in order.  On a card
-    one launch takes up to 64 members (a larger group is cut into launches
-    of 64, each counted as one ``fold_rows`` launch); members with no
-    entries launch nothing."""
+    D and in type (float32, bf16).  Returns one (E, D) float32 tensor per
+    item, in order.  On a card one launch takes up to 64 members (a larger
+    group is cut into launches of 64, each counted as one ``fold_rows``
+    launch); members with no entries launch nothing."""
     items = list(items)
     if not items:
         return []
@@ -209,19 +230,20 @@ def fold_rows_group(items) -> List[torch.Tensor]:
         if e * d >= _I32:
             raise ValueError(f"fold_rows: {e} entries of D {d} exceed the kernel's "
                              f"32-bit indices")
-        words += (table.data_ptr(), ids.data_ptr(), mask.data_ptr(), out.data_ptr(), e, d)
+        words += (table.data_ptr(), ids.data_ptr(), mask.data_ptr(), out.data_ptr(), e, d,
+                  _is_bf16(table))
     lib = library("fold")
-    _launch_groups(lib, lib.fold_rows_group_f32, "fold_rows", words, 6,
+    _launch_groups(lib, lib.fold_rows_group, "fold_rows", words, 7,
                    lib.fold_max_members(), device)
     return outs
 
 
 def fold_mean(table: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor,
               c: int, l: int) -> torch.Tensor:
-    """K1: gather + masked sum over the L slots of C mean columns.  ``ids``
-    and ``mask`` are l-major per column: slot j of row b of column ci at
-    ``(ci*L + j)*B + b``.  Returns (C*B, D) float32: ``fold_mean_group``
-    with one member."""
+    """K1: gather + masked sum over the L slots of C mean columns of a
+    float32 or bf16 table.  ``ids`` and ``mask`` are l-major per column:
+    slot j of row b of column ci at ``(ci*L + j)*B + b``.  Returns (C*B, D)
+    float32: ``fold_mean_group`` with one member."""
     if l == 1:
         # single-id mean columns are per-row folds
         return fold_rows(table, ids, mask)
@@ -230,8 +252,8 @@ def fold_mean(table: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor,
 
 def fold_rows(table: torch.Tensor, ids: torch.Tensor,
               mask: torch.Tensor) -> torch.Tensor:
-    """K2: gather + per-entry mask.  Returns (E, D) float32:
-    ``fold_rows_group`` with one member."""
+    """K2: gather + per-entry mask of a float32 or bf16 table.  Returns (E,
+    D) float32: ``fold_rows_group`` with one member."""
     return fold_rows_group([(table, ids, mask)])[0]
 
 
@@ -395,9 +417,11 @@ def unfold_rows_scatter(grads, counts, g, ids, mask) -> None:
 
 def sparse_adam_update_plain(opt, tstate, acc) -> None:
     """``SparseAdam.update`` on the accumulator's gradient sums and counts,
-    written back into ``tstate`` in place; ``acc`` is cleared."""
+    in float32 from the stored w, written back into ``tstate`` in place (a
+    bf16 w, m or v rounds to nearest even as it is stored); ``acc`` is
+    cleared."""
     grads, cnt = accumulator_views(acc, tstate["w"].shape[1])
-    w, st = opt.update(tstate["w"], grads, tstate["opt"], (cnt > 0).float())
+    w, st = opt.update(tstate["w"].float(), grads, tstate["opt"], (cnt > 0).float())
     tstate["show"].add_(cnt)
     tstate["w"].copy_(w)
     for name in ("m", "v", "t"):
@@ -405,29 +429,35 @@ def sparse_adam_update_plain(opt, tstate, acc) -> None:
     acc.zero_()
 
 
+_F32 = (torch.float32,)
+
+
 def _check_lazy_args(tstate, acc, device, fields) -> None:
-    """What K8 and K9 take of a storage: w (rows, D), the optimizer's state
-    ``fields`` ((name, wide) pairs: (rows, D) where wide, else (rows, 1)),
-    show (rows, 1) and a flat accumulator of rows*(D+1), all float32 on
-    ``device``."""
+    """What K8 and K9 take of a storage: w (rows, D) float32 or bf16, the
+    optimizer's state ``fields`` ((name, wide, dtypes) triples: (rows, D)
+    where wide, else (rows, 1), of one of ``dtypes``), show (rows, 1) and a
+    flat accumulator of rows*(D+1), float32, all on ``device``; any other
+    dtype raises ``TypeError``."""
     w = tstate["w"]
-    require(w, "w", torch.float32, device=device)
+    require(w, "w", ROW_DTYPES, device=device)
     if w.ndim != 2:
         raise ValueError(f"w: expected (rows, D), got {tuple(w.shape)}")
     rows, d = w.shape
-    for name, wide in fields:
-        require(tstate["opt"][name], name, torch.float32, (rows, d if wide else 1), device)
+    for name, wide, dtypes in fields:
+        require(tstate["opt"][name], name, dtypes, (rows, d if wide else 1), device)
     require(tstate["show"], "show", torch.float32, (rows, 1), device)
     require(acc, "acc", torch.float32, (rows * (d + 1),), device)
 
 
-def _lazy_pass_group(what, lib_name, opt, tstates, accs, fields, plain, scalars) -> None:
+def _lazy_pass_group(what, lib_name, opt, tstates, accs, fields, plain, kind_of,
+                     scalars) -> None:
     """K8 or K9 over a group of storages (see ``sparse_adam_update_group``):
     on the CPU ``plain`` a storage at a time; on a card the launcher
-    ``<lib_name>_group_f32`` (pointers w, the ``fields`` of the optimizer's
-    state in order, show, acc; rows; D; the count; ``scalars``; the stream),
-    up to ``<lib_name>_max_storages()`` storages a launch, each counted as
-    one ``what`` launch.  Storages with no rows launch nothing."""
+    ``<lib_name>_group`` (pointers w, the ``fields`` of the optimizer's
+    state in order, show, acc; rows; D; ``kind_of(tstate)``, the storage's
+    types; the count; ``scalars``; the stream), up to
+    ``<lib_name>_max_storages()`` storages a launch, each counted as one
+    ``what`` launch.  Storages with no rows launch nothing."""
     tstates, accs = list(tstates), list(accs)
     if len(tstates) != len(accs):
         raise ValueError(f"{len(tstates)} storages for {len(accs)} accumulators")
@@ -449,35 +479,53 @@ def _lazy_pass_group(what, lib_name, opt, tstates, accs, fields, plain, scalars)
         if ts["w"].shape[1] > max_d:
             raise ValueError(f"{what}: D {ts['w'].shape[1]} > {max_d}")
     per_launch = getattr(lib, f"{lib_name}_max_storages")()
-    launch = getattr(lib, f"{lib_name}_group_f32")
+    launch = getattr(lib, f"{lib_name}_group")
     for i in range(0, len(live), per_launch):
         chunk = live[i:i + per_launch]
         n = len(chunk)
         ptrs = [t.data_ptr() for ts, acc in chunk
-                for t in (ts["w"], *(ts["opt"][name] for name, _ in fields), ts["show"], acc)]
+                for t in (ts["w"], *(ts["opt"][name] for name, _, _ in fields), ts["show"], acc)]
         ptrs = (ctypes.c_ulonglong * len(ptrs))(*ptrs)
         rows = (ctypes.c_longlong * n)(*[ts["w"].shape[0] for ts, _ in chunk])
         dims = (ctypes.c_int * n)(*[ts["w"].shape[1] for ts, _ in chunk])
+        kinds = (ctypes.c_int * n)(*[kind_of(ts) for ts, _ in chunk])
         with torch.cuda.device(device):
             code = launch(ctypes.addressof(ptrs), ctypes.addressof(rows),
-                          ctypes.addressof(dims), n, *scalars, stream_handle(device))
+                          ctypes.addressof(dims), ctypes.addressof(kinds), n, *scalars,
+                          stream_handle(device))
         check(lib, code, what)
         count_launch(what)
     return None
+
+
+def _adam_kind(tstate) -> int:
+    """K8's type bits of a storage: 1 for a bf16 w, 2 for bf16 moments; m
+    and v must share their type (``TypeError`` otherwise)."""
+    m, v = tstate["opt"]["m"], tstate["opt"]["v"]
+    if m.dtype != v.dtype:
+        raise TypeError(f"sparse_adam_update: m is {m.dtype} and v {v.dtype}; the "
+                        f"moments share one type")
+    return _is_bf16(tstate["w"]) | 2 * _is_bf16(m)
 
 
 def sparse_adam_update_group(opt, tstates, accs) -> None:
     """K8: one lazy-Adam pass of ``opt`` (a ``SparseAdam``) over every
     storage of ``tstates`` with its accumulator of ``accs``, on one device.
     In each storage, rows whose count (``accumulator_views``) is > 0 step
-    t, m, v and w by ``SparseAdam.update``'s arithmetic and add the count to show;
-    the other rows stay bit-identical.  Updates each ``tstate`` (w, opt
-    m/v/t, show) in place and leaves each ``acc`` zero.  On a card one
-    launch takes up to 64 storages, of any D up to ``sparse_adam_max_d()``
-    (the kernel's limits); a larger group is cut into launches of 64."""
+    t, m, v and w by ``SparseAdam.update``'s float32 arithmetic and add the
+    count to show; the other rows stay bit-identical.  w and the moments
+    (one type for both) are float32 or bf16, each storage its own; the step
+    is taken from the unrounded moments and only what is stored rounds.
+    Updates each ``tstate`` (w, opt m/v/t, show) in place and leaves each
+    ``acc`` zero.  On a card one launch takes up to 64 storages, of any D
+    up to ``sparse_adam_max_d()`` (the kernel's limits); a larger group is
+    cut into launches of 64."""
+    for tstate in tstates:
+        _adam_kind(tstate)
     return _lazy_pass_group(
         "sparse_adam_update", "sparse_adam", opt, tstates, accs,
-        (("m", True), ("v", True), ("t", False)), sparse_adam_update_plain,
+        (("m", True, ROW_DTYPES), ("v", True, ROW_DTYPES), ("t", False, _F32)),
+        sparse_adam_update_plain, _adam_kind,
         (opt.learning_rate, opt.beta1, 1 - opt.beta1, opt.beta2, 1 - opt.beta2, opt.epsilon))
 
 
@@ -492,9 +540,10 @@ def sparse_adam_update(opt, tstate, acc) -> None:
 
 def sparse_adagrad_update_plain(opt, tstate, acc) -> None:
     """``SparseAdaGrad.update`` on the accumulator's gradient sums and
-    counts, written back into ``tstate`` in place; ``acc`` is cleared."""
+    counts, in float32 from the stored w, written back into ``tstate`` in
+    place (a bf16 w rounds to nearest even); ``acc`` is cleared."""
     grads, cnt = accumulator_views(acc, tstate["w"].shape[1])
-    w, st = opt.update(tstate["w"], grads, tstate["opt"], (cnt > 0).float())
+    w, st = opt.update(tstate["w"].float(), grads, tstate["opt"], (cnt > 0).float())
     tstate["show"].add_(cnt)
     tstate["w"].copy_(w)
     tstate["opt"]["g2sum"].copy_(st["g2sum"])
@@ -505,15 +554,16 @@ def sparse_adagrad_update_group(opt, tstates, accs) -> None:
     """K9: one lazy-AdaGrad pass of ``opt`` (a ``SparseAdaGrad``) over every
     storage of ``tstates`` with its accumulator of ``accs``, on one device.
     In each storage, rows whose count (``accumulator_views``) is > 0 add
-    mean(G^2) to g2sum, step w by ``SparseAdaGrad.update``'s arithmetic and
-    add the count to show; the other rows stay bit-identical.  Updates each
-    ``tstate`` (w, opt g2sum, show) in place and leaves each ``acc`` zero.
-    On a card one launch takes up to 64 storages, of any D up to
-    ``sparse_adagrad_max_d()`` (the kernel's limits); a larger group is
-    cut into launches of 64."""
+    mean(G^2) to g2sum, step w by ``SparseAdaGrad.update``'s float32
+    arithmetic and add the count to show; the other rows stay
+    bit-identical.  w is float32 or bf16, each storage its own; g2sum is
+    float32.  Updates each ``tstate`` (w, opt g2sum, show) in place and
+    leaves each ``acc`` zero.  On a card one launch takes up to 64
+    storages, of any D up to ``sparse_adagrad_max_d()`` (the kernel's
+    limits); a larger group is cut into launches of 64."""
     return _lazy_pass_group("sparse_adagrad_update", "sparse_adagrad", opt, tstates, accs,
-                            (("g2sum", False),), sparse_adagrad_update_plain,
-                            (opt.learning_rate,))
+                            (("g2sum", False, _F32),), sparse_adagrad_update_plain,
+                            lambda ts: _is_bf16(ts["w"]), (opt.learning_rate,))
 
 
 def sparse_adagrad_update(opt, tstate, acc) -> None:
@@ -703,13 +753,34 @@ def apply_gradients_packed(eng, state, g_acts, plans, ctx, batch):
     single-id columns and the sequence columns of every storage to one
     grouped K4.
 
+    Where the ``state_packable`` storages of ``plans`` hold at least
+    ``eng.row_update_min_rows`` rows together (the JAX package's crossover;
+    off by default), those storages take the touched-rows update instead
+    (``row_update_packed_storage``: no accumulator, no lazy pass).
+
     Updates the tables of ``state`` in place (w, the optimizer's state,
     show; the JAX package donates them instead) and returns ``state``.
     ``g_acts``: per storage, the gradients of ``ctx[skey]["acts"]``."""
+    packable_state = [skey for skey in plans if state_packable(eng, skey)]
+    rows_mode = (sum(eng.storage[skey][0] for skey in packable_state)
+                 >= getattr(eng, "row_update_min_rows", 1 << 62))
     accs, means, rows = {}, [], []
     for skey, segs in plans.items():
         d = eng.storage[skey][1]
         ids, mask = ctx[skey]["ids"], ctx[skey]["mask"]
+        if rows_mode and skey in packable_state:
+            stream_ids, pays = [], []
+            for seg, g in zip(segs, g_acts[skey]):
+                part = slice(seg.start, seg.start + seg.size)
+                if seg.kind == "mean":
+                    c = len(seg.keys)
+                    # l-major: slot j of row b takes the gradient of row b
+                    g = g.reshape(c, 1, -1, d).expand(c, seg.l, -1, d)
+                stream_ids.append(ids[part])
+                pays.append(_payload(g.reshape(seg.size, d), mask[part]))
+            row_update_packed_storage(eng.sparse_opt, state[skey], torch.cat(stream_ids),
+                                      torch.cat(pays))
+            continue
         accs[skey] = eng.accumulator(skey, ids.device)
         views = accumulator_views(accs[skey], d)
         for seg, g in zip(segs, g_acts[skey]):
@@ -733,6 +804,42 @@ def apply_gradients_packed(eng, state, g_acts, plans, ctx, batch):
     return state
 
 
+def _payload(g: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """(E, D+1) [grad | count] rows of a stream: each live entry's gradient
+    and a count of 1, zeros where the mask is 0."""
+    live = (mask > 0).to(g.dtype)[:, None]
+    return torch.cat([g * live, live], dim=1)
+
+
+def row_update_packed_storage(opt, tstate, ids: torch.Tensor, pay: torch.Tensor) -> None:
+    """The touched-rows update of one storage (JAX
+    ``packed.py::row_update_packed_storage``): ``ids`` (E,) the storage
+    rows of a step's stream, ``pay`` (E, D+1) their [grad | count] payload
+    rows.  Sorts the stream by row, sums each row's payloads, and runs
+    ``opt.update_rows`` in float32 on the unique rows whose count is > 0:
+    only those rows of w, m, v and t are written (each stored in its own
+    type) and their counts added to show; every other row stays
+    bit-identical.  In place; plain PyTorch on either device."""
+    d = tstate["w"].shape[1]
+    if pay.shape != (ids.shape[0], d + 1):
+        raise ValueError(f"row update: payload {tuple(pay.shape)} for {ids.shape[0]} ids "
+                         f"of D {d}")
+    order = torch.argsort(ids, stable=True)
+    uniq, seg = torch.unique_consecutive(ids[order], return_inverse=True)
+    acc = torch.zeros((uniq.shape[0], d + 1), dtype=torch.float32, device=pay.device)
+    acc.index_add_(0, seg, pay[order].float())
+    live = acc[:, d] > 0
+    rows = uniq[live].long()
+    grad, cnt = acc[live, :d], acc[live, d:]
+    w = tstate["w"]
+    opt_rows = {name: t[rows] for name, t in tstate["opt"].items()}
+    w_new, opt_new = opt.update_rows(w[rows].float(), grad, opt_rows, torch.ones_like(cnt))
+    w.index_copy_(0, rows, w_new.to(w.dtype))
+    for name, t in tstate["opt"].items():
+        t.index_copy_(0, rows, opt_new[name].to(t.dtype))
+    tstate["show"].index_copy_(0, rows, tstate["show"][rows] + cnt)
+
+
 def lookup_packed(eng, tables, batch, defer_sequences: bool = False) -> Dict[str, Any]:
     """Forward-only lookup (eval / predict / serving): fused gather + fold
     for the storages ``storages_packed`` admits, the classic gather for the
@@ -744,25 +851,47 @@ def lookup_packed(eng, tables, batch, defer_sequences: bool = False) -> Dict[str
     plans = plan_segments(eng, batch, storages=set(pk))
     ctx = gather_fold(eng, tables, batch, plans, defer_sequences)
     out = combine_from_acts(eng, plans, ctx, batch)
-    classic_batch = {
-        k: v for k, v in batch.items()
-        if k in eng.columns
-        and eng.table_map[eng.columns[k].categorical_column.key][0]
-        not in plans}
+    classic_batch = classic_columns(eng, batch, plans)
     if classic_batch:
         out.update(eng.lookup(eng.weights(tables), classic_batch))
     return out
 
 
+def classic_columns(eng, batch, plans):
+    """The engine's columns of ``batch`` whose storage ``plans`` leaves out:
+    the columns that take the classic gather."""
+    return {k: v for k, v in batch.items()
+            if k in eng.columns
+            and eng.table_map[eng.columns[k].categorical_column.key][0] not in plans}
+
+
 def storages_packed(eng) -> Tuple[List[str], List[str]]:
     """Split storages into (fold path, classic) sets, by the JAX package's
-    rule: packable dim and pack-aligned rows and member offsets (the engine
-    aligns both)."""
+    rule: float32 or bf16 storage, packable dim, and pack-aligned rows and
+    member offsets (an engine built with ``packed=True`` aligns both)."""
     packed, classic = [], []
     for skey, (rows, d) in eng.storage.items():
         ok = (packable(d)
+              and eng.storage_dtype(d) in ROW_DTYPES
               and rows % gather_pack(d) == 0
               and all(off % gather_pack(d) == 0 and off % scatter_pack(d) == 0
                       for off, _, _ in eng._storage_members(skey)))
         (packed if ok else classic).append(skey)
     return packed, classic
+
+
+def state_packable(eng, skey: str) -> bool:
+    """The JAX package's rule for a storage whose optimizer state it packs
+    (``packed.py::state_packable``): ``SparseAdam`` with float32 moments, a
+    float32 or bf16 table, a packable D, and rows and member offsets
+    aligned to the scatter packing.  The port keeps every storage in the
+    classic (rows, D) layout; the rule selects the storages that take the
+    touched-rows update (``apply_gradients_packed``)."""
+    rows, d = eng.storage[skey]
+    ps = scatter_pack(d)
+    return (isinstance(eng.sparse_opt, SparseAdam)
+            and eng.sparse_opt.state_dtype == torch.float32
+            and eng.storage_dtype(d) in ROW_DTYPES
+            and packable(d)
+            and rows % ps == 0
+            and all(off % ps == 0 for off, _, _ in eng._storage_members(skey)))

@@ -38,8 +38,8 @@ _U = ctypes.c_uint
 # c_void_p, so that ctypes does not cut them to 32 bits)
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "fold": {
-        "fold_mean_group_f32": [_P, _I, _P],
-        "fold_rows_group_f32": [_P, _I, _P],
+        "fold_mean_group": [_P, _I, _P],
+        "fold_rows_group": [_P, _I, _P],
         "fold_max_members": [],
     },
     "field_attention": {
@@ -54,12 +54,12 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "unfold_max_members": [],
     },
     "sparse_adam": {
-        "sparse_adam_group_f32": [_P, _P, _P, _I, _F, _F, _F, _F, _F, _F, _P],
+        "sparse_adam_group": [_P, _P, _P, _P, _I, _F, _F, _F, _F, _F, _F, _P],
         "sparse_adam_max_storages": [],
         "sparse_adam_max_d": [],
     },
     "sparse_adagrad": {
-        "sparse_adagrad_group_f32": [_P, _P, _P, _I, _F, _P],
+        "sparse_adagrad_group": [_P, _P, _P, _P, _I, _F, _P],
         "sparse_adagrad_max_storages": [],
         "sparse_adagrad_max_d": [],
     },
@@ -67,6 +67,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "din_pool_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _L, _L, _L,
                          _L, _L, _P],
         "din_pool_gather_f32": [_P] * 9 + [_L, _I, _L, _I, _I, _P],
+        "din_pool_gather_bf16": [_P] * 9 + [_L, _I, _L, _I, _I, _P],
     },
     "interacting": {
         "interacting_attention_f32": [_P] * 12 + [_L, _I, _I, _F, _F, _P],
@@ -161,12 +162,15 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
 
 
 def require(t, what: str, dtype, shape=None, device=None) -> None:
-    """Raise unless ``t`` is a contiguous tensor of ``dtype`` (and of
-    ``shape`` and on ``device`` where given): what every kernel takes."""
+    """Raise unless ``t`` is a contiguous tensor of ``dtype`` (a dtype, or
+    a tuple of the dtypes a kernel takes there) and of ``shape`` and on
+    ``device`` where given: what every kernel takes."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{what}: expected a tensor, got {type(t).__name__}")
-    if t.dtype != dtype:
-        raise TypeError(f"{what}: dtype {t.dtype}, expected {dtype}")
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in dtypes:
+        raise TypeError(f"{what}: dtype {t.dtype}, expected "
+                        + " or ".join(str(d) for d in dtypes))
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{what}: shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")

@@ -16,7 +16,8 @@ passes the first 16 lanes of 32-lane rows): the kernel takes their row
 strides; their last dimension must be contiguous.
 
 ``din_pool_gather`` is the same pool over facts it gathers itself from an
-embedding table: the lanes ``lanes`` of ``mask * table[ids]``, what the
+embedding table of float32 or bfloat16 rows (widened to float32 as they
+are read): the lanes ``lanes`` of ``mask * table[ids]``, what the
 fold K2 writes and the model slices, without K2's rows in device memory.
 Its plain version is exactly that: ``fold_rows_plain``, the slice, then
 ``din_pool_plain``.  It has no gradient: the predict step takes it (the
@@ -155,7 +156,7 @@ def din_pool_gather_plain(query, table, ids, mask, lanes, w1, b1, w2, b2) -> tor
 
 
 def _check_gather(query, table, ids, mask, lanes, w1, b1, w2, b2) -> None:
-    require(table, "din_pool_gather: table", torch.float32)
+    require(table, "din_pool_gather: table", (torch.float32, torch.bfloat16))
     if table.ndim != 2:
         raise ValueError(f"din_pool_gather: table must be (rows, D), got "
                          f"{tuple(table.shape)}")
@@ -183,7 +184,8 @@ def din_pool_gather(query: torch.Tensor, table: torch.Tensor, ids: torch.Tensor,
                     w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """K7 over gathered facts: ``din_pool(query, facts, mask, ...)`` with
     ``facts = (mask[..., None] * table[ids])[:, :, lo:hi]`` for ``lanes =
-    (lo, hi)``.  ``table`` (rows, D) float32, 16-byte aligned, D % 4 == 0;
+    (lo, hi)``, in float32.  ``table`` (rows, D) float32 or bfloat16 (its
+    lanes widened to float32 as they are read), 16-byte aligned, D % 4 == 0;
     ``ids`` (B, T) int32 and ``mask`` (B, T) float32 {0, 1}, contiguous; a
     window of the query's width starting at a multiple of 4; ``query`` (B,
     H) may be a strided view.  A masked entry's fact is 0 and its table row
@@ -201,8 +203,10 @@ def din_pool_gather(query: torch.Tensor, table: torch.Tensor, ids: torch.Tensor,
     if out.numel() == 0 or t == 0:
         return out.zero_()
     lib = library("din_pool")
+    launch = (lib.din_pool_gather_bf16 if table.dtype == torch.bfloat16
+              else lib.din_pool_gather_f32)
     with torch.cuda.device(table.device):
-        code = lib.din_pool_gather_f32(
+        code = launch(
             query.data_ptr(), table.data_ptr(), ids.data_ptr(), mask.data_ptr(),
             w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
             b, t, query.stride(0), table.shape[1], lanes[0],

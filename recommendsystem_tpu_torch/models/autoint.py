@@ -25,7 +25,7 @@ from ..nn import InteractingLayer, MultiLayerDense
 from ..train import losses as L
 from ..train import metrics as M
 from ..train.adam import Adam
-from .base import ModelBundle, register_model
+from .base import ModelBundle, check_compute_dtype, or_float32, register_model
 from .plumbing import slice_wide_rows
 
 TASK = "video_id_rank_skip_model"
@@ -86,6 +86,9 @@ class AutoIntModule(nn.Module):
 def create_autoint(cfg: Optional[ModelConfig] = None,
                    model_param: Optional[dict] = None,
                    bucket_size: int = 265000,
+                   table_dtype=None,
+                   compute_dtype=None,
+                   opt_state_dtype=None,
                    sparse_lr: float = 5e-5,
                    dense_lr: float = 5e-5,
                    device="cuda") -> ModelBundle:
@@ -95,7 +98,11 @@ def create_autoint(cfg: Optional[ModelConfig] = None,
     the JAX package; lazy per-row Adam on the tables and Adam(5e-5, 0.9,
     0.999, 1e-8) on the dense tower (the reference's learning rates,
     ``models/autoint.py:70-113`` of the JAX package); loss
-    ``cross_entropy_sum_mean``."""
+    ``cross_entropy_sum_mean``.  ``table_dtype`` (None: float32, bfloat16
+    or ``"auto"``) stores the tables, ``opt_state_dtype`` (None: float32,
+    or bfloat16) Adam's moments; ``compute_dtype`` other than None or
+    float32 raises ``NotImplementedError`` (module ``base``)."""
+    check_compute_dtype(compute_dtype)
     dev = resolve_device(device)
     if cfg is None:
         cfg = synthetic_ctr_config(num_slots=24, emb_sizes=(8,), num_bias=0)
@@ -105,8 +112,10 @@ def create_autoint(cfg: Optional[ModelConfig] = None,
     cols = [embedding_column(category_column(cfg.table_slot(slot), bucket_size),
                              dim, combiner="mean", name=slot)
             for slot in cfg.sparse_slots]
-    emb = EmbeddingFeatures(cols, SparseAdam(learning_rate=sparse_lr),
-                            group_tables=True, max_group_bytes=10 << 20)
+    emb = EmbeddingFeatures(cols, SparseAdam(learning_rate=sparse_lr,
+                                             state_dtype=or_float32(opt_state_dtype)),
+                            group_tables=True, max_group_bytes=10 << 20,
+                            table_dtype=or_float32(table_dtype))
     return ModelBundle(name="autoint",
                        module=AutoIntModule(cfg, model_param, device=dev),
                        embedding=emb, tasks=(TASK,), device=dev, config=cfg,

@@ -64,6 +64,30 @@ class ModelBundle:
         return {task: outputs[src] for task, src in self.predict_outputs.items()}
 
 
+def check_compute_dtype(compute_dtype) -> None:
+    """The factories' ``compute_dtype``: None or float32, the dense tower's
+    precision here; bfloat16 (the JAX package's mixed-precision policy)
+    raises ``NotImplementedError``, as it comes with ROADMAP.md item 10b."""
+    if compute_dtype not in (None, torch.float32):
+        raise NotImplementedError(
+            f"compute_dtype {compute_dtype}: the port's dense tower runs in float32; "
+            f"the bf16 compute policy is ROADMAP.md item 10b")
+
+
+def or_float32(dtype):
+    """A factory's ``table_dtype`` or ``opt_state_dtype``: None is float32."""
+    return torch.float32 if dtype is None else dtype
+
+
+def table_dtype_kwargs(flag: str) -> dict:
+    """A model factory's ``table_dtype`` for the command lines'
+    ``--table-dtype`` (fp32, bf16, auto): nothing for fp32, the factories'
+    default."""
+    if flag == "fp32":
+        return {}
+    return {"table_dtype": "auto" if flag == "auto" else torch.bfloat16}
+
+
 MODEL_REGISTRY: Dict[str, Callable[..., ModelBundle]] = {}
 
 

@@ -43,7 +43,7 @@ from ..train import losses as L
 from ..train import metrics as M
 from ..train.adam import Adam
 from .autoint import clip
-from .base import ModelBundle, register_model
+from .base import ModelBundle, check_compute_dtype, or_float32, register_model
 from .plumbing import slice_wide_rows
 
 T_CLICK = "video_id_rank_hp_ctr_addfeasetwo_click"
@@ -200,6 +200,9 @@ def create_ctr(cfg: Optional[ModelConfig] = None,
                bucket_size: int = 265000,
                stacked_experts: bool = False,
                attention_dropout_rate: float = 0.2,
+               table_dtype=None,
+               compute_dtype=None,
+               opt_state_dtype=None,
                sparse_lr: float = 5e-5,
                dense_lr: float = 5e-5,
                device="cuda") -> ModelBundle:
@@ -209,7 +212,9 @@ def create_ctr(cfg: Optional[ModelConfig] = None,
     24), gate slots the first 8 sparse slots, ``bucket_size``-row tables
     grouped into storages of at most 40 MB, lazy per-row Adam on the tables
     and Adam(5e-5, 0.9, 0.999, 1e-8) on the tower; ``stacked_experts``
-    stacks the MMoE's experts."""
+    stacks the MMoE's experts; ``table_dtype``, ``opt_state_dtype`` and
+    ``compute_dtype`` as in ``create_autoint``."""
+    check_compute_dtype(compute_dtype)
     dev = resolve_device(device)
     if cfg is None:
         cfg = synthetic_ctr_config(num_slots=24, num_bias=8)
@@ -221,7 +226,9 @@ def create_ctr(cfg: Optional[ModelConfig] = None,
     cols = [embedding_column(category_column(cfg.table_slot(slot), bucket_size),
                              dim, combiner="mean", name=slot)
             for slot in cfg.sparse_slots]
-    emb = EmbeddingFeatures(cols, SparseAdam(learning_rate=sparse_lr), group_tables=True)
+    emb = EmbeddingFeatures(cols, SparseAdam(learning_rate=sparse_lr,
+                                             state_dtype=or_float32(opt_state_dtype)),
+                            group_tables=True, table_dtype=or_float32(table_dtype))
     # the two tasks share the Metric objects; each task's states are its own
     metrics = [M.binary_accuracy(), M.auc(), M.copc()]
     return ModelBundle(

@@ -30,7 +30,7 @@ from ..nn import DeepFMLayer, Dense
 from ..train import losses as L
 from ..train import metrics as M
 from ..train.adam import Adam
-from .base import ModelBundle, register_model
+from .base import ModelBundle, check_compute_dtype, or_float32, register_model
 
 TASK = "video_id_rank_finish_nb_lr_rongh_bundle"
 REG = (1e-5, 1e-5)
@@ -92,6 +92,9 @@ def create_finish(slots: Optional[Sequence[str]] = None,
                   bucket_size: int = 25600,
                   dim: int = 32,
                   deep_hidden_units: Tuple[int, ...] = (64, 32),
+                  table_dtype=None,
+                  compute_dtype=None,
+                  opt_state_dtype=None,
                   sparse_lr: float = 1e-3,
                   dense_lr: float = 1e-3,
                   device="cuda") -> ModelBundle:
@@ -99,7 +102,10 @@ def create_finish(slots: Optional[Sequence[str]] = None,
     ``device="cpu"``).  Defaults as the JAX package's: slots ``3000..3039``
     of ``dim`` 32 over ``bucket_size``-id buckets, the bias slots the first
     8, tables grouped into storages of at most 4 MB (one table each), lazy
-    per-row Adam (1e-3) on the tables and Adam(1e-3) on the tower."""
+    per-row Adam (1e-3) on the tables and Adam(1e-3) on the tower;
+    ``table_dtype``, ``opt_state_dtype`` and ``compute_dtype`` as in
+    ``create_autoint``."""
+    check_compute_dtype(compute_dtype)
     dev = resolve_device(device)
     if slots is None:
         slots = [str(s) for s in range(3000, 3040)]
@@ -109,8 +115,10 @@ def create_finish(slots: Optional[Sequence[str]] = None,
     general = tuple(s for s in slots if s not in set(bias_slots))
     cols = [embedding_column(category_column(s, bucket_size), dim, combiner="mean")
             for s in slots]
-    emb = EmbeddingFeatures(cols, SparseAdam(learning_rate=sparse_lr),
-                            group_tables=True, max_group_bytes=4 << 20)
+    emb = EmbeddingFeatures(cols, SparseAdam(learning_rate=sparse_lr,
+                                             state_dtype=or_float32(opt_state_dtype)),
+                            group_tables=True, max_group_bytes=4 << 20,
+                            table_dtype=or_float32(table_dtype))
     return ModelBundle(
         name="finish",
         module=DeepFMModule(tuple(bias_slots), general, wide_tail, dim,

@@ -32,7 +32,7 @@ from ..nn import Dense, InteractingLayer, truncated_normal
 from ..train import losses as L
 from ..train import metrics as M
 from ..train.adam import Adam
-from .base import ModelBundle, register_model
+from .base import ModelBundle, check_compute_dtype, or_float32, register_model
 
 TASKS = ("like_pred", "click_comment_pred", "comment_pred", "click_sharing_pred",
          "follow_pred", "click_avatar_pred", "unlike_pred")
@@ -104,6 +104,9 @@ def create_multi_head(slots: Optional[Sequence[str]] = None,
                       bucket_size: int = 265000,
                       dim: int = 8,
                       stacked_experts: bool = False,
+                      table_dtype=None,
+                      compute_dtype=None,
+                      opt_state_dtype=None,
                       sparse_lr: float = 5e-5,
                       dense_lr: float = 1e-5,
                       device="cuda") -> ModelBundle:
@@ -112,15 +115,19 @@ def create_multi_head(slots: Optional[Sequence[str]] = None,
     slots ``2000..2039`` of ``dim`` 8 over ``bucket_size``-row tables,
     grouped into storages of at most 10 MB, lazy per-row Adam (5e-5) on the
     tables and Adam(1e-5) on the tower; ``stacked_experts`` stacks the 8
-    experts."""
+    experts; ``table_dtype``, ``opt_state_dtype`` and ``compute_dtype`` as
+    in ``create_autoint``."""
+    check_compute_dtype(compute_dtype)
     dev = resolve_device(device)
     if slots is None:
         slots = [str(s) for s in range(2000, 2040)]
     slots = tuple(sorted(set(slots)))        # the reference sorts (multidnn.py:216-218)
     cols = [embedding_column(category_column(s, bucket_size), dim, combiner="mean")
             for s in slots]
-    emb = EmbeddingFeatures(cols, SparseAdam(learning_rate=sparse_lr),
-                            group_tables=True, max_group_bytes=10 << 20)
+    emb = EmbeddingFeatures(cols, SparseAdam(learning_rate=sparse_lr,
+                                             state_dtype=or_float32(opt_state_dtype)),
+                            group_tables=True, max_group_bytes=10 << 20,
+                            table_dtype=or_float32(table_dtype))
     return ModelBundle(
         name="multi_head",
         module=MultiHeadModule(slots, dim, stacked_experts, device=dev),

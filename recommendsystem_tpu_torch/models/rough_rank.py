@@ -39,7 +39,7 @@ from ..nn import DNN, PLE, CrossNet, Dense, PLEStacked, kd_loss
 from ..train import losses as L
 from ..train import metrics as M
 from ..train.adam import Adam
-from .base import ModelBundle, register_model
+from .base import ModelBundle, check_compute_dtype, or_float32, register_model
 
 FLAG_SLOT = "4575"
 TASK_NAMES = ("td", "hpld")
@@ -132,6 +132,9 @@ def create_rough_rank(user_slots: Optional[Sequence[str]] = None,
                       bucket_size: int = 25600,
                       dim: int = 16,
                       stacked_experts: bool = False,
+                      table_dtype=None,
+                      compute_dtype=None,
+                      opt_state_dtype=None,
                       sparse_lr: float = 1e-3,
                       dense_lr: float = 1e-4,
                       device="cuda") -> ModelBundle:
@@ -140,7 +143,10 @@ def create_rough_rank(user_slots: Optional[Sequence[str]] = None,
     ``1560..1589``, item slots ``1591..1609``, one mean column of ``dim``
     16 a slot over ``bucket_size``-id buckets, tables grouped into storages
     of at most 4 MB (24 of 51,296 rows and one of 25,648 at the defaults),
-    lazy per-row Adam (1e-3) on the tables and Adam(1e-4) on the tower."""
+    lazy per-row Adam (1e-3) on the tables and Adam(1e-4) on the tower;
+    ``table_dtype``, ``opt_state_dtype`` and ``compute_dtype`` as in
+    ``create_autoint``."""
+    check_compute_dtype(compute_dtype)
     dev = resolve_device(device)
     if user_slots is None:
         user_slots = [str(s) for s in range(1560, 1590)]
@@ -149,8 +155,10 @@ def create_rough_rank(user_slots: Optional[Sequence[str]] = None,
     all_slots = sorted(set(user_slots) | set(item_slots))
     cols = [embedding_column(category_column(s, bucket_size), dim, combiner="mean")
             for s in all_slots]
-    emb = EmbeddingFeatures(cols, SparseAdam(learning_rate=sparse_lr),
-                            group_tables=True, max_group_bytes=4 << 20)
+    emb = EmbeddingFeatures(cols, SparseAdam(learning_rate=sparse_lr,
+                                             state_dtype=or_float32(opt_state_dtype)),
+                            group_tables=True, max_group_bytes=4 << 20,
+                            table_dtype=or_float32(table_dtype))
     return ModelBundle(
         name="rough_rank",
         module=DSSMModule(tuple(user_slots), tuple(item_slots), dim,

@@ -41,7 +41,7 @@ from ..nn import (DINPool, DeepCrossLayer, Dense, FFMBlock, SENet, fm_cross_term
 from ..train import losses as L
 from ..train import metrics as M
 from ..train.adam import Adam
-from .base import ModelBundle, register_model
+from .base import ModelBundle, check_compute_dtype, or_float32, register_model
 
 MULTICLASS_NUM = 400
 BIN_LIST = tuple(-19.0 + 0.5 * i for i in range(MULTICLASS_NUM))
@@ -212,6 +212,8 @@ class StaytimeModule(nn.Module):
 def create_staytime(cfg: Optional[StaytimeConfig] = None,
                     deep_hidden_units: Tuple[int, ...] = (256, 128),
                     stacked_experts: bool = False,
+                    table_dtype=None,
+                    compute_dtype=None,
                     sparse_lr: float = 5e-3,
                     dense_lr: float = 5e-4,
                     device="cuda") -> ModelBundle:
@@ -220,7 +222,11 @@ def create_staytime(cfg: Optional[StaytimeConfig] = None,
     81,920-id buckets and 3 sequence columns of 50 that share the tables of
     their slots, grouped into storages of at most 30 MB as in the JAX
     package (45 table pairs and one single table); ``stacked_experts``
-    stacks the three gated experts."""
+    stacks the three gated experts.  ``table_dtype`` (None: float32,
+    bfloat16 or ``"auto"``, which stores these 32-wide rows in bf16) stores
+    the tables (AdaGrad's g2sum stays float32); ``compute_dtype`` as in
+    ``create_autoint``."""
+    check_compute_dtype(compute_dtype)
     dev = resolve_device(device)
     cfg = cfg or StaytimeConfig()
     cols = []
@@ -234,7 +240,8 @@ def create_staytime(cfg: Optional[StaytimeConfig] = None,
     emb = EmbeddingFeatures(cols, SparseAdaGrad(learning_rate=sparse_lr,
                                                 initial_g2sum=0.1,
                                                 initial_scale=0.1),
-                            group_tables=True, max_group_bytes=30 << 20)
+                            group_tables=True, max_group_bytes=30 << 20,
+                            table_dtype=or_float32(table_dtype))
     return ModelBundle(
         name="staytime",
         module=StaytimeModule(cfg, deep_hidden_units, stacked_experts, device=dev),

@@ -10,6 +10,8 @@ card, return the named scores.
     python -m recommendsystem_tpu_torch.serving.server --model finish --port 8000
     python -m recommendsystem_tpu_torch.serving.server --model staytime \
         --checkpoint /state/ckpt --port 8000
+    python -m recommendsystem_tpu_torch.serving.server --model staytime \
+        --table-dtype auto --port 8000
 
     POST /score  {"rows": [{"1000": [123456789], ...}, ...]}
     ->           {"scores": {"<task>": [..]}, "batch": N}
@@ -25,7 +27,12 @@ Requests pad to the smallest power-of-two batch bucket up to ``max_batch``,
 so the kernels see a few fixed shapes.  ``--checkpoint DIR`` serves the
 latest state that ``train.checkpoint.save_checkpoint`` wrote under DIR (the
 daily trainer's ``<state-dir>/ckpt``); without it the weights are seed 0's.
-The bf16 flags come with a later slice of the port.
+``--table-dtype`` stores the tables in float32 (``fp32``, the default),
+bfloat16 (``bf16``) or by width (``auto``: bf16 for rows of D >= 32), as in
+the JAX package; scores are computed in float32 either way.  A checkpoint
+restores only into tables of its own types.  ``--compute-dtype`` takes
+``fp32`` alone: ``bf16``, the JAX package's bf16 dense tower, is refused by
+name (ROADMAP.md item 10b).
 """
 
 from __future__ import annotations
@@ -44,7 +51,7 @@ from ..core.device import resolve_device
 from ..data.parse import pad_ids
 from ..embedding.engine import IdBatch, validate_batch
 from ..models import MODEL_REGISTRY, create_model
-from ..models.base import ModelBundle
+from ..models.base import ModelBundle, table_dtype_kwargs
 from ..train.checkpoint import restore_checkpoint
 from ..train.state import TrainState, create_train_state
 from ..train.step import make_predict_step
@@ -195,10 +202,18 @@ def main(argv=None):
     ap.add_argument("--max-batch", type=int, default=256)
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu' for the plain versions")
+    ap.add_argument("--table-dtype", choices=["fp32", "bf16", "auto"], default="fp32",
+                    help="embedding table storage: fp32, bf16, or auto (bf16 "
+                         "for rows of 32 or more)")
+    ap.add_argument("--compute-dtype", choices=["fp32", "bf16"], default="fp32",
+                    help="dense-tower precision; the port computes in fp32")
     args = ap.parse_args(argv)
+    if args.compute_dtype != "fp32":
+        ap.error(f"--compute-dtype {args.compute_dtype}: the port's dense tower runs "
+                 f"in fp32; bf16 compute is ROADMAP.md item 10b")
 
     logging.basicConfig(level=logging.INFO, force=True)
-    kwargs = {}
+    kwargs = table_dtype_kwargs(args.table_dtype)
     if args.bucket_size:
         factory = inspect.signature(MODEL_REGISTRY[args.model])
         if "bucket_size" not in factory.parameters:

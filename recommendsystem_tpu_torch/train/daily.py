@@ -16,8 +16,10 @@ day's TFRecord shards (pinned and copied to the card as they are taken),
 fit incrementally from the latest checkpoint, evict rarely seen rows, save
 a checkpoint + the day marker, optionally dump predictions for the last
 day.  ``--backtest`` evaluates each day before training on it.  The port
-runs on the card unless ``--device cpu``; its tables and dense tower are
-float32 (bf16 comes with ROADMAP item 10).
+runs on the card unless ``--device cpu``.  ``--table-dtype`` (fp32, bf16,
+auto) stores the tables as the JAX trainer's flag does, and passes to the
+model's factory; the dense tower is float32, and ``--compute-dtype bf16``
+is refused by name (ROADMAP.md item 10b).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch
 from ..data.loader import balance_batches, dataset_reader
 from ..data.parse import make_ctr_parse_fn, make_staytime_parse_fn
 from ..models import MODEL_REGISTRY, create_model
+from ..models.base import table_dtype_kwargs
 from ..utils.dates import trained_delta_days
 from .checkpoint import save_checkpoint
 from .harness import dump_predict, evaluate, fit
@@ -92,22 +95,21 @@ def main(argv=None):
                          "append metrics to <state-dir>/backtest.jsonl")
     ap.add_argument("--table-dtype", choices=["fp32", "bf16", "auto"],
                     default="fp32",
-                    help="embedding table storage; the port has fp32 alone")
+                    help="embedding table storage: fp32, bf16, or auto (bf16 "
+                         "for rows of 32 or more)")
     ap.add_argument("--compute-dtype", choices=["fp32", "bf16"],
                     default="fp32",
-                    help="dense-tower precision; the port has fp32 alone")
+                    help="dense-tower precision; the port computes in fp32")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu' for the plain versions")
     args = ap.parse_args(argv)
-    for flag, value in (("--table-dtype", args.table_dtype),
-                        ("--compute-dtype", args.compute_dtype)):
-        if value != "fp32":
-            ap.error(f"{flag} {value}: the port trains in fp32 alone; bf16 "
-                     f"comes with mixed precision (ROADMAP.md, item 10)")
+    if args.compute_dtype != "fp32":
+        ap.error(f"--compute-dtype {args.compute_dtype}: the port's dense tower "
+                 f"trains in fp32; bf16 compute is ROADMAP.md item 10b")
 
     logging.basicConfig(level=logging.INFO, force=True)
 
-    kwargs = {"device": args.device}
+    kwargs = {"device": args.device, **table_dtype_kwargs(args.table_dtype)}
     if args.bucket_size:
         if "bucket_size" not in inspect.signature(MODEL_REGISTRY[args.model]).parameters:
             ap.error(f"--bucket-size: model {args.model!r} takes no bucket size")

@@ -2,20 +2,36 @@
 
 Counterpart of ``recommendsystem_tpu/train/step.py``, local mode:
 
-- ``make_train_step`` is the packed train step (``step_packed`` of the JAX
-  package, ``sparse_update="packed"``): fused gather and fold with no
-  gradient (K1 / K2), autograd of the loss with respect to the dense
-  parameters and the folded activations (the InteractingLayer's attention
-  runs K5f forward and K5b backward), dense Adam, then the unfold-scatter
-  (K3 / K4) and the lazy pass of the engine's sparse optimizer over the
-  tables (K8 for ``SparseAdam``, K9 for staytime's ``SparseAdaGrad``);
+- ``make_train_step`` takes the JAX package's three sparse updates
+  (``sparse_update=``):
+  - ``"packed"`` (the default): fused gather and fold with no gradient
+    (K1 / K2), autograd of the loss with respect to the dense parameters
+    and the folded activations (the InteractingLayer's attention runs K5f
+    forward and K5b backward), dense Adam, then the unfold-scatter (K3 /
+    K4) and the lazy pass of the engine's sparse optimizer over the tables
+    (K8 for ``SparseAdam``, K9 for staytime's ``SparseAdaGrad``).  The
+    columns of storages that ``packed.storages_packed`` rejects take the
+    classic gather, combine and scatter within the same step, as in the JAX
+    package; where the ``packed.state_packable`` storages reach the
+    engine's ``row_update_min_rows``, they take the touched-rows update;
+  - ``"scatter"``: the classic gather, autograd with respect to its float32
+    (B, L, D) activations, then ``flatten_raw_grads`` and
+    ``apply_gradients_scatter``;
+  - ``"dense"``: the classic lookup differentiated with respect to the
+    stored weights, then ``apply_gradients`` over whole tables;
 - ``make_scan_train_step`` runs it over K batches in a Python loop, in
   place of the JAX package's ``lax.scan`` driver;
 - ``make_predict_step`` is the fused lookup (sequence columns deferred to
-  the DIN pool), the dense tower in float32 and the bundle's
-  ``predict_view``;
+  the DIN pool; the classic lookup for an engine built with
+  ``packed=False``, as the JAX package chooses), the dense tower in float32
+  and the bundle's ``predict_view``;
 - ``make_eval_step`` is the predict step's lookup and tower, then the
   bundle's streaming metrics on the full outputs.
+
+Tables may be stored in bfloat16 and Adam's moments too (the engine's
+``table_dtype``, ``SparseAdam.state_dtype``); every lookup gives float32
+and every update computes in float32.  The dense tower runs in float32:
+the bf16 compute policy (``compute_dtype``) comes with a later slice.
 
 Keras-compile semantics as in the JAX package: the loss is the sum over
 tasks of ``loss_weight * loss``, where a loss that returns a scalar is taken
@@ -47,8 +63,8 @@ if TYPE_CHECKING:
 def apply_model(bundle: "ModelBundle", params, embs, dense_inputs=None,
                 training: bool = False, seed: int = 0):
     """Apply the bundle's module to ``params`` in float32 (the bf16 compute
-    policy comes with a later slice); ``seed`` draws a training step's
-    dropout."""
+    policy, ``compute_dtype``, comes with a later slice: ROADMAP.md item
+    10b); ``seed`` draws a training step's dropout."""
     kwargs = {"training": training}
     if training:
         kwargs["seed"] = seed
@@ -98,41 +114,61 @@ def _check_mode(mode: str) -> None:
                                   f"with a later slice of the port")
 
 
-def _packed_plans(eng, batch):
-    pk, classic = packed_mod.storages_packed(eng)
-    unpacked = sorted({eng.table_map[eng.columns[k].categorical_column.key][0]
-                       for k in batch if k in eng.columns} & set(classic))
-    if unpacked:
-        raise NotImplementedError(
-            f"storages {unpacked} cannot take the packed update (dim > 127); "
-            f"the classic scatter step comes with a later slice of the port")
-    return packed_mod.plan_segments(eng, batch, storages=set(pk))
+SPARSE_UPDATES = ("packed", "scatter", "dense")
 
 
-def make_train_step(bundle: "ModelBundle", mode: str = "local") -> Callable:
+def _leaves(tensors):
+    """Fresh leaves that need a gradient, sharing the tensors' storage."""
+    return [t.detach().requires_grad_() for t in tensors]
+
+
+def _store_tables(tables, new) -> None:
+    """Copy the classic update paths' new state into ``tables`` in place,
+    each tensor in its own type (the train step updates its state in
+    place)."""
+    for skey, nt in new.items():
+        tstate = tables[skey]
+        if nt is tstate:
+            continue
+        for name in ("w", "show"):
+            tstate[name].copy_(nt[name])
+        for name, t in tstate["opt"].items():
+            t.copy_(nt["opt"][name])
+
+
+def make_train_step(bundle: "ModelBundle", mode: str = "local",
+                    sparse_update: Optional[str] = None) -> Callable:
     """Returns ``step(state, batch, labels, sample_weight=None,
-    dense_inputs=None, seed=0) -> (state, info)``, the packed train step.
-    The engine's sparse optimizer must have a lazy pass on the packed
-    update: ``SparseAdam`` (K8) or ``SparseAdaGrad`` (K9); any other raises
+    dense_inputs=None, seed=0) -> (state, info)``.  ``sparse_update`` is
+    ``"packed"`` (the default, as in the JAX package), ``"scatter"`` or
+    ``"dense"`` (module docstring); another name raises ``ValueError``.
+    The packed update needs a lazy pass of the engine's sparse optimizer:
+    ``SparseAdam`` (K8) or ``SparseAdaGrad`` (K9); any other raises
     ``NotImplementedError``.
 
     ``batch`` holds IdBatches and ``labels`` {task: (B, 1)} tensors on the
     bundle's device; ``seed`` (an int below 2**32) draws the step's
     attention dropout.  The step updates ``state``'s tables (w, the sparse
-    optimizer's state, show), dense parameters and Adam moments in place,
-    where the JAX package donates them, and returns a ``TrainState`` over the same
-    tensors with ``step + 1``.  ``info`` holds the loss, the per-task
-    losses and the L1L2 penalty (``regularization``; for a module with
-    none, one 0 made when the step is built) as 0-d tensors on the device
-    (read them when needed: reading waits for the step).
+    optimizer's state, show; each in its storage type), dense parameters
+    and Adam moments in place, where the JAX package donates them, and
+    returns a ``TrainState`` over the same tensors with ``step + 1``.
+    ``info`` holds the loss, the per-task losses and the L1L2 penalty
+    (``regularization``; for a module with none, one 0 made when the step
+    is built) as 0-d tensors on the device (read them when needed: reading
+    waits for the step).
 
     A dense parameter that does not reach the loss (multi_head's eighth
     expert's bias; its kernel reaches it through its penalty alone) gets a
     zero gradient, as ``jax.grad`` gives it, so Adam moves it as optax
     does: not at all while its moments are 0."""
     _check_mode(mode)
+    sparse_update = "packed" if sparse_update is None else sparse_update
+    if sparse_update not in SPARSE_UPDATES:
+        raise ValueError(f"sparse_update {sparse_update!r}: expected one of "
+                         f"{', '.join(SPARSE_UPDATES)}")
     eng = bundle.embedding
-    if not isinstance(eng.sparse_opt, (SparseAdam, SparseAdaGrad)):
+    if sparse_update == "packed" and not isinstance(eng.sparse_opt,
+                                                    (SparseAdam, SparseAdaGrad)):
         raise NotImplementedError(
             f"sparse optimizer {type(eng.sparse_opt).__name__}: the packed "
             f"train step has a lazy pass for SparseAdam (K8) and SparseAdaGrad "
@@ -140,58 +176,118 @@ def make_train_step(bundle: "ModelBundle", mode: str = "local") -> Callable:
     penalized = regularized_kernels(bundle.module)
     no_penalty = torch.zeros((), device=bundle.device)
 
-    def step(state: TrainState, batch, labels, sample_weight=None,
-             dense_inputs=None, seed: int = 0):
-        plans = _packed_plans(eng, batch)
-        # stage 1 (no gradient): fused gather + fold
-        with torch.no_grad():
-            ctx = packed_mod.gather_fold(eng, state.tables, batch, plans)
-        acts = {skey: [a.requires_grad_() for a in c["acts"]]
-                for skey, c in ctx.items()}
+    def loss_and_grads(state, embs, leaves, labels, sample_weight, dense_inputs,
+                       seed):
+        """The loss, its aux, and the gradients of the dense params (a
+        dict) and of ``leaves`` (a list), the params' taken as fresh
+        leaves of ``state.params``."""
         params = {k: p.detach().requires_grad_() for k, p in state.params.items()}
-
-        # stage 2: autograd w.r.t. the dense params and the folded acts
-        embs = packed_mod.combine_from_acts(
-            eng, plans, {s: {"acts": a} for s, a in acts.items()}, batch)
-        loss, aux = _model_outputs_and_loss(bundle, params, embs, labels,
+        loss, aux = _model_outputs_and_loss(bundle, params, embs(), labels,
                                             sample_weight, dense_inputs,
                                             True, seed, penalized)
-        act_list = [a for skey in acts for a in acts[skey]]
-        grads = torch.autograd.grad(loss, list(params.values()) + act_list,
+        grads = torch.autograd.grad(loss, list(params.values()) + leaves,
                                     allow_unused=True, materialize_grads=True)
-        gp = dict(zip(params, grads[:len(params)]))
-        it = iter(grads[len(params):])
-        g_acts = {skey: [next(it) for _ in acts[skey]] for skey in acts}
+        return loss, aux, dict(zip(params, grads[:len(params)])), list(grads[len(params):])
 
+    def finish(state, loss, aux, gp):
+        """Dense Adam in place; the new state and the step's info."""
         with torch.no_grad():
-            new_params = {k: p.detach() for k, p in params.items()}
+            new_params = {k: p.detach() for k, p in state.params.items()}
             new_params, opt_state = bundle.dense_optimizer.update_(
                 new_params, gp, state.opt_state)
-            # stage 3 (no gradient): unfold-scatter + lazy Adam, in place
-            tables = packed_mod.apply_gradients_packed(
-                eng, state.tables, g_acts, plans, ctx, batch)
-
         info = {"loss": loss.detach(),
                 **{f"loss/{t}": v.detach()
                    for t, v in aux["task_losses"].items()},
                 "regularization": (no_penalty if aux["regularization"] is None
                                    else aux["regularization"].detach())}
         return TrainState(params=new_params, opt_state=opt_state,
-                          tables=tables, step=state.step + 1), info
+                          tables=state.tables, step=state.step + 1), info
 
-    return step
+    def step_packed(state: TrainState, batch, labels, sample_weight=None,
+                    dense_inputs=None, seed: int = 0):
+        pk, _ = packed_mod.storages_packed(eng)
+        plans = packed_mod.plan_segments(eng, batch, storages=set(pk))
+        classic_batch = packed_mod.classic_columns(eng, batch, plans)
+        # stage 1 (no gradient): fused gather + fold; the classic gather for
+        # the storages that cannot pack
+        with torch.no_grad():
+            ctx = packed_mod.gather_fold(eng, state.tables, batch, plans)
+            raw = (eng.gather_raw(eng.weights(state.tables), classic_batch)
+                   if classic_batch else {})
+        acts = {skey: _leaves(c["acts"]) for skey, c in ctx.items()}
+        raw = dict(zip(raw, _leaves(raw.values())))
+
+        def embs():
+            out = packed_mod.combine_from_acts(
+                eng, plans, {s: {"acts": a} for s, a in acts.items()}, batch)
+            out.update(eng.combine_raw(raw, classic_batch))
+            return out
+
+        # stage 2: autograd w.r.t. the dense params, the folded acts and the
+        # classic activations
+        act_list = [a for skey in acts for a in acts[skey]]
+        loss, aux, gp, g_leaves = loss_and_grads(
+            state, embs, act_list + list(raw.values()), labels, sample_weight,
+            dense_inputs, seed)
+        it = iter(g_leaves)
+        g_acts = {skey: [next(it) for _ in acts[skey]] for skey in acts}
+        g_raw = {k: next(it) for k in raw}
+
+        new_state, info = finish(state, loss, aux, gp)
+        with torch.no_grad():
+            # stage 3 (no gradient): unfold-scatter + lazy pass, in place
+            packed_mod.apply_gradients_packed(eng, state.tables, g_acts, plans, ctx,
+                                              batch)
+            if classic_batch:
+                flat = eng.flatten_raw_grads(g_raw, classic_batch)
+                _store_tables(state.tables, eng.apply_gradients_scatter(state.tables, flat))
+        return new_state, info
+
+    def step_scatter(state: TrainState, batch, labels, sample_weight=None,
+                     dense_inputs=None, seed: int = 0):
+        with torch.no_grad():
+            raw = eng.gather_raw(eng.weights(state.tables), batch)
+        raw = dict(zip(raw, _leaves(raw.values())))
+        loss, aux, gp, g_raw = loss_and_grads(
+            state, lambda: eng.combine_raw(raw, batch), list(raw.values()), labels,
+            sample_weight, dense_inputs, seed)
+        new_state, info = finish(state, loss, aux, gp)
+        with torch.no_grad():
+            flat = eng.flatten_raw_grads(dict(zip(raw, g_raw)), batch)
+            _store_tables(state.tables, eng.apply_gradients_scatter(state.tables, flat))
+        return new_state, info
+
+    def step_dense(state: TrainState, batch, labels, sample_weight=None,
+                   dense_inputs=None, seed: int = 0):
+        weights = dict(zip(state.tables, _leaves(t["w"] for t in state.tables.values())))
+        # the gradient of a bf16 table arrives in bf16: the cotangent of
+        # its cast to float32 in the gather, as in the JAX package
+        loss, aux, gp, g_w = loss_and_grads(
+            state, lambda: eng.lookup(weights, batch), list(weights.values()), labels,
+            sample_weight, dense_inputs, seed)
+        new_state, info = finish(state, loss, aux, gp)
+        with torch.no_grad():
+            new = eng.apply_gradients(state.tables, dict(zip(weights, g_w)),
+                                      eng.row_counts(batch))
+            _store_tables(state.tables, new)
+        return new_state, info
+
+    return {"packed": step_packed, "scatter": step_scatter,
+            "dense": step_dense}[sparse_update]
 
 
-def make_scan_train_step(bundle: "ModelBundle", mode: str = "local") -> Callable:
+def make_scan_train_step(bundle: "ModelBundle", mode: str = "local",
+                         sparse_update: Optional[str] = None) -> Callable:
     """Multi-step driver: returns ``run(state, batches, labels,
     sample_weights, dense_inputs, seeds) -> (state, infos)`` over K steps,
     each data argument a sequence of K (``sample_weights`` and
     ``dense_inputs`` may be None), ``infos`` each step's scalars stacked,
-    e.g. ``infos["loss"][k]``.  A Python loop over ``make_train_step``: the
+    e.g. ``infos["loss"][k]``.  A Python loop over ``make_train_step``
+    (``sparse_update`` passed through): the
     same K steps one by one give the same result.  (A CUDA graph of the
     step is the Hopper counterpart of the JAX package's one-dispatch scan;
     it comes with a later slice.)"""
-    body = make_train_step(bundle, mode)
+    body = make_train_step(bundle, mode, sparse_update)
 
     def run(state: TrainState, batches: Sequence, labels: Sequence,
             sample_weights: Optional[Sequence] = None,
@@ -215,8 +311,13 @@ def make_scan_train_step(bundle: "ModelBundle", mode: str = "local") -> Callable
 
 
 def _lookup_for_mode(bundle, tables, batch, mode: str = "local"):
+    """The fused lookup with sequences deferred, or the classic lookup for
+    an engine built with ``packed=False``, as the JAX package chooses."""
     _check_mode(mode)
-    return packed_mod.lookup_packed(bundle.embedding, tables, batch, defer_sequences=True)
+    eng = bundle.embedding
+    if eng.packed:
+        return packed_mod.lookup_packed(eng, tables, batch, defer_sequences=True)
+    return eng.lookup(eng.weights(tables), batch)
 
 
 def make_eval_step(bundle: "ModelBundle", mode: str = "local") -> Callable:

@@ -80,7 +80,7 @@ def _fold_pieces(items):
         w = []
         for (table, ids, mask, c, l), out in zip(items, outs):
             w += (table.data_ptr(), ids.data_ptr(), mask.data_ptr(), out.data_ptr(),
-                  c, l, ids.shape[0] // (c * l), table.shape[1])
+                  c, l, ids.shape[0] // (c * l), table.shape[1], packed._is_bf16(table))
         return w
 
     desc = words()
@@ -89,7 +89,7 @@ def _fold_pieces(items):
 
     def launch():
         with torch.cuda.device(device):
-            check(lib, lib.fold_mean_group_f32(blob, len(items), stream_handle(device)),
+            check(lib, lib.fold_mean_group(blob, len(items), stream_handle(device)),
                   "fold_mean")
         count_launch("fold_mean")
 

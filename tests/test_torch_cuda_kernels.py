@@ -20,7 +20,11 @@ bit-identical; the DIN
 pool atol 2e-5 (a softmax over T and 4H-term dots in another order, as the
 JAX package holds its own kernel), its gradients rtol 1e-4, atol 1e-5; the
 fused InteractingLayer iteration rtol and atol 2e-5 (the JAX package's own
-for it), its gradients rtol 1e-4, atol 1e-5.
+for it), its gradients rtol 1e-4, atol 1e-5.  Over bf16 tables and moments
+(K1, K2, K7's gathering entry, K8, K9): the float32 outputs as above, and
+each stored bf16 entry equal to the plain version's or one bf16 ulp from
+it where the plain version's float32 value lies within the float32
+tolerance of the rounding midpoint (``_assert_bf16``).
 """
 
 import pytest
@@ -1036,3 +1040,170 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="D 8388608"):
         packed.sparse_adam_update(SparseAdam(), wide, wide_acc)
     assert set(launch_counts().values()) == {0}
+
+
+# -- bf16 tables and moments (ROADMAP.md item 10a) ---------------------------
+
+def _assert_bf16(got, want, want_f32, atol, rtol, what=""):
+    """A kernel's stored bf16 entries against its plain version's: equal, or
+    one bf16 ulp apart where the plain version's float32 value before
+    rounding (``want_f32``, from a float32 copy of the same update) lies
+    within ``atol + rtol |x|`` (the float32 tolerance of the kernel's value)
+    of the midpoint between the two: either side may round either way
+    there.  Returns the number of such entries."""
+    assert got.dtype == want.dtype == torch.bfloat16, what
+    differ = got != want
+    if not bool(differ.any()):
+        return 0
+    g, w, p = (x[differ].double() for x in (got.float(), want.float(), want_f32.float()))
+    bits = lambda x: x.float().view(torch.int32).to(torch.int64) >> 16   # noqa: E731
+    adjacent = (torch.sign(g) == torch.sign(w)) & ((bits(g) - bits(w)).abs() == 1)
+    assert bool(adjacent.all()), f"{what}: entries more than one bf16 ulp apart"
+    near = (p - (g + w) / 2).abs() <= atol + rtol * p.abs()
+    assert bool(near.all()), f"{what}: {int((~near).sum())} one-ulp entries off a midpoint"
+    return int(differ.sum())
+
+
+def _as(tstate, w_dtype, m_dtype=None):
+    """A copy of a storage's state with w (and Adam's m and v) in the given
+    types, rounded to nearest even."""
+    out = _copy_state(tstate)
+    out["w"] = out["w"].to(w_dtype)
+    if m_dtype is not None:
+        for name in ("m", "v"):
+            out["opt"][name] = out["opt"][name].to(m_dtype)
+    return out
+
+
+BF16_FOLD_MEMBERS = [(8, 5, 300, False), (16, 2, 77, False), (32, 10, 129, False),
+                     (48, 7, 64, True), (56, 3, 1, False), (3, 4, 50, False),
+                     (32, 5, 4097, False)]
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+def test_fold_mean_group_kernel_bf16(cuda, mixed):
+    """K1 over bf16 tables (D 8-56: 8 lanes in 16 bytes; D 3: one lane), in
+    one launch, each member against its plain version; ``mixed`` puts
+    float32 and bf16 members in one group."""
+    items = [(t.to(torch.bfloat16) if not mixed or i % 2 else t, *rest)
+             for i, (t, *rest) in enumerate(_fold_members(cuda, BF16_FOLD_MEMBERS))]
+    got = packed.fold_mean_group(items)
+    torch.cuda.synchronize()
+    assert launch_counts()["fold_mean"] == 1
+    for out, item in zip(got, items):
+        assert out.dtype == torch.float32
+        _assert_fold(out, item)
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+def test_fold_rows_group_kernel_bf16(cuda, mixed):
+    """K2 over bf16 tables, one launch, each member equal to its plain
+    version (the widening is exact, one product per output)."""
+    items = [(t.to(torch.bfloat16) if not mixed or i % 2 else t, ids, mask)
+             for i, (t, ids, mask) in enumerate(_rows_members(cuda, ROWS_MEMBERS))]
+    got = packed.fold_rows_group(items)
+    torch.cuda.synchronize()
+    assert launch_counts()["fold_rows"] == 1
+    _assert_rows(got, items)
+
+
+def test_fold_rows_group_unaligned_bf16_table(cuda):
+    """A bf16 table whose rows are not 16-byte aligned takes one lane a
+    thread."""
+    flat = _table(cuda, 501, 8, 7).reshape(-1).to(torch.bfloat16)
+    table = flat[1:4001].view(500, 8)
+    ((_, ids, mask),) = _rows_members(cuda, [(8, 333, False)], rows=500)
+    (got,) = packed.fold_rows_group([(table, ids, mask)])
+    _assert_rows([got], [(table, ids, mask)])
+
+
+@pytest.mark.parametrize("b,t,lanes", [(8, 50, (0, 16)), (256, 50, (0, 16)),
+                                       (16384, 50, (0, 16)), (33, 7, (16, 32)),
+                                       (5, 70, (8, 24)), (9, 512, (0, 16))])
+def test_din_pool_gather_kernel_bf16(cuda, b, t, lanes):
+    """K7's gathering entry over a bf16 (rows, 32) table against its plain
+    version (the widened rows, the window, the pool)."""
+    q, table, ids, mask, *w = _gather_inputs(cuda, b, t, seed=b + t + 1)
+    table = table.to(torch.bfloat16)
+    with torch.inference_mode():
+        got = din_pool_gather(q, table, ids, mask, lanes, *w)
+    want = din_pool_gather_plain(q, table, ids, mask, lanes, *w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+    dead = mask.sum(dim=1) == 0
+    assert bool(dead.any()) and not got[dead].any()
+    assert launch_counts()["din_pool"] == 1
+
+
+@pytest.mark.parametrize("w_dtype,m_dtype", [(torch.bfloat16, torch.float32),
+                                             (torch.bfloat16, torch.bfloat16),
+                                             (torch.float32, torch.bfloat16)])
+def test_sparse_adam_group_kernel_bf16(cuda, w_dtype, m_dtype):
+    """K8 over bf16 w and/or bf16 moments, storages of D 8, 48, 56, 3 and 1
+    in one launch (plus a float32 one in the same group), against the plain
+    version: stored bf16 entries by ``_assert_bf16`` (w atol 1e-7, m and v
+    rtol 1e-6), t and show exact, dead rows bit-identical, accumulators
+    zero."""
+    dims = (8, 48, 56, 3, 1)
+    storages = [_adam_storage(cuda, 2001 + 37 * i, dims[i], 0.3, i) for i in range(5)]
+    storages.append(_adam_storage(cuda, 999, 8, 0.3, 9))
+    kinds = [(w_dtype, m_dtype)] * 5 + [(torch.float32, torch.float32)]
+    got = [_as(s, *k) for (s, _), k in zip(storages, kinds)]
+    before = [_copy_state(g) for g in got]
+    accs = [a.clone() for _, a in storages]
+    opt = SparseAdam(learning_rate=1e-3, state_dtype=m_dtype)
+    packed.sparse_adam_update_group(opt, got, accs)
+    torch.cuda.synchronize()
+    assert launch_counts()["sparse_adam_update"] == 1
+    for (s, acc), g, b, a, (wd, md) in zip(storages, got, before, accs, kinds):
+        want = _copy_state(b)
+        packed.sparse_adam_update_plain(SparseAdam(learning_rate=1e-3, state_dtype=md), want,
+                                        acc.clone())
+        twin = _as(b, torch.float32, torch.float32)
+        packed.sparse_adam_update_plain(SparseAdam(learning_rate=1e-3), twin, acc.clone())
+        assert g["w"].dtype == wd and g["opt"]["m"].dtype == md
+        if wd == torch.bfloat16:
+            _assert_bf16(g["w"], want["w"], twin["w"], 1e-7, 0.0, "w")
+        else:
+            torch.testing.assert_close(g["w"], want["w"], rtol=0, atol=1e-7)
+        for name in ("m", "v"):
+            if md == torch.bfloat16:
+                _assert_bf16(g["opt"][name], want["opt"][name], twin["opt"][name], 0.0, 1e-6,
+                             name)
+            else:
+                torch.testing.assert_close(g["opt"][name], want["opt"][name], rtol=1e-6,
+                                           atol=0)
+        torch.testing.assert_close(g["opt"]["t"], want["opt"]["t"], rtol=0, atol=0)
+        torch.testing.assert_close(g["show"], want["show"], rtol=0, atol=0)
+        dead = packed.accumulator_views(acc, s["w"].shape[1])[1][:, 0] == 0
+        for x, y in ((g["w"], b["w"]), (g["opt"]["m"], b["opt"]["m"]),
+                     (g["opt"]["v"], b["opt"]["v"])):
+            assert torch.equal(x[dead], y[dead])
+        assert not a.any()
+
+
+def test_sparse_adagrad_group_kernel_bf16(cuda):
+    """K9 over bf16 w, storages of D 8, 16, 32, 48 and 3 and a float32 one
+    in one launch, against the plain version: w by ``_assert_bf16`` (atol
+    1e-6), g2sum rtol 1e-6, show exact, dead rows bit-identical."""
+    from recommendsystem_tpu_torch.embedding.optimizers import SparseAdaGrad
+
+    dims = (8, 16, 32, 48, 3, 32)
+    storages = [_adagrad_storage(cuda, 2001 + 37 * i, d, 0.3, i) for i, d in enumerate(dims)]
+    got = [_as(s, torch.bfloat16 if i < 5 else torch.float32)
+           for i, (s, _) in enumerate(storages)]
+    before = [_copy_state(g) for g in got]
+    accs = [a.clone() for _, a in storages]
+    opt = SparseAdaGrad(learning_rate=5e-3)
+    packed.sparse_adagrad_update_group(opt, got, accs)
+    torch.cuda.synchronize()
+    assert launch_counts()["sparse_adagrad_update"] == 1
+    for (_, acc0), g, b, a in zip(storages, got, before, accs):
+        want = _copy_state(b)
+        packed.sparse_adagrad_update_plain(opt, want, acc0.clone())
+        if g["w"].dtype == torch.bfloat16:
+            twin = _as(b, torch.float32)
+            packed.sparse_adagrad_update_plain(opt, twin, acc0.clone())
+            _assert_bf16(g["w"], want["w"], twin["w"], 1e-6, 0.0, "w")
+            want["w"] = g["w"]        # held above; the rest as float32 storages are
+        _check_adagrad(g, want, b, acc0, a)

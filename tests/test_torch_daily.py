@@ -113,11 +113,24 @@ def test_prediction_dump_has_a_line_a_record(trained):
     assert all(len(r) == 2 and 0.0 < float(r[1]) < 1.0 for r in rows)
 
 
-def test_daily_refuses_bf16_and_foreign_bucket_flags(capsys):
-    for extra in (["--table-dtype", "bf16"], ["--compute-dtype", "bf16"]):
-        with pytest.raises(SystemExit):
-            daily.main(_args("/nonexistent", "/nonexistent", "--device", "cpu", *extra))
-        assert "ROADMAP.md, item 10" in capsys.readouterr().err
+def test_daily_refuses_bf16_and_foreign_bucket_flags(capsys, monkeypatch):
+    """bf16 compute is refused by name; bf16 tables are not refused but
+    reach the model's factory (ROADMAP.md item 10a)."""
+    with pytest.raises(SystemExit):
+        daily.main(_args("/nonexistent", "/nonexistent", "--device", "cpu",
+                         "--compute-dtype", "bf16"))
+    assert "ROADMAP.md item 10b" in capsys.readouterr().err
+    made = []
+
+    def create(name, **kw):
+        made.append(kw.get("table_dtype"))
+        return create_model(name, **kw)
+
+    monkeypatch.setattr(daily, "create_model", create)
+    for flag, want in (("bf16", torch.bfloat16), ("auto", "auto"), ("fp32", None)):
+        assert daily.main(_args("/nonexistent", "/nonexistent", "--device", "cpu",
+                                "--table-dtype", flag)) is None      # nothing to train
+        assert made[-1] == want
     with pytest.raises(SystemExit):
         daily.main(["--model", "staytime", "--data-dir", "x", "--state-dir", "y",
                     "--bucket-size", "64", "--device", "cpu"])
