@@ -168,7 +168,22 @@
    (``scatter``, ``dense``, the packed step over ``packed=False``
    storages, the touched-rows update) held to the CPU with its launches
    (``classic_paths``); the server's ``main --table-dtype auto`` answering
-   ``/score`` as the service does.
+   ``/score`` as the service does;
+14. drives the bf16 compute policy at full width (``bf16_compute_path``):
+   K6, K5f (dropout 0.2), K5b and both K7 entries (over a float32 and a
+   bf16 table) on bf16 inputs against their plain versions, timed with
+   bounds on bf16 bytes beside the float32 kernel; autoint under the
+   policy served (K6 on bf16) and held to the CPU plain path of the same
+   policy, its predict and eval launches, a counted train window at B =
+   65536 (K5f and K5b on bf16) held to phase 5's launches a step; ctr (B =
+   32768) and staytime (B = 16384) trained in counted windows held to the
+   float32 launches; staytime's predict call (the gathering K7 rounding
+   a float32 table) held to the CPU; staytime ``"auto"`` served, held to
+   the CPU and evaluated; train and predict ms against float32 in turns;
+   each training model's loss and dense gradients held to the CPU's at the
+   CPU tests' bf16 tolerances (``hold_policy_to_cpu``); the server's
+   ``main --compute-dtype bf16`` and one day of ``daily.main
+   --compute-dtype bf16``.
 
 Prints the card's name and power limit, one JSON line each for the autoint
 predict step, the train step, the staytime predict step, the predict
@@ -176,8 +191,9 @@ steps with and without K6 (``interacting_predict``), the phase-8 train
 steps with finish's predict step (``tower_train``), rough_rank's train
 and predict steps (``rough_rank``), staytime's train steps
 (``staytime_train``), the eval path's times (``eval``), the daily
-path's loader, train-step and checkpoint numbers (``daily``) and phase
-13's table sizes, train steps and classic-update launches (``bf16``), then
+path's loader, train-step and checkpoint numbers (``daily``), phase
+13's table sizes, train steps and classic-update launches (``bf16``) and
+phase 14's train and predict times under the policy (``bf16_compute``), then
 ``{"kernels": ...}`` (10 kernels), and last
 ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Any failure ends the run with a traceback
@@ -210,6 +226,9 @@ FOLD_SUM_ULPS = 2                 # grouped folds: FOLD_TOL + 2 L 2^-24 sum |m r
 ATTN_TOL = 2e-5                   # softmax over <= 175 keys, 4-term dots
 SCORE_TOL = dict(rtol=1e-5, atol=2e-6)   # float32 products in another order
 GRAD_TOL = dict(rtol=1e-4, atol=2e-5)    # attention gradients: sums over <= 175 fields
+# a bf16 gradient: the float32 value of GRAD_TOL rounded once on each side,
+# so one bf16 ulp (2^-7 relative at most) apart at a rounding midpoint
+BF16_GRAD_TOL = dict(rtol=2.0 ** -7 + 1e-4, atol=2e-5)
 UNFOLD_TOL = 1e-5                 # atomics add each row's gradients in another order
 ADAM_W_TOL = 1e-7                 # powf against PyTorch's pow: one ulp of a bias correction
 ADAM_M_RTOL = 1e-6
@@ -382,15 +401,18 @@ def _batch_chunks(b, h, f):
     return [slice(i, i + chunk) for i in range(0, b, chunk)]
 
 
-def attention_case(h, dh, f, b, seed, cycles_per_ms, rate=0.0):
+def attention_case(h, dh, f, b, seed, cycles_per_ms, rate=0.0, dtype=torch.float32):
     """K5f at ``rate`` as the train step launches it, with the log-sum-exp
     for K5b (``FieldAttentionFunction.forward``): output and lse against
     ``field_attention_fwd_plain``'s; with dropout the kernel and the plain
-    version draw the same Philox mask from the same seed."""
+    version draw the same Philox mask from the same seed.  ``dtype`` bf16:
+    q, k, v in bf16 (the bf16 compute policy), o and lse float32, bytes
+    counted at bf16, and the float32 kernel on the same values widened timed
+    beside it (``fp32_ms``)."""
     from recommendsystem_tpu_torch.kernels.field_attention import _fwd, field_attention_fwd_plain
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v = (torch.relu(torch.randn((h, dh, f, b), generator=g, device="cuda"))
+    q, k, v = (torch.relu(torch.randn((h, dh, f, b), generator=g, device="cuda")).to(dtype)
                for _ in range(3))
     dseed = (seed << 32) | 1
 
@@ -428,12 +450,19 @@ def attention_case(h, dh, f, b, seed, cycles_per_ms, rate=0.0):
         lib_out = library().reshape(h, b, f, dh).permute(0, 3, 2, 1)
         lib_err = float((lib_out - want).abs().max())
     # q, k, v read once, o and lse written once
-    nbytes = 16 * h * dh * f * b + 4 * h * f * b
+    nbytes = (3 * q.element_size() + 4) * h * dh * f * b + 4 * h * f * b
     ops = 4 * h * dh * f * f * b + 4 * h * f * f * b   # dots + softmax
     bms, by = bound(nbytes, ops)
     iters = 200 if b <= 256 else 20
     ms, host_ms = timed(kernel, iters, cycles_per_ms)
-    return {"name": "field_attention", "b": b, "f": f, "h": h, "dh": dh,
+    fp32_ms = None
+    if dtype != torch.float32:
+        q32, k32, v32 = (x.float() for x in (q, k, v))
+        fp32_ms = timed(lambda: _fwd(q32, k32, v32, dseed, rate, want_lse=True), iters,
+                        cycles_per_ms)[0]
+        del q32, k32, v32
+    return {"name": "field_attention", "dtype": _dtype_name(q), "fp32_ms": fp32_ms,
+            "b": b, "f": f, "h": h, "dh": dh,
             "rate": rate, "lse": True, "max_abs_err": max(err, lse_err),
             "out_max_abs_err": err, "lse_max_abs_err": lse_err,
             "ms": ms, "host_ms": host_ms,
@@ -443,17 +472,21 @@ def attention_case(h, dh, f, b, seed, cycles_per_ms, rate=0.0):
             "bound_ms": bms, "bound_by": by, "bytes": nbytes, "ops": ops}
 
 
-def attention_bwd_case(h, dh, f, b, seed, cycles_per_ms, rate=DROPOUT):
+def attention_bwd_case(h, dh, f, b, seed, cycles_per_ms, rate=DROPOUT, dtype=torch.float32):
     """K5b against its plain version (the explicit formulas, batch-chunked
     like the forward's), at ``rate`` with the mask regenerated from the
     seed; yardstick: SDPA's backward on the (h*B, F, dh) view (at rate 0:
-    SDPA's dropout draws other bits)."""
+    SDPA's dropout draws other bits).  ``dtype`` bf16: q, k, v and dq, dk,
+    dv in bf16 (o, lse and do float32), each gradient within one bf16 ulp
+    of the plain version's (``BF16_GRAD_TOL``), bytes at bf16, and the
+    float32 kernel on the widened values timed beside it (``fp32_ms``)."""
     from recommendsystem_tpu_torch.kernels.field_attention import (
         field_attention_bwd, field_attention_bwd_reference, field_attention_fwd_plain)
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, do = (torch.randn((h, dh, f, b), generator=g, device="cuda")
                    for _ in range(4))
+    q, k, v = (x.to(dtype) for x in (q, k, v))
     dseed = (seed << 32) | 1
     chunks = _batch_chunks(b, h, f)
     # inputs of the backward: o and lse of the first chunk's plain forward,
@@ -465,13 +498,14 @@ def attention_bwd_case(h, dh, f, b, seed, cycles_per_ms, rate=DROPOUT):
     again = field_attention_bwd(qc, kc, vc, oc, lsec, doc, dseed, rate)
     want = field_attention_bwd_reference(qc, kc, vc, oc, lsec, doc, dseed, rate)
     torch.cuda.synchronize()
-    err = max(float((a - w).abs().max()) for a, w in zip(got, want))
+    err = max(float((a.float() - w.float()).abs().max()) for a, w in zip(got, want))
     for a, w in zip(got, want):
-        torch.testing.assert_close(a, w, **GRAD_TOL)
+        torch.testing.assert_close(a.float(), w.float(),
+                                   **(GRAD_TOL if dtype == torch.float32 else BF16_GRAD_TOL))
     if not all(torch.equal(a, c) for a, c in zip(got, again)):
         raise AssertionError(f"field_attention_bwd F={f} b={b}: two launches differ")
     # timing at the full batch: o and lse from the plain forward per chunk
-    o = torch.empty_like(q)
+    o = torch.empty(q.shape, device="cuda")
     lse = torch.empty((h, f, b), device="cuda")
     for c in chunks:
         o[..., c], lse[..., c] = field_attention_fwd_plain(
@@ -486,18 +520,26 @@ def attention_bwd_case(h, dh, f, b, seed, cycles_per_ms, rate=DROPOUT):
 
     q3, k3, v3, do3 = (x.permute(0, 3, 2, 1).reshape(h * b, f, dh).contiguous()
                        .requires_grad_(x is not do) for x in (q, k, v, do))
+    do3 = do3.to(q3.dtype)
     out3 = torch.nn.functional.scaled_dot_product_attention(q3, k3, v3)
     library = lambda: torch.autograd.grad(out3, (q3, k3, v3), do3,  # noqa: E731
                                           retain_graph=True)
     # reads q, k, v, o, do and lse once, writes dq, dk, dv once; per
     # (head, query, key, sample): scores, dp, and the dq, dk, dv terms
     # (2 dh flops each), the exponential and the softmax-gradient terms
-    nbytes = 32 * h * dh * f * b + 4 * h * f * b
+    nbytes = (6 * q.element_size() + 8) * h * dh * f * b + 4 * h * f * b
     ops = (10 * dh + 5) * h * f * f * b
     bms, by = bound(nbytes, ops)
     iters = 20
     ms, host_ms = timed(kernel, iters, cycles_per_ms)
-    return {"name": "field_attention_bwd", "b": b, "f": f, "h": h, "dh": dh,
+    fp32_ms = None
+    if dtype != torch.float32:
+        q32, k32, v32 = (x.float() for x in (q, k, v))
+        fp32_ms = timed(lambda: field_attention_bwd(q32, k32, v32, o, lse, do, dseed, rate),
+                        iters, cycles_per_ms)[0]
+        del q32, k32, v32
+    return {"name": "field_attention_bwd", "dtype": _dtype_name(q), "fp32_ms": fp32_ms,
+            "b": b, "f": f, "h": h, "dh": dh,
             "rate": rate, "max_abs_err": err, "deterministic": True,
             "ms": ms, "host_ms": host_ms,
             "plain_ms": timed(plain, 2, cycles_per_ms)[0],
@@ -1424,20 +1466,31 @@ def adagrad_mixed_case(cycles_per_ms):
     return out
 
 
-def din_case(b, seed, cycles_per_ms):
+def din_ops(positions, b, h, dtype):
+    """Multiply-adds x 2 the DIN pool needs: in float32 the folded form
+    (h * 16 + 16 + h per scored position, 2 * h * 16 per sample; the TPU
+    kernel's count of the unfolded features, ``din_pallas.py:64-67``,
+    overstates them); in bf16 the features q - f and q * f are rounded
+    before the product, so only the query's block folds: 3 * h * 16 + 16 +
+    h per position, h * 16 per sample."""
+    if dtype == torch.float32:
+        return 2 * positions * (h * 16 + 16 + h) + 2 * b * (2 * h * 16)
+    return 2 * positions * (3 * h * 16 + 16 + h) + 2 * b * (h * 16)
+
+
+def din_case(b, seed, cycles_per_ms, dtype=torch.float32):
     """K7 against ``din_pool_plain`` on the model's views: query and facts
     the first 16 lanes of 32-lane rows, T = 50; row 0's mask all 0 over
     nonzero facts, every fourth row of full length.  Bound: the operations
-    the function needs in the folded form (h * 16 + 16 + h multiply-adds per
-    (sample, t), 2 * h * 16 per sample; the TPU kernel's count of the
-    unfolded features, ``din_pallas.py:64-67``, overstates them); bytes:
-    facts, mask, query and output once."""
+    of ``din_ops``; bytes: facts, mask, query, weights and output once.
+    ``dtype`` bf16: query, facts and weights in bf16 (the bf16 compute
+    policy), the float32 kernel on the widened values timed beside it."""
     from recommendsystem_tpu_torch.kernels.din import din_pool, din_pool_plain
 
     t, h = 50, 16
     g = torch.Generator(device="cuda").manual_seed(seed)
-    query = torch.randn((b, 2 * h), generator=g, device="cuda")[:, :h]
-    facts = torch.randn((b, t, 2 * h), generator=g, device="cuda")[:, :, :h]
+    query = torch.randn((b, 2 * h), generator=g, device="cuda").to(dtype)[:, :h]
+    facts = torch.randn((b, t, 2 * h), generator=g, device="cuda").to(dtype)[:, :, :h]
     lens = torch.randint(1, t + 1, (b,), generator=g, device="cuda")
     lens[::4] = t
     lens[0] = 0
@@ -1445,28 +1498,35 @@ def din_case(b, seed, cycles_per_ms):
     w1 = torch.randn((4 * h, 16), generator=g, device="cuda") * 0.2
     b1, w2, b2 = (torch.randn(shape, generator=g, device="cuda") * 0.3
                   for shape in ((16,), (16, 1), (1,)))
+    w1, b1, w2, b2 = (w.to(dtype) for w in (w1, b1, w2, b2))
     args = (query, facts, mask, w1, b1, w2, b2)
     got = din_pool(*args)
     want = din_pool_plain(*args)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
-    mean_err = float((got[0] - facts[0].mean(dim=0)).abs().max())
+    mean_err = float((got[0] - facts[0].float().mean(dim=0)).abs().max())
     if not (err <= DIN_TOL and mean_err <= DIN_TOL):
         raise AssertionError(f"din_pool b={b}: max abs err {err}, all-masked row "
                              f"{mean_err}")
-    nbytes = 4 * (b * t * h + b * t + 2 * b * h)
-    ops = 2 * b * t * (h * 16 + 16 + h) + 2 * b * (2 * h * 16)
+    es = facts.element_size()
+    nbytes = es * (b * t * h + b * h) + 4 * (b * t + b * h) + es * (4 * h * 16 + 16 + 16 + 1)
+    ops = din_ops(b * t, b, h, dtype)
     bms, by = bound(nbytes, ops)
     iters = 240 if b <= 256 else 48
     ms, host_ms = timed(lambda: din_pool(*args), iters, cycles_per_ms)
-    return {"name": "din_pool", "b": b, "t": t, "h": h, "max_abs_err": err,
+    fp32_ms = None
+    if dtype != torch.float32:
+        wide = [x.float() if x.is_floating_point() else x for x in args]
+        fp32_ms = timed(lambda: din_pool(*wide), iters, cycles_per_ms)[0]
+    return {"name": "din_pool", "dtype": _dtype_name(facts), "fp32_ms": fp32_ms,
+            "b": b, "t": t, "h": h, "max_abs_err": err,
             "all_masked_row_err": mean_err, "ms": ms, "host_ms": host_ms,
             "plain_ms": timed(lambda: din_pool_plain(*args), iters, cycles_per_ms)[0],
             "library_ms": None, "bound_ms": bms, "bound_by": by, "bytes": nbytes,
             "ops": ops}
 
 
-def din_gather_case(bundle, state, b, seed, cycles_per_ms):
+def din_gather_case(bundle, state, b, seed, cycles_per_ms, facts_dtype=torch.float32):
     """K7 as the predict step launches it: ``din_pool_gather`` on the first
     behaviour sequence of a full-width staytime batch (T = 50, the
     storage's (163,848 x 32) table, the facts lanes 0-16 of each row, the
@@ -1478,7 +1538,10 @@ def din_gather_case(bundle, state, b, seed, cycles_per_ms):
     path it replaces, K2 (``fold_rows``) then K7 on the K2 rows
     (``din_pool``).  Bound: ids and mask, the unique live half-rows (64
     bytes), query and output once; operations as ``din_case``, but for the
-    live positions only (a masked one needs no score)."""
+    live positions only (a masked one needs no score).  ``facts_dtype``
+    bf16: the bf16 compute policy's pool (bf16 query and weights, each fact
+    rounded to bf16 as it is read), the float32 pool on the same table
+    timed beside it (``fp32_ms``) in place of the replaced path."""
     from recommendsystem_tpu_torch.data import synthetic_batch
     from recommendsystem_tpu_torch.embedding import packed
     from recommendsystem_tpu_torch.kernels.din import (din_pool, din_pool_gather,
@@ -1499,14 +1562,18 @@ def din_gather_case(bundle, state, b, seed, cycles_per_ms):
         raise AssertionError("din_pool_gather case: a padding id over a zero row")
     h = 16
     g = torch.Generator(device="cuda").manual_seed(seed)
-    query = torch.randn((b, 2 * h), generator=g, device="cuda")[:, :h]
+    query32 = torch.randn((b, 2 * h), generator=g, device="cuda")
+    query = query32.to(facts_dtype)[:, :h]
+    query32 = query32[:, :h]
     (slot,) = seg.keys
     pool = "din_" + slot.removeprefix("seq_")
-    weights = [state.params[f"{pool}.{n}"] for n in ("w1", "b1", "w2", "b2")]
+    weights32 = [state.params[f"{pool}.{n}"] for n in ("w1", "b1", "w2", "b2")]
+    weights = [w.to(facts_dtype) for w in weights32]
     lanes = (0, h)
     with torch.inference_mode():
-        got = din_pool_gather(query, table, ids, mask, lanes, *weights)
-        want = din_pool_gather_plain(query, table, ids, mask, lanes, *weights)
+        got = din_pool_gather(query, table, ids, mask, lanes, *weights, facts_dtype=facts_dtype)
+        want = din_pool_gather_plain(query, table, ids, mask, lanes, *weights,
+                                     facts_dtype=facts_dtype)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         if not (err <= DIN_TOL and not got[dead].any()):
@@ -1527,19 +1594,27 @@ def din_gather_case(bundle, state, b, seed, cycles_per_ms):
 
         live = mask != 0
         uniq = int(torch.unique(ids[live]).numel())
-        nbytes = (4 * (2 * b * t + 2 * b * h) + uniq * h * table.element_size()
-                  + sum(4 * w.numel() for w in weights))
+        es = query.element_size()
+        nbytes = (4 * (2 * b * t + b * h) + es * b * h + uniq * h * table.element_size()
+                  + sum(es * w.numel() for w in weights))
         # only a live position needs its score
-        ops = 2 * int(live.sum()) * (h * 16 + 16 + h) + 2 * b * (2 * h * 16)
+        ops = din_ops(int(live.sum()), b, h, facts_dtype)
         bms, by = bound(nbytes, ops)
         iters = 240 if b <= 256 else 48
         ms, host_ms = timed(lambda: din_pool_gather(query, pick(), ids, mask, lanes,
-                                                    *weights), iters, cycles_per_ms)
-        path_ms, path_host_ms = timed(parent_path, iters, cycles_per_ms)
+                                                    *weights, facts_dtype=facts_dtype),
+                            iters, cycles_per_ms)
+        path_ms = path_host_ms = fp32_ms = None
+        if facts_dtype == torch.float32:
+            path_ms, path_host_ms = timed(parent_path, iters, cycles_per_ms)
+        else:
+            fp32_ms = timed(lambda: din_pool_gather(query32, pick(), ids, mask, lanes,
+                                                    *weights32), iters, cycles_per_ms)[0]
         plain_ms = timed(lambda: din_pool_gather_plain(query, pick(), ids, mask, lanes,
-                                                       *weights), iters, cycles_per_ms)[0]
+                                                       *weights, facts_dtype=facts_dtype),
+                         iters, cycles_per_ms)[0]
     return {"name": "din_pool", "entry": "gather", "b": b, "t": t, "h": h,
-            "dtype": _dtype_name(table),
+            "dtype": _dtype_name(table), "compute": _dtype_name(query), "fp32_ms": fp32_ms,
             "rows_all_masked": int(dead.sum()), "live": int(live.sum()),
             "max_abs_err": err, "ms": ms, "host_ms": host_ms,
             "path_ms": path_ms, "path_host_ms": path_host_ms,
@@ -2393,25 +2468,44 @@ def without_k6(bundle):
     return bundle
 
 
-def interacting_case(f, b, seed, cycles_per_ms, h=2):
+def interacting_case(f, b, seed, cycles_per_ms, h=2, dtype=torch.float32):
     """K6 against its plain version at (B, F), and the layer's transposed
     path (projections, K5f, LayerNorm) on the same weights as the
     yardstick: no single PyTorch call computes the function, so
     ``library_ms`` is None.  Bound: x read and the output written once, the
     parameters once; 4 projections of 2*D*U per field and 2*H*F*dh*2 per
     field for the scores and the weighted sum (the JAX kernel's
-    ``CostEstimate``)."""
+    ``CostEstimate``).  ``dtype`` bf16: x and the parameters in bf16 (the
+    bf16 compute policy's first iteration), bytes at bf16, the float32
+    kernel on the widened values timed beside it (``fp32_ms``) in place of
+    the transposed path."""
     from recommendsystem_tpu_torch.kernels.interacting import (
         interacting_attention, interacting_attention_plain)
     from recommendsystem_tpu_torch.nn import InteractingLayer
 
     d = u = 8
-    x, p = _interacting_inputs(b, f, seed)
+    x32, p32 = _interacting_inputs(b, f, seed)
+    x, p = x32.to(dtype), {n: t.to(dtype) for n, t in p32.items()}
     got = interacting_attention(x, p, h, 1e-3)
     want = interacting_attention_plain(x, p, h, 1e-3)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     torch.testing.assert_close(got, want, **INTER_TOL)
+    es = x.element_size()
+    nbytes = es * b * f * d + 4 * b * f * u + es * (4 * d * u + 6 * u)
+    ops = 2 * b * f * d * u * 4 + 2 * b * h * f * f * (u // h) * 2
+    bms, by = bound(nbytes, ops)
+    iters = 240 if b <= 256 else 20
+    ms, host_ms = timed(lambda: interacting_attention(x, p, h, 1e-3), iters, cycles_per_ms)
+    out = {"name": "interacting_attention", "dtype": _dtype_name(x), "b": b, "f": f, "h": h,
+           "max_abs_err": err, "ms": ms, "host_ms": host_ms,
+           "plain_ms": timed(lambda: interacting_attention_plain(x, p, h, 1e-3),
+                             16 if b <= 256 else 2, cycles_per_ms)[0],
+           "library_ms": None, "bound_ms": bms, "bound_by": by, "bytes": nbytes, "ops": ops}
+    if dtype != torch.float32:
+        out["fp32_ms"] = timed(lambda: interacting_attention(x32, p32, h, 1e-3), iters,
+                               cycles_per_ms)[0]
+        return out
     layer = InteractingLayer(d, unit_num=u, head_num=h, use_dropout=True, device="cuda")
     names = {"gamma": "ln_scale", "beta": "ln_bias"}
     with torch.no_grad():
@@ -2422,25 +2516,14 @@ def interacting_case(f, b, seed, cycles_per_ms, h=2):
         with torch.inference_mode():
             return layer.forward_transposed(x)
 
-    unfused_err = float((unfused() - want).abs().max())
-    nbytes = 4 * (b * f * (d + u) + 4 * d * u + 6 * u)
-    ops = 2 * b * f * d * u * 4 + 2 * b * h * f * f * (u // h) * 2
-    bms, by = bound(nbytes, ops)
-    iters = 240 if b <= 256 else 20
     # the plain version and the transposed path issue some 20-30 kernels a
     # call: at most ~500 launches are queued behind the spin kernel, inside
     # the card's queue of pending launches, so the card runs them back to
     # back and the events read device time, not the host's issue pace
-    many = 16 if b <= 256 else 20
-    ms, host_ms = timed(lambda: interacting_attention(x, p, h, 1e-3), iters, cycles_per_ms)
-    unfused_ms, unfused_host_ms = timed(unfused, many, cycles_per_ms)
-    return {"name": "interacting_attention", "b": b, "f": f, "h": h, "max_abs_err": err,
-            "ms": ms, "host_ms": host_ms,
-            "plain_ms": timed(lambda: interacting_attention_plain(x, p, h, 1e-3),
-                              16 if b <= 256 else 2, cycles_per_ms)[0],
-            "unfused_ms": unfused_ms, "unfused_host_ms": unfused_host_ms,
-            "unfused_max_abs_err": unfused_err, "library_ms": None,
-            "bound_ms": bms, "bound_by": by, "bytes": nbytes, "ops": ops}
+    unfused_ms, unfused_host_ms = timed(unfused, 16 if b <= 256 else 20, cycles_per_ms)
+    out.update(unfused_ms=unfused_ms, unfused_host_ms=unfused_host_ms,
+               unfused_max_abs_err=float((unfused() - want).abs().max()))
+    return out
 
 
 def interacting_grad_check():
@@ -3802,7 +3885,7 @@ def daily_path(card):
 
 
 # -- phase 13: bf16 tables and moments; the classic sparse updates ----------
-BF16_TRAIN_BATCH = {"staytime": STAYTIME_BATCH, "autoint": BIG_BATCH}
+BF16_TRAIN_BATCH = {"staytime": STAYTIME_BATCH, "autoint": BIG_BATCH, "ctr": CTR_BATCH}
 CLASSIC_BUCKET = 4001             # autoint's tables off both packings: no storage packs
 
 
@@ -4184,6 +4267,356 @@ def bf16_path(card, cycles_per_ms, autoint_launches):
     return out
 
 
+# -- phase 14: the bf16 compute policy ---------------------------------------
+# the CPU tests' bf16 tolerances (tests/test_torch_bf16_compute.py): outputs
+# of a bf16 tower (bf16 roundings of intermediates that may fall on either
+# side of a midpoint), losses, and each dense gradient's relative L2 error
+POLICY_OUT_TOL = dict(rtol=2e-2, atol=5e-3)
+POLICY_LOSS_RTOL = 1e-2
+POLICY_GRAD_REL_L2 = 2e-2
+POLICY_ZERO_GRAD = 1e-6           # a gradient of 0 in exact arithmetic (DIN b2)
+
+
+def _assert_policy_close(got, want, what):
+    """Heads (dicts of arrays) within ``POLICY_OUT_TOL``."""
+    for task in want:
+        np.testing.assert_allclose(np.asarray(got[task]), np.asarray(want[task]),
+                                   **POLICY_OUT_TOL, err_msg=f"{what} {task}")
+
+
+def _policy_loss_and_grads(bundle, state, batch, labels, weight, dense, seed):
+    """The training loss and every dense gradient of one bf16-policy step
+    (the step's own loss function, on the classic lookup), on the CPU."""
+    from recommendsystem_tpu_torch.nn import regularized_kernels
+    from recommendsystem_tpu_torch.train import step as step_mod
+
+    eng = bundle.embedding
+    embs = eng.lookup(eng.weights(state.tables), batch)
+    params = {k: p.detach().requires_grad_() for k, p in state.params.items()}
+    loss, _ = step_mod._model_outputs_and_loss(bundle, params, embs, labels, weight, dense,
+                                               True, seed, regularized_kernels(bundle.module))
+    grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True,
+                                materialize_grads=True)
+    return float(loss.detach()), {k: g.detach().float().cpu() for k, g in zip(params, grads)}
+
+
+def hold_policy_to_cpu(name, kw, seed=CHECK_SEEDS[0]):
+    """The bf16 policy's training loss and dense gradients on the card held
+    to the CPU plain path of the same policy, from one seeded state, at B =
+    ``TOWER_CHECK_BATCH`` and the step's dropout: the loss within
+    ``POLICY_LOSS_RTOL`` and each gradient's relative L2 error within
+    ``POLICY_GRAD_REL_L2`` (the DIN scorer's b2, whose gradient is 0 in
+    exact arithmetic, and parameters outside the graph, below
+    ``POLICY_ZERO_GRAD`` of the largest gradient on both sides); then one
+    packed train step on each side, its losses held the same way."""
+    from recommendsystem_tpu_torch.data import synthetic_batch
+    from recommendsystem_tpu_torch.models import create_model
+    from recommendsystem_tpu_torch.train import make_train_step
+    from recommendsystem_tpu_torch.train.state import create_train_state
+
+    gb = create_model(name, compute_dtype=torch.bfloat16, device="cuda", **kw)
+    cb = create_model(name, compute_dtype=torch.bfloat16, device="cpu", **kw)
+    gstate = create_train_state(gb, seed=3)
+    cstate = dataclasses.replace(gstate, params=_to(gstate.params, "cpu"),
+                                 opt_state=_to(gstate.opt_state, "cpu"),
+                                 tables=_to(gstate.tables, "cpu"))
+    batch, dense, labels, weight = synthetic_batch(cb, TOWER_CHECK_BATCH, seed=seed)
+    gbatch = {k: v.to("cuda") for k, v in batch.items()}
+    gdense, glabels, gweight = (None if x is None else _to(x, "cuda")
+                                for x in (dense, labels, weight))
+    gloss, ggrads = _policy_loss_and_grads(gb, gstate, gbatch, glabels, gweight, gdense, 7)
+    closs, cgrads = _policy_loss_and_grads(cb, cstate, batch, labels, weight, dense, 7)
+    if not abs(gloss - closs) <= POLICY_LOSS_RTOL * abs(closs):
+        raise AssertionError(f"{name} bf16 policy: loss {gloss} on the card, {closs} on the CPU")
+    scale = max(float(g.norm()) for g in cgrads.values())
+    worst, worst_key = 0.0, None
+    for k, cg in cgrads.items():
+        gg = ggrads[k]
+        zero = (k.startswith("din_") and k.endswith(".b2")) or not bool(cg.any())
+        if zero:
+            if max(float(gg.norm()), float(cg.norm())) > POLICY_ZERO_GRAD * scale:
+                raise AssertionError(f"{name} bf16 policy {k}: gradient norms {float(gg.norm())}, "
+                                     f"{float(cg.norm())}, expected 0 up to rounding")
+            continue
+        err = float((gg - cg).norm() / cg.norm())
+        if err >= worst:
+            worst, worst_key = err, k
+        if err > POLICY_GRAD_REL_L2:
+            raise AssertionError(f"{name} bf16 policy {k}: gradient relative L2 error {err}")
+    gs, ginfo = make_train_step(gb)(gstate, gbatch, glabels, gweight, gdense, seed=7)
+    cs, cinfo = make_train_step(cb)(cstate, batch, labels, weight, dense, seed=7)
+    step_loss = (float(ginfo["loss"]), float(cinfo["loss"]))
+    if not abs(step_loss[0] - step_loss[1]) <= POLICY_LOSS_RTOL * abs(step_loss[1]):
+        raise AssertionError(f"{name} bf16 policy step: losses {step_loss}")
+    if {p.dtype for p in gs.params.values()} != {torch.float32}:
+        raise AssertionError(f"{name} bf16 policy: a master param is not float32")
+    return {"loss": [gloss, closs], "step_loss": list(step_loss),
+            "worst_grad_rel_l2": worst, "worst_grad": worst_key, "batch": TOWER_CHECK_BATCH}
+
+
+def _policy_pair_ms(bundle, b, ipf, seed):
+    """Train-step ms of ``bundle`` under float32 and under its bf16 policy,
+    in turns (float32, bf16, bf16, float32) on one batch and state."""
+    from recommendsystem_tpu_torch.data import synthetic_batch
+    from recommendsystem_tpu_torch.train import make_train_step
+    from recommendsystem_tpu_torch.train.state import create_train_state
+
+    f32 = dataclasses.replace(bundle, compute_dtype=torch.float32)
+    batch, dense, labels, weight = synthetic_batch(bundle, b, seed=seed, ids_per_feature=ipf)
+    state = create_train_state(bundle, seed=seed)
+    steps = {"fp32": make_train_step(f32), "bf16": make_train_step(bundle)}
+    ms = {"fp32": [], "bf16": []}
+    for kind in ("fp32", "bf16", "bf16", "fp32"):
+        ms[kind].append(train_ms(steps[kind], state, batch, labels, weight, dense,
+                                 per_window=5)[0])
+    return {k: {"ms_per_step": v, "examples_per_s": [b / x * 1e3 for x in v]}
+            for k, v in ms.items()}
+
+
+def _policy_predict_ms(bundle, state, b, seed, iters=10):
+    """Predict-call ms under float32 and the bf16 policy in turns, host
+    clock, windows ending in a synchronize."""
+    from recommendsystem_tpu_torch.data import synthetic_batch
+    from recommendsystem_tpu_torch.train import make_predict_step
+
+    batch, dense, _, _ = synthetic_batch(bundle, b, seed=seed)
+    steps = {"fp32": make_predict_step(dataclasses.replace(bundle, compute_dtype=torch.float32)),
+             "bf16": make_predict_step(bundle)}
+    ms = {"fp32": [], "bf16": []}
+    for kind in ("fp32", "bf16", "bf16", "fp32"):
+        steps[kind](state, batch, dense)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            steps[kind](state, batch, dense)
+        torch.cuda.synchronize()
+        ms[kind].append((time.perf_counter() - t0) / iters * 1e3)
+    return {k: {"ms_per_call": v, "examples_per_s": [b / x * 1e3 for x in v]}
+            for k, v in ms.items()}
+
+
+def bf16_compute_path(card, cycles_per_ms, want):
+    """Phase 14: the bf16 compute policy at full width.  K6, K5f (dropout
+    0.2), K5b and both K7 entries (over a float32 and a bf16 table) on bf16
+    inputs against their plain versions, timed with bounds on bf16 bytes
+    beside the float32 kernel.  Autoint under the policy: served (K6 on
+    bf16) and held to the CPU plain path of the same policy, its predict
+    call's and ``evaluate``'s launches, a counted train window at B = 65536
+    (K5f and K5b on bf16) held to the float32 model's launches a step
+    (``want``), predict and train ms against float32 in turns.  Ctr (B =
+    32768) and staytime (B = 16384, K7 on given bf16 facts) the same way in
+    training; staytime's predict call (the gathering K7 rounding a float32
+    table) held to the CPU; staytime ``"auto"`` under the policy served,
+    held to the CPU and evaluated.  Each training model's loss and dense
+    gradients held to the CPU's (``hold_policy_to_cpu``).  Then the
+    server's ``main --compute-dtype bf16 --table-dtype auto`` and one day of
+    ``daily.main --compute-dtype bf16`` (finish)."""
+    import shutil
+    import tempfile
+
+    from recommendsystem_tpu_torch.data import synthetic_batch
+    from recommendsystem_tpu_torch.models import create_model
+    from recommendsystem_tpu_torch.models.autoint import TASK
+    from recommendsystem_tpu_torch.models.staytime import StaytimeConfig
+    from recommendsystem_tpu_torch.serving import ScoringService
+    from recommendsystem_tpu_torch.train import evaluate, harness, make_predict_step
+    from recommendsystem_tpu_torch.train.state import create_train_state
+
+    bf16 = torch.bfloat16
+    out = {"card": card, "train": {}, "predict": {}, "card_vs_cpu": {}}
+    launches = {}
+    cases = [interacting_case(24, BIG_BATCH, 141, cycles_per_ms, dtype=bf16),
+             attention_case(2, 4, 24, BIG_BATCH, 142, cycles_per_ms, rate=DROPOUT, dtype=bf16),
+             attention_bwd_case(2, 4, 24, BIG_BATCH, 143, cycles_per_ms, dtype=bf16),
+             din_case(STAYTIME_BATCH, 144, cycles_per_ms, dtype=bf16)]
+
+    # -- autoint: served, evaluated, trained ---------------------------------
+    ai = create_model("autoint", bucket_size=FULL_BUCKET, compute_dtype=bf16, device="cuda")
+    astate = create_train_state(ai, seed=0)
+    rows = raw_rows(np.random.default_rng(16), 200, 5)
+
+    def serve_autoint():
+        svc = ScoringService(ai, astate, max_batch=256, ids_per_feature=5)
+        svc.warmup()
+        return (np.asarray(svc.score(rows)[TASK]),
+                np.asarray(http_score(svc, rows[:50])["scores"][TASK]))
+
+    (scores, over_http), counts = _count(serve_autoint)
+    _add(launches, counts)
+    if counts["fold_mean"] < 1 or counts["interacting_attention"] < 1:
+        raise AssertionError(f"autoint bf16 policy serving: launches {counts}")
+    check_scores(scores, 200)
+    np.testing.assert_allclose(over_http, scores[:50], **SCORE_TOL)
+    ai_cpu = create_model("autoint", bucket_size=FULL_BUCKET, compute_dtype=bf16, device="cpu")
+    cpu_scores = np.asarray(ScoringService(ai_cpu, _cpu_state(astate), max_batch=256,
+                                           ids_per_feature=5, device="cpu").score(rows)[TASK])
+    np.testing.assert_allclose(scores, cpu_scores, **POLICY_OUT_TOL)
+    f32_scores = np.asarray(ScoringService(dataclasses.replace(ai, compute_dtype=torch.float32),
+                                           astate, max_batch=256,
+                                           ids_per_feature=5).score(rows)[TASK])
+    out["autoint_serve"] = {
+        "launches": {k: v for k, v in counts.items() if v},
+        "max_abs_gap_to_cpu": float(np.abs(scores - cpu_scores).max()),
+        "max_abs_gap_to_fp32": float(np.abs(scores - f32_scores).max())}
+    del ai_cpu
+    step = make_predict_step(ai)
+    batch = synthetic_batch(ai, 256, seed=17)[0]
+    _, counts = _count(lambda: step(astate, batch))
+    _add(launches, counts)
+    if {k: v for k, v in counts.items() if v} != EVAL_LAUNCHES["k6"]:
+        raise AssertionError(f"autoint bf16 policy predict: launches {counts}")
+    eval_data = [synthetic_batch(ai, BIG_BATCH, seed=170 + i) for i in range(EVAL_BATCHES)]
+    values, counts = _count(lambda: evaluate(ai, eval_data, astate))
+    _add(launches, counts)
+    if {k: v / EVAL_BATCHES for k, v in counts.items() if v} != EVAL_LAUNCHES["k6"]:
+        raise AssertionError(f"autoint bf16 policy eval: launches {counts}")
+    _check_metric_values(values, "autoint bf16 policy evaluate")
+    del eval_data
+    out["predict"]["autoint"] = _policy_predict_ms(ai, astate, BIG_BATCH, 18)
+    res, counts, _, _ = _bf16_train_windows(ai, (5,), {5: want["autoint"]}, 81)
+    _add(launches, counts)
+    out["train"]["autoint"] = {**res["ids5"], "in_turns": _policy_pair_ms(ai, BIG_BATCH, 5, 82)}
+    del astate, ai
+    torch.cuda.empty_cache()
+
+    # -- ctr: trained ---------------------------------------------------------
+    ctr = create_model("ctr", compute_dtype=bf16, device="cuda")
+    res, counts, _, _ = _bf16_train_windows(ctr, (5,), {5: want["ctr"]}, 83)
+    _add(launches, counts)
+    out["train"]["ctr"] = {**res["ids5"], "in_turns": _policy_pair_ms(ctr, CTR_BATCH, 5, 84)}
+    del ctr
+    torch.cuda.empty_cache()
+
+    # -- staytime, float32 tables: predict (the gathering K7 rounding the
+    # float32 facts) held to the CPU; trained (K7 on given bf16 facts) -------
+    st = create_model("staytime", compute_dtype=bf16, device="cuda")
+    sstate = create_train_state(st, seed=0)
+    st_cpu = create_model("staytime", compute_dtype=bf16, device="cpu")
+    step = make_predict_step(st)
+    batch = synthetic_batch(st, 256, seed=19, ids_per_feature=5)[0]
+    pred, counts = _count(lambda: step(sstate, batch))
+    _add(launches, counts)
+    if {k: v for k, v in counts.items() if v} != EVAL_LAUNCHES["staytime5"]:
+        raise AssertionError(f"staytime bf16 policy predict: launches {counts}")
+    cpu_pred = make_predict_step(st_cpu)(_cpu_state(sstate),
+                                         {k: v.to("cpu") for k, v in batch.items()})
+    _assert_policy_close({k: v.squeeze(1).cpu().numpy() for k, v in pred.items()},
+                         {k: v.squeeze(1).numpy() for k, v in cpu_pred.items()},
+                         "staytime bf16 policy predict, card vs CPU")
+    del st_cpu, cpu_pred
+    cases.append(din_gather_case(st, sstate, STAYTIME_BATCH, 145, cycles_per_ms,
+                                 facts_dtype=bf16))
+    out["predict"]["staytime"] = _policy_predict_ms(st, sstate, STAYTIME_BATCH, 20)
+    del sstate
+    res, counts, _, _ = _bf16_train_windows(st, (5,), STAYTIME_TRAIN_LAUNCHES, 85)
+    _add(launches, counts)
+    out["train"]["staytime"] = {**res["ids5"],
+                                "in_turns": _policy_pair_ms(st, STAYTIME_BATCH, 5, 86)}
+    del st
+    torch.cuda.empty_cache()
+
+    # -- staytime "auto" under the policy: served, held to the CPU, evaluated
+    sta = create_model("staytime", table_dtype="auto", compute_dtype=bf16, device="cuda")
+    astate = create_train_state(sta, seed=0)
+    cfg = StaytimeConfig()
+    rows200 = staytime_rows(np.random.default_rng(21), 200, cfg.slots, cfg.seq_slots)
+
+    def serve_staytime():
+        svc = ScoringService(sta, astate, max_batch=256, ids_per_feature=5)
+        svc.warmup()
+        return svc.score(rows200), http_score(svc, rows200[:50])["scores"]
+
+    (s200, over_http), counts = _count(serve_staytime)
+    _add(launches, counts)
+    if counts["din_pool"] < 1 or counts["fold_mean"] < 1:
+        raise AssertionError(f"staytime auto bf16 policy serving: launches {counts}")
+    check_staytime_scores(s200, 200)
+    assert_heads_close(over_http, {k: v[:50] for k, v in s200.items()}, "over HTTP")
+    sta_cpu = create_model("staytime", table_dtype="auto", compute_dtype=bf16, device="cpu")
+    _assert_policy_close(s200, ScoringService(sta_cpu, _cpu_state(astate), max_batch=256,
+                                              ids_per_feature=5, device="cpu").score(rows200),
+                         "staytime auto bf16 policy, card vs CPU")
+    del sta_cpu
+    cases.append(din_gather_case(sta, astate, STAYTIME_BATCH, 146, cycles_per_ms,
+                                 facts_dtype=bf16))
+    eval_data = [synthetic_batch(sta, STAYTIME_BATCH, seed=171 + i) for i in range(EVAL_BATCHES)]
+    values, counts = _count(lambda: evaluate(sta, eval_data, astate))
+    _add(launches, counts)
+    if {k: v / EVAL_BATCHES for k, v in counts.items() if v} != EVAL_LAUNCHES["staytime5"]:
+        raise AssertionError(f"staytime auto bf16 policy eval: launches {counts}")
+    _check_metric_values(values, "staytime auto bf16 policy evaluate")
+    out["staytime_auto_serve"] = {"launches": {k: v for k, v in counts.items() if v}}
+    del eval_data, astate, sta
+    torch.cuda.empty_cache()
+
+    # -- the card held to the CPU: loss and dense gradients -----------------
+    small = {"autoint": {"bucket_size": ROUGH_CHECK_BUCKET},
+             "ctr": {"bucket_size": ROUGH_CHECK_BUCKET},
+             "staytime": {"cfg": StaytimeConfig(bucket_size=STAYTIME_CHECK_BUCKET)}}
+    for name, kw in small.items():
+        res, counts = _count(lambda: hold_policy_to_cpu(name, kw))
+        _add(launches, counts)
+        out["card_vs_cpu"][name] = res
+        log(f"{name} bf16 policy card vs cpu:", json.dumps(res))
+
+    # -- the command lines ----------------------------------------------------
+    served, counts = _count(lambda: serve_main(
+        ["--model", "staytime", "--table-dtype", "auto", "--compute-dtype", "bf16"], rows200))
+    _add(launches, counts)
+    health, scored = served
+    if health != {"status": "ok", "model": "staytime", "step": 0}:
+        raise AssertionError(f"server --compute-dtype bf16: healthz {health}")
+    check_staytime_scores(scored["scores"], 200)
+    assert_heads_close(scored["scores"], s200, "server --compute-dtype bf16")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_policy_")
+    recorder = _StepRecorder()
+    real_make = harness.make_train_step
+    try:
+        fdata = os.path.join(tmp, "finish")
+        fslots = [str(s) for s in range(3000, 3040)]
+        _daily_records(fdata, DAILY_DAYS[0], _finish_record(fslots, DAILY_DAYS[0]), seed=140)
+        harness.make_train_step = recorder.wrap(real_make)
+        fstate, counts, wall = _daily_run("finish", fdata, os.path.join(tmp, "finish_state"),
+                                          DAILY_DAYS[:1], ["--compute-dtype", "bf16"],
+                                          FINISH_DAILY_LAUNCHES, recorder)
+        _add(launches, counts)
+        if {p.dtype for p in fstate.params.values()} != {torch.float32}:
+            raise AssertionError("daily --compute-dtype bf16: a master param is not float32")
+        out["daily"] = {"wall_s": wall, "step_ms": recorder.times_ms(),
+                        "launches": {k: v for k, v in counts.items() if v}}
+    finally:
+        harness.make_train_step = real_make
+        shutil.rmtree(tmp, ignore_errors=True)
+    for c in cases:
+        log(json.dumps(c))
+    out["cases"] = cases
+    out["launches"] = launches
+    return out
+
+
+# the float32 launches a step of the train steps phase 14 holds its windows
+# to, for ``--phase 14`` alone (phases 5 and 8 measure them in a whole run)
+PACKED_MEAN_ATTN_LAUNCHES = {"fold_mean": 1, "unfold_mean": 1, "field_attention": 1,
+                             "field_attention_bwd": 1, "sparse_adam_update": 1}
+
+
+def phase14_alone(card) -> int:
+    """``--phase 14``: build the kernels and run phase 14 alone, its JSON
+    line printed; no kernels line and no ok line (a whole run gives them)."""
+    from recommendsystem_tpu_torch.kernels import build_all
+
+    build_all()
+    out = bf16_compute_path(card, _spin_cycles_per_ms(),
+                            {"autoint": PACKED_MEAN_ATTN_LAUNCHES,
+                             "ctr": PACKED_MEAN_ATTN_LAUNCHES})
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_phase14.json"), "w") as fh:
+        json.dump(out, fh, indent=1)
+    print(json.dumps({"bf16_compute": {k: out[k] for k in ("train", "predict",
+                                                          "card_vs_cpu")}}), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available; this script runs on a card")
@@ -4208,6 +4641,9 @@ def main() -> int:
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
     torch.backends.cuda.matmul.allow_tf32 = False     # float32 as the CPU computes it
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    if sys.argv[1:] == ["--phase", "14"]:
+        return phase14_alone(card)
 
     # -- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -4426,6 +4862,19 @@ def main() -> int:
         "classic": {k: v["launches"] for k, v in report["bf16"]["classic"].items()},
         "card": card}}), flush=True)
 
+    # -- 14. the main path: the bf16 compute policy ---------------------------
+    report["bf16_compute"] = bf16_compute_path(card, cycles_per_ms, {
+        "autoint": report["train"]["launches_per_step"]["ids5"],
+        "ctr": report["towers"]["train"]["ctr"]["launches_per_step"]})
+    compute = report["bf16_compute"]["launches"]
+    cases += report["bf16_compute"]["cases"]
+    print(json.dumps({"bf16_compute": {
+        "train": {m: {"value": r["value"], "ms_per_step": r["ms_per_step"], "batch": r["batch"],
+                      "launches_per_step": r["launches_per_step"], "in_turns": r["in_turns"]}
+                  for m, r in report["bf16_compute"]["train"].items()},
+        "predict": report["bf16_compute"]["predict"],
+        "card_vs_cpu": report["bf16_compute"]["card_vs_cpu"], "card": card}}), flush=True)
+
     # -- report ----------------------------------------------------------------
     # the serving folds at the largest serving bucket, the train kernels
     # (K5 among them: the serving paths take K6) at the train batch, the
@@ -4433,7 +4882,8 @@ def main() -> int:
     # the DIN pool at the staytime bulk batch; K6 at autoint's predict batch
     # and F = 24
     headline = {}
-    fp32 = [c for c in cases if c.get("dtype", "fp32") == "fp32"]
+    fp32 = [c for c in cases
+            if c.get("dtype", "fp32") == "fp32" and c.get("compute", "fp32") == "fp32"]
     for c in fp32:
         serve = c["name"] in ("fold_mean", "fold_rows")
         want_b = STAYTIME_BATCH if c["name"] == "din_pool" else (
@@ -4479,7 +4929,8 @@ def main() -> int:
         c = headline[name]
         launches = (serving[name] + training[name] + staytime[name] + interacting[name]
                     + towers[name] + rough[name] + stacked[name] + staytime_train[name]
-                    + evaluation[name] + daily[name] + bf16.get(name, 0))
+                    + evaluation[name] + daily[name] + bf16.get(name, 0)
+                    + compute.get(name, 0))
         if launches < 1:
             raise AssertionError(f"{name} was not launched on the main paths")
         kernels.append({

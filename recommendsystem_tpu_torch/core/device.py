@@ -11,7 +11,10 @@ def resolve_device(device="cuda") -> torch.device:
 
     On CUDA this also turns TF32 off for matrix products and cuDNN: TF32
     keeps about three decimal digits, and parity with the float32 reference
-    needs full float32 products."""
+    needs full float32 products.  It also forbids cuBLAS to reduce a bf16
+    product in bf16 (``allow_bf16_reduced_precision_reduction``): a split-K
+    bf16 GEMM may otherwise round its partial sums to bf16, where the JAX
+    package's bf16 products always accumulate in float32."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -20,4 +23,5 @@ def resolve_device(device="cuda") -> torch.device:
                 f"pass device='cpu' to run the plain PyTorch versions")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return dev

@@ -51,6 +51,22 @@ __device__ __forceinline__ unsigned int bf16_pair(float lo, float hi) {
   return bf16_bits(lo) | (bf16_bits(hi) << 16);
 }
 
+// one value of T (float or bf16) as a float, exactly
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); }
+
+// a float as a T (float, or bf16 rounded to nearest even)
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_float<bf16>(float x) { return __float2bfloat16_rn(x); }
+
+// x rounded to the nearest bf16 (ties to even) and widened back: what a
+// bf16 operation that computes in float32 and rounds its result gives
+__device__ __forceinline__ float round_bf16(float x) { return bf16_lo(bf16_bits(x)); }
+
 // Lanes<T, V>: V neighbouring values of a row of T (float or bf16), moved as
 // one load or store of Raw and worked on as V floats: widen after a load,
 // narrow before a store.

@@ -73,8 +73,25 @@
 // The query is a strided view (the first 16 of 32 lanes of a mean row): the
 // kernels take its row stride; its last dimension must be contiguous.
 // Output (B, H) contiguous.
+//
+// bf16 inputs (the bf16 compute policy).  The query, the facts and the
+// scorer's w1, b1, w2, b2 may be bfloat16, all of one compute type C (a
+// template parameter); the gathering entry reads a float32 or a bf16 table
+// (T) whatever C is.  The JAX kernel's body on bf16 inputs
+// (din_pallas.py:25-36) forms q - f and q * f in bf16, each rounded, before
+// the scorer's product, which accumulates in float32; the sigmoid, the
+// softmax and the weighted sum are float32, and the output is float32.
+// Those two roundings break the fold above (it multiplies q into W1 before
+// f is known), so for C = bf16 the scorer takes the features as they are:
+// a_j = b1_j + sum_k q_k Wa[k, j] once per sample, then per t
+// sum_k f_k Wb + bf16(q_k - f_k) Wc + bf16(q_k * f_k) Wd, 3*H*16
+// multiply-adds in place of H*16.  Every value is widened as it is loaded;
+// a gathered fact from a float32 table is rounded to bf16 as the tile takes
+// it (the JAX predict step casts its folded facts to bf16), which is the
+// identity for a bf16 table.  The mask stays float32.
 
 #include <cmath>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -93,48 +110,76 @@ constexpr int kInFlight = 8;                   // loads a lane issues before sto
 // have, with room for the static scorer
 constexpr size_t kMaxDynamic = 200 * 1024;
 
-// The block's folded scorer and each warp's fold of its sample's query
+// The block's scorer and each warp's fold of its sample's query.  Compute
+// type float32: wq = Wa + Wc, wf = Wb - Wc, wd = Wd and m[warp] the query's
+// M.  bf16 (rounded features): wq = Wc, wf = Wb, wd = Wd and m[warp] holds
+// the query itself.
 struct Scorer {
-  float wq[kW];                                // Wa + Wc
-  float wf[kW];                                // Wb - Wc
-  float wd[kW];                                // Wd
+  float wq[kW];
+  float wf[kW];
+  float wd[kW];
   float m[kWarps][kW];
   float a[kWarps][kHidden];
   float b1[kHidden];
   float w2[kHidden];
 };
 
-// the block folds W1 (4H, 16); the caller synchronises
-__device__ __forceinline__ void fold_weights(Scorer& sc, const float* __restrict__ w1,
-                                             const float* __restrict__ b1,
-                                             const float* __restrict__ w2) {
+// compute type bf16: the features q - f and q * f are rounded
+template <typename C>
+constexpr bool kRounds = std::is_same<C, bf16>::value;
+
+// the block folds W1 (4H, 16) (for bf16 it copies its Wb, Wc and Wd
+// blocks), widened; the caller synchronises
+template <typename C>
+__device__ __forceinline__ void fold_weights(Scorer& sc, const C* __restrict__ w1,
+                                             const C* __restrict__ b1,
+                                             const C* __restrict__ w2) {
   for (int i = threadIdx.x; i < kW; i += blockDim.x) {
-    const float wc = w1[2 * kW + i];
-    sc.wq[i] = w1[i] + wc;
-    sc.wf[i] = w1[kW + i] - wc;
-    sc.wd[i] = w1[3 * kW + i];
+    const float wc = to_float(w1[2 * kW + i]);
+    const float wb = to_float(w1[kW + i]);
+    if constexpr (kRounds<C>) {
+      sc.wq[i] = wc;
+      sc.wf[i] = wb;
+    } else {
+      sc.wq[i] = to_float(w1[i]) + wc;
+      sc.wf[i] = wb - wc;
+    }
+    sc.wd[i] = to_float(w1[3 * kW + i]);
   }
   if (threadIdx.x < kHidden) {
-    sc.b1[threadIdx.x] = b1[threadIdx.x];
-    sc.w2[threadIdx.x] = w2[threadIdx.x];
+    sc.b1[threadIdx.x] = to_float(b1[threadIdx.x]);
+    sc.w2[threadIdx.x] = to_float(w2[threadIdx.x]);
   }
 }
 
-// the warp builds its sample's a (16) and M (H x 16)
+// the warp builds its sample's a (16) and M (H x 16); for bf16, a from W1's
+// Wa block and the query into m[warp]
+template <typename C>
 __device__ __forceinline__ void fold_query(Scorer& sc, int warp, int lane,
-                                           const float* __restrict__ qs) {
+                                           const C* __restrict__ qs,
+                                           const C* __restrict__ w1) {
   float* m = sc.m[warp];
-  for (int i = lane; i < kW; i += 32) m[i] = fmaf(qs[i / kHidden], sc.wd[i], sc.wf[i]);
+  if constexpr (kRounds<C>) {
+    if (lane < H) m[lane] = to_float(qs[lane]);
+  } else {
+    for (int i = lane; i < kW; i += 32) {
+      m[i] = fmaf(to_float(qs[i / kHidden]), sc.wd[i], sc.wf[i]);
+    }
+  }
   if (lane < kHidden) {
     float a = 0.f;
 #pragma unroll
-    for (int k = 0; k < H; ++k) a = fmaf(qs[k], sc.wq[k * kHidden + lane], a);
+    for (int k = 0; k < H; ++k) {
+      const float wa = kRounds<C> ? to_float(w1[k * kHidden + lane]) : sc.wq[k * kHidden + lane];
+      a = fmaf(to_float(qs[k]), wa, a);
+    }
     sc.a[warp][lane] = sc.b1[lane] + a;
   }
   __syncwarp();
 }
 
 // the score of one fact row under the warp's fold
+template <typename C>
 __device__ __forceinline__ float score(const Scorer& sc, int warp, const float (&fv)[H],
                                        float bias2) {
   // M and a are read from shared memory on every call: hoisted out of the
@@ -150,16 +195,37 @@ __device__ __forceinline__ float score(const Scorer& sc, int warp, const float (
     acc[4 * j4 + 2] = a4.z;
     acc[4 * j4 + 3] = a4.w;
   }
+  if constexpr (kRounds<C>) {
+    // [f, bf16(q - f), bf16(q * f)] against Wb, Wc and Wd
 #pragma unroll
-  for (int k = 0; k < H; ++k) {
-    const float4* row = reinterpret_cast<const float4*>(m + k * kHidden);
+    for (int k = 0; k < H; ++k) {
+      const float x[3] = {fv[k], round_bf16(m[k] - fv[k]), round_bf16(m[k] * fv[k])};
+      const float* blocks[3] = {sc.wf, sc.wq, sc.wd};
 #pragma unroll
-    for (int j4 = 0; j4 < kHidden / 4; ++j4) {
-      const float4 w = row[j4];
-      acc[4 * j4 + 0] = fmaf(fv[k], w.x, acc[4 * j4 + 0]);
-      acc[4 * j4 + 1] = fmaf(fv[k], w.y, acc[4 * j4 + 1]);
-      acc[4 * j4 + 2] = fmaf(fv[k], w.z, acc[4 * j4 + 2]);
-      acc[4 * j4 + 3] = fmaf(fv[k], w.w, acc[4 * j4 + 3]);
+      for (int e = 0; e < 3; ++e) {
+        const float4* row = reinterpret_cast<const float4*>(blocks[e] + k * kHidden);
+#pragma unroll
+        for (int j4 = 0; j4 < kHidden / 4; ++j4) {
+          const float4 w = row[j4];
+          acc[4 * j4 + 0] = fmaf(x[e], w.x, acc[4 * j4 + 0]);
+          acc[4 * j4 + 1] = fmaf(x[e], w.y, acc[4 * j4 + 1]);
+          acc[4 * j4 + 2] = fmaf(x[e], w.z, acc[4 * j4 + 2]);
+          acc[4 * j4 + 3] = fmaf(x[e], w.w, acc[4 * j4 + 3]);
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < H; ++k) {
+      const float4* row = reinterpret_cast<const float4*>(m + k * kHidden);
+#pragma unroll
+      for (int j4 = 0; j4 < kHidden / 4; ++j4) {
+        const float4 w = row[j4];
+        acc[4 * j4 + 0] = fmaf(fv[k], w.x, acc[4 * j4 + 0]);
+        acc[4 * j4 + 1] = fmaf(fv[k], w.y, acc[4 * j4 + 1]);
+        acc[4 * j4 + 2] = fmaf(fv[k], w.z, acc[4 * j4 + 2]);
+        acc[4 * j4 + 3] = fmaf(fv[k], w.w, acc[4 * j4 + 3]);
+      }
     }
   }
   float s = 0.f;
@@ -187,36 +253,37 @@ __device__ __forceinline__ void softmax(float* p, int t, int lane, float mx) {
   __syncwarp();
 }
 
+template <typename C>
 __global__ void __launch_bounds__(kWarps * 32)
-din_pool_kernel(const float* __restrict__ q, const float* __restrict__ facts,
-                const float* __restrict__ mask, const float* __restrict__ w1,
-                const float* __restrict__ b1, const float* __restrict__ w2,
-                const float* __restrict__ b2, float* __restrict__ out,
+din_pool_kernel(const C* __restrict__ q, const C* __restrict__ facts,
+                const float* __restrict__ mask, const C* __restrict__ w1,
+                const C* __restrict__ b1, const C* __restrict__ w2,
+                const C* __restrict__ b2, float* __restrict__ out,
                 long long b, int t, long long qb, long long fb, long long ft,
                 long long mb, long long mt) {
   __shared__ __align__(16) Scorer sc;
   extern __shared__ float s_scores[];          // kWarps x t
   fold_weights(sc, w1, b1, w2);
-  const float bias2 = b2[0];
+  const float bias2 = to_float(b2[0]);
   __syncthreads();
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const long long sample = static_cast<long long>(blockIdx.x) * kWarps + warp;
   if (sample >= b) return;                     // whole warps leave together
-  const float* fs = facts + sample * fb;
+  const C* fs = facts + sample * fb;
   const float* ms = mask + sample * mb;
   float* p = s_scores + warp * t;
-  fold_query(sc, warp, lane, q + sample * qb);
+  fold_query(sc, warp, lane, q + sample * qb, w1);
 
   // scores, and the running max of this lane's scores
   float mx = -INFINITY;
   for (int ti = lane; ti < t; ti += 32) {
-    const float* fr = fs + ti * ft;
+    const C* fr = fs + ti * ft;
     float fv[H];
 #pragma unroll
-    for (int k = 0; k < H; ++k) fv[k] = fr[k];
-    float s = score(sc, warp, fv, bias2);
+    for (int k = 0; k < H; ++k) fv[k] = to_float(fr[k]);
+    float s = score<C>(sc, warp, fv, bias2);
     if (!(ms[ti * mt] > 0.f)) s = kMaskPad;
     p[ti] = s;
     mx = fmaxf(mx, s);
@@ -227,7 +294,7 @@ din_pool_kernel(const float* __restrict__ q, const float* __restrict__ facts,
   constexpr int kRows = 32 / H;
   const int h = lane % H;
   float o = 0.f;
-  for (int ti = lane / H; ti < t; ti += kRows) o = fmaf(p[ti], fs[ti * ft + h], o);
+  for (int ti = lane / H; ti < t; ti += kRows) o = fmaf(p[ti], to_float(fs[ti * ft + h]), o);
 #pragma unroll
   for (int off = H; off < 32; off <<= 1) o += __shfl_xor_sync(kFull, o, off);
   if (lane < H) out[sample * H + h] = o;
@@ -240,12 +307,12 @@ __device__ __forceinline__ float4 scale(float m, const float4& v) {
   return make_float4(m * v.x, m * v.y, m * v.z, m * v.w);
 }
 
-template <typename T>
+template <typename T, typename C>
 __global__ void __launch_bounds__(kWarps * 32)
-din_pool_gather_kernel(const float* __restrict__ q, const T* __restrict__ table,
+din_pool_gather_kernel(const C* __restrict__ q, const T* __restrict__ table,
                        const int* __restrict__ ids, const float* __restrict__ mask,
-                       const float* __restrict__ w1, const float* __restrict__ b1,
-                       const float* __restrict__ w2, const float* __restrict__ b2,
+                       const C* __restrict__ w1, const C* __restrict__ b1,
+                       const C* __restrict__ w2, const C* __restrict__ b2,
                        float* __restrict__ out, long long b, int t, long long qb,
                        int d, int lane0) {
   __shared__ __align__(16) Scorer sc;
@@ -253,7 +320,7 @@ din_pool_gather_kernel(const float* __restrict__ q, const T* __restrict__ table,
   // scores
   extern __shared__ __align__(16) float s_dyn[];
   fold_weights(sc, w1, b1, w2);
-  const float bias2 = b2[0];
+  const float bias2 = to_float(b2[0]);
   __syncthreads();
 
   const int warps = blockDim.x >> 5;
@@ -265,7 +332,7 @@ din_pool_gather_kernel(const float* __restrict__ q, const T* __restrict__ table,
   float* p = s_dyn + static_cast<size_t>(warps) * t * H + static_cast<size_t>(warp) * t;
   const int* is = ids + sample * t;
   const float* ms = mask + sample * t;
-  fold_query(sc, warp, lane, q + sample * qb);
+  fold_query(sc, warp, lane, q + sample * qb, w1);
 
   // the facts: lane 4r + c copies chunk c of rows r, r + 8, ...; each
   // tile row is m * row, and p[t] holds m until its score replaces it
@@ -294,6 +361,10 @@ din_pool_gather_kernel(const float* __restrict__ q, const T* __restrict__ table,
       if (ti < t) {
         float f[4];
         Lanes<T, 4>::widen(v[i], f);
+        if constexpr (kRounds<C>) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) f[j] = round_bf16(f[j]);
+        }
         tile[ti * kChunks + swizzle(ti, c)] = scale(m[i], make_float4(f[0], f[1], f[2], f[3]));
         if (c == 0) p[ti] = m[i];
       }
@@ -317,7 +388,7 @@ din_pool_gather_kernel(const float* __restrict__ q, const T* __restrict__ table,
         fv[4 * k + 2] = x.z;
         fv[4 * k + 3] = x.w;
       }
-      s = score(sc, warp, fv, bias2);
+      s = score<C>(sc, warp, fv, bias2);
     }
     p[ti] = s;
     mx = fmaxf(mx, s);
@@ -344,32 +415,25 @@ din_pool_gather_kernel(const float* __restrict__ q, const T* __restrict__ table,
   if (lane < kChunks) reinterpret_cast<float4*>(out + sample * H)[c] = o;
 }
 
-}  // namespace
-
-// q (B, H) with row stride qb; facts (B, T, H) with strides (fb, ft, 1);
-// mask (B, T) float {0, 1} with strides (mb, mt); w1 (4H, 16), b1 (16),
-// w2 (16, 1), b2 (1) contiguous; out (B, H) contiguous; H = 16.  T * 8
-// floats of dynamic shared memory (the wrapper caps T at 512).
-RS_EXPORT int din_pool_f32(const float* q, const float* facts, const float* mask,
-                           const float* w1, const float* b1, const float* w2,
-                           const float* b2, float* out, long long b, int t,
-                           long long qb, long long fb, long long ft,
-                           long long mb, long long mt, cudaStream_t stream) {
+template <typename C>
+int launch_pool(const void* q, const void* facts, const float* mask, const void* w1,
+                const void* b1, const void* w2, const void* b2, float* out, long long b, int t,
+                long long qb, long long fb, long long ft, long long mb, long long mt,
+                cudaStream_t stream) {
   const unsigned int blocks = static_cast<unsigned int>((b + kWarps - 1) / kWarps);
   const size_t smem = sizeof(float) * kWarps * static_cast<size_t>(t);
-  din_pool_kernel<<<blocks, kWarps * 32, smem, stream>>>(
-      q, facts, mask, w1, b1, w2, b2, out, b, t, qb, fb, ft, mb, mt);
+  din_pool_kernel<C><<<blocks, kWarps * 32, smem, stream>>>(
+      static_cast<const C*>(q), static_cast<const C*>(facts), mask, static_cast<const C*>(w1),
+      static_cast<const C*>(b1), static_cast<const C*>(w2), static_cast<const C*>(b2), out, b, t,
+      qb, fb, ft, mb, mt);
   return static_cast<int>(cudaGetLastError());
 }
 
-namespace {
-
-// the gathering launch over a table of T: see din_pool_gather_f32
-template <typename T>
-int launch_gather(const float* q, const T* table, const int* ids, const float* mask,
-                  const float* w1, const float* b1, const float* w2, const float* b2,
-                  float* out, long long b, int t, long long qb, int d, int lane0,
-                  cudaStream_t stream) {
+// the gathering launch over a table of T: see din_pool_gather
+template <typename T, typename C>
+int launch_gather(const void* q, const void* table, const int* ids, const float* mask,
+                  const void* w1, const void* b1, const void* w2, const void* b2, float* out,
+                  long long b, int t, long long qb, int d, int lane0, cudaStream_t stream) {
   const size_t per_warp = sizeof(float) * (H + 1) * static_cast<size_t>(t);
   if (t < 1 || d % 4 || lane0 % 4 || lane0 + H > d || !aligned16(table) ||
       !aligned16(out) || per_warp > kMaxDynamic) {
@@ -381,36 +445,53 @@ int launch_gather(const float* q, const T* table, const int* ids, const float* m
   // the static scorer and the dynamic tiles together pass the default 48
   // KB from T = 66 on: opt in once to kMaxDynamic
   static const cudaError_t raised = cudaFuncSetAttribute(
-      din_pool_gather_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      din_pool_gather_kernel<T, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kMaxDynamic));
   if (raised != cudaSuccess) return static_cast<int>(raised);
   const unsigned int blocks = static_cast<unsigned int>((b + warps - 1) / warps);
-  din_pool_gather_kernel<T><<<blocks, warps * 32, smem, stream>>>(
-      q, table, ids, mask, w1, b1, w2, b2, out, b, t, qb, d, lane0);
+  din_pool_gather_kernel<T, C><<<blocks, warps * 32, smem, stream>>>(
+      static_cast<const C*>(q), static_cast<const T*>(table), ids, mask,
+      static_cast<const C*>(w1), static_cast<const C*>(b1), static_cast<const C*>(w2),
+      static_cast<const C*>(b2), out, b, t, qb, d, lane0);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q (B, H) with row stride qb; table (rows, D) float32 contiguous, 16-byte
-// aligned, D % 4 == 0; ids (B, T) int32 and mask (B, T) float contiguous;
-// facts are the lanes [lane0, lane0 + H) of each row, lane0 % 4 == 0;
-// weights and out as din_pool_f32.  T >= 1 (the wrapper caps T at 512).
-RS_EXPORT int din_pool_gather_f32(const float* q, const float* table, const int* ids,
-                                  const float* mask, const float* w1, const float* b1,
-                                  const float* w2, const float* b2, float* out,
-                                  long long b, int t, long long qb, int d, int lane0,
-                                  cudaStream_t stream) {
-  return launch_gather(q, table, ids, mask, w1, b1, w2, b2, out, b, t, qb, d, lane0, stream);
+// q (B, H) with row stride qb; facts (B, T, H) with strides (fb, ft, 1);
+// mask (B, T) float32 {0, 1} with strides (mb, mt); w1 (4H, 16), b1 (16),
+// w2 (16, 1), b2 (1) contiguous; q, facts and the weights all float32
+// (bf16 = 0) or all bfloat16 (1); out (B, H) float32 contiguous; H = 16.
+// T * 8 floats of dynamic shared memory (the wrapper caps T at 512).
+RS_EXPORT int din_pool(const void* q, const void* facts, const float* mask, const void* w1,
+                       const void* b1, const void* w2, const void* b2, float* out,
+                       long long b, int t, long long qb, long long fb, long long ft,
+                       long long mb, long long mt, int bf16_in, cudaStream_t stream) {
+  return bf16_in ? launch_pool<bf16>(q, facts, mask, w1, b1, w2, b2, out, b, t, qb, fb, ft, mb,
+                                     mt, stream)
+                 : launch_pool<float>(q, facts, mask, w1, b1, w2, b2, out, b, t, qb, fb, ft, mb,
+                                      mt, stream);
 }
 
-// din_pool_gather_f32 over a (rows, D) bfloat16 table, with the same
-// conditions.
-RS_EXPORT int din_pool_gather_bf16(const float* q, const void* table, const int* ids,
-                                   const float* mask, const float* w1, const float* b1,
-                                   const float* w2, const float* b2, float* out,
-                                   long long b, int t, long long qb, int d, int lane0,
-                                   cudaStream_t stream) {
-  return launch_gather(q, static_cast<const bf16*>(table), ids, mask, w1, b1, w2, b2, out,
-                       b, t, qb, d, lane0, stream);
+// q (B, H) with row stride qb; table (rows, D) contiguous, float32
+// (table_bf16 = 0) or bfloat16 (1), 16-byte aligned, D % 4 == 0; ids (B, T)
+// int32 and mask (B, T) float32 contiguous; facts are the lanes [lane0,
+// lane0 + H) of each row, lane0 % 4 == 0; q and the weights float32 (bf16 =
+// 0) or bfloat16 (1: the facts rounded to bf16); out as din_pool.  T >= 1
+// (the wrapper caps T at 512).
+RS_EXPORT int din_pool_gather(const void* q, const void* table, const int* ids,
+                              const float* mask, const void* w1, const void* b1,
+                              const void* w2, const void* b2, float* out, long long b, int t,
+                              long long qb, int d, int lane0, int table_bf16, int bf16_in,
+                              cudaStream_t stream) {
+  if (table_bf16) {
+    return bf16_in ? launch_gather<bf16, bf16>(q, table, ids, mask, w1, b1, w2, b2, out, b, t,
+                                               qb, d, lane0, stream)
+                   : launch_gather<bf16, float>(q, table, ids, mask, w1, b1, w2, b2, out, b, t,
+                                                qb, d, lane0, stream);
+  }
+  return bf16_in ? launch_gather<float, bf16>(q, table, ids, mask, w1, b1, w2, b2, out, b, t,
+                                              qb, d, lane0, stream)
+                 : launch_gather<float, float>(q, table, ids, mask, w1, b1, w2, b2, out, b, t,
+                                               qb, d, lane0, stream);
 }

@@ -95,9 +95,23 @@
 //    one owner reads back what it wrote), and scaled after the last chunk.
 // Every sum runs in a fixed order, with no atomics, so two launches give the
 // same bits.  Shared memory depends on dh alone (74-104 KB), so any F fits.
+//
+// bf16 inputs (the bf16 compute policy).  q, k and v may be bfloat16 (all
+// three of one type T, a template parameter of both kernels), as the first
+// InteractingLayer iteration gives them from its bf16 projections.  The JAX
+// kernel refuses them (its float32 scratch takes no bf16 store); the port
+// keeps the float32 math: each value is widened as it is loaded (the
+// forward stages a bf16 chunk with plain loads, cp.async moving 4 bytes at
+// the least), o and lse stay float32, and the backward reads float32 o, lse
+// and do, computes in float32 and rounds dq, dk and dv once, to bf16, as
+// they are stored: the cotangents a custom VJP gives bf16 primals.  dq's
+// partial sums over key chunks stay in a float32 scratch (dq_acc), so that
+// only the final sum is rounded.  Dropout is unchanged.
 
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -213,47 +227,56 @@ struct FwdTile {
 };
 
 // the chunk of keys kc0 .. kc0+KC-1 of the block's samples into buf
-// ([k|v][KC][kLanes][DH]), one cp.async per element; a thread keeps its
-// sample (lane) and walks rows of (d, key), so its addresses step by B
-template <int DH>
-__device__ __forceinline__ void stage_chunk(float* buf, const float* kh, const float* vh,
+// ([k|v][KC][kLanes][DH]), one cp.async per float32 element (bf16 ones
+// with a plain load, widened: cp.async moves 4 bytes at the least); a
+// thread keeps its sample (lane) and walks rows of (d, key), so its
+// addresses step by B
+template <int DH, typename T>
+__device__ __forceinline__ void stage_chunk(float* buf, const T* kh, const T* vh,
                                             int kc0, int f, long long b, long long b0,
                                             long long fb, int tid) {
-  using T = FwdTile<DH>;
-  constexpr int kElems = DH * T::KC * kLanes;
+  using Tile = FwdTile<DH>;
+  constexpr int kElems = DH * Tile::KC * kLanes;
   constexpr int kRounds = kElems / (kLanes * kQy);
   static_assert(kElems % (kLanes * kQy) == 0, "a chunk is whole rounds of the block");
   const int il = tid % kLanes;
   const bool lane_in = b0 + il < b;
-  const float* kb = kh + b0 + il;
-  const float* vb = vh + b0 + il;
+  const T* kb = kh + b0 + il;
+  const T* vb = vh + b0 + il;
   float* vs = buf + kElems;
 #pragma unroll 1
   for (int n = 0; n < kRounds; ++n) {
     const int row = tid / kLanes + n * kQy;   // d * KC + j
-    const int j = row % T::KC;
-    const int d = row / T::KC;
+    const int j = row % Tile::KC;
+    const int d = row / Tile::KC;
     const bool ok = lane_in && kc0 + j < f;
     const long long off = d * fb + static_cast<long long>(kc0 + j) * b;
     const int dst = (j * kLanes + il) * DH + d;
-    cp_async_f32(buf + dst, ok ? kb + off : kh, ok);
-    cp_async_f32(vs + dst, ok ? vb + off : vh, ok);
+    if constexpr (std::is_same<T, float>::value) {
+      cp_async_f32(buf + dst, ok ? kb + off : kh, ok);
+      cp_async_f32(vs + dst, ok ? vb + off : vh, ok);
+    } else {
+      buf[dst] = ok ? to_float(kb[off]) : 0.f;
+      vs[dst] = ok ? to_float(vb[off]) : 0.f;
+    }
   }
 }
 
 // query qf (pre-scaled, base 2) of sample bi done again exactly, from device
 // memory: the largest score first, then the weights; acc and sum are
 // replaced and neg_max is minus that largest score
-template <int DH, bool kDrop>
+template <int DH, bool kDrop, typename T>
 __device__ __forceinline__ void exact_row(const float (&qf)[DH], float (&acc)[DH], float& sum,
-                                          float& neg_max, const float* kh, const float* vh,
+                                          float& neg_max, const T* kh, const T* vh,
                                           int f, long long b, long long bi, long long fb,
                                           int fq, int h, const Dropout& drop) {
   float mx = -INFINITY;
   for (int g = 0; g < f; ++g) {
     float s = 0.f;
 #pragma unroll
-    for (int d = 0; d < DH; ++d) s = fmaf(qf[d], kh[d * fb + static_cast<long long>(g) * b + bi], s);
+    for (int d = 0; d < DH; ++d) {
+      s = fmaf(qf[d], to_float(kh[d * fb + static_cast<long long>(g) * b + bi]), s);
+    }
     mx = fmaxf(mx, s);
   }
   sum = 0.f;
@@ -265,12 +288,12 @@ __device__ __forceinline__ void exact_row(const float (&qf)[DH], float (&acc)[DH
     const long long at = static_cast<long long>(g) * b + bi;
     float s = -mx;
 #pragma unroll
-    for (int d = 0; d < DH; ++d) s = fmaf(qf[d], kh[d * fb + at], s);
+    for (int d = 0; d < DH; ++d) s = fmaf(qf[d], to_float(kh[d * fb + at]), s);
     const float p = ex2(s);
     sum += p;
     const float pd = (keep >> (g & 3)) & 1u ? p : 0.f;
 #pragma unroll
-    for (int d = 0; d < DH; ++d) acc[d] = fmaf(pd, vh[d * fb + at], acc[d]);
+    for (int d = 0; d < DH; ++d) acc[d] = fmaf(pd, to_float(vh[d * fb + at]), acc[d]);
   }
   neg_max = -mx;
 }
@@ -280,20 +303,20 @@ __device__ __forceinline__ void exact_row(const float (&qf)[DH], float (&acc)[DH
 template <int DH, bool kDrop>
 constexpr int fwd_min_blocks() { return DH > 8 ? 2 : kDrop ? 3 : 4; }
 
-template <int DH, int QPT, bool kDrop>
+template <int DH, int QPT, bool kDrop, typename T>
 __global__ void __launch_bounds__(kLanes * kQy, fwd_min_blocks<DH, kDrop>())
-field_attention_fwd_kernel(const float* __restrict__ q,
-                           const float* __restrict__ k,
-                           const float* __restrict__ v,
+field_attention_fwd_kernel(const T* __restrict__ q,
+                           const T* __restrict__ k,
+                           const T* __restrict__ v,
                            float* __restrict__ o,
                            float* __restrict__ lse,
                            int f, long long b, float scale, Dropout drop) {
-  using T = FwdTile<DH>;
-  constexpr int KC = T::KC;
+  using Tile = FwdTile<DH>;
+  constexpr int KC = Tile::KC;
   constexpr int QT = kQy * QPT;            // queries per tile
-  constexpr int P = T::kParts;
+  constexpr int P = Tile::kParts;
   extern __shared__ __align__(16) float smem[];   // [2][kChunkFloats], [2][P][DH][kLanes]
-  float* s_bound = smem + 2 * T::kChunkFloats;
+  float* s_bound = smem + 2 * Tile::kChunkFloats;
 
   const int lane = threadIdx.x;
   const int y = threadIdx.y;
@@ -304,8 +327,8 @@ field_attention_fwd_kernel(const float* __restrict__ q,
   const bool lane_ok = bi < b;
   const long long fb = static_cast<long long>(f) * b;
   const long long head = static_cast<long long>(h) * DH * fb;
-  const float* kh = k + head;
-  const float* vh = v + head;
+  const T* kh = k + head;
+  const T* vh = v + head;
   const float qscale = scale * kLog2e;
   const int nchunks = (f + KC - 1) / KC;
   // query tiles blockIdx.z, blockIdx.z + gridDim.z, ... (gridDim.z > 1 only
@@ -316,10 +339,11 @@ field_attention_fwd_kernel(const float* __restrict__ q,
   const int nloads = nchunks == 1 ? 1 : nchunks * nmine;
 
   // the first two chunks in flight before anything else
-  stage_chunk<DH>(smem, kh, vh, 0, f, b, b0, fb, tid);
+  stage_chunk<DH, T>(smem, kh, vh, 0, f, b, b0, fb, tid);
   cp_async_commit();
   if (nloads > 1) {
-    stage_chunk<DH>(smem + T::kChunkFloats, kh, vh, (1 % nchunks) * KC, f, b, b0, fb, tid);
+    stage_chunk<DH, T>(smem + Tile::kChunkFloats, kh, vh, (1 % nchunks) * KC, f, b, b0, fb,
+                       tid);
     cp_async_commit();
   }
 
@@ -334,7 +358,8 @@ field_attention_fwd_kernel(const float* __restrict__ q,
       const bool ok = lane_ok && fq < f;
 #pragma unroll
       for (int d = 0; d < DH; ++d) {
-        qr[i][d] = ok ? q[head + d * fb + static_cast<long long>(fq) * b + bi] * qscale : 0.f;
+        qr[i][d] = ok ? to_float(q[head + d * fb + static_cast<long long>(fq) * b + bi]) * qscale
+                      : 0.f;
         acc[i][d] = 0.f;
       }
       nb[i] = 0.f;
@@ -352,7 +377,7 @@ field_attention_fwd_kernel(const float* __restrict__ q,
         if (lane_ok) {
 #pragma unroll 8
           for (int g = part; g < f; g += P) {   // 8 loads in flight
-            const float x = __ldg(kh + d * fb + static_cast<long long>(g) * b + bi);
+            const float x = to_float(kh[d * fb + static_cast<long long>(g) * b + bi]);
             hi = fmaxf(hi, x);
             lo = fminf(lo, x);
           }
@@ -379,7 +404,7 @@ field_attention_fwd_kernel(const float* __restrict__ q,
       // chunk it is in buffer it & 1; chunk it + 1, where there is one, is
       // in flight in the other
       const int it = t * nchunks + c;
-      const float* buf = smem + (nchunks > 1 ? it & 1 : 0) * T::kChunkFloats;
+      const float* buf = smem + (nchunks > 1 ? it & 1 : 0) * Tile::kChunkFloats;
       if (nchunks > 1 || t == 0) {
         if (it + 1 < nloads) {
           cp_async_wait<1>();
@@ -435,8 +460,8 @@ field_attention_fwd_kernel(const float* __restrict__ q,
       if (nchunks > 1) {
         __syncthreads();   // every warp is done with buffer it & 1
         if (it + 2 < nloads) {
-          stage_chunk<DH>(smem + (it & 1) * T::kChunkFloats, kh, vh, ((it + 2) % nchunks) * KC,
-                          f, b, b0, fb, tid);
+          stage_chunk<DH, T>(smem + (it & 1) * Tile::kChunkFloats, kh, vh,
+                             ((it + 2) % nchunks) * KC, f, b, b0, fb, tid);
           cp_async_commit();
         }
       }
@@ -448,8 +473,8 @@ field_attention_fwd_kernel(const float* __restrict__ q,
         if (fq < f) {
           // the bound overshot the largest score by more than 64 (base 2):
           // this row again, exactly
-          if (sm[i] < kTiny) exact_row<DH, kDrop>(qr[i], acc[i], sm[i], nb[i], kh, vh, f, b,
-                                                  bi, fb, fq, h, drop);
+          if (sm[i] < kTiny) exact_row<DH, kDrop, T>(qr[i], acc[i], sm[i], nb[i], kh, vh, f,
+                                                     b, bi, fb, fq, h, drop);
           const long long own = static_cast<long long>(fq) * b + bi;
           const float w = (kDrop ? drop.keep_scale : 1.f) / sm[i];
 #pragma unroll
@@ -473,20 +498,23 @@ struct BwdTile {
       2 * DH * KC * kLanes + 2 * kBY * DH * kLanes + 2 * kBY * KC * kLanes;
 };
 
-template <int DH, bool kDrop>
+// dq_acc holds dq's partial sums over the key chunks before the last (it is
+// dq itself for float32; the two may alias, so neither is __restrict__)
+template <int DH, bool kDrop, typename T>
 __global__ void __launch_bounds__(kLanes * kBY)
-field_attention_bwd_kernel(const float* __restrict__ q,
-                           const float* __restrict__ k,
-                           const float* __restrict__ v,
+field_attention_bwd_kernel(const T* __restrict__ q,
+                           const T* __restrict__ k,
+                           const T* __restrict__ v,
                            const float* __restrict__ o,
                            const float* __restrict__ dout,
                            const float* __restrict__ lse,
-                           float* __restrict__ dq,
-                           float* __restrict__ dk,
-                           float* __restrict__ dv,
+                           T* dq,
+                           float* dq_acc,
+                           T* __restrict__ dk,
+                           T* __restrict__ dv,
                            int f, long long b, float scale, Dropout drop) {
-  using T = BwdTile<DH>;
-  constexpr int KC = T::KC;
+  using Tile = BwdTile<DH>;
+  constexpr int KC = Tile::KC;
   extern __shared__ float smem[];
   // a sample's dh floats are contiguous, so a thread reads a row in dh / 4
   // 16-byte accesses
@@ -516,12 +544,12 @@ field_attention_bwd_kernel(const float* __restrict__ q,
       const int d = i / (kLanes * KC);
       const bool ok = j < nk && b0 + il < b;
       const long long off = head + d * fb + static_cast<long long>(kc0 + j) * b + b0 + il;
-      ks[(j * kLanes + il) * DH + d] = ok ? k[off] : 0.f;
-      vs[(j * kLanes + il) * DH + d] = ok ? v[off] : 0.f;
+      ks[(j * kLanes + il) * DH + d] = ok ? to_float(k[off]) : 0.f;
+      vs[(j * kLanes + il) * DH + d] = ok ? to_float(v[off]) : 0.f;
     }
-    float ak[T::KPT][DH], av[T::KPT][DH];
+    float ak[Tile::KPT][DH], av[Tile::KPT][DH];
 #pragma unroll
-    for (int i = 0; i < T::KPT; ++i) {
+    for (int i = 0; i < Tile::KPT; ++i) {
 #pragma unroll
       for (int d = 0; d < DH; ++d) ak[i][d] = av[i][d] = 0.f;
     }
@@ -536,7 +564,7 @@ field_attention_bwd_kernel(const float* __restrict__ q,
       float rd = 0.f, lse_q = 0.f;
 #pragma unroll
       for (int d = 0; d < DH; ++d) {
-        qf[d] = q_ok ? q[own + d * fb] : 0.f;
+        qf[d] = q_ok ? to_float(q[own + d * fb]) : 0.f;
         dof[d] = q_ok ? dout[own + d * fb] : 0.f;
         rd += q_ok ? dof[d] * o[own + d * fb] : 0.f;
         acc[d] = 0.f;
@@ -580,8 +608,12 @@ field_attention_bwd_kernel(const float* __restrict__ q,
 #pragma unroll
         for (int d = 0; d < DH; ++d) {
           float val = acc[d];
-          if (kc0 > 0) val += dq[own + d * fb];
-          dq[own + d * fb] = last_chunk ? val * scale : val;
+          if (kc0 > 0) val += dq_acc[own + d * fb];
+          if (last_chunk) {
+            dq[own + d * fb] = from_float<T>(val * scale);
+          } else {
+            dq_acc[own + d * fb] = val;
+          }
         }
       }
       __syncthreads();
@@ -594,7 +626,7 @@ field_attention_bwd_kernel(const float* __restrict__ q,
         load_row<DH>(qs + (r * kLanes + x) * DH, qr);
         load_row<DH>(dos + (r * kLanes + x) * DH, dr);
 #pragma unroll
-        for (int i = 0; i < T::KPT; ++i) {
+        for (int i = 0; i < Tile::KPT; ++i) {
           const int j = y + kBY * i;
           if (j < nk) {
             const float2 dp = dsp[(r * KC + j) * kLanes + x];
@@ -613,14 +645,14 @@ field_attention_bwd_kernel(const float* __restrict__ q,
 
     if (lane_ok) {
 #pragma unroll
-      for (int i = 0; i < T::KPT; ++i) {
+      for (int i = 0; i < Tile::KPT; ++i) {
         const int j = y + kBY * i;
         if (j < nk) {
           const long long key = head + static_cast<long long>(kc0 + j) * b + bi;
 #pragma unroll
           for (int d = 0; d < DH; ++d) {
-            dk[key + d * fb] = ak[i][d] * scale;
-            dv[key + d * fb] = av[i][d];
+            dk[key + d * fb] = from_float<T>(ak[i][d] * scale);
+            dv[key + d * fb] = from_float<T>(av[i][d]);
           }
         }
       }
@@ -628,14 +660,14 @@ field_attention_bwd_kernel(const float* __restrict__ q,
   }
 }
 
-template <int DH, int QPT>
-int launch_fwd_q(const float* q, const float* k, const float* v, float* o, float* lse,
-                 int h, int f, long long b, float scale, const Dropout& drop, bool dropout,
+template <int DH, int QPT, typename T>
+int launch_fwd_q(const T* q, const T* k, const T* v, float* o, float* lse, int h, int f,
+                 long long b, float scale, const Dropout& drop, bool dropout,
                  unsigned int zsplit, cudaStream_t stream) {
-  using T = FwdTile<DH>;
-  const int bytes = (2 * T::kChunkFloats + T::kBoundFloats) * static_cast<int>(sizeof(float));
-  auto kernel = dropout ? field_attention_fwd_kernel<DH, QPT, true>
-                        : field_attention_fwd_kernel<DH, QPT, false>;
+  using Tile = FwdTile<DH>;
+  const int bytes = (2 * Tile::kChunkFloats + Tile::kBoundFloats) * static_cast<int>(sizeof(float));
+  auto kernel = dropout ? field_attention_fwd_kernel<DH, QPT, true, T>
+                        : field_attention_fwd_kernel<DH, QPT, false, T>;
   const cudaError_t set = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (set != cudaSuccess) return static_cast<int>(set);
@@ -649,37 +681,77 @@ int launch_fwd_q(const float* q, const float* k, const float* v, float* o, float
 // Where the (sample block, head) grid would leave SMs idle (small B), one
 // query per thread and the query tiles spread over grid z; else QPT
 // queries per thread and every tile in its block.
-template <int DH>
-int launch_fwd(const float* q, const float* k, const float* v, float* o,
-               float* lse, int h, int f, long long b, float scale,
-               const Dropout& drop, bool dropout, cudaStream_t stream) {
+template <int DH, typename T>
+int launch_fwd(const void* q, const void* k, const void* v, float* o, float* lse, int h,
+               int f, long long b, float scale, const Dropout& drop, bool dropout,
+               cudaStream_t stream) {
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if ((b + kLanes - 1) / kLanes * h < sms) {
-    return launch_fwd_q<DH, 1>(q, k, v, o, lse, h, f, b, scale, drop, dropout, 1u, stream);
+    return launch_fwd_q<DH, 1, T>(qt, kt, vt, o, lse, h, f, b, scale, drop, dropout, 1u, stream);
   }
-  return launch_fwd_q<DH, FwdTile<DH>::QPT>(q, k, v, o, lse, h, f, b, scale, drop, dropout, 0u,
-                                            stream);
+  return launch_fwd_q<DH, FwdTile<DH>::QPT, T>(qt, kt, vt, o, lse, h, f, b, scale, drop, dropout,
+                                               0u, stream);
 }
 
-template <int DH>
-int launch_bwd(const float* q, const float* k, const float* v, const float* o,
-               const float* dout, const float* lse, float* dq, float* dk,
-               float* dv, int h, int f, long long b, float scale,
-               const Dropout& drop, bool dropout, cudaStream_t stream) {
+template <int DH, typename T>
+int launch_bwd(const void* q, const void* k, const void* v, const float* o,
+               const float* dout, const float* lse, void* dq, float* dq_acc, void* dk,
+               void* dv, int h, int f, long long b, float scale, const Dropout& drop,
+               bool dropout, cudaStream_t stream) {
   const int bytes = BwdTile<DH>::kFloats * static_cast<int>(sizeof(float));
-  auto kernel = dropout ? field_attention_bwd_kernel<DH, true>
-                        : field_attention_bwd_kernel<DH, false>;
+  auto kernel = dropout ? field_attention_bwd_kernel<DH, true, T>
+                        : field_attention_bwd_kernel<DH, false, T>;
   const cudaError_t set = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (set != cudaSuccess) return static_cast<int>(set);
   const dim3 grid(static_cast<unsigned int>((b + kLanes - 1) / kLanes),
                   static_cast<unsigned int>(h));
-  kernel<<<grid, dim3(kLanes, kBY), bytes, stream>>>(q, k, v, o, dout, lse, dq, dk,
-                                                  dv, f, b, scale, drop);
+  kernel<<<grid, dim3(kLanes, kBY), bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), o, dout,
+      lse, static_cast<T*>(dq), dq_acc, static_cast<T*>(dk), static_cast<T*>(dv), f, b, scale,
+      drop);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int fwd_dh(const void* q, const void* k, const void* v, float* o, float* lse, int h, int dh,
+           int f, long long b, float scale, const Dropout& drop, bool on, cudaStream_t stream) {
+  switch (dh) {
+    case 1: return launch_fwd<1, T>(q, k, v, o, lse, h, f, b, scale, drop, on, stream);
+    case 2: return launch_fwd<2, T>(q, k, v, o, lse, h, f, b, scale, drop, on, stream);
+    case 4: return launch_fwd<4, T>(q, k, v, o, lse, h, f, b, scale, drop, on, stream);
+    case 8: return launch_fwd<8, T>(q, k, v, o, lse, h, f, b, scale, drop, on, stream);
+    case 16: return launch_fwd<16, T>(q, k, v, o, lse, h, f, b, scale, drop, on, stream);
+    case 32: return launch_fwd<32, T>(q, k, v, o, lse, h, f, b, scale, drop, on, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T>
+int bwd_dh(const void* q, const void* k, const void* v, const float* o, const float* lse,
+           const float* dout, void* dq, float* dq_acc, void* dk, void* dv, int h, int dh,
+           int f, long long b, float scale, const Dropout& drop, bool on, cudaStream_t stream) {
+  switch (dh) {
+    case 1: return launch_bwd<1, T>(q, k, v, o, dout, lse, dq, dq_acc, dk, dv, h, f, b, scale,
+                                    drop, on, stream);
+    case 2: return launch_bwd<2, T>(q, k, v, o, dout, lse, dq, dq_acc, dk, dv, h, f, b, scale,
+                                    drop, on, stream);
+    case 4: return launch_bwd<4, T>(q, k, v, o, dout, lse, dq, dq_acc, dk, dv, h, f, b, scale,
+                                    drop, on, stream);
+    case 8: return launch_bwd<8, T>(q, k, v, o, dout, lse, dq, dq_acc, dk, dv, h, f, b, scale,
+                                    drop, on, stream);
+    case 16: return launch_bwd<16, T>(q, k, v, o, dout, lse, dq, dq_acc, dk, dv, h, f, b, scale,
+                                      drop, on, stream);
+    case 32: return launch_bwd<32, T>(q, k, v, o, dout, lse, dq, dq_acc, dk, dv, h, f, b, scale,
+                                      drop, on, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 Dropout make_dropout(unsigned int k0, unsigned int k1, unsigned int thresh,
@@ -696,47 +768,37 @@ Dropout make_dropout(unsigned int k0, unsigned int k1, unsigned int thresh,
 
 }  // namespace
 
-// lse may be null (no backward to follow).  dropout != 0 applies the mask
-// of key (k0, k1) with threshold thresh and scale keep_scale.
-RS_EXPORT int field_attention_fwd_f32(const float* q, const float* k,
-                                      const float* v, float* o, float* lse,
-                                      int h, int dh, int f, long long b,
-                                      float scale, int dropout,
-                                      unsigned int k0, unsigned int k1,
-                                      unsigned int thresh, float keep_scale,
-                                      cudaStream_t stream) {
+// q, k, v (h, dh, F, B) contiguous, float32 (bf16 = 0) or bfloat16 (1);
+// o (h, dh, F, B) and lse (h, F, B) float32; lse may be null (no backward to
+// follow).  dropout != 0 applies the mask of key (k0, k1) with threshold
+// thresh and scale keep_scale.
+RS_EXPORT int field_attention_fwd(const void* q, const void* k, const void* v, float* o,
+                                  float* lse, int h, int dh, int f, long long b, float scale,
+                                  int dropout, unsigned int k0, unsigned int k1,
+                                  unsigned int thresh, float keep_scale, int bf16_in,
+                                  cudaStream_t stream) {
   const Dropout drop = make_dropout(k0, k1, thresh, keep_scale);
   const bool on = dropout != 0;
-  switch (dh) {
-    case 1: return launch_fwd<1>(q, k, v, o, lse, h, f, b, scale, drop, on, stream);
-    case 2: return launch_fwd<2>(q, k, v, o, lse, h, f, b, scale, drop, on, stream);
-    case 4: return launch_fwd<4>(q, k, v, o, lse, h, f, b, scale, drop, on, stream);
-    case 8: return launch_fwd<8>(q, k, v, o, lse, h, f, b, scale, drop, on, stream);
-    case 16: return launch_fwd<16>(q, k, v, o, lse, h, f, b, scale, drop, on, stream);
-    case 32: return launch_fwd<32>(q, k, v, o, lse, h, f, b, scale, drop, on, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return bf16_in ? fwd_dh<bf16>(q, k, v, o, lse, h, dh, f, b, scale, drop, on, stream)
+                 : fwd_dh<float>(q, k, v, o, lse, h, dh, f, b, scale, drop, on, stream);
 }
 
-// o is the forward's output, lse its (h, F, B) log-sum-exp; dropout as in
-// the forward, from the same key.
-RS_EXPORT int field_attention_bwd_f32(const float* q, const float* k,
-                                      const float* v, const float* o,
-                                      const float* lse, const float* dout,
-                                      float* dq, float* dk, float* dv, int h,
-                                      int dh, int f, long long b, float scale,
-                                      int dropout, unsigned int k0,
-                                      unsigned int k1, unsigned int thresh,
-                                      float keep_scale, cudaStream_t stream) {
+// o is the forward's output, lse its (h, F, B) log-sum-exp, dout the
+// output gradient, all float32; q, k, v and dq, dk, dv of one type, float32
+// (bf16 = 0) or bfloat16 (1); dq_acc a float32 (h, dh, F, B) scratch for
+// dq's partial sums (dq itself for float32; read and written only where F
+// spans more than one key chunk); dropout as in the forward, from the same
+// key.
+RS_EXPORT int field_attention_bwd(const void* q, const void* k, const void* v, const float* o,
+                                  const float* lse, const float* dout, void* dq, float* dq_acc,
+                                  void* dk, void* dv, int h, int dh, int f, long long b,
+                                  float scale, int dropout, unsigned int k0, unsigned int k1,
+                                  unsigned int thresh, float keep_scale, int bf16_in,
+                                  cudaStream_t stream) {
   const Dropout drop = make_dropout(k0, k1, thresh, keep_scale);
   const bool on = dropout != 0;
-  switch (dh) {
-    case 1: return launch_bwd<1>(q, k, v, o, dout, lse, dq, dk, dv, h, f, b, scale, drop, on, stream);
-    case 2: return launch_bwd<2>(q, k, v, o, dout, lse, dq, dk, dv, h, f, b, scale, drop, on, stream);
-    case 4: return launch_bwd<4>(q, k, v, o, dout, lse, dq, dk, dv, h, f, b, scale, drop, on, stream);
-    case 8: return launch_bwd<8>(q, k, v, o, dout, lse, dq, dk, dv, h, f, b, scale, drop, on, stream);
-    case 16: return launch_bwd<16>(q, k, v, o, dout, lse, dq, dk, dv, h, f, b, scale, drop, on, stream);
-    case 32: return launch_bwd<32>(q, k, v, o, dout, lse, dq, dk, dv, h, f, b, scale, drop, on, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return bf16_in ? bwd_dh<bf16>(q, k, v, o, lse, dout, dq, dq_acc, dk, dv, h, dh, f, b, scale,
+                                drop, on, stream)
+                 : bwd_dh<float>(q, k, v, o, lse, dout, dq, dq_acc, dk, dv, h, dh, f, b, scale,
+                                 drop, on, stream);
 }

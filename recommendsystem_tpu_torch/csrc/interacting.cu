@@ -56,6 +56,16 @@
 // instructions (20 a pair at F = 180, where the pairs are 97 % of the work)
 // and, at F = 24, the projections (4 x 64 FMA and 32 broadcast loads a
 // field) beside device memory.
+//
+// bf16 inputs (the bf16 compute policy).  x and the ten parameters may be
+// bfloat16, x's type (TX) and the parameters' (TP) on their own: the first
+// iteration takes bf16 x and bf16 parameters, a later one the float32
+// output of the one before with bf16 parameters.  The JAX kernel takes
+// every product with preferred_element_type=float32, so on bf16 operands
+// its body is the float32 body on inputs widened exactly; here each value
+// is widened as it is loaded (a bf16 x row is one 16-byte load, half the
+// float32 row's bytes) and everything after is the float32 kernel.  The
+// output stays float32.
 
 #include <cmath>
 
@@ -132,14 +142,14 @@ __device__ __forceinline__ void project(const float (&xv)[QP][D], const float* w
   }
 }
 
-template <int H>
+template <int H, typename TX, typename TP>
 __global__ void __launch_bounds__(kMaxThreads, 4)
-interacting_kernel(const float* __restrict__ x, const float* __restrict__ wq,
-                   const float* __restrict__ bq, const float* __restrict__ wk,
-                   const float* __restrict__ bk, const float* __restrict__ wv,
-                   const float* __restrict__ bv, const float* __restrict__ wr,
-                   const float* __restrict__ br, const float* __restrict__ gamma,
-                   const float* __restrict__ beta, float* __restrict__ out,
+interacting_kernel(const TX* __restrict__ x, const TP* __restrict__ wq,
+                   const TP* __restrict__ bq, const TP* __restrict__ wk,
+                   const TP* __restrict__ bk, const TP* __restrict__ wv,
+                   const TP* __restrict__ bv, const TP* __restrict__ wr,
+                   const TP* __restrict__ br, const TP* __restrict__ gamma,
+                   const TP* __restrict__ beta, float* __restrict__ out,
                    long long b, int f, int s, int tps, float scale, float eps) {
   constexpr int DH = Tile<H>::DH;
   constexpr int QP = Tile<H>::QP;
@@ -157,18 +167,18 @@ interacting_kernel(const float* __restrict__ x, const float* __restrict__ wq,
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
   for (int i = tid; i < D * U; i += nthreads) {
-    s_w[0][i] = wq[i];
-    s_w[1][i] = wk[i];
-    s_w[2][i] = wv[i];
-    s_w[3][i] = wr[i];
+    s_w[0][i] = to_float(wq[i]);
+    s_w[1][i] = to_float(wk[i]);
+    s_w[2][i] = to_float(wv[i]);
+    s_w[3][i] = to_float(wr[i]);
   }
   for (int i = tid; i < U; i += nthreads) {
-    s_b[0][i] = bq[i];
-    s_b[1][i] = bk[i];
-    s_b[2][i] = bv[i];
-    s_b[3][i] = br[i];
-    s_gamma[i] = gamma[i];
-    s_beta[i] = beta[i];
+    s_b[0][i] = to_float(bq[i]);
+    s_b[1][i] = to_float(bk[i]);
+    s_b[2][i] = to_float(bv[i]);
+    s_b[3][i] = to_float(br[i]);
+    s_gamma[i] = to_float(gamma[i]);
+    s_beta[i] = to_float(beta[i]);
   }
   const long long s0 = static_cast<long long>(blockIdx.x) * s;
   const int ns = static_cast<int>(min(static_cast<long long>(s), b - s0));
@@ -180,16 +190,19 @@ interacting_kernel(const float* __restrict__ x, const float* __restrict__ wq,
   // projections: k, v and r of the thread's fields to shared memory, q kept
   float qv[QP][U];
   if (live) {
+    using Row = Lanes<TX, D>;
     float xv[QP][D];
 #pragma unroll
     for (int i = 0; i < QP; ++i) {
       const bool ok = f0 + i < f;
-      const float4* xr = reinterpret_cast<const float4*>(
+      const typename Row::Raw* xr = reinterpret_cast<const typename Row::Raw*>(
           x + ((s0 + sl) * f + (ok ? f0 + i : 0)) * D);
-      const float4 a = ok ? __ldg(xr) : make_float4(0.f, 0.f, 0.f, 0.f);
-      const float4 c = ok ? __ldg(xr + 1) : make_float4(0.f, 0.f, 0.f, 0.f);
-      xv[i][0] = a.x; xv[i][1] = a.y; xv[i][2] = a.z; xv[i][3] = a.w;
-      xv[i][4] = c.x; xv[i][5] = c.y; xv[i][6] = c.z; xv[i][7] = c.w;
+      if (ok) {
+        Row::widen(*xr, xv[i]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < D; ++j) xv[i][j] = 0.f;
+      }
     }
     float* dst[3] = {s_k + sl * kv_stride, s_v + sl * kv_stride, s_r + sl * f * U};
 #pragma unroll
@@ -336,13 +349,20 @@ interacting_kernel(const float* __restrict__ x, const float* __restrict__ wq,
   }
 }
 
-template <int H>
-cudaError_t launch(const float* x, const float* wq, const float* bq,
-                   const float* wk, const float* bk, const float* wv,
-                   const float* bv, const float* wr, const float* br,
-                   const float* gamma, const float* beta, float* out,
-                   long long b, int f, float scale, float eps,
-                   cudaStream_t stream) {
+template <int H, typename TX, typename TP>
+cudaError_t launch(const void* xp, const void* const* pp, float* out, long long b, int f,
+                   float scale, float eps, cudaStream_t stream) {
+  const TX* x = static_cast<const TX*>(xp);
+  const TP* wq = static_cast<const TP*>(pp[0]);
+  const TP* bq = static_cast<const TP*>(pp[1]);
+  const TP* wk = static_cast<const TP*>(pp[2]);
+  const TP* bk = static_cast<const TP*>(pp[3]);
+  const TP* wv = static_cast<const TP*>(pp[4]);
+  const TP* bv = static_cast<const TP*>(pp[5]);
+  const TP* wr = static_cast<const TP*>(pp[6]);
+  const TP* br = static_cast<const TP*>(pp[7]);
+  const TP* gamma = static_cast<const TP*>(pp[8]);
+  const TP* beta = static_cast<const TP*>(pp[9]);
   constexpr int QP = Tile<H>::QP;
   const int tps = (f + QP - 1) / QP;
   const int s = tps >= kMaxThreads ? 1 : kMaxThreads / tps;
@@ -351,33 +371,44 @@ cudaError_t launch(const float* x, const float* wq, const float* bq,
                                        + static_cast<size_t>(s) * f * U
                                        + static_cast<size_t>(s) * U);
   const cudaError_t set = cudaFuncSetAttribute(
-      interacting_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      interacting_kernel<H, TX, TP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (set != cudaSuccess) return set;
-  interacting_kernel<H><<<blocks, s * tps, smem, stream>>>(
+  interacting_kernel<H, TX, TP><<<blocks, s * tps, smem, stream>>>(
       x, wq, bq, wk, bk, wv, bv, wr, br, gamma, beta, out, b, f, s, tps, scale, eps);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// x (B, F, 8) and out (B, F, 8) contiguous float32, 16-byte aligned; wq,
-// wk, wv, wr (8, 8), bq, bk, bv, br, gamma, beta (8) contiguous; 1 <= F <=
-// 256; h in {1, 2, 4, 8}; scale = sqrt(8 / h).  Other h: cudaErrorInvalidValue.
-RS_EXPORT int interacting_attention_f32(
-    const float* x, const float* wq, const float* bq, const float* wk,
-    const float* bk, const float* wv, const float* bv, const float* wr,
-    const float* br, const float* gamma, const float* beta, float* out,
-    long long b, int f, int h, float scale, float eps, cudaStream_t stream) {
+template <typename TX, typename TP>
+int launch_h(const void* x, const void* const* p, float* out, long long b, int f, int h,
+             float scale, float eps, cudaStream_t stream) {
   switch (h) {
-    case 1: return static_cast<int>(launch<1>(x, wq, bq, wk, bk, wv, bv, wr, br,
-                                              gamma, beta, out, b, f, scale, eps, stream));
-    case 2: return static_cast<int>(launch<2>(x, wq, bq, wk, bk, wv, bv, wr, br,
-                                              gamma, beta, out, b, f, scale, eps, stream));
-    case 4: return static_cast<int>(launch<4>(x, wq, bq, wk, bk, wv, bv, wr, br,
-                                              gamma, beta, out, b, f, scale, eps, stream));
-    case 8: return static_cast<int>(launch<8>(x, wq, bq, wk, bk, wv, bv, wr, br,
-                                              gamma, beta, out, b, f, scale, eps, stream));
+    case 1: return static_cast<int>(launch<1, TX, TP>(x, p, out, b, f, scale, eps, stream));
+    case 2: return static_cast<int>(launch<2, TX, TP>(x, p, out, b, f, scale, eps, stream));
+    case 4: return static_cast<int>(launch<4, TX, TP>(x, p, out, b, f, scale, eps, stream));
+    case 8: return static_cast<int>(launch<8, TX, TP>(x, p, out, b, f, scale, eps, stream));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+}  // namespace
+
+// x (B, F, 8) contiguous, float32 (x_bf16 = 0) or bfloat16 (1), 16-byte
+// aligned; wq, wk, wv, wr (8, 8), bq, bk, bv, br, gamma, beta (8)
+// contiguous, all float32 (p_bf16 = 0) or all bfloat16 (1); out (B, F, 8)
+// float32 contiguous, 16-byte aligned; 1 <= F <= 256; h in {1, 2, 4, 8};
+// scale = sqrt(8 / h).  Other h: cudaErrorInvalidValue.
+RS_EXPORT int interacting_attention(
+    const void* x, const void* wq, const void* bq, const void* wk,
+    const void* bk, const void* wv, const void* bv, const void* wr,
+    const void* br, const void* gamma, const void* beta, float* out,
+    long long b, int f, int h, float scale, float eps, int x_bf16, int p_bf16,
+    cudaStream_t stream) {
+  const void* const p[10] = {wq, bq, wk, bk, wv, bv, wr, br, gamma, beta};
+  if (x_bf16) {
+    return p_bf16 ? launch_h<bf16, bf16>(x, p, out, b, f, h, scale, eps, stream)
+                  : launch_h<bf16, float>(x, p, out, b, f, h, scale, eps, stream);
+  }
+  return p_bf16 ? launch_h<float, bf16>(x, p, out, b, f, h, scale, eps, stream)
+                : launch_h<float, float>(x, p, out, b, f, h, scale, eps, stream);
 }

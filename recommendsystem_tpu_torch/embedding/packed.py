@@ -666,12 +666,17 @@ class SequenceRows:
     (``nn.DINPool``) takes a handle and gathers the lanes it reads itself
     (K7's ``din_pool_gather``), which has no gradient: only the predict step
     asks for handles, under ``inference_mode``, and the train step, which
-    differentiates the rows, never gets one."""
+    differentiates the rows, never gets one.  ``dtype`` is the type of the
+    facts it stands for: float32 as the lookup gives them, or the compute
+    dtype that the predict step casts the embedding activations to
+    (``train.step.apply_model``; a float32 table's lanes are then rounded
+    to bf16 as K7 reads them)."""
 
     table: torch.Tensor
     ids: torch.Tensor
     mask: torch.Tensor
     window: Tuple[int, int]
+    dtype: torch.dtype = torch.float32
 
     def lanes(self, start: int, stop: int) -> "SequenceRows":
         """The lanes [start, stop) of this window: ``emb[:, :, start:stop]``

@@ -43,10 +43,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "fold_max_members": [],
     },
     "field_attention": {
-        "field_attention_fwd_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _F,
-                                    _I, _U, _U, _U, _F, _P],
-        "field_attention_bwd_f32": [_P] * 9 + [_I, _I, _I, _L, _F, _I, _U, _U,
-                                               _U, _F, _P],
+        "field_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _F,
+                                _I, _U, _U, _U, _F, _I, _P],
+        "field_attention_bwd": [_P] * 10 + [_I, _I, _I, _L, _F, _I, _U, _U,
+                                            _U, _F, _I, _P],
     },
     "unfold_scatter": {
         "unfold_mean_group_f32": [_P, _I, _P],
@@ -64,15 +64,16 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "sparse_adagrad_max_d": [],
     },
     "din_pool": {
-        "din_pool_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _L, _L, _L,
-                         _L, _L, _P],
-        "din_pool_gather_f32": [_P] * 9 + [_L, _I, _L, _I, _I, _P],
-        "din_pool_gather_bf16": [_P] * 9 + [_L, _I, _L, _I, _I, _P],
+        "din_pool": [_P] * 8 + [_L, _I, _L, _L, _L, _L, _L, _I, _P],
+        "din_pool_gather": [_P] * 9 + [_L, _I, _L, _I, _I, _I, _I, _P],
     },
     "interacting": {
-        "interacting_attention_f32": [_P] * 12 + [_L, _I, _I, _F, _F, _P],
+        "interacting_attention": [_P] * 12 + [_L, _I, _I, _F, _F, _I, _I, _P],
     },
 }
+
+# the float types the kernels take as inputs under the bf16 compute policy
+FLOATS = (torch.float32, torch.bfloat16)
 
 KERNELS = ("fold_mean", "fold_rows", "field_attention", "field_attention_bwd",
            "unfold_mean", "unfold_rows", "sparse_adam_update", "din_pool",

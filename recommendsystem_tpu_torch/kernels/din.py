@@ -8,7 +8,16 @@ keeps the JAX signature: query (B, H), facts (B, T, H), mask (B, T) float
 math in PyTorch ops.  Where an input needs a gradient the call goes through
 ``DinPoolFunction``, whose backward recomputes through the plain version, as
 the JAX ``custom_vjp`` recomputes through ``_din_block``; the mask gets no
-gradient.  The kernel takes H = 16 and a scorer of width 16, the staytime
+gradient.
+
+Under the bf16 compute policy the query, the facts and the scorer are
+bfloat16 (all of one type; the mask stays float32), and the pool keeps the
+JAX kernel's dtypes (``_din_block`` on bf16 inputs): the features ``q - f``
+and ``q * f`` are bf16, each rounded, the scorer's first product
+accumulates them in float32, and the sigmoid, the second product, the
+softmax and the weighted sum are float32, as is the output.  The gathering
+entry rounds each fact read from a float32 table to bf16 (the JAX predict
+step casts its folded facts); a bf16 table's are bf16 already.  The kernel takes H = 16 and a scorer of width 16, the staytime
 model's; on a card any other width raises.
 
 The query, the facts and the mask may be strided views (the staytime model
@@ -18,9 +27,9 @@ strides; their last dimension must be contiguous.
 ``din_pool_gather`` is the same pool over facts it gathers itself from an
 embedding table of float32 or bfloat16 rows (widened to float32 as they
 are read): the lanes ``lanes`` of ``mask * table[ids]``, what the
-fold K2 writes and the model slices, without K2's rows in device memory.
-Its plain version is exactly that: ``fold_rows_plain``, the slice, then
-``din_pool_plain``.  It has no gradient: the predict step takes it (the
+fold K2 writes and the model slices, without K2's rows in device memory,
+in ``facts_dtype``.  Its plain version is exactly that:
+``fold_rows_plain``, the slice, the cast, then ``din_pool_plain``.  It has no gradient: the predict step takes it (the
 staytime model's sequence columns come as ``embedding.packed.SequenceRows``
 handles there), the train step keeps ``din_pool``.
 """
@@ -30,7 +39,7 @@ from __future__ import annotations
 import torch
 
 from ..embedding.packed import fold_rows_plain
-from ._build import check, count_launch, library, require, stream_handle
+from ._build import FLOATS, check, count_launch, library, require, stream_handle
 
 MASK_PAD = -(2.0 ** 32) + 1.0
 HIDDEN = 16         # the scorer's width
@@ -39,33 +48,41 @@ MAX_T = 512         # the kernel keeps T * 8 scores and per-sample folds under 4
 
 
 def din_pool_plain(query, facts, mask, w1, b1, w2, b2) -> torch.Tensor:
-    """``_din_block`` in PyTorch ops: features [q, f, q - f, q * f], the
-    scorer sigmoid(. W1 + b1) . W2 + b2, ``MASK_PAD`` where the mask is not
-    > 0, softmax over T, and the score-weighted sum of the facts."""
+    """``_din_block`` in PyTorch ops, in its dtypes: features [q, f, q - f,
+    q * f] in the inputs' type (bf16 rounds q - f and q * f), the scorer
+    sigmoid(. W1 + b1) . W2 + b2 with products widened to float32 (JAX's
+    ``preferred_element_type=float32``), ``MASK_PAD`` where the mask is not
+    > 0, softmax over T, and the score-weighted sum of the facts, all in
+    float32.  Its autograd rounds a bf16 input's gradient as JAX's
+    ``vjp`` of the block does, and is the training backward of K7."""
     b, t, h = facts.shape
     q = query[:, None, :].expand(b, t, h)
     feats = torch.cat([q, facts, q - facts, q * facts], dim=-1)
-    s = torch.sigmoid(feats.reshape(b * t, 4 * h) @ w1 + b1)
-    scores = (s @ w2 + b2).reshape(b, t)
+    s = torch.sigmoid(feats.reshape(b * t, 4 * h).float() @ w1.float() + b1)
+    scores = (s @ w2.float() + b2).reshape(b, t)
     scores = torch.where(mask > 0, scores, torch.full_like(scores, MASK_PAD))
     scores = torch.softmax(scores, dim=-1)
     return (scores[:, :, None] * facts).sum(dim=1)
 
 
-def _check_pool(what, query, mask, w1, b1, w2, b2, b, t, h, dev) -> None:
-    """What both entries check: query (B, H) and mask (B, T) float32 on the
-    facts' device, contiguous in their last dim; the scorer's shapes; on a
+def _check_pool(what, query, mask, w1, b1, w2, b2, b, t, h, dev, dtype) -> None:
+    """What both entries check: query (B, H) of ``dtype`` (float32 or bf16:
+    the compute type) and mask (B, T) float32 on the facts' device,
+    contiguous in their last dim; the scorer's shapes, in ``dtype``; on a
     card the widths the kernels take."""
-    for name, x in (("query", query), ("mask", mask)):
-        if not isinstance(x, torch.Tensor) or x.dtype != torch.float32 or x.ndim != 2:
-            raise TypeError(f"{what}: {name} must be a 2-d float32 tensor")
+    if dtype not in FLOATS:
+        raise TypeError(f"{what}: facts of {dtype}, expected float32 or bfloat16")
+    for name, x, want in (("query", query, dtype), ("mask", mask, torch.float32)):
+        if not isinstance(x, torch.Tensor) or x.dtype != want or x.ndim != 2:
+            raise TypeError(f"{what}: {name} must be a 2-d {want} tensor, got "
+                            f"{getattr(x, 'dtype', type(x).__name__)}")
     if tuple(query.shape) != (b, h) or tuple(mask.shape) != (b, t):
         raise ValueError(f"{what}: query {tuple(query.shape)} and mask "
                          f"{tuple(mask.shape)} do not fit facts {(b, t, h)}")
     hid = w1.shape[-1] if w1.ndim == 2 else -1
     for name, x, shape in (("w1", w1, (4 * h, hid)), ("b1", b1, (hid,)),
                            ("w2", w2, (hid, 1)), ("b2", b2, (1,))):
-        require(x, name, torch.float32, shape, dev)
+        require(x, name, dtype, shape, dev)
     if query.device != dev or mask.device != dev:
         raise ValueError(f"{what}: inputs on more than one device")
     for name, x in (("query", query), ("mask", mask)):
@@ -80,11 +97,12 @@ def _check_pool(what, query, mask, w1, b1, w2, b2, b, t, h, dev) -> None:
 
 
 def _check(query, facts, mask, w1, b1, w2, b2) -> None:
-    if not isinstance(facts, torch.Tensor) or facts.dtype != torch.float32 or facts.ndim != 3:
-        raise TypeError("din_pool: facts must be a 3-d float32 tensor")
+    if not isinstance(facts, torch.Tensor) or facts.dtype not in FLOATS or facts.ndim != 3:
+        raise TypeError("din_pool: facts must be a 3-d float32 or bfloat16 tensor")
     if facts.shape[-1] > 1 and facts.stride(-1) != 1:
         raise ValueError("din_pool: facts must be contiguous in its last dim")
-    _check_pool("din_pool", query, mask, w1, b1, w2, b2, *facts.shape, facts.device)
+    _check_pool("din_pool", query, mask, w1, b1, w2, b2, *facts.shape, facts.device,
+                facts.dtype)
 
 
 def _launch(query, facts, mask, w1, b1, w2, b2) -> torch.Tensor:
@@ -94,11 +112,12 @@ def _launch(query, facts, mask, w1, b1, w2, b2) -> torch.Tensor:
         return out
     lib = library("din_pool")
     with torch.cuda.device(facts.device):
-        code = lib.din_pool_f32(
+        code = lib.din_pool(
             query.data_ptr(), facts.data_ptr(), mask.data_ptr(), w1.data_ptr(),
             b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(), b, t,
             query.stride(0), facts.stride(0), facts.stride(1), mask.stride(0),
-            mask.stride(1), stream_handle(facts.device))
+            mask.stride(1), int(facts.dtype == torch.bfloat16),
+            stream_handle(facts.device))
     check(lib, code, "din_pool")
     count_launch("din_pool")
     return out
@@ -136,9 +155,10 @@ def din_pool(query: torch.Tensor, facts: torch.Tensor, mask: torch.Tensor,
              w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
              b2: torch.Tensor) -> torch.Tensor:
     """K7: DIN pooling of ``facts`` (B, T, H) by ``query`` (B, H) under
-    ``mask`` (B, T) float {0, 1}, with the scorer w1 (4H, 16), b1 (16,),
-    w2 (16, 1), b2 (1,).  Returns (B, H) float32, differentiable in every
-    input but the mask."""
+    ``mask`` (B, T) float32 {0, 1}, with the scorer w1 (4H, 16), b1 (16,),
+    w2 (16, 1), b2 (1,); the query, the facts and the scorer all float32 or
+    all bfloat16.  Returns (B, H) float32, differentiable in every input
+    but the mask (gradients in the inputs' types)."""
     _check(query, facts, mask, w1, b1, w2, b2)
     if torch.is_grad_enabled() and any(
             x.requires_grad for x in (query, facts, w1, b1, w2, b2)):
@@ -146,16 +166,19 @@ def din_pool(query: torch.Tensor, facts: torch.Tensor, mask: torch.Tensor,
     return _forward(query, facts, mask, w1, b1, w2, b2)
 
 
-def din_pool_gather_plain(query, table, ids, mask, lanes, w1, b1, w2, b2) -> torch.Tensor:
+def din_pool_gather_plain(query, table, ids, mask, lanes, w1, b1, w2, b2,
+                          facts_dtype=torch.float32) -> torch.Tensor:
     """``din_pool_plain`` over the facts ``fold_rows_plain(table, ids,
-    mask)[:, lo:hi]`` of the (B, T) ``ids`` and ``mask``."""
+    mask)[:, lo:hi]`` of the (B, T) ``ids`` and ``mask``, cast to
+    ``facts_dtype``."""
     b, t = ids.shape
     lo, hi = lanes
     facts = fold_rows_plain(table, ids.reshape(-1), mask.reshape(-1))[:, lo:hi]
-    return din_pool_plain(query, facts.reshape(b, t, hi - lo), mask, w1, b1, w2, b2)
+    return din_pool_plain(query, facts.reshape(b, t, hi - lo).to(facts_dtype), mask,
+                          w1, b1, w2, b2)
 
 
-def _check_gather(query, table, ids, mask, lanes, w1, b1, w2, b2) -> None:
+def _check_gather(query, table, ids, mask, lanes, w1, b1, w2, b2, facts_dtype) -> None:
     require(table, "din_pool_gather: table", (torch.float32, torch.bfloat16))
     if table.ndim != 2:
         raise ValueError(f"din_pool_gather: table must be (rows, D), got "
@@ -176,40 +199,43 @@ def _check_gather(query, table, ids, mask, lanes, w1, b1, w2, b2) -> None:
                          f"{table.shape[1]}, {table.data_ptr() % 16} bytes past 16-byte "
                          f"alignment: needs D % 4 == 0, an aligned table and a window "
                          f"of the query's width {h} starting at a multiple of 4")
-    _check_pool("din_pool_gather", query, mask, w1, b1, w2, b2, b, t, h, dev)
+    _check_pool("din_pool_gather", query, mask, w1, b1, w2, b2, b, t, h, dev, facts_dtype)
 
 
 def din_pool_gather(query: torch.Tensor, table: torch.Tensor, ids: torch.Tensor,
                     mask: torch.Tensor, lanes, w1: torch.Tensor, b1: torch.Tensor,
-                    w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+                    w2: torch.Tensor, b2: torch.Tensor,
+                    facts_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """K7 over gathered facts: ``din_pool(query, facts, mask, ...)`` with
     ``facts = (mask[..., None] * table[ids])[:, :, lo:hi]`` for ``lanes =
-    (lo, hi)``, in float32.  ``table`` (rows, D) float32 or bfloat16 (its
-    lanes widened to float32 as they are read), 16-byte aligned, D % 4 == 0;
+    (lo, hi)``, cast to ``facts_dtype`` (float32, or bfloat16 under the
+    bf16 compute policy: then the query and the scorer are bf16 too).
+    ``table`` (rows, D) float32 or bfloat16 (its lanes widened to float32
+    as they are read), 16-byte aligned, D % 4 == 0;
     ``ids`` (B, T) int32 and ``mask`` (B, T) float32 {0, 1}, contiguous; a
     window of the query's width starting at a multiple of 4; ``query`` (B,
     H) may be a strided view.  A masked entry's fact is 0 and its table row
     is not read.  Returns (B, H) float32, with no gradient: raises
     ``RuntimeError`` where an input needs one."""
-    _check_gather(query, table, ids, mask, lanes, w1, b1, w2, b2)
+    _check_gather(query, table, ids, mask, lanes, w1, b1, w2, b2, facts_dtype)
     if torch.is_grad_enabled() and any(
             x.requires_grad for x in (query, table, w1, b1, w2, b2)):
         raise RuntimeError("din_pool_gather has no gradient: train through din_pool "
                            "on gathered facts")
     if table.device.type == "cpu":
-        return din_pool_gather_plain(query, table, ids, mask, lanes, w1, b1, w2, b2)
+        return din_pool_gather_plain(query, table, ids, mask, lanes, w1, b1, w2, b2,
+                                     facts_dtype)
     b, t = ids.shape
     out = torch.empty((b, query.shape[1]), dtype=torch.float32, device=table.device)
     if out.numel() == 0 or t == 0:
         return out.zero_()
     lib = library("din_pool")
-    launch = (lib.din_pool_gather_bf16 if table.dtype == torch.bfloat16
-              else lib.din_pool_gather_f32)
     with torch.cuda.device(table.device):
-        code = launch(
+        code = lib.din_pool_gather(
             query.data_ptr(), table.data_ptr(), ids.data_ptr(), mask.data_ptr(),
             w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
             b, t, query.stride(0), table.shape[1], lanes[0],
+            int(table.dtype == torch.bfloat16), int(facts_dtype == torch.bfloat16),
             stream_handle(table.device))
     check(lib, code, "din_pool_gather")
     count_launch("din_pool")

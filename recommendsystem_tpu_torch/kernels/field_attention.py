@@ -3,7 +3,15 @@
 
 Counterpart of ``recommendsystem_tpu/kernels/field_attention_pallas.py``.
 ``field_attention`` keeps the JAX public layout: q/k/v of shape
-``(head, d_head, F, B)`` float32, batch-minor.  On a CUDA tensor it launches
+``(head, d_head, F, B)``, batch-minor, float32 or bfloat16 (all three of
+one type: the bf16 compute policy's first InteractingLayer iteration gives
+bf16 ones).  The output o and the log-sum-exp are float32 whatever the
+inputs, and every sum is float32: a bf16 input is widened exactly as it
+is read.  The backward gives dq, dk and dv in q's type, computed in float32
+and rounded once, as a JAX custom VJP gives the cotangents of bf16
+primals.  (The JAX K5 itself refuses bf16 inputs: its float32 scratch
+takes no bf16 store.  Its float32 body on the widened values is what the
+port computes.)  On a CUDA tensor it launches
 the hand-written kernels of ``csrc/field_attention.cu``; on a CPU tensor it
 runs their plain versions.  Where an input needs a gradient the call goes
 through ``FieldAttentionFunction``, whose forward also keeps the log-sum-exp
@@ -23,7 +31,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ._build import check, count_launch, library, require, stream_handle
+from ._build import FLOATS, check, count_launch, library, require, stream_handle
 
 SUPPORTED_D_HEAD = (1, 2, 4, 8, 16, 32)
 _MASK32 = 0xFFFFFFFF
@@ -99,6 +107,11 @@ def dropout_scale(h: int, f: int, b: int, seed: int, rate: float, device,
 # plain versions
 # ---------------------------------------------------------------------------
 
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """A bf16 tensor widened to float32 (exact); any other as it is."""
+    return x.float() if x.dtype == torch.bfloat16 else x
+
+
 def _chunks(h: int, f: int, b: int):
     step = max(1, min(f, _PLAIN_CHUNK // max(1, h * f * b)))
     return range(0, f, step), step
@@ -114,8 +127,10 @@ def field_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               rate: float = 0.0) -> torch.Tensor:
     """Plain forward, differentiable by autograd: softmax over keys of
     q.k / sqrt(dh), times the dropout multipliers, times v, with every
-    (head, F, F, B) weight materialised."""
+    (head, F, F, B) weight materialised; bf16 q, k, v widened to float32
+    first (their gradients rounded back to bf16), a float32 result."""
     _check_rate(rate)
+    q, k, v = _wide(q), _wide(k), _wide(v)
     h, _, f, b = q.shape
     outs = []
     starts, step = _chunks(h, f, b)
@@ -130,9 +145,11 @@ def field_attention_reference(q: torch.Tensor, k: torch.Tensor,
 
 def field_attention_fwd_plain(q, k, v, seed: int = 0, rate: float = 0.0):
     """Plain forward that also returns the (h, F, B) log-sum-exp of each
-    softmax row, as the forward kernel writes it for the backward."""
+    softmax row, as the forward kernel writes it for the backward (both
+    float32)."""
     with torch.no_grad():
         o = field_attention_reference(q, k, v, seed, rate)
+        q, k = _wide(q), _wide(k)
         h, _, f, b = q.shape
         starts, step = _chunks(h, f, b)
         lse = torch.cat([torch.logsumexp(_scores(q, k, f0, min(f, f0 + step)), dim=2)
@@ -146,8 +163,11 @@ def field_attention_bwd_reference(q, k, v, o, lse, do, seed: int = 0,
     (``field_attention_pallas.py:126-145``): p = exp(s - lse), the dropout
     multipliers m regenerated from the seed, dv = sum_q p m do,
     dp = m (do . v), ds = p (dp - rowsum(do * o)), dq = scale ds k,
-    dk = scale ds^T q.  Returns (dq, dk, dv)."""
+    dk = scale ds^T q, in float32 (bf16 q, k, v widened).  Returns (dq, dk,
+    dv) in q's type (bf16 ones rounded once)."""
     _check_rate(rate)
+    dtype = q.dtype
+    q, k, v = _wide(q), _wide(k), _wide(v)
     h, dh, f, b = q.shape
     scale = 1.0 / dh ** 0.5
     rowdot = (do * o).sum(dim=1)                                # (h, F, B)
@@ -167,7 +187,7 @@ def field_attention_bwd_reference(q, k, v, o, lse, do, seed: int = 0,
         dv += torch.einsum("hfgb,hdfb->hdgb", pd, do[:, :, f0:f1])
         dq[:, :, f0:f1] = torch.einsum("hfgb,hdgb->hdfb", ds, k) * scale
         dk += torch.einsum("hfgb,hdfb->hdgb", ds, q[:, :, f0:f1]) * scale
-    return dq, dk, dv
+    return dq.to(dtype), dk.to(dtype), dv.to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -175,16 +195,22 @@ def field_attention_bwd_reference(q, k, v, o, lse, do, seed: int = 0,
 # ---------------------------------------------------------------------------
 
 def _check_qkv(q, k, v) -> None:
-    require(q, "q", torch.float32)
+    require(q, "q", FLOATS)
     if q.ndim != 4:
         raise ValueError(f"q: expected (head, d_head, F, B), got {tuple(q.shape)}")
-    require(k, "k", torch.float32, q.shape, q.device)
-    require(v, "v", torch.float32, q.shape, q.device)
+    require(k, "k", q.dtype, q.shape, q.device)
+    require(v, "v", q.dtype, q.shape, q.device)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"field_attention: no kernel for device {q.device}")
     if q.device.type == "cuda" and q.shape[1] not in SUPPORTED_D_HEAD:
         raise ValueError(f"field_attention: d_head {q.shape[1]} not in "
                          f"{SUPPORTED_D_HEAD}")
+
+
+def bwd_keys_per_chunk(dh: int) -> int:
+    """Keys a chunk of K5b (``BwdTile::KC`` of ``csrc/field_attention.cu``):
+    where F is larger, dq is summed over several chunks."""
+    return min(32, 128 // dh)
 
 
 def _dropout_args(seed: int, rate: float):
@@ -200,18 +226,18 @@ def _fwd(q, k, v, seed: int, rate: float, want_lse: bool):
             return field_attention_fwd_plain(q, k, v, seed, rate)
         return field_attention_reference(q, k, v, seed, rate), None
     h, dh, f, b = q.shape
-    o = torch.empty_like(q)
+    o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     lse = torch.empty((h, f, b), dtype=torch.float32, device=q.device) \
         if want_lse else None
     if o.numel() == 0:
         return o, lse
     lib = library("field_attention")
     with torch.cuda.device(q.device):
-        code = lib.field_attention_fwd_f32(
+        code = lib.field_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr() if want_lse else None, h, dh, f, b,
             1.0 / dh ** 0.5, *_dropout_args(seed, rate),
-            stream_handle(q.device))
+            int(q.dtype == torch.bfloat16), stream_handle(q.device))
     check(lib, code, "field_attention")
     count_launch("field_attention")
     return o, lse
@@ -234,13 +260,21 @@ def field_attention_bwd(q, k, v, o, lse, do, seed: int = 0, rate: float = 0.0):
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     if q.numel() == 0:
         return dq, dk, dv
+    # a bf16 dq's partial sums over the key chunks before the last stay
+    # float32 (a float32 dq holds its own)
+    dq_acc = dq
+    if q.dtype == torch.bfloat16:
+        dq_acc = (torch.empty(q.shape, dtype=torch.float32, device=q.device)
+                  if f > bwd_keys_per_chunk(dh) else None)
     lib = library("field_attention")
     with torch.cuda.device(q.device):
-        code = lib.field_attention_bwd_f32(
+        code = lib.field_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
+            None if dq_acc is None else dq_acc.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), h, dh, f, b, 1.0 / dh ** 0.5,
-            *_dropout_args(seed, rate), stream_handle(q.device))
+            *_dropout_args(seed, rate), int(q.dtype == torch.bfloat16),
+            stream_handle(q.device))
     check(lib, code, "field_attention_bwd")
     count_launch("field_attention_bwd")
     return dq, dk, dv
@@ -268,8 +302,9 @@ def field_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     seed: int = 0, rate: float = 0.0) -> torch.Tensor:
     """softmax(q.k / sqrt(dh)) . v over fields, with attention-weight
     dropout at ``rate`` drawn from ``seed`` (a non-negative int below
-    2**64); q/k/v ``(h, dh, F, B)`` float32 contiguous, on one device;
-    returns ``(h, dh, F, B)`` float32, differentiable in q, k and v."""
+    2**64); q/k/v ``(h, dh, F, B)`` contiguous, on one device, all float32
+    or all bfloat16; returns ``(h, dh, F, B)`` float32, differentiable in
+    q, k and v (their gradients in their type)."""
     _check_qkv(q, k, v)
     _check_rate(rate)
     _key(seed)

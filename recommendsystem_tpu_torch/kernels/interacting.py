@@ -1,9 +1,9 @@
 """One fused InteractingLayer iteration: K6.
 
 Counterpart of ``recommendsystem_tpu/kernels/interacting_pallas.py``.
-``interacting_attention`` keeps the JAX signature: x (B, F, D) float32 and
-a dict of parameters ``wq``/``wk``/``wv``/``wr`` (D, U) and ``bq``/``bk``/
-``bv``/``br``/``gamma``/``beta`` (U,); returns (B, F, U) float32:
+``interacting_attention`` keeps the JAX signature: x (B, F, D) and a dict
+of parameters ``wq``/``wk``/``wv``/``wr`` (D, U) and ``bq``/``bk``/``bv``/
+``br``/``gamma``/``beta`` (U,); returns (B, F, U) float32:
 
     LN(relu(attn(relu(x Wq + bq), relu(x Wk + bk), relu(x Wv + bv))
             + relu(x Wr + br))) * gamma + beta
@@ -12,7 +12,12 @@ with ``head_num`` heads cut head-major from U, scores divided by
 sqrt(U / head_num) and a LayerNorm over U with ``rsqrt(var + ln_eps)``.  On
 a CUDA tensor it launches the hand-written kernel of ``csrc/interacting.cu``;
 on a CPU tensor it runs ``interacting_attention_plain``, the same math in
-PyTorch ops.  Where an input needs a gradient the call goes through
+PyTorch ops.  x may be float32 or bfloat16 and the parameters too (all ten
+of one type, which may differ from x's), as the bf16 compute policy gives
+them: the JAX kernel's body takes every product with
+``preferred_element_type=float32``, so on bf16 operands it is the float32
+body on inputs widened exactly; the kernel widens each value as it loads
+it and the output is float32.  Where an input needs a gradient the call goes through
 ``InteractingAttentionFunction``, whose backward recomputes through the
 plain version, as the JAX ``custom_vjp`` recomputes through ``_reference``.
 The kernel takes D = U = 8 (the width of every model that builds the
@@ -26,7 +31,7 @@ from typing import Dict
 
 import torch
 
-from ._build import check, count_launch, library, require, stream_handle
+from ._build import FLOATS, check, count_launch, library, require, stream_handle
 
 PARAM_NAMES = ("wq", "bq", "wk", "bk", "wv", "bv", "wr", "br", "gamma", "beta")
 KERNEL_D = 8        # the only input and unit width the kernel is built for
@@ -41,14 +46,18 @@ def kernel_takes(d: int, u: int, f: int) -> bool:
 
 def interacting_attention_plain(x: torch.Tensor, p: Dict[str, torch.Tensor],
                                 head_num: int, ln_eps: float) -> torch.Tensor:
-    """``_attention_block`` in PyTorch ops, on (B, F, D)."""
+    """``_attention_block`` in PyTorch ops, on (B, F, D).  Each product
+    widens its operands to float32 (exact for bf16, as JAX's
+    ``preferred_element_type=float32`` dot), and float32 + bf16 promotes, so
+    the math is float32 and a bf16 input's gradient is rounded to bf16 once
+    a use, as the JAX ``custom_vjp`` gives it."""
     b, f, d = x.shape
     u = p["wq"].shape[1]
     dh = u // head_num
     flat = x.reshape(b * f, d)
 
     def proj(w, bias):
-        return torch.relu(flat @ p[w] + p[bias]).reshape(b, f, u)
+        return torch.relu(flat.float() @ p[w].float() + p[bias]).reshape(b, f, u)
 
     q, k, v = proj("wq", "bq"), proj("wk", "bk"), proj("wv", "bv")
     outs = []
@@ -64,7 +73,7 @@ def interacting_attention_plain(x: torch.Tensor, p: Dict[str, torch.Tensor],
 
 
 def _check(x, p, head_num: int) -> None:
-    require(x, "x", torch.float32)
+    require(x, "x", FLOATS)
     if x.ndim != 3:
         raise ValueError(f"interacting_attention: x must be (B, F, D), got "
                          f"{tuple(x.shape)}")
@@ -73,9 +82,11 @@ def _check(x, p, head_num: int) -> None:
                          f"{sorted(PARAM_NAMES)}")
     b, f, d = x.shape
     u = p["wq"].shape[-1] if p["wq"].ndim == 2 else -1
+    ptype = getattr(p["wq"], "dtype", None)
+    ptypes = (ptype,) if ptype in FLOATS else FLOATS      # all ten of wq's type
     for name in PARAM_NAMES:
         shape = (d, u) if name.startswith("w") else (u,)
-        require(p[name], name, torch.float32, shape, x.device)
+        require(p[name], name, ptypes, shape, x.device)
     if head_num < 1 or u % head_num:
         raise ValueError(f"interacting_attention: {head_num} heads do not "
                          f"divide {u} units")
@@ -86,7 +97,7 @@ def _check(x, p, head_num: int) -> None:
                          f"{KERNEL_D} and 1 <= F <= {MAX_F}; got D {d}, U {u}, F {f}")
     if x.device.type == "cuda" and x.data_ptr() % 16:
         raise ValueError("interacting_attention: x must be 16-byte aligned "
-                         "(the kernel reads it as float4)")
+                         "(the kernel reads a row in 16-byte loads)")
 
 
 def _launch(x, p, head_num: int, ln_eps: float) -> torch.Tensor:
@@ -97,9 +108,11 @@ def _launch(x, p, head_num: int, ln_eps: float) -> torch.Tensor:
         return out
     lib = library("interacting")
     with torch.cuda.device(x.device):
-        code = lib.interacting_attention_f32(
+        code = lib.interacting_attention(
             x.data_ptr(), *(p[n].data_ptr() for n in PARAM_NAMES), out.data_ptr(),
-            b, f, head_num, (u // head_num) ** 0.5, ln_eps, stream_handle(x.device))
+            b, f, head_num, (u // head_num) ** 0.5, ln_eps,
+            int(x.dtype == torch.bfloat16), int(p["wq"].dtype == torch.bfloat16),
+            stream_handle(x.device))
     check(lib, code, "interacting_attention")
     count_launch("interacting_attention")
     return out
@@ -139,7 +152,8 @@ class InteractingAttentionFunction(torch.autograd.Function):
 def interacting_attention(x: torch.Tensor, params: Dict[str, torch.Tensor],
                           head_num: int = 2, ln_eps: float = 1e-3) -> torch.Tensor:
     """K6: one fused InteractingLayer iteration, (B, F, D) -> (B, F, U)
-    float32, differentiable in x and every parameter."""
+    float32, differentiable in x and every parameter; x float32 or bf16,
+    the ten parameters float32 or bf16 (all of one type)."""
     _check(x, params, head_num)
     tensors = [params[n] for n in PARAM_NAMES]
     if torch.is_grad_enabled() and any(t.requires_grad for t in [x] + tensors):

@@ -41,7 +41,10 @@ DEFAULT_MODEL_PARAM = {
 def clip(x: torch.Tensor, lo: float = 1e-6, hi: float = 1.0) -> torch.Tensor:
     """``jnp.clip`` as JAX computes it, min(max(x, lo), hi): at a tie with
     a bound the gradient splits in half.  The bounds are filled on x's
-    device (``new_tensor`` would copy them from the host, a sync each)."""
+    device (``new_tensor`` would copy them from the host, a sync each) and
+    in x's dtype, as JAX's Python-float bounds are weak scalars that take
+    x's type (PyTorch would not promote a bf16 x against a 0-d float32
+    bound; JAX would against a float32 array)."""
     return torch.minimum(torch.maximum(x, x.new_full((), lo)), x.new_full((), hi))
 
 
@@ -100,9 +103,11 @@ def create_autoint(cfg: Optional[ModelConfig] = None,
     ``models/autoint.py:70-113`` of the JAX package); loss
     ``cross_entropy_sum_mean``.  ``table_dtype`` (None: float32, bfloat16
     or ``"auto"``) stores the tables, ``opt_state_dtype`` (None: float32,
-    or bfloat16) Adam's moments; ``compute_dtype`` other than None or
-    float32 raises ``NotImplementedError`` (module ``base``)."""
-    check_compute_dtype(compute_dtype)
+    or bfloat16) Adam's moments; ``compute_dtype`` (None: float32, or
+    bfloat16) is the dense tower's compute dtype, the JAX package's
+    mixed-precision policy (``train.step.apply_model``); any other raises
+    ``ValueError`` (``base.check_compute_dtype``)."""
+    compute_dtype = check_compute_dtype(compute_dtype)
     dev = resolve_device(device)
     if cfg is None:
         cfg = synthetic_ctr_config(num_slots=24, emb_sizes=(8,), num_bias=0)
@@ -116,7 +121,7 @@ def create_autoint(cfg: Optional[ModelConfig] = None,
                                              state_dtype=or_float32(opt_state_dtype)),
                             group_tables=True, max_group_bytes=10 << 20,
                             table_dtype=or_float32(table_dtype))
-    return ModelBundle(name="autoint",
+    return ModelBundle(name="autoint", compute_dtype=compute_dtype,
                        module=AutoIntModule(cfg, model_param, device=dev),
                        embedding=emb, tasks=(TASK,), device=dev, config=cfg,
                        losses={TASK: L.cross_entropy_sum_mean},

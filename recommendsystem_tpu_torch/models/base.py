@@ -4,8 +4,10 @@ Counterpart of ``recommendsystem_tpu/models/base.py``.  A factory returns
 one ``ModelBundle``: the dense tower (an ``nn.Module`` mapping ``(embs,
 training, seed)`` to ``{task: output}``), the embedding engine that feeds it
 (with its sparse optimizer), the task names, the losses and their weights,
-the dense optimizer, the device and the eval metrics ({task: [Metric]},
-``train/metrics.py``, the JAX factories' lists).  The tower is the template
+the dense optimizer, the device, the eval metrics ({task: [Metric]},
+``train/metrics.py``, the JAX factories' lists) and the compute dtype of
+the dense tower (the JAX package's mixed-precision policy: float32, or
+bfloat16, which ``train.step.apply_model`` applies at use).  The tower is the template
 of the parameters: a ``TrainState`` holds them as a dict and the steps
 apply the tower with ``torch.func.functional_call``, as flax applies a
 module to a parameter tree.
@@ -41,6 +43,9 @@ class ModelBundle:
     dense_optimizer: Adam = dataclasses.field(default_factory=Adam)
     # task -> [Metric] that the eval step updates on the full outputs
     metrics: Dict[str, list] = dataclasses.field(default_factory=dict)
+    # the dense tower's compute dtype: float32, or bfloat16 (params, the
+    # embedding activations and dense_inputs cast at use, outputs back)
+    compute_dtype: torch.dtype = torch.float32
 
     def init(self, seed: int):
         """(params, tables) drawn from one ``torch.Generator`` on the
@@ -64,14 +69,20 @@ class ModelBundle:
         return {task: outputs[src] for task, src in self.predict_outputs.items()}
 
 
-def check_compute_dtype(compute_dtype) -> None:
-    """The factories' ``compute_dtype``: None or float32, the dense tower's
-    precision here; bfloat16 (the JAX package's mixed-precision policy)
-    raises ``NotImplementedError``, as it comes with ROADMAP.md item 10b."""
-    if compute_dtype not in (None, torch.float32):
-        raise NotImplementedError(
-            f"compute_dtype {compute_dtype}: the port's dense tower runs in float32; "
-            f"the bf16 compute policy is ROADMAP.md item 10b")
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def check_compute_dtype(compute_dtype) -> torch.dtype:
+    """A factory's ``compute_dtype`` as the bundle's: None and float32 give
+    float32 (the tower computes in float32), bfloat16 the JAX package's
+    mixed-precision policy (``train.step.apply_model``); any other dtype
+    raises ``ValueError`` naming the two it takes."""
+    if compute_dtype is None:
+        return torch.float32
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {compute_dtype}: expected None, "
+                         f"torch.float32 or torch.bfloat16")
+    return compute_dtype
 
 
 def or_float32(dtype):
@@ -86,6 +97,12 @@ def table_dtype_kwargs(flag: str) -> dict:
     if flag == "fp32":
         return {}
     return {"table_dtype": "auto" if flag == "auto" else torch.bfloat16}
+
+
+def compute_dtype_kwargs(flag: str) -> dict:
+    """A model factory's ``compute_dtype`` for the command lines'
+    ``--compute-dtype`` (fp32, bf16): nothing for fp32, the default."""
+    return {} if flag == "fp32" else {"compute_dtype": torch.bfloat16}
 
 
 MODEL_REGISTRY: Dict[str, Callable[..., ModelBundle]] = {}

@@ -38,7 +38,8 @@ from ..core.config import ModelConfig, load_model_parameter_json, synthetic_ctr_
 from ..core.device import resolve_device
 from ..embedding import EmbeddingFeatures, category_column, embedding_column
 from ..embedding.optimizers import SparseAdam
-from ..nn import Dense, InteractingLayer, PPNetGateBank, SENet, stacked_gated_experts
+from ..nn import (Dense, InteractingLayer, PPNetGateBank, SENet, einsum_f32,
+                  stacked_gated_experts)
 from ..train import losses as L
 from ..train import metrics as M
 from ..train.adam import Adam
@@ -179,7 +180,7 @@ class CTRModule(nn.Module):
             for j in range(len(GATE_UNITS)):
                 g = getattr(self, f"gate_{i}_{j}")(g)
             g = getattr(self, f"gate_output_{i}")(g)
-            r = torch.einsum("bed,be->bd", experts, g)
+            r = einsum_f32("bed,be->bd", experts, g)
             # per-task output MLP with PPNet gates + CAN tail
             for j in range(n_out):
                 if j == 0:
@@ -214,7 +215,7 @@ def create_ctr(cfg: Optional[ModelConfig] = None,
     and Adam(5e-5, 0.9, 0.999, 1e-8) on the tower; ``stacked_experts``
     stacks the MMoE's experts; ``table_dtype``, ``opt_state_dtype`` and
     ``compute_dtype`` as in ``create_autoint``."""
-    check_compute_dtype(compute_dtype)
+    compute_dtype = check_compute_dtype(compute_dtype)
     dev = resolve_device(device)
     if cfg is None:
         cfg = synthetic_ctr_config(num_slots=24, num_bias=8)
@@ -232,7 +233,7 @@ def create_ctr(cfg: Optional[ModelConfig] = None,
     # the two tasks share the Metric objects; each task's states are its own
     metrics = [M.binary_accuracy(), M.auc(), M.copc()]
     return ModelBundle(
-        name="ctr",
+        name="ctr", compute_dtype=compute_dtype,
         module=CTRModule(cfg, tuple(gate_slots),
                          attention_dropout_rate=attention_dropout_rate,
                          stacked_experts=stacked_experts, device=dev),

@@ -105,7 +105,7 @@ def create_finish(slots: Optional[Sequence[str]] = None,
     per-row Adam (1e-3) on the tables and Adam(1e-3) on the tower;
     ``table_dtype``, ``opt_state_dtype`` and ``compute_dtype`` as in
     ``create_autoint``."""
-    check_compute_dtype(compute_dtype)
+    compute_dtype = check_compute_dtype(compute_dtype)
     dev = resolve_device(device)
     if slots is None:
         slots = [str(s) for s in range(3000, 3040)]
@@ -120,7 +120,7 @@ def create_finish(slots: Optional[Sequence[str]] = None,
                             group_tables=True, max_group_bytes=4 << 20,
                             table_dtype=or_float32(table_dtype))
     return ModelBundle(
-        name="finish",
+        name="finish", compute_dtype=compute_dtype,
         module=DeepFMModule(tuple(bias_slots), general, wide_tail, dim,
                             tuple(deep_hidden_units), device=dev),
         embedding=emb, tasks=(TASK,), device=dev,

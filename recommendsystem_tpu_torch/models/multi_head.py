@@ -28,7 +28,7 @@ from torch import nn
 from ..core.device import resolve_device
 from ..embedding import EmbeddingFeatures, category_column, embedding_column
 from ..embedding.optimizers import SparseAdam
-from ..nn import Dense, InteractingLayer, truncated_normal
+from ..nn import Dense, InteractingLayer, einsum_f32, truncated_normal
 from ..train import losses as L
 from ..train import metrics as M
 from ..train.adam import Adam
@@ -94,7 +94,7 @@ class MultiHeadModule(nn.Module):
         outputs = {}
         for idx, task in enumerate(TASKS):
             gate = getattr(self, f"gate_{idx}_fc2")(result)                # (B, 7)
-            pooled = torch.einsum("bed,be->bd", experts, gate)
+            pooled = einsum_f32("bed,be->bd", experts, gate)
             outputs[task] = getattr(self, task)(pooled)
         return outputs
 
@@ -117,7 +117,7 @@ def create_multi_head(slots: Optional[Sequence[str]] = None,
     tables and Adam(1e-5) on the tower; ``stacked_experts`` stacks the 8
     experts; ``table_dtype``, ``opt_state_dtype`` and ``compute_dtype`` as
     in ``create_autoint``."""
-    check_compute_dtype(compute_dtype)
+    compute_dtype = check_compute_dtype(compute_dtype)
     dev = resolve_device(device)
     if slots is None:
         slots = [str(s) for s in range(2000, 2040)]
@@ -129,7 +129,7 @@ def create_multi_head(slots: Optional[Sequence[str]] = None,
                             group_tables=True, max_group_bytes=10 << 20,
                             table_dtype=or_float32(table_dtype))
     return ModelBundle(
-        name="multi_head",
+        name="multi_head", compute_dtype=compute_dtype,
         module=MultiHeadModule(slots, dim, stacked_experts, device=dev),
         embedding=emb, tasks=TASKS, device=dev,
         losses={t: L.cross_entropy_per_sample for t in TASKS},

@@ -146,7 +146,7 @@ def create_rough_rank(user_slots: Optional[Sequence[str]] = None,
     lazy per-row Adam (1e-3) on the tables and Adam(1e-4) on the tower;
     ``table_dtype``, ``opt_state_dtype`` and ``compute_dtype`` as in
     ``create_autoint``."""
-    check_compute_dtype(compute_dtype)
+    compute_dtype = check_compute_dtype(compute_dtype)
     dev = resolve_device(device)
     if user_slots is None:
         user_slots = [str(s) for s in range(1560, 1590)]
@@ -160,7 +160,7 @@ def create_rough_rank(user_slots: Optional[Sequence[str]] = None,
                             group_tables=True, max_group_bytes=4 << 20,
                             table_dtype=or_float32(table_dtype))
     return ModelBundle(
-        name="rough_rank",
+        name="rough_rank", compute_dtype=compute_dtype,
         module=DSSMModule(tuple(user_slots), tuple(item_slots), dim,
                           stacked_experts=stacked_experts, device=dev),
         embedding=emb, tasks=("student", "teacher"), device=dev,

@@ -36,8 +36,8 @@ from ..core.device import resolve_device
 from ..embedding import EmbeddingFeatures, category_column, embedding_column
 from ..embedding.optimizers import SparseAdaGrad
 from ..embedding.packed import SequenceRows
-from ..nn import (DINPool, DeepCrossLayer, Dense, FFMBlock, SENet, fm_cross_term,
-                  stacked_gated_experts)
+from ..nn import (DINPool, DeepCrossLayer, Dense, FFMBlock, SENet, dot_f32, einsum_f32,
+                  fm_cross_term, stacked_gated_experts)
 from ..train import losses as L
 from ..train import metrics as M
 from ..train.adam import Adam
@@ -190,13 +190,13 @@ class StaytimeModule(nn.Module):
             for j in range(len(MMOE_UNITS)):
                 g = getattr(self, f"gate_{i}_{j}")(g)
             g = getattr(self, f"gate_output_{i}")(g)
-            mmoe_outs.append(torch.einsum("bed,be->bd", experts, g))
+            mmoe_outs.append(einsum_f32("bed,be->bd", experts, g))
 
         # staytime: 400-bin distribution and its expected value
         cross_feature = self.dcn(concated)
         st_logits = self.staytime_output(torch.cat([mmoe_outs[0], cross_feature], dim=-1))
         st_dist = torch.softmax(st_logits, dim=-1)
-        st_pred = st_dist @ self.bins
+        st_pred = dot_f32(st_dist, self.bins)
         st_pred = torch.where(st_pred < 0.0, torch.zeros_like(st_pred), st_pred)
         st_train = torch.cat([st_dist, st_pred], dim=-1)
 
@@ -226,7 +226,7 @@ def create_staytime(cfg: Optional[StaytimeConfig] = None,
     bfloat16 or ``"auto"``, which stores these 32-wide rows in bf16) stores
     the tables (AdaGrad's g2sum stays float32); ``compute_dtype`` as in
     ``create_autoint``."""
-    check_compute_dtype(compute_dtype)
+    compute_dtype = check_compute_dtype(compute_dtype)
     dev = resolve_device(device)
     cfg = cfg or StaytimeConfig()
     cols = []
@@ -243,7 +243,7 @@ def create_staytime(cfg: Optional[StaytimeConfig] = None,
                             group_tables=True, max_group_bytes=30 << 20,
                             table_dtype=or_float32(table_dtype))
     return ModelBundle(
-        name="staytime",
+        name="staytime", compute_dtype=compute_dtype,
         module=StaytimeModule(cfg, deep_hidden_units, stacked_experts, device=dev),
         embedding=emb, tasks=(T_STAY, T_SHORT, T_LONG), device=dev, config=cfg,
         predict_outputs={T_STAY: f"{T_STAY}_pred", T_SHORT: T_SHORT, T_LONG: T_LONG},

@@ -21,7 +21,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from .mlp import glorot_normal_, glorot_uniform_
+from .mlp import dot_f32, glorot_normal_, glorot_uniform_
 
 
 class DeepCrossLayer(nn.Module):
@@ -42,7 +42,7 @@ class DeepCrossLayer(nn.Module):
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
         cross = inputs
         for i in range(self.num_layer):
-            scalar = cross @ getattr(self, f"w_{i}")                # (B, 1)
+            scalar = dot_f32(cross, getattr(self, f"w_{i}"))       # (B, 1)
             base = inputs if i == 0 else cross
             cross = base * scalar + getattr(self, f"b_{i}") + cross
         return cross
@@ -72,6 +72,6 @@ class CrossNet(nn.Module):
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
         x0 = xl = inputs
         for i in range(self.layer_num):
-            xw = xl @ getattr(self, f"kernel{i}")                   # (B, 1)
+            xw = dot_f32(xl, getattr(self, f"kernel{i}"))          # (B, 1)
             xl = x0 * xw + getattr(self, f"bias{i}")[:, 0] + xl
         return xl

@@ -27,7 +27,7 @@ from torch import nn
 
 from ..embedding.packed import SequenceRows
 from ..kernels.din import HIDDEN, MASK_PAD, din_pool, din_pool_gather  # noqa: F401
-from .mlp import Dense, glorot_uniform_
+from .mlp import Dense, einsum_f32, glorot_uniform_
 
 
 def sequence_mask(lengths: torch.Tensor, maxlen: int) -> torch.Tensor:
@@ -38,8 +38,10 @@ def sequence_mask(lengths: torch.Tensor, maxlen: int) -> torch.Tensor:
 
 class DINPool(nn.Module):
     """query (B, H); facts (B, T, H) and mask (B, T) bool or None, or facts
-    a ``SequenceRows`` handle whose window is H wide (it carries its mask;
-    no gradient).  Returns (B, H).  Parameters keep the flax names and
+    a ``SequenceRows`` handle whose window is H wide (it carries its mask
+    and its facts' type; no gradient).  Returns (B, H) float32; the query,
+    the facts and the parameters all float32 or, under the bf16 compute
+    policy, all bf16.  Parameters keep the flax names and
     layout: ``w1`` (4H, hidden), ``b1`` (hidden,), ``w2`` (hidden, 1),
     ``b2`` (1,)."""
 
@@ -65,7 +67,8 @@ class DINPool(nn.Module):
             if mask is not None:
                 raise ValueError("DINPool: a SequenceRows handle carries its own mask")
             return din_pool_gather(query, facts.table, facts.ids, facts.mask,
-                                   facts.window, self.w1, self.b1, self.w2, self.b2)
+                                   facts.window, self.w1, self.b1, self.w2, self.b2,
+                                   facts.dtype)
         if mask is None:
             mask_f = torch.ones(facts.shape[:2], dtype=torch.float32,
                                 device=facts.device)
@@ -107,5 +110,5 @@ class DINAttention(nn.Module):
         if mask is not None:
             deep = torch.where(mask[:, None, :].expand(deep.shape), deep,
                                torch.zeros_like(deep))             # zeroed, not MASK_PAD
-        out = torch.einsum("bft,bth->bfh", deep, values)
+        out = einsum_f32("bft,bth->bfh", deep, values)
         return out.squeeze(1) if squeeze_f else out

@@ -23,7 +23,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from .mlp import Dense, glorot_normal_
+from .mlp import Dense, dot_f32, glorot_normal_
 
 
 class FMLayer3D(nn.Module):
@@ -59,8 +59,8 @@ class DeepFMLayer(nn.Module):
         glorot_normal_(self.weight, generator)
 
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
-        sum_square = torch.square(inputs @ self.weight)
-        square_sum = torch.square(inputs) @ torch.square(self.weight)
+        sum_square = torch.square(dot_f32(inputs, self.weight))
+        square_sum = dot_f32(torch.square(inputs), torch.square(self.weight))
         high_order = 0.5 * (sum_square - square_sum).sum(dim=1, keepdim=True)
         return high_order + self.deeepfmlinear(inputs)
 

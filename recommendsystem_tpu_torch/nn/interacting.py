@@ -31,6 +31,15 @@ the ``(B, F, D)`` layout; any other call runs ``forward_transposed``.  The
 JAX package also asks for a batch that is a multiple of 128 before it
 prefers its flash attention; that rule follows the TPU's lane tile and is
 not carried over.
+
+Under the bf16 compute policy the layer keeps the JAX package's dtypes
+with its kernels (``set_backend("pallas")``): K6 takes bf16 x and
+parameters and returns float32; on the transposed path the projections
+are JAX's ``W.T @ x`` with no ``preferred_element_type`` (bf16 from bf16
+x and weights: ``matmul_promoted``), K5 takes the bf16 q, k and v and
+returns float32 o, and the residual, ReLU and LayerNorm then run in
+float32, as every later iteration does (its float32 x promotes the bf16
+weights).
 """
 
 from __future__ import annotations
@@ -42,7 +51,7 @@ from torch import nn
 
 from ..kernels.field_attention import field_attention
 from ..kernels.interacting import interacting_attention, kernel_takes
-from .mlp import glorot_uniform_
+from .mlp import glorot_uniform_, matmul_promoted
 
 
 class InteractingLayer(nn.Module):
@@ -92,7 +101,7 @@ class InteractingLayer(nn.Module):
         flat = x_t.reshape(d, f * b)
 
         def proj(w, bias):                      # -> (head, d_head, F, B)
-            z = torch.relu(w.t() @ flat + bias[:, None])
+            z = torch.relu(matmul_promoted(w.t(), flat) + bias[:, None])
             return z.reshape(h, u // h, f, b)
 
         qt, kt, vt = (proj(self.wq, self.bq), proj(self.wk, self.bk),
@@ -100,7 +109,7 @@ class InteractingLayer(nn.Module):
         rate = self.dropout_rate if (self.use_dropout and training) else 0.0
         o = field_attention(qt, kt, vt, seed, rate).reshape(u, f, b)
         if self.use_res:
-            o = o + torch.relu(self.wr.t() @ flat
+            o = o + torch.relu(matmul_promoted(self.wr.t(), flat)
                                + self.br[:, None]).reshape(u, f, b)
         o = torch.relu(o)
         mu = o.mean(dim=0, keepdim=True)

@@ -14,6 +14,16 @@ parameters are stacked on a leading axis, as flax's ``nn.vmap`` leaves
 them (a kernel of shape (E, in, out)): the layer then maps (B, in) or (E,
 B, in) to (E, B, out) in one batched product.
 
+Products follow the JAX package's dtypes under the bf16 compute policy
+(``train.step.apply_model``).  ``dot_f32`` is ``jnp.dot(...,
+preferred_element_type=jnp.float32)``, the JAX layers' product: a float32
+result whatever the operands (bf16 x bf16 exact products summed in float32;
+a bf16 operand beside a float32 one widened exactly), so a Dense on bf16
+inputs and weights gives float32, and later layers multiply float32
+activations by bf16-rounded weights.  ``matmul_promoted`` is a JAX product
+without ``preferred_element_type``: it computes and returns the promoted
+type (bf16 x bf16 gives bf16).
+
 ``kernel_penalty(regularized_kernels(module), params)`` is the L1L2 penalty
 of every layer that carries one (a Dense's ``kernel_regularizer``, a DNN's
 or CrossNet's ``l2_reg``), computed from a parameter dict: the sum that the
@@ -145,11 +155,73 @@ def init_kernel(init: Callable, kernel: torch.Tensor,
             init(kernel[e], generator)
 
 
+class _Bf16ProductF32(torch.autograd.Function):
+    """a @ b of two bf16 CUDA tensors on the tensor cores with float32
+    accumulation and a float32 result (``torch.mm`` / ``torch.bmm`` with
+    ``out_dtype``), for b (K, N) with a (..., K), or b (E, K, N) with a
+    (M, K) or (E, M, K).  The backward is the widened product's (float32
+    products of the float32 cotangent), rounded once to bf16: the cotangent
+    that JAX's transpose of a ``preferred_element_type=float32`` dot gives a
+    bf16 operand."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        f32 = torch.float32
+        if b.ndim == 2:
+            out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=f32)
+            return out.reshape(*a.shape[:-1], b.shape[-1])
+        if a.ndim == 2:
+            a = a.expand(b.shape[0], *a.shape)
+        return torch.bmm(a, b, out_dtype=f32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        with torch.enable_grad():
+            af = a.detach().float().requires_grad_(ctx.needs_input_grad[0])
+            bf = b.detach().float().requires_grad_(ctx.needs_input_grad[1])
+            out = af @ bf
+        wrt = [t for t in (af, bf) if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wrt, g))
+        return tuple(next(grads).to(torch.bfloat16) if t.requires_grad else None
+                     for t in (af, bf))
+
+
+def dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.dot(a, b, preferred_element_type=jnp.float32)`` for a @ b as
+    ``torch.matmul`` broadcasts it: a float32 result.  Two bf16 CUDA
+    operands go to the tensor cores (``_Bf16ProductF32``); otherwise each
+    operand is widened to float32 (exact) and the product is a float32 one
+    (TF32 off, ``core.device``), as XLA computes a bf16 x bf16 or mixed
+    product with a float32 result on the CPU."""
+    if (a.dtype == b.dtype == torch.bfloat16 and a.is_cuda
+            and (b.ndim == 2 or (b.ndim == 3 and a.ndim in (2, 3)))):
+        return _Bf16ProductF32.apply(a, b)
+    return a.float() @ b.float()
+
+
+def einsum_f32(equation: str, *operands: torch.Tensor) -> torch.Tensor:
+    """``jnp.einsum(..., preferred_element_type=jnp.float32)``: the
+    operands widened to float32 (exact), a float32 result."""
+    return torch.einsum(equation, *(o.float() for o in operands))
+
+
+def matmul_promoted(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A JAX ``@`` with no ``preferred_element_type``: both operands in
+    their promoted type, which is the result's (bf16 x bf16 gives bf16,
+    summed in float32 and rounded once; bf16 x float32 gives float32)."""
+    t = torch.promote_types(a.dtype, b.dtype)
+    return a.to(t) @ b.to(t)
+
+
 def affine(x: torch.Tensor, kernel: torch.Tensor,
            bias: Optional[torch.Tensor]) -> torch.Tensor:
-    """``x @ kernel + bias``; for a stacked kernel (E, in, out) the bias is
-    (E, out) and the result (E, B, out)."""
-    y = x @ kernel
+    """``x @ kernel + bias`` with the JAX ``Dense``'s dtypes: the product in
+    float32 (``dot_f32``), then the bias (float32 + bf16 is float32); for
+    a stacked kernel (E, in, out) the bias is (E, out) and the result (E,
+    B, out)."""
+    y = dot_f32(x, kernel)
     if bias is None:
         return y
     return y + (bias if bias.ndim == 1 else bias[:, None, :])

@@ -24,7 +24,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import torch
 from torch import nn
 
-from .mlp import DNN
+from .mlp import DNN, dot_f32, einsum_f32
 
 
 def _gate_params(gate_dnn_params: Optional[Dict[str, Any]]) -> Dict[str, Any]:
@@ -35,7 +35,7 @@ def _gate_params(gate_dnn_params: Optional[Dict[str, Any]]) -> Dict[str, Any]:
 
 def pool(experts: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
     """(B, E, D) expert outputs pooled by a (B, E) gate: (B, D)."""
-    return torch.einsum("bed,be->bd", experts, gate)
+    return einsum_f32("bed,be->bd", experts, gate)
 
 
 class MMOE(nn.Module):
@@ -91,7 +91,7 @@ class PLE(nn.Module):
         tasks = [[getattr(self, f"task{i}_expert{j}") for j in range(self.num_specific)]
                  + [getattr(self, f"task{i}_gate")] for i in range(self.num_tasks)]
         mods = shared + [m for task in tasks for m in task]
-        first = (inputs @ torch.cat([m.kernel0 for m in mods], dim=1)
+        first = (dot_f32(inputs, torch.cat([m.kernel0 for m in mods], dim=1))
                  + torch.cat([m.bias0 for m in mods]))
         ys = iter(first.split([m.hidden_units[0] for m in mods], dim=1))
         shared = [m.after_first(next(ys), training, generator) for m in shared]

@@ -29,10 +29,11 @@ latest state that ``train.checkpoint.save_checkpoint`` wrote under DIR (the
 daily trainer's ``<state-dir>/ckpt``); without it the weights are seed 0's.
 ``--table-dtype`` stores the tables in float32 (``fp32``, the default),
 bfloat16 (``bf16``) or by width (``auto``: bf16 for rows of D >= 32), as in
-the JAX package; scores are computed in float32 either way.  A checkpoint
-restores only into tables of its own types.  ``--compute-dtype`` takes
-``fp32`` alone: ``bf16``, the JAX package's bf16 dense tower, is refused by
-name (ROADMAP.md item 10b).
+the JAX package.  ``--compute-dtype bf16`` runs the dense tower under the
+JAX package's bf16 compute policy (``train.step.apply_model``), alone or
+with ``--table-dtype``; scores come out float32 either way.  A checkpoint
+restores only into tables of its own types; its dense params are float32
+under either compute dtype.
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ from ..core.device import resolve_device
 from ..data.parse import pad_ids
 from ..embedding.engine import IdBatch, validate_batch
 from ..models import MODEL_REGISTRY, create_model
-from ..models.base import ModelBundle, table_dtype_kwargs
+from ..models.base import ModelBundle, compute_dtype_kwargs, table_dtype_kwargs
 from ..train.checkpoint import restore_checkpoint
 from ..train.state import TrainState, create_train_state
 from ..train.step import make_predict_step
@@ -206,14 +207,13 @@ def main(argv=None):
                     help="embedding table storage: fp32, bf16, or auto (bf16 "
                          "for rows of 32 or more)")
     ap.add_argument("--compute-dtype", choices=["fp32", "bf16"], default="fp32",
-                    help="dense-tower precision; the port computes in fp32")
+                    help="dense-tower mixed-precision policy: fp32, or bf16 "
+                         "(params and activations cast at use, outputs fp32)")
     args = ap.parse_args(argv)
-    if args.compute_dtype != "fp32":
-        ap.error(f"--compute-dtype {args.compute_dtype}: the port's dense tower runs "
-                 f"in fp32; bf16 compute is ROADMAP.md item 10b")
 
     logging.basicConfig(level=logging.INFO, force=True)
-    kwargs = table_dtype_kwargs(args.table_dtype)
+    kwargs = {**table_dtype_kwargs(args.table_dtype),
+              **compute_dtype_kwargs(args.compute_dtype)}
     if args.bucket_size:
         factory = inspect.signature(MODEL_REGISTRY[args.model])
         if "bucket_size" not in factory.parameters:

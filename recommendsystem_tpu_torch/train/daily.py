@@ -18,8 +18,9 @@ a checkpoint + the day marker, optionally dump predictions for the last
 day.  ``--backtest`` evaluates each day before training on it.  The port
 runs on the card unless ``--device cpu``.  ``--table-dtype`` (fp32, bf16,
 auto) stores the tables as the JAX trainer's flag does, and passes to the
-model's factory; the dense tower is float32, and ``--compute-dtype bf16``
-is refused by name (ROADMAP.md item 10b).
+model's factory; ``--compute-dtype bf16`` trains the dense tower under the
+bf16 compute policy, as the JAX trainer's flag does (master params, the
+loss and the optimizers stay float32).
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ import torch
 from ..data.loader import balance_batches, dataset_reader
 from ..data.parse import make_ctr_parse_fn, make_staytime_parse_fn
 from ..models import MODEL_REGISTRY, create_model
-from ..models.base import table_dtype_kwargs
+from ..models.base import compute_dtype_kwargs, table_dtype_kwargs
 from ..utils.dates import trained_delta_days
 from .checkpoint import save_checkpoint
 from .harness import dump_predict, evaluate, fit
@@ -99,17 +100,15 @@ def main(argv=None):
                          "for rows of 32 or more)")
     ap.add_argument("--compute-dtype", choices=["fp32", "bf16"],
                     default="fp32",
-                    help="dense-tower precision; the port computes in fp32")
+                    help="dense-tower mixed-precision policy")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu' for the plain versions")
     args = ap.parse_args(argv)
-    if args.compute_dtype != "fp32":
-        ap.error(f"--compute-dtype {args.compute_dtype}: the port's dense tower "
-                 f"trains in fp32; bf16 compute is ROADMAP.md item 10b")
 
     logging.basicConfig(level=logging.INFO, force=True)
 
-    kwargs = {"device": args.device, **table_dtype_kwargs(args.table_dtype)}
+    kwargs = {"device": args.device, **table_dtype_kwargs(args.table_dtype),
+              **compute_dtype_kwargs(args.compute_dtype)}
     if args.bucket_size:
         if "bucket_size" not in inspect.signature(MODEL_REGISTRY[args.model]).parameters:
             ap.error(f"--bucket-size: model {args.model!r} takes no bucket size")

@@ -23,15 +23,23 @@ Counterpart of ``recommendsystem_tpu/train/step.py``, local mode:
   place of the JAX package's ``lax.scan`` driver;
 - ``make_predict_step`` is the fused lookup (sequence columns deferred to
   the DIN pool; the classic lookup for an engine built with
-  ``packed=False``, as the JAX package chooses), the dense tower in float32
-  and the bundle's ``predict_view``;
+  ``packed=False``, as the JAX package chooses), the dense tower in the
+  bundle's compute dtype and the bundle's ``predict_view``;
 - ``make_eval_step`` is the predict step's lookup and tower, then the
   bundle's streaming metrics on the full outputs.
 
 Tables may be stored in bfloat16 and Adam's moments too (the engine's
 ``table_dtype``, ``SparseAdam.state_dtype``); every lookup gives float32
-and every update computes in float32.  The dense tower runs in float32:
-the bf16 compute policy (``compute_dtype``) comes with a later slice.
+and every update computes in float32.  The dense tower runs in the
+bundle's ``compute_dtype``: float32, or the JAX package's bf16 policy,
+which ``apply_model`` alone applies, in every step (predict, eval, and
+train with each sparse update): the floating params, the embedding
+activations and ``dense_inputs`` are cast to bf16 at use, inside the
+autograd graph, and the outputs back to float32, so the master params, the
+loss, the metrics and both optimizers stay float32, and the gradients that
+reach the float32 params, the folded activations (K3 / K4) and the classic
+scatter are the bf16 cotangents widened.  The L1L2 penalty is taken on the
+cast kernels, as the JAX layers sow it from the bf16 kernels they hold.
 
 Keras-compile semantics as in the JAX package: the loss is the sum over
 tasks of ``loss_weight * loss``, where a loss that returns a scalar is taken
@@ -45,6 +53,7 @@ module (the kernels of every ``Dense`` with a ``kernel_regularizer``, of
 
 from __future__ import annotations
 
+import dataclasses
 from typing import TYPE_CHECKING, Callable, Dict, Optional, Sequence
 
 import torch
@@ -60,17 +69,55 @@ if TYPE_CHECKING:
     from ..models.base import ModelBundle
 
 
+def cast_floating(tree, dtype: torch.dtype):
+    """The floating tensors of a nest of dicts, lists and tuples cast to
+    ``dtype`` (``.to``, inside the autograd graph); bool masks and integer
+    ids pass through, and a ``SequenceRows`` handle takes ``dtype`` as its
+    facts' type: the JAX ``_cast_floating``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dtype) if tree.is_floating_point() else tree
+    if isinstance(tree, packed_mod.SequenceRows):
+        return dataclasses.replace(tree, dtype=dtype)
+    if isinstance(tree, dict):
+        return {k: cast_floating(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(cast_floating(v, dtype) for v in tree)
+    return tree
+
+
+def _policy(bundle: "ModelBundle") -> Optional[torch.dtype]:
+    """The compute dtype to cast to, or None for a float32 tower."""
+    dtype = bundle.compute_dtype
+    return None if dtype == torch.float32 else dtype
+
+
 def apply_model(bundle: "ModelBundle", params, embs, dense_inputs=None,
                 training: bool = False, seed: int = 0):
-    """Apply the bundle's module to ``params`` in float32 (the bf16 compute
-    policy, ``compute_dtype``, comes with a later slice: ROADMAP.md item
-    10b); ``seed`` draws a training step's dropout."""
+    """Apply the bundle's module to ``params`` under its compute dtype, the
+    one place every step applies the tower (``recommendsystem_tpu/train/
+    step.py:36-54``): with bf16 the floating params, the embedding
+    activations and ``dense_inputs`` are cast at use and the outputs back
+    to float32; with float32 nothing is cast.  ``seed`` draws a training
+    step's dropout."""
+    dtype = _policy(bundle)
+    if dtype is not None:
+        params = cast_floating(params, dtype)
+    return _apply_cast(bundle, params, embs, dense_inputs, training, seed)
+
+
+def _apply_cast(bundle, params, embs, dense_inputs, training, seed):
+    """``apply_model`` on params already in the compute dtype."""
+    dtype = _policy(bundle)
+    if dtype is not None:
+        embs = cast_floating(embs, dtype)
+        dense_inputs = cast_floating(dense_inputs, dtype)
     kwargs = {"training": training}
     if training:
         kwargs["seed"] = seed
     if dense_inputs is not None:
         kwargs["dense_inputs"] = dense_inputs
-    return functional_call(bundle.module, params, (embs,), kwargs)
+    out = functional_call(bundle.module, params, (embs,), kwargs)
+    return out if dtype is None else cast_floating(out, torch.float32)
 
 
 def _weighted_task_loss(loss_fn, y, pred, sample_weight):
@@ -90,8 +137,11 @@ def _model_outputs_and_loss(bundle, params, embs, labels, sample_weight,
                             dense_inputs, training, seed, penalized):
     """The outputs and the loss; ``penalized`` is
     ``nn.regularized_kernels(bundle.module)``: when it is empty, the loss
-    has no penalty term and ``regularization`` is None."""
-    outputs = apply_model(bundle, params, embs, dense_inputs, training, seed)
+    has no penalty term and ``regularization`` is None.  The penalty is
+    taken on the params in the compute dtype (a float32 0-d tensor)."""
+    dtype = _policy(bundle)
+    cparams = params if dtype is None else cast_floating(params, dtype)
+    outputs = _apply_cast(bundle, cparams, embs, dense_inputs, training, seed)
     loss = 0.0
     task_losses = {}
     for task, loss_fn in bundle.losses.items():
@@ -102,7 +152,7 @@ def _model_outputs_and_loss(bundle, params, embs, labels, sample_weight,
         loss = loss + lw * tl
     reg = None
     if penalized:
-        reg = kernel_penalty(penalized, params)
+        reg = kernel_penalty(penalized, cparams).float()
         loss = loss + reg
     return loss, {"task_losses": task_losses, "regularization": reg,
                   "outputs": outputs}

@@ -177,12 +177,36 @@ def test_server_table_dtype_flag(monkeypatch, flag, want):
     assert dtypes == {torch.float32 if want is None else torch.bfloat16}
 
 
-def test_compute_dtype_bf16_is_refused_by_name(capsys):
-    with pytest.raises(SystemExit):
-        port_server.main(["--model", "staytime", "--device", "cpu", "--compute-dtype", "bf16"])
-    assert "ROADMAP.md item 10b" in capsys.readouterr().err
+def test_compute_dtype_bf16_is_refused_by_name(capsys, monkeypatch):
+    """Every factory takes ``compute_dtype=torch.bfloat16`` and carries it on
+    its bundle, float32 and None give float32, and any other dtype is
+    refused by name; the server's ``--compute-dtype bf16`` builds its bundle
+    with the policy, and another value is refused."""
     for name, factory in MODEL_REGISTRY.items():
-        with pytest.raises(NotImplementedError, match="item 10b"):
-            factory(compute_dtype=torch.bfloat16, device="cpu")
-    # float32 and None are the port's own precision
-    create_model("finish", bucket_size=64, compute_dtype=torch.float32, device="cpu")
+        with pytest.raises(ValueError, match="torch.float32 or torch.bfloat16"):
+            factory(compute_dtype=torch.float16, device="cpu")
+    for dtype, want in ((None, torch.float32), (torch.float32, torch.float32),
+                        (torch.bfloat16, torch.bfloat16)):
+        assert create_model("finish", bucket_size=64, compute_dtype=dtype,
+                            device="cpu").compute_dtype == want
+    with pytest.raises(SystemExit):
+        port_server.main(["--model", "staytime", "--device", "cpu", "--compute-dtype", "fp16"])
+    assert "invalid choice: 'fp16'" in capsys.readouterr().err
+    made = []
+
+    def create(name, **kw):
+        made.append(kw.get("compute_dtype"))
+        return create_model(name, **kw)
+
+    class Server:
+        def __init__(self, svc):
+            pass
+
+        def serve_forever(self):
+            pass
+
+    monkeypatch.setattr(port_server, "create_model", create)
+    monkeypatch.setattr(port_server, "serve", lambda svc, port=0: Server(svc))
+    port_server.main(["--model", "finish", "--bucket-size", "64", "--device", "cpu",
+                      "--max-batch", "8", "--compute-dtype", "bf16"])
+    assert made == [torch.bfloat16]

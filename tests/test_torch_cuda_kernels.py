@@ -1207,3 +1207,207 @@ def test_sparse_adagrad_group_kernel_bf16(cuda):
             _assert_bf16(g["w"], want["w"], twin["w"], 1e-6, 0.0, "w")
             want["w"] = g["w"]        # held above; the rest as float32 storages are
         _check_adagrad(g, want, b, acc0, a)
+
+
+# -- the bf16 compute policy: K5f, K5b, K6 and K7 on bf16 inputs -------------
+#
+# Each kernel widens its bf16 inputs exactly and computes in float32, so its
+# float32 outputs keep the float32 tolerances against the plain version on
+# the same bf16 inputs; a bf16 output (K5b's dq, dk, dv) is the float32
+# value rounded once on each side, so it may sit one bf16 ulp (2^-7
+# relative at most) from the plain version's where that float32 value lies
+# within the float32 tolerance of a rounding midpoint.
+
+BF16 = torch.bfloat16
+BF16_GRAD_TOL = dict(rtol=2.0 ** -7 + 1e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("x_dtype", [BF16, torch.float32])
+@pytest.mark.parametrize("b,f,h", [(8, 24, 2), (1000, 40, 2), (33, 180, 2), (64, 13, 1),
+                                   (64, 13, 8), (5, 256, 4)])
+def test_interacting_attention_kernel_bf16(cuda, b, f, h, x_dtype):
+    """K6 on bf16 parameters with bf16 x (a first iteration) and with
+    float32 x (a later one), against the plain version."""
+    x, p = _interacting_inputs(cuda, b, f, seed=b * f + h + 7)
+    x = x.to(x_dtype)
+    p = {n: t.to(BF16) for n, t in p.items()}
+    got = interacting_attention(x, p, h, 1e-3)
+    want = interacting_attention_plain(x, p, h, 1e-3)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    assert launch_counts()["interacting_attention"] == 1
+
+
+def test_interacting_attention_backward_bf16(cuda):
+    x, p = _interacting_inputs(cuda, 256, 24, seed=12)
+    x = x.to(BF16).requires_grad_()
+    p = {n: t.to(BF16).requires_grad_() for n, t in p.items()}
+    do = torch.randn((256, 24, 8), device=cuda)
+    wrt = [x] + [p[n] for n in PARAM_NAMES]
+    got = torch.autograd.grad(interacting_attention(x, p), wrt, do)
+    want = torch.autograd.grad(interacting_attention_plain(x, p, 2, 1e-3), wrt, do)
+    for a, w in zip(got, want):
+        assert a.dtype == BF16
+        torch.testing.assert_close(a, w, rtol=0, atol=0)     # one plain recompute
+    assert launch_counts()["interacting_attention"] == 1
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("h,dh,f,b", [(2, 4, 24, 200), (2, 4, 175, 256), (1, 8, 40, 33),
+                                      (2, 4, 24, 4500), (2, 32, 9, 64), (3, 2, 1, 5)])
+def test_field_attention_fwd_kernel_bf16(cuda, h, dh, f, b, rate):
+    """K5f on bf16 q, k, v (the chunks staged by plain loads) with its lse,
+    against the plain version: float32 o and lse, the same dropout mask."""
+    g = torch.Generator(device=cuda).manual_seed(f * b + 3)
+    q, k, v = (torch.randn((h, dh, f, b), generator=g, device=cuda).to(BF16)
+               for _ in range(3))
+    seed = (77 << 32) | 1
+    q.requires_grad_()
+    o = field_attention(q, k, v, seed, rate)       # K5f with its lse
+    want_o, want_lse = field_attention_fwd_plain(q.detach(), k, v, seed, rate)
+    torch.cuda.synchronize()
+    assert o.dtype == torch.float32
+    torch.testing.assert_close(o, want_o, rtol=0, atol=2e-5)
+    with torch.no_grad():
+        torch.testing.assert_close(field_attention(q, k, v, seed, rate), want_o,
+                                   rtol=0, atol=2e-5)
+    assert launch_counts()["field_attention"] == 2
+    assert want_lse.dtype == torch.float32
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("h,dh,f,b", [(2, 4, 24, 200), (2, 4, 175, 96), (1, 8, 40, 33),
+                                      (1, 4, 256, 33), (2, 32, 9, 64), (1, 16, 30, 45)])
+def test_field_attention_bwd_kernel_bf16(cuda, h, dh, f, b, rate):
+    """K5b on bf16 q, k, v with float32 o, lse and do: bf16 dq, dk, dv
+    against the plain version's, one rounding each (F 175, 256 and 40 at dh
+    8 sum dq over several key chunks in the float32 scratch)."""
+    g = torch.Generator(device=cuda).manual_seed(f * b + 5)
+    q, k, v = (torch.randn((h, dh, f, b), generator=g, device=cuda).to(BF16)
+               for _ in range(3))
+    do = torch.randn((h, dh, f, b), generator=g, device=cuda)
+    o, lse = field_attention_fwd_plain(q, k, v, 9, rate)
+    got = field_attention_bwd(q, k, v, o, lse, do, 9, rate)
+    want = field_attention_bwd_reference(q, k, v, o, lse, do, 9, rate)
+    again = field_attention_bwd(q, k, v, o, lse, do, 9, rate)
+    torch.cuda.synchronize()
+    for a, w, a2 in zip(got, want, again):
+        assert a.dtype == w.dtype == BF16
+        torch.testing.assert_close(a.float(), w.float(), **BF16_GRAD_TOL)
+        assert torch.equal(a, a2)
+    assert launch_counts()["field_attention_bwd"] == 2
+
+
+def _din_inputs_bf16(dev, b, t, seed):
+    """``_din_inputs`` in bf16: query and facts as the first 16 lanes of
+    bf16 32-lane rows, the scorer in bf16, the mask float32."""
+    q, f, mask, *w = _din_inputs(dev, b, t, 16, seed)
+    return [_bf16_lanes(q), _bf16_lanes(f), mask, *(x.to(BF16) for x in w)]
+
+
+def _bf16_lanes(x):
+    """``x`` (the first 16 lanes of 32-lane rows) in bf16, as the first 16
+    lanes of bf16 rows of 32."""
+    rows = torch.zeros(*x.shape[:-1], 2 * x.shape[-1], dtype=BF16, device=x.device)
+    rows[..., :x.shape[-1]] = x
+    return rows[..., :x.shape[-1]]
+
+
+@pytest.mark.parametrize("b,t", [(8, 50), (16384, 50), (33, 7), (5, 70), (9, 512), (3, 1)])
+def test_din_pool_kernel_bf16(cuda, b, t):
+    """K7 with its facts given, on bf16 inputs: the bf16 roundings of q - f
+    and q * f, then float32, against the plain version."""
+    args = _din_inputs_bf16(cuda, b, t, seed=b + t + 3)
+    assert not args[1].is_contiguous()
+    got = din_pool(*args)
+    want = din_pool_plain(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+    torch.testing.assert_close(got[0], args[1][0].float().mean(dim=0), rtol=0, atol=2e-5)
+    assert launch_counts()["din_pool"] == 1
+
+
+def test_din_pool_backward_bf16(cuda):
+    args = _din_inputs_bf16(cuda, 256, 50, seed=4)
+    for i in (0, 1, 3, 4, 5, 6):
+        args[i] = args[i].detach().requires_grad_()
+    wrt = [args[i] for i in (0, 1, 3, 4, 5, 6)]
+    do = torch.randn((256, 16), device=cuda)
+    got = torch.autograd.grad(din_pool(*args), wrt, do)
+    want = torch.autograd.grad(din_pool_plain(*args), wrt, do)
+    for a, w in zip(got, want):
+        assert a.dtype == BF16
+        torch.testing.assert_close(a, w, rtol=0, atol=0)     # one plain recompute
+    assert launch_counts()["din_pool"] == 1
+
+
+@pytest.mark.parametrize("table_dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("b,t,lanes", [(8, 50, (0, 16)), (16384, 50, (0, 16)),
+                                       (33, 7, (16, 32)), (5, 70, (8, 24)), (9, 512, (0, 16))])
+def test_din_pool_gather_kernel_bf16_compute(cuda, b, t, lanes, table_dtype):
+    """K7's gathering entry under the bf16 compute policy: bf16 query and
+    scorer, facts from a float32 table (rounded to bf16 as they are read)
+    or a bf16 one, against the plain version."""
+    q, table, ids, mask, *w = _gather_inputs(cuda, b, t, seed=b + t + 2)
+    q = _bf16_lanes(q)
+    w = [x.to(BF16) for x in w]
+    table = table.to(table_dtype)
+    with torch.inference_mode():
+        got = din_pool_gather(q, table, ids, mask, lanes, *w, facts_dtype=BF16)
+    want = din_pool_gather_plain(q, table, ids, mask, lanes, *w, facts_dtype=BF16)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+    dead = mask.sum(dim=1) == 0
+    assert bool(dead.any()) and not got[dead].any()
+    assert launch_counts()["din_pool"] == 1
+
+
+def test_bf16_layers_launch_their_kernels(cuda):
+    """Under the policy the InteractingLayer serves through K6 and trains
+    through K5f and K5b on bf16 q, k, v, and DINPool pools through K7."""
+    from torch.func import functional_call
+
+    from recommendsystem_tpu_torch.nn import DINPool, InteractingLayer
+    layer = InteractingLayer(8, layer_num=2, unit_num=8, head_num=2, use_dropout=True,
+                             device=cuda)
+    params = {k: p.detach().to(BF16) for k, p in layer.named_parameters()}
+    x = torch.randn((300, 24, 8), device=cuda).to(BF16)
+    with torch.inference_mode():
+        got = functional_call(layer, params, (x,))
+    assert got.dtype == torch.float32 and launch_counts()["interacting_attention"] == 2
+    out = functional_call(layer, {k: p.requires_grad_() for k, p in params.items()},
+                          (x.requires_grad_(),), {"training": True, "seed": 3})
+    out.sum().backward()
+    counts = launch_counts()
+    assert counts["field_attention"] == counts["field_attention_bwd"] == 2
+    assert x.grad.dtype == BF16
+    pool = DINPool(16, device=cuda)
+    pparams = {k: p.detach().to(BF16) for k, p in pool.named_parameters()}
+    q, f, _, *_ = _din_inputs_bf16(cuda, 64, 50, seed=1)
+    with torch.inference_mode():
+        assert functional_call(pool, pparams, (q, f)).dtype == torch.float32
+    assert launch_counts()["din_pool"] == 1
+
+
+@pytest.mark.parametrize("a_shape,b_shape", [((300, 48), (48, 64)), ((7, 300, 48), (48, 64)),
+                                             ((300, 48), (3, 48, 16)),
+                                             ((3, 300, 48), (3, 48, 16))])
+def test_bf16_products_with_a_float32_result(cuda, a_shape, b_shape):
+    """``nn.dot_f32`` on two bf16 CUDA operands (the tensor cores, float32
+    accumulation and result) against the widened float32 product, and its
+    gradients (the widened product's, rounded once to bf16)."""
+    from recommendsystem_tpu_torch.nn import dot_f32
+    a = torch.randn(a_shape, device=cuda).to(BF16).requires_grad_()
+    b = torch.randn(b_shape, device=cuda).to(BF16).requires_grad_()
+    got = dot_f32(a, b)
+    want = a.float() @ b.float()
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    g = torch.randn(want.shape, device=cuda)
+    ga, gb = torch.autograd.grad(got, (a, b), g)
+    wa, wb = torch.autograd.grad(want, (a, b), g)
+    for x, w in ((ga, wa), (gb, wb)):
+        assert x.dtype == BF16
+        torch.testing.assert_close(x.float(), w.float(), **BF16_GRAD_TOL)

@@ -114,23 +114,28 @@ def test_prediction_dump_has_a_line_a_record(trained):
 
 
 def test_daily_refuses_bf16_and_foreign_bucket_flags(capsys, monkeypatch):
-    """bf16 compute is refused by name; bf16 tables are not refused but
-    reach the model's factory (ROADMAP.md item 10a)."""
+    """The compute and table dtype flags reach the model's factory
+    (``--compute-dtype bf16``, bf16 or auto tables); a compute dtype other
+    than fp32 and bf16 is refused by name, as a bucket size for a model that
+    takes none."""
     with pytest.raises(SystemExit):
         daily.main(_args("/nonexistent", "/nonexistent", "--device", "cpu",
-                         "--compute-dtype", "bf16"))
-    assert "ROADMAP.md item 10b" in capsys.readouterr().err
+                         "--compute-dtype", "fp16"))
+    assert "invalid choice: 'fp16'" in capsys.readouterr().err
     made = []
 
     def create(name, **kw):
-        made.append(kw.get("table_dtype"))
+        made.append((kw.get("table_dtype"), kw.get("compute_dtype")))
         return create_model(name, **kw)
 
     monkeypatch.setattr(daily, "create_model", create)
     for flag, want in (("bf16", torch.bfloat16), ("auto", "auto"), ("fp32", None)):
         assert daily.main(_args("/nonexistent", "/nonexistent", "--device", "cpu",
                                 "--table-dtype", flag)) is None      # nothing to train
-        assert made[-1] == want
+        assert made[-1] == (want, None)
+    assert daily.main(_args("/nonexistent", "/nonexistent", "--device", "cpu",
+                            "--compute-dtype", "bf16", "--table-dtype", "auto")) is None
+    assert made[-1] == ("auto", torch.bfloat16)
     with pytest.raises(SystemExit):
         daily.main(["--model", "staytime", "--data-dir", "x", "--state-dir", "y",
                     "--bucket-size", "64", "--device", "cpu"])
