@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase 14     # one phase alone (14 or 15)
 
 1. builds the port's CUDA kernels from ``recommendsystem_tpu_torch/csrc/``
    (one nvcc per source, all at once);
@@ -43,9 +44,11 @@
    holds two steps on the card to the same two steps on the CPU through
    the plain versions (B = 4096, same step seeds, same dropout, a batch
    from each seed of ``CHECK_SEEDS``; ``witness`` puts every entry past a
-   ``TRAIN_*`` tolerance down to a ReLU input within rounding of 0 or a
-   gradient within rounding of 0, and the check fails on any entry it
-   cannot explain); times
+   ``TRAIN_*`` tolerance down to a ReLU input within rounding of 0 on the
+   entry's own path (for a dense entry: the CPU step from the card's
+   state with the card's side of each such flip gives the card's
+   gradient) or a gradient within rounding of 0, and the check fails on
+   any entry it cannot explain); times
    the step as the median of 3 windows, each ending in a synchronize and a
    host fetch of the last loss;
 6. drives the staytime serving path: the DIN-pool kernel against its plain
@@ -183,7 +186,19 @@
    each training model's loss and dense gradients held to the CPU's at the
    CPU tests' bf16 tolerances (``hold_policy_to_cpu``); the server's
    ``main --compute-dtype bf16`` and one day of ``daily.main
-   --compute-dtype bf16``.
+   --compute-dtype bf16``;
+15. drives the serving export (``export_path``): full-width autoint (5
+   ids) and staytime (5 ids and 1) exported with ``train/export.py`` at B
+   = 256 and at their predict batches (65536, 16384), saved, loaded in
+   this process and scored; each exported graph holds the kernels as
+   custom-op nodes and no table gather; each loaded program's outputs
+   equal the predict step's on the card and the CPU plain path's
+   (``SCORE_TOL``), and its launches a call equal the predict call's
+   (``EXPORT_LAUNCHES``); autoint exported once more under the bf16
+   compute policy and held to the bf16 predict step; loaded program and
+   predict step timed in turns (host clock, windows ending in a
+   synchronize); each custom op's host µs against its launcher called
+   directly, under ``inference_mode`` and ``no_grad``.
 
 Prints the card's name and power limit, one JSON line each for the autoint
 predict step, the train step, the staytime predict step, the predict
@@ -192,8 +207,10 @@ steps with finish's predict step (``tower_train``), rough_rank's train
 and predict steps (``rough_rank``), staytime's train steps
 (``staytime_train``), the eval path's times (``eval``), the daily
 path's loader, train-step and checkpoint numbers (``daily``), phase
-13's table sizes, train steps and classic-update launches (``bf16``) and
-phase 14's train and predict times under the policy (``bf16_compute``), then
+13's table sizes, train steps and classic-update launches (``bf16``),
+phase 14's train and predict times under the policy (``bf16_compute``) and
+phase 15's loaded-program and predict-step times and dispatch µs
+(``export``), then
 ``{"kernels": ...}`` (10 kernels), and last
 ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Any failure ends the run with a traceback
@@ -2078,7 +2095,7 @@ def _recorded_steps(bundle, cpu_bundle, b, ipf, seed, **steps_kw):
     inside = [False]          # the plain lazy pass calls sparse_opt.update: not again
 
     def put(w, g):
-        tables[rec.side][-1][id(w)] = g.detach().float().cpu()
+        tables[rec.side][-1][id(w)] = g.detach().float().to("cpu", copy=True)
 
     def record_tables(opt, tstates, accs):
         tstates, accs = list(tstates), list(accs)
@@ -2135,7 +2152,7 @@ def _replay(cpu_bundle, init, grads, tables, batch):
     what the card's state must be if its updates are right.  The tables
     replay in float32 (bf16 ones widened, Adam's moments kept float32): a
     bf16 table's replay is the float32 value it must round.  Returns
-    (params, tables)."""
+    (params, dense optimizer state, tables)."""
     from recommendsystem_tpu_torch.embedding import SparseAdam, packed
 
     params, opt_state = _to(init["params"], "cpu"), _to(init["opt_state"], "cpu")
@@ -2152,7 +2169,78 @@ def _replay(cpu_bundle, init, grads, tables, batch):
         keys = sorted(step)
         accs = [torch.cat([step[k].reshape(-1), counts[k].reshape(-1)]) for k in keys]
         packed.sparse_update_group(opt, [tstates[k] for k in keys], accs)
-    return params, tstates
+    return params, opt_state, tstates
+
+
+class _KinkedRelu(TorchFunctionMode):
+    """Each ReLU call of one CPU train step takes the card's side of every
+    element whose sign differs from the card's recorded input at that call
+    (``card``: the step's list of the card's ReLU inputs): the card's value
+    and the card's gate (its input > 0), so that the step computes with the
+    card's kinks and with its own values elsewhere."""
+
+    def __init__(self, card):
+        super().__init__()
+        self.card, self.calls = card, 0
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func in (torch.relu, torch.nn.functional.relu, torch.Tensor.relu):
+            x, g = args[0], self.card[self.calls].to(args[0].dtype)
+            self.calls += 1
+            flip = (x > 0) != (g > 0)
+            if bool(flip.any()):
+                out = torch.where(flip, (g > 0).to(x.dtype) * (x + (g - x).detach()), out)
+        return out
+
+
+def _state_before(cpu_bundle, init, grads, tables, batch):
+    """The card's state entering the step after ``grads`` and ``tables``
+    (the card's recorded gradients of the steps before it) on the CPU: the
+    initial state with those steps' updates replayed (``_replay``), each
+    tensor in its initial type."""
+    from recommendsystem_tpu_torch.train.state import TrainState
+
+    start = _to(init, "cpu")
+    if not grads:
+        return TrainState(**start)
+    params, opt_state, tstates = _replay(cpu_bundle, start, grads, tables, batch)
+    out = {}
+    for k, t in start["tables"].items():
+        r = tstates[k]
+        out[k] = {"w": r["w"].to(t["w"].dtype), "show": r["show"].to(t["show"].dtype),
+                  "opt": {n: r["opt"][n].to(x.dtype) for n, x in t["opt"].items()}}
+    return TrainState(params=params, opt_state=opt_state, tables=out,
+                      step=start["step"] + len(grads))
+
+
+def _kinked_grads(cpu_bundle, state, card_relu, b, ipf, seed, step_seed, sparse_update):
+    """The dense gradients (as the dense Adam takes them) of one CPU train
+    step from ``state`` on the batch of ``seed``, with the card's kinks of
+    that step (``_KinkedRelu`` over ``card_relu``)."""
+    from recommendsystem_tpu_torch.data import synthetic_batch
+    from recommendsystem_tpu_torch.train import make_train_step
+
+    batch, dense, labels, weight = synthetic_batch(cpu_bundle, b, seed=seed,
+                                                   ids_per_feature=ipf)
+    got, update = [], cpu_bundle.dense_optimizer.update_
+
+    def record(params, g, st):
+        got.append({k: v.detach().cpu() for k, v in g.items()})
+        return update(params, g, st)
+
+    object.__setattr__(cpu_bundle.dense_optimizer, "update_", record)   # a frozen dataclass
+    try:
+        kinked = _KinkedRelu(card_relu)
+        with kinked:
+            make_train_step(cpu_bundle, sparse_update=sparse_update)(
+                state, batch, labels, weight, dense, seed=step_seed)
+    finally:
+        object.__delattr__(cpu_bundle.dense_optimizer, "update_")
+    if kinked.calls != len(card_relu):
+        raise AssertionError(f"the kinked CPU step called ReLU {kinked.calls} times, the "
+                             f"card's step {len(card_relu)}")
+    return got[0]
 
 
 def _beyond_rounding(card, cpu):
@@ -2188,8 +2276,15 @@ def witness(bundle, cpu_bundle, b, ipf, seed, steps=2, init=None, first=0,
         rounding of a small gradient into a visible step (Adam's m /
         sqrt(v) makes any gradient a step of about the learning rate);
       - a table row whose gradients differ beyond rounding is explained
-        where a sample that looks it up has a kink; a dense entry where a
-        kink happened in the first step its gradients differ, or before;
+        where a sample that looks it up has a kink;
+      - a dense entry whose gradients differ beyond rounding is explained
+        where the kinks on its own path account for it: at every step
+        where they differ, the CPU's step from the card's state entering
+        it (``_state_before``: the card's updates of the steps before,
+        replayed) with the card's side of that step's flips
+        (``_KinkedRelu``) gives the card's gradient within rounding
+        (``_kinked_grads``); a kink elsewhere in the step explains
+        nothing;
       - a loss or penalty past rtol TRAIN_LOSS_RTOL, a t or show that
         differs, a flip that is not a kink, and any other entry past its
         tolerance are unexplained.
@@ -2223,7 +2318,7 @@ def witness(bundle, cpu_bundle, b, ipf, seed, steps=2, init=None, first=0,
     # the card's updates against the CPU's plain updates of the card's own
     # gradients: a fault in an update is never explained
     batch = synthetic_batch(cpu_bundle, b, seed=seed, ids_per_feature=ipf)[0]
-    rparams, rtables = _replay(cpu_bundle, init, grads["card"], tables["card"], batch)
+    rparams, _, rtables = _replay(cpu_bundle, init, grads["card"], tables["card"], batch)
     for k, v in rparams.items():
         n = int((~(_ratio(gstate.params[k].cpu(), v, TRAIN_W_ATOL, 0.0) <= 1)).sum())
         if n:
@@ -2310,22 +2405,40 @@ def witness(bundle, cpu_bundle, b, ipf, seed, steps=2, init=None, first=0,
             else:
                 unexplained.append(f"{skey} {name} row {r} (samples "
                                    f"{sorted(readers.get((skey, r), set()))})")
-    # dense entries
+    # dense entries: where the gradients differ beyond rounding at a step,
+    # the CPU's step from the card's state entering it (the card's updates
+    # replayed) with the card's kinks of that step must give the card's
+    # gradient within rounding: the kinks on the entry's own path (the
+    # units that feed it, and those it feeds) account for it
+    kinked = {}
+
+    def kinked_beyond(t, k):
+        """Where the card's gradients of step t (0-based) differ beyond
+        rounding from the kinked CPU step's."""
+        if t not in kinked:
+            state = _state_before(cpu_bundle, init, grads["card"][:t], tables["card"][:t],
+                                  batch)
+            sim = _kinked_grads(cpu_bundle, state, gs[t * per_step:(t + 1) * per_step], b,
+                                ipf, seed, 40 + first + t, sparse_update)
+            kinked[t] = {n: _beyond_rounding(grads["card"][t][n], v) for n, v in sim.items()}
+        return kinked[t][k]
+
     for k, (_, over) in past["params"].items():
-        steps = [_beyond_rounding(gg[k], cg[k]) for gg, cg in zip(grads["card"], grads["cpu"])]
+        differ = [_beyond_rounding(gg[k], cg[k]) for gg, cg in zip(grads["card"], grads["cpu"])]
         for idx in over.nonzero().tolist():
-            differs = [t for t, m in enumerate(steps) if bool(m[tuple(idx)])]
+            differs = [t for t, m in enumerate(differ) if bool(m[tuple(idx)])]
             if not differs:
                 note("param, gradients within rounding")
-            elif any(kinks[s] for s in range(1, differs[0] + 2)):
-                note("param, kink")
+            elif not any(bool(kinked_beyond(t, k)[tuple(idx)]) for t in differs):
+                note("param, the card's kinks on its path")
             else:
                 unexplained.append(f"param {k}{idx}")
                 if len(details) < 8:
                     details.append({"param": k, "index": idx, "grads": [
                         {"card": float(gg[k][tuple(idx)]), "cpu": float(cg[k][tuple(idx)]),
-                         "tensor_max": float(cg[k].abs().max())}
-                        for gg, cg in zip(grads["card"], grads["cpu"])]})
+                         "tensor_max": float(cg[k].abs().max()),
+                         "beyond_kinked": bool(kinked_beyond(t, k)[tuple(idx)])}
+                        for t, (gg, cg) in enumerate(zip(grads["card"], grads["cpu"]))]})
     return out
 
 
@@ -4594,6 +4707,296 @@ def bf16_compute_path(card, cycles_per_ms, want):
     return out
 
 
+# -- phase 15: the serving export -------------------------------------------
+
+EXPORT_BUCKET = 256
+# the launches a call of each exported predict function makes, as the
+# predict step makes them (5 ids a feature: one grouped K1; 1 id: one
+# grouped K2; K6 on autoint, three gathering K7 on staytime)
+EXPORT_LAUNCHES = {
+    ("autoint", 5): {"fold_mean": 1, "interacting_attention": 1},
+    ("staytime", 5): {"fold_mean": 1, "din_pool": 3},
+    ("staytime", 1): {"fold_rows": 1, "din_pool": 3},
+}
+EXPORT_OP_NODES = {
+    ("autoint", 5): {"fold_mean_group": 1, "interacting_attention": 1},
+    ("staytime", 5): {"fold_mean_group": 1, "din_pool_gather": 3},
+    ("staytime", 1): {"fold_rows_group": 1, "din_pool_gather": 3},
+}
+EXPORT_GATHERS = ("aten.index.Tensor", "aten.embedding.default", "aten.index_select.default",
+                  "aten.gather.default", "aten.take.default")
+
+
+def _op_nodes(program):
+    """{op: nodes} of the port's custom ops in an exported program's graph."""
+    from recommendsystem_tpu_torch.kernels import _ops
+
+    counts = {}
+    for node in program.graph.nodes:
+        target = str(node.target)
+        if node.op == "call_function" and target.startswith(_ops.NAMESPACE + "."):
+            counts[target.split(".")[1]] = counts.get(target.split(".")[1], 0) + 1
+    return counts
+
+
+def _table_gathers(program):
+    """The aten gathers of an exported graph that read a table input."""
+    tables = {n for n in program.graph.nodes
+              if n.op == "placeholder" and n.name.startswith("tables_w")}
+    return [str(n) for n in program.graph.nodes
+            if n.op == "call_function" and str(n.target) in EXPORT_GATHERS
+            and any(a in tables for a in n.args if isinstance(a, torch.fx.Node))]
+
+
+def _turns_ms(calls, iters):
+    """ms a call of each of ``calls`` ({name: fn}), in turns (a, b, b, a),
+    host clock, each window of ``iters`` calls after one warm-up call and
+    ending in a synchronize."""
+    (a, fa), (b, fb) = calls.items()
+    ms = {a: [], b: []}
+    for name, fn in ((a, fa), (b, fb), (b, fb), (a, fa)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        ms[name].append((time.perf_counter() - t0) / iters * 1e3)
+    return ms
+
+
+def _record_op_args(fn):
+    """fn() with every custom-op call's arguments recorded: [(op, args)]."""
+    from recommendsystem_tpu_torch.kernels import _ops
+
+    real, seen = _ops.op, []
+
+    def recording(name):
+        def call(*args):
+            seen.append((name, args))
+            return real(name)(*args)
+        return call
+
+    _ops.op = recording
+    try:
+        fn()
+    finally:
+        _ops.op = real
+    return seen
+
+
+def _launcher(name, args):
+    """The launcher an op's CUDA implementation calls, on the op's args."""
+    from recommendsystem_tpu_torch.embedding import packed
+    from recommendsystem_tpu_torch.kernels import din, interacting
+
+    if name == "fold_mean_group":
+        return lambda: packed.fold_mean_launch(list(zip(*args)))
+    if name == "fold_rows_group":
+        return lambda: packed.fold_rows_launch(list(zip(*args)))
+    if name == "din_pool_gather":
+        q, table, ids, mask, lo, hi, *w, facts_dtype = args
+        return lambda: din.din_pool_gather_launch(q, table, ids, mask, (lo, hi), *w,
+                                                  facts_dtype)
+    if name == "interacting_attention":
+        x, *p, head_num, ln_eps = args
+        return lambda: interacting.interacting_launch(
+            x, dict(zip(interacting.PARAM_NAMES, p)), head_num, ln_eps)
+    raise KeyError(name)
+
+
+def dispatch_cost(predict, cycles_per_ms, iters=200):
+    """Host µs a call of each custom op on one predict call's arguments,
+    against its launcher called directly (the same kernel, no dispatch), in
+    turns (op, launcher, launcher, op), under ``torch.inference_mode()``
+    (as the predict step and the loaded program call them) and under
+    ``torch.no_grad()`` (where the op's autograd layer checks each tensor);
+    device µs of both as ``timed`` gives them."""
+    from recommendsystem_tpu_torch.kernels import _ops
+
+    out = {}
+    for name, args in _record_op_args(predict):
+        if name in out:
+            continue
+        op = lambda a=args, n=name: _ops.op(n)(*a)       # noqa: E731
+        direct = _launcher(name, args)
+        out[name] = {}
+        for mode, ctx in (("inference_mode", torch.inference_mode),
+                          ("no_grad", torch.no_grad)):
+            host = {"op": [], "launcher": []}
+            dev = {}
+            with ctx():
+                for kind, fn in (("op", op), ("launcher", direct), ("launcher", direct),
+                                 ("op", op)):
+                    d, h = timed(fn, iters, cycles_per_ms)
+                    host[kind].append(h * 1e3)
+                    dev[kind] = d * 1e3
+            out[name][mode] = {"host_us": host, "device_us": dev, "dispatch_us": float(
+                np.mean(host["op"]) - np.mean(host["launcher"]))}
+    return out
+
+
+def export_case(label, bundle, state, cpu_bundle, cpu_state, b, ipf, key, tmp, total,
+                want_step=None):
+    """Export ``bundle``'s predict function at batch ``b`` (``ipf`` ids a
+    feature), save it under ``tmp``, load it back in this process and
+    score: its graph holds the custom-op nodes of ``key`` and no table
+    gather; its outputs equal the predict step's on the card and the CPU
+    plain path's (SCORE_TOL); its launches a call equal the predict call's
+    and ``EXPORT_LAUNCHES[key]``; the two timed in turns.  Every launch of
+    the case is added to ``total``."""
+    from recommendsystem_tpu_torch.data import synthetic_batch
+    from recommendsystem_tpu_torch.train import make_predict_step
+    from recommendsystem_tpu_torch.train.export import (export_serving, load_program,
+                                                        load_serving, weights_of)
+
+    batch, dense, _, _ = synthetic_batch(bundle, b, seed=b + ipf + 15, ids_per_feature=ipf)
+    path = os.path.join(tmp, f"{label}_b{b}_ids{ipf}")
+    t0 = time.perf_counter()
+    export_serving(bundle, state, batch, dense, path=path)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with open(os.path.join(path, "model.pt2"), "rb") as fh:
+        blob = fh.read()
+    serve = load_serving(blob)
+    load_s = time.perf_counter() - t0
+    with open(os.path.join(path, "signature.json")) as fh:
+        sig = json.load(fh)
+    if sig["model"] != bundle.name or sig["batch_columns"] != {
+            k: list(v.rows.shape) for k, v in batch.items()}:
+        raise AssertionError(f"{label}: signature.json {sig}")
+    program = load_program(blob)
+    nodes, gathers = _op_nodes(program), _table_gathers(program)
+    if nodes != EXPORT_OP_NODES[key] or gathers:
+        raise AssertionError(f"{label} b={b}: the exported graph holds {nodes} and table "
+                             f"gathers {gathers}, expected {EXPORT_OP_NODES[key]} and none")
+    weights = weights_of(state)
+    step = want_step or make_predict_step(bundle)
+    _add(total, _count(lambda: (serve(weights, state.params, batch, dense),   # warm-up
+                                step(state, batch, dense)))[1])
+    got, loaded_launches = _count(lambda: serve(weights, state.params, batch, dense))
+    want, step_launches = _count(lambda: step(state, batch, dense))
+    _add(total, loaded_launches)
+    _add(total, step_launches)
+    loaded_launches = {k: v for k, v in loaded_launches.items() if v}
+    step_launches = {k: v for k, v in step_launches.items() if v}
+    if loaded_launches != step_launches or loaded_launches != EXPORT_LAUNCHES[key]:
+        raise AssertionError(f"{label} b={b}: the loaded program launched {loaded_launches}, "
+                             f"the predict call {step_launches}, expected "
+                             f"{EXPORT_LAUNCHES[key]}")
+    if set(got) != set(want):
+        raise AssertionError(f"{label}: outputs {sorted(got)} against {sorted(want)}")
+    cpu_batch = {k: v.to("cpu") for k, v in batch.items()}
+    cpu_dense = _to(dense, "cpu") if dense is not None else None
+    cpu_want = make_predict_step(cpu_bundle)(cpu_state, cpu_batch, cpu_dense)
+    for k in want:
+        np.testing.assert_allclose(got[k].cpu().numpy(), want[k].cpu().numpy(),
+                                   err_msg=f"{label} {k}", **SCORE_TOL)
+        np.testing.assert_allclose(got[k].cpu().numpy(), cpu_want[k].numpy(),
+                                   err_msg=f"{label} {k} (CPU)", **SCORE_TOL)
+        if not bool(torch.isfinite(got[k]).all()):
+            raise AssertionError(f"{label} {k}: non-finite scores")
+    ms, timed_launches = _count(lambda: _turns_ms(
+        {"predict_step": lambda: step(state, batch, dense),
+         "loaded": lambda: serve(weights, state.params, batch, dense)},
+        iters=20 if b <= EXPORT_BUCKET else 10))
+    _add(total, timed_launches)
+    case = {"model": label, "b": b, "ids_per_feature": ipf, "export_s": export_s,
+            "load_s": load_s, "artifact_bytes": len(blob), "op_nodes": nodes,
+            "launches_per_call": loaded_launches, "ms_per_call": ms,
+            "examples_per_s": {k: [b / x * 1e3 for x in v] for k, v in ms.items()}}
+    log(f"export {label} b={b} ids={ipf}:", json.dumps(case))
+    return case
+
+
+def export_path(card, cycles_per_ms):
+    """Phase 15: the serving export at full width.  Autoint (24 tables of
+    265,104 x 8, 5 ids) and staytime (46 storages, 5 ids and 1) exported at
+    B 256 and at their predict batches (65536, 16384), saved, loaded in
+    this process and scored (``export_case``); autoint once more under the
+    bf16 compute policy, held to the bf16 predict step; the custom ops'
+    dispatch cost against their launchers at B 256.  ``launches`` sums the
+    counted windows of the cases (each set to 0 just before and read just
+    after); the dispatch measurement's launches (op against launcher) are
+    not in it."""
+    import tempfile
+
+    from recommendsystem_tpu_torch.data import synthetic_batch
+    from recommendsystem_tpu_torch.models import create_model
+    from recommendsystem_tpu_torch.train import make_predict_step
+    from recommendsystem_tpu_torch.train.state import create_train_state
+
+    t_phase = time.perf_counter()
+    out = {"cases": [], "card": card, "dispatch": {}, "launches": {}}
+
+    def run(*args, **kw):
+        out["cases"].append(export_case(*args, total=out["launches"], **kw))
+
+    def dispatch(name, predict):
+        out["dispatch"][name] = dispatch_cost(predict, cycles_per_ms)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        autoint = create_model("autoint", bucket_size=FULL_BUCKET, device="cuda")
+        state = create_train_state(autoint, seed=15)
+        cpu_autoint = create_model("autoint", bucket_size=FULL_BUCKET, device="cpu")
+        cpu_state = _cpu_state(state)
+        for b in (EXPORT_BUCKET, BIG_BATCH):
+            run("autoint", autoint, state, cpu_autoint, cpu_state, b, 5, ("autoint", 5), tmp)
+        bf16 = create_model("autoint", bucket_size=FULL_BUCKET, device="cuda",
+                            compute_dtype=torch.bfloat16)
+        cpu_bf16 = create_model("autoint", bucket_size=FULL_BUCKET, device="cpu",
+                                compute_dtype=torch.bfloat16)
+        run("autoint_bf16", bf16, state, cpu_bf16, cpu_state, EXPORT_BUCKET, 5,
+            ("autoint", 5), tmp, want_step=make_predict_step(bf16))
+        batch = synthetic_batch(autoint, EXPORT_BUCKET, seed=5)[0]
+        dispatch("autoint", lambda: make_predict_step(autoint)(state, batch))
+        del autoint, bf16, state, cpu_autoint, cpu_bf16, cpu_state
+
+        staytime = create_model("staytime", device="cuda")
+        state = create_train_state(staytime, seed=15)
+        cpu_staytime = create_model("staytime", device="cpu")
+        cpu_state = _cpu_state(state)
+        for ipf in (5, 1):
+            for b in (EXPORT_BUCKET, STAYTIME_BATCH):
+                run("staytime", staytime, state, cpu_staytime, cpu_state, b, ipf,
+                    ("staytime", ipf), tmp)
+        for ipf in (5, 1):
+            batch, dense, _, _ = synthetic_batch(staytime, EXPORT_BUCKET, seed=6,
+                                                 ids_per_feature=ipf)
+            dispatch(f"staytime_ids{ipf}",
+                     lambda: make_predict_step(staytime)(state, batch, dense))
+        del staytime, state, cpu_staytime, cpu_state
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("export dispatch:", json.dumps(out["dispatch"]))
+    return out
+
+
+def phase15_alone(card) -> int:
+    """``--phase 15``: build the kernels and run phase 15 alone, its JSON
+    line printed; no kernels line and no ok line (a whole run gives them)."""
+    from recommendsystem_tpu_torch.kernels import build_all
+
+    build_all()
+    out = export_path(card, _spin_cycles_per_ms())
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_phase15.json"), "w") as fh:
+        json.dump(out, fh, indent=1)
+    print(json.dumps({"export": _export_line(out)}), flush=True)
+    return 0
+
+
+def _export_line(out):
+    """Phase 15's JSON line: each case's ms and launches, the dispatch cost."""
+    return {"predict": [{k: c[k] for k in ("model", "b", "ids_per_feature", "ms_per_call",
+                                          "launches_per_call", "export_s", "load_s")}
+                        for c in out["cases"]],
+            "dispatch_us": {m: {op: {mode: d[mode]["dispatch_us"] for mode in d}
+                                for op, d in v.items()}
+                            for m, v in out["dispatch"].items()},
+            "phase_s": out["phase_s"], "card": out["card"]}
+
+
 # the float32 launches a step of the train steps phase 14 holds its windows
 # to, for ``--phase 14`` alone (phases 5 and 8 measure them in a whole run)
 PACKED_MEAN_ATTN_LAUNCHES = {"fold_mean": 1, "unfold_mean": 1, "field_attention": 1,
@@ -4644,6 +5047,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     if sys.argv[1:] == ["--phase", "14"]:
         return phase14_alone(card)
+    if sys.argv[1:] == ["--phase", "15"]:
+        return phase15_alone(card)
 
     # -- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -4875,6 +5280,11 @@ def main() -> int:
         "predict": report["bf16_compute"]["predict"],
         "card_vs_cpu": report["bf16_compute"]["card_vs_cpu"], "card": card}}), flush=True)
 
+    # -- 15. the main path: the serving export, loaded and scored ------------
+    report["export"] = export_path(card, cycles_per_ms)
+    exported = report["export"]["launches"]
+    print(json.dumps({"export": _export_line(report["export"])}), flush=True)
+
     # -- report ----------------------------------------------------------------
     # the serving folds at the largest serving bucket, the train kernels
     # (K5 among them: the serving paths take K6) at the train batch, the
@@ -4930,7 +5340,7 @@ def main() -> int:
         launches = (serving[name] + training[name] + staytime[name] + interacting[name]
                     + towers[name] + rough[name] + stacked[name] + staytime_train[name]
                     + evaluation[name] + daily[name] + bf16.get(name, 0)
-                    + compute.get(name, 0))
+                    + compute.get(name, 0) + exported.get(name, 0))
         if launches < 1:
             raise AssertionError(f"{name} was not launched on the main paths")
         kernels.append({

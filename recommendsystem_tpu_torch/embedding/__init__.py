@@ -4,6 +4,8 @@ and the fused gather-and-fold lookup."""
 from .feature_column import (  # noqa: F401
     CategoryColumn,
     EmbeddingColumn,
+    Feature,
+    FeatureSlot,
     category_column,
     embedding_column,
 )

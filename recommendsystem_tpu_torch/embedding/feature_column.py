@@ -1,6 +1,8 @@
-"""Feature columns: the tensornet surface the autoint path uses.
+"""Feature columns: the tensornet surface the models use.
 
-Counterpart of ``recommendsystem_tpu/embedding/feature_column.py``.  Raw
+Counterpart of ``recommendsystem_tpu/embedding/feature_column.py``:
+``FeatureSlot`` and ``Feature`` (a feature bound to the slot, one logical
+table, it shares), ``category_column`` and ``embedding_column``.  Raw
 int64 feature values ("feasigns") are hashed on the host with splitmix64
 into the ``bucket_size`` row space, bit for bit as the JAX package does, so
 both packages send the same int32 row ids to their tables.
@@ -25,6 +27,30 @@ def _splitmix64(x: np.ndarray) -> np.ndarray:
     x *= np.uint64(0x94D049BB133111EB)
     x ^= x >> np.uint64(31)
     return x
+
+
+@dataclasses.dataclass(frozen=True)
+class FeatureSlot:
+    """Registry key for one logical embedding table."""
+
+    slot_id: str
+
+
+@dataclasses.dataclass(frozen=True)
+class Feature:
+    """feature -> slot binding; ``sparse=False`` marks a dense passthrough."""
+
+    feature_id: Optional[str] = None
+    feature_slot: Optional[FeatureSlot] = None
+    sparse: bool = True
+    feature_name: Optional[str] = None
+
+    @property
+    def slot_id(self) -> Optional[str]:
+        return self.feature_slot.slot_id if self.feature_slot else None
+
+    def __lt__(self, other):  # the reference sorts (feature, emb) pairs
+        return str(self.feature_id) < str(other.feature_id)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -73,6 +73,7 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
+from ..kernels import _ops
 from ..kernels._build import check, count_launch, library, require, stream_handle
 from .optimizers import SparseAdaGrad, SparseAdam
 
@@ -178,17 +179,25 @@ def fold_mean_group(items) -> List[torch.Tensor]:
     bf16 tables may share a group.  Returns one (C*B, D) float32 tensor per
     item, in order.  On a card one launch takes up to 64 members (a larger
     group is cut into launches of 64); members with no rows launch
-    nothing."""
+    nothing.  The group goes through the custom op
+    ``recommendsystem_tpu_torch::fold_mean_group`` (``kernels/_ops.py``):
+    the kernel on a card, ``fold_mean_plain`` on the CPU."""
     items = list(items)
     if not items:
         return []
-    device = _group_device(items, "fold_mean_group")
+    _group_device(items, "fold_mean_group")
     for _, ids, _, c, l in items:
         if c < 1 or l < 1 or ids.shape[0] % (c * l):
             raise ValueError(f"fold_mean: {ids.shape[0]} ids do not split into {c} "
                              f"columns of {l} slots")
-    if device.type == "cpu":
-        return [fold_mean_plain(*item) for item in items]
+    tables, ids, masks, cs, ls = (list(x) for x in zip(*items))
+    return _ops.op("fold_mean_group")(tables, ids, masks, cs, ls)
+
+
+def fold_mean_launch(items) -> List[torch.Tensor]:
+    """K1's launcher, the op's CUDA implementation: ``items`` checked by
+    ``fold_mean_group``, all on one card."""
+    device = items[0][0].device
     outs = [torch.empty((ids.shape[0] // l, table.shape[1]), dtype=torch.float32,
                         device=device) for table, ids, _, _, l in items]
     words = []
@@ -213,13 +222,20 @@ def fold_rows_group(items) -> List[torch.Tensor]:
     D and in type (float32, bf16).  Returns one (E, D) float32 tensor per
     item, in order.  On a card one launch takes up to 64 members (a larger
     group is cut into launches of 64, each counted as one ``fold_rows``
-    launch); members with no entries launch nothing."""
+    launch); members with no entries launch nothing.  The group goes
+    through the custom op ``recommendsystem_tpu_torch::fold_rows_group``."""
     items = list(items)
     if not items:
         return []
-    device = _group_device(items, "fold_rows_group")
-    if device.type == "cpu":
-        return [fold_rows_plain(*item) for item in items]
+    _group_device(items, "fold_rows_group")
+    tables, ids, masks = (list(x) for x in zip(*items))
+    return _ops.op("fold_rows_group")(tables, ids, masks)
+
+
+def fold_rows_launch(items) -> List[torch.Tensor]:
+    """K2's launcher, the op's CUDA implementation: ``items`` checked by
+    ``fold_rows_group``, all on one card."""
+    device = items[0][0].device
     outs = [torch.empty((ids.shape[0], table.shape[1]), dtype=torch.float32,
                         device=device) for table, ids, _ in items]
     words = []

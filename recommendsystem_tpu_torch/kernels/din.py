@@ -5,7 +5,9 @@ keeps the JAX signature: query (B, H), facts (B, T, H), mask (B, T) float
 {0, 1}, scorer weights w1 (4H, 16), b1 (16,), w2 (16, 1), b2 (1,); returns
 (B, H) float32.  On a CUDA tensor it launches the hand-written kernel of
 ``csrc/din_pool.cu``; on a CPU tensor it runs ``din_pool_plain``, the same
-math in PyTorch ops.  Where an input needs a gradient the call goes through
+math in PyTorch ops; both entries are the custom ops ``din_pool`` and
+``din_pool_gather`` of ``kernels/_ops.py``, so an exported program keeps
+the kernel.  Where an input needs a gradient the call goes through
 ``DinPoolFunction``, whose backward recomputes through the plain version, as
 the JAX ``custom_vjp`` recomputes through ``_din_block``; the mask gets no
 gradient.
@@ -38,7 +40,8 @@ from __future__ import annotations
 
 import torch
 
-from ..embedding.packed import fold_rows_plain
+from ..embedding import packed as _packed
+from . import _ops
 from ._build import FLOATS, check, count_launch, library, require, stream_handle
 
 MASK_PAD = -(2.0 ** 32) + 1.0
@@ -105,7 +108,9 @@ def _check(query, facts, mask, w1, b1, w2, b2) -> None:
                 facts.dtype)
 
 
-def _launch(query, facts, mask, w1, b1, w2, b2) -> torch.Tensor:
+def din_pool_launch(query, facts, mask, w1, b1, w2, b2) -> torch.Tensor:
+    """K7's launcher with the facts given, the CUDA implementation of the
+    op ``recommendsystem_tpu_torch::din_pool``."""
     b, t, h = facts.shape
     out = torch.empty((b, h), dtype=torch.float32, device=facts.device)
     if out.numel() == 0:
@@ -124,9 +129,9 @@ def _launch(query, facts, mask, w1, b1, w2, b2) -> torch.Tensor:
 
 
 def _forward(query, facts, mask, w1, b1, w2, b2) -> torch.Tensor:
-    if facts.device.type == "cpu":
-        return din_pool_plain(query, facts, mask, w1, b1, w2, b2)
-    return _launch(query, facts, mask, w1, b1, w2, b2)
+    """The op ``din_pool``: the kernel on a card, ``din_pool_plain`` on the
+    CPU."""
+    return _ops.op("din_pool")(query, facts, mask, w1, b1, w2, b2)
 
 
 class DinPoolFunction(torch.autograd.Function):
@@ -173,7 +178,7 @@ def din_pool_gather_plain(query, table, ids, mask, lanes, w1, b1, w2, b2,
     ``facts_dtype``."""
     b, t = ids.shape
     lo, hi = lanes
-    facts = fold_rows_plain(table, ids.reshape(-1), mask.reshape(-1))[:, lo:hi]
+    facts = _packed.fold_rows_plain(table, ids.reshape(-1), mask.reshape(-1))[:, lo:hi]
     return din_pool_plain(query, facts.reshape(b, t, hi - lo).to(facts_dtype), mask,
                           w1, b1, w2, b2)
 
@@ -192,13 +197,13 @@ def _check_gather(query, table, ids, mask, lanes, w1, b1, w2, b2, facts_dtype) -
     b, t = ids.shape
     h = query.shape[-1]
     lo, hi = lanes
-    # the kernel reads a fact as 16-byte chunks of its table row
-    if table.shape[1] % 4 or table.data_ptr() % 16 or lo % 4 or not (
+    # the kernel reads a fact as 16-byte chunks of its table row (the
+    # launcher checks the table's alignment)
+    if table.shape[1] % 4 or lo % 4 or not (
             0 <= lo and hi - lo == h and hi <= table.shape[1]):
         raise ValueError(f"din_pool_gather: lanes [{lo}, {hi}) of a table of D "
-                         f"{table.shape[1]}, {table.data_ptr() % 16} bytes past 16-byte "
-                         f"alignment: needs D % 4 == 0, an aligned table and a window "
-                         f"of the query's width {h} starting at a multiple of 4")
+                         f"{table.shape[1]}: needs D % 4 == 0 and a window of the "
+                         f"query's width {h} starting at a multiple of 4")
     _check_pool("din_pool_gather", query, mask, w1, b1, w2, b2, b, t, h, dev, facts_dtype)
 
 
@@ -222,9 +227,19 @@ def din_pool_gather(query: torch.Tensor, table: torch.Tensor, ids: torch.Tensor,
             x.requires_grad for x in (query, table, w1, b1, w2, b2)):
         raise RuntimeError("din_pool_gather has no gradient: train through din_pool "
                            "on gathered facts")
-    if table.device.type == "cpu":
-        return din_pool_gather_plain(query, table, ids, mask, lanes, w1, b1, w2, b2,
-                                     facts_dtype)
+    return _ops.op("din_pool_gather")(query, table, ids, mask, int(lanes[0]),
+                                      int(lanes[1]), w1, b1, w2, b2, facts_dtype)
+
+
+def din_pool_gather_launch(query, table, ids, mask, lanes, w1, b1, w2, b2,
+                           facts_dtype) -> torch.Tensor:
+    """K7's gathering launcher, the CUDA implementation of the op
+    ``recommendsystem_tpu_torch::din_pool_gather``: raises unless the table
+    is 16-byte aligned."""
+    if table.data_ptr() % 16:
+        raise ValueError(f"din_pool_gather: the table must be 16-byte aligned (the "
+                         f"kernel reads 16-byte chunks); it is {table.data_ptr() % 16} "
+                         f"bytes past")
     b, t = ids.shape
     out = torch.empty((b, query.shape[1]), dtype=torch.float32, device=table.device)
     if out.numel() == 0 or t == 0:

@@ -13,7 +13,9 @@ primals.  (The JAX K5 itself refuses bf16 inputs: its float32 scratch
 takes no bf16 store.  Its float32 body on the widened values is what the
 port computes.)  On a CUDA tensor it launches
 the hand-written kernels of ``csrc/field_attention.cu``; on a CPU tensor it
-runs their plain versions.  Where an input needs a gradient the call goes
+runs their plain versions.  The forward is the custom op
+``field_attention_fwd`` of ``kernels/_ops.py``, so an exported program
+keeps K5f.  Where an input needs a gradient the call goes
 through ``FieldAttentionFunction``, whose forward also keeps the log-sum-exp
 of each softmax row and whose backward is K5b (``field_attention_bwd``).
 
@@ -31,6 +33,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from . import _ops
 from ._build import FLOATS, check, count_launch, library, require, stream_handle
 
 SUPPORTED_D_HEAD = (1, 2, 4, 8, 16, 32)
@@ -220,15 +223,20 @@ def _dropout_args(seed: int, rate: float):
 
 
 def _fwd(q, k, v, seed: int, rate: float, want_lse: bool):
-    """K5f: (o, lse or None)."""
-    if q.device.type == "cpu":
-        if want_lse:
-            return field_attention_fwd_plain(q, k, v, seed, rate)
-        return field_attention_reference(q, k, v, seed, rate), None
+    """K5f through the op ``field_attention_fwd``: (o, lse or None)."""
+    o, lse = _ops.op("field_attention_fwd")(q, k, v, _ops.signed_seed(seed), float(rate),
+                                            want_lse)
+    return o, (lse if want_lse else None)
+
+
+def fwd_launch(q, k, v, seed: int, rate: float, want_lse: bool):
+    """K5f's launcher, the CUDA implementation of the op
+    ``recommendsystem_tpu_torch::field_attention_fwd``: (o, lse), lse
+    empty unless ``want_lse``."""
     h, dh, f, b = q.shape
     o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    lse = torch.empty((h, f, b), dtype=torch.float32, device=q.device) \
-        if want_lse else None
+    lse = torch.empty((h, f, b) if want_lse else (0,), dtype=torch.float32,
+                      device=q.device)
     if o.numel() == 0:
         return o, lse
     lib = library("field_attention")

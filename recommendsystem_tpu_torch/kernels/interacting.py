@@ -12,12 +12,13 @@ with ``head_num`` heads cut head-major from U, scores divided by
 sqrt(U / head_num) and a LayerNorm over U with ``rsqrt(var + ln_eps)``.  On
 a CUDA tensor it launches the hand-written kernel of ``csrc/interacting.cu``;
 on a CPU tensor it runs ``interacting_attention_plain``, the same math in
-PyTorch ops.  x may be float32 or bfloat16 and the parameters too (all ten
-of one type, which may differ from x's), as the bf16 compute policy gives
-them: the JAX kernel's body takes every product with
-``preferred_element_type=float32``, so on bf16 operands it is the float32
-body on inputs widened exactly; the kernel widens each value as it loads
-it and the output is float32.  Where an input needs a gradient the call goes through
+PyTorch ops: the custom op ``interacting_attention`` of ``kernels/_ops.py``,
+so an exported program keeps the kernel.  x may be float32 or bfloat16 and
+the parameters too (all ten of one type, which may differ from x's), as the
+bf16 compute policy gives them: the JAX kernel's body takes every product
+with ``preferred_element_type=float32``, so on bf16 operands it is the
+float32 body on inputs widened exactly; the kernel widens each value as it
+loads it and the output is float32.  Where an input needs a gradient the call goes through
 ``InteractingAttentionFunction``, whose backward recomputes through the
 plain version, as the JAX ``custom_vjp`` recomputes through ``_reference``.
 The kernel takes D = U = 8 (the width of every model that builds the
@@ -31,6 +32,7 @@ from typing import Dict
 
 import torch
 
+from . import _ops
 from ._build import FLOATS, check, count_launch, library, require, stream_handle
 
 PARAM_NAMES = ("wq", "bq", "wk", "bk", "wv", "bv", "wr", "br", "gamma", "beta")
@@ -95,12 +97,15 @@ def _check(x, p, head_num: int) -> None:
     if x.device.type == "cuda" and not kernel_takes(d, u, f):
         raise ValueError(f"interacting_attention: the kernel takes D = U = "
                          f"{KERNEL_D} and 1 <= F <= {MAX_F}; got D {d}, U {u}, F {f}")
-    if x.device.type == "cuda" and x.data_ptr() % 16:
+
+
+def interacting_launch(x, p, head_num: int, ln_eps: float) -> torch.Tensor:
+    """K6's launcher, the CUDA implementation of the op
+    ``recommendsystem_tpu_torch::interacting_attention``: raises unless x
+    is 16-byte aligned."""
+    if x.data_ptr() % 16:
         raise ValueError("interacting_attention: x must be 16-byte aligned "
                          "(the kernel reads a row in 16-byte loads)")
-
-
-def _launch(x, p, head_num: int, ln_eps: float) -> torch.Tensor:
     b, f, _ = x.shape
     u = p["wq"].shape[1]
     out = torch.empty((b, f, u), dtype=torch.float32, device=x.device)
@@ -119,9 +124,10 @@ def _launch(x, p, head_num: int, ln_eps: float) -> torch.Tensor:
 
 
 def _forward(x, p, head_num: int, ln_eps: float) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return interacting_attention_plain(x, p, head_num, ln_eps)
-    return _launch(x, p, head_num, ln_eps)
+    """The op ``interacting_attention``: the kernel on a card,
+    ``interacting_attention_plain`` on the CPU."""
+    return _ops.op("interacting_attention")(x, *(p[n] for n in PARAM_NAMES),
+                                            head_num, float(ln_eps))
 
 
 class InteractingAttentionFunction(torch.autograd.Function):

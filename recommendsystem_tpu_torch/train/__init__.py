@@ -13,6 +13,7 @@ from .step import (  # noqa: F401
     make_predict_step,
     make_scan_train_step,
     make_train_step,
+    total_loss_fn,
 )
 from .harness import dump_predict, evaluate, fit, predict  # noqa: F401
 from .streaming_gauc import StreamingGauc, StreamingSpearmanGauc  # noqa: F401

@@ -26,7 +26,9 @@ Counterpart of ``recommendsystem_tpu/train/step.py``, local mode:
   ``packed=False``, as the JAX package chooses), the dense tower in the
   bundle's compute dtype and the bundle's ``predict_view``;
 - ``make_eval_step`` is the predict step's lookup and tower, then the
-  bundle's streaming metrics on the full outputs.
+  bundle's streaming metrics on the full outputs;
+- ``total_loss_fn`` is the loss of the classic lookup and the tower, as
+  the JAX function of that name computes it.
 
 Tables may be stored in bfloat16 and Adam's moments too (the engine's
 ``table_dtype``, ``SparseAdam.state_dtype``); every lookup gives float32
@@ -54,7 +56,7 @@ module (the kernels of every ``Dense`` with a ``kernel_regularizer``, of
 from __future__ import annotations
 
 import dataclasses
-from typing import TYPE_CHECKING, Callable, Dict, Optional, Sequence
+from typing import TYPE_CHECKING, Callable, Dict, Optional, Sequence, Union
 
 import torch
 from torch.func import functional_call
@@ -162,6 +164,37 @@ def _check_mode(mode: str) -> None:
     if mode != "local":
         raise NotImplementedError(f"mode {mode!r}: the sharded modes come "
                                   f"with a later slice of the port")
+
+
+def _seed_of(seed: Union[int, torch.Generator]) -> int:
+    """A step seed below 2**32: ``seed`` itself, or drawn from a
+    ``torch.Generator`` (the port's stand-in for the JAX ``rngs``)."""
+    if isinstance(seed, torch.Generator):
+        return int(torch.randint(0, 1 << 32, (), generator=seed, dtype=torch.int64))
+    return int(seed)
+
+
+def total_loss_fn(bundle: "ModelBundle", params, table_weights, batch, labels,
+                  sample_weight=None, dense_inputs=None, training: bool = True,
+                  seed: Union[int, torch.Generator] = 0, mode: str = "local"):
+    """The loss of ``params`` and the stored ``table_weights`` ({storage:
+    (rows, D)}) on one batch, as ``recommendsystem_tpu/train/step.py:69-77``
+    computes it: the classic ``lookup`` (differentiable in the weights),
+    then the tower under the bundle's compute dtype and the Keras loss
+    with the L1L2 penalty.  ``seed`` (an int below 2**32, or a
+    ``torch.Generator`` to draw it from) stands for the JAX ``rngs``: it
+    draws the dropout of a training call.  Returns ``(loss, aux)``, aux
+    holding ``task_losses``, ``regularization`` (a 0-d tensor, 0 for a
+    module with no penalty, as JAX sums an empty collection) and
+    ``outputs``.  Any mode but ``"local"`` raises ``NotImplementedError``."""
+    _check_mode(mode)
+    embs = bundle.embedding.lookup(table_weights, batch)
+    loss, aux = _model_outputs_and_loss(bundle, params, embs, labels, sample_weight,
+                                        dense_inputs, training, _seed_of(seed),
+                                        regularized_kernels(bundle.module))
+    if aux["regularization"] is None:
+        aux["regularization"] = torch.zeros((), device=loss.device)
+    return loss, aux
 
 
 SPARSE_UPDATES = ("packed", "scatter", "dense")

@@ -9,7 +9,14 @@ full-width bundle, seeded random weights), then times on the host clock
 each piece of it in turn: the members' checks, the outputs' allocation (and,
 beside it, one allocation for all the outputs cut into views), the
 descriptor words (the members' pointers and sizes), their packing into one
-byte string, and the launch itself (the C launcher and its error check).
+byte string, and the launch itself (the C launcher and its error check);
+and the layers above the launch: the launcher alone (allocation, words,
+launch: ``packed.fold_mean_launch``), the custom op
+``recommendsystem_tpu_torch::fold_mean_group`` on the members' lists (the
+launcher behind the op's dispatch, no checks), and the same launcher
+registered through the low-level ``torch.library.Library`` (a dispatcher
+kernel with no ``custom_op`` wrapper), each under
+``torch.inference_mode()`` as a predict call runs it.
 The same for ``packed.unfold_mean_scatter_group`` (no allocation).  Each
 number is the median of 5 windows, µs a call.  At the default batch a
 call's device time (about 5 µs) is far below its host time, so the card's
@@ -93,9 +100,39 @@ def _fold_pieces(items):
                   "fold_mean")
         count_launch("fold_mean")
 
+    lists = [list(x) for x in zip(*items)]
+    op = torch.ops.recommendsystem_tpu_torch.fold_mean_group
+    low = _low_level_fold_op()
+
+    def inference(fn):
+        def run():
+            with torch.inference_mode():
+                return fn()
+        return run
+
     return {"call": lambda: packed.fold_mean_group(items), "checks": checks,
             "alloc": alloc, "alloc_one": alloc_one, "words": words, "pack": lambda: fmt.pack(*desc),
-            "launch": launch}
+            "launch": launch,
+            "launcher": inference(lambda: packed.fold_mean_launch(items)),
+            "op": inference(lambda: op(*lists)),
+            "library_op": inference(lambda: low(*lists))}
+
+
+_LOW_LEVEL = []
+
+
+def _low_level_fold_op():
+    """K1's launcher as a dispatcher kernel of an op defined through the
+    low-level ``torch.library.Library``, defined once a process."""
+    from recommendsystem_tpu_torch.embedding import packed
+
+    if not _LOW_LEVEL:
+        lib = torch.library.Library("rs_group_host", "DEF")
+        lib.define("fold_mean_group(Tensor[] tables, Tensor[] ids, Tensor[] masks, "
+                   "int[] cs, int[] ls) -> Tensor[]")
+        lib.impl("fold_mean_group", lambda *a: packed.fold_mean_launch(list(zip(*a))), "CUDA")
+        _LOW_LEVEL.append((lib, torch.ops.rs_group_host.fold_mean_group.default))
+    return _LOW_LEVEL[0][1]
 
 
 def _unfold_pieces(items):

@@ -11,8 +11,9 @@ staytime (5 ids and 1 for the last two), at the smaller buckets of
 and dropout), one JSON line a draw with each quantity's margin against its
 ``TRAIN_*`` tolerance (largest |card - cpu| / (atol + rtol |cpu|); within
 it is at most 1), the count of elements past it, and for a draw past it
-the entries that a kink or a gradient within rounding of 0 explains and
-those that nothing does.  A ReLU tower compared across two float32
+the entries that a kink on their path (for a dense entry: the CPU step
+with the card's kinks gives the card's gradient) or a gradient within
+rounding of 0 explains and those that nothing does.  A ReLU tower compared across two float32
 implementations meets kinks: a unit whose input is within rounding of 0 on
 one side takes another branch on the other, and its sample's gradients
 then differ by far more than rounding.  The draws show how often, and

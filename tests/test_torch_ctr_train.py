@@ -54,7 +54,12 @@ from recommendsystem_tpu_torch.embedding import packed
 from recommendsystem_tpu_torch.kernels import launch_counts, reset_launch_counts
 from recommendsystem_tpu_torch.models import create_model
 from recommendsystem_tpu_torch.train import make_train_step
+from recommendsystem_tpu_torch.kernels.interacting import (PARAM_NAMES,
+                                                           interacting_attention_plain)
 from test_torch_autoint_train import ATOL, LOSS_RTOL, MOMENT_TOL, _flat
+
+_K6_OP = (torch.ops.recommendsystem_tpu_torch.interacting_attention,
+          torch.ops.recommendsystem_tpu_torch.interacting_attention.default)
 
 torch.set_num_threads(1)
 BUCKET = 256
@@ -111,7 +116,10 @@ def port_steps_match(pbundle, port_side, jinfos, sample_weight=None):
 
 
 class _ReluInputs(TorchFunctionMode):
-    """Records a copy of the input of every ReLU the port calls."""
+    """Records a copy of the input of every ReLU the port calls.  K6 is an
+    opaque custom op, whose implementation runs outside the mode: its CPU
+    implementation, the plain version, is run here in the mode instead, so
+    that its ReLUs are recorded too."""
 
     def __init__(self):
         super().__init__()
@@ -120,6 +128,11 @@ class _ReluInputs(TorchFunctionMode):
     def __torch_function__(self, func, types, args=(), kwargs=None):
         if func in (torch.relu, torch.nn.functional.relu, torch.Tensor.relu):
             self.calls.append(args[0].detach().clone().numpy())
+        if func in _K6_OP and args[0].device.type == "cpu":
+            x, *p, head_num, ln_eps = args
+            with self:
+                return interacting_attention_plain(x, dict(zip(PARAM_NAMES, p)), head_num,
+                                                   ln_eps)
         return func(*args, **(kwargs or {}))
 
 

@@ -1411,3 +1411,53 @@ def test_bf16_products_with_a_float32_result(cuda, a_shape, b_shape):
     for x, w in ((ga, wa), (gb, wb)):
         assert x.dtype == BF16
         torch.testing.assert_close(x.float(), w.float(), **BF16_GRAD_TOL)
+
+
+# -- the forward kernels as custom ops (kernels/_ops.py) ---------------------
+
+def _op_cases(dev):
+    """(op, args, the plain version's output(s), kernel, tolerance) for each
+    of the custom ops, at the predict path's shapes; K1's members in place
+    of its outputs, held by ``_assert_fold``."""
+    from recommendsystem_tpu_torch.kernels import _ops
+    means = _fold_members(dev, [(8, 5, 256, False), (32, 5, 300, False), (16, 3, 77, True)])
+    rows = _rows_members(dev, [(8, 256, False), (32, 1000, False), (5, 33, True)])
+    q, f, mask, *w = _din_inputs(dev, 256, 50, 16, seed=5)
+    gq, table, ids, gmask, *gw = _gather_inputs(dev, 256, 50, seed=6)
+    x, p = _interacting_inputs(dev, 256, 24, seed=7)
+    g = torch.Generator(device=dev).manual_seed(8)
+    qkv = [torch.randn((2, 4, 24, 256), generator=g, device=dev) for _ in range(3)]
+    seed = (77 << 32) | 3
+    tables, fids, fmasks, cs, ls = (list(t) for t in zip(*means))
+    rt, ri, rm = (list(t) for t in zip(*rows))
+    return [
+        ("fold_mean_group", (tables, fids, fmasks, cs, ls), means, "fold_mean", None),
+        ("fold_rows_group", (rt, ri, rm), [packed.fold_rows_plain(*m) for m in rows],
+         "fold_rows", 0.0),
+        ("din_pool", (q, f, mask, *w), din_pool_plain(q, f, mask, *w), "din_pool", 2e-5),
+        ("din_pool_gather", (gq, table, ids, gmask, 0, 16, *gw, torch.float32),
+         din_pool_gather_plain(gq, table, ids, gmask, (0, 16), *gw), "din_pool", 2e-5),
+        ("interacting_attention", (x, *(p[n] for n in PARAM_NAMES), 2, 1e-3),
+         interacting_attention_plain(x, p, 2, 1e-3), "interacting_attention", 2e-5),
+        ("field_attention_fwd", (*qkv, _ops.signed_seed(seed), 0.2, True),
+         list(field_attention_fwd_plain(*qkv, seed, 0.2)), "field_attention", 2e-5),
+    ]
+
+
+def test_custom_ops_launch_their_kernels(cuda):
+    """Each forward kernel called through ``torch.ops.recommendsystem_tpu_torch``
+    equals its plain version on the card, and counts one launch a call."""
+    for name, args, want, kernel, atol in _op_cases(cuda):
+        reset_launch_counts()
+        got = getattr(torch.ops.recommendsystem_tpu_torch, name)(*args)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        assert counts[kernel] == 1 and sum(counts.values()) == 1, (name, counts)
+        got = list(got) if isinstance(got, (list, tuple)) else [got]
+        want = want if isinstance(want, list) else [want]
+        assert len(got) == len(want), name
+        for gv, wv in zip(got, want):
+            if atol is None:       # K1: the grouped folds' tolerance
+                _assert_fold(gv, wv)
+            else:
+                torch.testing.assert_close(gv, wv, rtol=0, atol=atol, msg=name)

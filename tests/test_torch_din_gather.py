@@ -122,12 +122,13 @@ def test_din_pool_gather_refuses_what_it_does_not_take():
     q, table, ids, mask, w1, b1, w2, b2 = _torch(*_inputs(4, 6, seed=5))
     w = (w1, b1, w2, b2)
     with torch.no_grad():
-        # a table whose rows are not 16-byte aligned
+        # a table whose rows are not 16-byte aligned: the kernel's launcher
+        # refuses it on a card; the plain version takes it
         flat = torch.cat([torch.zeros(1), table.reshape(-1)])
         shifted = flat[1:].view(ROWS, D)
         assert shifted.data_ptr() % 16
-        with pytest.raises(ValueError, match="aligned"):
-            din_pool_gather(q, shifted, ids, mask, (0, H), *w)
+        assert torch.equal(din_pool_gather(q, shifted, ids, mask, (0, H), *w),
+                           din_pool_gather(q, table, ids, mask, (0, H), *w))
         # lane windows: narrower than the query, off a multiple of 4, past D
         for lanes in ((0, 8), (2, 18), (24, 40)):
             with pytest.raises(ValueError, match="lanes"):

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of it loads no JAX and
 nothing of the JAX package, and no source of it (nor chip_smoke.py, nor
-the port's scripts ``scripts/torch_*.py``) names such an import."""
+the port's scripts ``scripts/torch_*.py``, nor its examples
+``examples/torch_*.py``) names such an import."""
 
 import ast
 import os
@@ -29,7 +30,8 @@ print("BAD", bad)
 
 def _sources():
     return (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-            + sorted((ROOT / "scripts").glob("torch_*.py")))
+            + sorted((ROOT / "scripts").glob("torch_*.py"))
+            + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def test_import_loads_no_jax():
