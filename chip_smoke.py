@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --phase 14     # one phase alone (14 or 15)
+    python3 chip_smoke.py --phase 14     # one phase alone (14, 15 or 16)
 
 1. builds the port's CUDA kernels from ``recommendsystem_tpu_torch/csrc/``
    (one nvcc per source, all at once);
@@ -198,7 +198,19 @@
    compute policy and held to the bf16 predict step; loaded program and
    predict step timed in turns (host clock, windows ending in a
    synchronize); each custom op's host µs against its launcher called
-   directly, under ``inference_mode`` and ``no_grad``.
+   directly, under ``inference_mode`` and ``no_grad``;
+16. drives the sharded mode (``sharded_path``) on a one-rank NCCL group
+   from ``core.mesh.create_mesh()``: full-width autoint (B = 65536) and
+   staytime (B = 16384, float32 and ``"auto"`` tables) through the
+   sharded packed step, the exchange's drop report 0, its launches a step
+   held to ``SHARDED_LAUNCHES`` (the local step's and one more grouped K2
+   and K4: the owners' side of the pull and of the push) and its losses to
+   the local step's, the
+   two timed in turns; the sharded step held to the CPU's local step by
+   ``witness`` at ``CHECK_SEEDS``; one sharded scatter step; staytime's
+   sharded predict call (K7 gathering from the exchanged rows) held to the
+   local one; K5f and K5b with a non-zero sample offset against their
+   plain versions.
 
 Prints the card's name and power limit, one JSON line each for the autoint
 predict step, the train step, the staytime predict step, the predict
@@ -210,7 +222,7 @@ path's loader, train-step and checkpoint numbers (``daily``), phase
 13's table sizes, train steps and classic-update launches (``bf16``),
 phase 14's train and predict times under the policy (``bf16_compute``) and
 phase 15's loaded-program and predict-step times and dispatch µs
-(``export``), then
+(``export``), phase 16's sharded and local step times (``sharded``), then
 ``{"kernels": ...}`` (10 kernels), and last
 ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Any failure ends the run with a traceback
@@ -1931,7 +1943,8 @@ def _margin(got, want, atol, rtol):
 
 
 def two_train_steps(bundle, cpu_bundle, b, ipf, seed, record=None, on_init=None,
-                    steps=2, init=None, first=0, sparse_update=None, on_step=None):
+                    steps=2, init=None, first=0, sparse_update=None, on_step=None,
+                    card_step=None):
     """Two train steps on the card and the same two on the CPU through the
     plain versions, from one seeded state and one batch of ``b`` drawn from
     ``seed`` (same step seeds, same dropout); the card's two first.
@@ -1940,8 +1953,10 @@ def two_train_steps(bundle, cpu_bundle, b, ipf, seed, record=None, on_init=None,
     initial state before any step; ``on_step(side)`` is called before each
     step.  ``steps`` steps in place of two, from ``init`` (a state, copied
     to each side) in place of the seeded state, the first with step seed 40
-    + ``first``, by the train step's ``sparse_update``.  Returns (card state,
-    CPU state, card infos, CPU infos)."""
+    + ``first``, by the train step's ``sparse_update``.  ``card_step(bundle,
+    sparse_update)``, where given, makes the card's step in place of
+    ``make_train_step`` (the sharded step of phase 16).  Returns (card
+    state, CPU state, card infos, CPU infos)."""
     from contextlib import nullcontext
 
     from recommendsystem_tpu_torch.data import synthetic_batch
@@ -1958,7 +1973,8 @@ def two_train_steps(bundle, cpu_bundle, b, ipf, seed, record=None, on_init=None,
     out = []
     for side, bnd, state in (("card", bundle, gstate), ("cpu", cpu_bundle, cstate)):
         batch, dense, labels, weight = synthetic_batch(bnd, b, seed=seed, ids_per_feature=ipf)
-        step = make_train_step(bnd, sparse_update=sparse_update)
+        step = (card_step(bnd, sparse_update) if side == "card" and card_step
+                else make_train_step(bnd, sparse_update=sparse_update))
         infos = []
         with record(side) if record else nullcontext():
             for i in range(steps):
@@ -2253,7 +2269,7 @@ def _beyond_rounding(card, cpu):
 
 
 def witness(bundle, cpu_bundle, b, ipf, seed, steps=2, init=None, first=0,
-            sparse_update=None, keep_state=False):
+            sparse_update=None, keep_state=False, card_step=None):
     """One draw of two card and two CPU train steps, with every entry past
     its ``TRAIN_*`` tolerance put down to a cause or listed as unexplained.
 
@@ -2296,7 +2312,8 @@ def witness(bundle, cpu_bundle, b, ipf, seed, steps=2, init=None, first=0,
     one bf16 ulp from it with the replay within the quantity's tolerance of
     the midpoint, where two float32 values within that tolerance of each
     other may round apart.  ``steps``, ``init``,
-    ``first`` and ``sparse_update`` go to ``two_train_steps``; with
+    ``first``, ``sparse_update`` and ``card_step`` go to
+    ``two_train_steps``; with
     ``keep_state`` the CPU's state after the steps is returned too, as
     ``cpu_state``.  Returns the draw's margins, its explanations by cause,
     the unexplained entries (none where the draw passes), and the gradients
@@ -2305,7 +2322,7 @@ def witness(bundle, cpu_bundle, b, ipf, seed, steps=2, init=None, first=0,
 
     (gstate, cstate, ginfos, cinfos), relu, grads, tables, init = _recorded_steps(
         bundle, cpu_bundle, b, ipf, seed, steps=steps, init=init, first=first,
-        sparse_update=sparse_update)
+        sparse_update=sparse_update, card_step=card_step)
     past, margins = _past(gstate, cstate, ginfos, cinfos)
     out = {"margins": margins, "explained": {}, "unexplained": [], "details": []}
     if keep_state:
@@ -2442,15 +2459,16 @@ def witness(bundle, cpu_bundle, b, ipf, seed, steps=2, init=None, first=0,
     return out
 
 
-def hold_card_to_cpu(bundle, cpu_bundle, b, ipf, what):
+def hold_card_to_cpu(bundle, cpu_bundle, b, ipf, what, card_step=None):
     """``witness`` at each batch seed of CHECK_SEEDS: two card steps against
     the same two CPU steps, failing unless every quantity is within its
     ``TRAIN_*`` tolerance or every entry past it is explained (a kink, or
     gradients that agree within rounding, the card's updates being right).
-    Logs each draw's margins and explanations; returns them by seed."""
+    Logs each draw's margins and explanations; returns them by seed.
+    ``card_step`` goes to ``witness``."""
     draws = {}
     for seed in CHECK_SEEDS:
-        w = witness(bundle, cpu_bundle, b, ipf, seed)
+        w = witness(bundle, cpu_bundle, b, ipf, seed, card_step=card_step)
         draws[seed] = w
         log(f"{what} train card vs cpu, B {b}, seed {seed}:", json.dumps(w))
         if w["unexplained"]:
@@ -3728,8 +3746,8 @@ class _StepRecorder:
     def wrap(self, make):
         from recommendsystem_tpu_torch.kernels import launch_counts
 
-        def make_recorded(bundle, mode="local"):
-            step = make(bundle, mode)
+        def make_recorded(bundle, mode="local", **kwargs):
+            step = make(bundle, mode, **kwargs)
 
             def recorded(state, batch, *args, **kwargs):
                 before = launch_counts()
@@ -4972,6 +4990,234 @@ def export_path(card, cycles_per_ms):
     return out
 
 
+# -- phase 16: the sharded mode on a one-rank NCCL group ------------------------
+# launches a step of the sharded packed step on one rank: the local step's,
+# one more grouped K2 (``fold_rows``: the owners gather the rows asked of
+# them) and one more grouped K4 (``unfold_rows``: the owners add the
+# [grad | count] rows that the push brought into their accumulators; the
+# senders' K3 and K4 write each entry into its slot of the send buffer)
+SHARDED_LAUNCHES = {
+    "autoint": {"fold_mean": 1, "fold_rows": 1, "unfold_mean": 1, "unfold_rows": 1,
+                "field_attention": 1, "field_attention_bwd": 1, "sparse_adam_update": 1},
+    "staytime": {"fold_mean": 1, "fold_rows": 2, "din_pool": 3, "unfold_mean": 1,
+                 "unfold_rows": 2, "sparse_adagrad_update": 1}}
+# staytime's sharded predict call, 5 ids: the owners' K2, then K1 and the
+# three K7 gathering from the rows received
+SHARDED_PREDICT_LAUNCHES = {"fold_mean": 1, "fold_rows": 1, "din_pool": 3}
+SAMPLE0 = 3 * BIG_BATCH + 5       # a rank's first global sample, for K5f and K5b
+
+
+def sample_offset_case(seed=61, h=2, dh=4, f=24, b=4096):
+    """K5f and K5b with a non-zero sample offset (``SAMPLE0``: the dropout
+    counter of a rank's rows starts at their first global sample) against
+    their plain versions on the same inputs, dropout 0.2: o and lse within
+    ATTN_TOL, dq, dk and dv within GRAD_TOL; the plain mask at SAMPLE0
+    differs from the one at 0.  Through ``field_attention``'s autograd
+    Function, as the train step takes them."""
+    from recommendsystem_tpu_torch.kernels import field_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn((h, dh, f, b), generator=g, device="cuda") for _ in range(4))
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    o = fa.field_attention(*leaves, seed, DROPOUT, sample0=SAMPLE0)
+    o.backward(do)
+    cpu = [t.detach().cpu().requires_grad_() for t in (q, k, v)]
+    po = fa.field_attention_reference(*cpu, seed, DROPOUT, SAMPLE0)
+    po.backward(do.cpu())
+    errs = {"o": float((o.detach().cpu() - po.detach()).abs().max())}
+    if errs["o"] > ATTN_TOL:
+        raise AssertionError(f"K5f with sample offset {SAMPLE0}: {errs}")
+    for name, got, want in zip(("dq", "dk", "dv"), leaves, cpu):
+        torch.testing.assert_close(got.grad.cpu(), want.grad, **GRAD_TOL, msg=f"K5b {name}")
+        errs[name] = float((got.grad.cpu() - want.grad).abs().max())
+    at0 = fa.field_attention_reference(*cpu, seed, DROPOUT, 0)
+    if torch.equal(at0, po):
+        raise AssertionError("the sample offset leaves the dropout mask as it was")
+    return {"name": "field_attention sample offset", "sample0": SAMPLE0, "b": b, "f": f,
+            "max_abs_err": errs}
+
+
+def _step_window(step, bundle, batch, dense, labels, weight, steps=TRAIN_STEPS):
+    """``steps`` steps from a fresh state, in a window of counts: (state,
+    launches a step, losses)."""
+    from recommendsystem_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from recommendsystem_tpu_torch.train.state import create_train_state
+
+    state = create_train_state(bundle, seed=2)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    infos = []
+    for i in range(steps):
+        state, info = step(state, batch, labels, weight, dense, seed=i)
+        infos.append(info)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    losses = [float(i["loss"]) for i in infos]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train loss not finite: {losses}")
+    return state, counts, losses
+
+
+def sharded_path(card):
+    """Phase 16: the sharded mode (``mode="sharded"``) on a one-rank NCCL
+    group from ``core.mesh.create_mesh()``, the card sending each rank's
+    requests to itself through NCCL.  Full-width autoint (B = 65536, 5 ids,
+    dropout 0.2) and staytime (B = 16384, 5 ids, float32 tables and
+    ``"auto"``): ``a2a_drop_report`` reads 0; a window of counts of the
+    local packed step and one of the sharded step from the same state and
+    batch, the sharded held to ``SHARDED_LAUNCHES`` a step and to the
+    local step's losses (TRAIN_LOSS_RTOL), t and show equal to the live
+    counts; the two steps timed in turns (local, sharded, sharded,
+    local).  Then the sharded step held to the local packed step on the
+    CPU by ``witness`` at ``CHECK_SEEDS`` (autoint at TRAIN_CHECK_BATCH,
+    staytime at STAYTIME_CHECK_BUCKET and B = 64); one sharded ``scatter``
+    step; staytime's sharded predict call (K7 gathering from the received
+    rows) held to the local one and to ``SHARDED_PREDICT_LAUNCHES``; K5f
+    and K5b with a sample offset against their plain versions.  Destroys
+    the group at the end."""
+    import torch.distributed as dist
+
+    from recommendsystem_tpu_torch.core.mesh import create_mesh
+    from recommendsystem_tpu_torch.data import synthetic_batch
+    from recommendsystem_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from recommendsystem_tpu_torch.models import create_model
+    from recommendsystem_tpu_torch.models.staytime import StaytimeConfig
+    from recommendsystem_tpu_torch.train import make_predict_step, make_train_step
+    from recommendsystem_tpu_torch.train.state import create_train_state
+
+    t_phase = time.perf_counter()
+    mesh = create_mesh("cuda")
+    out = {"card": card, "ranks": mesh.size, "backend": dist.get_backend(), "train": {}}
+    launches = {}
+
+    def sharded(bnd, upd=None):
+        return make_train_step(bnd, mode="sharded", sparse_update=upd, mesh=mesh)
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    try:
+        for name, model, kw, b in (
+                ("autoint", "autoint", {"bucket_size": FULL_BUCKET}, BIG_BATCH),
+                ("staytime", "staytime", {}, STAYTIME_BATCH),
+                ("staytime_auto", "staytime", {"table_dtype": "auto"}, STAYTIME_BATCH)):
+            bundle = create_model(model, device="cuda", **kw)
+            eng = bundle.embedding
+            batch, dense, labels, weight = synthetic_batch(bundle, b, seed=70, ids_per_feature=5)
+            drops = eng.a2a_drop_report(batch, mesh)
+            if any(r["rows"] for r in drops.values()):
+                raise AssertionError(f"{name}: the one-rank exchange dropped {drops}")
+            local, shard = make_train_step(bundle), sharded(bundle)
+            lstate, lcounts, llosses = _step_window(local, bundle, batch, dense, labels, weight)
+            sstate, scounts, slosses = _step_window(shard, bundle, batch, dense, labels, weight)
+            add(scounts)
+            per_step = {k: v / TRAIN_STEPS for k, v in scounts.items() if v}
+            local_step = {k: v / TRAIN_STEPS for k, v in lcounts.items() if v}
+            if per_step != SHARDED_LAUNCHES[model]:
+                raise AssertionError(f"{name} sharded: launches a step {per_step}, expected "
+                                     f"{SHARDED_LAUNCHES[model]}")
+            np.testing.assert_allclose(slosses, llosses, rtol=TRAIN_LOSS_RTOL,
+                                       err_msg=f"{name}: sharded against local losses")
+            live = eng.row_counts(batch)
+            for skey, tstate in sstate.tables.items():
+                if not torch.equal(tstate["show"], TRAIN_STEPS * live[skey]):
+                    raise AssertionError(f"{name} {skey}: show differs from the live counts")
+                if "t" in tstate["opt"] and not torch.equal(
+                        tstate["opt"]["t"], TRAIN_STEPS * (live[skey] > 0).float()):
+                    raise AssertionError(f"{name} {skey}: t differs from the live counts")
+            per_window = 8 if model == "autoint" else 5
+            turns = []
+            for which, step, st in (("local", local, lstate), ("sharded", shard, sstate),
+                                    ("sharded", shard, sstate), ("local", local, lstate)):
+                ms, _ = train_ms(step, st, batch, labels, weight, dense, per_window=per_window)
+                turns.append((which, ms))
+            ms = {w: sorted(m for x, m in turns if x == w) for w in ("local", "sharded")}
+            out["train"][name] = {
+                "batch": b, "ids_per_feature": 5, "launches_per_step": per_step,
+                "local_launches_per_step": local_step, "losses": slosses,
+                "local_losses": llosses, "in_turns_ms": turns,
+                "sharded_ms": sum(ms["sharded"]) / 2, "local_ms": sum(ms["local"]) / 2,
+                "drop_report_rows": sum(r["rows"] for r in drops.values())}
+            log(f"sharded train {name}:", json.dumps(out["train"][name]))
+            if name == "autoint":
+                # one scatter step, its show the live counts
+                st = create_train_state(bundle, seed=2)
+                st, info = sharded(bundle, "scatter")(st, batch, labels, weight, dense, seed=0)
+                if not np.isfinite(float(info["loss"])):
+                    raise AssertionError("sharded scatter step: loss not finite")
+                for skey, tstate in st.tables.items():
+                    if not torch.equal(tstate["show"], live[skey]):
+                        raise AssertionError(f"sharded scatter {skey}: show differs")
+                out["scatter_loss"] = float(info["loss"])
+            if name == "staytime":
+                predict = make_predict_step(bundle, mode="sharded", mesh=mesh)
+                want = make_predict_step(bundle)(sstate, batch, dense)
+                predict(sstate, batch, dense)
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                got = predict(sstate, batch, dense)
+                torch.cuda.synchronize()
+                counts = launch_counts()
+                add(counts)
+                per_call = {k: v for k, v in counts.items() if v}
+                if per_call != SHARDED_PREDICT_LAUNCHES:
+                    raise AssertionError(f"staytime sharded predict: launches {per_call}, "
+                                         f"expected {SHARDED_PREDICT_LAUNCHES}")
+                for task, w in want.items():
+                    np.testing.assert_allclose(got[task].float().cpu().numpy(),
+                                               w.float().cpu().numpy(), **SCORE_TOL,
+                                               err_msg=f"sharded predict {task}")
+                out["predict_launches"] = per_call
+            del bundle, eng, lstate, sstate, local, shard
+            torch.cuda.empty_cache()
+
+        # the sharded step held to the local packed step on the CPU
+        autoint = create_model("autoint", bucket_size=FULL_BUCKET, device="cuda")
+        cpu_autoint = create_model("autoint", bucket_size=FULL_BUCKET, device="cpu")
+        out["card_vs_cpu"] = {"autoint": hold_card_to_cpu(
+            autoint, cpu_autoint, TRAIN_CHECK_BATCH, 5, "autoint sharded", card_step=sharded)}
+        del autoint, cpu_autoint
+        small = {"cfg": StaytimeConfig(bucket_size=STAYTIME_CHECK_BUCKET)}
+        out["card_vs_cpu"]["staytime"] = hold_card_to_cpu(
+            create_model("staytime", device="cuda", **small),
+            create_model("staytime", device="cpu", **small), TOWER_CHECK_BATCH, 5,
+            "staytime sharded", card_step=sharded)
+        out["cases"] = [sample_offset_case()]
+        log(json.dumps(out["cases"][0]))
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def _sharded_line(out):
+    """Phase 16's JSON line: each model's sharded and local ms a step and
+    launches a step, the predict call's launches, the phase's seconds."""
+    return {"train": {m: {k: r[k] for k in ("batch", "sharded_ms", "local_ms",
+                                             "launches_per_step", "local_launches_per_step",
+                                             "drop_report_rows")}
+                      for m, r in out["train"].items()},
+            "predict_launches": out["predict_launches"], "ranks": out["ranks"],
+            "backend": out["backend"], "phase_s": out["phase_s"], "card": out["card"]}
+
+
+def phase16_alone(card) -> int:
+    """``--phase 16``: build the kernels and run phase 16 alone, its JSON
+    line printed; no kernels line and no ok line (a whole run gives them)."""
+    from recommendsystem_tpu_torch.kernels import build_all
+
+    build_all()
+    out = sharded_path(card)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_phase16.json"), "w") as fh:
+        json.dump(out, fh, indent=1)
+    print(json.dumps({"sharded": _sharded_line(out)}), flush=True)
+    return 0
+
+
 def phase15_alone(card) -> int:
     """``--phase 15``: build the kernels and run phase 15 alone, its JSON
     line printed; no kernels line and no ok line (a whole run gives them)."""
@@ -5049,6 +5295,8 @@ def main() -> int:
         return phase14_alone(card)
     if sys.argv[1:] == ["--phase", "15"]:
         return phase15_alone(card)
+    if sys.argv[1:] == ["--phase", "16"]:
+        return phase16_alone(card)
 
     # -- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -5285,6 +5533,11 @@ def main() -> int:
     exported = report["export"]["launches"]
     print(json.dumps({"export": _export_line(report["export"])}), flush=True)
 
+    # -- 16. the main path: the sharded mode on a one-rank NCCL group --------
+    report["sharded"] = sharded_path(card)
+    sharded = report["sharded"]["launches"]
+    print(json.dumps({"sharded": _sharded_line(report["sharded"])}), flush=True)
+
     # -- report ----------------------------------------------------------------
     # the serving folds at the largest serving bucket, the train kernels
     # (K5 among them: the serving paths take K6) at the train batch, the
@@ -5340,7 +5593,8 @@ def main() -> int:
         launches = (serving[name] + training[name] + staytime[name] + interacting[name]
                     + towers[name] + rough[name] + stacked[name] + staytime_train[name]
                     + evaluation[name] + daily[name] + bf16.get(name, 0)
-                    + compute.get(name, 0) + exported.get(name, 0))
+                    + compute.get(name, 0) + exported.get(name, 0)
+                    + sharded.get(name, 0))
         if launches < 1:
             raise AssertionError(f"{name} was not launched on the main paths")
         kernels.append({

@@ -6,12 +6,15 @@ any module of the JAX package.  It covers the scoring, train (packed,
 scatter and dense sparse updates, with the L1L2 kernel penalties) and eval
 paths of autoint, ctr, multi_head, finish, rough_rank and staytime, on
 float32 or bf16 tables and under float32 or the bf16 compute policy, the
-daily training path, the serving export and the offline fusion search; the
-sharded mode is still to come:
+daily training path, the serving export, the offline fusion search, and
+the sharded mode (data parallelism over row-sharded tables, on
+``torch.distributed``; tensor and expert parallelism are still to come):
 
-- ``core/``       configuration schema and device set-up;
-- ``embedding/``  feature columns (``Feature``, ``FeatureSlot``), the local
-  embedding engine (lazy Adam and AdaGrad table state, eviction), the fused
+- ``core/``       configuration schema, device set-up and the process mesh;
+- ``parallel/``   the distribution namespace (mesh, placements, exchange);
+- ``embedding/``  feature columns (``Feature``, ``FeatureSlot``), the
+  embedding engine (lazy Adam and AdaGrad table state, eviction; the
+  sharded pull and push, all-to-all over the ranks), the fused
   gather-and-fold lookup and the packed update (CUDA kernels K1
   ``fold_mean``, K2 ``fold_rows``, K3 ``unfold_mean``, K4 ``unfold_rows``,
   K8 ``sparse_adam_update``, K9 ``sparse_adagrad_update``);

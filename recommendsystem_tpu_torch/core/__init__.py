@@ -1,4 +1,5 @@
-"""Configuration schema and device set-up."""
+"""Configuration schema, device set-up, and the process mesh of the
+sharded mode."""
 
 from .config import (  # noqa: F401
     FeatureConfig,
@@ -8,3 +9,11 @@ from .config import (  # noqa: F401
     synthetic_ctr_config,
 )
 from .device import resolve_device  # noqa: F401
+from .mesh import (  # noqa: F401
+    DATA_AXIS,
+    MODEL_AXIS,
+    create_mesh,
+    local_mesh,
+    process_count,
+    process_index,
+)

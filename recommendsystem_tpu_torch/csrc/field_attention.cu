@@ -139,10 +139,11 @@ __device__ __forceinline__ uint32_t word(const uint4& r, int i) {
 struct Dropout {
   uint32_t thresh;
   float keep_scale;
+  uint32_t sample0;   // the global index of the call's first sample
   uint32_t rk[20];
-  // the four keys 4*kg .. 4*kg+3 of query fq, head h, sample b
+  // the four keys 4*kg .. 4*kg+3 of query fq, head h, sample b of the call
   __device__ __forceinline__ uint4 bits(long long b, int fq, int h, int kg) const {
-    uint4 c = make_uint4(static_cast<uint32_t>(b), static_cast<uint32_t>(fq),
+    uint4 c = make_uint4(static_cast<uint32_t>(b) + sample0, static_cast<uint32_t>(fq),
                          static_cast<uint32_t>(h), static_cast<uint32_t>(kg));
 #pragma unroll
     for (int i = 0; i < 10; ++i) {
@@ -755,10 +756,11 @@ int bwd_dh(const void* q, const void* k, const void* v, const float* o, const fl
 }
 
 Dropout make_dropout(unsigned int k0, unsigned int k1, unsigned int thresh,
-                     float keep_scale) {
+                     float keep_scale, unsigned int sample0) {
   Dropout drop;
   drop.thresh = thresh;
   drop.keep_scale = keep_scale;
+  drop.sample0 = sample0;
   for (int i = 0; i < 10; ++i) {
     drop.rk[2 * i] = k0 + static_cast<uint32_t>(i) * kPhiloxW0;
     drop.rk[2 * i + 1] = k1 + static_cast<uint32_t>(i) * kPhiloxW1;
@@ -771,13 +773,14 @@ Dropout make_dropout(unsigned int k0, unsigned int k1, unsigned int thresh,
 // q, k, v (h, dh, F, B) contiguous, float32 (bf16 = 0) or bfloat16 (1);
 // o (h, dh, F, B) and lse (h, F, B) float32; lse may be null (no backward to
 // follow).  dropout != 0 applies the mask of key (k0, k1) with threshold
-// thresh and scale keep_scale.
+// thresh and scale keep_scale, numbering the samples from sample0 in the
+// Philox counter (a rank's rows of a batch start at their global index).
 RS_EXPORT int field_attention_fwd(const void* q, const void* k, const void* v, float* o,
                                   float* lse, int h, int dh, int f, long long b, float scale,
                                   int dropout, unsigned int k0, unsigned int k1,
-                                  unsigned int thresh, float keep_scale, int bf16_in,
-                                  cudaStream_t stream) {
-  const Dropout drop = make_dropout(k0, k1, thresh, keep_scale);
+                                  unsigned int thresh, float keep_scale, unsigned int sample0,
+                                  int bf16_in, cudaStream_t stream) {
+  const Dropout drop = make_dropout(k0, k1, thresh, keep_scale, sample0);
   const bool on = dropout != 0;
   return bf16_in ? fwd_dh<bf16>(q, k, v, o, lse, h, dh, f, b, scale, drop, on, stream)
                  : fwd_dh<float>(q, k, v, o, lse, h, dh, f, b, scale, drop, on, stream);
@@ -793,9 +796,9 @@ RS_EXPORT int field_attention_bwd(const void* q, const void* k, const void* v, c
                                   const float* lse, const float* dout, void* dq, float* dq_acc,
                                   void* dk, void* dv, int h, int dh, int f, long long b,
                                   float scale, int dropout, unsigned int k0, unsigned int k1,
-                                  unsigned int thresh, float keep_scale, int bf16_in,
-                                  cudaStream_t stream) {
-  const Dropout drop = make_dropout(k0, k1, thresh, keep_scale);
+                                  unsigned int thresh, float keep_scale, unsigned int sample0,
+                                  int bf16_in, cudaStream_t stream) {
+  const Dropout drop = make_dropout(k0, k1, thresh, keep_scale, sample0);
   const bool on = dropout != 0;
   return bf16_in ? bwd_dh<bf16>(q, k, v, o, lse, dout, dq, dq_acc, dk, dv, h, dh, f, b, scale,
                                 drop, on, stream)

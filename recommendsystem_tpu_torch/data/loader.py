@@ -27,6 +27,7 @@ from typing import Callable, Iterable, Iterator, List, Optional, Sequence
 import torch
 
 from ..core.device import resolve_device
+from ..core.mesh import process_count, process_index
 from ..embedding.engine import IdBatch
 from .tfrecord import read_tfrecord
 
@@ -56,10 +57,12 @@ def list_files(data_dir: str, days: Optional[Sequence[str]] = None,
 def shard_files(files: Sequence[str], num_shards: Optional[int] = None,
                 index: Optional[int] = None) -> List[str]:
     """Worker-rank file sharding, the data-parallel boundary
-    (``staytime/parse.py:77-79``).  The port runs one process until its
-    sharded mode, so the defaults are 1 shard and index 0."""
-    num_shards = 1 if num_shards is None else num_shards
-    index = 0 if index is None else index
+    (``staytime/parse.py:77-79``): file i goes to shard ``i % num_shards``.
+    The defaults are the process group's size and this process's rank
+    (``core.mesh.process_count`` / ``process_index``: 1 and 0 where no
+    group is initialised)."""
+    num_shards = process_count() if num_shards is None else num_shards
+    index = process_index() if index is None else index
     return [f for i, f in enumerate(files) if i % num_shards == index]
 
 

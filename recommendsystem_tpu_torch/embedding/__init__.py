@@ -1,5 +1,6 @@
-"""Sparse-embedding engine of the port: feature columns, the local engine
-and the fused gather-and-fold lookup."""
+"""Sparse-embedding engine of the port: feature columns, the engine (local
+and sharded: the all-to-all pull and push) and the fused gather-and-fold
+lookup."""
 
 from .feature_column import (  # noqa: F401
     CategoryColumn,
@@ -10,4 +11,4 @@ from .feature_column import (  # noqa: F401
     embedding_column,
 )
 from .optimizers import SparseAdaGrad, SparseAdam, make_sparse_optimizer  # noqa: F401
-from .engine import EmbeddingFeatures, IdBatch, validate_batch  # noqa: F401
+from .engine import EmbeddingFeatures, IdBatch, all_to_all_lookup, validate_batch  # noqa: F401

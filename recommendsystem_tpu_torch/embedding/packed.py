@@ -861,6 +861,134 @@ def row_update_packed_storage(opt, tstate, ids: torch.Tensor, pay: torch.Tensor)
     tstate["show"].index_copy_(0, rows, tstate["show"][rows] + cnt)
 
 
+# ---------------------------------------------------------------------------
+# sharded mode: the fold kernels over the rows received from their owners
+# ---------------------------------------------------------------------------
+#
+# The JAX package exchanges 128-lane physical rows (id // P) and folds them
+# with its K1/K2 (``packed.py:750-912``).  The port exchanges logical (D,)
+# rows: each storage's stream is routed to the owners of its rows
+# (``engine.exchange_plans``: the requests of every storage in one
+# all-to-all), one grouped K2 gathers on each owner the rows asked of it
+# (float32, a bf16 table's rows widened exactly), and a second all-to-all
+# brings every storage's rows back as (n cap, D) buffers.  K1 and K2 then
+# fold each buffer as the member's table, with each entry's slot in it as
+# its id.  The push runs the other way: K3 (mean columns) and K4
+# (single-id and sequence columns) scatter each entry's gradient and a
+# count of 1 into its slot of an (n cap)*(D+1) send buffer, one
+# all-to-all takes every storage's [grad | count] rows to their owners,
+# one grouped K4 adds them into the owners' accumulators at the rows the
+# pull asked for, and K8 or K9 runs the lazy pass over each rank's row
+# shards: three all-to-alls a step, whatever the number of storages.
+
+
+def gather_fold_sharded(eng, tables, batch, plans, mesh,
+                        defer_sequences: bool = False) -> Dict[str, Any]:
+    """Stage 1 of the sharded packed path (not differentiated), with this
+    rank's row shards ``tables`` and rows of ``batch``: every storage's
+    stream pulls its rows from their owners (two all-to-alls for all the
+    storages, one grouped K2 on the owners' side between them), then one
+    grouped K1 folds every mean segment and one grouped K2 every single-id
+    or sequence segment over the received buffers.  Returns what
+    ``gather_fold`` returns, each storage's exchange plan beside its
+    stream (``"plan"``).  With ``defer_sequences`` a sequence segment of
+    an exchange that drops nothing is a ``SequenceRows`` handle on the
+    received buffer (its ids the entries' slots), for K7 to gather."""
+    from .engine import a2a_many, exchange_plans
+    streams = {skey: storage_stream(eng, skey, segs, batch) for skey, segs in plans.items()}
+    xplans = dict(zip(streams, exchange_plans(
+        [(ids, tables[skey]["w"].shape[0], mask) for skey, (ids, mask) in streams.items()],
+        mesh, eng.a2a_capacity_factor)))
+    asked = fold_rows_group([(tables[skey]["w"], p.recv_rows,
+                              torch.ones(p.recv_rows.shape, device=p.recv_rows.device))
+                             for skey, p in xplans.items()])
+    received = dict(zip(xplans, a2a_many(asked, mesh))) if asked else {}
+    out, means, rows = {}, [], []
+    for skey, segs in plans.items():
+        (ids, mask), plan, recv = streams[skey], xplans[skey], received[skey]
+        pos, live = plan.positions(), plan.live(mask)
+        acts = [None] * len(segs)
+        for i, seg in enumerate(segs):
+            part = slice(seg.start, seg.start + seg.size)
+            member = (recv, pos[part], live[part])
+            if seg.kind == "mean" and seg.l > 1:
+                means.append((acts, i, member + (len(seg.keys), seg.l)))
+            elif seg.kind == "seq" and defer_sequences and plan.keep is None:
+                shape = (seg.size // seg.l, seg.l)
+                acts[i] = SequenceRows(recv, pos[part].view(shape), mask[part].view(shape),
+                                       (0, recv.shape[1]))
+            else:
+                rows.append((acts, i, member))
+        out[skey] = {"acts": acts, "ids": ids, "mask": mask, "plan": plan}
+    for group, fold in ((means, fold_mean_group), (rows, fold_rows_group)):
+        for (acts, i, _), act in zip(group, fold([member for _, _, member in group])):
+            acts[i] = act
+    return out
+
+
+def apply_gradients_packed_sharded(eng, state, g_acts, plans, ctx, batch, mesh):
+    """Stage 3 of the sharded packed path (not differentiated): one grouped
+    K3 (mean columns with l > 1) and one grouped K4 (the others) scatter
+    every entry's gradient and a count of 1 into its slot of its storage's
+    send buffer; one all-to-all takes every storage's to the owners; one
+    grouped K4 adds what each rank received into its accumulators at the
+    rows the pull asked for; then one lazy pass (``sparse_update_group``:
+    K8 or K9) over this rank's row shards.  Updates ``state`` (this rank's
+    shards) in place and returns it.  ``ctx``: ``gather_fold_sharded``'s."""
+    from .engine import a2a_many
+    sends, means, rows = {}, [], []
+    for skey, segs in plans.items():
+        d = eng.storage[skey][1]
+        plan = ctx[skey]["plan"]
+        pos, live = plan.positions(), plan.live(ctx[skey]["mask"])
+        sends[skey] = torch.zeros(plan.recv_rows.shape[0] * (d + 1), dtype=torch.float32,
+                                  device=pos.device)
+        views = accumulator_views(sends[skey], d)
+        for seg, g in zip(segs, g_acts[skey]):
+            g = g.contiguous()
+            if seg.kind == "mean":
+                c = len(seg.keys)
+                b = seg.size // (c * seg.l)
+                for ci in range(c):
+                    part = slice(seg.start + ci * seg.l * b, seg.start + (ci + 1) * seg.l * b)
+                    member = views + (g[ci * b:(ci + 1) * b], pos[part], live[part])
+                    if seg.l > 1:
+                        means.append(member + (seg.l,))
+                    else:
+                        rows.append(member)
+            else:
+                part = slice(seg.start, seg.start + seg.size)
+                rows.append(views + (g.reshape(seg.size, d), pos[part], live[part]))
+    unfold_mean_scatter_group(means)
+    unfold_rows_scatter_group(rows)
+    views = [accumulator_views(send, eng.storage[skey][1]) for skey, send in sends.items()]
+    got = a2a_many([v for pair in views for v in pair], mesh) if views else []
+    accs, owned = {}, []
+    for i, skey in enumerate(sends):
+        local = state[skey]["w"]
+        accs[skey] = eng.accumulator(skey, local.device, local.shape[0])
+        owned.append(accumulator_views(accs[skey], eng.storage[skey][1])
+                     + (got[2 * i], ctx[skey]["plan"].recv_rows, got[2 * i + 1].view(-1)))
+    unfold_rows_scatter_group(owned)
+    sparse_update_group(eng.sparse_opt, [state[k] for k in accs], list(accs.values()))
+    return state
+
+
+def lookup_packed_sharded(eng, tables, batch, mesh,
+                          defer_sequences: bool = False) -> Dict[str, Any]:
+    """``lookup_packed`` in sharded mode: the fused lookup over the rows
+    pulled from their owners (``gather_fold_sharded``), the classic
+    sharded lookup for the storages that cannot pack."""
+    pk, _ = storages_packed(eng)
+    plans = plan_segments(eng, batch, storages=set(pk))
+    ctx = gather_fold_sharded(eng, tables, batch, plans, mesh, defer_sequences)
+    out = combine_from_acts(eng, plans, ctx, batch)
+    classic_batch = classic_columns(eng, batch, plans)
+    if classic_batch:
+        out.update(eng.lookup(eng.weights(tables), classic_batch, "sharded", mesh))
+    return out
+
+
 def lookup_packed(eng, tables, batch, defer_sequences: bool = False) -> Dict[str, Any]:
     """Forward-only lookup (eval / predict / serving): fused gather + fold
     for the storages ``storages_packed`` admits, the classic gather for the

@@ -44,9 +44,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "field_attention": {
         "field_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _F,
-                                _I, _U, _U, _U, _F, _I, _P],
+                                _I, _U, _U, _U, _F, _U, _I, _P],
         "field_attention_bwd": [_P] * 10 + [_I, _I, _I, _L, _F, _I, _U, _U,
-                                            _U, _F, _I, _P],
+                                            _U, _F, _U, _I, _P],
     },
     "unfold_scatter": {
         "unfold_mean_group_f32": [_P, _I, _P],

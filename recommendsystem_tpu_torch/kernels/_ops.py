@@ -173,24 +173,26 @@ def _interacting_attention_fake(x, wq, bq, wk, bk, wv, bv, wr, br, gamma, beta,
 @torch.library.custom_op(f"{NAMESPACE}::field_attention_fwd", mutates_args=(),
                          device_types="cuda")
 def field_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seed: int,
-                        rate: float, want_lse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+                        rate: float, want_lse: bool,
+                        sample0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o, lse); lse is empty (0 elements) unless ``want_lse``.  ``seed``
-    is ``signed_seed`` of the dropout seed."""
+    is ``signed_seed`` of the dropout seed, ``sample0`` the global index of
+    the first sample in the dropout counter."""
     from . import field_attention
-    return field_attention.fwd_launch(q, k, v, seed % _U64, rate, want_lse)
+    return field_attention.fwd_launch(q, k, v, seed % _U64, rate, want_lse, sample0)
 
 
 @field_attention_fwd.register_kernel("cpu")
-def _field_attention_fwd_cpu(q, k, v, seed, rate, want_lse):
+def _field_attention_fwd_cpu(q, k, v, seed, rate, want_lse, sample0=0):
     from . import field_attention as fa
     if want_lse:
-        return fa.field_attention_fwd_plain(q, k, v, seed % _U64, rate)
-    o = fa.field_attention_reference(q, k, v, seed % _U64, rate)
+        return fa.field_attention_fwd_plain(q, k, v, seed % _U64, rate, sample0)
+    o = fa.field_attention_reference(q, k, v, seed % _U64, rate, sample0)
     return o, q.new_empty((0,), dtype=torch.float32)
 
 
 @field_attention_fwd.register_fake
-def _field_attention_fwd_fake(q, k, v, seed, rate, want_lse):
+def _field_attention_fwd_fake(q, k, v, seed, rate, want_lse, sample0=0):
     h, _, f, b = q.shape
     lse = (h, f, b) if want_lse else (0,)
     return (q.new_empty(q.shape, dtype=torch.float32),

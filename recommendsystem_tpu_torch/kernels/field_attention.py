@@ -20,15 +20,22 @@ through ``FieldAttentionFunction``, whose forward also keeps the log-sum-exp
 of each softmax row and whose backward is K5b (``field_attention_bwd``).
 
 Dropout at ``rate > 0`` draws, for every weight (head, query fq, key fk,
-sample b), word ``fk % 4`` of Philox4x32-10 at counter ``(b, fq, head,
-fk // 4)`` under the key ``(seed >> 32, seed & 0xffffffff)``; the weight is
-kept when the word is >= ``rate * 2**32`` and scaled by ``1 / (1 - rate)``.
-``philox4x32_10`` computes the same bits with torch integer ops, so the
-kernels and their plain versions apply the same mask.
+sample b), word ``fk % 4`` of Philox4x32-10 at counter ``(sample0 + b, fq,
+head, fk // 4)`` (mod 2**32) under the key ``(seed >> 32, seed &
+0xffffffff)``; the weight is kept when the word is >= ``rate * 2**32`` and
+scaled by ``1 / (1 - rate)``.  ``philox4x32_10`` computes the same bits with
+torch integer ops, so the kernels and their plain versions apply the same
+mask.  ``sample0`` is the global index of the call's first sample: 0 for a
+whole batch, ``rank * B / n`` for a rank's rows of a batch in the sharded
+mode, so that every sample draws the mask it draws in the whole batch.  A
+call that does not pass it takes ``sample_offset``'s (0 outside one), which
+the sharded train step sets around its tower.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Optional, Tuple
 
 import torch
@@ -43,6 +50,21 @@ _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 # plain versions materialise (head, Fq, F, B) tensors: query fields are
 # taken in chunks of at most this many weights
 _PLAIN_CHUNK = 1 << 25
+_SAMPLE0 = contextvars.ContextVar("field_attention_sample0", default=0)
+
+
+@contextlib.contextmanager
+def sample_offset(sample0: int):
+    """Within the block, a field attention call that does not pass its
+    ``sample0`` numbers its samples from ``sample0`` in the dropout
+    counter (the sharded step: the rank's first global sample)."""
+    if not 0 <= sample0 < 1 << 32:
+        raise ValueError(f"sample0 {sample0} not in [0, 2**32)")
+    token = _SAMPLE0.set(sample0)
+    try:
+        yield
+    finally:
+        _SAMPLE0.reset(token)
 
 
 # ---------------------------------------------------------------------------
@@ -87,15 +109,16 @@ def _key(seed: int) -> Tuple[int, int]:
 
 
 def dropout_scale(h: int, f: int, b: int, seed: int, rate: float, device,
-                  fq0: int = 0, nq: Optional[int] = None) -> torch.Tensor:
+                  fq0: int = 0, nq: Optional[int] = None,
+                  sample0: int = 0) -> torch.Tensor:
     """(h, nq, F, B) float32 multipliers of the attention weights of query
-    fields ``fq0 .. fq0+nq``: ``1 / (1 - rate)`` where kept, 0 where
-    dropped."""
+    fields ``fq0 .. fq0+nq`` of samples ``sample0 .. sample0+B``: ``1 / (1 -
+    rate)`` where kept, 0 where dropped."""
     nq = f - fq0 if nq is None else nq
     k0, k1 = _key(seed)
     i64 = dict(dtype=torch.int64, device=device)
     groups = -(-f // 4)
-    words = philox4x32_10(torch.arange(b, **i64).view(1, 1, 1, b),
+    words = philox4x32_10((torch.arange(sample0, sample0 + b, **i64) & _MASK32).view(1, 1, 1, b),
                           torch.arange(fq0, fq0 + nq, **i64).view(1, nq, 1, 1),
                           torch.arange(h, **i64).view(h, 1, 1, 1),
                           torch.arange(groups, **i64).view(1, 1, groups, 1),
@@ -127,7 +150,7 @@ def _scores(q, k, f0, f1):
 
 def field_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, seed: int = 0,
-                              rate: float = 0.0) -> torch.Tensor:
+                              rate: float = 0.0, sample0: int = 0) -> torch.Tensor:
     """Plain forward, differentiable by autograd: softmax over keys of
     q.k / sqrt(dh), times the dropout multipliers, times v, with every
     (head, F, F, B) weight materialised; bf16 q, k, v widened to float32
@@ -141,17 +164,18 @@ def field_attention_reference(q: torch.Tensor, k: torch.Tensor,
         f1 = min(f, f0 + step)
         p = torch.softmax(_scores(q, k, f0, f1), dim=2)
         if rate > 0.0:
-            p = p * dropout_scale(h, f, b, seed, rate, q.device, f0, f1 - f0)
+            p = p * dropout_scale(h, f, b, seed, rate, q.device, f0, f1 - f0, sample0)
         outs.append(torch.einsum("hfgb,hdgb->hdfb", p, v))
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
 
 
-def field_attention_fwd_plain(q, k, v, seed: int = 0, rate: float = 0.0):
+def field_attention_fwd_plain(q, k, v, seed: int = 0, rate: float = 0.0,
+                              sample0: int = 0):
     """Plain forward that also returns the (h, F, B) log-sum-exp of each
     softmax row, as the forward kernel writes it for the backward (both
     float32)."""
     with torch.no_grad():
-        o = field_attention_reference(q, k, v, seed, rate)
+        o = field_attention_reference(q, k, v, seed, rate, sample0)
         q, k = _wide(q), _wide(k)
         h, _, f, b = q.shape
         starts, step = _chunks(h, f, b)
@@ -161,7 +185,7 @@ def field_attention_fwd_plain(q, k, v, seed: int = 0, rate: float = 0.0):
 
 
 def field_attention_bwd_reference(q, k, v, o, lse, do, seed: int = 0,
-                                  rate: float = 0.0):
+                                  rate: float = 0.0, sample0: int = 0):
     """Plain backward by the formulas of the JAX kernel's ``_bwd_kernel``
     (``field_attention_pallas.py:126-145``): p = exp(s - lse), the dropout
     multipliers m regenerated from the seed, dv = sum_q p m do,
@@ -184,7 +208,7 @@ def field_attention_bwd_reference(q, k, v, o, lse, do, seed: int = 0,
         dp = torch.einsum("hdfb,hdgb->hfgb", do[:, :, f0:f1], v)
         pd = p
         if rate > 0.0:
-            m = dropout_scale(h, f, b, seed, rate, q.device, f0, f1 - f0)
+            m = dropout_scale(h, f, b, seed, rate, q.device, f0, f1 - f0, sample0)
             pd, dp = p * m, dp * m
         ds = p * (dp - rowdot[:, f0:f1, None, :])
         dv += torch.einsum("hfgb,hdfb->hdgb", pd, do[:, :, f0:f1])
@@ -216,20 +240,20 @@ def bwd_keys_per_chunk(dh: int) -> int:
     return min(32, 128 // dh)
 
 
-def _dropout_args(seed: int, rate: float):
+def _dropout_args(seed: int, rate: float, sample0: int):
     k0, k1 = _key(seed)
     return (int(rate > 0.0), k0, k1, _threshold(rate),
-            1.0 / (1.0 - rate))
+            1.0 / (1.0 - rate), sample0 & _MASK32)
 
 
-def _fwd(q, k, v, seed: int, rate: float, want_lse: bool):
+def _fwd(q, k, v, seed: int, rate: float, want_lse: bool, sample0: int = 0):
     """K5f through the op ``field_attention_fwd``: (o, lse or None)."""
     o, lse = _ops.op("field_attention_fwd")(q, k, v, _ops.signed_seed(seed), float(rate),
-                                            want_lse)
+                                            want_lse, sample0)
     return o, (lse if want_lse else None)
 
 
-def fwd_launch(q, k, v, seed: int, rate: float, want_lse: bool):
+def fwd_launch(q, k, v, seed: int, rate: float, want_lse: bool, sample0: int = 0):
     """K5f's launcher, the CUDA implementation of the op
     ``recommendsystem_tpu_torch::field_attention_fwd``: (o, lse), lse
     empty unless ``want_lse``."""
@@ -244,17 +268,19 @@ def fwd_launch(q, k, v, seed: int, rate: float, want_lse: bool):
         code = lib.field_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr() if want_lse else None, h, dh, f, b,
-            1.0 / dh ** 0.5, *_dropout_args(seed, rate),
+            1.0 / dh ** 0.5, *_dropout_args(seed, rate, sample0),
             int(q.dtype == torch.bfloat16), stream_handle(q.device))
     check(lib, code, "field_attention")
     count_launch("field_attention")
     return o, lse
 
 
-def field_attention_bwd(q, k, v, o, lse, do, seed: int = 0, rate: float = 0.0):
+def field_attention_bwd(q, k, v, o, lse, do, seed: int = 0, rate: float = 0.0,
+                        sample0: int = 0):
     """K5b: (dq, dk, dv) of field attention from the forward's inputs, its
     output ``o`` and log-sum-exp ``lse`` (h, F, B), and the output gradient
-    ``do``; the dropout mask is regenerated from ``seed`` and ``rate``.
+    ``do``; the dropout mask is regenerated from ``seed``, ``rate`` and
+    ``sample0``.
     The kernel computes each (query, key, sample) term once and sums in a
     fixed order, so two calls on the same inputs give the same bits."""
     _check_qkv(q, k, v)
@@ -264,7 +290,7 @@ def field_attention_bwd(q, k, v, o, lse, do, seed: int = 0, rate: float = 0.0):
     h, dh, f, b = q.shape
     require(lse, "lse", torch.float32, (h, f, b), q.device)
     if q.device.type == "cpu":
-        return field_attention_bwd_reference(q, k, v, o, lse, do, seed, rate)
+        return field_attention_bwd_reference(q, k, v, o, lse, do, seed, rate, sample0)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     if q.numel() == 0:
         return dq, dk, dv
@@ -281,7 +307,7 @@ def field_attention_bwd(q, k, v, o, lse, do, seed: int = 0, rate: float = 0.0):
             lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
             None if dq_acc is None else dq_acc.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), h, dh, f, b, 1.0 / dh ** 0.5,
-            *_dropout_args(seed, rate), int(q.dtype == torch.bfloat16),
+            *_dropout_args(seed, rate, sample0), int(q.dtype == torch.bfloat16),
             stream_handle(q.device))
     check(lib, code, "field_attention_bwd")
     count_launch("field_attention_bwd")
@@ -292,30 +318,33 @@ class FieldAttentionFunction(torch.autograd.Function):
     """Field attention with K5b as its backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, seed: int, rate: float):
-        o, lse = _fwd(q, k, v, seed, rate, want_lse=True)
+    def forward(ctx, q, k, v, seed: int, rate: float, sample0: int):
+        o, lse = _fwd(q, k, v, seed, rate, True, sample0)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.seed, ctx.rate = seed, rate
+        ctx.seed, ctx.rate, ctx.sample0 = seed, rate, sample0
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = field_attention_bwd(q, k, v, o, lse, do.contiguous(),
-                                         ctx.seed, ctx.rate)
-        return dq, dk, dv, None, None
+                                         ctx.seed, ctx.rate, ctx.sample0)
+        return dq, dk, dv, None, None, None
 
 
 def field_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    seed: int = 0, rate: float = 0.0) -> torch.Tensor:
+                    seed: int = 0, rate: float = 0.0,
+                    sample0: Optional[int] = None) -> torch.Tensor:
     """softmax(q.k / sqrt(dh)) . v over fields, with attention-weight
     dropout at ``rate`` drawn from ``seed`` (a non-negative int below
-    2**64); q/k/v ``(h, dh, F, B)`` contiguous, on one device, all float32
-    or all bfloat16; returns ``(h, dh, F, B)`` float32, differentiable in
-    q, k and v (their gradients in their type)."""
+    2**64) for samples numbered from ``sample0`` (None: ``sample_offset``'s,
+    0 outside one); q/k/v ``(h, dh, F, B)`` contiguous, on one device, all
+    float32 or all bfloat16; returns ``(h, dh, F, B)`` float32,
+    differentiable in q, k and v (their gradients in their type)."""
     _check_qkv(q, k, v)
     _check_rate(rate)
     _key(seed)
+    sample0 = _SAMPLE0.get() if sample0 is None else sample0
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return FieldAttentionFunction.apply(q, k, v, seed, rate)
-    return _fwd(q, k, v, seed, rate, want_lse=False)[0]
+        return FieldAttentionFunction.apply(q, k, v, seed, rate, sample0)
+    return _fwd(q, k, v, seed, rate, False, sample0)[0]

@@ -94,6 +94,7 @@ def create_autoint(cfg: Optional[ModelConfig] = None,
                    opt_state_dtype=None,
                    sparse_lr: float = 5e-5,
                    dense_lr: float = 5e-5,
+                   num_shards: int = 1,
                    device="cuda") -> ModelBundle:
     """The autoint bundle on ``device`` (raises where CUDA is absent unless
     ``device="cpu"``).  Defaults: 24 mean columns of width 8 over
@@ -106,7 +107,9 @@ def create_autoint(cfg: Optional[ModelConfig] = None,
     or bfloat16) Adam's moments; ``compute_dtype`` (None: float32, or
     bfloat16) is the dense tower's compute dtype, the JAX package's
     mixed-precision policy (``train.step.apply_model``); any other raises
-    ``ValueError`` (``base.check_compute_dtype``)."""
+    ``ValueError`` (``base.check_compute_dtype``).
+    ``num_shards`` pads every storage for that many ranks of the sharded
+    mode, as the JAX factory does."""
     compute_dtype = check_compute_dtype(compute_dtype)
     dev = resolve_device(device)
     if cfg is None:
@@ -119,7 +122,7 @@ def create_autoint(cfg: Optional[ModelConfig] = None,
             for slot in cfg.sparse_slots]
     emb = EmbeddingFeatures(cols, SparseAdam(learning_rate=sparse_lr,
                                              state_dtype=or_float32(opt_state_dtype)),
-                            group_tables=True, max_group_bytes=10 << 20,
+                            num_shards=num_shards, group_tables=True, max_group_bytes=10 << 20,
                             table_dtype=or_float32(table_dtype))
     return ModelBundle(name="autoint", compute_dtype=compute_dtype,
                        module=AutoIntModule(cfg, model_param, device=dev),

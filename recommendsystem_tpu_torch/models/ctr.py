@@ -206,6 +206,7 @@ def create_ctr(cfg: Optional[ModelConfig] = None,
                opt_state_dtype=None,
                sparse_lr: float = 5e-5,
                dense_lr: float = 5e-5,
+               num_shards: int = 1,
                device="cuda") -> ModelBundle:
     """The ctr bundle on ``device`` (raises where CUDA is absent unless
     ``device="cpu"``).  Defaults as the JAX package's: the 24-slot
@@ -214,7 +215,9 @@ def create_ctr(cfg: Optional[ModelConfig] = None,
     grouped into storages of at most 40 MB, lazy per-row Adam on the tables
     and Adam(5e-5, 0.9, 0.999, 1e-8) on the tower; ``stacked_experts``
     stacks the MMoE's experts; ``table_dtype``, ``opt_state_dtype`` and
-    ``compute_dtype`` as in ``create_autoint``."""
+    ``compute_dtype`` as in ``create_autoint``.
+    ``num_shards`` pads every storage for that many ranks of the sharded
+    mode, as the JAX factory does."""
     compute_dtype = check_compute_dtype(compute_dtype)
     dev = resolve_device(device)
     if cfg is None:
@@ -229,7 +232,7 @@ def create_ctr(cfg: Optional[ModelConfig] = None,
             for slot in cfg.sparse_slots]
     emb = EmbeddingFeatures(cols, SparseAdam(learning_rate=sparse_lr,
                                              state_dtype=or_float32(opt_state_dtype)),
-                            group_tables=True, table_dtype=or_float32(table_dtype))
+                            num_shards=num_shards, group_tables=True, table_dtype=or_float32(table_dtype))
     # the two tasks share the Metric objects; each task's states are its own
     metrics = [M.binary_accuracy(), M.auc(), M.copc()]
     return ModelBundle(

@@ -97,6 +97,7 @@ def create_finish(slots: Optional[Sequence[str]] = None,
                   opt_state_dtype=None,
                   sparse_lr: float = 1e-3,
                   dense_lr: float = 1e-3,
+                  num_shards: int = 1,
                   device="cuda") -> ModelBundle:
     """The finish bundle on ``device`` (raises where CUDA is absent unless
     ``device="cpu"``).  Defaults as the JAX package's: slots ``3000..3039``
@@ -104,7 +105,9 @@ def create_finish(slots: Optional[Sequence[str]] = None,
     8, tables grouped into storages of at most 4 MB (one table each), lazy
     per-row Adam (1e-3) on the tables and Adam(1e-3) on the tower;
     ``table_dtype``, ``opt_state_dtype`` and ``compute_dtype`` as in
-    ``create_autoint``."""
+    ``create_autoint``.
+    ``num_shards`` pads every storage for that many ranks of the sharded
+    mode, as the JAX factory does."""
     compute_dtype = check_compute_dtype(compute_dtype)
     dev = resolve_device(device)
     if slots is None:
@@ -117,7 +120,7 @@ def create_finish(slots: Optional[Sequence[str]] = None,
             for s in slots]
     emb = EmbeddingFeatures(cols, SparseAdam(learning_rate=sparse_lr,
                                              state_dtype=or_float32(opt_state_dtype)),
-                            group_tables=True, max_group_bytes=4 << 20,
+                            num_shards=num_shards, group_tables=True, max_group_bytes=4 << 20,
                             table_dtype=or_float32(table_dtype))
     return ModelBundle(
         name="finish", compute_dtype=compute_dtype,

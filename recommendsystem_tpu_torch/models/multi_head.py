@@ -109,6 +109,7 @@ def create_multi_head(slots: Optional[Sequence[str]] = None,
                       opt_state_dtype=None,
                       sparse_lr: float = 5e-5,
                       dense_lr: float = 1e-5,
+                      num_shards: int = 1,
                       device="cuda") -> ModelBundle:
     """The multi_head bundle on ``device`` (raises where CUDA is absent
     unless ``device="cpu"``).  Defaults as the JAX package's: 40 sorted
@@ -116,7 +117,9 @@ def create_multi_head(slots: Optional[Sequence[str]] = None,
     grouped into storages of at most 10 MB, lazy per-row Adam (5e-5) on the
     tables and Adam(1e-5) on the tower; ``stacked_experts`` stacks the 8
     experts; ``table_dtype``, ``opt_state_dtype`` and ``compute_dtype`` as
-    in ``create_autoint``."""
+    in ``create_autoint``.
+    ``num_shards`` pads every storage for that many ranks of the sharded
+    mode, as the JAX factory does."""
     compute_dtype = check_compute_dtype(compute_dtype)
     dev = resolve_device(device)
     if slots is None:
@@ -126,7 +129,7 @@ def create_multi_head(slots: Optional[Sequence[str]] = None,
             for s in slots]
     emb = EmbeddingFeatures(cols, SparseAdam(learning_rate=sparse_lr,
                                              state_dtype=or_float32(opt_state_dtype)),
-                            group_tables=True, max_group_bytes=10 << 20,
+                            num_shards=num_shards, group_tables=True, max_group_bytes=10 << 20,
                             table_dtype=or_float32(table_dtype))
     return ModelBundle(
         name="multi_head", compute_dtype=compute_dtype,

@@ -137,6 +137,7 @@ def create_rough_rank(user_slots: Optional[Sequence[str]] = None,
                       opt_state_dtype=None,
                       sparse_lr: float = 1e-3,
                       dense_lr: float = 1e-4,
+                      num_shards: int = 1,
                       device="cuda") -> ModelBundle:
     """The rough_rank bundle on ``device`` (raises where CUDA is absent
     unless ``device="cpu"``).  Defaults as the JAX package's: user slots
@@ -145,7 +146,9 @@ def create_rough_rank(user_slots: Optional[Sequence[str]] = None,
     of at most 4 MB (24 of 51,296 rows and one of 25,648 at the defaults),
     lazy per-row Adam (1e-3) on the tables and Adam(1e-4) on the tower;
     ``table_dtype``, ``opt_state_dtype`` and ``compute_dtype`` as in
-    ``create_autoint``."""
+    ``create_autoint``.
+    ``num_shards`` pads every storage for that many ranks of the sharded
+    mode, as the JAX factory does."""
     compute_dtype = check_compute_dtype(compute_dtype)
     dev = resolve_device(device)
     if user_slots is None:
@@ -157,7 +160,7 @@ def create_rough_rank(user_slots: Optional[Sequence[str]] = None,
             for s in all_slots]
     emb = EmbeddingFeatures(cols, SparseAdam(learning_rate=sparse_lr,
                                              state_dtype=or_float32(opt_state_dtype)),
-                            group_tables=True, max_group_bytes=4 << 20,
+                            num_shards=num_shards, group_tables=True, max_group_bytes=4 << 20,
                             table_dtype=or_float32(table_dtype))
     return ModelBundle(
         name="rough_rank", compute_dtype=compute_dtype,

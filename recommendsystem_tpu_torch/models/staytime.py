@@ -216,6 +216,7 @@ def create_staytime(cfg: Optional[StaytimeConfig] = None,
                     compute_dtype=None,
                     sparse_lr: float = 5e-3,
                     dense_lr: float = 5e-4,
+                    num_shards: int = 1,
                     device="cuda") -> ModelBundle:
     """The staytime bundle on ``device`` (raises where CUDA is absent unless
     ``device="cpu"``).  Defaults: 91 mean columns of width 32 over
@@ -225,7 +226,9 @@ def create_staytime(cfg: Optional[StaytimeConfig] = None,
     stacks the three gated experts.  ``table_dtype`` (None: float32,
     bfloat16 or ``"auto"``, which stores these 32-wide rows in bf16) stores
     the tables (AdaGrad's g2sum stays float32); ``compute_dtype`` as in
-    ``create_autoint``."""
+    ``create_autoint``.
+    ``num_shards`` pads every storage for that many ranks of the sharded
+    mode, as the JAX factory does."""
     compute_dtype = check_compute_dtype(compute_dtype)
     dev = resolve_device(device)
     cfg = cfg or StaytimeConfig()
@@ -240,7 +243,7 @@ def create_staytime(cfg: Optional[StaytimeConfig] = None,
     emb = EmbeddingFeatures(cols, SparseAdaGrad(learning_rate=sparse_lr,
                                                 initial_g2sum=0.1,
                                                 initial_scale=0.1),
-                            group_tables=True, max_group_bytes=30 << 20,
+                            num_shards=num_shards, group_tables=True, max_group_bytes=30 << 20,
                             table_dtype=or_float32(table_dtype))
     return ModelBundle(
         name="staytime", compute_dtype=compute_dtype,

@@ -1,12 +1,19 @@
-"""Train state and steps of the port: the packed train step, its
-multi-step driver, the eval and predict steps, the streaming metrics and
+"""Train state and steps of the port: the packed train step (local and
+sharded, with ``state_shardings``, ``shard_state`` and ``gather_state``),
+its multi-step driver, the eval and predict steps, the streaming metrics and
 GAUCs, the harness (``fit``, ``evaluate``, ``predict``, ``dump_predict``,
 ``evaluate_gauc``, ``evaluate_gauc_streaming``), the checkpoint and the
 daily trainer (``python -m recommendsystem_tpu_torch.train.daily``)."""
 
 from . import losses  # noqa: F401
 from . import metrics  # noqa: F401
-from .state import TrainState, create_train_state  # noqa: F401
+from .state import (  # noqa: F401
+    TrainState,
+    create_train_state,
+    gather_state,
+    shard_state,
+    state_shardings,
+)
 from .step import (  # noqa: F401
     apply_model,
     make_eval_step,

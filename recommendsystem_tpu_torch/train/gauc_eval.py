@@ -25,7 +25,7 @@ import torch
 
 from ..search.gauc import group_auc
 from .state import TrainState
-from .step import _lookup_for_mode, apply_model, make_predict_step
+from .step import _check_mode, _lookup_for_mode, apply_model, make_predict_step
 from .streaming_gauc import StreamingGauc
 
 if TYPE_CHECKING:
@@ -54,6 +54,7 @@ def make_gauc_eval_step(bundle: "ModelBundle", gauc, mode: str = "local",
     streaming-GAUC update on the last column of its output and label, all
     on the device.  ``gauc`` is one metric or a {task: metric} dict;
     ``gauc_states`` is {task: metric.init(device)} and is additive."""
+    _check_mode(mode)
     per_task = _per_task(gauc, tuple(tasks or bundle.metrics))
 
     def step(state: TrainState, batch, dense_inputs, labels, user_ids, gauc_states):

@@ -25,7 +25,7 @@ import torch
 
 from . import metrics as M
 from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
-from .state import TrainState, create_train_state
+from .state import TrainState, create_train_state, shard_state
 from .step import (make_eval_step, make_predict_step, make_scan_train_step,
                    make_train_step)
 
@@ -48,7 +48,7 @@ def seed_stream(seed: int) -> Iterator[int]:
 
 
 def fit(bundle: "ModelBundle", dataset: Iterable, steps: Optional[int] = None,
-        state: Optional[TrainState] = None, seed: int = 0,
+        state: Optional[TrainState] = None, seed: int = 0, mesh=None,
         mode: str = "local", log_every: int = 100,
         checkpoint_dir: Optional[str] = None, checkpoint_every: int = 0,
         resume: bool = False, profile_dir: Optional[str] = None,
@@ -56,11 +56,16 @@ def fit(bundle: "ModelBundle", dataset: Iterable, steps: Optional[int] = None,
         nan_guard: str = "warn", callbacks=(),
         evict_every: int = 0, scan_steps: int = 0) -> TrainState:
     """Train on ``dataset``'s (batch, dense_inputs, labels, sample_weight)
-    items with the packed train step (``make_train_step``; ``mode`` is
-    ``"local"`` alone) for ``steps`` steps or until it ends.
+    items with the packed train step (``make_train_step``) for ``steps``
+    steps or until it ends.  ``mode="sharded"`` with ``mesh`` trains each
+    rank's rows of the data over its row shards of the tables (every rank
+    calls ``fit`` with its own dataset and the same ``seed``); a sharded
+    checkpoint is ROADMAP item 12b, so ``checkpoint_dir`` then raises
+    ``NotImplementedError``.
 
     ``state=None`` starts from ``create_train_state`` with the first seed
-    of ``seed_stream(seed)``; each step takes the next as its dropout seed.
+    of ``seed_stream(seed)`` (sharded: this rank's shards of it,
+    ``shard_state``); each step takes the next as its dropout seed.
     ``resume=True`` restores the latest checkpoint under ``checkpoint_dir``
     before training (crash recovery); the seed stream starts afresh, as the
     JAX ``fit``'s key does.  ``checkpoint_every=N`` saves every N steps.
@@ -80,11 +85,17 @@ def fit(bundle: "ModelBundle", dataset: Iterable, steps: Optional[int] = None,
     dispatch.  Returns the state (its tensors are updated in place)."""
     if nan_guard not in ("off", "warn", "raise"):
         raise ValueError(f"nan_guard {nan_guard!r}: expected 'off', 'warn' or 'raise'")
+    if mode == "sharded" and checkpoint_dir:
+        raise NotImplementedError("checkpointing a sharded state is ROADMAP item 12b, "
+                                  "not yet ported")
     seeds = seed_stream(seed)
-    train_step = make_train_step(bundle, mode=mode)
-    scan_step = make_scan_train_step(bundle, mode=mode) if scan_steps > 1 else None
+    train_step = make_train_step(bundle, mode=mode, mesh=mesh)
+    scan_step = (make_scan_train_step(bundle, mode=mode, mesh=mesh)
+                 if scan_steps > 1 else None)
     if state is None:
         state = create_train_state(bundle, seed=next(seeds))
+        if mode == "sharded":
+            state = shard_state(bundle, state, mesh)
     if resume and checkpoint_dir and latest_step(checkpoint_dir) is not None:
         state = restore_checkpoint(checkpoint_dir, state)
         log.info("resumed from %s at step %d", checkpoint_dir, state.step)
@@ -185,7 +196,9 @@ def evaluate(bundle: "ModelBundle", dataset: Iterable, state: TrainState,
              mode: str = "local") -> Dict[str, Dict[str, float]]:
     """{task: {metric name: value}} over the whole dataset.  The metric
     states stay on the bundle's device across batches; the values are
-    copied to the host once, at the end (the loop makes no host sync)."""
+    copied to the host once, at the end (the loop makes no host sync).
+    ``mode`` keeps the JAX signature, which passes the eval step no mesh:
+    ``"sharded"`` raises there as it does here."""
     eval_step = make_eval_step(bundle, mode=mode)
     metric_states = M.init_metrics(bundle.metrics, bundle.device)
     for batch, dense_inputs, labels, weight in dataset:

@@ -1,6 +1,8 @@
 """Train, eval and predict steps of the port.
 
-Counterpart of ``recommendsystem_tpu/train/step.py``, local mode:
+Counterpart of ``recommendsystem_tpu/train/step.py``, in both of its
+modes: ``"local"`` (one process holds every table) and ``"sharded"``
+(below):
 
 - ``make_train_step`` takes the JAX package's three sparse updates
   (``sparse_update=``):
@@ -43,6 +45,27 @@ reach the float32 params, the folded activations (K3 / K4) and the classic
 scatter are the bf16 cotangents widened.  The L1L2 penalty is taken on the
 cast kernels, as the JAX layers sow it from the bf16 kernels they hold.
 
+The sharded mode (``mode="sharded", mesh=``, a ``core.mesh.Mesh``) is the
+JAX package's data-parallel step over row-sharded tables, one process per
+rank: each rank passes its row shards of the tables (``train.state.
+shard_state``), its rows of the batch (``core.mesh.local_batch``) and the
+whole replicated dense state, and calls the step with the same seed.  The
+lookups pull rows from their owners and the sparse updates push gradients
+to them (``embedding/engine.py``, ``packed.gather_fold_sharded``,
+``packed.apply_gradients_packed_sharded``); K1-K4 and K8/K9 run over the
+exchanged buffers and the rank's shards.  The loss is the whole batch's,
+as the JAX step takes it over the global batch: a rank's term of a
+per-sample loss is the sum of its weighted losses over the all-reduced
+weight sum (or the global count), a scalar loss (a mean over the batch)
+is divided by the number of ranks, and the L1L2 penalty enters on rank 0
+alone; the dense gradients are all-reduced with SUM, so every rank applies
+the same Adam to the same gradient and the params stay replicated bit for
+bit.  The attention dropout numbers a rank's samples from its first global
+sample (``kernels.field_attention.sample_offset``), so a sharded step draws
+the masks of the local step on the whole batch.  ``info`` holds the whole
+batch's losses on every rank.  The eval step sums its metric increments
+over the ranks; the predict step gives the rank's rows.
+
 Keras-compile semantics as in the JAX package: the loss is the sum over
 tasks of ``loss_weight * loss``, where a loss that returns a scalar is taken
 as it is (autoint's ``cross_entropy_sum_mean``, so its sample weights do not
@@ -59,10 +82,14 @@ import dataclasses
 from typing import TYPE_CHECKING, Callable, Dict, Optional, Sequence, Union
 
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
+from ..core.mesh import Mesh
 from ..embedding import packed as packed_mod
+from ..embedding.engine import check_mode as _check_mode
 from ..embedding.optimizers import SparseAdaGrad, SparseAdam
+from ..kernels import field_attention as fa
 from ..nn import kernel_penalty, regularized_kernels
 from . import metrics as M
 from .state import TrainState
@@ -122,25 +149,36 @@ def _apply_cast(bundle, params, embs, dense_inputs, training, seed):
     return out if dtype is None else cast_floating(out, torch.float32)
 
 
-def _weighted_task_loss(loss_fn, y, pred, sample_weight):
+def _weighted_task_loss(loss_fn, y, pred, sample_weight, mesh: Optional[Mesh] = None):
     """Keras loss reduction: scalar losses pass through; per-sample /
-    per-element losses are (sample-weighted) means."""
+    per-element losses are (sample-weighted) means.  With a ``mesh`` the
+    rank's term of the whole batch's loss: the sums over its rows divided
+    by the weight sum all-reduced over the ranks (or the global count), a
+    scalar loss (a mean over the rank's rows) by the number of ranks."""
     raw = loss_fn(y, pred)
+    n = 1 if mesh is None else mesh.size
     if raw.ndim == 0:
-        return raw
+        return raw if n == 1 else raw / n
     if sample_weight is not None:
         w = sample_weight.reshape(raw.shape[0], *([1] * (raw.ndim - 1)))
         w = w.expand(raw.shape)
-        return (raw * w).sum() / torch.clamp(w.sum(), min=1e-12)
-    return raw.mean()
+        total = w.sum()
+        if mesh is not None:
+            dist.all_reduce(total, group=mesh.group)
+        return (raw * w).sum() / torch.clamp(total, min=1e-12)
+    return raw.mean() if mesh is None else raw.sum() / (raw.numel() * n)
 
 
 def _model_outputs_and_loss(bundle, params, embs, labels, sample_weight,
-                            dense_inputs, training, seed, penalized):
+                            dense_inputs, training, seed, penalized,
+                            mesh: Optional[Mesh] = None):
     """The outputs and the loss; ``penalized`` is
     ``nn.regularized_kernels(bundle.module)``: when it is empty, the loss
     has no penalty term and ``regularization`` is None.  The penalty is
-    taken on the params in the compute dtype (a float32 0-d tensor)."""
+    taken on the params in the compute dtype (a float32 0-d tensor).  With
+    a ``mesh``, the rank's term of the loss (``_weighted_task_loss``), the
+    penalty in rank 0's alone; ``regularization`` is the penalty on every
+    rank."""
     dtype = _policy(bundle)
     cparams = params if dtype is None else cast_floating(params, dtype)
     outputs = _apply_cast(bundle, cparams, embs, dense_inputs, training, seed)
@@ -149,21 +187,32 @@ def _model_outputs_and_loss(bundle, params, embs, labels, sample_weight,
     for task, loss_fn in bundle.losses.items():
         lw = (bundle.loss_weights or {}).get(task, 1.0)
         tl = _weighted_task_loss(loss_fn, labels[task], outputs[task],
-                                 sample_weight)
+                                 sample_weight, mesh)
         task_losses[task] = tl
         loss = loss + lw * tl
     reg = None
     if penalized:
         reg = kernel_penalty(penalized, cparams).float()
-        loss = loss + reg
+        if mesh is None or mesh.rank == 0:
+            loss = loss + reg
     return loss, {"task_losses": task_losses, "regularization": reg,
                   "outputs": outputs}
 
 
-def _check_mode(mode: str) -> None:
-    if mode != "local":
-        raise NotImplementedError(f"mode {mode!r}: the sharded modes come "
-                                  f"with a later slice of the port")
+def _all_reduce_flat(tensors, mesh: Mesh):
+    """``tensors`` (float32) summed over the ranks in one all-reduce;
+    returns new tensors of their shapes."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=mesh.group)
+    return [part.view(t.shape) for part, t in
+            zip(flat.split([t.numel() for t in tensors]), tensors)]
+
+
+def _first_sample(batch, mesh: Optional[Mesh]) -> int:
+    """The global index of this rank's first row of ``batch``."""
+    if mesh is None:
+        return 0
+    return mesh.rank * next(iter(batch.values())).rows.shape[0]
 
 
 def _seed_of(seed: Union[int, torch.Generator]) -> int:
@@ -176,7 +225,8 @@ def _seed_of(seed: Union[int, torch.Generator]) -> int:
 
 def total_loss_fn(bundle: "ModelBundle", params, table_weights, batch, labels,
                   sample_weight=None, dense_inputs=None, training: bool = True,
-                  seed: Union[int, torch.Generator] = 0, mode: str = "local"):
+                  seed: Union[int, torch.Generator] = 0, mode: str = "local",
+                  mesh: Optional[Mesh] = None):
     """The loss of ``params`` and the stored ``table_weights`` ({storage:
     (rows, D)}) on one batch, as ``recommendsystem_tpu/train/step.py:69-77``
     computes it: the classic ``lookup`` (differentiable in the weights),
@@ -186,12 +236,16 @@ def total_loss_fn(bundle: "ModelBundle", params, table_weights, batch, labels,
     draws the dropout of a training call.  Returns ``(loss, aux)``, aux
     holding ``task_losses``, ``regularization`` (a 0-d tensor, 0 for a
     module with no penalty, as JAX sums an empty collection) and
-    ``outputs``.  Any mode but ``"local"`` raises ``NotImplementedError``."""
-    _check_mode(mode)
-    embs = bundle.embedding.lookup(table_weights, batch)
-    loss, aux = _model_outputs_and_loss(bundle, params, embs, labels, sample_weight,
-                                        dense_inputs, training, _seed_of(seed),
-                                        regularized_kernels(bundle.module))
+    ``outputs``.  ``mode="sharded"`` (with ``mesh``) takes this rank's
+    row shards and rows of the batch and gives the rank's term of the loss
+    (the sum over the ranks is the loss; the module docstring)."""
+    _check_mode(mode, mesh)
+    embs = bundle.embedding.lookup(table_weights, batch, mode, mesh)
+    with fa.sample_offset(_first_sample(batch, mesh if mode == "sharded" else None)):
+        loss, aux = _model_outputs_and_loss(
+            bundle, params, embs, labels, sample_weight, dense_inputs, training,
+            _seed_of(seed), regularized_kernels(bundle.module),
+            mesh if mode == "sharded" else None)
     if aux["regularization"] is None:
         aux["regularization"] = torch.zeros((), device=loss.device)
     return loss, aux
@@ -220,14 +274,18 @@ def _store_tables(tables, new) -> None:
 
 
 def make_train_step(bundle: "ModelBundle", mode: str = "local",
-                    sparse_update: Optional[str] = None) -> Callable:
+                    sparse_update: Optional[str] = None,
+                    mesh: Optional[Mesh] = None) -> Callable:
     """Returns ``step(state, batch, labels, sample_weight=None,
     dense_inputs=None, seed=0) -> (state, info)``.  ``sparse_update`` is
     ``"packed"`` (the default, as in the JAX package), ``"scatter"`` or
     ``"dense"`` (module docstring); another name raises ``ValueError``.
     The packed update needs a lazy pass of the engine's sparse optimizer:
     ``SparseAdam`` (K8) or ``SparseAdaGrad`` (K9); any other raises
-    ``NotImplementedError``.
+    ``NotImplementedError``.  ``mode="sharded"`` with ``mesh`` is the
+    data-parallel step over row-sharded tables (module docstring); every
+    rank calls it with its shards, its rows of the batch and the same
+    ``seed``.
 
     ``batch`` holds IdBatches and ``labels`` {task: (B, 1)} tensors on the
     bundle's device; ``seed`` (an int below 2**32) draws the step's
@@ -244,7 +302,9 @@ def make_train_step(bundle: "ModelBundle", mode: str = "local",
     expert's bias; its kernel reaches it through its penalty alone) gets a
     zero gradient, as ``jax.grad`` gives it, so Adam moves it as optax
     does: not at all while its moments are 0."""
-    _check_mode(mode)
+    _check_mode(mode, mesh)
+    sharded = mode == "sharded"
+    mesh = mesh if sharded else None
     sparse_update = "packed" if sparse_update is None else sparse_update
     if sparse_update not in SPARSE_UPDATES:
         raise ValueError(f"sparse_update {sparse_update!r}: expected one of "
@@ -259,28 +319,35 @@ def make_train_step(bundle: "ModelBundle", mode: str = "local",
     penalized = regularized_kernels(bundle.module)
     no_penalty = torch.zeros((), device=bundle.device)
 
-    def loss_and_grads(state, embs, leaves, labels, sample_weight, dense_inputs,
+    def loss_and_grads(state, batch, embs, leaves, labels, sample_weight, dense_inputs,
                        seed):
         """The loss, its aux, and the gradients of the dense params (a
-        dict) and of ``leaves`` (a list), the params' taken as fresh
-        leaves of ``state.params``."""
+        dict; sharded: summed over the ranks) and of ``leaves`` (a list),
+        the params' taken as fresh leaves of ``state.params``."""
         params = {k: p.detach().requires_grad_() for k, p in state.params.items()}
-        loss, aux = _model_outputs_and_loss(bundle, params, embs(), labels,
-                                            sample_weight, dense_inputs,
-                                            True, seed, penalized)
-        grads = torch.autograd.grad(loss, list(params.values()) + leaves,
-                                    allow_unused=True, materialize_grads=True)
-        return loss, aux, dict(zip(params, grads[:len(params)])), list(grads[len(params):])
+        with fa.sample_offset(_first_sample(batch, mesh)):
+            loss, aux = _model_outputs_and_loss(bundle, params, embs(), labels,
+                                                sample_weight, dense_inputs,
+                                                True, seed, penalized, mesh)
+            grads = torch.autograd.grad(loss, list(params.values()) + leaves,
+                                        allow_unused=True, materialize_grads=True)
+        gp = list(grads[:len(params)])
+        if sharded:
+            gp = _all_reduce_flat(gp, mesh)
+        return loss, aux, dict(zip(params, gp)), list(grads[len(params):])
 
     def finish(state, loss, aux, gp):
-        """Dense Adam in place; the new state and the step's info."""
+        """Dense Adam in place; the new state and the step's info (sharded:
+        the whole batch's losses)."""
         with torch.no_grad():
             new_params = {k: p.detach() for k, p in state.params.items()}
             new_params, opt_state = bundle.dense_optimizer.update_(
                 new_params, gp, state.opt_state)
-        info = {"loss": loss.detach(),
-                **{f"loss/{t}": v.detach()
-                   for t, v in aux["task_losses"].items()},
+            losses = [loss.detach()] + [v.detach() for v in aux["task_losses"].values()]
+            if sharded:
+                losses = _all_reduce_flat([t.float() for t in losses], mesh)
+        info = {"loss": losses[0],
+                **{f"loss/{t}": v for t, v in zip(aux["task_losses"], losses[1:])},
                 "regularization": (no_penalty if aux["regularization"] is None
                                    else aux["regularization"].detach())}
         return TrainState(params=new_params, opt_state=opt_state,
@@ -291,11 +358,15 @@ def make_train_step(bundle: "ModelBundle", mode: str = "local",
         pk, _ = packed_mod.storages_packed(eng)
         plans = packed_mod.plan_segments(eng, batch, storages=set(pk))
         classic_batch = packed_mod.classic_columns(eng, batch, plans)
-        # stage 1 (no gradient): fused gather + fold; the classic gather for
-        # the storages that cannot pack
+        # stage 1 (no gradient): fused gather + fold (sharded: over the rows
+        # pulled from their owners); the classic gather for the storages
+        # that cannot pack
         with torch.no_grad():
-            ctx = packed_mod.gather_fold(eng, state.tables, batch, plans)
-            raw = (eng.gather_raw(eng.weights(state.tables), classic_batch)
+            if sharded:
+                ctx = packed_mod.gather_fold_sharded(eng, state.tables, batch, plans, mesh)
+            else:
+                ctx = packed_mod.gather_fold(eng, state.tables, batch, plans)
+            raw = (eng.gather_raw(eng.weights(state.tables), classic_batch, mode, mesh)
                    if classic_batch else {})
         acts = {skey: _leaves(c["acts"]) for skey, c in ctx.items()}
         raw = dict(zip(raw, _leaves(raw.values())))
@@ -310,7 +381,7 @@ def make_train_step(bundle: "ModelBundle", mode: str = "local",
         # classic activations
         act_list = [a for skey in acts for a in acts[skey]]
         loss, aux, gp, g_leaves = loss_and_grads(
-            state, embs, act_list + list(raw.values()), labels, sample_weight,
+            state, batch, embs, act_list + list(raw.values()), labels, sample_weight,
             dense_inputs, seed)
         it = iter(g_leaves)
         g_acts = {skey: [next(it) for _ in acts[skey]] for skey in acts}
@@ -318,26 +389,36 @@ def make_train_step(bundle: "ModelBundle", mode: str = "local",
 
         new_state, info = finish(state, loss, aux, gp)
         with torch.no_grad():
-            # stage 3 (no gradient): unfold-scatter + lazy pass, in place
-            packed_mod.apply_gradients_packed(eng, state.tables, g_acts, plans, ctx,
-                                              batch)
+            # stage 3 (no gradient): unfold-scatter (sharded: pushed to the
+            # owners) + lazy pass, in place
+            if sharded:
+                packed_mod.apply_gradients_packed_sharded(eng, state.tables, g_acts, plans,
+                                                          ctx, batch, mesh)
+            else:
+                packed_mod.apply_gradients_packed(eng, state.tables, g_acts, plans, ctx,
+                                                  batch)
             if classic_batch:
-                flat = eng.flatten_raw_grads(g_raw, classic_batch)
-                _store_tables(state.tables, eng.apply_gradients_scatter(state.tables, flat))
+                _store_tables(state.tables, _scatter_update(state.tables, g_raw,
+                                                            classic_batch))
         return new_state, info
+
+    def _scatter_update(tables, g_raw, batch):
+        if sharded:
+            return eng.apply_gradients_scatter_sharded(tables, g_raw, batch, mesh)
+        return eng.apply_gradients_scatter(tables, eng.flatten_raw_grads(g_raw, batch))
 
     def step_scatter(state: TrainState, batch, labels, sample_weight=None,
                      dense_inputs=None, seed: int = 0):
         with torch.no_grad():
-            raw = eng.gather_raw(eng.weights(state.tables), batch)
+            raw = eng.gather_raw(eng.weights(state.tables), batch, mode, mesh)
         raw = dict(zip(raw, _leaves(raw.values())))
         loss, aux, gp, g_raw = loss_and_grads(
-            state, lambda: eng.combine_raw(raw, batch), list(raw.values()), labels,
+            state, batch, lambda: eng.combine_raw(raw, batch), list(raw.values()), labels,
             sample_weight, dense_inputs, seed)
         new_state, info = finish(state, loss, aux, gp)
         with torch.no_grad():
-            flat = eng.flatten_raw_grads(dict(zip(raw, g_raw)), batch)
-            _store_tables(state.tables, eng.apply_gradients_scatter(state.tables, flat))
+            _store_tables(state.tables, _scatter_update(state.tables, dict(zip(raw, g_raw)),
+                                                        batch))
         return new_state, info
 
     def step_dense(state: TrainState, batch, labels, sample_weight=None,
@@ -346,12 +427,13 @@ def make_train_step(bundle: "ModelBundle", mode: str = "local",
         # the gradient of a bf16 table arrives in bf16: the cotangent of
         # its cast to float32 in the gather, as in the JAX package
         loss, aux, gp, g_w = loss_and_grads(
-            state, lambda: eng.lookup(weights, batch), list(weights.values()), labels,
-            sample_weight, dense_inputs, seed)
+            state, batch, lambda: eng.lookup(weights, batch, mode, mesh),
+            list(weights.values()), labels, sample_weight, dense_inputs, seed)
         new_state, info = finish(state, loss, aux, gp)
         with torch.no_grad():
-            new = eng.apply_gradients(state.tables, dict(zip(weights, g_w)),
-                                      eng.row_counts(batch))
+            counts = (eng.row_counts_sharded(batch, mesh) if sharded
+                      else eng.row_counts(batch))
+            new = eng.apply_gradients(state.tables, dict(zip(weights, g_w)), counts)
             _store_tables(state.tables, new)
         return new_state, info
 
@@ -360,17 +442,18 @@ def make_train_step(bundle: "ModelBundle", mode: str = "local",
 
 
 def make_scan_train_step(bundle: "ModelBundle", mode: str = "local",
-                         sparse_update: Optional[str] = None) -> Callable:
+                         sparse_update: Optional[str] = None,
+                         mesh: Optional[Mesh] = None) -> Callable:
     """Multi-step driver: returns ``run(state, batches, labels,
     sample_weights, dense_inputs, seeds) -> (state, infos)`` over K steps,
     each data argument a sequence of K (``sample_weights`` and
     ``dense_inputs`` may be None), ``infos`` each step's scalars stacked,
     e.g. ``infos["loss"][k]``.  A Python loop over ``make_train_step``
-    (``sparse_update`` passed through): the
+    (``mode``, ``sparse_update`` and ``mesh`` passed through): the
     same K steps one by one give the same result.  (A CUDA graph of the
     step is the Hopper counterpart of the JAX package's one-dispatch scan;
     it comes with a later slice.)"""
-    body = make_train_step(bundle, mode, sparse_update)
+    body = make_train_step(bundle, mode, sparse_update, mesh)
 
     def run(state: TrainState, batches: Sequence, labels: Sequence,
             sample_weights: Optional[Sequence] = None,
@@ -393,17 +476,36 @@ def make_scan_train_step(bundle: "ModelBundle", mode: str = "local",
     return run
 
 
-def _lookup_for_mode(bundle, tables, batch, mode: str = "local"):
+def _lookup_for_mode(bundle, tables, batch, mode: str = "local",
+                     mesh: Optional[Mesh] = None):
     """The fused lookup with sequences deferred, or the classic lookup for
-    an engine built with ``packed=False``, as the JAX package chooses."""
-    _check_mode(mode)
+    an engine built with ``packed=False``, as the JAX package chooses;
+    sharded, the same over the rows pulled from their owners.  (The JAX
+    package's sharded predict and eval steps take the classic sharded
+    lookup: one function, which the port computes with its kernels.)"""
     eng = bundle.embedding
+    if mode == "sharded":
+        if eng.packed:
+            return packed_mod.lookup_packed_sharded(eng, tables, batch, mesh,
+                                                    defer_sequences=True)
+        return eng.lookup(eng.weights(tables), batch, mode, mesh)
     if eng.packed:
         return packed_mod.lookup_packed(eng, tables, batch, defer_sequences=True)
     return eng.lookup(eng.weights(tables), batch)
 
 
-def make_eval_step(bundle: "ModelBundle", mode: str = "local") -> Callable:
+def _sum_over_ranks(metrics, states, increments, mesh: Mesh):
+    """``states`` plus the increments of every rank: one all-reduce of the
+    increments (float32 sums and counts, as every metric state is)."""
+    leaves = [inc[k] for task in metrics for inc in increments[task] for k in sorted(inc)]
+    it = iter(_all_reduce_flat([t.float() for t in leaves], mesh))
+    return {task: [{k: st[k] + next(it).to(st[k].dtype) for k in sorted(inc)}
+                   for st, inc in zip(states[task], increments[task])]
+            for task in metrics}
+
+
+def make_eval_step(bundle: "ModelBundle", mode: str = "local",
+                   mesh: Optional[Mesh] = None) -> Callable:
     """Returns ``step(state, batch, labels, sample_weight, dense_inputs,
     metric_states) -> (metric_states, outputs)`` under
     ``torch.inference_mode()``: the predict step's lookup (so the same
@@ -413,33 +515,45 @@ def make_eval_step(bundle: "ModelBundle", mode: str = "local") -> Callable:
     output, the distribution and the value).  ``sample_weight``: None, one
     (B, 1) tensor, or {task: tensor}.  ``metric_states`` come from
     ``metrics.init_metrics(bundle.metrics, bundle.device)``; the step makes
-    no host sync."""
+    no host sync.  Sharded (``mode="sharded", mesh=``): each rank passes
+    its shards and rows; the states it gets back hold the whole batch's
+    increments (summed over the ranks), the outputs are its rows'."""
+    _check_mode(mode, mesh)
 
     def step(state: TrainState, batch, labels, sample_weight, dense_inputs,
              metric_states):
         with torch.inference_mode():
-            embs = _lookup_for_mode(bundle, state.tables, batch, mode)
+            embs = _lookup_for_mode(bundle, state.tables, batch, mode, mesh)
             outputs = apply_model(bundle, state.params, embs, dense_inputs,
                                   training=False)
             y = {t: labels[t] for t in bundle.metrics}
             preds = {t: outputs[t] for t in bundle.metrics}
-            metric_states = M.update_metrics(bundle.metrics, metric_states, y, preds,
-                                             sample_weight)
+            if mode == "sharded":
+                zero = M.init_metrics(bundle.metrics, outputs[next(iter(preds))].device)
+                inc = M.update_metrics(bundle.metrics, zero, y, preds, sample_weight)
+                metric_states = _sum_over_ranks(bundle.metrics, metric_states, inc, mesh)
+            else:
+                metric_states = M.update_metrics(bundle.metrics, metric_states, y, preds,
+                                                 sample_weight)
         return metric_states, outputs
 
     return step
 
 
-def make_predict_step(bundle: "ModelBundle", mode: str = "local") -> Callable:
+def make_predict_step(bundle: "ModelBundle", mode: str = "local",
+                      mesh: Optional[Mesh] = None) -> Callable:
     """Returns ``step(state, batch, dense_inputs) -> {task: (B, 1)}``,
     running under ``torch.inference_mode()``; ``batch`` holds IdBatches of
     tensors on the bundle's device.  The lookup defers the sequence
     columns: the model gets ``SequenceRows`` handles for them, and the DIN
-    pool (K7) gathers the rows it reads."""
+    pool (K7) gathers the rows it reads.  Sharded (``mode="sharded",
+    mesh=``): each rank passes its shards and rows and gets its rows'
+    outputs; K7 gathers its facts from the rows the exchange brought."""
+    _check_mode(mode, mesh)
 
     def step(state: TrainState, batch, dense_inputs=None):
         with torch.inference_mode():
-            embs = _lookup_for_mode(bundle, state.tables, batch, mode)
+            embs = _lookup_for_mode(bundle, state.tables, batch, mode, mesh)
             outputs = apply_model(bundle, state.params, embs, dense_inputs,
                                   training=False)
             return bundle.predict_view(outputs)

@@ -2,6 +2,7 @@
 """Where the time of the port's packed train step goes, on one CUDA card.
 
     python3 scripts/torch_profile_train.py [--model autoint] [--batch B] [--ids 5 1] [--steps 8]
+                                           [--sharded]
 
 ``--model``: autoint (B = 65536, 5 and 1 ids), ctr (B = 32768), ctr212
 (the 212-feature ctr shape, ``synthetic_ctr_config(num_slots=180,
@@ -27,6 +28,12 @@ shapes (facts (B, 50, 16) from the step's batch), each backward through
 CUDA events (launch gaps included), 5 calls after one warm-up.
 Prints one JSON line per width, with the card's name and power limit, and
 writes the tables to ``chiprun_out/profile_train_<model>.txt``.
+
+``--sharded`` profiles the sharded step (``mode="sharded"``) on a
+one-rank NCCL group (``core.mesh.create_mesh()``) in place of the local
+one, and adds the ops with the most host time (``host_top``: self CPU µs
+a step, the NCCL collectives among them) and the NCCL kernels' device µs
+a step (``nccl_us_per_step``).
 
 ``--penalty`` (ctr, ctr212, multi_head, finish) then measures what the L1L2
 kernel penalty costs: the step with it and the same step built without it
@@ -178,6 +185,7 @@ def main(argv=None) -> int:
     ap.add_argument("--ids", type=int, nargs="+", default=None)
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--penalty", action="store_true")
+    ap.add_argument("--sharded", action="store_true")
     args = ap.parse_args(argv)
     args.batch = args.batch or DEFAULTS[args.model][0]
     args.ids = args.ids or DEFAULTS[args.model][1]
@@ -199,7 +207,11 @@ def main(argv=None) -> int:
                               bucket_size=32768, device="cuda")
     else:
         bundle = create_model(args.model, device="cuda")
-    step = make_train_step(bundle)
+    mesh = None
+    if args.sharded:
+        from recommendsystem_tpu_torch.core.mesh import create_mesh
+        mesh = create_mesh("cuda")
+    step = make_train_step(bundle, mode="sharded" if mesh else "local", mesh=mesh)
     os.makedirs("chiprun_out", exist_ok=True)
     tables = []
     for ipf in args.ids:
@@ -248,6 +260,14 @@ def main(argv=None) -> int:
                "card": card}
         if args.model == "staytime":
             row["din_backward_us_per_step"] = din_backward_us(bundle, state, batch)
+        if mesh is not None:
+            host = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
+                          reverse=True)[:14]
+            row["host_top"] = [{"name": e.key[:60], "calls_per_step": e.count / args.steps,
+                                "self_cpu_us_per_step": e.self_cpu_time_total / args.steps}
+                               for e in host]
+            row["nccl_us_per_step"] = sum(device_us(e) for e in kernels
+                                          if "nccl" in e.key.lower()) / args.steps
         print(json.dumps(row), flush=True)
         tables.append(f"## {args.model}, batch {args.batch}, {ipf} ids per feature ({card})\n"
                       f"{json.dumps(row)}\n" + "\n".join(json.dumps(t) for t in top)
@@ -258,7 +278,11 @@ def main(argv=None) -> int:
                         "card": card})
             print(json.dumps(row), flush=True)
             tables.append(f"## the L1L2 penalty\n{json.dumps(row)}\n")
-    with open(os.path.join("chiprun_out", f"profile_train_{args.model}.txt"), "w") as fh:
+    if mesh is not None:
+        import torch.distributed as dist
+        dist.destroy_process_group()
+    name = args.model + ("_sharded" if mesh is not None else "")
+    with open(os.path.join("chiprun_out", f"profile_train_{name}.txt"), "w") as fh:
         fh.write("\n".join(tables))
     print("\n".join(tables), file=sys.stderr)
     return 0

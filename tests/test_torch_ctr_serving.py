@@ -139,15 +139,18 @@ def test_score_matches_jax_service(pair):
 
 
 def test_train_step_refuses_modes_other_than_local(pair):
-    """The tower of six L1L2-regularized Dense layers is refused in any mode
-    but "local" (the sharded modes come with a later slice)."""
+    """The tower of six L1L2-regularized Dense layers; the step refuses
+    the sharded mode without a mesh, and any mode but "local" and
+    "sharded"."""
     pbundle = pair[2][0]
     regularized = [n for n, m in pbundle.module.named_modules()
                    if getattr(m, "kernel_regularizer", None) == (1e-5, 1e-5)]
     assert regularized == ["dnn_0", "dnn_1", "task0_dnn2_0", "task0_dnn2_1",
                            "task1_dnn2_0", "task1_dnn2_1"]
-    with pytest.raises(NotImplementedError, match="mode 'sharded'"):
+    with pytest.raises(ValueError, match="mode 'sharded' needs a mesh"):
         make_train_step(pbundle, mode="sharded")
+    with pytest.raises(ValueError, match="mode 'pipeline'"):
+        make_train_step(pbundle, mode="pipeline")
 
 
 def test_train_step_takes_the_regularized_tower(pair):

@@ -20,8 +20,8 @@ and below it in the other sends one sample's gradient through a unit on
 one side only (at seed 3 one does, at the 212-feature shape).  So an entry
 past its tolerance passes only where such a kink explains it, by the rule
 of ``chip_smoke.witness``: every ReLU input of the port's step is paired
-with the JAX forward's on the same state (run eagerly, each input
-recorded); a flip (the signs differ) is a kink where both values lie
+with the JAX step's (each input handed to ``jax.debug.callback`` inside
+the jitted step, whose roundings an eager forward does not share); a flip (the signs differ) is a kink where both values lie
 within ``KINK_RTOL`` of the call's largest |input| or within the largest
 difference between the packages among the call's elements that did not
 flip, and every flip of a step after a kink counts as one; any other flip
@@ -41,11 +41,9 @@ from chip_smoke import GRAD_ROUND, KINK_RTOL, _sample_of
 
 from recommendsystem_tpu.core.config import synthetic_ctr_config as jax_synthetic_ctr_config
 from recommendsystem_tpu.data import synthetic_batch as jax_synthetic_batch
-from recommendsystem_tpu.embedding import packed as jpk
 from recommendsystem_tpu.models import create_model as jax_create_model
 from recommendsystem_tpu.nn import mlp as jax_mlp
 from recommendsystem_tpu.train import create_train_state as jax_create_train_state
-from recommendsystem_tpu.train.step import apply_model as jax_apply_model
 from recommendsystem_tpu.train.step import make_train_step as jax_make_train_step
 from recommendsystem_tpu_torch import bridge
 from recommendsystem_tpu_torch.core.config import synthetic_ctr_config
@@ -134,31 +132,6 @@ class _ReluInputs(TorchFunctionMode):
                 return interacting_attention_plain(x, dict(zip(PARAM_NAMES, p)), head_num,
                                                    ln_eps)
         return func(*args, **(kwargs or {}))
-
-
-def jax_relu_inputs(jbundle, jstate, jb):
-    """The input of every ReLU of the JAX packed step's forward on
-    ``jstate``, in call order: the packed lookup and the module applied
-    eagerly (no jit), ``jax.nn.relu`` and the Dense layers' "relu"
-    recording what they see."""
-    eng = jbundle.embedding
-    plans = jpk.plan_segments(eng, jb, storages=set(jpk.storages_packed(eng)[0]))
-    ctx = jpk.gather_fold(eng, jstate.tables, jb, plans)
-    embs = jpk.combine_from_acts(eng, plans, {s: {"acts": c["acts"]} for s, c in ctx.items()},
-                                 jb)
-    calls, real = [], jax.nn.relu
-
-    def relu(x):
-        calls.append(np.asarray(x))
-        return real(x)
-
-    old, jax_mlp.ACTIVATIONS["relu"], jax.nn.relu = jax_mlp.ACTIVATIONS["relu"], relu, relu
-    try:
-        jax_apply_model(jbundle, jstate.params, embs, None, training=True,
-                        rngs={"dropout": jax.random.PRNGKey(0)})
-    finally:
-        jax_mlp.ACTIVATIONS["relu"], jax.nn.relu = old, real
-    return calls
 
 
 def _in_jax_layout(p, shape):
@@ -353,7 +326,7 @@ def assert_states_match_or_kinked(jbundle, jstate, pstate, batch, kinks, pgrads,
 
 
 def witnessed_steps(jbundle, pbundle, jax_side, port_side, jstate, jinfos, jstates,
-                    monkeypatch):
+                    jax_relu, monkeypatch):
     """The port's 3 steps (``port_steps_match``) with their ReLU inputs and
     gradients recorded (the dense ones as Adam takes them, the tables' as
     the lazy pass takes them), the replay of its updates, then the states
@@ -385,7 +358,6 @@ def witnessed_steps(jbundle, pbundle, jax_side, port_side, jstate, jinfos, jstat
             pstate = port_steps_match(pbundle, port_side, jinfos)
     per_step = len(rec.calls) // len(jinfos)
     port_relu = [rec.calls[i * per_step:(i + 1) * per_step] for i in range(len(jinfos))]
-    jax_relu = [jax_relu_inputs(jbundle, s, jax_side[1]) for s in jstates]
     kinks = kinked_samples(port_relu, jax_relu)
     counts = pbundle.embedding.row_counts(port_side[1])
     assert_port_updates_replay(jbundle, jstates[0], pstate, grads, counts)
@@ -395,15 +367,39 @@ def witnessed_steps(jbundle, pbundle, jax_side, port_side, jstate, jinfos, jstat
 
 
 def jax_steps_with_states(jbundle, jax_side, steps=3):
-    """``jax_steps`` and the JAX state before each step."""
+    """``jax_steps``, the JAX state before each step, and each step's ReLU
+    inputs in call order: ``jax.nn.relu`` and the Dense layers' "relu"
+    hand what they see to ``jax.debug.callback`` inside the jitted step.
+    So they are the inputs of the computation whose gradients the witness
+    compares: XLA compiles the step with other roundings than an eager
+    forward, and a ReLU input within rounding of 0 can lie on the other
+    side of it there (the 212-feature shape at batch seed 3 has one in
+    sample 10, which an eager forward does not show)."""
     jstate, jb, jl, jw = jax_side
-    jstep = jax_make_train_step(jbundle, donate=False, sparse_update="packed")
-    states, infos = [], []
-    for i in range(steps):
-        states.append(jstate)
-        jstate, info = jstep(jstate, jb, jl, jw, None, jax.random.PRNGKey(i))
-        infos.append(jax.device_get(info))
-    return jstate, infos, states
+    real = jax.nn.relu
+    calls = {}
+
+    def relu(x):
+        i = len(calls)
+        calls[i] = None
+        jax.debug.callback(lambda v, i=i: calls.__setitem__(i, np.asarray(v)), x)
+        return real(x)
+
+    states, infos, relu_inputs = [], [], []
+    old, jax_mlp.ACTIVATIONS["relu"], jax.nn.relu = jax_mlp.ACTIVATIONS["relu"], relu, relu
+    try:
+        jstep = jax_make_train_step(jbundle, donate=False, sparse_update="packed")
+        for i in range(steps):
+            states.append(jstate)
+            calls.clear()
+            jstate, info = jstep(jstate, jb, jl, jw, None, jax.random.PRNGKey(i))
+            infos.append(jax.device_get(info))
+            assert calls and all(v is not None for v in calls.values()), (
+                "a ReLU input of the JAX step was not recorded")
+            relu_inputs.append([calls[k] for k in range(len(calls))])
+    finally:
+        jax_mlp.ACTIVATIONS["relu"], jax.nn.relu = old, real
+    return jstate, infos, states, relu_inputs
 
 
 @pytest.mark.parametrize("seed", [3, 4])
@@ -413,13 +409,15 @@ def test_three_steps_match_jax_at_default_widths(monkeypatch, seed):
                            device="cpu")
     assert {d for _, d in pbundle.embedding.storage.values()} == {48}
     jside, pside = bridged(jbundle, pbundle, seed=seed)
-    jstate, jinfos, jstates = jax_steps_with_states(jbundle, jside)
-    witnessed_steps(jbundle, pbundle, jside, pside, jstate, jinfos, jstates, monkeypatch)
+    jstate, jinfos, jstates, jrelu = jax_steps_with_states(jbundle, jside)
+    witnessed_steps(jbundle, pbundle, jside, pside, jstate, jinfos, jstates, jrelu,
+                    monkeypatch)
     # the same steps through the layer's transposed K5 path
     layer = pbundle.module.interacting
     monkeypatch.setattr(layer, "forward", layer.forward_transposed)
     _, pside = bridged(jbundle, pbundle, seed=seed)
-    witnessed_steps(jbundle, pbundle, jside, pside, jstate, jinfos, jstates, monkeypatch)
+    witnessed_steps(jbundle, pbundle, jside, pside, jstate, jinfos, jstates, jrelu,
+                    monkeypatch)
 
 
 @pytest.mark.parametrize("seed", [3, 4])
@@ -433,5 +431,33 @@ def test_three_steps_match_jax_at_the_212_feature_shape(monkeypatch, seed):
     assert {d for _, d in pbundle.embedding.storage.values()} == {56}
     jside, pside = bridged(jbundle, pbundle, ids_per_feature={}, seed=seed)
     assert all(v.rows.shape == (BATCH, 1) for v in pside[1].values())
-    jstate, jinfos, jstates = jax_steps_with_states(jbundle, jside)
-    witnessed_steps(jbundle, pbundle, jside, pside, jstate, jinfos, jstates, monkeypatch)
+    jstate, jinfos, jstates, jrelu = jax_steps_with_states(jbundle, jside)
+    witnessed_steps(jbundle, pbundle, jside, pside, jstate, jinfos, jstates, jrelu,
+                    monkeypatch)
+
+
+def test_relu_recorder_sees_the_interacting_layer_as_its_plain_version():
+    """``_ReluInputs`` runs K6's op as its plain version in the mode: on a
+    training call of the InteractingLayer (the K6 path, through its
+    autograd Function) it records the same ReLU inputs, in the same count
+    and order, as ``interacting_attention_plain`` called directly, and the
+    backward's recompute records none."""
+    from recommendsystem_tpu_torch.nn.interacting import InteractingLayer
+
+    torch.manual_seed(0)
+    layer = InteractingLayer(8, unit_num=8, head_num=2, device="cpu")
+    x = torch.randn(4, 6, 8, requires_grad=True)
+    rec = _ReluInputs()
+    with rec:
+        out = layer(x, training=True)
+        out.square().sum().backward()
+    direct = _ReluInputs()
+    p = {"wq": layer.wq, "bq": layer.bq, "wk": layer.wk, "bk": layer.bk, "wv": layer.wv,
+         "bv": layer.bv, "wr": layer.wr, "br": layer.br, "gamma": layer.ln_scale,
+         "beta": layer.ln_bias}
+    with direct, torch.no_grad():
+        want = interacting_attention_plain(x, p, 2, layer.ln_epsilon)
+    assert len(rec.calls) == len(direct.calls) == 5
+    for got, exp in zip(rec.calls, direct.calls):
+        np.testing.assert_array_equal(got, exp)
+    np.testing.assert_array_equal(out.detach().numpy(), want.numpy())

@@ -1461,3 +1461,26 @@ def test_custom_ops_launch_their_kernels(cuda):
                 _assert_fold(gv, wv)
             else:
                 torch.testing.assert_close(gv, wv, rtol=0, atol=atol, msg=name)
+
+
+@pytest.mark.parametrize("sample0", [1, 65541, (1 << 32) - 7])
+@pytest.mark.parametrize("f,b", [(24, 300), (40, 77)])
+def test_field_attention_sample_offset(cuda, f, b, sample0):
+    """K5f and K5b draw the dropout of a rank's rows from their first
+    global sample (``sample0``, wrapping at 2**32), as the plain versions
+    do: the sharded step's masks are the local step's."""
+    g = torch.Generator(device=cuda).manual_seed(f + b + sample0 % 97)
+    q, k, v, do = (torch.randn((2, 4, f, b), generator=g, device=cuda) for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = field_attention(*leaves, 5, 0.2, sample0=sample0)
+    o.backward(do)
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = field_attention_reference(*plain, 5, 0.2, sample0)
+    want.backward(do)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o, want, rtol=0, atol=2e-5)
+    for a, w in zip(leaves, plain):
+        torch.testing.assert_close(a.grad, w.grad, rtol=1e-4, atol=2e-5)
+    assert not torch.equal(want, field_attention_reference(q, k, v, 5, 0.2, 0))
+    assert launch_counts()["field_attention"] == 1
+    assert launch_counts()["field_attention_bwd"] == 1

@@ -110,8 +110,10 @@ def test_total_loss_fn_seeds_and_modes(name):
     a, _ = total_loss_fn(*args, seed=torch.Generator().manual_seed(3))
     b, _ = total_loss_fn(*args, seed=torch.Generator().manual_seed(3))
     assert torch.isfinite(a) and torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="sharded"):
+    with pytest.raises(ValueError, match="mode 'sharded' needs a mesh"):
         total_loss_fn(*args, mode="sharded")
+    with pytest.raises(ValueError, match="mode 'pipeline'"):
+        total_loss_fn(*args, mode="pipeline")
 
 
 def test_feature_and_slot_sort_and_compare_as_jax():

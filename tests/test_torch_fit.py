@@ -162,5 +162,11 @@ def test_profile_dir_writes_a_trace(tmp_path):
 
 
 def test_fit_refuses_other_modes():
-    with pytest.raises(NotImplementedError, match="mode"):
+    """The sharded mode without a mesh, an unknown mode, and a sharded
+    checkpoint (ROADMAP item 12b)."""
+    with pytest.raises(ValueError, match="mode 'sharded' needs a mesh"):
         fit(_bundle(), iter(()), mode="sharded")
+    with pytest.raises(ValueError, match="mode 'pipeline'"):
+        fit(_bundle(), iter(()), mode="pipeline")
+    with pytest.raises(NotImplementedError, match="12b"):
+        fit(_bundle(), iter(()), mode="sharded", checkpoint_dir="ckpt")

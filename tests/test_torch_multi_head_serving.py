@@ -161,15 +161,18 @@ def test_states_of_one_bundle_share_no_tensor():
 
 
 def test_train_step_refuses_modes_other_than_local(pair):
-    """The tower of regularized experts, gates and deep layers is refused in
-    any mode but "local"; its ``stacked_experts`` variant builds the 8
+    """The tower of regularized experts, gates and deep layers: the step
+    refuses the sharded mode without a mesh, and any mode but "local" and
+    "sharded"; its ``stacked_experts`` variant builds the 8
     experts as one stacked Dense ``experts_fc1`` and scores as the JAX
     stacked model does."""
     pbundle = pair[2][0]
     assert pbundle.module.expert_0_fc1.kernel_regularizer == (0.0, 0.01)
     assert pbundle.module.dnn_0.kernel_regularizer == (1e-5, 1e-5)
-    with pytest.raises(NotImplementedError, match="mode 'sharded'"):
+    with pytest.raises(ValueError, match="mode 'sharded' needs a mesh"):
         make_train_step(pbundle, mode="sharded")
+    with pytest.raises(ValueError, match="mode 'pipeline'"):
+        make_train_step(pbundle, mode="pipeline")
     jbundle = jax_create_model("multi_head", slots=SLOTS, bucket_size=BUCKET,
                                stacked_experts=True)
     sbundle = create_model("multi_head", slots=SLOTS, bucket_size=BUCKET,
