@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --phase 14     # one phase alone (14, 15 or 16)
+    python3 chip_smoke.py --phase 14     # one phase alone (14, 15, 16 or 17)
 
 1. builds the port's CUDA kernels from ``recommendsystem_tpu_torch/csrc/``
    (one nvcc per source, all at once);
@@ -210,7 +210,20 @@
    ``witness`` at ``CHECK_SEEDS``; one sharded scatter step; staytime's
    sharded predict call (K7 gathering from the exchanged rows) held to the
    local one; K5f and K5b with a non-zero sample offset against their
-   plain versions.
+   plain versions;
+17. drives tensor and expert parallelism (``mesh2d_path``) on a data 1 x
+   model 2 mesh of two processes on the one card (a gloo world and model
+   group over the card's tensors, staged through the host; one-rank NCCL
+   data groups): full-width ctr (B = 32768) with ``tensor_parallel=True``
+   (24 column-split kernels) and rough_rank with ``stacked_experts=True``
+   and ``expert_shardings`` (B = 32768), each rank's window held to the
+   local step's losses and, gathered, its state, launches a step held to
+   ``MESH2D_LAUNCHES``, the model replicas' tables bit-equal, the drop
+   report 0, the two steps timed in turns with the collectives' bytes;
+   ctr's predict call and eval step under the placements held to the
+   local ones; ctr's tensor-parallel step held to the CPU by ``witness``
+   at ``CHECK_SEEDS``; the sharded checkpoint from ``fit`` restored onto
+   the ranks and locally, bit for bit.
 
 Prints the card's name and power limit, one JSON line each for the autoint
 predict step, the train step, the staytime predict step, the predict
@@ -222,7 +235,8 @@ path's loader, train-step and checkpoint numbers (``daily``), phase
 13's table sizes, train steps and classic-update launches (``bf16``),
 phase 14's train and predict times under the policy (``bf16_compute``) and
 phase 15's loaded-program and predict-step times and dispatch µs
-(``export``), phase 16's sharded and local step times (``sharded``), then
+(``export``), phase 16's sharded and local step times (``sharded``), phase
+17's 2-D and local step times, collectives and checkpoint (``mesh2d``), then
 ``{"kernels": ...}`` (10 kernels), and last
 ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Any failure ends the run with a traceback
@@ -5204,6 +5218,737 @@ def _sharded_line(out):
             "backend": out["backend"], "phase_s": out["phase_s"], "card": out["card"]}
 
 
+# -- phase 17: tensor and expert parallelism on a 2-D mesh ----------------------
+MESH2D_RANKS = 2                  # one data index x a model axis of 2, on one card
+# launches a step of each rank's sharded step on the 2-D mesh: the one-rank
+# sharded step's (phase 16): K1, the owners' K2, K3, the owners' K4 and K8,
+# and ctr's K5f and K5b
+MESH2D_LAUNCHES = {
+    "ctr": {"fold_mean": 1, "fold_rows": 1, "unfold_mean": 1, "unfold_rows": 1,
+            "field_attention": 1, "field_attention_bwd": 1, "sparse_adam_update": 1},
+    "rough_rank": {"fold_mean": 1, "fold_rows": 1, "unfold_mean": 1, "unfold_rows": 1,
+                   "sparse_adam_update": 1}}
+# ctr's sharded predict call and eval step: the owners' K2, then K1 and K6
+MESH2D_PREDICT_LAUNCHES = {"fold_mean": 1, "fold_rows": 1, "interacting_attention": 1}
+# a sharded state against the local one: the CPU tests' tolerances
+# (``tests/torch_sharded_common.py``: PARAM_TOL, TABLE_TOL)
+MESH2D_PARAM_TOL = dict(rtol=5e-4, atol=1e-5)
+MESH2D_TABLE_TOL = dict(rtol=5e-4, atol=1e-6)
+MESH2D_TP_KERNELS = 24            # ctr's kernels the JAX rule splits over a model axis of 2
+MESH2D_TIMEOUT_S = 900
+
+
+def _clone_tree(x):
+    if isinstance(x, dict):
+        return {k: _clone_tree(v) for k, v in x.items()}
+    return x.clone() if isinstance(x, torch.Tensor) else x
+
+
+def _window_on(step, state, batch, dense, labels, weight, steps=TRAIN_STEPS):
+    """``steps`` steps from ``state`` in a window of counts: (state,
+    launches, losses, infos)."""
+    from recommendsystem_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    infos = []
+    for i in range(steps):
+        state, info = step(state, batch, labels, weight, dense, seed=i)
+        infos.append(info)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    losses = [float(i["loss"]) for i in infos]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train loss not finite: {losses}")
+    return state, counts, losses, infos
+
+
+class _GradRecorder:
+    """Records, a step at a time, the dense gradients as the dense Adam
+    takes them and each storage's gradient rows as the lazy pass takes them
+    (the accumulator's (rows, D) block), for the side set by ``side``:
+    what ``_hold_state`` explains an entry past its tolerance by."""
+
+    def __init__(self, bundle):
+        self.bundle, self.which = bundle, None
+        self.dense, self.tables = {}, {}
+
+    def side(self, which):
+        self.which = which
+        self.dense[which], self.tables[which] = [], []
+        return self
+
+    def __enter__(self):
+        from recommendsystem_tpu_torch.embedding import packed
+
+        opt = self.bundle.dense_optimizer
+        real_update, real_group = opt.update_, packed.sparse_update_group
+
+        def update(params, grads, state):
+            self.dense[self.which].append({k: g.detach().clone() for k, g in grads.items()})
+            self.tables[self.which].append({})
+            return real_update(params, grads, state)
+
+        def group(o, tstates, accs):
+            tstates, accs = list(tstates), list(accs)
+            for ts, acc in zip(tstates, accs):
+                rows = packed.accumulator_views(acc, ts["w"].shape[1])[0]
+                self.tables[self.which][-1][id(ts["w"])] = rows.detach().clone()
+            return real_group(o, tstates, accs)
+
+        self._undo = (opt, real_group)
+        object.__setattr__(opt, "update_", update)       # a frozen dataclass
+        packed.sparse_update_group = group
+        return self
+
+    def __exit__(self, *exc):
+        from recommendsystem_tpu_torch.embedding import packed
+
+        opt, real_group = self._undo
+        object.__delattr__(opt, "update_")
+        packed.sparse_update_group = real_group
+
+    def by_storage(self, which, tables):
+        """The recorded table gradients of ``which``, keyed by storage."""
+        names = {id(t["w"]): skey for skey, t in tables.items()}
+        return [{names[k]: v for k, v in step.items()} for step in self.tables[which]]
+
+
+class _KinkFinder(TorchFunctionMode):
+    """The local window's ReLU inputs kept on the card, and in the 2-D
+    window each ReLU call's flips against the local call of the same place
+    (an expert shard's input against its experts' rows of the local one):
+    a flip whose two values lie within KINK_RTOL of the call's largest
+    |input|, or within the largest difference among the call's elements
+    that did not flip, is a kink, as ``witness`` counts one; once a step
+    had a kink, the flips of the steps after it count as kinks (their
+    states are apart by more than rounding).  ``kinks``: the samples with a
+    kink; ``far``: every other flip."""
+
+    def __init__(self, model_rank, b, steps):
+        super().__init__()
+        self.model_rank, self.b, self.steps = model_rank, b, steps
+        self.local, self.side, self.i = [], None, 0
+        self.kinks, self.far, self.kinked_step = set(), [], None
+
+    def at(self, side):
+        self.side, self.i = side, 0
+        return self
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func in (torch.relu, torch.nn.functional.relu, torch.Tensor.relu):
+            x = args[0].detach()
+            if self.side == "local":
+                self.local.append(x.clone())
+            else:
+                self._flips(x)
+        return func(*args, **(kwargs or {}))
+
+    def _flips(self, g):
+        c = self.local[self.i]
+        step = self.i // (len(self.local) // self.steps) + 1
+        self.i += 1
+        if c.shape != g.shape:          # a shard of the experts: its rows
+            c = c.narrow(0, self.model_rank * g.shape[0], g.shape[0])
+        flipped = (g > 0) != (c > 0)
+        if not bool(flipped.any()):
+            return
+        near = max(KINK_RTOL * float(c.abs().max()),
+                   float(torch.where(flipped, 0.0, (g - c).abs()).max()))
+        for idx in flipped.nonzero().tolist():
+            gv, cv = float(g[tuple(idx)]), float(c[tuple(idx)])
+            sample = _sample_of(g.shape, idx, self.b)
+            if max(abs(gv), abs(cv)) <= near or (self.kinked_step or step) < step:
+                self.kinks.add(sample)
+                self.kinked_step = min(self.kinked_step or step, step)
+            else:
+                self.far.append({"step": step, "shape": list(g.shape), "sample": sample,
+                                 "2d": gv, "local": cv, "near": near})
+
+
+def _readers_kinked(eng, batch, kinks, skey, rows):
+    """Whether some sample with a kink looks up each of storage ``skey``'s
+    ``rows``."""
+    out = []
+    for r in rows:
+        hit = False
+        for key, col in eng.columns.items():
+            s, off, _ = eng.table_map[col.categorical_column.key]
+            if s != skey or key not in batch:
+                continue
+            reads = ((batch[key].rows.long() + off == r) & (batch[key].mask > 0)).any(dim=1)
+            if set(reads.nonzero().view(-1).tolist()) & kinks:
+                hit = True
+                break
+        out.append(hit)
+    return out
+
+
+def _past_tol(got, want, rtol, atol):
+    """Where ``got`` lies past ``want``'s tolerance (``np.isclose``'s rule)."""
+    got, want = got.float(), want.float()
+    return (got - want).abs() > atol + rtol * want.abs()
+
+
+def _hold_state(got, want, what, grads, kinked_rows=None):
+    """A gathered sharded state against the local one: params and the Adam
+    moments at MESH2D_PARAM_TOL / MESH2D_TABLE_TOL, tables (w, m, v) at
+    MESH2D_TABLE_TOL, show and t equal.  An entry past its tolerance is
+    explained, by ``witness``'s rules, where its gradients on the two sides
+    agree within rounding at every step (``_beyond_rounding``: Adam turns a
+    rounding of a gradient near 0 into a visible step), or, for a table
+    row, where ``kinked_rows(skey, rows)`` says a sample with a kink looks
+    it up.  ``grads``: {"2d" and "local": [{name: gradient} a step]} for
+    the dense params and for the storages.  Returns the entries past a
+    tolerance and how each was explained; raises on any other."""
+    out = {"past": 0, "rounding": 0, "kink": 0}
+
+    def hold(g, w, tol, where, steps, skey=None):
+        bad = _past_tol(g, w, **tol)
+        n = int(bad.sum())
+        if not n:
+            return
+        beyond = torch.zeros_like(bad)
+        for a, b in steps:
+            beyond |= _beyond_rounding(a.float(), b.float()).reshape(bad.shape)
+        left = bad & beyond
+        k = int(left.sum())
+        if k:
+            rows = left.nonzero()[:, 0].unique().tolist()
+            if skey is None or kinked_rows is None or not all(kinked_rows(skey, rows)):
+                raise AssertionError(f"{what} {where}: {k} of {n} entries past {tol} with "
+                                     f"gradients apart beyond rounding and no kink, e.g. at "
+                                     f"{left.nonzero()[:5].tolist()}")
+        out["past"] += n
+        out["rounding"] += n - k
+        out["kink"] += k
+
+    dense = list(zip(grads["dense"]["2d"], grads["dense"]["local"]))
+    for k, v in want.params.items():
+        hold(got.params[k], v, MESH2D_PARAM_TOL, k, [(a[k], b[k]) for a, b in dense])
+    for m in ("mu", "nu"):
+        for k, v in want.opt_state[m].items():
+            hold(got.opt_state[m][k], v, MESH2D_TABLE_TOL, f"{m} {k}",
+                 [(a[k], b[k]) for a, b in dense])
+    rows = list(zip(grads["tables"]["2d"], grads["tables"]["local"]))
+    for skey, t in want.tables.items():
+        g = got.tables[skey]
+        steps = [(a[skey], b[skey]) for a, b in rows]
+        hold(g["w"], t["w"], MESH2D_TABLE_TOL, f"{skey} w", steps, skey)
+        if not torch.equal(g["show"], t["show"]):
+            raise AssertionError(f"{what} {skey}: show differs from the local step's")
+        for name, v in t["opt"].items():
+            if name == "t":
+                if not torch.equal(g["opt"]["t"], v):
+                    raise AssertionError(f"{what} {skey}: t differs from the local step's")
+                continue
+            hold(g["opt"][name], v, MESH2D_TABLE_TOL, f"{skey} {name}", steps, skey)
+    return out
+
+
+def _replicas_equal(tables, mesh) -> bool:
+    """Whether the model ranks of this data index hold the same bits in
+    every table leaf: each storage's bytes gathered over the model group and
+    compared, the verdict agreed over it."""
+    import torch.distributed as dist
+
+    from recommendsystem_tpu_torch.core.model_axis import all_gather
+
+    same = True
+    for t in tables.values():
+        mine = torch.cat([x.reshape(-1).view(torch.uint8)
+                          for x in (t["w"], *t["opt"].values(), t["show"])])
+        parts = all_gather(mine, 0, mesh.model_group, mesh.model).view(mesh.model, -1)
+        same = same and all(torch.equal(p, mine) for p in parts)
+        del mine, parts
+    flag = torch.tensor([float(same)])
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=mesh.model_group)
+    return bool(flag.item())
+
+
+def _digest(tree, prefix=""):
+    """{leaf name: a 64-bit position-weighted sum of its bits}: equal
+    tensors give equal digests, and a flipped bit changes its leaf's."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_digest(v, f"{prefix}{k}."))
+        elif isinstance(v, torch.Tensor):
+            x = v.contiguous().reshape(-1)
+            x = x.view(torch.int32 if x.element_size() == 4 else torch.int16).to(torch.int64)
+            w = torch.arange(x.numel(), device=x.device, dtype=torch.int64)
+            w = w * -7046029254386353131 + 1442695040888963407
+            out[f"{prefix}{k}"] = [int((x * w).sum()), tuple(v.shape), str(v.dtype)]
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _turns_on(pairs, batch, dense, labels, weight, steps=2):
+    """Each (name, step, state) of ``pairs`` in turn: one warm-up step,
+    then ms a step over ``steps`` steps ending in a synchronize."""
+    turns = []
+    for which, step, state in pairs:
+        state, info = step(state, batch, labels, weight, dense, seed=90)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            state, info = step(state, batch, labels, weight, dense, seed=91 + i)
+        float(info["loss"])
+        torch.cuda.synchronize()
+        turns.append((which, (time.perf_counter() - t0) / steps * 1e3))
+    return turns
+
+
+def _busy_share(step, state, batch, dense, labels, weight, steps=2):
+    """``steps`` steps under ``torch.profiler``: the kernels' device ms a
+    step, the traced wall ms a step (host clock, ending in a synchronize),
+    their ratio (the busy share) and the kernels a step."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            state, info = step(state, batch, labels, weight, dense, seed=95 + i)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / steps * 1e3
+    busy_us, kernels = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = next((float(getattr(e, a)) for a in ("self_device_time_total",
+                                                   "self_cuda_time_total")
+                   if hasattr(e, a)), 0.0)
+        if us > 0:
+            busy_us += us
+            kernels += e.count
+    busy_ms = busy_us / steps / 1e3
+    return {"busy_ms": busy_ms, "wall_ms": wall_ms, "busy_share": busy_ms / wall_ms,
+            "kernels": kernels / steps}
+
+
+class _WholeAdam:
+    """The dense Adam of a tensor-parallel step taken on whole tensors: the
+    shards the step hands it gathered over the model group, the bundle's own
+    ``dense_optimizer.update_`` (looked up at each call, where the witness
+    records the gradients it is given) on the whole, and this rank's part
+    written back into its shards.  Adam is elementwise, so the shards end
+    as the sharded Adam leaves them; the witness sees whole gradients."""
+
+    def __init__(self, bundle, mesh, shardings):
+        self.bundle, self.mesh, self.sh = bundle, mesh, shardings
+
+    def _whole(self, x, placement):
+        from recommendsystem_tpu_torch.core.model_axis import all_gather
+
+        if not placement.model_axis:
+            return x
+        return all_gather(x, placement.dim, self.mesh.model_group, self.mesh.model)
+
+    def update_(self, params, grads, state):
+        sh = self.sh.params
+        wp = {k: self._whole(v, sh[k]) for k, v in params.items()}
+        wg = {k: self._whole(v, sh[k]) for k, v in grads.items()}
+        ws = {"count": state["count"],
+              **{m: {k: self._whole(v, sh[k]) for k, v in state[m].items()}
+                 for m in ("mu", "nu")}}
+        wp, ws = self.bundle.dense_optimizer.update_(wp, wg, ws)
+        for k, v in params.items():
+            v.copy_(sh[k].local_part(wp[k]))
+        for m in ("mu", "nu"):
+            for k, v in state[m].items():
+                v.copy_(sh[k].local_part(ws[m][k]))
+        state["count"] = ws["count"]
+        return params, state
+
+
+def _tp_card_step(mesh):
+    """``card_step`` for ``witness``: the tensor-parallel step on whole
+    states.  The step cuts this rank's columns of the state it is given
+    (the tables pass as they are: the data axis is 1, so a rank's rows are
+    the table), takes the sharded step with ``_WholeAdam``, and gathers the
+    dense state back; the tables it returns are the tensors it was given,
+    updated in place, as the witness's recorders key them."""
+    from recommendsystem_tpu_torch.train import make_train_step
+    from recommendsystem_tpu_torch.train.state import (TrainState, create_train_state,
+                                                       gather_state, state_shardings)
+
+    if mesh.size != 1:
+        raise ValueError("the witness's tensor-parallel step takes a data axis of 1")
+
+    def make(bnd, sparse_update):
+        sh = state_shardings(bnd, create_train_state(bnd, seed=0), mesh, tensor_parallel=True)
+        proxy = dataclasses.replace(bnd, dense_optimizer=_WholeAdam(bnd, mesh, sh))
+        step = make_train_step(proxy, mode="sharded", sparse_update=sparse_update, mesh=mesh,
+                               shardings=sh)
+
+        def cut(tree, placements):
+            if isinstance(tree, dict):
+                return {k: cut(v, placements[k]) for k, v in tree.items()}
+            if not isinstance(tree, torch.Tensor):
+                return tree
+            return placements.local_part(tree).clone()
+
+        def run(state, batch, labels, weight=None, dense=None, seed=0):
+            shards = TrainState(params=cut(state.params, sh.params),
+                                opt_state=cut(state.opt_state, sh.opt_state),
+                                tables=state.tables, step=state.step)
+            new, info = step(shards, batch, labels, weight, dense, seed=seed)
+            whole = gather_state(bnd, TrainState(new.params, new.opt_state, {}, new.step),
+                                 mesh, sh)
+            return TrainState(params=whole.params, opt_state=whole.opt_state,
+                              tables=new.tables, step=new.step), info
+        return run
+    return make
+
+
+def _mesh2d_model(mesh, card, name, model, kw, b, placement):
+    """One model of phase 17 on this rank: its placements, a window of the
+    local step and one of the 2-D sharded step from one state and batch,
+    held to each other; launches, replicas, drops, the two steps timed in
+    turns; for ctr also the predict call and the eval step."""
+    import torch.distributed as dist
+
+    from recommendsystem_tpu_torch.core import model_axis
+    from recommendsystem_tpu_torch.core.mesh import local_batch
+    from recommendsystem_tpu_torch.core.model_axis import all_gather
+    from recommendsystem_tpu_torch.data import synthetic_batch
+    from recommendsystem_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from recommendsystem_tpu_torch.models import create_model
+    from recommendsystem_tpu_torch.nn import expert_shardings
+    from recommendsystem_tpu_torch.train import (make_eval_step, make_predict_step,
+                                                 make_train_step)
+    from recommendsystem_tpu_torch.train import metrics as M
+    from recommendsystem_tpu_torch.train.state import (create_train_state, gather_state,
+                                                       merge_shardings, shard_state,
+                                                       state_shardings)
+
+    bundle = create_model(model, device="cuda", num_shards=mesh.size, **kw)
+    eng = bundle.embedding
+    whole = create_train_state(bundle, seed=2)
+    if placement == "tensor":
+        sh = state_shardings(bundle, whole, mesh, tensor_parallel=True)
+        rule = sum(1 for v in whole.params.values()
+                   if v.ndim == 2 and v.shape[-1] >= 64 and v.shape[-1] % mesh.model == 0)
+        split = {k: p.kind for k, p in sh.params.items() if p.model_axis}
+        if not (len(split) == rule == MESH2D_TP_KERNELS
+                and set(split.values()) == {"column"}):
+            raise AssertionError(f"{name}: {len(split)} column placements, the JAX rule "
+                                 f"gives {rule}")
+    else:
+        sh = merge_shardings(state_shardings(bundle, whole, mesh),
+                             expert_shardings(whole.params, mesh))
+        split = {k: p.kind for k, p in sh.params.items() if p.model_axis}
+        stacks = {k: whole.params[k].shape[0] for k in split}
+        if sorted(set(stacks.values())) != [4, 8] or len(split) != 8:
+            raise AssertionError(f"{name}: expert placements {stacks}")
+    batch, dense, labels, weight = local_batch(
+        synthetic_batch(bundle, b, seed=70, ids_per_feature=5), mesh)
+    drops = eng.a2a_drop_report(batch, mesh)
+    if any(r["rows"] for r in drops.values()):
+        raise AssertionError(f"{name}: the exchange dropped {drops}")
+    state = shard_state(bundle, whole, mesh, sh)
+    for k, kind in split.items():
+        want = list(whole.params[k].shape)
+        want[-1 if kind == "column" else 0] //= mesh.model
+        if list(state.params[k].shape) != want:
+            raise AssertionError(f"{name} {k}: shard {tuple(state.params[k].shape)}")
+    local = make_train_step(bundle)
+    step2d = make_train_step(bundle, mode="sharded", mesh=mesh, shardings=sh)
+    rec = _GradRecorder(bundle)
+    relu = _KinkFinder(mesh.model_rank, b, TRAIN_STEPS)
+    with rec.side("local"), relu.at("local"):
+        lstate, lcounts, llosses, _ = _window_on(local, whole, batch, dense, labels, weight)
+    model_axis.reset_collective_stats()
+    with rec.side("2d"), relu.at("2d"):
+        state, counts, losses, infos = _window_on(step2d, state, batch, dense, labels, weight)
+    stats = model_axis.collective_stats()
+    if not relu.local or relu.i != len(relu.local):
+        raise AssertionError(f"{name}: the 2-D step called ReLU {relu.i} times, the local "
+                             f"step {len(relu.local)}")
+    if relu.far:
+        raise AssertionError(f"{name}: ReLU inputs flipped far from 0 between the 2-D and "
+                             f"the local step: {relu.far[:5]}")
+    per_step = {k: v / TRAIN_STEPS for k, v in counts.items() if v}
+    if per_step != MESH2D_LAUNCHES[model]:
+        raise AssertionError(f"{name} 2-D step: launches a step {per_step}, expected "
+                             f"{MESH2D_LAUNCHES[model]}")
+    np.testing.assert_allclose(losses, llosses, rtol=TRAIN_LOSS_RTOL,
+                               err_msg=f"{name}: 2-D step against local losses")
+    regs = [float(i["regularization"]) for i in infos]
+    equal = _replicas_equal(state.tables, mesh)
+    if not equal:
+        raise AssertionError(f"{name}: the model replicas' tables differ")
+    gathered = gather_state(bundle, state, mesh, sh)
+    grads = {"dense": {"local": rec.dense["local"],
+                       "2d": [{k: all_gather(g, sh.params[k].dim, mesh.model_group, mesh.model)
+                               if sh.params[k].model_axis else g for k, g in step.items()}
+                              for step in rec.dense["2d"]]},
+             "tables": {"local": rec.by_storage("local", lstate.tables),
+                        "2d": rec.by_storage("2d", state.tables)}}
+    held = _hold_state(gathered, lstate, name, grads,
+                       lambda skey, rows: _readers_kinked(eng, batch, relu.kinks, skey, rows))
+    held["kinked_samples"] = len(relu.kinks)
+    del grads, rec, relu
+    res = {"batch": b, "placement": placement, "split_leaves": len(split),
+           "launches_per_step": per_step,
+           "local_launches_per_step": {k: v / TRAIN_STEPS for k, v in lcounts.items() if v},
+           "losses": losses, "local_losses": llosses, "regularization": regs,
+           "replicas_equal": equal, "drop_report_rows": sum(r["rows"] for r in drops.values()),
+           "past_tolerance": held,
+           "collectives_per_step": {k: v / TRAIN_STEPS for k, v in stats.items()},
+           "launches": counts}
+    if placement == "tensor":
+        tp_pred = make_predict_step(bundle, mode="sharded", mesh=mesh, shardings=sh)
+        want = make_predict_step(bundle)(gathered, batch, dense)
+        tp_pred(state, batch, dense)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got = tp_pred(state, batch, dense)
+        torch.cuda.synchronize()
+        pcounts = launch_counts()
+        for task, w in want.items():
+            np.testing.assert_allclose(got[task].float().cpu().numpy(), w.float().cpu().numpy(),
+                                       **SCORE_TOL, err_msg=f"{name} 2-D predict {task}")
+        tp_eval = make_eval_step(bundle, mode="sharded", mesh=mesh, shardings=sh)
+        zero = M.init_metrics(bundle.metrics, bundle.device)
+        lstates, _ = make_eval_step(bundle)(gathered, batch, labels, weight, dense, zero)
+        reset_launch_counts()
+        states, _ = tp_eval(state, batch, labels, weight, dense,
+                            M.init_metrics(bundle.metrics, bundle.device))
+        torch.cuda.synchronize()
+        ecounts = launch_counts()
+        values, lvalues = (M.compute_metrics(bundle.metrics, s) for s in (states, lstates))
+        for task, ms in lvalues.items():
+            for metric, v in ms.items():
+                np.testing.assert_allclose(float(values[task][metric]), float(v), **SCORE_TOL,
+                                           err_msg=f"{name} 2-D eval {task} {metric}")
+        for what, c in (("predict", pcounts), ("eval", ecounts)):
+            per_call = {k: v for k, v in c.items() if v}
+            if per_call != MESH2D_PREDICT_LAUNCHES:
+                raise AssertionError(f"{name} 2-D {what}: launches {per_call}, expected "
+                                     f"{MESH2D_PREDICT_LAUNCHES}")
+            res[f"{what}_launches"] = per_call
+            res["launches"] = {k: res["launches"].get(k, 0) + c.get(k, 0)
+                               for k in set(res["launches"]) | set(c)}
+    del gathered
+    turns = _turns_on((("local", local, lstate), ("2d", step2d, state), ("2d", step2d, state),
+                       ("local", local, lstate)), batch, dense, labels, weight)
+    res["in_turns_ms"] = turns
+    res["profile"] = {which: _busy_share(st, sd, batch, dense, labels, weight)
+                      for which, st, sd in (("local", local, lstate), ("2d", step2d, state))}
+    res["mesh2d_ms"] = sum(ms for w, ms in turns if w == "2d") / 2
+    res["local_ms"] = sum(ms for w, ms in turns if w == "local") / 2
+    res["final_replicas_equal"] = _replicas_equal(state.tables, mesh)
+    if not res["final_replicas_equal"]:
+        raise AssertionError(f"{name}: the model replicas' tables differ after the turns")
+    dist.barrier()
+    del bundle, eng, whole, state, lstate, local, step2d
+    torch.cuda.empty_cache()
+    return res
+
+
+def _mesh2d_checkpoint(mesh, ckpt):
+    """``fit(mode="sharded", checkpoint_dir=ckpt, checkpoint_every=2)`` for 2
+    steps of full-width ctr, tensor-parallel; the checkpoint restored onto
+    the ranks against their shards bit for bit; a sharded save and restore
+    timed; the gathered state's digests for the parent's local restore."""
+    from recommendsystem_tpu_torch.core.mesh import local_batch
+    from recommendsystem_tpu_torch.data import synthetic_batch
+    from recommendsystem_tpu_torch.models import create_model
+    from recommendsystem_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+    from recommendsystem_tpu_torch.train.harness import fit
+    from recommendsystem_tpu_torch.train.state import (create_train_state, gather_state,
+                                                       state_shardings)
+
+    bundle = create_model("ctr", device="cuda", num_shards=mesh.size)
+    sh = state_shardings(bundle, create_train_state(bundle, seed=0), mesh, tensor_parallel=True)
+    data = []
+    for i in range(2):
+        b, d, l, w = local_batch(synthetic_batch(bundle, CTR_BATCH, seed=80 + i,
+                                                 ids_per_feature=5), mesh)
+        data.append((b, d, l, w))
+    state = fit(bundle, data, steps=2, seed=0, mesh=mesh, mode="sharded", log_every=0,
+                shardings=sh, checkpoint_dir=ckpt, checkpoint_every=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = restore_checkpoint(ckpt, state, mesh=mesh, shardings=sh)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    _assert_same_state(restored, state, "the sharded checkpoint restored onto the ranks")
+    del restored
+    t0 = time.perf_counter()
+    save_checkpoint(ckpt, state, mesh=mesh, shardings=sh)
+    save_s = time.perf_counter() - t0
+    whole = gather_state(bundle, state, mesh, sh)
+    out = {"step": int(state.step), "restore_s": restore_s, "save_s": save_s,
+           "bytes": os.path.getsize(os.path.join(ckpt, str(int(state.step)), "state.pt")),
+           "digest": _digest({"params": whole.params, "opt_state": whole.opt_state,
+                              "tables": whole.tables, "step": int(whole.step)})}
+    del bundle, state, whole
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh2d_rank(rank, world, store, tmp, card):
+    """One rank of phase 17 in a process of its own: joins the gloo group
+    of ``world`` ranks through the file ``store``, builds the data 1 x
+    model 2 mesh on the card, runs the phase's models, the witness and the
+    checkpoint, and writes what it found to ``tmp/rank{rank}.json``."""
+    import torch.distributed as dist
+    from datetime import timedelta
+
+    from recommendsystem_tpu_torch.core.mesh import create_mesh
+    from recommendsystem_tpu_torch.models import create_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world, timeout=timedelta(seconds=MESH2D_TIMEOUT_S))
+    try:
+        mesh = create_mesh("cuda", model_parallel=world)
+        out = {"rank": rank, "data_index": mesh.rank, "model_index": mesh.model_rank,
+               "backends": {"world": dist.get_backend(), "data": dist.get_backend(mesh.group),
+                            "model": dist.get_backend(mesh.model_group)}, "train": {}}
+        for name, model, kw, b, placement in (
+                ("ctr", "ctr", {}, CTR_BATCH, "tensor"),
+                ("rough_rank", "rough_rank", {"stacked_experts": True}, ROUGH_BATCH,
+                 "expert")):
+            out["train"][name] = _mesh2d_model(mesh, card, name, model, kw, b, placement)
+            log(f"rank {rank} 2-D {name}:", json.dumps(
+                {k: v for k, v in out["train"][name].items() if k != "launches"}))
+        small = {"bucket_size": 16384}          # phase 8's ctr card-vs-CPU bucket
+        out["card_vs_cpu"] = hold_card_to_cpu(
+            create_model("ctr", device="cuda", **small), create_model("ctr", device="cpu", **small),
+            TOWER_CHECK_BATCH, 5, f"rank {rank} ctr tensor-parallel",
+            card_step=_tp_card_step(mesh))
+        out["checkpoint"] = _mesh2d_checkpoint(mesh, os.path.join(tmp, "ckpt"))
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as fh:
+            json.dump(out, fh)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh2d_path(card):
+    """Phase 17: tensor and expert parallelism on a data 1 x model 2 mesh of
+    two processes on the one card (``_mesh2d_rank`` each, started from a
+    ``spawn`` context).  NCCL refuses two ranks on one device, so the world
+    and the model group are gloo's over the card's tensors (the model
+    axis's collectives staged through pinned host memory,
+    ``core.model_axis``) and each one-rank data group NCCL's (the
+    exchange's all-to-alls).  Full-width ctr (B = 32768, 5 ids, attention
+    dropout 0.2) with ``tensor_parallel=True`` and rough_rank with
+    ``stacked_experts=True`` and ``expert_shardings`` (B = 32768): each
+    rank's placements, a window of the local step and one of the 2-D step
+    from one state and batch (losses at TRAIN_LOSS_RTOL, the gathered
+    state at the CPU tests' tolerances), launches a step held to
+    ``MESH2D_LAUNCHES``, the model replicas' tables bit-equal, the drop
+    report 0, the collectives' bytes and staged host seconds a step, the
+    two steps in turns (local, 2-D, 2-D, local); ctr's predict call and
+    eval step under the placements held to the local ones; ctr's
+    tensor-parallel step held to the CPU's local step by ``witness`` at
+    CHECK_SEEDS (B = 64); the sharded checkpoint from ``fit`` restored onto
+    the ranks and, here, locally onto the card, bit for bit.  Any failure
+    in a rank fails the phase."""
+    import multiprocessing as mp
+    import shutil
+    import tempfile
+
+    from recommendsystem_tpu_torch.models import create_model
+    from recommendsystem_tpu_torch.train.checkpoint import restore_checkpoint
+    from recommendsystem_tpu_torch.train.state import create_train_state
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="mesh2d.")
+    try:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_mesh2d_rank,
+                             args=(r, MESH2D_RANKS, os.path.join(tmp, "store"), tmp, card))
+                 for r in range(MESH2D_RANKS)]
+        for p in procs:
+            p.start()
+        deadline = time.perf_counter() + MESH2D_TIMEOUT_S
+        while any(p.is_alive() for p in procs):
+            failed = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+            if failed or time.perf_counter() > deadline:
+                for p in procs:
+                    p.kill()
+                    p.join()
+                raise AssertionError(f"phase 17: a rank failed (exit codes "
+                                     f"{[p.exitcode for p in procs]})")
+            procs[0].join(timeout=1.0)
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * MESH2D_RANKS:
+            raise AssertionError(f"phase 17: ranks exited {codes}")
+        ranks = []
+        for r in range(MESH2D_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+        out = ranks[0]
+        # the sharded checkpoint restored here, locally on the card
+        bundle = create_model("ctr", device="cuda")
+        t0 = time.perf_counter()
+        restored = restore_checkpoint(os.path.join(tmp, "ckpt"), create_train_state(bundle,
+                                                                                  seed=1))
+        torch.cuda.synchronize()
+        out["checkpoint"]["local_restore_s"] = time.perf_counter() - t0
+        got = _digest({"params": restored.params, "opt_state": restored.opt_state,
+                       "tables": restored.tables, "step": int(restored.step)})
+        got = json.loads(json.dumps(got))
+        if got != out["checkpoint"]["digest"]:
+            raise AssertionError("the sharded checkpoint restored locally differs from the "
+                                 "state gathered from the ranks")
+        del bundle, restored
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["checkpoint"].pop("digest")
+    out["checkpoint"]["local_restore_equal"] = True
+    launches = {}
+    for r in ranks:
+        for m in r["train"].values():
+            for k, v in m["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    out["launches"] = launches
+    out["rank1"] = {name: {k: ranks[1]["train"][name][k] for k in (
+        "launches_per_step", "collectives_per_step", "replicas_equal")}
+        for name in ranks[1]["train"]}
+    out["card"] = card
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def _mesh2d_line(out):
+    """Phase 17's JSON line: each model's 2-D and local ms a step,
+    launches a step and collectives a step, the checkpoint's numbers, the
+    phase's seconds."""
+    return {"train": {m: {k: r[k] for k in (
+        "batch", "placement", "split_leaves", "mesh2d_ms", "local_ms", "launches_per_step",
+        "collectives_per_step", "replicas_equal", "drop_report_rows", "past_tolerance",
+        "profile")}
+        for m, r in out["train"].items()},
+        "predict_launches": out["train"]["ctr"]["predict_launches"],
+        "checkpoint": out["checkpoint"], "backends": out["backends"],
+        "phase_s": out["phase_s"], "card": out["card"]}
+
+
+def phase17_alone(card) -> int:
+    """``--phase 17``: build the kernels and run phase 17 alone, its JSON
+    line printed; no kernels line and no ok line (a whole run gives them)."""
+    from recommendsystem_tpu_torch.kernels import build_all
+
+    build_all()
+    out = mesh2d_path(card)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_phase17.json"), "w") as fh:
+        json.dump(out, fh, indent=1)
+    print(json.dumps({"mesh2d": _mesh2d_line(out)}), flush=True)
+    return 0
+
+
 def phase16_alone(card) -> int:
     """``--phase 16``: build the kernels and run phase 16 alone, its JSON
     line printed; no kernels line and no ok line (a whole run gives them)."""
@@ -5297,6 +6042,8 @@ def main() -> int:
         return phase15_alone(card)
     if sys.argv[1:] == ["--phase", "16"]:
         return phase16_alone(card)
+    if sys.argv[1:] == ["--phase", "17"]:
+        return phase17_alone(card)
 
     # -- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -5538,6 +6285,11 @@ def main() -> int:
     sharded = report["sharded"]["launches"]
     print(json.dumps({"sharded": _sharded_line(report["sharded"])}), flush=True)
 
+    # -- 17. the main path: tensor and expert parallelism on a 2-D mesh -------
+    report["mesh2d"] = mesh2d_path(card)
+    mesh2d = report["mesh2d"]["launches"]
+    print(json.dumps({"mesh2d": _mesh2d_line(report["mesh2d"])}), flush=True)
+
     # -- report ----------------------------------------------------------------
     # the serving folds at the largest serving bucket, the train kernels
     # (K5 among them: the serving paths take K6) at the train batch, the
@@ -5594,7 +6346,7 @@ def main() -> int:
                     + towers[name] + rough[name] + stacked[name] + staytime_train[name]
                     + evaluation[name] + daily[name] + bf16.get(name, 0)
                     + compute.get(name, 0) + exported.get(name, 0)
-                    + sharded.get(name, 0))
+                    + sharded.get(name, 0) + mesh2d.get(name, 0))
         if launches < 1:
             raise AssertionError(f"{name} was not launched on the main paths")
         kernels.append({

@@ -7,11 +7,14 @@ scatter and dense sparse updates, with the L1L2 kernel penalties) and eval
 paths of autoint, ctr, multi_head, finish, rough_rank and staytime, on
 float32 or bf16 tables and under float32 or the bf16 compute policy, the
 daily training path, the serving export, the offline fusion search, and
-the sharded mode (data parallelism over row-sharded tables, on
-``torch.distributed``; tensor and expert parallelism are still to come):
+the sharded mode (data parallelism over row-sharded tables, and tensor
+and expert parallelism over a 2-D data x model mesh, on
+``torch.distributed``, with the sharded checkpoint):
 
-- ``core/``       configuration schema, device set-up and the process mesh;
-- ``parallel/``   the distribution namespace (mesh, placements, exchange);
+- ``core/``       configuration schema, device set-up, the process mesh and
+  its model axis's collectives;
+- ``parallel/``   the distribution namespace (mesh, placements, exchange,
+  the model axis, ``expert_shardings``);
 - ``embedding/``  feature columns (``Feature``, ``FeatureSlot``), the
   embedding engine (lazy Adam and AdaGrad table state, eviction; the
   sharded pull and push, all-to-all over the ranks), the fused

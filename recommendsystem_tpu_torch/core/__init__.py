@@ -1,5 +1,6 @@
 """Configuration schema, device set-up, and the process mesh of the
-sharded mode."""
+sharded mode with its model axis (``model_axis``: the collectives of
+tensor and expert parallelism)."""
 
 from .config import (  # noqa: F401
     FeatureConfig,

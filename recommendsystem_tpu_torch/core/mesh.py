@@ -13,13 +13,22 @@ its rank, the number of ranks on the data axis, and its device.
 ``create_mesh`` builds the mesh over the initialised process group, or
 over a group of one rank that it initialises itself on the port's device
 (NCCL on a card): a sharded step always calls the collectives, even
-alone.  ``model_parallel > 1`` (tensor and expert parallelism over
-``MODEL_AXIS``) raises ``NotImplementedError``: it is ROADMAP item 12b.
+alone.  ``model_parallel=M`` carves the 2-D ``(data, model)`` mesh of the
+JAX function: W ranks in the order of its ``reshape(W // M, M)``, rank r
+at data index ``r // M`` and model index ``r % M``.  ``Mesh.group``,
+``rank`` and ``size`` are then the data axis's (the ranks of one model
+index: the exchange, the loss's sums and the dense all-reduce run over
+it) and ``model_group``, ``model_rank`` and ``model`` the model axis's
+(the ranks of one data index, which hold the same rows of the batch and
+of the tables and split the dense kernels or the experts: the
+collectives of ``core.model_axis`` run over it).
 
-``data_sharding``, ``replicated`` and ``row_sharding`` are placement
-descriptors (``Placement``), the port's stand-ins for the JAX
-``NamedSharding``s: ``train.state.state_shardings`` gives one for each
-leaf of a state, and ``local_part`` cuts a whole tensor to a rank's part.
+``data_sharding``, ``replicated``, ``row_sharding``, ``column_sharding``
+and ``expert_sharding`` are placement descriptors (``Placement``), the
+port's stand-ins for the JAX ``NamedSharding``s:
+``train.state.state_shardings`` and ``nn.expert_shardings`` give one for
+each leaf of a state, and ``local_part`` cuts a whole tensor to a rank's
+part.
 """
 
 from __future__ import annotations
@@ -36,8 +45,6 @@ from .device import resolve_device
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
-ITEM_12B = ("tensor and expert parallelism (model_parallel > 1) are ROADMAP item "
-            "12b, not yet ported")
 
 
 def process_count() -> int:
@@ -90,8 +97,9 @@ def distributed_init(coordinator: Optional[str] = None,
 class Mesh:
     """One rank's view of the ``(data, model)`` mesh: ``group`` the process
     group of the data axis, ``rank`` this process's index on it, ``size``
-    the number of ranks, ``device`` where this rank's tensors live.
-    ``model`` is 1 (item 12b adds the model axis)."""
+    the number of ranks on it, ``device`` where this rank's tensors live;
+    ``model_group``, ``model_rank`` and ``model`` the same for the model
+    axis (``model_group`` None where ``model`` is 1)."""
 
     group: object
     rank: int
@@ -99,6 +107,8 @@ class Mesh:
     device: torch.device
     model: int = 1
     axis_names: tuple = (DATA_AXIS, MODEL_AXIS)
+    model_group: object = None
+    model_rank: int = 0
 
     @property
     def shape(self):
@@ -121,9 +131,17 @@ def create_mesh(devices=None, model_parallel: int = 1,
     initialised on ``devices`` (NCCL on a card, gloo on the CPU), so that a
     sharded step on one card runs its exchange through NCCL.  Destroy it
     with ``torch.distributed.destroy_process_group()`` when done.
-    ``model_parallel`` other than 1 raises ``NotImplementedError``."""
-    if model_parallel != 1:
-        raise NotImplementedError(ITEM_12B)
+
+    ``model_parallel=M`` splits the W ranks into W // M data indices of M
+    model ranks each (``ValueError`` where M does not divide W, as the JAX
+    function raises).  Every rank creates every subgroup, in one order: the
+    M data groups (NCCL on a card, since the exchange takes an all-to-all;
+    gloo on the CPU), then the W // M model groups, on the process group's
+    own backend.  A gloo model group over card tensors stages its
+    collectives through the host (``core.model_axis``)."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if model_parallel < 1 or world % model_parallel:
+        raise ValueError(f"{world} devices not divisible by model_parallel={model_parallel}")
     if dist.is_initialized():
         default = "cuda" if dist.get_backend() == "nccl" else "cpu"
         dev = resolve_device(default if devices is None else devices)
@@ -137,8 +155,18 @@ def create_mesh(devices=None, model_parallel: int = 1,
             torch.cuda.set_device(dev)
         dist.init_process_group(_backend(dev), store=dist.HashStore(), rank=0,
                                 world_size=1)
-    return Mesh(group=dist.group.WORLD, rank=dist.get_rank(), size=dist.get_world_size(),
-                device=dev, axis_names=tuple(axis_names))
+    if model_parallel == 1:
+        return Mesh(group=dist.group.WORLD, rank=dist.get_rank(),
+                    size=dist.get_world_size(), device=dev, axis_names=tuple(axis_names))
+    m, r = model_parallel, dist.get_rank()
+    n_data = world // m
+    data_groups = [dist.new_group([d * m + j for d in range(n_data)], backend=_backend(dev))
+                   for j in range(m)]
+    model_groups = [dist.new_group([d * m + j for j in range(m)], backend=dist.get_backend())
+                    for d in range(n_data)]
+    return Mesh(group=data_groups[r % m], rank=r // m, size=n_data, device=dev, model=m,
+                axis_names=tuple(axis_names), model_group=model_groups[r // m],
+                model_rank=r % m)
 
 
 def local_mesh(n: Optional[int] = None) -> Mesh:
@@ -152,8 +180,12 @@ def local_mesh(n: Optional[int] = None) -> Mesh:
 @dataclasses.dataclass(frozen=True)
 class Placement:
     """Where a tensor lives on the mesh: ``"data"`` (leading dim split over
-    the ranks: a batch), ``"row"`` (rows split: a table and its per-row
-    state) or ``"replicated"`` (whole on every rank)."""
+    the data axis: a batch), ``"row"`` (rows split over the data axis: a
+    table and its per-row state; whole over the model axis),
+    ``"replicated"`` (whole on every rank), ``"column"`` (last dim split
+    over the model axis: a tensor-parallel kernel, the JAX ``P(None,
+    MODEL_AXIS)``) or ``"expert"`` (leading dim split over the model axis:
+    a stack of experts)."""
 
     kind: str
     mesh: Mesh
@@ -162,7 +194,24 @@ class Placement:
         """The part of the whole tensor ``x`` that this rank holds."""
         if self.kind == "replicated":
             return x
+        if self.kind in ("column", "expert"):
+            dim = self.dim
+            per = x.shape[dim] // self.mesh.model
+            if per * self.mesh.model != x.shape[dim]:
+                raise ValueError(f"{self.kind} placement: dim {x.shape[dim]} does not split "
+                                 f"over a model axis of {self.mesh.model}")
+            return x.narrow(dim, self.mesh.model_rank * per, per)
         return x[self.mesh.rows(x.shape[0])]
+
+    @property
+    def dim(self) -> int:
+        """The dim a model-axis placement splits: -1 for a column, 0 for an
+        expert stack."""
+        return -1 if self.kind == "column" else 0
+
+    @property
+    def model_axis(self) -> bool:
+        return self.kind in ("column", "expert")
 
 
 def data_sharding(mesh: Mesh) -> Placement:
@@ -177,6 +226,16 @@ def replicated(mesh: Mesh) -> Placement:
 def row_sharding(mesh: Mesh) -> Placement:
     """An embedding table: rows split over DATA_AXIS."""
     return Placement("row", mesh)
+
+
+def column_sharding(mesh: Mesh) -> Placement:
+    """A tensor-parallel kernel: last dim split over MODEL_AXIS."""
+    return Placement("column", mesh)
+
+
+def expert_sharding(mesh: Mesh) -> Placement:
+    """A stack of experts: leading dim split over MODEL_AXIS."""
+    return Placement("expert", mesh)
 
 
 def local_batch(x, mesh: Mesh):

@@ -9,7 +9,7 @@ from .mlp import (DNN, Dense, MultiLayerDense, dot_f32, einsum_f32,  # noqa: F40
                   resolve_activation, truncated_normal)
 from .moe import MMOE, PLE  # noqa: F401
 from .moe_stacked import (GatedExpert, MMOEStacked, PLEStacked,  # noqa: F401
-                          stacked_gated_experts)
+                          expert_shardings, stacked_gated_experts)
 from .ppnet import GateTower, PPNetGateBank  # noqa: F401
 from .senet import SENet  # noqa: F401
 from .similarity import Similarity, kd_loss  # noqa: F401

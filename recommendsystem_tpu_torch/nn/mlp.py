@@ -40,6 +40,8 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..core.model_axis import copy_to_model, current, gather_from_model
+
 ACTIVATIONS = {
     None: lambda x: x,
     "linear": lambda x: x,
@@ -122,6 +124,7 @@ class Dense(nn.Module):
         self.activation = resolve_activation(activation)
         self.kernel_init = kernel_init
         self.kernel_regularizer = kernel_regularizer
+        self.features = features
         lead = () if stack is None else (stack,)
         self.kernel = nn.Parameter(torch.empty(lead + (in_features, features),
                                                device=device))
@@ -139,8 +142,11 @@ class Dense(nn.Module):
         return {} if self.kernel_regularizer is None else {
             "kernel": tuple(self.kernel_regularizer)}
 
+    def model_axis_reads(self) -> Dict[str, str]:
+        return {"kernel": "column"} if self.kernel.ndim == 2 else {}
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.activation(affine(x, self.kernel, self.bias))
+        return self.activation(model_affine(x, self.kernel, self.bias, self.features))
 
 
 def init_kernel(init: Callable, kernel: torch.Tensor,
@@ -227,6 +233,21 @@ def affine(x: torch.Tensor, kernel: torch.Tensor,
     return y + (bias if bias.ndim == 1 else bias[:, None, :])
 
 
+def model_affine(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor],
+                 features: int) -> torch.Tensor:
+    """``affine`` of a layer ``features`` wide whose (in, out) ``kernel``
+    may be a column shard under the model axis: the rank's columns of x @
+    kernel all-gathered over the model group, then the whole bias (module
+    docstring)."""
+    if kernel.ndim != 2 or kernel.shape[-1] == features:
+        return affine(x, kernel, bias)
+    if current() is None:
+        raise ValueError(f"a kernel of {kernel.shape[-1]} columns for a layer "
+                         f"{features} wide: a column shard outside a model-axis step")
+    y = gather_from_model(dot_f32(copy_to_model(x), kernel), -1)
+    return y if bias is None else y + bias
+
+
 class MultiLayerDense(nn.Module):
     """Stack of Dense layers with one activation."""
 
@@ -269,6 +290,7 @@ class DNN(nn.Module):
                                       "running statistics that the port's steps do "
                                       "not carry; no model uses it")
         self.hidden_units = tuple(hidden_units)
+        self.stack = stack
         self.l2_reg = l2_reg
         self.dropout_rate = dropout_rate
         n = len(self.hidden_units)
@@ -295,9 +317,15 @@ class DNN(nn.Module):
             return {}
         return {f"kernel{i}": (0.0, self.l2_reg) for i in range(len(self.hidden_units))}
 
+    def model_axis_reads(self) -> Dict[str, str]:
+        if self.stack is not None:
+            return {}
+        return {f"kernel{i}": "column" for i in range(len(self.hidden_units))}
+
     def forward(self, x: torch.Tensor, training: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return self.after_first(affine(x, self.kernel0, self.bias0), training, generator)
+        return self.after_first(model_affine(x, self.kernel0, self.bias0,
+                                             self.hidden_units[0]), training, generator)
 
     def after_first(self, x: torch.Tensor, training: bool = False,
                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -305,13 +333,24 @@ class DNN(nn.Module):
         that layer's activation and dropout, then the deeper layers."""
         for i, act in enumerate(self.activations):
             if i:
-                x = affine(x, getattr(self, f"kernel{i}"), getattr(self, f"bias{i}"))
+                x = model_affine(x, getattr(self, f"kernel{i}"), getattr(self, f"bias{i}"),
+                                 self.hidden_units[i])
             x = act(x)
             if training and self.dropout_rate > 0:
-                keep = torch.rand(x.shape, generator=generator, device=x.device)
+                keep = self._keep_draw(x, generator)
                 x = torch.where(keep >= self.dropout_rate, x / (1.0 - self.dropout_rate),
                                 torch.zeros((), device=x.device))
         return x
+
+    def _keep_draw(self, x: torch.Tensor, generator) -> torch.Tensor:
+        """The dropout's uniform draws for ``x``; a shard of the experts
+        (E/M of a stack of E) takes its rows of the whole stack's draws, so
+        the experts drop what they drop on one rank."""
+        if self.stack is None or x.shape[0] == self.stack:
+            return torch.rand(x.shape, generator=generator, device=x.device)
+        whole = torch.rand((self.stack,) + tuple(x.shape[1:]), generator=generator,
+                           device=x.device)
+        return whole.narrow(0, current().model_rank * x.shape[0], x.shape[0])
 
 
 def regularized_kernels(module: nn.Module) -> Dict[Tuple[float, float], List[str]]:

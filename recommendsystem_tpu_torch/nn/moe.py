@@ -85,6 +85,12 @@ class PLE(nn.Module):
             setattr(self, f"task{i}_gate", DNN(in_features, gate_units, device=device,
                                                **_gate_params(gate_dnn_params)))
 
+    def model_axis_reads(self) -> Dict[str, None]:
+        """The first layers' kernels go whole into one product (None: no
+        layer here reads them as column shards)."""
+        return {f"{name}.kernel0": None for name, mod in self.named_children()
+                if isinstance(mod, DNN)}
+
     def forward(self, inputs: torch.Tensor, training: bool = False,
                 generator: Optional[torch.Generator] = None) -> List[torch.Tensor]:
         shared = [getattr(self, f"shared_expert{i}") for i in range(self.num_shared)]

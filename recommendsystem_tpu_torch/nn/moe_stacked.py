@@ -7,9 +7,17 @@ leaves them (``experts.kernel0`` of shape (E, in, out)), so a flattened
 flax tree is the layer's state dict.  The experts run as one batched
 product a layer (``DNN(stack=E)``, ``Dense(stack=E)``) instead of E small
 ones.  A stacked layer's L1L2 penalty is summed over its experts, as the
-JAX step sums every leaf of the sown losses.  The JAX module's
-``expert_shardings`` places the stack across a mesh: it belongs to the
-sharded mode, which the port does not have yet.
+JAX step sums every leaf of the sown losses.
+
+Expert parallelism: ``expert_shardings`` places every stacked leaf's
+expert axis over the model axis of a 2-D mesh, as the JAX function does.
+Given E/M of a stack's E experts (in a sharded step under the model axis,
+``core.model_axis``), ``GatedExpert``, ``MMOEStacked`` and ``PLEStacked``
+compute their rank's experts from ``copy_to_model`` of their inputs (and
+of the gate input), then all-gather the experts' outputs on the expert
+axis (``gather_from_model``), so the gates and towers after them see all E
+experts as before; the backward sums the inputs' gradients over the model
+group and keeps each rank's experts' own.
 """
 
 from __future__ import annotations
@@ -19,8 +27,45 @@ from typing import Any, Dict, List, Optional, Sequence
 import torch
 from torch import nn
 
+from ..core.mesh import MODEL_AXIS, Mesh, expert_sharding, replicated
+from ..core.model_axis import copy_to_model, gather_from_model
 from .mlp import DNN, Dense
 from .moe import _gate_params, pool
+
+EXPERT_KEYS = ("experts", "specific_experts")
+
+
+def expert_shardings(params: Dict[str, torch.Tensor], mesh: Mesh, axis: str = MODEL_AXIS):
+    """The placement of every leaf of a flat param dict (``recommendsystem_tpu/
+    nn/moe_stacked.py:145-163``): a leaf of two dims or more with a name
+    segment ``experts`` or ``specific_experts`` gets ``"expert"`` (its
+    leading axis split over the model axis), every other leaf
+    ``"replicated"``.  A stack whose expert count the model axis does not
+    divide raises ``ValueError``, as the JAX ``device_put`` refuses it.
+    Merge into a state's placements with ``train.state.merge_shardings``."""
+    if axis != MODEL_AXIS:
+        raise ValueError(f"expert_shardings: axis {axis!r}; the port's mesh has "
+                         f"{MODEL_AXIS!r}")
+    out = {}
+    for name, x in params.items():
+        if any(seg in EXPERT_KEYS for seg in name.split(".")[:-1]) and x.ndim >= 2:
+            if x.shape[0] % mesh.model:
+                raise ValueError(f"{name}: {x.shape[0]} experts do not split over a model "
+                                 f"axis of {mesh.model}")
+            out[name] = expert_sharding(mesh)
+        else:
+            out[name] = replicated(mesh)
+    return out
+
+
+def _expert_reads(module: nn.Module, prefix: str = "") -> Dict[str, str]:
+    return {f"{prefix}{name}": "expert" for name, _ in module.named_parameters()}
+
+
+def _split(leaf: torch.Tensor, n: int) -> bool:
+    """Whether a stack whose first parameter is ``leaf`` holds a shard of
+    its ``n`` experts."""
+    return leaf.shape[0] < n
 
 
 class MMOEStacked(nn.Module):
@@ -33,7 +78,7 @@ class MMOEStacked(nn.Module):
                  expert_dnn_params: Optional[Dict[str, Any]] = None,
                  gate_dnn_params: Optional[Dict[str, Any]] = None, device=None):
         super().__init__()
-        self.num_tasks = num_tasks
+        self.num_tasks, self.num_experts = num_tasks, num_experts
         gate_units = list(gate_dnn_units) + [num_experts]
         self.experts = DNN(in_features, expert_dnn_units, stack=num_experts,
                            device=device, **(expert_dnn_params or {}))
@@ -41,9 +86,17 @@ class MMOEStacked(nn.Module):
             setattr(self, f"task{i}_gate", DNN(in_features, gate_units, device=device,
                                                **_gate_params(gate_dnn_params)))
 
+    def model_axis_reads(self) -> Dict[str, str]:
+        return _expert_reads(self.experts, "experts.")
+
     def forward(self, inputs: torch.Tensor, training: bool = False,
                 generator: Optional[torch.Generator] = None) -> List[torch.Tensor]:
-        experts = self.experts(inputs, training, generator).transpose(0, 1)   # (B, E, D)
+        if _split(self.experts.kernel0, self.num_experts):
+            experts = gather_from_model(self.experts(copy_to_model(inputs), training,
+                                                     generator), 0)
+        else:
+            experts = self.experts(inputs, training, generator)
+        experts = experts.transpose(0, 1)                                   # (B, E, D)
         return [pool(experts, getattr(self, f"task{i}_gate")(inputs, training, generator))
                 for i in range(self.num_tasks)]
 
@@ -60,6 +113,7 @@ class PLEStacked(nn.Module):
                  gate_dnn_params: Optional[Dict[str, Any]] = None, device=None):
         super().__init__()
         self.num_tasks, self.num_specific = num_tasks, num_specific_experts
+        self.num_shared = num_shared_experts
         gate_units = list(gate_dnn_units) + [num_shared_experts + num_specific_experts]
         self.experts = DNN(in_features, expert_dnn_units, stack=num_shared_experts,
                            device=device, **(expert_dnn_params or {}))
@@ -70,10 +124,21 @@ class PLEStacked(nn.Module):
             setattr(self, f"task{i}_gate", DNN(in_features, gate_units, device=device,
                                                **_gate_params(gate_dnn_params)))
 
+    def model_axis_reads(self) -> Dict[str, str]:
+        return {**_expert_reads(self.experts, "experts."),
+                **_expert_reads(self.specific_experts, "specific_experts.")}
+
     def forward(self, inputs: torch.Tensor, training: bool = False,
                 generator: Optional[torch.Generator] = None) -> List[torch.Tensor]:
-        shared = self.experts(inputs, training, generator).transpose(0, 1)     # (B, S, D)
-        specific = self.specific_experts(inputs, training, generator).transpose(0, 1)
+        stacks = []
+        for stack, n in ((self.experts, self.num_shared),
+                         (self.specific_experts, self.num_tasks * self.num_specific)):
+            if _split(stack.kernel0, n):
+                out = gather_from_model(stack(copy_to_model(inputs), training, generator), 0)
+            else:
+                out = stack(inputs, training, generator)
+            stacks.append(out.transpose(0, 1))
+        shared, specific = stacks                                           # (B, S, D)
         sp = self.num_specific
         outs = []
         for i in range(self.num_tasks):
@@ -94,7 +159,7 @@ class GatedExpert(nn.Module):
     def __init__(self, in_features: int, gate_features: int, hidden: Sequence[int],
                  stack: Optional[int] = None, device=None):
         super().__init__()
-        self.n = len(hidden)
+        self.n, self.stack = len(hidden), stack
         for j, unit in enumerate(hidden):
             setattr(self, f"gate_{j}_1", Dense(gate_features, unit, "relu",
                                                stack=stack, device=device))
@@ -104,12 +169,18 @@ class GatedExpert(nn.Module):
                                                       stack=stack, device=device))
             in_features = unit
 
+    def model_axis_reads(self) -> Dict[str, str]:
+        return {} if self.stack is None else _expert_reads(self)
+
     def forward(self, expert_in: torch.Tensor, gate_input: torch.Tensor) -> torch.Tensor:
+        split = self.stack is not None and _split(self.gate_0_1.kernel, self.stack)
+        if split:
+            expert_in, gate_input = copy_to_model(expert_in), copy_to_model(gate_input)
         expert = expert_in
         for j in range(self.n):
             g = 2 * getattr(self, f"gate_{j}_2")(getattr(self, f"gate_{j}_1")(gate_input))
             expert = g * getattr(self, f"expert_output_{j}")(expert)
-        return expert
+        return gather_from_model(expert, 0) if split else expert
 
 
 def stacked_gated_experts(num_experts: int, hidden: Sequence[int], in_features: int,

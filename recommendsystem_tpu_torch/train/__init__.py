@@ -11,6 +11,7 @@ from .state import (  # noqa: F401
     TrainState,
     create_train_state,
     gather_state,
+    merge_shardings,
     shard_state,
     state_shardings,
 )

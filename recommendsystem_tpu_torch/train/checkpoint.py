@@ -14,6 +14,17 @@ onto the device of ``target``'s tensors (a checkpoint saved on the card
 restores on the CPU and the other way round) and checks every key, shape
 and dtype against ``target``, as orbax's abstract restore does:
 ``CheckpointMismatchError`` names the first entry that differs.
+
+A sharded state checkpoints as whole tensors, as orbax writes a sharded
+JAX state's global arrays: ``save_checkpoint(..., mesh=, shardings=)`` is
+a collective that gathers the state (``gather_state``: table rows over the
+data axis, split columns and experts over the model axis), then rank 0
+writes the files a local checkpoint writes, and every rank waits for it.
+``restore_checkpoint(..., mesh=, shardings=)`` loads the whole state
+memory-mapped (a rank reads its own rows, never every table), checks it
+against the whole shapes of the rank's target, and cuts the rank's part
+(``shard_state``).  So a sharded checkpoint restores locally, a local one
+onto ranks, and either onto any mesh whose shapes fit.
 """
 
 from __future__ import annotations
@@ -24,8 +35,9 @@ import tempfile
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 
-from .state import TrainState
+from .state import TrainState, gather_state, shard_state, state_shardings
 
 FILE = "state.pt"
 
@@ -39,13 +51,29 @@ def _as_tree(state: TrainState) -> dict:
             "tables": state.tables, "step": int(state.step)}
 
 
-def save_checkpoint(path: str, state: TrainState, step: Optional[int] = None) -> str:
+def save_checkpoint(path: str, state: TrainState, step: Optional[int] = None,
+                    mesh=None, shardings: Optional[TrainState] = None) -> str:
     """Write ``state`` as ``<path>/<step>/`` (``step`` defaults to the
-    state's), replacing a checkpoint of that step; returns its directory."""
+    state's), replacing a checkpoint of that step; returns its directory.
+    With ``mesh`` (a ``core.mesh.Mesh``) ``state`` is this rank's shards,
+    placed by ``shardings`` (default: rows split, the rest replicated):
+    every rank calls it, the whole state is gathered, rank 0 writes it and
+    the others wait until it is in place."""
     path = os.path.abspath(path)
     step = int(state.step) if step is None else int(step)
-    os.makedirs(path, exist_ok=True)
     final = os.path.join(path, str(step))
+    if mesh is not None:
+        whole = gather_state(None, state, mesh, shardings)
+        if dist.get_rank() == 0:
+            _write(path, final, step, whole)
+        dist.barrier()
+        return final
+    _write(path, final, step, state)
+    return final
+
+
+def _write(path: str, final: str, step: int, state: TrainState) -> None:
+    os.makedirs(path, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix=f".{step}.", suffix=".tmp", dir=path)
     try:
         torch.save(_as_tree(state), os.path.join(tmp, FILE))
@@ -59,7 +87,6 @@ def save_checkpoint(path: str, state: TrainState, step: Optional[int] = None) ->
     except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
-    return final
 
 
 def latest_step(path: str) -> Optional[int]:
@@ -107,19 +134,50 @@ def _check(got: Any, want: Any, where: str) -> None:
             f"{tuple(want.shape)} {want.dtype} in the target")
 
 
-def restore_checkpoint(path: str, target: TrainState,
-                       step: Optional[int] = None) -> TrainState:
+def _whole(x: Any, placement: Any, mesh) -> Any:
+    """A stand-in of the whole tensor of each of a rank's shards ``x``
+    (its shape and dtype, no storage), by its placement."""
+    if isinstance(x, dict):
+        return {k: _whole(v, placement[k], mesh) for k, v in x.items()}
+    if not isinstance(x, torch.Tensor):
+        return x
+    shape = list(x.shape)
+    if placement.kind == "row":
+        shape[0] *= mesh.size
+    elif placement.model_axis:
+        shape[placement.dim] *= mesh.model
+    return torch.empty(shape, dtype=x.dtype, device="meta")
+
+
+def restore_checkpoint(path: str, target: TrainState, step: Optional[int] = None,
+                       mesh=None, shardings: Optional[TrainState] = None) -> TrainState:
     """The state saved under ``path`` at ``step`` (default: the largest),
     on the device of ``target``'s tensors, after checking it entry by entry
-    against ``target``.  ``target`` itself is left as it is."""
+    against ``target``.  ``target`` itself is left as it is.  With
+    ``mesh``, ``target`` is this rank's shards placed by ``shardings``
+    (default: rows split, the rest replicated): the whole state is read
+    memory-mapped, checked against the whole target's shapes, and the
+    rank's part cut from it."""
     path = os.path.abspath(path)
     if step is None:
         step = latest_step(path)
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {path}")
+    file = os.path.join(path, str(step), FILE)
+    if mesh is not None:
+        placements = (state_shardings(None, target, mesh) if shardings is None
+                      else shardings)
+        want = {"params": _whole(target.params, placements.params, mesh),
+                "opt_state": _whole(target.opt_state, placements.opt_state, mesh),
+                "tables": _whole(target.tables, placements.tables, mesh),
+                "step": int(target.step)}
+        got = torch.load(file, weights_only=True, mmap=True, map_location="cpu")
+        _check(got, want, "state")
+        return shard_state(None, TrainState(params=got["params"], opt_state=got["opt_state"],
+                                            tables=got["tables"], step=got["step"]),
+                           mesh, placements)
     want = _as_tree(target)
-    got = torch.load(os.path.join(path, str(step), FILE), weights_only=True,
-                     map_location=_device_of(want))
+    got = torch.load(file, weights_only=True, map_location=_device_of(want))
     _check(got, want, "state")
     return TrainState(params=got["params"], opt_state=got["opt_state"],
                       tables=got["tables"], step=got["step"])

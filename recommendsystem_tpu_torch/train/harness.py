@@ -54,14 +54,16 @@ def fit(bundle: "ModelBundle", dataset: Iterable, steps: Optional[int] = None,
         resume: bool = False, profile_dir: Optional[str] = None,
         profile_steps: tuple = (10, 20), history_path: Optional[str] = None,
         nan_guard: str = "warn", callbacks=(),
-        evict_every: int = 0, scan_steps: int = 0) -> TrainState:
+        evict_every: int = 0, scan_steps: int = 0, shardings=None) -> TrainState:
     """Train on ``dataset``'s (batch, dense_inputs, labels, sample_weight)
     items with the packed train step (``make_train_step``) for ``steps``
     steps or until it ends.  ``mode="sharded"`` with ``mesh`` trains each
     rank's rows of the data over its row shards of the tables (every rank
-    calls ``fit`` with its own dataset and the same ``seed``); a sharded
-    checkpoint is ROADMAP item 12b, so ``checkpoint_dir`` then raises
-    ``NotImplementedError``.
+    calls ``fit`` with its own dataset and the same ``seed``); on a 2-D
+    mesh ``shardings`` (the state's placements, as ``make_train_step``
+    takes them) goes to the steps, to ``shard_state`` and to the
+    checkpoint, which saves and restores the whole state (a collective:
+    ``save_checkpoint(..., mesh=)``).
 
     ``state=None`` starts from ``create_train_state`` with the first seed
     of ``seed_stream(seed)`` (sharded: this rank's shards of it,
@@ -85,19 +87,17 @@ def fit(bundle: "ModelBundle", dataset: Iterable, steps: Optional[int] = None,
     dispatch.  Returns the state (its tensors are updated in place)."""
     if nan_guard not in ("off", "warn", "raise"):
         raise ValueError(f"nan_guard {nan_guard!r}: expected 'off', 'warn' or 'raise'")
-    if mode == "sharded" and checkpoint_dir:
-        raise NotImplementedError("checkpointing a sharded state is ROADMAP item 12b, "
-                                  "not yet ported")
     seeds = seed_stream(seed)
-    train_step = make_train_step(bundle, mode=mode, mesh=mesh)
-    scan_step = (make_scan_train_step(bundle, mode=mode, mesh=mesh)
+    on_mesh = {"mesh": mesh, "shardings": shardings} if mode == "sharded" else {}
+    train_step = make_train_step(bundle, mode=mode, **on_mesh)
+    scan_step = (make_scan_train_step(bundle, mode=mode, **on_mesh)
                  if scan_steps > 1 else None)
     if state is None:
         state = create_train_state(bundle, seed=next(seeds))
         if mode == "sharded":
-            state = shard_state(bundle, state, mesh)
+            state = shard_state(bundle, state, mesh, shardings)
     if resume and checkpoint_dir and latest_step(checkpoint_dir) is not None:
-        state = restore_checkpoint(checkpoint_dir, state)
+        state = restore_checkpoint(checkpoint_dir, state, **on_mesh)
         log.info("resumed from %s at step %d", checkpoint_dir, state.step)
 
     it = iter(dataset)
@@ -147,7 +147,7 @@ def fit(bundle: "ModelBundle", dataset: Iterable, steps: Optional[int] = None,
             gen = torch.Generator(device=bundle.device).manual_seed(next(seeds))
             bundle.embedding.maybe_evict(state.tables, gen)
         if checkpoint_dir and crossed(checkpoint_every):
-            save_checkpoint(checkpoint_dir, state)
+            save_checkpoint(checkpoint_dir, state, **on_mesh)
         for cb in callbacks:
             cb(i, state, info)
     if profiler is not None:

@@ -66,6 +66,26 @@ the masks of the local step on the whole batch.  ``info`` holds the whole
 batch's losses on every rank.  The eval step sums its metric increments
 over the ranks; the predict step gives the rank's rows.
 
+On a 2-D mesh (``create_mesh(model_parallel=M)``) the steps take the
+state's placements (``shardings=``: ``state_shardings(...,
+tensor_parallel=True)``, ``nn.expert_shardings`` merged by
+``merge_shardings``) and each rank passes its shards of the split leaves.
+Everything above runs over the data axis (``mesh.group``): the loss's
+sums, the dense all-reduce (the model ranks of one data index hold the
+same rows, so a sum over every rank would count each gradient M times),
+the dropout counter (model ranks of one data index draw the same masks).
+The layers run under ``core.model_axis.use(mesh)`` and call the model
+group's collectives for the column shards and the experts they read
+(``nn/mlp.py``, ``nn/moe_stacked.py``); a split leaf that no layer reads
+as a shard goes through ``gather_leaf`` before the module sees it.  A
+penalized kernel's shard contributes its own L1L2 term, summed over the
+model group for the value (``regularization`` is the whole kernel's).
+Dense Adam runs on each shard as on a whole tensor.  Each model rank runs
+its data group's exchange and sparse update over the same row shards;
+then model index 0's touched rows are broadcast over the model group
+(``core.model_axis.sync_replicas``), so the replicas stay bit-equal where
+the card's atomics add in another order.
+
 Keras-compile semantics as in the JAX package: the loss is the sum over
 tasks of ``loss_weight * loss``, where a loss that returns a scalar is taken
 as it is (autoint's ``cross_entropy_sum_mean``, so its sample weights do not
@@ -85,6 +105,7 @@ import torch
 import torch.distributed as dist
 from torch.func import functional_call
 
+from ..core import model_axis
 from ..core.mesh import Mesh
 from ..embedding import packed as packed_mod
 from ..embedding.engine import check_mode as _check_mode
@@ -120,22 +141,63 @@ def _policy(bundle: "ModelBundle") -> Optional[torch.dtype]:
     return None if dtype == torch.float32 else dtype
 
 
+@dataclasses.dataclass(frozen=True)
+class _ModelAxis:
+    """What a step on a mesh with a model axis does besides the 1-D
+    step: ``gather`` the split leaves that no layer reads as shards (with
+    their placements), ``split`` the names of every split param."""
+
+    mesh: Mesh
+    gather: Dict[str, object]
+    split: frozenset
+
+
+def _shard_reads(module) -> Dict[str, Optional[str]]:
+    """{param name: the placement kind its layer reads it as a shard of}
+    over ``module``, from each layer's ``model_axis_reads()``; a module's
+    entry wins over its children's (None: read whole)."""
+    reads: Dict[str, Optional[str]] = {}
+    for name, mod in module.named_modules():          # parents first
+        found = getattr(mod, "model_axis_reads", None)
+        if found is None:
+            continue
+        for local, kind in found().items():
+            reads.setdefault(f"{name}.{local}" if name else local, kind)
+    return reads
+
+
+def _model_axis(bundle, mesh: Optional[Mesh], shardings) -> Optional[_ModelAxis]:
+    """The model-axis plan of a step, None without a model axis."""
+    if mesh is None or mesh.model == 1:
+        return None
+    split = {} if shardings is None else {
+        k: p for k, p in shardings.params.items() if p.model_axis}
+    reads = _shard_reads(bundle.module)
+    return _ModelAxis(mesh=mesh,
+                      gather={k: p for k, p in split.items() if reads.get(k) != p.kind},
+                      split=frozenset(split))
+
+
 def apply_model(bundle: "ModelBundle", params, embs, dense_inputs=None,
-                training: bool = False, seed: int = 0):
+                training: bool = False, seed: int = 0, axis: Optional[_ModelAxis] = None):
     """Apply the bundle's module to ``params`` under its compute dtype, the
     one place every step applies the tower (``recommendsystem_tpu/train/
     step.py:36-54``): with bf16 the floating params, the embedding
     activations and ``dense_inputs`` are cast at use and the outputs back
     to float32; with float32 nothing is cast.  ``seed`` draws a training
-    step's dropout."""
+    step's dropout; ``axis`` is a step's model-axis plan (module
+    docstring)."""
     dtype = _policy(bundle)
     if dtype is not None:
         params = cast_floating(params, dtype)
-    return _apply_cast(bundle, params, embs, dense_inputs, training, seed)
+    return _apply_cast(bundle, params, embs, dense_inputs, training, seed, axis)
 
 
-def _apply_cast(bundle, params, embs, dense_inputs, training, seed):
+def _apply_cast(bundle, params, embs, dense_inputs, training, seed, axis=None):
     """``apply_model`` on params already in the compute dtype."""
+    if axis is not None and axis.gather:
+        params = {k: model_axis.gather_leaf(v, axis.gather[k]) if k in axis.gather else v
+                  for k, v in params.items()}
     dtype = _policy(bundle)
     if dtype is not None:
         embs = cast_floating(embs, dtype)
@@ -145,7 +207,8 @@ def _apply_cast(bundle, params, embs, dense_inputs, training, seed):
         kwargs["seed"] = seed
     if dense_inputs is not None:
         kwargs["dense_inputs"] = dense_inputs
-    out = functional_call(bundle.module, params, (embs,), kwargs)
+    with model_axis.use(None if axis is None else axis.mesh):
+        out = functional_call(bundle.module, params, (embs,), kwargs)
     return out if dtype is None else cast_floating(out, torch.float32)
 
 
@@ -169,9 +232,28 @@ def _weighted_task_loss(loss_fn, y, pred, sample_weight, mesh: Optional[Mesh] = 
     return raw.mean() if mesh is None else raw.sum() / (raw.numel() * n)
 
 
+def _penalty(penalized, params, axis: Optional[_ModelAxis]) -> torch.Tensor:
+    """The L1L2 penalty (a float32 0-d tensor): with split kernels, each
+    shard's term summed over the model group (its gradient the rank's own)
+    plus the whole kernels' terms."""
+    if axis is None or not axis.split:
+        return kernel_penalty(penalized, params).float()
+    whole: Dict = {}
+    split: Dict = {}
+    for reg, names in penalized.items():
+        for n in names:
+            (split if n in axis.split else whole).setdefault(reg, []).append(n)
+    total = (kernel_penalty(whole, params).float() if whole
+             else torch.zeros((), device=next(iter(params.values())).device))
+    if split:
+        total = total + model_axis.sum_over_model(kernel_penalty(split, params).float(),
+                                                  axis.mesh)
+    return total
+
+
 def _model_outputs_and_loss(bundle, params, embs, labels, sample_weight,
                             dense_inputs, training, seed, penalized,
-                            mesh: Optional[Mesh] = None):
+                            mesh: Optional[Mesh] = None, axis: Optional[_ModelAxis] = None):
     """The outputs and the loss; ``penalized`` is
     ``nn.regularized_kernels(bundle.module)``: when it is empty, the loss
     has no penalty term and ``regularization`` is None.  The penalty is
@@ -181,7 +263,7 @@ def _model_outputs_and_loss(bundle, params, embs, labels, sample_weight,
     rank."""
     dtype = _policy(bundle)
     cparams = params if dtype is None else cast_floating(params, dtype)
-    outputs = _apply_cast(bundle, cparams, embs, dense_inputs, training, seed)
+    outputs = _apply_cast(bundle, cparams, embs, dense_inputs, training, seed, axis)
     loss = 0.0
     task_losses = {}
     for task, loss_fn in bundle.losses.items():
@@ -192,7 +274,7 @@ def _model_outputs_and_loss(bundle, params, embs, labels, sample_weight,
         loss = loss + lw * tl
     reg = None
     if penalized:
-        reg = kernel_penalty(penalized, cparams).float()
+        reg = _penalty(penalized, cparams, axis)
         if mesh is None or mesh.rank == 0:
             loss = loss + reg
     return loss, {"task_losses": task_losses, "regularization": reg,
@@ -273,9 +355,26 @@ def _store_tables(tables, new) -> None:
             t.copy_(nt["opt"][name])
 
 
+def _check_shardings(shardings, sharded: bool) -> None:
+    if shardings is not None and not sharded:
+        raise ValueError("shardings= places a sharded state: it needs mode='sharded' "
+                         "and a mesh")
+
+
+def _sync_tables(tables, touched, mesh: Optional[Mesh]) -> None:
+    """The model replicas of ``tables`` made bit-equal after an update
+    (``model_axis.sync_replicas``): ``touched`` {storage: its local rows
+    the step may have written, or None for every row}.  Nothing without a
+    model axis."""
+    if mesh is None or mesh.model == 1:
+        return
+    model_axis.sync_replicas({k: tables[k] for k in touched},
+                             {k: r for k, r in touched.items() if r is not None}, mesh)
+
+
 def make_train_step(bundle: "ModelBundle", mode: str = "local",
                     sparse_update: Optional[str] = None,
-                    mesh: Optional[Mesh] = None) -> Callable:
+                    mesh: Optional[Mesh] = None, shardings=None) -> Callable:
     """Returns ``step(state, batch, labels, sample_weight=None,
     dense_inputs=None, seed=0) -> (state, info)``.  ``sparse_update`` is
     ``"packed"`` (the default, as in the JAX package), ``"scatter"`` or
@@ -285,7 +384,8 @@ def make_train_step(bundle: "ModelBundle", mode: str = "local",
     ``NotImplementedError``.  ``mode="sharded"`` with ``mesh`` is the
     data-parallel step over row-sharded tables (module docstring); every
     rank calls it with its shards, its rows of the batch and the same
-    ``seed``.
+    ``seed``; on a 2-D mesh ``shardings`` is the state's placements (a
+    ``TrainState`` of them; module docstring).
 
     ``batch`` holds IdBatches and ``labels`` {task: (B, 1)} tensors on the
     bundle's device; ``seed`` (an int below 2**32) draws the step's
@@ -304,7 +404,9 @@ def make_train_step(bundle: "ModelBundle", mode: str = "local",
     does: not at all while its moments are 0."""
     _check_mode(mode, mesh)
     sharded = mode == "sharded"
+    _check_shardings(shardings, sharded)
     mesh = mesh if sharded else None
+    axis = _model_axis(bundle, mesh, shardings)
     sparse_update = "packed" if sparse_update is None else sparse_update
     if sparse_update not in SPARSE_UPDATES:
         raise ValueError(f"sparse_update {sparse_update!r}: expected one of "
@@ -328,7 +430,7 @@ def make_train_step(bundle: "ModelBundle", mode: str = "local",
         with fa.sample_offset(_first_sample(batch, mesh)):
             loss, aux = _model_outputs_and_loss(bundle, params, embs(), labels,
                                                 sample_weight, dense_inputs,
-                                                True, seed, penalized, mesh)
+                                                True, seed, penalized, mesh, axis)
             grads = torch.autograd.grad(loss, list(params.values()) + leaves,
                                         allow_unused=True, materialize_grads=True)
         gp = list(grads[:len(params)])
@@ -400,6 +502,12 @@ def make_train_step(bundle: "ModelBundle", mode: str = "local",
             if classic_batch:
                 _store_tables(state.tables, _scatter_update(state.tables, g_raw,
                                                             classic_batch))
+            if axis is not None:
+                # the rows each storage's owners were asked for this step
+                touched = {k: torch.unique(c["plan"].recv_rows.long()) for k, c in ctx.items()}
+                touched.update({eng.table_map[eng.columns[k].categorical_column.key][0]: None
+                                for k in classic_batch})
+                _sync_tables(state.tables, touched, mesh)
         return new_state, info
 
     def _scatter_update(tables, g_raw, batch):
@@ -419,6 +527,7 @@ def make_train_step(bundle: "ModelBundle", mode: str = "local",
         with torch.no_grad():
             _store_tables(state.tables, _scatter_update(state.tables, dict(zip(raw, g_raw)),
                                                         batch))
+            _sync_tables(state.tables, dict.fromkeys(state.tables), mesh)
         return new_state, info
 
     def step_dense(state: TrainState, batch, labels, sample_weight=None,
@@ -435,6 +544,7 @@ def make_train_step(bundle: "ModelBundle", mode: str = "local",
                       else eng.row_counts(batch))
             new = eng.apply_gradients(state.tables, dict(zip(weights, g_w)), counts)
             _store_tables(state.tables, new)
+            _sync_tables(state.tables, dict.fromkeys(state.tables), mesh)
         return new_state, info
 
     return {"packed": step_packed, "scatter": step_scatter,
@@ -443,17 +553,17 @@ def make_train_step(bundle: "ModelBundle", mode: str = "local",
 
 def make_scan_train_step(bundle: "ModelBundle", mode: str = "local",
                          sparse_update: Optional[str] = None,
-                         mesh: Optional[Mesh] = None) -> Callable:
+                         mesh: Optional[Mesh] = None, shardings=None) -> Callable:
     """Multi-step driver: returns ``run(state, batches, labels,
     sample_weights, dense_inputs, seeds) -> (state, infos)`` over K steps,
     each data argument a sequence of K (``sample_weights`` and
     ``dense_inputs`` may be None), ``infos`` each step's scalars stacked,
     e.g. ``infos["loss"][k]``.  A Python loop over ``make_train_step``
-    (``mode``, ``sparse_update`` and ``mesh`` passed through): the
+    (``mode``, ``sparse_update``, ``mesh`` and ``shardings`` passed through): the
     same K steps one by one give the same result.  (A CUDA graph of the
     step is the Hopper counterpart of the JAX package's one-dispatch scan;
     it comes with a later slice.)"""
-    body = make_train_step(bundle, mode, sparse_update, mesh)
+    body = make_train_step(bundle, mode, sparse_update, mesh, shardings)
 
     def run(state: TrainState, batches: Sequence, labels: Sequence,
             sample_weights: Optional[Sequence] = None,
@@ -505,7 +615,7 @@ def _sum_over_ranks(metrics, states, increments, mesh: Mesh):
 
 
 def make_eval_step(bundle: "ModelBundle", mode: str = "local",
-                   mesh: Optional[Mesh] = None) -> Callable:
+                   mesh: Optional[Mesh] = None, shardings=None) -> Callable:
     """Returns ``step(state, batch, labels, sample_weight, dense_inputs,
     metric_states) -> (metric_states, outputs)`` under
     ``torch.inference_mode()``: the predict step's lookup (so the same
@@ -517,15 +627,18 @@ def make_eval_step(bundle: "ModelBundle", mode: str = "local",
     ``metrics.init_metrics(bundle.metrics, bundle.device)``; the step makes
     no host sync.  Sharded (``mode="sharded", mesh=``): each rank passes
     its shards and rows; the states it gets back hold the whole batch's
-    increments (summed over the ranks), the outputs are its rows'."""
+    increments (summed over the ranks), the outputs are its rows'; on a 2-D
+    mesh ``shardings`` as ``make_train_step`` takes it."""
     _check_mode(mode, mesh)
+    _check_shardings(shardings, mode == "sharded")
+    axis = _model_axis(bundle, mesh if mode == "sharded" else None, shardings)
 
     def step(state: TrainState, batch, labels, sample_weight, dense_inputs,
              metric_states):
         with torch.inference_mode():
             embs = _lookup_for_mode(bundle, state.tables, batch, mode, mesh)
             outputs = apply_model(bundle, state.params, embs, dense_inputs,
-                                  training=False)
+                                  training=False, axis=axis)
             y = {t: labels[t] for t in bundle.metrics}
             preds = {t: outputs[t] for t in bundle.metrics}
             if mode == "sharded":
@@ -541,21 +654,24 @@ def make_eval_step(bundle: "ModelBundle", mode: str = "local",
 
 
 def make_predict_step(bundle: "ModelBundle", mode: str = "local",
-                      mesh: Optional[Mesh] = None) -> Callable:
+                      mesh: Optional[Mesh] = None, shardings=None) -> Callable:
     """Returns ``step(state, batch, dense_inputs) -> {task: (B, 1)}``,
     running under ``torch.inference_mode()``; ``batch`` holds IdBatches of
     tensors on the bundle's device.  The lookup defers the sequence
     columns: the model gets ``SequenceRows`` handles for them, and the DIN
     pool (K7) gathers the rows it reads.  Sharded (``mode="sharded",
     mesh=``): each rank passes its shards and rows and gets its rows'
-    outputs; K7 gathers its facts from the rows the exchange brought."""
+    outputs; K7 gathers its facts from the rows the exchange brought.  On a
+    2-D mesh ``shardings`` as ``make_train_step`` takes it."""
     _check_mode(mode, mesh)
+    _check_shardings(shardings, mode == "sharded")
+    axis = _model_axis(bundle, mesh if mode == "sharded" else None, shardings)
 
     def step(state: TrainState, batch, dense_inputs=None):
         with torch.inference_mode():
             embs = _lookup_for_mode(bundle, state.tables, batch, mode, mesh)
             outputs = apply_model(bundle, state.params, embs, dense_inputs,
-                                  training=False)
+                                  training=False, axis=axis)
             return bundle.predict_view(outputs)
 
     return step

@@ -161,12 +161,14 @@ def test_profile_dir_writes_a_trace(tmp_path):
     assert any("aten::" in n for n in names)
 
 
-def test_fit_refuses_other_modes():
-    """The sharded mode without a mesh, an unknown mode, and a sharded
-    checkpoint (ROADMAP item 12b)."""
+def test_fit_refuses_other_modes(tmp_path):
+    """The sharded mode without a mesh (with a checkpoint too: a sharded
+    checkpoint is a collective over the mesh,
+    ``tests/test_torch_sharded_checkpoint.py``) and an unknown mode."""
     with pytest.raises(ValueError, match="mode 'sharded' needs a mesh"):
         fit(_bundle(), iter(()), mode="sharded")
     with pytest.raises(ValueError, match="mode 'pipeline'"):
         fit(_bundle(), iter(()), mode="pipeline")
-    with pytest.raises(NotImplementedError, match="12b"):
-        fit(_bundle(), iter(()), mode="sharded", checkpoint_dir="ckpt")
+    with pytest.raises(ValueError, match="mode 'sharded' needs a mesh"):
+        fit(_bundle(), iter(()), mode="sharded", checkpoint_dir=str(tmp_path / "ckpt"))
+    assert not (tmp_path / "ckpt").exists()

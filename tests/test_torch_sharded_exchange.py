@@ -19,7 +19,9 @@ rest of the sharded mode on 4 gloo ranks.
 - a table of 2^18 rows a member: only the batch's rows and their state
   change (``tests/test_sharded_training.py:77-118``);
 - ``shard_files``' defaults from the process group, and the mesh's
-  one-rank group and refusals in this process.
+  one-rank group in this process: the JAX ``create_mesh``'s ``ValueError``
+  for 1 rank over a model axis of 2, and ``tensor_parallel`` splitting
+  nothing at a model axis of 1.
 """
 
 import jax
@@ -250,8 +252,10 @@ def test_shard_files_defaults_to_the_process_group(group):
 def test_one_rank_mesh_and_its_refusals():
     assert not dist.is_initialized()
     assert pmesh.process_count() == 1 and pmesh.process_index() == 0
-    with pytest.raises(NotImplementedError, match="12b"):
+    # the JAX create_mesh's refusal: 1 device over a model axis of 2
+    with pytest.raises(ValueError, match="1 devices not divisible by model_parallel=2"):
         pmesh.create_mesh("cpu", model_parallel=2)
+    assert not dist.is_initialized()
     mesh = pmesh.create_mesh("cpu")
     try:
         assert (mesh.size, mesh.rank, mesh.shape) == (1, 0, {"data": 1, "model": 1})
@@ -262,8 +266,12 @@ def test_one_rank_mesh_and_its_refusals():
         skey = next(iter(state.tables))
         assert sh.tables[skey]["w"].kind == "row" and sh.tables[skey]["opt"]["t"].kind == "row"
         assert {p.kind for p in sh.params.values()} == {"replicated"}
-        with pytest.raises(NotImplementedError, match="12b"):
-            state_shardings(bundle, state, mesh, tensor_parallel=True)
+        # a model axis of 1 splits nothing (the JAX rule's tp_size 1)
+        tp = state_shardings(bundle, state, mesh, tensor_parallel=True, tp_min_dim=1)
+        assert {p.kind for p in tp.params.values()} == {"replicated"}
+        assert {p.kind for m in ("mu", "nu") for p in tp.opt_state[m].values()} == {
+            "replicated"}
+        assert (mesh.model, mesh.model_group, mesh.model_rank) == (1, None, 0)
         assert pmesh.local_mesh(1) is not None
     finally:
         dist.destroy_process_group()

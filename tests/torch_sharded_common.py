@@ -89,6 +89,30 @@ def jax_sharded_steps(jbundle, jstate, batches, n, sparse_update="packed"):
     return state, infos
 
 
+def jax_tp_steps(jbundle, jstate, batches, n, sparse_update="packed", model=2, record=None):
+    """The JAX package's tensor-parallel steps, as ``tests/test_tensor_parallel.py``
+    takes them: the state placed by ``state_shardings(tensor_parallel=True)``
+    on a ``create_mesh(jax.devices()[:n * model], model_parallel=model)``
+    mesh (data n x model), each batch by ``P("data")``, and the local train
+    step (XLA inserts the model axis's collectives), step i keyed
+    ``PRNGKey(i)``.  ``record``, where given, gets the mesh and the
+    placements."""
+    mesh = jax_create_mesh(jax.devices()[:n * model], model_parallel=model)
+    data = NamedSharding(mesh, P("data"))
+    put = lambda x: None if x is None else jax.device_put(  # noqa: E731
+        x, jax.tree.map(lambda _: data, x))
+    sh = jax_state_shardings(jbundle, jstate, mesh, tensor_parallel=True)
+    if record is not None:
+        record.update(mesh=mesh, shardings=sh)
+    state = jax.device_put(jstate, sh)
+    step = jax_make_train_step(jbundle, donate=False, sparse_update=sparse_update)
+    infos = []
+    for i, (b, d, l, w) in enumerate(batches):
+        state, info = step(state, put(b), put(l), put(w), put(d), jax.random.PRNGKey(i))
+        infos.append({k: float(v) for k, v in jax.device_get(info).items()})
+    return state, infos
+
+
 def port_batch(batch, dense, labels, weight):
     """A port batch as the worker takes it."""
     return {"batch": {k: (v.rows, v.mask) for k, v in batch.items()},
@@ -96,13 +120,15 @@ def port_batch(batch, dense, labels, weight):
 
 
 def bridged_case(model, kw, n, batch_size, seeds, sparse_update="packed", key=0,
-                 ids_per_feature=5, weights=None, jkw=None, rows=None, **extra):
+                 ids_per_feature=5, weights=None, jkw=None, rows=None,
+                 jax_steps=jax_sharded_steps, **extra):
     """(JAX bundle, JAX state after the steps, JAX infos, the port's case):
     one JAX state for ``model`` built with ``kw`` (``jkw`` on the JAX side
     where it differs) and ``num_shards=n``, one step a batch seed of
-    ``seeds``; ``weights``, where given, replaces each batch's sample
-    weights on both sides, and ``rows(key, ids)`` each column's (B, L)
-    ids (numpy)."""
+    ``seeds`` (by ``jax_steps``: the JAX sharded step over n devices, or
+    for example ``jax_tp_steps``); ``weights``, where given, replaces each
+    batch's sample weights on both sides, and ``rows(key, ids)`` each
+    column's (B, L) ids (numpy)."""
     jbundle = jax_create_model(model, num_shards=n, **(kw if jkw is None else jkw))
     pbundle = create_model(model, device="cpu", num_shards=n, **kw)
     jbatches, pbatches = [], []
@@ -128,7 +154,7 @@ def bridged_case(model, kw, n, batch_size, seeds, sparse_update="packed", key=0,
         opt_state=jax.tree.map(np.asarray, jstate.opt_state))
     if "capacity" in extra:
         jbundle.embedding.a2a_capacity_factor = extra["capacity"]
-    jstate, jinfos = jax_sharded_steps(jbundle, jstate, jbatches, n, sparse_update)
+    jstate, jinfos = jax_steps(jbundle, jstate, jbatches, n, sparse_update)
     case = {"kind": "train", "model": model, "kwargs": kw, "sparse_update": sparse_update,
             "state": {"params": pstate.params, "opt_state": pstate.opt_state,
                       "tables": pstate.tables, "step": 0},

@@ -26,6 +26,20 @@ ranks stay small.  Each case is a dict with ``"kind"``:
   sharded state, giving every rank's outputs (and the metric values).
 - ``"files"``: ``data.loader.shard_files(files)`` with its defaults,
   every rank's list.
+- ``"layer"``: a stacked MoE layer (``layer`` "mmoe" or "ple", ``kwargs``,
+  ``params`` its whole state dict) with its experts split over a model
+  axis of WORLD (``expert_shardings``): the forward of ``x`` and the
+  backward of ``cotangents``, giving the outputs, x's gradient and every
+  parameter's gradient gathered whole.
+- ``"fit"``: ``harness.fit(mode="sharded", checkpoint_dir=, ...)`` (see
+  ``_fit``); ``"multihost"``: each rank builds its rows of each global
+  batch and steps (see ``_multihost``).
+
+Train, predict and eval cases take ``model_parallel`` (the mesh's model
+axis, default 1), ``tensor_parallel`` (``state_shardings(...,
+tensor_parallel=True)``) and ``experts`` (``nn.expert_shardings`` merged);
+a train case on such a mesh also gives each placement's kind, the shards'
+shapes after the steps and whether the model replicas' tables are equal.
 """
 
 import os
@@ -38,15 +52,19 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 
+from recommendsystem_tpu_torch.core import model_axis  # noqa: E402
+from recommendsystem_tpu_torch.core.model_axis import all_gather  # noqa: E402
 from recommendsystem_tpu_torch.core.mesh import create_mesh, local_batch  # noqa: E402
 from recommendsystem_tpu_torch.data.loader import shard_files  # noqa: E402
 from recommendsystem_tpu_torch.embedding.engine import (IdBatch,  # noqa: E402
                                                          all_to_all_lookup,
                                                          route_grads_to_owners)
 from recommendsystem_tpu_torch.models import create_model  # noqa: E402
+from recommendsystem_tpu_torch.nn import MMOEStacked, PLEStacked, expert_shardings  # noqa: E402
 from recommendsystem_tpu_torch.train import metrics as M  # noqa: E402
 from recommendsystem_tpu_torch.train.state import (TrainState, gather_state,  # noqa: E402
-                                                   shard_state)
+                                                   merge_shardings, shard_state,
+                                                   state_shardings)
 from recommendsystem_tpu_torch.train.step import (make_eval_step,  # noqa: E402
                                                   make_predict_step, make_train_step)
 
@@ -82,12 +100,36 @@ def _bundle(case, world):
     return bundle
 
 
+def _shardings(case, bundle, whole, mesh):
+    """The case's placements of ``whole``: None (rows split, the rest
+    replicated), or with the model axis's split leaves."""
+    if not (case.get("tensor_parallel") or case.get("experts")):
+        return None
+    sh = state_shardings(bundle, whole, mesh, tensor_parallel=bool(case.get("tensor_parallel")))
+    if case.get("experts"):
+        sh = merge_shardings(sh, expert_shardings(whole.params, mesh))
+    return sh
+
+
+def _replicas_equal(tables, mesh):
+    """Whether every model rank of this data index holds the same bits in
+    every table leaf, on every rank."""
+    mine = torch.cat([t.reshape(-1).view(torch.uint8) for s in tables.values()
+                      for t in (s["w"], *s["opt"].values(), s["show"])])
+    parts = [torch.empty_like(mine) for _ in range(mesh.model)]
+    dist.all_gather(parts, mine, group=mesh.model_group)
+    same = torch.tensor([float(all(torch.equal(p, mine) for p in parts))])
+    dist.all_reduce(same, op=dist.ReduceOp.MIN)
+    return bool(same.item())
+
+
 def _train(case, mesh):
     bundle = _bundle(case, mesh.size)
     upd = case.get("sparse_update")
     whole = _state(case["state"])
-    state = shard_state(bundle, whole, mesh)
-    step = make_train_step(bundle, mode="sharded", sparse_update=upd, mesh=mesh)
+    sh = _shardings(case, bundle, whole, mesh)
+    state = shard_state(bundle, whole, mesh, sh)
+    step = make_train_step(bundle, mode="sharded", sparse_update=upd, mesh=mesh, shardings=sh)
     out = {"infos": [], "reports": []}
     for item, seed in zip(case["batches"], case["seeds"]):
         batch, labels, weight, dense = local_batch(_batch(item), mesh)
@@ -95,7 +137,11 @@ def _train(case, mesh):
             out["reports"].append(bundle.embedding.a2a_drop_report(batch, mesh))
         state, info = step(state, batch, labels, weight, dense, seed=seed)
         out["infos"].append({k: float(v) for k, v in info.items()})
-    out["state"] = _as_dict(gather_state(bundle, state, mesh))
+    if mesh.model > 1:
+        out["placements"] = {} if sh is None else {k: p.kind for k, p in sh.params.items()}
+        out["shard_shapes"] = {k: tuple(v.shape) for k, v in state.params.items()}
+        out["replicas_equal"] = _replicas_equal(state.tables, mesh)
+    out["state"] = _as_dict(gather_state(bundle, state, mesh, sh))
     if case.get("local"):
         local = make_train_step(bundle, sparse_update=upd)
         lstate, out["local_infos"] = whole, []
@@ -130,16 +176,111 @@ def _gather_all(d, mesh):
 
 def _serve(case, mesh):
     bundle = _bundle(case, mesh.size)
-    state = shard_state(bundle, _state(case["state"]), mesh)
+    whole = _state(case["state"])
+    sh = _shardings(case, bundle, whole, mesh)
+    state = shard_state(bundle, whole, mesh, sh)
     batch, labels, weight, dense = local_batch(_batch(case["batches"][0]), mesh)
     if case["kind"] == "predict":
-        outs = make_predict_step(bundle, mode="sharded", mesh=mesh)(state, batch, dense)
+        outs = make_predict_step(bundle, mode="sharded", mesh=mesh, shardings=sh)(
+            state, batch, dense)
         return _gather_all({k: v.float() for k, v in outs.items()}, mesh)
-    step = make_eval_step(bundle, mode="sharded", mesh=mesh)
+    step = make_eval_step(bundle, mode="sharded", mesh=mesh, shardings=sh)
     states = M.init_metrics(bundle.metrics, mesh.device)
     states, _ = step(state, batch, labels, weight, dense, states)
     return {t: {n: float(v) for n, v in ms.items()}
             for t, ms in M.compute_metrics(bundle.metrics, states).items()}
+
+
+def _layer(case, mesh):
+    """A stacked MoE layer with its experts split over the model axis."""
+    cls = {"mmoe": MMOEStacked, "ple": PLEStacked}[case["layer"]]
+    layer = cls(device="cpu", **case["kwargs"])
+    whole = case["params"]
+    sh = expert_shardings(whole, mesh)
+    params = {k: sh[k].local_part(v).clone().requires_grad_() for k, v in whole.items()}
+    x = case["x"].clone().requires_grad_()
+    with model_axis.use(mesh):
+        outs = torch.func.functional_call(layer, params, (x,))
+    torch.autograd.backward(outs, case["cotangents"])
+    grads = {k: all_gather(p.grad, sh[k].dim, mesh.model_group, mesh.model)
+             if sh[k].model_axis else p.grad for k, p in params.items()}
+    return {"outputs": [o.detach() for o in outs], "x_grad": x.grad, "grads": grads,
+            "kinds": {k: p.kind for k, p in sh.items()}}
+
+
+def _same(a, b):
+    """Whether two nests of dicts hold equal tensors bit for bit (and equal
+    other leaves)."""
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+    return a == b
+
+
+def _fit(case, mesh):
+    """``fit(mode="sharded")`` over the case's whole batches (each rank
+    its rows) for ``steps`` steps with a checkpoint every ``every`` under
+    ``dir``: the losses, the whole state gathered, and whether the
+    checkpoint restored onto the ranks equals their shards.  With
+    ``resume`` (a number of steps), ``fit(resume=True)`` from that
+    checkpoint over the batches after it, and the losses of those steps.
+    With ``local_dir`` (a local checkpoint of the whole state
+    ``local_state``), whether it restored onto the ranks equals
+    ``shard_state`` of it."""
+    from recommendsystem_tpu_torch.train.checkpoint import restore_checkpoint
+    from recommendsystem_tpu_torch.train.harness import fit
+    from recommendsystem_tpu_torch.train.state import create_train_state
+
+    bundle = _bundle(case, mesh.size)
+    sh = _shardings(case, bundle, create_train_state(bundle, seed=0), mesh)
+    data = [local_batch(_batch(item), mesh) for item in case["batches"]]
+    data = [(b, d, l, w) for b, l, w, d in data]
+    out = {"losses": []}
+
+    def run(items, steps, losses, **kw):
+        return fit(bundle, items, steps=steps, seed=case.get("seed", 0), mesh=mesh,
+                   mode="sharded", log_every=0, shardings=sh,
+                   callbacks=[lambda i, st, info: losses.append(float(info["loss"]))], **kw)
+
+    state = run(data, case["steps"], out["losses"], checkpoint_dir=case["dir"],
+                checkpoint_every=case["every"])
+    out["state"] = _as_dict(gather_state(bundle, state, mesh, sh))
+    out["restored_equal"] = _same(
+        _as_dict(restore_checkpoint(case["dir"], state, mesh=mesh, shardings=sh)),
+        _as_dict(state))
+    if case.get("resume"):
+        out["resumed_losses"] = []
+        run(data[case["resume"]:], None, out["resumed_losses"], checkpoint_dir=case["dir"],
+            resume=True)
+    if case.get("local_dir"):
+        whole = _state(case["local_state"])
+        out["local_restored_equal"] = _same(
+            _as_dict(restore_checkpoint(case["local_dir"], state, mesh=mesh, shardings=sh)),
+            _as_dict(shard_state(bundle, whole, mesh, sh)))
+    return out
+
+
+def _multihost(case, mesh):
+    """The multihost worker's steps (``tests/multihost_worker.py``): each
+    rank builds each global batch from its seed and keeps its own rows
+    (``local_batch``); every rank's printed losses."""
+    from recommendsystem_tpu_torch.data import synthetic_batch
+    from recommendsystem_tpu_torch.train.state import create_train_state
+
+    bundle = _bundle(case, mesh.size)
+    state = shard_state(bundle, create_train_state(bundle, seed=0), mesh)
+    step = make_train_step(bundle, mode="sharded", mesh=mesh)
+    losses = []
+    for i in range(case["steps"]):
+        batch, _, labels, weight = synthetic_batch(bundle, case["global_batch"], seed=i)
+        batch, labels, weight = local_batch((batch, labels, weight), mesh)
+        state, info = step(state, batch, labels, weight, None, seed=i)
+        losses.append(float(info["loss"]))
+    line = f"WORKER {dist.get_rank()} losses {' '.join('%.6f' % v for v in losses)}"
+    lines = [None] * dist.get_world_size()
+    dist.all_gather_object(lines, line)
+    return lines
 
 
 def _files(case, mesh):
@@ -153,19 +294,23 @@ def main():
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{store}", world_size=int(world),
                             rank=int(rank))
-    mesh = create_mesh("cpu")
+    meshes = {}
     cases = torch.load(cases_path, weights_only=False)
     results = []
     try:
         for case in cases:
+            m = case.get("model_parallel", 1)
+            if m not in meshes:
+                meshes[m] = create_mesh("cpu", model_parallel=m)
             run = {"train": _train, "exchange": _exchange, "predict": _serve,
-                   "eval": _serve, "files": _files}[case["kind"]]
-            results.append(run(case, mesh))
+                   "eval": _serve, "files": _files, "layer": _layer,
+                   "fit": _fit, "multihost": _multihost}[case["kind"]]
+            results.append(run(case, meshes[m]))
     except Exception:
         traceback.print_exc()
         sys.stderr.flush()
         os._exit(1)
-    if mesh.rank == 0:
+    if dist.get_rank() == 0:
         torch.save(results, out_path + ".part")
         os.replace(out_path + ".part", out_path)
     dist.barrier()
