@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --phase 14     # one phase alone (14, 15, 16 or 17)
+    python3 chip_smoke.py --phase 14     # one phase alone (14, 15, 16, 17 or 18)
 
 1. builds the port's CUDA kernels from ``recommendsystem_tpu_torch/csrc/``
    (one nvcc per source, all at once);
@@ -224,6 +224,20 @@
    local ones; ctr's tensor-parallel step held to the CPU by ``witness``
    at ``CHECK_SEEDS``; the sharded checkpoint from ``fit`` restored onto
    the ranks and locally, bit for bit.
+18. trains autoint on the Criteo path (``criteo_quality_path``) at the
+   configuration of ``AUC_PARITY.json`` through
+   ``scripts/torch_auc_parity_criteo.py``'s functions: 120,000 training
+   and 20,000 test rows of its synthetic Criteo file written and parsed
+   once, 39 mean columns (26 categorical of 2 ids, 13 integer of 1) over
+   50,000-row tables, B 512, dropout 0.2; one train step's launches held
+   to ``CRITEO_TRAIN_LAUNCHES`` (one K1, K2, K3, K4, K5f, K5b and K8) and
+   one predict call's to ``CRITEO_PREDICT_LAUNCHES`` (one K1, K2 and K6),
+   no host sync in either; two card steps held to the CPU by ``witness``
+   at B 64 and ``CHECK_SEEDS``; seed 0 trained for 3 epochs (702 steps)
+   in float32, bf16 storage and bf16 compute, each run's launches held to
+   its steps and predict calls: the float32 test AUC within
+   ``CRITEO_AUC_BOUND`` of the JAX mean and its trained predict outputs
+   equal to the CPU's, the bf16 modes' AUC above ``CRITEO_MIN_AUC``.
 
 Prints the card's name and power limit, one JSON line each for the autoint
 predict step, the train step, the staytime predict step, the predict
@@ -236,7 +250,8 @@ path's loader, train-step and checkpoint numbers (``daily``), phase
 phase 14's train and predict times under the policy (``bf16_compute``) and
 phase 15's loaded-program and predict-step times and dispatch µs
 (``export``), phase 16's sharded and local step times (``sharded``), phase
-17's 2-D and local step times, collectives and checkpoint (``mesh2d``), then
+17's 2-D and local step times, collectives and checkpoint (``mesh2d``),
+phase 18's trained AUC, logloss and examples/s (``criteo_quality``), then
 ``{"kernels": ...}`` (10 kernels), and last
 ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Any failure ends the run with a traceback
@@ -5935,6 +5950,172 @@ def _mesh2d_line(out):
         "phase_s": out["phase_s"], "card": out["card"]}
 
 
+# phase 18: the Criteo path of scripts/torch_auc_parity_criteo.py.  A train
+# step over the 39 columns (26 categorical of 2 ids, 13 integer of 1)
+# launches one of each training kernel, a predict call K1, K2 and K6
+CRITEO_TRAIN_LAUNCHES = {"fold_mean": 1, "fold_rows": 1, "unfold_mean": 1, "unfold_rows": 1,
+                         "field_attention": 1, "field_attention_bwd": 1,
+                         "sparse_adam_update": 1}
+CRITEO_PREDICT_LAUNCHES = {"fold_mean": 1, "fold_rows": 1, "interacting_attention": 1}
+CRITEO_AUC_BOUND = 0.003          # one seed's test AUC against the JAX 3-seed mean
+CRITEO_MIN_AUC = 0.70             # the bf16 modes: a model that learned
+CRITEO_PREDICT_CHECK = 4          # test batches of the trained state held to the CPU
+
+
+def _auc_parity_script():
+    """``scripts/torch_auc_parity_criteo.py`` as a module (its functions are
+    shared, not copied)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        "torch_auc_parity_criteo.py")
+    spec = importlib.util.spec_from_file_location("torch_auc_parity_criteo", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _only(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def criteo_quality_path(card):
+    """Phase 18: the port's autoint trained on the Criteo path at the
+    configuration of ``AUC_PARITY.json`` (``torch_auc_parity_criteo.py``'s
+    constants: 120,000 training and 20,000 test rows written and parsed
+    once, 39 columns over 50,000-row tables, B 512, dropout 0.2).  The
+    launches of one train step and one predict call held to
+    ``CRITEO_TRAIN_LAUNCHES`` and ``CRITEO_PREDICT_LAUNCHES``, with no host
+    sync in either; two card steps held to the CPU by ``witness`` at B 64
+    and each of ``CHECK_SEEDS`` (categorical columns 2 ids, integer ones 1,
+    as the parse pads them); then seed 0 trained for 3 epochs (702 steps)
+    in each mode, every run's launches held to 702 steps and 39 predict
+    calls: float32's test AUC within ``CRITEO_AUC_BOUND`` of the JAX mean,
+    its trained state's predict outputs equal to the CPU's (``SCORE_TOL``);
+    bf16 storage and bf16 compute finite with AUC above
+    ``CRITEO_MIN_AUC``, their deltas reported."""
+    import tempfile
+
+    from recommendsystem_tpu_torch.data.criteo import CAT_SLOTS, INT_SLOTS
+    from recommendsystem_tpu_torch.train import make_predict_step, make_train_step
+    from recommendsystem_tpu_torch.train.state import create_train_state
+
+    q = _auc_parity_script()
+    t_phase = time.perf_counter()
+    with open(q.JAX_RECORD) as fh:
+        jax_means = json.load(fh)["summary"]["jax"]
+    out = {"card": card, "jax": jax_means}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_criteo_") as root:
+        train_path, test_path = q.write_files(root, q.N_TRAIN, q.N_TEST)
+        embedding = q.make_bundle("float32", "cpu").embedding
+        train_b = q.load_batches(train_path, embedding, "cuda")
+        test_b = q.load_batches(test_path, embedding, "cuda")
+    out["data_s"] = time.perf_counter() - t0
+    out["batches"] = {"train": len(train_b), "test": len(test_b)}
+    widths = {k: v.rows.shape[1] for k, v in train_b[0][0].items()}
+    if widths != {**{s: 1 for s in INT_SLOTS}, **{s: 2 for s in CAT_SLOTS}}:
+        raise AssertionError(f"criteo batch widths {widths}")
+    log(f"criteo: {len(train_b)} train and {len(test_b)} test batches in "
+        f"{out['data_s']:.1f} s")
+
+    # one train step and one predict call: exact launches, no host sync
+    bundle = q.make_bundle("float32", "cuda")
+    cpu_bundle = q.make_bundle("float32", "cpu")
+    step, predict = make_train_step(bundle), make_predict_step(bundle)
+    state = create_train_state(bundle, seed=5)
+    (batch, labels, weight), test_batch = train_b[0], test_b[0][0]
+    state, _ = step(state, batch, labels, weight, None, seed=0)
+    predict(state, test_batch)
+    total = {}
+    (state, _), per_step = _count(lambda: step(state, batch, labels, weight, None, seed=1))
+    _, per_call = _count(lambda: predict(state, test_batch))
+    out["launches_per_step"], out["launches_per_call"] = _only(per_step), _only(per_call)
+    if out["launches_per_step"] != CRITEO_TRAIN_LAUNCHES:
+        raise AssertionError(f"criteo train step launched {out['launches_per_step']}, "
+                             f"expected {CRITEO_TRAIN_LAUNCHES}")
+    if out["launches_per_call"] != CRITEO_PREDICT_LAUNCHES:
+        raise AssertionError(f"criteo predict call launched {out['launches_per_call']}, "
+                             f"expected {CRITEO_PREDICT_LAUNCHES}")
+    _add(total, per_step)
+    _add(total, per_call)
+    runs = {"train": lambda: step(state, batch, labels, weight, None, seed=2),
+            "predict": lambda: predict(state, test_batch)}
+    syncs = {}
+    for kind in ("train", "predict", "train", "predict"):     # the second is the steady one
+        syncs[kind] = _count_syncs(runs[kind])
+    out["syncs"] = {k: len(v) for k, v in syncs.items()}
+    if syncs["train"] or syncs["predict"]:
+        raise AssertionError(f"criteo host syncs: a train step {syncs['train']}, a predict "
+                             f"call {syncs['predict']}")
+
+    # two card steps against the CPU plain path, the parse's widths
+    t0 = time.perf_counter()
+    ipf = {s: 2 for s in CAT_SLOTS}            # unlisted (integer) columns take 1 id
+    out["card_vs_cpu"] = hold_card_to_cpu(bundle, cpu_bundle, CHECK_BATCH, ipf, "criteo")
+    out["cpu_check_s"] = time.perf_counter() - t0
+
+    # trained runs, seed 0, each in a window of counts
+    want = {k: len(train_b) * q.EPOCHS * v for k, v in CRITEO_TRAIN_LAUNCHES.items()}
+    _add(want, {k: len(test_b) * v for k, v in CRITEO_PREDICT_LAUNCHES.items()})
+    out["runs"] = {}
+    for mode in q.MODES:
+        (r, trained), counts = _count(lambda: q.run(mode, 0, train_b, test_b, "cuda"))
+        r["launches"] = _only(counts)
+        out["runs"][mode] = r
+        log(f"criteo {mode} seed 0:", json.dumps(r))
+        if r["launches"] != want:
+            raise AssertionError(f"criteo {mode} run launched {r['launches']}, expected {want}")
+        _add(total, counts)
+        if mode == "float32":
+            if abs(r["auc"] - jax_means["auc_mean"]) > CRITEO_AUC_BOUND:
+                raise AssertionError(f"criteo float32 test AUC {r['auc']:.5f} is more than "
+                                     f"{CRITEO_AUC_BOUND} from the JAX mean "
+                                     f"{jax_means['auc_mean']:.5f}")
+            cpu_state = _cpu_state(trained)
+            cpu_predict = make_predict_step(cpu_bundle)
+            for b, _, _ in test_b[:CRITEO_PREDICT_CHECK]:
+                got = predict(trained, b)[q.TASK].cpu().numpy()
+                cpu_b = {k: v.to("cpu") for k, v in b.items()}
+                np.testing.assert_allclose(got, cpu_predict(cpu_state, cpu_b)[q.TASK].numpy(),
+                                           **SCORE_TOL)
+        elif not r["auc"] > CRITEO_MIN_AUC:
+            raise AssertionError(f"criteo {mode} test AUC {r['auc']:.5f} <= {CRITEO_MIN_AUC}")
+        r["auc_delta_jax"] = r["auc"] - jax_means["auc_mean"]
+        r["logloss_delta_jax"] = r["logloss"] - jax_means["logloss_mean"]
+        r["auc_delta_float32"] = r["auc"] - out["runs"]["float32"]["auc"]
+        r["logloss_delta_float32"] = r["logloss"] - out["runs"]["float32"]["logloss"]
+    out["launches"] = total
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"criteo phase: {out['phase_s']:.1f} s")
+    return out
+
+
+def _criteo_line(out):
+    """Phase 18's JSON line: each run's quality and speed, the launches."""
+    return {"runs": {m: {k: r[k] for k in (
+        "auc", "logloss", "auc_delta_jax", "logloss_delta_jax", "auc_delta_float32",
+        "logloss_delta_float32", "steps", "train_s", "examples_per_s")}
+        for m, r in out["runs"].items()},
+        "launches_per_step": out["launches_per_step"],
+        "launches_per_call": out["launches_per_call"], "syncs": out["syncs"],
+        "data_s": out["data_s"], "phase_s": out["phase_s"], "card": out["card"]}
+
+
+def phase18_alone(card) -> int:
+    """``--phase 18``: build the kernels and run phase 18 alone, its JSON
+    line printed; no kernels line and no ok line (a whole run gives them)."""
+    from recommendsystem_tpu_torch.kernels import build_all
+
+    build_all()
+    out = criteo_quality_path(card)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_phase18.json"), "w") as fh:
+        json.dump(out, fh, indent=1)
+    print(json.dumps({"criteo_quality": _criteo_line(out)}), flush=True)
+    return 0
+
+
 def phase17_alone(card) -> int:
     """``--phase 17``: build the kernels and run phase 17 alone, its JSON
     line printed; no kernels line and no ok line (a whole run gives them)."""
@@ -6044,6 +6225,8 @@ def main() -> int:
         return phase16_alone(card)
     if sys.argv[1:] == ["--phase", "17"]:
         return phase17_alone(card)
+    if sys.argv[1:] == ["--phase", "18"]:
+        return phase18_alone(card)
 
     # -- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -6290,6 +6473,11 @@ def main() -> int:
     mesh2d = report["mesh2d"]["launches"]
     print(json.dumps({"mesh2d": _mesh2d_line(report["mesh2d"])}), flush=True)
 
+    # -- 18. the main path: autoint trained on the Criteo path ---------------
+    report["criteo"] = criteo_quality_path(card)
+    criteo = report["criteo"]["launches"]
+    print(json.dumps({"criteo_quality": _criteo_line(report["criteo"])}), flush=True)
+
     # -- report ----------------------------------------------------------------
     # the serving folds at the largest serving bucket, the train kernels
     # (K5 among them: the serving paths take K6) at the train batch, the
@@ -6346,7 +6534,7 @@ def main() -> int:
                     + towers[name] + rough[name] + stacked[name] + staytime_train[name]
                     + evaluation[name] + daily[name] + bf16.get(name, 0)
                     + compute.get(name, 0) + exported.get(name, 0)
-                    + sharded.get(name, 0) + mesh2d.get(name, 0))
+                    + sharded.get(name, 0) + mesh2d.get(name, 0) + criteo.get(name, 0))
         if launches < 1:
             raise AssertionError(f"{name} was not launched on the main paths")
         kernels.append({

@@ -41,15 +41,20 @@ def decode_batch(raw_batch: Sequence[bytes]) -> List[dict]:
 def pad_ids(values: List[List[int]], max_len: int, hash_fn) -> IdBatch:
     """Ragged int64 feasigns -> (B, max_len) int32 rows + float mask, as CPU
     tensors.  Overflow ids beyond max_len are dropped (static-shape
-    contract); padding carries id 0."""
+    contract); padding carries id 0.  ``hash_fn`` maps feasigns to rows
+    element by element (``CategoryColumn.hash_ids``), so it takes every
+    kept feasign of the batch in one call: the JAX package's row-by-row
+    calls give the same rows."""
     b = len(values)
     rows = np.zeros((b, max_len), np.int32)
     mask = np.zeros((b, max_len), np.float32)
-    for i, vals in enumerate(values):
-        vals = vals[:max_len]
-        if vals:
-            rows[i, :len(vals)] = hash_fn(np.asarray(vals, np.int64))
-            mask[i, :len(vals)] = 1.0
+    kept = [v[:max_len] for v in values]
+    flat = [x for v in kept for x in v]
+    if flat:
+        lens = np.fromiter(map(len, kept), np.int64, b)
+        live = np.arange(max_len) < lens[:, None]      # row-major: flat's order
+        rows[live] = hash_fn(np.asarray(flat, np.int64))
+        mask[live] = 1.0
     return IdBatch(rows=torch.from_numpy(rows), mask=torch.from_numpy(mask))
 
 

@@ -260,6 +260,27 @@ def staytime_pair():
     return jb, pb
 
 
+@pytest.mark.parametrize("max_len", [1, 2, 5])
+def test_pad_ids_equals_jax(max_len):
+    """The port hashes a batch's kept feasigns in one call; the JAX package
+    row by row: the same rows and mask, empty rows and overflow among
+    them."""
+    from recommendsystem_tpu_torch.embedding import category_column
+
+    rng = np.random.default_rng(max_len)
+    values = [[int(x) for x in rng.integers(-2 ** 62, 2 ** 62, rng.integers(0, 8))]
+              for _ in range(300)]
+    values[0], values[1] = [], [7] * (max_len + 3)
+    col = category_column("s", 50000)
+    got = parse.pad_ids(values, max_len, col.hash_ids)
+    want = jparse.pad_ids(values, max_len, col.hash_ids)
+    assert got.rows.dtype == torch.int32 and got.mask.dtype == torch.float32
+    np.testing.assert_array_equal(got.rows.numpy(), want.rows)
+    np.testing.assert_array_equal(got.mask.numpy(), want.mask)
+    empty = parse.pad_ids([[], []], max_len, col.hash_ids)
+    assert not empty.rows.any() and not empty.mask.any()
+
+
 @pytest.mark.parametrize("ids_per_feature", [5, 2])
 def test_staytime_parse_equals_jax(tmp_path, ids_per_feature):
     jb, pb = staytime_pair()
