@@ -5237,19 +5237,45 @@ def _sharded_line(out):
 MESH2D_RANKS = 2                  # one data index x a model axis of 2, on one card
 # launches a step of each rank's sharded step on the 2-D mesh: the one-rank
 # sharded step's (phase 16): K1, the owners' K2, K3, the owners' K4 and K8,
-# and ctr's K5f and K5b
+# and ctr's K5f and K5b; the 212-feature ctr (one id a column) K2 and K4 in
+# place of K1 and K3; staytime K9 in place of K8, the sequences' K2 and K4
+# and the DIN pools' K7 (SHARDED_LAUNCHES)
+_CTR_2D = {"fold_mean": 1, "fold_rows": 1, "unfold_mean": 1, "unfold_rows": 1,
+           "field_attention": 1, "field_attention_bwd": 1, "sparse_adam_update": 1}
 MESH2D_LAUNCHES = {
-    "ctr": {"fold_mean": 1, "fold_rows": 1, "unfold_mean": 1, "unfold_rows": 1,
-            "field_attention": 1, "field_attention_bwd": 1, "sparse_adam_update": 1},
+    "ctr": _CTR_2D,
     "rough_rank": {"fold_mean": 1, "fold_rows": 1, "unfold_mean": 1, "unfold_rows": 1,
-                   "sparse_adam_update": 1}}
-# ctr's sharded predict call and eval step: the owners' K2, then K1 and K6
-MESH2D_PREDICT_LAUNCHES = {"fold_mean": 1, "fold_rows": 1, "interacting_attention": 1}
+                   "sparse_adam_update": 1},
+    "staytime": SHARDED_LAUNCHES["staytime"],
+    "ctr212": {"fold_rows": 2, "unfold_rows": 2, "field_attention": 1,
+               "field_attention_bwd": 1, "sparse_adam_update": 1},
+    "ctr_bf16": _CTR_2D}
+# the sharded predict call and eval step: ctr's owners' K2, then K1 and K6;
+# staytime's owners' K2, K1 and the three K7 gathering from the rows received
+MESH2D_PREDICT_LAUNCHES = {
+    "ctr": {"fold_mean": 1, "fold_rows": 1, "interacting_attention": 1},
+    "staytime": SHARDED_PREDICT_LAUNCHES}
 # a sharded state against the local one: the CPU tests' tolerances
 # (``tests/torch_sharded_common.py``: PARAM_TOL, TABLE_TOL)
 MESH2D_PARAM_TOL = dict(rtol=5e-4, atol=1e-5)
 MESH2D_TABLE_TOL = dict(rtol=5e-4, atol=1e-6)
-MESH2D_TP_KERNELS = 24            # ctr's kernels the JAX rule splits over a model axis of 2
+# under the bf16 compute policy the 2-D step against the local one: each
+# loss's relative error, and the relative L2 error of each gradient and of
+# each storage's float32 update after step 1 (``_hold_policy``).  The sound
+# step read at most 8.5e-5 on the losses, 1.4e-4 on the gradients and
+# 2.9e-4 on the updates on the H100; a column Dense that rounds each rank's
+# part of x's gradient to bf16 before the sum reads 1.2e-2 on the updates
+# (scripts/torch_mesh2d_hold_check.py, on the CPU)
+MESH2D_POLICY_LOSS_RTOL = 1e-3
+MESH2D_POLICY_REL_L2 = 2e-3
+# twins' float32 values this close take the bf16 rule (BF16_RTOL of
+# tests/test_torch_bf16_tables.py)
+MESH2D_BF16_RTOL = 1e-6
+# the cases traced and timed at two steps a turn (the others one)
+MESH2D_TRACED = ("ctr", "rough_rank")
+# the params the JAX rule splits over a model axis of 2 (tp_min_dim 64;
+# ``tests/test_torch_tensor_parallel_placements.py``)
+MESH2D_TP_KERNELS = {"ctr": 24, "staytime": 22, "ctr212": 25, "ctr_bf16": 24}
 MESH2D_TIMEOUT_S = 900
 
 
@@ -5259,15 +5285,18 @@ def _clone_tree(x):
     return x.clone() if isinstance(x, torch.Tensor) else x
 
 
-def _window_on(step, state, batch, dense, labels, weight, steps=TRAIN_STEPS):
+def _window_on(step, state, batch, dense, labels, weight, steps=TRAIN_STEPS, keep=()):
     """``steps`` steps from ``state`` in a window of counts: (state,
-    launches, losses, infos)."""
+    launches, losses, infos, {i: a host copy of the state entering step i}
+    for each 0-based step i of ``keep``)."""
     from recommendsystem_tpu_torch.kernels import launch_counts, reset_launch_counts
 
     torch.cuda.synchronize()
     reset_launch_counts()
-    infos = []
+    infos, kept = [], {}
     for i in range(steps):
+        if i in keep:
+            kept[i] = _state_on(state, "cpu")
         state, info = step(state, batch, labels, weight, dense, seed=i)
         infos.append(info)
     torch.cuda.synchronize()
@@ -5275,14 +5304,23 @@ def _window_on(step, state, batch, dense, labels, weight, steps=TRAIN_STEPS):
     losses = [float(i["loss"]) for i in infos]
     if not all(np.isfinite(losses)):
         raise AssertionError(f"train loss not finite: {losses}")
-    return state, counts, losses, infos
+    return state, counts, losses, infos, kept
+
+
+def _state_on(state, device):
+    """A copy of a ``TrainState`` on ``device``."""
+    from recommendsystem_tpu_torch.train.state import TrainState
+
+    return TrainState(params=_to(state.params, device), opt_state=_to(state.opt_state, device),
+                      tables=_to(state.tables, device), step=_to(state.step, device))
 
 
 class _GradRecorder:
     """Records, a step at a time, the dense gradients as the dense Adam
     takes them and each storage's gradient rows as the lazy pass takes them
-    (the accumulator's (rows, D) block), for the side set by ``side``:
-    what ``_hold_state`` explains an entry past its tolerance by."""
+    (the accumulator's (rows, D) block, copied to the host), for the side
+    set by ``side``: what ``_hold_state`` explains an entry past its
+    tolerance by."""
 
     def __init__(self, bundle):
         self.bundle, self.which = bundle, None
@@ -5308,7 +5346,7 @@ class _GradRecorder:
             tstates, accs = list(tstates), list(accs)
             for ts, acc in zip(tstates, accs):
                 rows = packed.accumulator_views(acc, ts["w"].shape[1])[0]
-                self.tables[self.which][-1][id(ts["w"])] = rows.detach().clone()
+                self.tables[self.which][-1][id(ts["w"])] = rows.detach().to("cpu", copy=True)
             return real_group(o, tstates, accs)
 
         self._undo = (opt, real_group)
@@ -5330,39 +5368,44 @@ class _GradRecorder:
 
 
 class _KinkFinder(TorchFunctionMode):
-    """The local window's ReLU inputs kept on the card, and in the 2-D
-    window each ReLU call's flips against the local call of the same place
-    (an expert shard's input against its experts' rows of the local one):
-    a flip whose two values lie within KINK_RTOL of the call's largest
-    |input|, or within the largest difference among the call's elements
-    that did not flip, is a kink, as ``witness`` counts one; once a step
-    had a kink, the flips of the steps after it count as kinks (their
-    states are apart by more than rounding).  ``kinks``: the samples with a
-    kink; ``far``: every other flip."""
+    """The ReLU calls of the local window and of the 2-D window, counted
+    (``calls``).  With ``flips``, both windows' inputs are kept (``local``
+    on the card, ``mine`` on the host) and each 2-D call's flips are found
+    against the
+    local call of the same place (an expert shard's input against its
+    experts' rows of the local one): a flip whose two values lie within
+    KINK_RTOL of the call's largest |input|, or within the largest
+    difference among the call's elements that did not flip, is a kink, as
+    ``witness`` counts one; once a step had a kink, the flips of the steps
+    after it count as kinks (their states are apart by more than rounding).
+    ``kinks``: the samples with a kink; ``kinked_step``: the first step
+    with one; ``far``: every other flip."""
 
-    def __init__(self, model_rank, b, steps):
+    def __init__(self, model_rank, b, steps, flips=True):
         super().__init__()
-        self.model_rank, self.b, self.steps = model_rank, b, steps
-        self.local, self.side, self.i = [], None, 0
+        self.model_rank, self.b, self.steps, self.flips = model_rank, b, steps, flips
+        self.local, self.mine, self.side = [], [], None
+        self.calls = {"local": 0, "2d": 0}
         self.kinks, self.far, self.kinked_step = set(), [], None
 
     def at(self, side):
-        self.side, self.i = side, 0
+        self.side = side
         return self
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         if func in (torch.relu, torch.nn.functional.relu, torch.Tensor.relu):
             x = args[0].detach()
-            if self.side == "local":
+            if self.flips and self.side == "local":
                 self.local.append(x.clone())
-            else:
-                self._flips(x)
+            elif self.flips:
+                self._flips(x, self.calls["2d"])
+                self.mine.append(x.to("cpu", copy=True))
+            self.calls[self.side] += 1
         return func(*args, **(kwargs or {}))
 
-    def _flips(self, g):
-        c = self.local[self.i]
-        step = self.i // (len(self.local) // self.steps) + 1
-        self.i += 1
+    def _flips(self, g, i):
+        c = self.local[i]
+        step = i // (len(self.local) // self.steps) + 1
         if c.shape != g.shape:          # a shard of the experts: its rows
             c = c.narrow(0, self.model_rank * g.shape[0], g.shape[0])
         flipped = (g > 0) != (c > 0)
@@ -5381,83 +5424,118 @@ class _KinkFinder(TorchFunctionMode):
                                  "2d": gv, "local": cv, "near": near})
 
 
-def _readers_kinked(eng, batch, kinks, skey, rows):
-    """Whether some sample with a kink looks up each of storage ``skey``'s
-    ``rows``."""
-    out = []
-    for r in rows:
-        hit = False
-        for key, col in eng.columns.items():
-            s, off, _ = eng.table_map[col.categorical_column.key]
-            if s != skey or key not in batch:
-                continue
-            reads = ((batch[key].rows.long() + off == r) & (batch[key].mask > 0)).any(dim=1)
-            if set(reads.nonzero().view(-1).tolist()) & kinks:
-                hit = True
-                break
-        out.append(hit)
-    return out
-
-
 def _past_tol(got, want, rtol, atol):
     """Where ``got`` lies past ``want``'s tolerance (``np.isclose``'s rule)."""
     got, want = got.float(), want.float()
     return (got - want).abs() > atol + rtol * want.abs()
 
 
-def _hold_state(got, want, what, grads, kinked_rows=None):
-    """A gathered sharded state against the local one: params and the Adam
-    moments at MESH2D_PARAM_TOL / MESH2D_TABLE_TOL, tables (w, m, v) at
-    MESH2D_TABLE_TOL, show and t equal.  An entry past its tolerance is
-    explained, by ``witness``'s rules, where its gradients on the two sides
-    agree within rounding at every step (``_beyond_rounding``: Adam turns a
-    rounding of a gradient near 0 into a visible step), or, for a table
-    row, where ``kinked_rows(skey, rows)`` says a sample with a kink looks
-    it up.  ``grads``: {"2d" and "local": [{name: gradient} a step]} for
-    the dense params and for the storages.  Returns the entries past a
-    tolerance and how each was explained; raises on any other."""
-    out = {"past": 0, "rounding": 0, "kink": 0}
+def _zero_grad(steps):
+    """Whether a dense param's gradient is 0 in exact arithmetic on both
+    sides at every step (staytime's DIN ``b2``: each side's is rounding
+    noise): at most POLICY_ZERO_GRAD of the step's largest gradient norm.
+    ``steps``: [(2-D gradients, local gradients, name)] a step."""
+    for a, b, name in steps:
+        scale = max(float(g.norm()) for g in b.values())
+        if max(float(a[name].norm()), float(b[name].norm())) > POLICY_ZERO_GRAD * scale:
+            return False
+    return True
 
-    def hold(g, w, tol, where, steps, skey=None):
-        bad = _past_tol(g, w, **tol)
-        n = int(bad.sum())
-        if not n:
-            return
-        beyond = torch.zeros_like(bad)
-        for a, b in steps:
-            beyond |= _beyond_rounding(a.float(), b.float()).reshape(bad.shape)
-        left = bad & beyond
-        k = int(left.sum())
-        if k:
-            rows = left.nonzero()[:, 0].unique().tolist()
-            if skey is None or kinked_rows is None or not all(kinked_rows(skey, rows)):
-                raise AssertionError(f"{what} {where}: {k} of {n} entries past {tol} with "
-                                     f"gradients apart beyond rounding and no kink, e.g. at "
-                                     f"{left.nonzero()[:5].tolist()}")
-        out["past"] += n
-        out["rounding"] += n - k
-        out["kink"] += k
 
-    dense = list(zip(grads["dense"]["2d"], grads["dense"]["local"]))
+def _held_leaves(got, want):
+    """(label, kind, key, got's tensor, want's, tolerance) of every dense
+    param (MESH2D_PARAM_TOL) and Adam moment and every table quantity but
+    t and show (MESH2D_TABLE_TOL) of ``want``; ``kind`` and ``key`` name
+    the gradient that moves it (``grads[kind][side][step][key]``)."""
     for k, v in want.params.items():
-        hold(got.params[k], v, MESH2D_PARAM_TOL, k, [(a[k], b[k]) for a, b in dense])
+        yield k, "dense", k, got.params[k], v, MESH2D_PARAM_TOL
     for m in ("mu", "nu"):
         for k, v in want.opt_state[m].items():
-            hold(got.opt_state[m][k], v, MESH2D_TABLE_TOL, f"{m} {k}",
-                 [(a[k], b[k]) for a, b in dense])
-    rows = list(zip(grads["tables"]["2d"], grads["tables"]["local"]))
+            yield f"{m} {k}", "dense", k, got.opt_state[m][k], v, MESH2D_TABLE_TOL
+    for skey, t in want.tables.items():
+        mine = _table_quantities(got.tables[skey])
+        for q, v in _table_quantities(t).items():
+            if q not in ("t", "show"):
+                yield f"{skey} {q}", "tables", skey, mine[q], v, MESH2D_TABLE_TOL
+
+
+def _apart(a, b, like):
+    """Where gradient ``a`` differs from ``b`` beyond rounding, as a mask
+    of ``like``'s shape on its device (a row's (rows, 1) quantity:
+    anywhere in the row)."""
+    m = _beyond_rounding(a.float(), b.float().to(a.device))
+    if m.shape != like.shape:
+        m = m.any(dim=-1, keepdim=True)
+    return m.reshape(like.shape).to(like.device)
+
+
+def _steps_apart(got, want, grads):
+    """{label: (its entries past their tolerance, [a step's mask of those
+    whose 2-D and local gradients differ beyond rounding])} of the entries
+    ``_hold_state`` must explain, and {label: entries} of the dense params
+    whose gradient is 0 in exact arithmetic (``_zero_grad``)."""
+    out, zero = {}, {}
+    for label, kind, key, g, w, tol in _held_leaves(got, want):
+        bad = _past_tol(g, w, **tol)
+        if not bool(bad.any()):
+            continue
+        steps = list(zip(grads[kind]["2d"], grads[kind]["local"]))
+        if kind == "dense" and _zero_grad([(a, b, key) for a, b in steps]):
+            zero[label] = int(bad.sum())
+            continue
+        out[label] = (bad, [_apart(a[key], b[key], bad) & bad for a, b in steps])
+    return out, zero
+
+
+def _hold_state(got, want, what, grads, apart, replays):
+    """A gathered sharded state against the local one: params and the Adam
+    moments at MESH2D_PARAM_TOL / MESH2D_TABLE_TOL, tables (w and the
+    sparse optimizer's state) at MESH2D_TABLE_TOL, show and t equal.  An
+    entry past its tolerance (``apart``: ``_steps_apart``'s) is explained
+    where its gradients on the two sides agree within rounding at every
+    step (``_beyond_rounding``: Adam turns a rounding of a gradient near 0
+    into a visible step), or where, at every step at which they differ
+    beyond rounding, the local step from the 2-D state entering it with
+    the 2-D step's kinks (``replays``: {0-based step: its gradients,
+    ``_kinked_replay``}) gives the 2-D gradient within rounding: the kinks
+    on the entry's own path and the state they set apart account for it,
+    and nothing else does.  A dense param whose gradient is 0 in exact
+    arithmetic is explained (``_zero_grad``: Adam moves it by each side's
+    rounding noise).  ``grads``: {"dense" and "tables": {"2d" and "local":
+    [{name: gradient} a step]}}.  Returns the entries past a tolerance and
+    how each was explained; raises on any other."""
+    out = {"past": 0, "rounding": 0, "kink": 0, "zero_grad": 0}
+    apart, zero = apart
+    out["zero_grad"] = sum(zero.values())
+    leaves = {label: (kind, key) for label, kind, key, *_ in _held_leaves(got, want)}
+    for label, (bad, steps) in apart.items():
+        kind, key = leaves[label]
+        n, diff, left = int(bad.sum()), torch.zeros_like(bad), torch.zeros_like(bad)
+        for t, m in enumerate(steps):
+            if bool(m.any()):
+                diff |= m
+                left |= m & _apart(grads[kind]["2d"][t][key], replays[t][kind][key], bad)
+        if bool(left.any()):
+            seen = []
+            for i in left.nonzero()[:3].tolist():
+                i = tuple(i)
+                seen.append({"index": list(i), "steps": [
+                    {"2d": float(a[key][i]), "local": float(b[key][i]),
+                     "replay": float(replays[t][kind][key][i]) if t in replays else None}
+                    for t, (a, b) in enumerate(zip(grads[kind]["2d"], grads[kind]["local"]))]})
+            raise AssertionError(f"{what} {label}: {int(left.sum())} of {n} entries past their "
+                                 f"tolerance with gradients apart beyond rounding that the "
+                                 f"local step with the 2-D step's kinks does not give: {seen}")
+        out["past"] += n
+        out["rounding"] += n - int(diff.sum())
+        out["kink"] += int(diff.sum())
+    out["past"] += out["zero_grad"]
     for skey, t in want.tables.items():
         g = got.tables[skey]
-        steps = [(a[skey], b[skey]) for a, b in rows]
-        hold(g["w"], t["w"], MESH2D_TABLE_TOL, f"{skey} w", steps, skey)
         if not torch.equal(g["show"], t["show"]):
             raise AssertionError(f"{what} {skey}: show differs from the local step's")
-        for name, v in t["opt"].items():
-            if name == "t":
-                if not torch.equal(g["opt"]["t"], v):
-                    raise AssertionError(f"{what} {skey}: t differs from the local step's")
-                continue
-            hold(g["opt"][name], v, MESH2D_TABLE_TOL, f"{skey} {name}", steps, skey)
+        if "t" in t["opt"] and not torch.equal(g["opt"]["t"], t["opt"]["t"]):
+            raise AssertionError(f"{what} {skey}: t differs from the local step's")
     return out
 
 
@@ -5617,11 +5695,231 @@ def _tp_card_step(mesh):
     return make
 
 
-def _mesh2d_model(mesh, card, name, model, kw, b, placement):
-    """One model of phase 17 on this rank: its placements, a window of the
+def _whole_on(w, kept):
+    """A host copy of a 2-D rank's state made whole on the card: its dense
+    shards gathered over the model group, its tables as they are (the data
+    axis is 1: a rank's rows are the whole tables).  A collective."""
+    from recommendsystem_tpu_torch.train.state import gather_state
+
+    if w.mesh.size != 1:
+        raise ValueError("phase 17's holds take a data axis of 1")
+    dev = w.bundle.device
+    dense = gather_state(w.bundle, _state_on(dataclasses.replace(kept, tables={}), dev), w.mesh,
+                         w.sh)
+    return dataclasses.replace(dense, tables=_to(kept.tables, dev))
+
+
+def _kinked_replay(w, t):
+    """The gradients ({"dense": whole, as the dense Adam takes them;
+    "tables": each storage's rows, as the lazy pass takes them}) of the
+    local step ``t`` (0-based; its window's seed) from the 2-D state
+    entering it (``w.kept[t]``, its dense shards gathered) with the 2-D
+    step's kinks of that step: ``_KinkedRelu`` over the 2-D ReLU inputs
+    (``w.relu.mine``; an expert shard's gathered over the model group).  A
+    collective: every model rank calls it."""
+    from recommendsystem_tpu_torch.core.model_axis import all_gather
+    from recommendsystem_tpu_torch.train import make_train_step
+
+    mesh, dev, per = w.mesh, w.bundle.device, len(w.relu.mine) // TRAIN_STEPS
+    card = [x.to(dev) if x.shape == c.shape
+            else all_gather(x.to(dev), 0, mesh.model_group, mesh.model)
+            for x, c in zip(w.relu.mine[t * per:(t + 1) * per],
+                            w.relu.local[t * per:(t + 1) * per])]
+    whole = _whole_on(w, w.kept[t])
+    rec, kinked = _GradRecorder(w.bundle), _KinkedRelu(card)
+    with rec.side("replay"), kinked:
+        make_train_step(w.bundle)(whole, w.batch, w.labels, w.weight, w.dense, seed=t)
+    if kinked.calls != len(card):
+        raise AssertionError(f"{w.name}: the replayed step called ReLU {kinked.calls} times, "
+                             f"the 2-D step {len(card)}")
+    return {"dense": rec.dense["replay"][0], "tables": rec.by_storage("replay", whole.tables)[0]}
+
+
+@dataclasses.dataclass
+class _Window2D:
+    """One case's two windows from one state and batch, for its hold:
+    the losses, the recorded gradients (``grads``, the 2-D dense ones
+    gathered whole), the local state after the window and the 2-D one
+    gathered, the host copies of the states entering the steps (``kept``
+    2-D, ``lkept`` local) and the ReLU calls (``relu``)."""
+    name: str
+    bundle: object
+    mesh: object
+    sh: object
+    batch: dict
+    dense: object
+    labels: dict
+    weight: object
+    relu: _KinkFinder
+    losses: list
+    llosses: list
+    grads: dict
+    lstate: object
+    gathered: object
+    kept: dict
+    lkept: dict
+
+
+def _agreed(mesh, name, check):
+    """``check()``'s result where it passes on every model rank: its
+    verdict agreed over the model group, so that every rank raises
+    together where one refuses (the ranks then leave no collective half
+    entered)."""
+    import torch.distributed as dist
+
+    try:
+        out, err = check(), None
+    except AssertionError as e:
+        out, err = None, e
+    flag = torch.tensor([float(err is not None)])
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=mesh.model_group)
+    if err is not None:
+        raise err
+    if flag.item():
+        raise AssertionError(f"{name}: another model rank refused its hold")
+    return out
+
+
+def _hold_float32(w):
+    """A float32 case's 2-D window against its local one: the losses at
+    TRAIN_LOSS_RTOL, every ReLU flip a kink, and the state by
+    ``_hold_state``, its entries past their tolerances held to the kinked
+    replay (``_kinked_replay``) at each step where some differ beyond
+    rounding; the steps replayed, and the verdict, are agreed over the
+    model group."""
+    import torch.distributed as dist
+
+    relu = w.relu
+    apart = _steps_apart(w.gathered, w.lstate, w.grads)
+    flags = torch.zeros(TRAIN_STEPS)
+    for _, steps in apart[0].values():
+        flags += torch.tensor([float(m.any()) for m in steps])
+    dist.all_reduce(flags, op=dist.ReduceOp.MAX, group=w.mesh.model_group)
+    replays = {t: _kinked_replay(w, t) for t in range(TRAIN_STEPS) if flags[t] > 0}
+
+    def check():
+        if relu.far:
+            raise AssertionError(f"{w.name}: ReLU inputs flipped far from 0 between the 2-D "
+                                 f"and the local step: {relu.far[:5]}")
+        np.testing.assert_allclose(w.losses, w.llosses, rtol=TRAIN_LOSS_RTOL,
+                                   err_msg=f"{w.name}: 2-D step against local losses")
+        held = _hold_state(w.gathered, w.lstate, w.name, w.grads, apart, replays)
+        held.update(kinked_samples=len(relu.kinks), kinked_step=relu.kinked_step,
+                    replayed_steps=[t + 1 for t in sorted(replays)])
+        return held
+    return _agreed(w.mesh, w.name, check)
+
+
+def _rel_l2(a, b):
+    b = b.float()
+    return float((a.float() - b).norm() / b.norm())
+
+
+def _hold_policy(w):
+    """A case under the bf16 compute policy, its 2-D window against its
+    local one: each step's loss within MESH2D_POLICY_LOSS_RTOL, each dense
+    gradient and each storage's gradient rows within
+    MESH2D_POLICY_REL_L2 relative L2 at every step; and the state
+    after step 1, where both sides start from one state: each side's dense
+    params and Adam moments are its own dense Adam of its own gradients
+    (MESH2D_PARAM_TOL / MESH2D_TABLE_TOL); each side stores in its bf16
+    w, m and v its own float32 lazy Adam of its own gradient rows rounded
+    once (``_bf16_off`` at the card's table tolerances); the two float32
+    updates (w's change, m, v) agree within MESH2D_POLICY_REL_L2; and
+    where they agree within MESH2D_BF16_RTOL the 2-D's stored entry keeps
+    the bf16 rule against the local's float32 value.  The tables are held
+    on model index 0: the 2-D step's replicas store its update (the sync
+    broadcasts it; ``_replicas_equal`` holds them bit-equal), while
+    another replica's own gradient rows differ from it where a card's
+    atomics summed a bf16 gradient in another order.  Returns the largest
+    relative L2 errors and the entries the rule decided."""
+    after = {"local": _state_on(w.lkept[1], w.bundle.device), "2d": _whole_on(w, w.kept[1])}
+    return _agreed(w.mesh, w.name, lambda: _policy_checks(w, after))
+
+
+def _policy_checks(w, after):
+    """``_hold_policy``'s checks on this rank, ``after``: each side's state
+    after step 1, gathered whole."""
+    from recommendsystem_tpu_torch.train.state import TrainState
+
+    if not np.allclose(w.losses, w.llosses, rtol=MESH2D_POLICY_LOSS_RTOL, atol=0):
+        raise AssertionError(f"{w.name}: 2-D losses {w.losses}, local {w.llosses}")
+    worst = {"loss": max(abs(a - b) / abs(b) for a, b in zip(w.losses, w.llosses)),
+             "dense": 0.0, "tables": 0.0, "update": 0.0}
+    for kind in ("dense", "tables"):
+        for a, b in zip(w.grads[kind]["2d"], w.grads[kind]["local"]):
+            for k, want in b.items():
+                if not bool(want.any()):
+                    if bool(a[k].any()):
+                        raise AssertionError(f"{w.name} {k}: a gradient where the local is 0")
+                    continue
+                err = _rel_l2(a[k], want)
+                worst[kind] = max(worst[kind], err)
+                if err > MESH2D_POLICY_REL_L2:
+                    raise AssertionError(f"{w.name} {k}: gradient relative L2 error {err}")
+    dev, init = w.bundle.device, w.lkept[0]
+    eng, ruled = w.bundle.embedding, 0
+    opt32 = dataclasses.replace(eng.sparse_opt, state_dtype=torch.float32)
+    counts = eng.row_counts(w.batch)
+    tables = init.tables if w.mesh.model_rank == 0 else {}
+    f32 = {}
+    for side, st in after.items():
+        params, opt = w.bundle.dense_optimizer.update_(
+            _to(init.params, dev), w.grads["dense"][side][0], _to(init.opt_state, dev))
+        for label, _, _, g, want, tol in _held_leaves(st, TrainState(params, opt, {})):
+            if bool(_past_tol(g, want, **tol).any()):
+                raise AssertionError(f"{w.name} {side} {label}: not the dense Adam of its own "
+                                     f"gradients after step 1")
+        rows = w.grads["tables"][side][0]
+        for skey, t0 in tables.items():
+            t0 = _to(t0, dev)
+            pw, pst = opt32.update(t0["w"].float(), rows[skey].to(dev),
+                                   {n: x.float() for n, x in t0["opt"].items()},
+                                   (counts[skey].reshape(-1, 1) > 0).float())
+            f32[side, skey] = {"w": pw, **pst}
+            for q in ("w", "m", "v"):
+                stored = _table_quantities(st.tables[skey])[q]
+                off = _bf16_off(stored, f32[side, skey][q], *_table_tols(q))
+                if bool(off.any()):
+                    i = off.nonzero()[:3]
+                    raise AssertionError(
+                        f"{w.name} {side} {skey} {q}: {int(off.sum())} entries not its "
+                        f"float32 update of its own gradient rows rounded once, e.g. at "
+                        f"{i.tolist()}: stored {stored[i[:, 0], i[:, 1]].float().tolist()}, "
+                        f"float32 {f32[side, skey][q][i[:, 0], i[:, 1]].tolist()}")
+        del rows
+    for skey, t0 in tables.items():
+        w0 = t0["w"].to(dev).float()
+        for q in ("w", "m", "v"):
+            p2, pl = f32["2d", skey][q], f32["local", skey][q]
+            base = w0 if q == "w" else 0.0
+            if bool((pl - base).any()):
+                err = _rel_l2(p2 - base, pl - base)
+                worst["update"] = max(worst["update"], err)
+                if err > MESH2D_POLICY_REL_L2:
+                    raise AssertionError(f"{w.name} {skey} {q}: float32 updates apart by "
+                                         f"{err} relative L2")
+            close = torch.isclose(p2, pl, rtol=MESH2D_BF16_RTOL, atol=0.0)
+            stored = _table_quantities(after["2d"].tables[skey])[q]
+            if bool((_bf16_off(stored, pl, *_table_tols(q)) & close).any()):
+                raise AssertionError(f"{w.name} {skey} {q}: the 2-D step's bf16 entry breaks "
+                                     f"the bf16 rule against the local float32 update")
+            ruled += int(((stored != pl.to(stored.dtype)) & close).sum())
+        for side in ("2d", "local"):
+            del f32[side, skey]
+    return {"worst_rel": worst, "bf16_rule_entries": ruled}
+
+
+def _mesh2d_model(mesh, card, name, model, kw, b, ipf, placement):
+    """One case of phase 17 on this rank: its placements, a window of the
     local step and one of the 2-D sharded step from one state and batch,
-    held to each other; launches, replicas, drops, the two steps timed in
-    turns; for ctr also the predict call and the eval step."""
+    held to each other (``_hold_float32``; under the bf16 compute policy
+    ``_hold_policy``), each step's ReLU calls counted on both sides;
+    launches, replicas, drops, the two steps timed in turns (two steps a
+    turn and traced where MESH2D_TRACED lists the case, else one,
+    untraced); the predict call and the eval step where
+    MESH2D_PREDICT_LAUNCHES lists the case; for ctr also a scatter step's
+    collectives."""
     import torch.distributed as dist
 
     from recommendsystem_tpu_torch.core import model_axis
@@ -5640,13 +5938,14 @@ def _mesh2d_model(mesh, card, name, model, kw, b, placement):
 
     bundle = create_model(model, device="cuda", num_shards=mesh.size, **kw)
     eng = bundle.embedding
+    policy = bundle.compute_dtype != torch.float32
     whole = create_train_state(bundle, seed=2)
     if placement == "tensor":
         sh = state_shardings(bundle, whole, mesh, tensor_parallel=True)
         rule = sum(1 for v in whole.params.values()
                    if v.ndim == 2 and v.shape[-1] >= 64 and v.shape[-1] % mesh.model == 0)
         split = {k: p.kind for k, p in sh.params.items() if p.model_axis}
-        if not (len(split) == rule == MESH2D_TP_KERNELS
+        if not (len(split) == rule == MESH2D_TP_KERNELS[name]
                 and set(split.values()) == {"column"}):
             raise AssertionError(f"{name}: {len(split)} column placements, the JAX rule "
                                  f"gives {rule}")
@@ -5658,7 +5957,7 @@ def _mesh2d_model(mesh, card, name, model, kw, b, placement):
         if sorted(set(stacks.values())) != [4, 8] or len(split) != 8:
             raise AssertionError(f"{name}: expert placements {stacks}")
     batch, dense, labels, weight = local_batch(
-        synthetic_batch(bundle, b, seed=70, ids_per_feature=5), mesh)
+        synthetic_batch(bundle, b, seed=70, ids_per_feature=ipf), mesh)
     drops = eng.a2a_drop_report(batch, mesh)
     if any(r["rows"] for r in drops.values()):
         raise AssertionError(f"{name}: the exchange dropped {drops}")
@@ -5671,25 +5970,26 @@ def _mesh2d_model(mesh, card, name, model, kw, b, placement):
     local = make_train_step(bundle)
     step2d = make_train_step(bundle, mode="sharded", mesh=mesh, shardings=sh)
     rec = _GradRecorder(bundle)
-    relu = _KinkFinder(mesh.model_rank, b, TRAIN_STEPS)
+    # under the policy a ReLU input differs between the sides by bf16
+    # roundings, and the hold reads gradients and the state after step 1;
+    # in float32 the hold replays the local step from any 2-D state
+    relu = _KinkFinder(mesh.model_rank, b, TRAIN_STEPS, flips=not policy)
+    lkeep, keep = ((0, 1), (1,)) if policy else ((), tuple(range(TRAIN_STEPS)))
     with rec.side("local"), relu.at("local"):
-        lstate, lcounts, llosses, _ = _window_on(local, whole, batch, dense, labels, weight)
+        lstate, lcounts, llosses, _, lkept = _window_on(local, whole, batch, dense, labels,
+                                                        weight, keep=lkeep)
     model_axis.reset_collective_stats()
     with rec.side("2d"), relu.at("2d"):
-        state, counts, losses, infos = _window_on(step2d, state, batch, dense, labels, weight)
+        state, counts, losses, infos, kept = _window_on(step2d, state, batch, dense, labels,
+                                                        weight, keep=keep)
     stats = model_axis.collective_stats()
-    if not relu.local or relu.i != len(relu.local):
-        raise AssertionError(f"{name}: the 2-D step called ReLU {relu.i} times, the local "
-                             f"step {len(relu.local)}")
-    if relu.far:
-        raise AssertionError(f"{name}: ReLU inputs flipped far from 0 between the 2-D and "
-                             f"the local step: {relu.far[:5]}")
+    if not relu.calls["local"] or relu.calls["2d"] != relu.calls["local"]:
+        raise AssertionError(f"{name}: the 2-D step called ReLU {relu.calls['2d']} times, "
+                             f"the local step {relu.calls['local']}")
     per_step = {k: v / TRAIN_STEPS for k, v in counts.items() if v}
-    if per_step != MESH2D_LAUNCHES[model]:
+    if per_step != MESH2D_LAUNCHES[name]:
         raise AssertionError(f"{name} 2-D step: launches a step {per_step}, expected "
-                             f"{MESH2D_LAUNCHES[model]}")
-    np.testing.assert_allclose(losses, llosses, rtol=TRAIN_LOSS_RTOL,
-                               err_msg=f"{name}: 2-D step against local losses")
+                             f"{MESH2D_LAUNCHES[name]}")
     regs = [float(i["regularization"]) for i in infos]
     equal = _replicas_equal(state.tables, mesh)
     if not equal:
@@ -5701,10 +6001,10 @@ def _mesh2d_model(mesh, card, name, model, kw, b, placement):
                               for step in rec.dense["2d"]]},
              "tables": {"local": rec.by_storage("local", lstate.tables),
                         "2d": rec.by_storage("2d", state.tables)}}
-    held = _hold_state(gathered, lstate, name, grads,
-                       lambda skey, rows: _readers_kinked(eng, batch, relu.kinks, skey, rows))
-    held["kinked_samples"] = len(relu.kinks)
-    del grads, rec, relu
+    hold = _hold_policy if policy else _hold_float32
+    held = hold(_Window2D(name, bundle, mesh, sh, batch, dense, labels, weight, relu, losses,
+                          llosses, grads, lstate, gathered, kept, lkept))
+    del grads, rec, relu, kept, lkept
     res = {"batch": b, "placement": placement, "split_leaves": len(split),
            "launches_per_step": per_step,
            "local_launches_per_step": {k: v / TRAIN_STEPS for k, v in lcounts.items() if v},
@@ -5713,7 +6013,7 @@ def _mesh2d_model(mesh, card, name, model, kw, b, placement):
            "past_tolerance": held,
            "collectives_per_step": {k: v / TRAIN_STEPS for k, v in stats.items()},
            "launches": counts}
-    if placement == "tensor":
+    if name in MESH2D_PREDICT_LAUNCHES:
         tp_pred = make_predict_step(bundle, mode="sharded", mesh=mesh, shardings=sh)
         want = make_predict_step(bundle)(gathered, batch, dense)
         tp_pred(state, batch, dense)
@@ -5740,20 +6040,34 @@ def _mesh2d_model(mesh, card, name, model, kw, b, placement):
                                            err_msg=f"{name} 2-D eval {task} {metric}")
         for what, c in (("predict", pcounts), ("eval", ecounts)):
             per_call = {k: v for k, v in c.items() if v}
-            if per_call != MESH2D_PREDICT_LAUNCHES:
+            if per_call != MESH2D_PREDICT_LAUNCHES[name]:
                 raise AssertionError(f"{name} 2-D {what}: launches {per_call}, expected "
-                                     f"{MESH2D_PREDICT_LAUNCHES}")
+                                     f"{MESH2D_PREDICT_LAUNCHES[name]}")
             res[f"{what}_launches"] = per_call
             res["launches"] = {k: res["launches"].get(k, 0) + c.get(k, 0)
                                for k in set(res["launches"]) | set(c)}
     del gathered
+    traced = name in MESH2D_TRACED
     turns = _turns_on((("local", local, lstate), ("2d", step2d, state), ("2d", step2d, state),
-                       ("local", local, lstate)), batch, dense, labels, weight)
+                       ("local", local, lstate)), batch, dense, labels, weight,
+                      steps=2 if traced else 1)
     res["in_turns_ms"] = turns
-    res["profile"] = {which: _busy_share(st, sd, batch, dense, labels, weight)
-                      for which, st, sd in (("local", local, lstate), ("2d", step2d, state))}
+    if traced:
+        res["profile"] = {which: _busy_share(st, sd, batch, dense, labels, weight)
+                          for which, st, sd in (("local", local, lstate),
+                                                ("2d", step2d, state))}
     res["mesh2d_ms"] = sum(ms for w, ms in turns if w == "2d") / 2
     res["local_ms"] = sum(ms for w, ms in turns if w == "local") / 2
+    if name == "ctr":
+        # the scatter update's sync: only the rows it wrote (the packed
+        # update's: the rows its owners were asked for)
+        scatter = make_train_step(bundle, mode="sharded", sparse_update="scatter", mesh=mesh,
+                                  shardings=sh)
+        torch.cuda.synchronize()
+        model_axis.reset_collective_stats()
+        state, _ = scatter(state, batch, labels, weight, dense, seed=7)
+        torch.cuda.synchronize()
+        res["scatter_collectives_per_step"] = model_axis.collective_stats()
     res["final_replicas_equal"] = _replicas_equal(state.tables, mesh)
     if not res["final_replicas_equal"]:
         raise AssertionError(f"{name}: the model replicas' tables differ after the turns")
@@ -5813,6 +6127,7 @@ def _mesh2d_rank(rank, world, store, tmp, card):
     import torch.distributed as dist
     from datetime import timedelta
 
+    from recommendsystem_tpu_torch.core.config import synthetic_ctr_config
     from recommendsystem_tpu_torch.core.mesh import create_mesh
     from recommendsystem_tpu_torch.models import create_model
 
@@ -5827,11 +6142,18 @@ def _mesh2d_rank(rank, world, store, tmp, card):
         out = {"rank": rank, "data_index": mesh.rank, "model_index": mesh.model_rank,
                "backends": {"world": dist.get_backend(), "data": dist.get_backend(mesh.group),
                             "model": dist.get_backend(mesh.model_group)}, "train": {}}
-        for name, model, kw, b, placement in (
-                ("ctr", "ctr", {}, CTR_BATCH, "tensor"),
-                ("rough_rank", "rough_rank", {"stacked_experts": True}, ROUGH_BATCH,
-                 "expert")):
-            out["train"][name] = _mesh2d_model(mesh, card, name, model, kw, b, placement)
+        bf16 = {"table_dtype": torch.bfloat16, "opt_state_dtype": torch.bfloat16,
+                "compute_dtype": torch.bfloat16}
+        ctr212 = {"cfg": synthetic_ctr_config(num_slots=180, num_bias=32),
+                  "bucket_size": CTR212_BUCKET}
+        for name, model, kw, b, ipf, placement in (
+                ("ctr", "ctr", {}, CTR_BATCH, 5, "tensor"),
+                ("rough_rank", "rough_rank", {"stacked_experts": True}, ROUGH_BATCH, 5,
+                 "expert"),
+                ("staytime", "staytime", {}, STAYTIME_BATCH, 5, "tensor"),
+                ("ctr212", "ctr", ctr212, CTR212_BATCH, {}, "tensor"),
+                ("ctr_bf16", "ctr", bf16, CTR_BATCH, 5, "tensor")):
+            out["train"][name] = _mesh2d_model(mesh, card, name, model, kw, b, ipf, placement)
             log(f"rank {rank} 2-D {name}:", json.dumps(
                 {k: v for k, v in out["train"][name].items() if k != "launches"}))
         small = {"bucket_size": 16384}          # phase 8's ctr card-vs-CPU bucket
@@ -5856,14 +6178,21 @@ def mesh2d_path(card):
     ``core.model_axis``) and each one-rank data group NCCL's (the
     exchange's all-to-alls).  Full-width ctr (B = 32768, 5 ids, attention
     dropout 0.2) with ``tensor_parallel=True`` and rough_rank with
-    ``stacked_experts=True`` and ``expert_shardings`` (B = 32768): each
+    ``stacked_experts=True`` and ``expert_shardings`` (B = 32768); then,
+    tensor-parallel at one step a turn, staytime (B = 16384, 5 ids, 46
+    storages, K9), the 212-feature ctr (B = 8192, one id a column, K2 and
+    K4) and ctr with bf16 tables, moments and compute (B = 32768): each
     rank's placements, a window of the local step and one of the 2-D step
-    from one state and batch (losses at TRAIN_LOSS_RTOL, the gathered
-    state at the CPU tests' tolerances), launches a step held to
-    ``MESH2D_LAUNCHES``, the model replicas' tables bit-equal, the drop
-    report 0, the collectives' bytes and staged host seconds a step, the
-    two steps in turns (local, 2-D, 2-D, local); ctr's predict call and
-    eval step under the placements held to the local ones; ctr's
+    from one state and batch (``_hold_float32``: losses at
+    TRAIN_LOSS_RTOL, the gathered state at the CPU tests' tolerances, an
+    entry past them only where the local step with the 2-D step's kinks
+    gives its 2-D gradients; ``_hold_policy`` under bf16: losses,
+    gradients, and the state after step 1),
+    launches a step held to ``MESH2D_LAUNCHES``, the model replicas'
+    tables bit-equal, the drop report 0, the collectives' bytes and staged
+    host seconds a step, the two steps in turns (local, 2-D, 2-D, local);
+    ctr's and staytime's predict call and eval step under the placements
+    held to the local ones; a ctr scatter step's sync bytes; ctr's
     tensor-parallel step held to the CPU's local step by ``witness`` at
     CHECK_SEEDS (B = 64); the sharded checkpoint from ``fit`` restored onto
     the ranks and, here, locally onto the card, bit for bit.  Any failure
@@ -5877,6 +6206,7 @@ def mesh2d_path(card):
     from recommendsystem_tpu_torch.train.state import create_train_state
 
     t_phase = time.perf_counter()
+    torch.cuda.empty_cache()            # the ranks share the card with this process
     tmp = tempfile.mkdtemp(prefix="mesh2d.")
     try:
         ctx = mp.get_context("spawn")
@@ -5942,10 +6272,11 @@ def _mesh2d_line(out):
     phase's seconds."""
     return {"train": {m: {k: r[k] for k in (
         "batch", "placement", "split_leaves", "mesh2d_ms", "local_ms", "launches_per_step",
-        "collectives_per_step", "replicas_equal", "drop_report_rows", "past_tolerance",
-        "profile")}
+        "collectives_per_step", "scatter_collectives_per_step", "replicas_equal",
+        "drop_report_rows", "past_tolerance", "profile") if k in r}
         for m, r in out["train"].items()},
-        "predict_launches": out["train"]["ctr"]["predict_launches"],
+        "predict_launches": {m: r["predict_launches"] for m, r in out["train"].items()
+                             if "predict_launches" in r},
         "checkpoint": out["checkpoint"], "backends": out["backends"],
         "phase_s": out["phase_s"], "card": out["card"]}
 

@@ -693,11 +693,13 @@ class EmbeddingFeatures:
         storage, go to the owners of their rows (``route_grads_to_owners``,
         one exchange per storage), and each rank's ``sparse_opt.update``
         runs lazily over its own rows.  ``state``: this rank's shards.
-        Returns a new state; ``state`` is not modified.  The columns are
-        taken in sorted order, as the JAX package's gradient dict holds
-        them, so that a bounded exchange drops the same entries."""
+        Returns (a new state, {storage: the local rows the update wrote,
+        those a real entry reached (int64, sorted)}); ``state`` is not
+        modified.  The columns are taken in sorted order, as the JAX
+        package's gradient dict holds them, so that a bounded exchange
+        drops the same entries."""
         flat = self.flatten_raw_grads({k: raw_grads[k] for k in sorted(raw_grads)}, batch)
-        new_state = {}
+        new_state, written = {}, {}
         for skey, tstate in state.items():
             parts = [(flat[tkey][0] + off if off else flat[tkey][0], flat[tkey][1],
                       flat[tkey][2])
@@ -710,11 +712,12 @@ class EmbeddingFeatures:
                 torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts]),
                 torch.cat([p[2] for p in parts]), local, mesh, self.a2a_capacity_factor)
             grad, cnt = self._dense_grad_and_count(rows, grads, mask, local)
+            written[skey] = (cnt.view(-1) > 0).nonzero().view(-1)
             w, opt = self.sparse_opt.update(tstate["w"].float(), grad, tstate["opt"],
                                             (cnt > 0).float())
             new_state[skey] = {"w": w.to(tstate["w"].dtype), "opt": opt,
                                "show": tstate["show"] + cnt}
-        return new_state
+        return new_state, written
 
     def row_counts_sharded(self, batch: Dict[str, IdBatch], mesh: Mesh):
         """``row_counts`` of the whole batch, this rank's rows of each

@@ -40,7 +40,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from ..core.model_axis import copy_to_model, current, gather_from_model
+from ..core.model_axis import current, gather_from_model, sum_over_model
 
 ACTIVATIONS = {
     None: lambda x: x,
@@ -233,18 +233,48 @@ def affine(x: torch.Tensor, kernel: torch.Tensor,
     return y + (bias if bias.ndim == 1 else bias[:, None, :])
 
 
+class _ColumnProductF32(torch.autograd.Function):
+    """``dot_f32(x, kernel)`` of a column shard ``kernel`` (in, out / M)
+    under the model axis, whose backward sums x's gradient over the model
+    group in float32 and only then rounds it to x's type: the JAX
+    transpose of a ``preferred_element_type=float32`` product whose
+    contracting dim XLA splits over the model axis (one rounding of the
+    float32 sum; a bf16 x rounded on each rank before the sum would differ
+    from it by an ulp where the two roundings fall apart).  The kernel's
+    gradient is the widened product's, rounded once to its type, as
+    ``dot_f32``'s backward gives it."""
+
+    @staticmethod
+    def forward(ctx, x, kernel):
+        ctx.save_for_backward(x, kernel)
+        ctx.mesh = current()
+        return dot_f32(x, kernel)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, kernel = ctx.saved_tensors
+        gx = gk = None
+        if ctx.needs_input_grad[0]:
+            gx = sum_over_model(g @ kernel.float().t(), ctx.mesh).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            gk = (x.reshape(-1, x.shape[-1]).float().t()
+                  @ g.reshape(-1, g.shape[-1])).to(kernel.dtype)
+        return gx, gk
+
+
 def model_affine(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor],
                  features: int) -> torch.Tensor:
     """``affine`` of a layer ``features`` wide whose (in, out) ``kernel``
     may be a column shard under the model axis: the rank's columns of x @
-    kernel all-gathered over the model group, then the whole bias (module
-    docstring)."""
+    kernel (x's gradient summed over the model group in float32,
+    ``_ColumnProductF32``) all-gathered over the model group, then the
+    whole bias (module docstring)."""
     if kernel.ndim != 2 or kernel.shape[-1] == features:
         return affine(x, kernel, bias)
     if current() is None:
         raise ValueError(f"a kernel of {kernel.shape[-1]} columns for a layer "
                          f"{features} wide: a column shard outside a model-axis step")
-    y = gather_from_model(dot_f32(copy_to_model(x), kernel), -1)
+    y = gather_from_model(_ColumnProductF32.apply(x, kernel), -1)
     return y if bias is None else y + bias
 
 

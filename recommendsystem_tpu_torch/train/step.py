@@ -82,9 +82,12 @@ penalized kernel's shard contributes its own L1L2 term, summed over the
 model group for the value (``regularization`` is the whole kernel's).
 Dense Adam runs on each shard as on a whole tensor.  Each model rank runs
 its data group's exchange and sparse update over the same row shards;
-then model index 0's touched rows are broadcast over the model group
-(``core.model_axis.sync_replicas``), so the replicas stay bit-equal where
-the card's atomics add in another order.
+then model index 0's rows that the update may have written are broadcast
+over the model group (``core.model_axis.sync_replicas``): the packed
+update's, the rows its owners were asked for; the scatter update's, the
+rows a real entry reached; the dense update's, every row of the shard.
+So the replicas stay bit-equal where the card's atomics add in another
+order.
 
 Keras-compile semantics as in the JAX package: the loss is the sum over
 tasks of ``loss_weight * loss``, where a loss that returns a scalar is taken
@@ -499,21 +502,27 @@ def make_train_step(bundle: "ModelBundle", mode: str = "local",
             else:
                 packed_mod.apply_gradients_packed(eng, state.tables, g_acts, plans, ctx,
                                                   batch)
+            # under a model axis: the rows each storage's owners were asked
+            # for this step, and the rows the classic columns' update wrote
+            touched = (None if axis is None else
+                       {k: torch.unique(c["plan"].recv_rows.long()) for k, c in ctx.items()})
             if classic_batch:
-                _store_tables(state.tables, _scatter_update(state.tables, g_raw,
-                                                            classic_batch))
-            if axis is not None:
-                # the rows each storage's owners were asked for this step
-                touched = {k: torch.unique(c["plan"].recv_rows.long()) for k, c in ctx.items()}
-                touched.update({eng.table_map[eng.columns[k].categorical_column.key][0]: None
-                                for k in classic_batch})
+                new_tables, written = _scatter_update(state.tables, g_raw, classic_batch)
+                _store_tables(state.tables, new_tables)
+                if touched is not None:
+                    for k, r in written.items():
+                        touched[k] = r if k not in touched else torch.unique(
+                            torch.cat([touched[k], r]))
+            if touched is not None:
                 _sync_tables(state.tables, touched, mesh)
         return new_state, info
 
     def _scatter_update(tables, g_raw, batch):
+        """The classic scatter update: (its new tables, {storage: the local
+        rows it wrote} where sharded, else None)."""
         if sharded:
             return eng.apply_gradients_scatter_sharded(tables, g_raw, batch, mesh)
-        return eng.apply_gradients_scatter(tables, eng.flatten_raw_grads(g_raw, batch))
+        return eng.apply_gradients_scatter(tables, eng.flatten_raw_grads(g_raw, batch)), None
 
     def step_scatter(state: TrainState, batch, labels, sample_weight=None,
                      dense_inputs=None, seed: int = 0):
@@ -525,9 +534,10 @@ def make_train_step(bundle: "ModelBundle", mode: str = "local",
             sample_weight, dense_inputs, seed)
         new_state, info = finish(state, loss, aux, gp)
         with torch.no_grad():
-            _store_tables(state.tables, _scatter_update(state.tables, dict(zip(raw, g_raw)),
-                                                        batch))
-            _sync_tables(state.tables, dict.fromkeys(state.tables), mesh)
+            new_tables, written = _scatter_update(state.tables, dict(zip(raw, g_raw)), batch)
+            _store_tables(state.tables, new_tables)
+            if axis is not None:
+                _sync_tables(state.tables, written, mesh)
         return new_state, info
 
     def step_dense(state: TrainState, batch, labels, sample_weight=None,

@@ -40,14 +40,19 @@ KW = dict(bucket_size=128, attention_dropout_rate=0.0)
 TOL = dict(rtol=1e-5, atol=2e-6)
 
 
+SPEC_KINDS = {P(None, "model"): "column", P(): "replicated", P("model", None): "expert",
+              P("model", None, None): "expert"}
+
+
 def _kinds(tree, prefix=""):
-    """{param name: "column" | "replicated"} of a JAX sharding tree."""
+    """{param name: "column" | "replicated" | "expert"} of a JAX sharding
+    tree."""
     out = {}
     for k, v in tree.items():
         if isinstance(v, dict):
             out.update(_kinds(v, f"{prefix}{k}."))
         else:
-            out[f"{prefix}{k}"] = {P(None, "model"): "column", P(): "replicated"}[v.spec]
+            out[f"{prefix}{k}"] = SPEC_KINDS[v.spec]
     return out
 
 

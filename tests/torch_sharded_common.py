@@ -41,6 +41,7 @@ WORKER = os.path.join(ROOT, "tests", "torch_sharded_worker.py")
 LOSS_RTOL = 1e-5
 PARAM_TOL = dict(rtol=5e-4, atol=1e-5)
 TABLE_TOL = dict(rtol=5e-4, atol=1e-6)
+ZERO_MU = 1e-9
 NO_DROPOUT = {"interact": {"layer_num": 1, "unit_num": 8, "head_num": 2,
                            "use_dropout": False, "dropout_rate": 0.2,
                            "use_res": True}}
@@ -89,19 +90,20 @@ def jax_sharded_steps(jbundle, jstate, batches, n, sparse_update="packed"):
     return state, infos
 
 
-def jax_tp_steps(jbundle, jstate, batches, n, sparse_update="packed", model=2, record=None):
+def jax_tp_steps(jbundle, jstate, batches, n, sparse_update="packed", model=2, record=None,
+                 tp_min_dim=64):
     """The JAX package's tensor-parallel steps, as ``tests/test_tensor_parallel.py``
-    takes them: the state placed by ``state_shardings(tensor_parallel=True)``
-    on a ``create_mesh(jax.devices()[:n * model], model_parallel=model)``
-    mesh (data n x model), each batch by ``P("data")``, and the local train
-    step (XLA inserts the model axis's collectives), step i keyed
-    ``PRNGKey(i)``.  ``record``, where given, gets the mesh and the
-    placements."""
+    takes them: the state placed by ``state_shardings(tensor_parallel=True,
+    tp_min_dim=tp_min_dim)`` on a ``create_mesh(jax.devices()[:n * model],
+    model_parallel=model)`` mesh (data n x model), each batch by
+    ``P("data")``, and the local train step (XLA inserts the model axis's
+    collectives), step i keyed ``PRNGKey(i)``.  ``record``, where given,
+    gets the mesh and the placements."""
     mesh = jax_create_mesh(jax.devices()[:n * model], model_parallel=model)
     data = NamedSharding(mesh, P("data"))
     put = lambda x: None if x is None else jax.device_put(  # noqa: E731
         x, jax.tree.map(lambda _: data, x))
-    sh = jax_state_shardings(jbundle, jstate, mesh, tensor_parallel=True)
+    sh = jax_state_shardings(jbundle, jstate, mesh, tensor_parallel=True, tp_min_dim=tp_min_dim)
     if record is not None:
         record.update(mesh=mesh, shardings=sh)
     state = jax.device_put(jstate, sh)
@@ -162,8 +164,13 @@ def bridged_case(model, kw, n, batch_size, seeds, sparse_update="packed", key=0,
     return jbundle, jstate, jinfos, case
 
 
-def assert_matches_jax(jbundle, jstate, jinfos, result):
-    """The port's gathered state and infos against the JAX sharded step's."""
+def assert_matches_jax(jbundle, jstate, jinfos, result, zero_grad=()):
+    """The port's gathered state and infos against the JAX sharded step's.
+    ``zero_grad`` names params whose gradient is 0 in exact arithmetic
+    (staytime's DIN ``b2``, ``tests/test_torch_staytime_train.py``): Adam
+    moves each package's by its own rounding noise, so an entry of one
+    past PARAM_TOL passes only where both packages' first moments of it
+    are within ZERO_MU of 0."""
     assert len(result["infos"]) == len(jinfos)
     for i, (got, want) in enumerate(zip(result["infos"], jinfos)):
         assert set(got) == set(want)
@@ -186,10 +193,16 @@ def assert_matches_jax(jbundle, jstate, jinfos, result):
                 np.testing.assert_allclose(g, np.asarray(t, np.float32), **TABLE_TOL,
                                            err_msg=f"{skey} {name}")
     jp = _flat(jax.device_get(jstate.params))
+    jmu = _flat(jax.device_get(jstate.opt_state[0].mu))
     assert set(jp) == set(port["params"])
     for k, v in jp.items():
-        np.testing.assert_allclose(port["params"][k].numpy(), v, **PARAM_TOL, err_msg=k)
-    jmu = _flat(jax.device_get(jstate.opt_state[0].mu))
+        got = port["params"][k].numpy()
+        if k in zero_grad:
+            past = ~np.isclose(got, v, **PARAM_TOL)
+            for m in (jmu[k][past], port["opt_state"]["mu"][k].numpy()[past]):
+                np.testing.assert_array_less(np.abs(m), ZERO_MU, err_msg=k)
+            got, v = got[~past], v[~past]
+        np.testing.assert_allclose(got, v, **PARAM_TOL, err_msg=k)
     for k, v in jmu.items():
         np.testing.assert_allclose(port["opt_state"]["mu"][k].numpy(), v, **TABLE_TOL,
                                    err_msg=f"mu {k}")

@@ -31,17 +31,25 @@ ranks stay small.  Each case is a dict with ``"kind"``:
   axis of WORLD (``expert_shardings``): the forward of ``x`` and the
   backward of ``cotangents``, giving the outputs, x's gradient and every
   parameter's gradient gathered whole.
+- ``"column_dense"``: a ``Dense`` with its ``kernel`` split by columns
+  over a model axis of WORLD (``bias``, ``x``, ``cotangent`` whole, in
+  their types): the output, x's gradient and the kernel's gathered whole.
 - ``"fit"``: ``harness.fit(mode="sharded", checkpoint_dir=, ...)`` (see
   ``_fit``); ``"multihost"``: each rank builds its rows of each global
   batch and steps (see ``_multihost``).
 
 Train, predict and eval cases take ``model_parallel`` (the mesh's model
 axis, default 1), ``tensor_parallel`` (``state_shardings(...,
-tensor_parallel=True)``) and ``experts`` (``nn.expert_shardings`` merged);
-a train case on such a mesh also gives each placement's kind, the shards'
-shapes after the steps and whether the model replicas' tables are equal.
+tensor_parallel=True)``, with ``tp_min_dim`` where given) and ``experts``
+(``nn.expert_shardings`` merged); a train case on such a mesh also gives
+each placement's kind, the shards' shapes after the steps, whether the
+model replicas' tables are equal and each step's
+``model_axis.collective_stats()``.  A train case with ``record_grads``
+also gives each step's dense gradients as the dense Adam takes them, the
+split ones gathered whole.
 """
 
+import dataclasses
 import os
 import sys
 import traceback
@@ -54,13 +62,15 @@ import torch.distributed as dist  # noqa: E402
 
 from recommendsystem_tpu_torch.core import model_axis  # noqa: E402
 from recommendsystem_tpu_torch.core.model_axis import all_gather  # noqa: E402
-from recommendsystem_tpu_torch.core.mesh import create_mesh, local_batch  # noqa: E402
+from recommendsystem_tpu_torch.core.mesh import (column_sharding, create_mesh,  # noqa: E402
+                                                 local_batch)
 from recommendsystem_tpu_torch.data.loader import shard_files  # noqa: E402
 from recommendsystem_tpu_torch.embedding.engine import (IdBatch,  # noqa: E402
                                                          all_to_all_lookup,
                                                          route_grads_to_owners)
 from recommendsystem_tpu_torch.models import create_model  # noqa: E402
-from recommendsystem_tpu_torch.nn import MMOEStacked, PLEStacked, expert_shardings  # noqa: E402
+from recommendsystem_tpu_torch.nn import (Dense, MMOEStacked, PLEStacked,  # noqa: E402
+                                          expert_shardings)
 from recommendsystem_tpu_torch.train import metrics as M  # noqa: E402
 from recommendsystem_tpu_torch.train.state import (TrainState, gather_state,  # noqa: E402
                                                    merge_shardings, shard_state,
@@ -105,7 +115,8 @@ def _shardings(case, bundle, whole, mesh):
     replicated), or with the model axis's split leaves."""
     if not (case.get("tensor_parallel") or case.get("experts")):
         return None
-    sh = state_shardings(bundle, whole, mesh, tensor_parallel=bool(case.get("tensor_parallel")))
+    sh = state_shardings(bundle, whole, mesh, tensor_parallel=bool(case.get("tensor_parallel")),
+                         tp_min_dim=case.get("tp_min_dim", 64))
     if case.get("experts"):
         sh = merge_shardings(sh, expert_shardings(whole.params, mesh))
     return sh
@@ -123,19 +134,41 @@ def _replicas_equal(tables, mesh):
     return bool(same.item())
 
 
+def _recording(bundle, sh, mesh, grads):
+    """``bundle`` with a dense optimizer that appends each step's gradients
+    to ``grads`` (a split one gathered whole over the model group), then
+    updates as the bundle's does."""
+    opt = bundle.dense_optimizer
+
+    class Recorder:
+        def init(self, params):
+            return opt.init(params)
+
+        def update_(self, params, gp, state):
+            grads.append({k: all_gather(g, sh.params[k].dim, mesh.model_group, mesh.model)
+                          if sh is not None and sh.params[k].model_axis else g.clone()
+                          for k, g in gp.items()})
+            return opt.update_(params, gp, state)
+
+    return dataclasses.replace(bundle, dense_optimizer=Recorder())
+
+
 def _train(case, mesh):
     bundle = _bundle(case, mesh.size)
     upd = case.get("sparse_update")
     whole = _state(case["state"])
     sh = _shardings(case, bundle, whole, mesh)
     state = shard_state(bundle, whole, mesh, sh)
-    step = make_train_step(bundle, mode="sharded", sparse_update=upd, mesh=mesh, shardings=sh)
-    out = {"infos": [], "reports": []}
+    out = {"infos": [], "reports": [], "collectives": [], "grads": []}
+    stepped = _recording(bundle, sh, mesh, out["grads"]) if case.get("record_grads") else bundle
+    step = make_train_step(stepped, mode="sharded", sparse_update=upd, mesh=mesh, shardings=sh)
     for item, seed in zip(case["batches"], case["seeds"]):
         batch, labels, weight, dense = local_batch(_batch(item), mesh)
         if case.get("report"):
             out["reports"].append(bundle.embedding.a2a_drop_report(batch, mesh))
+        model_axis.reset_collective_stats()
         state, info = step(state, batch, labels, weight, dense, seed=seed)
+        out["collectives"].append(model_axis.collective_stats())
         out["infos"].append({k: float(v) for k, v in info.items()})
     if mesh.model > 1:
         out["placements"] = {} if sh is None else {k: p.kind for k, p in sh.params.items()}
@@ -206,6 +239,23 @@ def _layer(case, mesh):
              if sh[k].model_axis else p.grad for k, p in params.items()}
     return {"outputs": [o.detach() for o in outs], "x_grad": x.grad, "grads": grads,
             "kinds": {k: p.kind for k, p in sh.items()}}
+
+
+def _column_dense(case, mesh):
+    """A ``Dense`` (``in_features``, ``features``) whose kernel is split by
+    columns over the model axis, in ``dtype``: the forward of ``x`` and the
+    backward of ``cotangent``, giving the output, x's gradient and the
+    kernel's gradient gathered whole."""
+    layer = Dense(case["kernel"].shape[0], case["kernel"].shape[1], device="cpu")
+    col = column_sharding(mesh)
+    params = {"kernel": col.local_part(case["kernel"]).clone().requires_grad_(),
+              "bias": case["bias"].clone().requires_grad_()}
+    x = case["x"].clone().requires_grad_()
+    with model_axis.use(mesh):
+        out = torch.func.functional_call(layer, params, (x,))
+    out.backward(case["cotangent"])
+    return {"output": out.detach(), "x_grad": x.grad,
+            "kernel_grad": all_gather(params["kernel"].grad, 1, mesh.model_group, mesh.model)}
 
 
 def _same(a, b):
@@ -304,7 +354,8 @@ def main():
                 meshes[m] = create_mesh("cpu", model_parallel=m)
             run = {"train": _train, "exchange": _exchange, "predict": _serve,
                    "eval": _serve, "files": _files, "layer": _layer,
-                   "fit": _fit, "multihost": _multihost}[case["kind"]]
+                   "column_dense": _column_dense, "fit": _fit,
+                   "multihost": _multihost}[case["kind"]]
             results.append(run(case, meshes[m]))
     except Exception:
         traceback.print_exc()
