@@ -23,6 +23,7 @@ from typing import TYPE_CHECKING, Dict, Iterable, Iterator, Optional
 import numpy as np
 import torch
 
+from ..utils.spans import span
 from . import metrics as M
 from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from .state import TrainState, create_train_state, shard_state
@@ -72,9 +73,15 @@ def fit(bundle: "ModelBundle", dataset: Iterable, steps: Optional[int] = None,
     before training (crash recovery); the seed stream starts afresh, as the
     JAX ``fit``'s key does.  ``checkpoint_every=N`` saves every N steps.
     ``profile_dir`` writes a ``torch.profiler`` Chrome trace
-    (``trace.json``) over the steps ``profile_steps`` [start, stop);
-    ``history_path`` appends one JSON line per ``log_every`` steps (step,
-    examples/s, the step's losses).  ``nan_guard`` ('off'|'warn'|'raise')
+    (``trace.json``) over the steps ``profile_steps`` [start, stop), with
+    the step's stages as spans (``utils/spans.py``: ``harness.step``,
+    ``step.train``, ``embedding.plan``, ``embedding.gather``,
+    ``model.forward``, ``model.backward``, ``step.dense_update``,
+    ``embedding.update``).  ``history_path`` appends one JSON line per
+    ``log_every`` steps (step, examples/s, the step's losses); the rate
+    counts the examples since the previous log point over the time between
+    the two log points' host reads of the loss, so it holds finished steps
+    only, and the first log point has none (``null``).  ``nan_guard`` ('off'|'warn'|'raise')
     checks the loss at each log point: the loss is read on the host there
     and nowhere else, so the loop makes no other host sync.
     ``evict_every=N`` calls the engine's ``maybe_evict`` every N steps (the
@@ -85,73 +92,77 @@ def fit(bundle: "ModelBundle", dataset: Iterable, steps: Optional[int] = None,
     at the first step boundary at or after their nominal step.
     ``callbacks`` are called as ``cb(step, state, info)`` after each
     dispatch.  Returns the state (its tensors are updated in place)."""
-    if nan_guard not in ("off", "warn", "raise"):
-        raise ValueError(f"nan_guard {nan_guard!r}: expected 'off', 'warn' or 'raise'")
-    seeds = seed_stream(seed)
-    on_mesh = {"mesh": mesh, "shardings": shardings} if mode == "sharded" else {}
-    train_step = make_train_step(bundle, mode=mode, **on_mesh)
-    scan_step = (make_scan_train_step(bundle, mode=mode, **on_mesh)
-                 if scan_steps > 1 else None)
-    if state is None:
-        state = create_train_state(bundle, seed=next(seeds))
-        if mode == "sharded":
-            state = shard_state(bundle, state, mesh, shardings)
-    if resume and checkpoint_dir and latest_step(checkpoint_dir) is not None:
-        state = restore_checkpoint(checkpoint_dir, state, **on_mesh)
-        log.info("resumed from %s at step %d", checkpoint_dir, state.step)
+    with span("harness.fit"):
+        if nan_guard not in ("off", "warn", "raise"):
+            raise ValueError(f"nan_guard {nan_guard!r}: expected 'off', 'warn' or 'raise'")
+        seeds = seed_stream(seed)
+        on_mesh = {"mesh": mesh, "shardings": shardings} if mode == "sharded" else {}
+        train_step = make_train_step(bundle, mode=mode, **on_mesh)
+        scan_step = (make_scan_train_step(bundle, mode=mode, **on_mesh)
+                     if scan_steps > 1 else None)
+        if state is None:
+            state = create_train_state(bundle, seed=next(seeds))
+            if mode == "sharded":
+                state = shard_state(bundle, state, mesh, shardings)
+        if resume and checkpoint_dir and latest_step(checkpoint_dir) is not None:
+            state = restore_checkpoint(checkpoint_dir, state, **on_mesh)
+            log.info("resumed from %s at step %d", checkpoint_dir, state.step)
 
-    it = iter(dataset)
-    profiler = None
-    t0 = time.perf_counter()
-    seen = 0
-    i = 0
-    while steps is None or i < steps:
-        try:
-            item = next(it)
-        except StopIteration:
-            break
-        if profile_dir and profiler is None and profile_steps[0] <= i < profile_steps[1]:
-            profiler = _start_profiler(bundle.device)
-        chunk = [item]
-        if scan_step is not None:
-            while len(chunk) < scan_steps and (steps is None or i + len(chunk) < steps):
+        it = iter(dataset)
+        profiler = None
+        read_at, seen_at_read = None, 0      # the last log point's host read
+        seen = 0
+        i = 0
+        while steps is None or i < steps:
+            if profile_dir and profiler is None and profile_steps[0] <= i < profile_steps[1]:
+                profiler = _start_profiler(bundle.device)
+            with span("harness.step"):
                 try:
-                    chunk.append(next(it))
+                    item = next(it)
                 except StopIteration:
                     break
-        if len(chunk) > 1:
-            batches, dense, labels, weights = (list(x) for x in zip(*(c[:4] for c in chunk)))
-            state, infos = scan_step(
-                state, batches, labels, None if weights[0] is None else weights,
-                None if dense[0] is None else dense,
-                [next(seeds) for _ in chunk])
-            info = {k: v[-1] for k, v in infos.items()}
-        else:
-            batch, dense_inputs, labels, weight = item[:4]
-            state, info = train_step(state, batch, labels, weight, dense_inputs,
-                                     seed=next(seeds))
-        seen += sum(_batch_rows(c[0]) for c in chunk)
-        i += len(chunk)
-        if profiler is not None and i >= profile_steps[1]:
+                chunk = [item]
+                if scan_step is not None:
+                    while len(chunk) < scan_steps and (steps is None or i + len(chunk) < steps):
+                        try:
+                            chunk.append(next(it))
+                        except StopIteration:
+                            break
+                if len(chunk) > 1:
+                    batches, dense, labels, weights = (list(x) for x in
+                                                       zip(*(c[:4] for c in chunk)))
+                    state, infos = scan_step(
+                        state, batches, labels, None if weights[0] is None else weights,
+                        None if dense[0] is None else dense,
+                        [next(seeds) for _ in chunk])
+                    info = {k: v[-1] for k, v in infos.items()}
+                else:
+                    batch, dense_inputs, labels, weight = item[:4]
+                    state, info = train_step(state, batch, labels, weight, dense_inputs,
+                                             seed=next(seeds))
+                seen += sum(_batch_rows(c[0]) for c in chunk)
+                i += len(chunk)
+                stride = len(chunk)
+
+                def crossed(every):
+                    return every and (i // every) > ((i - stride) // every)
+
+                if crossed(log_every):
+                    read_at = _log_point(state, info, i, seen - seen_at_read, read_at,
+                                         nan_guard, history_path)
+                    seen_at_read = seen
+                if crossed(evict_every):
+                    gen = torch.Generator(device=bundle.device).manual_seed(next(seeds))
+                    bundle.embedding.maybe_evict(state.tables, gen)
+                if checkpoint_dir and crossed(checkpoint_every):
+                    save_checkpoint(checkpoint_dir, state, **on_mesh)
+                for cb in callbacks:
+                    cb(i, state, info)
+            if profiler is not None and i >= profile_steps[1]:
+                _stop_profiler(profiler, profile_dir)
+                profiler = None
+        if profiler is not None:
             _stop_profiler(profiler, profile_dir)
-            profiler = None
-        stride = len(chunk)
-
-        def crossed(every):
-            return every and (i // every) > ((i - stride) // every)
-
-        if crossed(log_every):
-            _log_point(state, info, i, seen / (time.perf_counter() - t0),
-                       nan_guard, history_path)
-        if crossed(evict_every):
-            gen = torch.Generator(device=bundle.device).manual_seed(next(seeds))
-            bundle.embedding.maybe_evict(state.tables, gen)
-        if checkpoint_dir and crossed(checkpoint_every):
-            save_checkpoint(checkpoint_dir, state, **on_mesh)
-        for cb in callbacks:
-            cb(i, state, info)
-    if profiler is not None:
-        _stop_profiler(profiler, profile_dir)
     return state
 
 
@@ -159,20 +170,27 @@ def _batch_rows(batch) -> int:
     return next(iter(batch.values())).rows.shape[0]
 
 
-def _log_point(state, info, i, rate, nan_guard, history_path):
-    """The one host read of the loop: every scalar of ``info`` at once."""
+def _log_point(state, info, i, examples, since, nan_guard, history_path) -> float:
+    """The one host read of the loop: every scalar of ``info`` at once.
+    Logs ``examples`` over the time since ``since``, the previous log
+    point's read (None at the first: no rate); returns this read's time."""
     names = list(info)
     values = dict(zip(names, torch.stack([info[k].float() for k in names]).cpu().tolist()))
-    log.info("step %d loss=%.5f examples/s=%.1f", i, values["loss"], rate)
+    now = time.perf_counter()
+    rate = None if since is None else examples / (now - since)
+    log.info("step %d loss=%.5f examples/s=%s", i, values["loss"],
+             "n/a" if rate is None else f"{rate:.1f}")
     if nan_guard != "off" and not math.isfinite(values["loss"]):
         msg = f"non-finite loss {values['loss']} at step {i}"
         if nan_guard == "raise":
             raise FloatingPointError(msg)
         log.warning(msg)
     if history_path:
-        rec = {"step": int(state.step), "examples_per_sec": round(rate, 1), **values}
+        rec = {"step": int(state.step),
+               "examples_per_sec": None if rate is None else round(rate, 1), **values}
         with open(history_path, "a") as hf:
             hf.write(json.dumps(rec) + "\n")
+    return now
 
 
 def _start_profiler(device: torch.device):
@@ -219,18 +237,30 @@ def predict(bundle: "ModelBundle", dataset: Iterable, state: TrainState,
             mode: str = "local", example_id_key: Optional[str] = None):
     """Yields (example_ids, {task: numpy array}) per batch, the outputs of
     the predict step (``predict_view``) copied to the host: the
-    ``example_id_slot`` dump contract (``rank/multi_head/multidnn.py:250``)."""
-    predict_step = make_predict_step(bundle, mode=mode)
-    for item in dataset:
-        batch, dense_inputs = item[0], item[1]
-        extra = item[4] if len(item) > 4 else None
-        outputs = {k: v.cpu().numpy() for k, v in
-                   predict_step(state, batch, dense_inputs).items()}
-        ids = None
-        if extra is not None and example_id_key is not None:
-            ids = extra.get(example_id_key)
-            if isinstance(ids, torch.Tensor):
-                ids = ids.cpu().numpy()
+    ``example_id_slot`` dump contract (``rank/multi_head/multidnn.py:250``).
+    The step's build and each call run in a ``harness.predict`` span, the
+    copy in a ``harness.to_host`` one (``utils/spans.py``); the span closes
+    before each yield, so the caller's code runs outside it."""
+    predict_step = None
+    it = iter(dataset)
+    while True:
+        with span("harness.predict"):        # closed before the yield
+            if predict_step is None:
+                predict_step = make_predict_step(bundle, mode=mode)
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+            batch, dense_inputs = item[0], item[1]
+            extra = item[4] if len(item) > 4 else None
+            outputs = predict_step(state, batch, dense_inputs)
+            with span("harness.to_host"):
+                outputs = {k: v.cpu().numpy() for k, v in outputs.items()}
+                ids = None
+                if extra is not None and example_id_key is not None:
+                    ids = extra.get(example_id_key)
+                    if isinstance(ids, torch.Tensor):
+                        ids = ids.cpu().numpy()
         yield ids, outputs
 
 

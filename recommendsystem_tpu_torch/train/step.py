@@ -89,6 +89,14 @@ rows a real entry reached; the dense update's, every row of the shard.
 So the replicas stay bit-equal where the card's atomics add in another
 order.
 
+While a ``torch.profiler`` is active the steps record their stages as
+spans (``utils/spans.py``): the train step's call in ``step.train``,
+holding ``embedding.plan``, ``embedding.gather`` (stage 1),
+``model.forward``, ``model.backward`` (with the dense all-reduce),
+``step.dense_update`` and ``embedding.update`` (stage 3), each where the
+sparse update has the stage; the predict step's ``embedding.lookup`` and
+``model.forward``.
+
 Keras-compile semantics as in the JAX package: the loss is the sum over
 tasks of ``loss_weight * loss``, where a loss that returns a scalar is taken
 as it is (autoint's ``cross_entropy_sum_mean``, so its sample weights do not
@@ -102,6 +110,7 @@ module (the kernels of every ``Dense`` with a ``kernel_regularizer``, of
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import TYPE_CHECKING, Callable, Dict, Optional, Sequence, Union
 
 import torch
@@ -115,6 +124,7 @@ from ..embedding.engine import check_mode as _check_mode
 from ..embedding.optimizers import SparseAdaGrad, SparseAdam
 from ..kernels import field_attention as fa
 from ..nn import kernel_penalty, regularized_kernels
+from ..utils.spans import span
 from . import metrics as M
 from .state import TrainState
 
@@ -431,50 +441,55 @@ def make_train_step(bundle: "ModelBundle", mode: str = "local",
         the params' taken as fresh leaves of ``state.params``."""
         params = {k: p.detach().requires_grad_() for k, p in state.params.items()}
         with fa.sample_offset(_first_sample(batch, mesh)):
-            loss, aux = _model_outputs_and_loss(bundle, params, embs(), labels,
-                                                sample_weight, dense_inputs,
-                                                True, seed, penalized, mesh, axis)
-            grads = torch.autograd.grad(loss, list(params.values()) + leaves,
-                                        allow_unused=True, materialize_grads=True)
-        gp = list(grads[:len(params)])
-        if sharded:
-            gp = _all_reduce_flat(gp, mesh)
+            with span("model.forward"):
+                loss, aux = _model_outputs_and_loss(bundle, params, embs(), labels,
+                                                    sample_weight, dense_inputs,
+                                                    True, seed, penalized, mesh, axis)
+            with span("model.backward"):
+                grads = torch.autograd.grad(loss, list(params.values()) + leaves,
+                                            allow_unused=True, materialize_grads=True)
+                gp = list(grads[:len(params)])
+                if sharded:
+                    gp = _all_reduce_flat(gp, mesh)
         return loss, aux, dict(zip(params, gp)), list(grads[len(params):])
 
     def finish(state, loss, aux, gp):
         """Dense Adam in place; the new state and the step's info (sharded:
         the whole batch's losses)."""
-        with torch.no_grad():
+        with torch.no_grad(), span("step.dense_update"):
             new_params = {k: p.detach() for k, p in state.params.items()}
             new_params, opt_state = bundle.dense_optimizer.update_(
                 new_params, gp, state.opt_state)
             losses = [loss.detach()] + [v.detach() for v in aux["task_losses"].values()]
             if sharded:
                 losses = _all_reduce_flat([t.float() for t in losses], mesh)
-        info = {"loss": losses[0],
-                **{f"loss/{t}": v for t, v in zip(aux["task_losses"], losses[1:])},
-                "regularization": (no_penalty if aux["regularization"] is None
-                                   else aux["regularization"].detach())}
+            info = {"loss": losses[0],
+                    **{f"loss/{t}": v for t, v in zip(aux["task_losses"], losses[1:])},
+                    "regularization": (no_penalty if aux["regularization"] is None
+                                       else aux["regularization"].detach())}
         return TrainState(params=new_params, opt_state=opt_state,
                           tables=state.tables, step=state.step + 1), info
 
     def step_packed(state: TrainState, batch, labels, sample_weight=None,
                     dense_inputs=None, seed: int = 0):
-        pk, _ = packed_mod.storages_packed(eng)
-        plans = packed_mod.plan_segments(eng, batch, storages=set(pk))
-        classic_batch = packed_mod.classic_columns(eng, batch, plans)
+        with span("embedding.plan"):
+            pk, _ = packed_mod.storages_packed(eng)
+            plans = packed_mod.plan_segments(eng, batch, storages=set(pk))
+            classic_batch = packed_mod.classic_columns(eng, batch, plans)
         # stage 1 (no gradient): fused gather + fold (sharded: over the rows
         # pulled from their owners); the classic gather for the storages
         # that cannot pack
-        with torch.no_grad():
-            if sharded:
-                ctx = packed_mod.gather_fold_sharded(eng, state.tables, batch, plans, mesh)
-            else:
-                ctx = packed_mod.gather_fold(eng, state.tables, batch, plans)
-            raw = (eng.gather_raw(eng.weights(state.tables), classic_batch, mode, mesh)
-                   if classic_batch else {})
-        acts = {skey: _leaves(c["acts"]) for skey, c in ctx.items()}
-        raw = dict(zip(raw, _leaves(raw.values())))
+        with span("embedding.gather"):
+            with torch.no_grad():
+                if sharded:
+                    ctx = packed_mod.gather_fold_sharded(eng, state.tables, batch, plans,
+                                                         mesh)
+                else:
+                    ctx = packed_mod.gather_fold(eng, state.tables, batch, plans)
+                raw = (eng.gather_raw(eng.weights(state.tables), classic_batch, mode, mesh)
+                       if classic_batch else {})
+            acts = {skey: _leaves(c["acts"]) for skey, c in ctx.items()}
+            raw = dict(zip(raw, _leaves(raw.values())))
 
         def embs():
             out = packed_mod.combine_from_acts(
@@ -493,7 +508,7 @@ def make_train_step(bundle: "ModelBundle", mode: str = "local",
         g_raw = {k: next(it) for k in raw}
 
         new_state, info = finish(state, loss, aux, gp)
-        with torch.no_grad():
+        with torch.no_grad(), span("embedding.update"):
             # stage 3 (no gradient): unfold-scatter (sharded: pushed to the
             # owners) + lazy pass, in place
             if sharded:
@@ -526,14 +541,15 @@ def make_train_step(bundle: "ModelBundle", mode: str = "local",
 
     def step_scatter(state: TrainState, batch, labels, sample_weight=None,
                      dense_inputs=None, seed: int = 0):
-        with torch.no_grad():
-            raw = eng.gather_raw(eng.weights(state.tables), batch, mode, mesh)
-        raw = dict(zip(raw, _leaves(raw.values())))
+        with span("embedding.gather"):
+            with torch.no_grad():
+                raw = eng.gather_raw(eng.weights(state.tables), batch, mode, mesh)
+            raw = dict(zip(raw, _leaves(raw.values())))
         loss, aux, gp, g_raw = loss_and_grads(
             state, batch, lambda: eng.combine_raw(raw, batch), list(raw.values()), labels,
             sample_weight, dense_inputs, seed)
         new_state, info = finish(state, loss, aux, gp)
-        with torch.no_grad():
+        with torch.no_grad(), span("embedding.update"):
             new_tables, written = _scatter_update(state.tables, dict(zip(raw, g_raw)), batch)
             _store_tables(state.tables, new_tables)
             if axis is not None:
@@ -549,7 +565,7 @@ def make_train_step(bundle: "ModelBundle", mode: str = "local",
             state, batch, lambda: eng.lookup(weights, batch, mode, mesh),
             list(weights.values()), labels, sample_weight, dense_inputs, seed)
         new_state, info = finish(state, loss, aux, gp)
-        with torch.no_grad():
+        with torch.no_grad(), span("embedding.update"):
             counts = (eng.row_counts_sharded(batch, mesh) if sharded
                       else eng.row_counts(batch))
             new = eng.apply_gradients(state.tables, dict(zip(weights, g_w)), counts)
@@ -557,8 +573,15 @@ def make_train_step(bundle: "ModelBundle", mode: str = "local",
             _sync_tables(state.tables, dict.fromkeys(state.tables), mesh)
         return new_state, info
 
-    return {"packed": step_packed, "scatter": step_scatter,
+    body = {"packed": step_packed, "scatter": step_scatter,
             "dense": step_dense}[sparse_update]
+
+    @functools.wraps(body)
+    def step(*args, **kwargs):
+        with span("step.train"):
+            return body(*args, **kwargs)
+
+    return step
 
 
 def make_scan_train_step(bundle: "ModelBundle", mode: str = "local",
@@ -679,9 +702,11 @@ def make_predict_step(bundle: "ModelBundle", mode: str = "local",
 
     def step(state: TrainState, batch, dense_inputs=None):
         with torch.inference_mode():
-            embs = _lookup_for_mode(bundle, state.tables, batch, mode, mesh)
-            outputs = apply_model(bundle, state.params, embs, dense_inputs,
-                                  training=False, axis=axis)
-            return bundle.predict_view(outputs)
+            with span("embedding.lookup"):
+                embs = _lookup_for_mode(bundle, state.tables, batch, mode, mesh)
+            with span("model.forward"):
+                outputs = apply_model(bundle, state.params, embs, dense_inputs,
+                                      training=False, axis=axis)
+                return bundle.predict_view(outputs)
 
     return step

@@ -11,6 +11,7 @@ key)."""
 
 import json
 import os
+import types
 
 import pytest
 import torch
@@ -148,7 +149,28 @@ def test_history_lines(tmp_path):
     for x in lines:
         assert set(x) == {"step", "examples_per_sec", "loss", f"loss/{task}",
                           "regularization"}
-        assert x["examples_per_sec"] > 0 and x["loss"] > 0
+        assert x["loss"] > 0
+    # the rate runs from one log point's host read to the next: none at the first
+    assert lines[0]["examples_per_sec"] is None and lines[1]["examples_per_sec"] > 0
+
+
+def test_history_rate_counts_the_interval_between_reads(tmp_path, monkeypatch, caplog):
+    """With a patched clock read once at each log point (after its host
+    read of the loss): examples since the previous log point over the time
+    since its read."""
+    from recommendsystem_tpu_torch.train import harness
+
+    reads = iter([100.0, 102.0, 106.0])
+    monkeypatch.setattr(harness, "time", types.SimpleNamespace(perf_counter=lambda: next(reads)))
+    bundle = _bundle()
+    path = str(tmp_path / "history.jsonl")
+    with caplog.at_level("INFO", logger=harness.log.name):
+        fit(bundle, iter(_batches(bundle, 6)), log_every=2, history_path=path)
+    lines = [json.loads(x) for x in open(path).read().splitlines()]
+    assert [x["step"] for x in lines] == [2, 4, 6]
+    assert [x["examples_per_sec"] for x in lines] == [None, 2 * B / 2.0, 2 * B / 4.0]
+    logged = [r.getMessage() for r in caplog.records if "examples/s" in r.getMessage()]
+    assert [m.split("examples/s=")[1] for m in logged] == ["n/a", "16.0", "8.0"]
 
 
 def test_profile_dir_writes_a_trace(tmp_path):
