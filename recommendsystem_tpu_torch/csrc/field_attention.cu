@@ -12,7 +12,10 @@
 // from Philox4x32-10 with key (k0, k1) = (step seed, iteration) and counter
 // (b, fq, head, fk / 4), taking word fk % 4: each index has a word of its
 // own, so no two weights share bits, and the backward regenerates the
-// forward's mask from the same key.  A weight is kept when its draw is
+// forward's mask from the same key.  The key is not a launch parameter: it
+// is one 64-bit word in device memory, k0 << 32 | k1, which every thread
+// reads as the kernel starts, so a launch captured in a CUDA graph draws
+// the key that its replay finds there.  A weight is kept when its draw is
 // >= thresh = rate * 2^32 and then scaled by 1 / (1 - rate), as
 // field_attention_pallas.py:71-77 does.  The plain PyTorch version
 // (kernels/field_attention.py) computes the same bits with integer ops.
@@ -57,9 +60,9 @@
 // key, sample) pair at dh = 4: 4 FMA (the score, its chain starting at -M),
 // 1 ex2, 1 add (sum), 1 select (dropout), 4 FMA (output): 11 instructions
 // (an online softmax needs ~20), plus a quarter of a Philox call under
-// dropout: the round keys come from the kernel's parameters (constant-bank
-// operands), so a round is 2 wide multiplies and 2 three-way XORs, ~40
-// instructions a call, ~10 a pair.  Each k and v row read from shared
+// dropout: the round keys are formed from the key's two words as the rounds
+// go, so a round is 2 wide multiplies, 2 three-way XORs and 2 adds, ~60
+// instructions a call, ~15 a pair.  Each k and v row read from shared
 // memory serves QPT queries: 2 * 16 B / QPT = 10.7 B a pair.  The dropout
 // mask multiplies the weight after the softmax, so the sum takes the
 // unmasked weights; the keep scale 1 / (1 - rate) is applied once, to the
@@ -132,15 +135,35 @@ __device__ __forceinline__ uint32_t word(const uint4& r, int i) {
   return i == 0 ? r.x : i == 1 ? r.y : i == 2 ? r.z : r.w;
 }
 
-// Philox4x32-10 (Salmon et al., SC'11) with the round keys (k0 + i*W0,
-// k1 + i*W1), i = 0..9, worked out on the host: in the kernel's parameters
-// they are constant-bank operands, so a round is 2 wide multiplies and 2
-// three-way XORs
+// The launch's dropout: the key's address (null without dropout), the
+// threshold and keep scale, and the global index of the call's first
+// sample
+struct DropoutArgs {
+  const unsigned long long* key;   // k0 << 32 | k1
+  uint32_t thresh;
+  float keep_scale;
+  uint32_t sample0;
+};
+
+// Philox4x32-10 (Salmon et al., SC'11) under the key (k0, k1) that a thread
+// reads from device memory as the kernel starts; the round keys (k0 + i*W0,
+// k1 + i*W1), i = 0..9, are formed as the rounds go
 struct Dropout {
+  uint32_t k0, k1;
   uint32_t thresh;
   float keep_scale;
   uint32_t sample0;   // the global index of the call's first sample
-  uint32_t rk[20];
+  template <bool kDrop>
+  __device__ __forceinline__ static Dropout load(const DropoutArgs& a) {
+    Dropout d;
+    const unsigned long long w = kDrop ? __ldg(a.key) : 0ull;
+    d.k0 = static_cast<uint32_t>(w >> 32);
+    d.k1 = static_cast<uint32_t>(w);
+    d.thresh = a.thresh;
+    d.keep_scale = a.keep_scale;
+    d.sample0 = a.sample0;
+    return d;
+  }
   // the four keys 4*kg .. 4*kg+3 of query fq, head h, sample b of the call
   __device__ __forceinline__ uint4 bits(long long b, int fq, int h, int kg) const {
     uint4 c = make_uint4(static_cast<uint32_t>(b) + sample0, static_cast<uint32_t>(fq),
@@ -151,7 +174,8 @@ struct Dropout {
       const uint32_t hi0 = __umulhi(kPhiloxM0, c.x);
       const uint32_t lo1 = kPhiloxM1 * c.z;
       const uint32_t hi1 = __umulhi(kPhiloxM1, c.z);
-      c = make_uint4(hi1 ^ c.y ^ rk[2 * i], lo1, hi0 ^ c.w ^ rk[2 * i + 1], lo0);
+      c = make_uint4(hi1 ^ c.y ^ (k0 + static_cast<uint32_t>(i) * kPhiloxW0), lo1,
+                     hi0 ^ c.w ^ (k1 + static_cast<uint32_t>(i) * kPhiloxW1), lo0);
     }
     return c;
   }
@@ -311,7 +335,8 @@ field_attention_fwd_kernel(const T* __restrict__ q,
                            const T* __restrict__ v,
                            float* __restrict__ o,
                            float* __restrict__ lse,
-                           int f, long long b, float scale, Dropout drop) {
+                           int f, long long b, float scale, DropoutArgs dargs) {
+  const Dropout drop = Dropout::load<kDrop>(dargs);
   using Tile = FwdTile<DH>;
   constexpr int KC = Tile::KC;
   constexpr int QT = kQy * QPT;            // queries per tile
@@ -513,7 +538,8 @@ field_attention_bwd_kernel(const T* __restrict__ q,
                            float* dq_acc,
                            T* __restrict__ dk,
                            T* __restrict__ dv,
-                           int f, long long b, float scale, Dropout drop) {
+                           int f, long long b, float scale, DropoutArgs dargs) {
+  const Dropout drop = Dropout::load<kDrop>(dargs);
   using Tile = BwdTile<DH>;
   constexpr int KC = Tile::KC;
   extern __shared__ float smem[];
@@ -663,7 +689,7 @@ field_attention_bwd_kernel(const T* __restrict__ q,
 
 template <int DH, int QPT, typename T>
 int launch_fwd_q(const T* q, const T* k, const T* v, float* o, float* lse, int h, int f,
-                 long long b, float scale, const Dropout& drop, bool dropout,
+                 long long b, float scale, const DropoutArgs& drop, bool dropout,
                  unsigned int zsplit, cudaStream_t stream) {
   using Tile = FwdTile<DH>;
   const int bytes = (2 * Tile::kChunkFloats + Tile::kBoundFloats) * static_cast<int>(sizeof(float));
@@ -684,7 +710,7 @@ int launch_fwd_q(const T* q, const T* k, const T* v, float* o, float* lse, int h
 // queries per thread and every tile in its block.
 template <int DH, typename T>
 int launch_fwd(const void* q, const void* k, const void* v, float* o, float* lse, int h,
-               int f, long long b, float scale, const Dropout& drop, bool dropout,
+               int f, long long b, float scale, const DropoutArgs& drop, bool dropout,
                cudaStream_t stream) {
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
@@ -703,7 +729,7 @@ int launch_fwd(const void* q, const void* k, const void* v, float* o, float* lse
 template <int DH, typename T>
 int launch_bwd(const void* q, const void* k, const void* v, const float* o,
                const float* dout, const float* lse, void* dq, float* dq_acc, void* dk,
-               void* dv, int h, int f, long long b, float scale, const Dropout& drop,
+               void* dv, int h, int f, long long b, float scale, const DropoutArgs& drop,
                bool dropout, cudaStream_t stream) {
   const int bytes = BwdTile<DH>::kFloats * static_cast<int>(sizeof(float));
   auto kernel = dropout ? field_attention_bwd_kernel<DH, true, T>
@@ -722,7 +748,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const float* o,
 
 template <typename T>
 int fwd_dh(const void* q, const void* k, const void* v, float* o, float* lse, int h, int dh,
-           int f, long long b, float scale, const Dropout& drop, bool on, cudaStream_t stream) {
+           int f, long long b, float scale, const DropoutArgs& drop, bool on, cudaStream_t stream) {
   switch (dh) {
     case 1: return launch_fwd<1, T>(q, k, v, o, lse, h, f, b, scale, drop, on, stream);
     case 2: return launch_fwd<2, T>(q, k, v, o, lse, h, f, b, scale, drop, on, stream);
@@ -737,7 +763,7 @@ int fwd_dh(const void* q, const void* k, const void* v, float* o, float* lse, in
 template <typename T>
 int bwd_dh(const void* q, const void* k, const void* v, const float* o, const float* lse,
            const float* dout, void* dq, float* dq_acc, void* dk, void* dv, int h, int dh,
-           int f, long long b, float scale, const Dropout& drop, bool on, cudaStream_t stream) {
+           int f, long long b, float scale, const DropoutArgs& drop, bool on, cudaStream_t stream) {
   switch (dh) {
     case 1: return launch_bwd<1, T>(q, k, v, o, dout, lse, dq, dq_acc, dk, dv, h, f, b, scale,
                                     drop, on, stream);
@@ -755,16 +781,13 @@ int bwd_dh(const void* q, const void* k, const void* v, const float* o, const fl
   }
 }
 
-Dropout make_dropout(unsigned int k0, unsigned int k1, unsigned int thresh,
-                     float keep_scale, unsigned int sample0) {
-  Dropout drop;
+DropoutArgs make_dropout(const unsigned long long* key, unsigned int thresh,
+                         float keep_scale, unsigned int sample0) {
+  DropoutArgs drop;
+  drop.key = key;
   drop.thresh = thresh;
   drop.keep_scale = keep_scale;
   drop.sample0 = sample0;
-  for (int i = 0; i < 10; ++i) {
-    drop.rk[2 * i] = k0 + static_cast<uint32_t>(i) * kPhiloxW0;
-    drop.rk[2 * i + 1] = k1 + static_cast<uint32_t>(i) * kPhiloxW1;
-  }
   return drop;
 }
 
@@ -772,15 +795,16 @@ Dropout make_dropout(unsigned int k0, unsigned int k1, unsigned int thresh,
 
 // q, k, v (h, dh, F, B) contiguous, float32 (bf16 = 0) or bfloat16 (1);
 // o (h, dh, F, B) and lse (h, F, B) float32; lse may be null (no backward to
-// follow).  dropout != 0 applies the mask of key (k0, k1) with threshold
-// thresh and scale keep_scale, numbering the samples from sample0 in the
+// follow).  dropout != 0 applies the mask of the key at key (one 64-bit
+// word in device memory, k0 << 32 | k1) with threshold thresh and scale
+// keep_scale, numbering the samples from sample0 in the
 // Philox counter (a rank's rows of a batch start at their global index).
 RS_EXPORT int field_attention_fwd(const void* q, const void* k, const void* v, float* o,
                                   float* lse, int h, int dh, int f, long long b, float scale,
-                                  int dropout, unsigned int k0, unsigned int k1,
+                                  int dropout, const unsigned long long* key,
                                   unsigned int thresh, float keep_scale, unsigned int sample0,
                                   int bf16_in, cudaStream_t stream) {
-  const Dropout drop = make_dropout(k0, k1, thresh, keep_scale, sample0);
+  const DropoutArgs drop = make_dropout(key, thresh, keep_scale, sample0);
   const bool on = dropout != 0;
   return bf16_in ? fwd_dh<bf16>(q, k, v, o, lse, h, dh, f, b, scale, drop, on, stream)
                  : fwd_dh<float>(q, k, v, o, lse, h, dh, f, b, scale, drop, on, stream);
@@ -795,10 +819,10 @@ RS_EXPORT int field_attention_fwd(const void* q, const void* k, const void* v, f
 RS_EXPORT int field_attention_bwd(const void* q, const void* k, const void* v, const float* o,
                                   const float* lse, const float* dout, void* dq, float* dq_acc,
                                   void* dk, void* dv, int h, int dh, int f, long long b,
-                                  float scale, int dropout, unsigned int k0, unsigned int k1,
+                                  float scale, int dropout, const unsigned long long* key,
                                   unsigned int thresh, float keep_scale, unsigned int sample0,
                                   int bf16_in, cudaStream_t stream) {
-  const Dropout drop = make_dropout(k0, k1, thresh, keep_scale, sample0);
+  const DropoutArgs drop = make_dropout(key, thresh, keep_scale, sample0);
   const bool on = dropout != 0;
   return bf16_in ? bwd_dh<bf16>(q, k, v, o, lse, dout, dq, dq_acc, dk, dv, h, dh, f, b, scale,
                                 drop, on, stream)

@@ -11,6 +11,9 @@ one ``nvcc`` per source, all started together.
 Every C launcher returns ``cudaGetLastError()``; ``check`` raises when that
 is not 0.  ``count_launch`` is called by each wrapper where it launches its
 kernel and nowhere else, so a run can show which kernels its path reached.
+A CUDA graph's capture counts its launches without running them: the
+capture takes them back (``set_launch_counts``) and each replay adds them
+(``add_launches``), so a replayed step counts what an eager one does.
 """
 
 from __future__ import annotations
@@ -44,9 +47,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "field_attention": {
         "field_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _F,
-                                _I, _U, _U, _U, _F, _U, _I, _P],
-        "field_attention_bwd": [_P] * 10 + [_I, _I, _I, _L, _F, _I, _U, _U,
-                                            _U, _F, _U, _I, _P],
+                                _I, _P, _U, _F, _U, _I, _P],
+        "field_attention_bwd": [_P] * 10 + [_I, _I, _I, _L, _F, _I, _P, _U,
+                                            _F, _U, _I, _P],
     },
     "unfold_scatter": {
         "unfold_mean_group_f32": [_P, _I, _P],
@@ -92,6 +95,17 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for name in _launches:
         _launches[name] = 0
+
+
+def set_launch_counts(counts: Dict[str, int]) -> None:
+    """Put the counts back to ``counts`` (a ``launch_counts()``)."""
+    _launches.update(counts)
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Count ``counts`` more launches ({kernel: n}): a replayed graph's."""
+    for name, n in counts.items():
+        _launches[name] += n
 
 
 def nvcc() -> str:

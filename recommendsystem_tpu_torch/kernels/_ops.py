@@ -179,7 +179,8 @@ def field_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seed:
     is ``signed_seed`` of the dropout seed, ``sample0`` the global index of
     the first sample in the dropout counter."""
     from . import field_attention
-    return field_attention.fwd_launch(q, k, v, seed % _U64, rate, want_lse, sample0)
+    key = field_attention.dropout_key(seed % _U64, q.device) if rate > 0.0 else None
+    return field_attention.fwd_launch(q, k, v, key, rate, want_lse, sample0)
 
 
 @field_attention_fwd.register_kernel("cpu")

@@ -30,6 +30,16 @@ whole batch, ``rank * B / n`` for a rank's rows of a batch in the sharded
 mode, so that every sample draws the mask it draws in the whole batch.  A
 call that does not pass it takes ``sample_offset``'s (0 outside one), which
 the sharded train step sets around its tower.
+
+The kernels read the key from device memory, not from their launch
+parameters: one int64 word holding ``_key(seed)`` as ``k0 << 32 | k1``
+(``dropout_key``, written by one fill with no copy from the host), so that
+a launch captured in a CUDA graph draws the key its replay finds there.
+``seed`` is a Python int, or such a key tensor (``is_key``): a captured
+train step passes its key buffer, which it rewrites before each replay
+(``write_key``), and ``iteration_key`` derives an InteractingLayer
+iteration's key from it on the device.  Given an int, a card call makes
+the key itself; a CPU call reads a key tensor's int.
 """
 
 from __future__ import annotations
@@ -106,6 +116,63 @@ def _key(seed: int) -> Tuple[int, int]:
     if not 0 <= seed < 1 << 64:
         raise ValueError(f"seed {seed} not in [0, 2**64)")
     return seed >> 32, seed & _MASK32
+
+
+def dropout_key(seed: int, device) -> torch.Tensor:
+    """The key of ``seed`` (below 2**64) as the kernels read it: a (1,)
+    int64 tensor on ``device`` holding ``k0 << 32 | k1`` of ``_key(seed)``,
+    made by one fill (no copy from the host)."""
+    _key(seed)
+    return torch.full((1,), _ops.signed_seed(seed), dtype=torch.int64, device=device)
+
+
+def write_key(key: torch.Tensor, seed: int) -> None:
+    """Overwrite a key tensor with ``seed``'s key, in stream order (one
+    fill, whose value rides in its launch: no host buffer to race)."""
+    _key(seed)
+    key.fill_(_ops.signed_seed(seed))
+
+
+def is_key(seed) -> bool:
+    """Whether ``seed`` is a key tensor (else a Python int)."""
+    return isinstance(seed, torch.Tensor)
+
+
+def key_seed(key: torch.Tensor) -> int:
+    """The seed a key tensor holds, in [0, 2**64) (a host read)."""
+    return int(key.item()) % (1 << 64)
+
+
+def iteration_key(key: torch.Tensor, i: int) -> torch.Tensor:
+    """The key of seed ``(s << 32) | i`` from the key of a seed ``s`` below
+    2**32, on the key's device: the InteractingLayer's seed of iteration
+    ``i`` (the shift wraps the int64 word as the unsigned one)."""
+    return torch.bitwise_or(torch.bitwise_left_shift(key, 32), i)
+
+
+def _check_seed(seed, device) -> None:
+    """A seed an entry takes: an int below 2**64, or a key tensor on the
+    call's device."""
+    if not is_key(seed):
+        _key(seed)
+        return
+    if seed.dtype != torch.int64 or tuple(seed.shape) != (1,):
+        raise ValueError(f"dropout key: expected a (1,) int64 tensor, got "
+                         f"{tuple(seed.shape)} {seed.dtype}")
+    if seed.device != device:
+        raise ValueError(f"dropout key on {seed.device}, expected {device}")
+
+
+def _card_key(seed, device, rate: float) -> Optional[torch.Tensor]:
+    """The key tensor a card launch reads: ``seed``'s own, or one made from
+    an int; None without dropout (the kernel reads no key)."""
+    if rate <= 0.0:
+        return None
+    return seed if is_key(seed) else dropout_key(seed, device)
+
+
+def _int_seed(seed) -> int:
+    return key_seed(seed) if is_key(seed) else seed
 
 
 def dropout_scale(h: int, f: int, b: int, seed: int, rate: float, device,
@@ -240,23 +307,29 @@ def bwd_keys_per_chunk(dh: int) -> int:
     return min(32, 128 // dh)
 
 
-def _dropout_args(seed: int, rate: float, sample0: int):
-    k0, k1 = _key(seed)
-    return (int(rate > 0.0), k0, k1, _threshold(rate),
+def _dropout_args(key: Optional[torch.Tensor], rate: float, sample0: int):
+    return (int(rate > 0.0), None if key is None else key.data_ptr(), _threshold(rate),
             1.0 / (1.0 - rate), sample0 & _MASK32)
 
 
-def _fwd(q, k, v, seed: int, rate: float, want_lse: bool, sample0: int = 0):
-    """K5f through the op ``field_attention_fwd``: (o, lse or None)."""
-    o, lse = _ops.op("field_attention_fwd")(q, k, v, _ops.signed_seed(seed), float(rate),
-                                            want_lse, sample0)
+def _fwd(q, k, v, seed, rate: float, want_lse: bool, sample0: int = 0):
+    """K5f: (o, lse or None).  An int seed goes through the op
+    ``field_attention_fwd``; a key tensor straight to the launcher on a
+    card (the op's schema takes an int)."""
+    if is_key(seed) and q.device.type == "cuda":
+        o, lse = fwd_launch(q, k, v, _card_key(seed, q.device, rate), rate, want_lse, sample0)
+        return o, (lse if want_lse else None)
+    o, lse = _ops.op("field_attention_fwd")(q, k, v, _ops.signed_seed(_int_seed(seed)),
+                                            float(rate), want_lse, sample0)
     return o, (lse if want_lse else None)
 
 
-def fwd_launch(q, k, v, seed: int, rate: float, want_lse: bool, sample0: int = 0):
-    """K5f's launcher, the CUDA implementation of the op
-    ``recommendsystem_tpu_torch::field_attention_fwd``: (o, lse), lse
-    empty unless ``want_lse``."""
+def fwd_launch(q, k, v, key: Optional[torch.Tensor], rate: float, want_lse: bool,
+               sample0: int = 0):
+    """K5f's launcher (the CUDA implementation of the op
+    ``recommendsystem_tpu_torch::field_attention_fwd`` makes its key):
+    (o, lse), lse empty unless ``want_lse``; ``key`` is the dropout's key
+    tensor (``dropout_key``), None at rate 0."""
     h, dh, f, b = q.shape
     o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     lse = torch.empty((h, f, b) if want_lse else (0,), dtype=torch.float32,
@@ -268,29 +341,31 @@ def fwd_launch(q, k, v, seed: int, rate: float, want_lse: bool, sample0: int = 0
         code = lib.field_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr() if want_lse else None, h, dh, f, b,
-            1.0 / dh ** 0.5, *_dropout_args(seed, rate, sample0),
+            1.0 / dh ** 0.5, *_dropout_args(key, rate, sample0),
             int(q.dtype == torch.bfloat16), stream_handle(q.device))
     check(lib, code, "field_attention")
     count_launch("field_attention")
     return o, lse
 
 
-def field_attention_bwd(q, k, v, o, lse, do, seed: int = 0, rate: float = 0.0,
+def field_attention_bwd(q, k, v, o, lse, do, seed=0, rate: float = 0.0,
                         sample0: int = 0):
     """K5b: (dq, dk, dv) of field attention from the forward's inputs, its
     output ``o`` and log-sum-exp ``lse`` (h, F, B), and the output gradient
-    ``do``; the dropout mask is regenerated from ``seed``, ``rate`` and
-    ``sample0``.
+    ``do``; the dropout mask is regenerated from ``seed`` (an int or a key
+    tensor), ``rate`` and ``sample0``.
     The kernel computes each (query, key, sample) term once and sums in a
     fixed order, so two calls on the same inputs give the same bits."""
     _check_qkv(q, k, v)
     _check_rate(rate)
+    _check_seed(seed, q.device)
     require(o, "o", torch.float32, q.shape, q.device)
     require(do, "do", torch.float32, q.shape, q.device)
     h, dh, f, b = q.shape
     require(lse, "lse", torch.float32, (h, f, b), q.device)
     if q.device.type == "cpu":
-        return field_attention_bwd_reference(q, k, v, o, lse, do, seed, rate, sample0)
+        return field_attention_bwd_reference(q, k, v, o, lse, do, _int_seed(seed), rate,
+                                             sample0)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     if q.numel() == 0:
         return dq, dk, dv
@@ -307,18 +382,21 @@ def field_attention_bwd(q, k, v, o, lse, do, seed: int = 0, rate: float = 0.0,
             lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
             None if dq_acc is None else dq_acc.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), h, dh, f, b, 1.0 / dh ** 0.5,
-            *_dropout_args(seed, rate, sample0), int(q.dtype == torch.bfloat16),
-            stream_handle(q.device))
+            *_dropout_args(_card_key(seed, q.device, rate), rate, sample0),
+            int(q.dtype == torch.bfloat16), stream_handle(q.device))
     check(lib, code, "field_attention_bwd")
     count_launch("field_attention_bwd")
     return dq, dk, dv
 
 
 class FieldAttentionFunction(torch.autograd.Function):
-    """Field attention with K5b as its backward."""
+    """Field attention with K5b as its backward.  On a card with dropout,
+    an int seed becomes a key tensor once, which K5f and K5b both read."""
 
     @staticmethod
-    def forward(ctx, q, k, v, seed: int, rate: float, sample0: int):
+    def forward(ctx, q, k, v, seed, rate: float, sample0: int):
+        if q.device.type == "cuda":
+            seed = _card_key(seed, q.device, rate) if rate > 0.0 else 0
         o, lse = _fwd(q, k, v, seed, rate, True, sample0)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.seed, ctx.rate, ctx.sample0 = seed, rate, sample0
@@ -333,17 +411,18 @@ class FieldAttentionFunction(torch.autograd.Function):
 
 
 def field_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    seed: int = 0, rate: float = 0.0,
+                    seed=0, rate: float = 0.0,
                     sample0: Optional[int] = None) -> torch.Tensor:
     """softmax(q.k / sqrt(dh)) . v over fields, with attention-weight
     dropout at ``rate`` drawn from ``seed`` (a non-negative int below
-    2**64) for samples numbered from ``sample0`` (None: ``sample_offset``'s,
-    0 outside one); q/k/v ``(h, dh, F, B)`` contiguous, on one device, all
-    float32 or all bfloat16; returns ``(h, dh, F, B)`` float32,
-    differentiable in q, k and v (their gradients in their type)."""
+    2**64, or a key tensor on q's device) for samples numbered from
+    ``sample0`` (None: ``sample_offset``'s, 0 outside one); q/k/v ``(h,
+    dh, F, B)`` contiguous, on one device, all float32 or all bfloat16;
+    returns ``(h, dh, F, B)`` float32, differentiable in q, k and v (their
+    gradients in their type)."""
     _check_qkv(q, k, v)
     _check_rate(rate)
-    _key(seed)
+    _check_seed(seed, q.device)
     sample0 = _SAMPLE0.get() if sample0 is None else sample0
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FieldAttentionFunction.apply(q, k, v, seed, rate, sample0)

@@ -23,6 +23,7 @@ from torch import nn
 
 from ..embedding.engine import EmbeddingFeatures
 from ..train.adam import Adam
+from ..train.graph import TrainGraphs
 
 
 @dataclasses.dataclass
@@ -46,6 +47,11 @@ class ModelBundle:
     # the dense tower's compute dtype: float32, or bfloat16 (params, the
     # embedding activations and dense_inputs cast at use, outputs back)
     compute_dtype: torch.dtype = torch.float32
+    # the CUDA graphs of the local train step's stage 2, kept across the
+    # step functions built for this bundle (``train/graph.py``); a copy
+    # made by ``dataclasses.replace`` starts with none
+    train_graphs: TrainGraphs = dataclasses.field(default_factory=TrainGraphs, init=False,
+                                                  repr=False, compare=False)
 
     def init(self, seed: int):
         """(params, tables) drawn from one ``torch.Generator`` on the

@@ -13,7 +13,10 @@ end, so the attention core is the batch-minor field-attention kernel (K5,
   the attention weights, drawn in the kernel from one seed per iteration:
   ``(seed << 32) | i`` for iteration i of a step with seed ``seed``, so the
   kernel's Philox key is (step seed, iteration), as the JAX layer derives
-  ``base + i`` (``nn/interacting.py:147-159``);
+  ``base + i`` (``nn/interacting.py:147-159``); a captured train step
+  passes ``seed`` as its key tensor (``kernels.field_attention.is_key``),
+  and the layer derives each iteration's key from it on the device
+  (``iteration_key``);
 - residual, relu and LayerNorm over the unit dim with eps 1e-3 (the Keras
   default).
 
@@ -49,7 +52,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..kernels.field_attention import field_attention
+from ..kernels.field_attention import field_attention, is_key, iteration_key
 from ..kernels.interacting import interacting_attention, kernel_takes
 from .mlp import glorot_uniform_, matmul_promoted
 
@@ -93,8 +96,7 @@ class InteractingLayer(nn.Module):
                     getattr(self, b).zero_()
             self.ln_scale.fill_(1.0)
 
-    def _iteration_t(self, x_t: torch.Tensor, training: bool,
-                     seed: int) -> torch.Tensor:
+    def _iteration_t(self, x_t: torch.Tensor, training: bool, seed) -> torch.Tensor:
         """One iteration, (d, F, B) -> (U, F, B)."""
         d, f, b = x_t.shape
         u, h = self.unit_num, self.head_num
@@ -118,8 +120,8 @@ class InteractingLayer(nn.Module):
                 * self.ln_scale[:, None, None] + self.ln_bias[:, None, None])
 
     @staticmethod
-    def _check(inputs: torch.Tensor, seed: int) -> None:
-        if not 0 <= seed < 1 << 32:
+    def _check(inputs: torch.Tensor, seed) -> None:
+        if not is_key(seed) and not 0 <= seed < 1 << 32:
             raise ValueError(f"seed {seed} not in [0, 2**32)")
         if inputs.ndim != 3:
             raise ValueError(
@@ -127,9 +129,9 @@ class InteractingLayer(nn.Module):
                 % inputs.ndim)
 
     def forward(self, inputs: torch.Tensor, training: bool = False,
-                seed: int = 0) -> torch.Tensor:
-        """(B, F, D) -> (B, F, U); ``seed`` (below 2**32) draws the
-        attention dropout of a training step."""
+                seed=0) -> torch.Tensor:
+        """(B, F, D) -> (B, F, U); ``seed`` (below 2**32, or the key tensor
+        of one) draws the attention dropout of a training step."""
         self._check(inputs, seed)
         if not (self.use_res and not (self.use_dropout and training)
                 and kernel_takes(self.in_dim, self.unit_num, inputs.shape[1])):
@@ -143,12 +145,15 @@ class InteractingLayer(nn.Module):
         return output
 
     def forward_transposed(self, inputs: torch.Tensor, training: bool = False,
-                           seed: int = 0) -> torch.Tensor:
+                           seed=0) -> torch.Tensor:
         """The layer in the transposed layout through K5, whatever the
         widths: (B, F, D) -> (B, F, U) behind ONE entry and ONE exit
         transpose for the whole stack."""
         self._check(inputs, seed)
         x_t = inputs.permute(2, 1, 0).contiguous()
+        drop = self.use_dropout and training
         for i in range(self.layer_num):
-            x_t = self._iteration_t(x_t, training, (seed << 32) | i)
+            seed_i = (0 if not drop else iteration_key(seed, i) if is_key(seed)
+                      else (seed << 32) | i)
+            x_t = self._iteration_t(x_t, training, seed_i)
         return x_t.permute(2, 1, 0)

@@ -6,7 +6,9 @@ reference defines, and the ``LOSSES`` registry under the JAX names.
 ``1 - p + 1e-6`` is taken as ``(1 + 1e-6) - p``, the form XLA folds the
 JAX package's jitted losses into: where a sigmoid saturates to exactly 1.0,
 the two forms give 9.54e-7 and 1e-6, a loss 0.3% apart.  Clips are
-min/max, as ``jnp.clip`` computes them.
+min/max, as ``jnp.clip`` computes them, against bounds made on the
+tensor's device by a fill (``_bound``): a bound copied from the host could
+not be captured in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -50,16 +52,22 @@ def kl_loss(y_true: torch.Tensor, y_pred: torch.Tensor,
     return (y_t * torch.log(y_t / y_p)).sum(dim=-1)
 
 
+def _bound(x: torch.Tensor, value: float) -> torch.Tensor:
+    """``value`` as a 0-d tensor of ``x``'s dtype on its device, filled
+    there (``x.new_tensor(value)``'s result without its host copy)."""
+    return torch.full((), value, dtype=x.dtype, device=x.device)
+
+
 def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     """``jnp.clip``: max with ``lo``, then min with ``hi``, each bound in
     the tensor's dtype."""
-    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+    return torch.minimum(torch.maximum(x, _bound(x, lo)), _bound(x, hi))
 
 
 def mse_clip_loss(y_true: torch.Tensor, y_pred: torch.Tensor,
                   clip: float = 2.0) -> torch.Tensor:
     """staytime's mean squared error with the label cut at ``clip``."""
-    y_true = torch.minimum(y_true.float(), y_pred.new_tensor(clip))
+    y_true = torch.minimum(y_true.float(), _bound(y_pred, clip))
     return (y_true - y_pred).square().mean()
 
 
@@ -78,7 +86,7 @@ def log_mse_loss(y_true: torch.Tensor, y_pred: torch.Tensor,
     """rough_rank's watch-time loss: the mean squared error against
     log(1 + ms / 1000), cut at ``upper``."""
     wt_log = torch.log(y_true.float() / 1000.0 + 1.0)
-    return (torch.minimum(wt_log, y_pred.new_tensor(upper)) - y_pred).square().mean()
+    return (torch.minimum(wt_log, _bound(y_pred, upper)) - y_pred).square().mean()
 
 
 def y_pred_loss(y_true: torch.Tensor, y_pred: torch.Tensor) -> torch.Tensor:

@@ -89,13 +89,20 @@ rows a real entry reached; the dense update's, every row of the shard.
 So the replicas stay bit-equal where the card's atomics add in another
 order.
 
+On a card the local packed step replays its stage 2 (the combine, the
+tower, the loss and the autograd backward) as one CUDA graph, captured at
+the first step of each signature and kept with the bundle
+(``train/graph.py``): the same kernels on the same work, with their
+launches off the host.  The sharded step, the classic updates and the CPU
+run stage 2 eagerly.
+
 While a ``torch.profiler`` is active the steps record their stages as
 spans (``utils/spans.py``): the train step's call in ``step.train``,
 holding ``embedding.plan``, ``embedding.gather`` (stage 1),
-``model.forward``, ``model.backward`` (with the dense all-reduce),
-``step.dense_update`` and ``embedding.update`` (stage 3), each where the
-sparse update has the stage; the predict step's ``embedding.lookup`` and
-``model.forward``.
+``model.forward``, ``model.backward`` (with the dense all-reduce), or
+``model.graph`` where stage 2 replays, ``step.dense_update`` and
+``embedding.update`` (stage 3), each where the sparse update has the
+stage; the predict step's ``embedding.lookup`` and ``model.forward``.
 
 Keras-compile semantics as in the JAX package: the loss is the sum over
 tasks of ``loss_weight * loss``, where a loss that returns a scalar is taken
@@ -120,11 +127,13 @@ from torch.func import functional_call
 from ..core import model_axis
 from ..core.mesh import Mesh
 from ..embedding import packed as packed_mod
+from ..embedding.engine import IdBatch
 from ..embedding.engine import check_mode as _check_mode
 from ..embedding.optimizers import SparseAdaGrad, SparseAdam
 from ..kernels import field_attention as fa
 from ..nn import kernel_penalty, regularized_kernels
 from ..utils.spans import span
+from . import graph as graph_mod
 from . import metrics as M
 from .state import TrainState
 
@@ -433,6 +442,8 @@ def make_train_step(bundle: "ModelBundle", mode: str = "local",
             f"(K9) only")
     penalized = regularized_kernels(bundle.module)
     no_penalty = torch.zeros((), device=bundle.device)
+    graphs = (bundle.train_graphs
+              if graph_mod.uses_graph(bundle.device, mode, sparse_update) else None)
 
     def loss_and_grads(state, batch, embs, leaves, labels, sample_weight, dense_inputs,
                        seed):
@@ -452,6 +463,17 @@ def make_train_step(bundle: "ModelBundle", mode: str = "local",
                 if sharded:
                     gp = _all_reduce_flat(gp, mesh)
         return loss, aux, dict(zip(params, gp)), list(grads[len(params):])
+
+    def copied_out(loss, aux):
+        """A replay's loss, task losses and penalty copied out of the
+        graph's buffers in one copy (the caller may hold them past the next
+        replay)."""
+        names = list(aux["task_losses"])
+        reg = aux["regularization"]
+        vals = torch.stack([loss] + [aux["task_losses"][t] for t in names]
+                           + ([] if reg is None else [reg]))
+        return vals[0], {"task_losses": dict(zip(names, vals[1:1 + len(names)])),
+                         "regularization": None if reg is None else vals[-1]}
 
     def finish(state, loss, aux, gp):
         """Dense Adam in place; the new state and the step's info (sharded:
@@ -488,21 +510,40 @@ def make_train_step(bundle: "ModelBundle", mode: str = "local",
                     ctx = packed_mod.gather_fold(eng, state.tables, batch, plans)
                 raw = (eng.gather_raw(eng.weights(state.tables), classic_batch, mode, mesh)
                        if classic_batch else {})
-            acts = {skey: _leaves(c["acts"]) for skey, c in ctx.items()}
-            raw = dict(zip(raw, _leaves(raw.values())))
+        acts = {skey: c["acts"] for skey, c in ctx.items()}
 
-        def embs():
-            out = packed_mod.combine_from_acts(
-                eng, plans, {s: {"acts": a} for s, a in acts.items()}, batch)
-            out.update(eng.combine_raw(raw, classic_batch))
-            return out
+        def stage2(leaves, inputs, rows, seed):
+            """The combine, the tower, the loss and the autograd backward
+            from ``leaves`` (the folded acts, then the classic activations;
+            they need a gradient), the other ``inputs`` and the batch's
+            ``rows``: what a graph captures (``train/graph.py``)."""
+            it = iter(leaves)
+            folded = {skey: {"acts": [next(it) for _ in acts[skey]]} for skey in acts}
+            classic = {k: next(it) for k in raw}
+            b = {k: IdBatch(rows=r, mask=inputs["masks"][k]) for k, r in rows.items()}
+
+            def embs():
+                out = packed_mod.combine_from_acts(eng, plans, folded, b)
+                out.update(eng.combine_raw(classic, {k: b[k] for k in classic_batch}))
+                return out
+
+            return loss_and_grads(state, b, embs, leaves, inputs["labels"], inputs["weight"],
+                                  inputs["dense"], seed)
 
         # stage 2: autograd w.r.t. the dense params, the folded acts and the
-        # classic activations
-        act_list = [a for skey in acts for a in acts[skey]]
-        loss, aux, gp, g_leaves = loss_and_grads(
-            state, batch, embs, act_list + list(raw.values()), labels, sample_weight,
-            dense_inputs, seed)
+        # classic activations; replayed as a graph on a card
+        leaves = [a for skey in acts for a in acts[skey]] + list(raw.values())
+        inputs = {"masks": {k: v.mask for k, v in batch.items()}, "labels": labels,
+                  "weight": sample_weight, "dense": dense_inputs}
+        rows = {k: v.rows for k, v in batch.items()}
+        out = None
+        if graphs is not None and not graph_mod.observed():
+            out = graphs.run(stage2, leaves, inputs, rows, seed, state.params)
+        if out is None:
+            loss, aux, gp, g_leaves = stage2(_leaves(leaves), inputs, rows, seed)
+        else:
+            loss, aux, gp, g_leaves = out
+            loss, aux = copied_out(loss, aux)
         it = iter(g_leaves)
         g_acts = {skey: [next(it) for _ in acts[skey]] for skey in acts}
         g_raw = {k: next(it) for k in raw}
@@ -593,9 +634,11 @@ def make_scan_train_step(bundle: "ModelBundle", mode: str = "local",
     ``dense_inputs`` may be None), ``infos`` each step's scalars stacked,
     e.g. ``infos["loss"][k]``.  A Python loop over ``make_train_step``
     (``mode``, ``sparse_update``, ``mesh`` and ``shardings`` passed through): the
-    same K steps one by one give the same result.  (A CUDA graph of the
-    step is the Hopper counterpart of the JAX package's one-dispatch scan;
-    it comes with a later slice.)"""
+    same K steps one by one give the same result.  (The Hopper counterpart
+    of the JAX package's one-dispatch scan is a CUDA graph of the step: on
+    a card each local packed step replays its stage 2, the tower's forward
+    and backward, as one graph kept with the bundle (``train/graph.py``);
+    the embedding stages and dense Adam still launch from the host.)"""
     body = make_train_step(bundle, mode, sparse_update, mesh, shardings)
 
     def run(state: TrainState, batches: Sequence, labels: Sequence,
