@@ -33,7 +33,7 @@ for path in (BENCH, os.path.dirname(BENCH)):
 def readings(cell, seed: int, device, kind: str = "sound", seconds: float = 2.0,
              ranks=None):
     """The numbers of one run of ``kind``: "sound", "control" or a fault of
-    ``faults.FAULTS`` (None on a rank other than 0)."""
+    ``faults.faults_of`` (None on a rank other than 0)."""
     import torch
 
     import faults
@@ -95,8 +95,7 @@ def main(argv=None) -> int:
     plan = ([("sound", s) for s in ints(args.seeds)]
             + [("control", s) for s in ints(args.control_seeds)]
             + [(f, s) for s in ints(args.fault_seeds)
-               for f in faults.FAULTS[cell.traffic["entry"]]
-               + (faults.SHARDED_FAULTS if ranks is not None else ())])
+               for f in faults.faults_of(cell, ranks is not None)])
     for kind, seed in plan:
         t0 = time.time()
         numbers = readings(cell, seed, ranks.mesh.device if ranks else args.device, kind,

@@ -41,10 +41,15 @@ def dense_params(m: dict) -> int:
     return n + (width + f * u) + 1
 
 
-def _live(m, batch):
-    return {t: peaks.live_rows([(batch["ids"][k], batch["mask"][k])
-                                for k, tk, _, _ in model.columns(m) if tk == t])
-            for t in model.tables(m)}
+def _live(m, batch, shard=None):
+    """{table: (live rows, rows the lazy update scans)}: the whole table,
+    or with ``shard`` the rank's block of it (``peaks.table_shard``)."""
+    out = {}
+    for t, (rows, dim) in model.tables(m).items():
+        block = peaks.table_shard(rows, dim, shard)
+        parts = [(batch["ids"][k], batch["mask"][k]) for k, tk, _, _ in model.columns(m) if tk == t]
+        out[t] = peaks.live_rows(parts, None if shard is None else block), block[1]
+    return out
 
 
 def step(m: dict, entry: str, batch: dict):
@@ -52,7 +57,7 @@ def step(m: dict, entry: str, batch: dict):
     b = next(iter(batch["ids"].values())).shape[0]
     d = m["dim"]
     n_ids = sum(v.numel() for v in batch["ids"].values())
-    live = _live(m, batch)
+    live = {t: n for t, (n, _) in _live(m, batch).items()}
     nbytes = 8 * n_ids + sum(live.values()) * d * 4 + b * 4
     flops = b * flops_per_example(m)
     if entry == "train":
@@ -62,17 +67,22 @@ def step(m: dict, entry: str, batch: dict):
     return flops, nbytes
 
 
-def kernel(m: dict, name: str, batch: dict):
+def kernel(m: dict, name: str, batch: dict, shard=None):
     """(bytes, operations) of one step's call of kernel ``name``, or None
-    where this configuration's step has no such kernel."""
+    where this configuration's step has no such kernel.  ``shard`` (rank,
+    world): the call of that rank of a sharded step, over the whole
+    ``batch`` of every rank (the lazy update of its blocks of the tables'
+    storages, ``peaks.table_shard``: each table is a storage of its own,
+    as the program's 10 MiB group cap keeps it)."""
     b = next(iter(batch["ids"].values())).shape[0]
     if name == "sparse_update":
         nbytes = ops = 0
-        rows = m["bucket_size"]
-        for live in _live(m, batch).values():
+        for live, rows in _live(m, batch, shard).values():
             one = peaks.sparse_adam(live, rows, m["dim"])
             nbytes, ops = nbytes + one[0], ops + one[1]
         return nbytes, ops
+    if shard is not None:
+        return None
     if name == "field_attention_bwd":
         cfg = m["interact"]
         h = cfg["head_num"]

@@ -89,11 +89,17 @@ def step(m: dict, entry: str, batch: dict):
     return flops, nbytes
 
 
-def kernel(m: dict, name: str, batch: dict):
+def kernel(m: dict, name: str, batch: dict, shard=None):
     """(bytes, operations) of one step's calls of kernel ``name``, or None
-    where this configuration's step has no such kernel."""
+    where this configuration's step has no such kernel.  A rank's calls of
+    a sharded step (``shard``, (rank, world)) are not counted: the program
+    keeps this configuration's tables two to a storage (its 30 MiB
+    group cap), so a rank's block of a storage spans parts of its
+    tables, which ``peaks.table_shard`` does not follow."""
     b = next(iter(batch["ids"].values())).shape[0]
     d, g = m["dim"], m["general"]
+    if shard is not None:
+        return None
     if name == "sparse_update":
         nbytes = ops = 0
         for live in _live(m, batch).values():

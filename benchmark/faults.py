@@ -4,7 +4,8 @@ a broken path comes out not correct (``tests/test_bench_runs.py``,
 ``tests/test_bench_sharded.py``).
 
 - ``half_batch`` (train): the step trains on the first half of each
-  batch's rows alone, its loss the mean over them;
+  batch's rows (ids, labels, weights and dense features) alone, its loss
+  the mean over them;
 - ``state_unchanged`` (train): the step computes its loss and then leaves
   every tensor of the state as it found it;
 - ``dense_unchanged`` (train): the dense optimizer's step is lost: the
@@ -16,6 +17,8 @@ a broken path comes out not correct (``tests/test_bench_runs.py``,
   staytime) is half what it should be; their forward is unchanged;
 - ``answer_altered`` (predict): each call's first row of its first task
   is scaled by 1.01 where the call produces it;
+- ``dense_zeroed`` (train and predict, a configuration with dense
+  features): the step or call gets zeros in place of the dense features;
 - ``exchange_dropped`` (a sharded train step): the all-to-alls of the
   exchange between cards send nothing (every rank receives zeros).
 
@@ -34,12 +37,25 @@ import torch
 FAULTS = {"train": ("half_batch", "state_unchanged", "dense_unchanged", "backward_halved"),
           "predict": ("answer_altered",)}
 SHARDED_FAULTS = ("exchange_dropped",)
+DENSE_FAULTS = ("dense_zeroed",)
 
 
-def _half(batch, labels, weight):
+def faults_of(cell, sharded: bool) -> tuple:
+    """Every fault the cell can have: its entry's, the exchange's on more
+    than one rank, the dense features' where its configuration has some."""
+    return (FAULTS[cell.traffic["entry"]] + (SHARDED_FAULTS if sharded else ())
+            + (DENSE_FAULTS if hasattr(cell.model, "dense") else ()))
+
+
+def _half(batch, labels, weight, dense):
     n = next(iter(batch.values())).rows.shape[0] // 2
     cut = {k: dataclasses.replace(v, rows=v.rows[:n], mask=v.mask[:n]) for k, v in batch.items()}
-    return cut, {k: v[:n] for k, v in labels.items()}, None if weight is None else weight[:n]
+    return (cut, {k: v[:n] for k, v in labels.items()}, None if weight is None else weight[:n],
+            None if dense is None else {k: v[:n] for k, v in dense.items()})
+
+
+def _zeros(dense):
+    return None if dense is None else {k: torch.zeros_like(v) for k, v in dense.items()}
 
 
 def _tensors(tree):
@@ -82,7 +98,7 @@ def planted(kind: str, cfg: dict = None):
             step = make_train(bundle, **kw)
 
             def broken(state, batch, labels, weight=None, dense=None, seed=0):
-                return step(state, *_half(batch, labels, weight), dense, seed=seed)
+                return step(state, *_half(batch, labels, weight, dense), seed=seed)
             return broken
         harness.make_train_step = make
     elif kind == "state_unchanged":
@@ -130,6 +146,21 @@ def planted(kind: str, cfg: dict = None):
                 return out
             return broken
         harness.make_predict_step = make
+    elif kind == "dense_zeroed":
+        def make_t(bundle, **kw):
+            step = make_train(bundle, **kw)
+
+            def broken(state, batch, labels, weight=None, dense=None, seed=0):
+                return step(state, batch, labels, weight, _zeros(dense), seed=seed)
+            return broken
+
+        def make_p(bundle, **kw):
+            step = make_predict(bundle, **kw)
+
+            def broken(state, batch, dense=None):
+                return step(state, batch, _zeros(dense))
+            return broken
+        harness.make_train_step, harness.make_predict_step = make_t, make_p
     elif kind == "exchange_dropped":
         def dropped(x, mesh):
             return torch.zeros_like(x)

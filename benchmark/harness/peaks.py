@@ -4,12 +4,15 @@ reports.
 
 Copied from ``chip_smoke.py`` (lines named at each), with one change: the
 live rows come from the ids the benchmark generated (``live_rows``), not
-from the program's accumulators.
+from the program's accumulators.  On a sharded cell a rank's kernel works
+on its block of each table's storage (``table_shard``) for the ids of
+every rank.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Tuple
+import math
+from typing import Iterable, Optional, Tuple
 
 import torch
 
@@ -24,11 +27,48 @@ def least_seconds(nbytes: float, ops: float) -> float:
     return max(nbytes / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S)
 
 
-def live_rows(parts: Iterable[Tuple[torch.Tensor, torch.Tensor]]) -> int:
+def storage_rows(rows: int, dim: int, world: int) -> int:
+    """The rows the program stores a table of ``rows`` x ``dim`` in on
+    ``world`` ranks, where the table is a storage of its own
+    (``recommendsystem_tpu_torch/embedding/engine.py``, ``stride_of``
+    with ``packed``): padded to ``world`` times the least common multiple
+    of the 128-lane gather and scatter packings (128 // dim and
+    128 // (dim + 1) rows), or to a multiple of ``world``
+    (``pad_bucket``) where a row and its count do not fit 128 lanes.
+    autoint on 4 ranks: 265,216 rows for 265,000."""
+    if dim + 1 > 128:
+        unit = world
+    else:
+        unit = world * math.lcm(max(1, 128 // dim), max(1, 128 // (dim + 1)))
+    return -(-rows // unit) * unit
+
+
+def table_shard(rows: int, dim: int,
+                shard: Optional[Tuple[int, int]]) -> Tuple[int, int]:
+    """(first row, rows) of the block of a table of ``rows`` x ``dim`` that
+    rank ``shard[0]`` of ``shard[1]`` holds: its storage
+    (``storage_rows``) split over the ranks in equal contiguous blocks, as
+    the program splits it (``rows_per_shard``); the last block's tail is
+    padding that no id reaches.  The whole table, unpadded, without a
+    shard."""
+    if shard is None:
+        return 0, rows
+    rank, world = shard
+    block = storage_rows(rows, dim, world) // world
+    return rank * block, block
+
+
+def live_rows(parts: Iterable[Tuple[torch.Tensor, torch.Tensor]],
+              block: Optional[Tuple[int, int]] = None) -> int:
     """The distinct rows that live ids reach over ``parts`` ((ids, mask)
-    of each column that reads one table)."""
+    of each column that reads one table); with ``block`` (first row,
+    rows; ``table_shard``), only those in it."""
     flat = [ids.reshape(-1)[mask.reshape(-1) > 0] for ids, mask in parts]
-    return int(torch.unique(torch.cat(flat)).numel())
+    uniq = torch.unique(torch.cat(flat))
+    if block is None:
+        return int(uniq.numel())
+    lo, n = block
+    return int(((uniq >= lo) & (uniq < lo + n)).sum())
 
 
 def fold_mean(n_ids: int, n_live: int, uniq: int, d: int, outputs: int):

@@ -28,11 +28,13 @@ def build_bundle(cfg: dict, device, num_shards: int = 1):
 
 def port_item(batch: dict):
     """A benchmark batch as the program's dataset item: (batch of
-    IdBatches, dense inputs, labels, sample weight)."""
+    IdBatches, dense inputs, labels, sample weight); the dense inputs are
+    the batch's dense features ({key: (B, width)}), or None for a
+    configuration that has none."""
     from recommendsystem_tpu_torch.embedding.engine import IdBatch
 
     ids = {k: IdBatch(rows=v, mask=batch["mask"][k]) for k, v in batch["ids"].items()}
-    return ids, None, batch["labels"], batch["weight"]
+    return ids, batch.get("dense"), batch["labels"], batch["weight"]
 
 
 def seed_stream(seed: int) -> Iterator[int]:

@@ -30,7 +30,7 @@ import os
 import random
 import sys
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -64,9 +64,16 @@ def sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _alone(value) -> list:
+    return [value]
+
+
 @dataclasses.dataclass
 class Run:
-    """What a per-layer metric's reader reads (``metrics/<name>.py``)."""
+    """What a per-layer metric's reader reads (``metrics/<name>.py``).  On a
+    sharded cell every rank reads every metric, in the same order, so a
+    reader may ``gather`` a value from each rank (a collective: a reader
+    that gathers does so on every rank, whatever it returns)."""
 
     m: dict
     entry: str
@@ -75,6 +82,19 @@ class Run:
     traced_batches: List[dict]
     step_s: float
     world: int
+    rank: int = 0
+    # this rank's value and every other rank's, in rank order
+    gather: Callable[[object], list] = _alone
+    # traced step k's batch over every rank (the reference's batch)
+    whole_batch: Optional[Callable[[int], dict]] = None
+
+    def rank_mean(self, value: Optional[float]) -> Optional[float]:
+        """``value`` on one card; on a sharded cell its mean over the
+        ranks, None where a rank's is None (a collective)."""
+        if self.world == 1:
+            return value
+        values = self.gather(value)
+        return None if any(v is None for v in values) else sum(values) / len(values)
 
     def step_least_s(self) -> float:
         """A step's least time on one chip, from this rank's batches (on a
@@ -84,13 +104,20 @@ class Run:
                (self.counts.step(self.m, self.entry, x) for x in self.traced_batches)]
         return sum(per) / len(per)
 
-    def kernel_share(self, name: str, match) -> Optional[float]:
+    def kernel_share(self, name: str, match, shard: bool = False) -> Optional[float]:
         """100 x the kernel's least time over its device time in the trace;
         None where the trace holds no such kernel or the configuration
-        counts none."""
+        counts none.  ``shard``: the kernel's work on this rank's shard of
+        the tables, counted from the whole batch's ids that its rows own
+        (``counts`` ``kernel(..., shard=(rank, world))``)."""
         from .peaks import least_seconds
         dev_s, n = self.trace.kernel_seconds(match)
-        counted = [self.counts.kernel(self.m, name, b) for b in self.traced_batches]
+        if shard:
+            counted = [self.counts.kernel(self.m, name, self.whole_batch(k),
+                                          shard=(self.rank, self.world))
+                       for k in range(len(self.traced_batches))]
+        else:
+            counted = [self.counts.kernel(self.m, name, b) for b in self.traced_batches]
         if n == 0 or dev_s <= 0 or any(c is None for c in counted):
             return None
         return 100.0 * sum(least_seconds(*c) for c in counted) / dev_s
@@ -306,6 +333,7 @@ class Session:
                     pass
         device = traced(lambda: work(idx[:n], 3), self.device, host=False)
         host = traced(lambda: work(idx[n:], 4), self.device, host=True)
+        self.traced_idx = idx[:n]
         return device, host, [self.pool[i] for i in idx[:n]]
 
     def free_program(self) -> None:
@@ -323,8 +351,8 @@ class Session:
         b = self.t["batch"]
         parts = [self.gen.batch(i, b, r * b) for r in range(self.world)]
         cat = lambda key: {k: torch.cat([p[key][k] for p in parts]) for k in parts[0][key]}  # noqa: E731
-        return {"ids": cat("ids"), "mask": cat("mask"), "labels": cat("labels"),
-                "weight": torch.cat([p["weight"] for p in parts])}
+        whole = {key: cat(key) for key in ("ids", "mask", "labels", "dense") if key in parts[0]}
+        return dict(whole, weight=torch.cat([p["weight"] for p in parts]))
 
     def reference_numbers(self, prog: Optional[dict], tf32: bool = False) -> Dict[str, float]:
         m = self.cell.m
@@ -391,8 +419,15 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     metrics, breakdown, dev = {}, None, {}
     if trace:
         tr, tr_host, batches = s.traced_steps()
+    # before the readers, which may draw the whole batches on the device
+    peak = torch.cuda.max_memory_allocated(s.device) if s.device.type == "cuda" else 0
+    if ranks is not None:
+        peak = max(ranks.gather(peak))
+    if trace:
         run = Run(cell.m, cell.traffic["entry"], cell.counts, tr, batches,
-                  win["seconds"] / max(1, win["steps"]), s.world)
+                  win["seconds"] / max(1, win["steps"]), s.world, s.rank,
+                  ranks.gather if ranks else _alone,
+                  lambda k: s.global_batch(s.traced_idx[k]))
         busy = [tr.busy_s] if ranks is None else ranks.gather(tr.busy_s)
         window_s = [tr.window_s] if ranks is None else ranks.gather(tr.window_s)
         metrics = per_layer(cell, run)
@@ -405,9 +440,6 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
             else:
                 value = win["examples"] / win["seconds"]
             metrics[e["name"]] = {"value": value, "unit": e["unit"]}
-    peak = torch.cuda.max_memory_allocated(s.device) if s.device.type == "cuda" else 0
-    if ranks is not None:
-        peak = max(ranks.gather(peak))
     s.free_program()
     if ranks is not None:
         ranks.barrier()

@@ -10,7 +10,10 @@ trace's unix time rounded down to a multiple of ``TRIMESTER_S`` seconds
 window, which leaves out the spans of the host-and-device trace that
 follows it.  Each µs in which the window's device ran nothing is charged
 to the layer of the innermost span open on the host then (a span's layer:
-its name before the dot); time with no span open goes to no layer.
+its name before the dot); time with no span open goes to no layer.  The
+exchange's NCCL kernels count as idle (``Trace.busy_intervals(work=
+True)``): they spin while their rank waits for the others.  On a sharded
+cell a share is the mean over the ranks.
 
 A program without spans gives no records, and then ``idle_by_layer`` gives
 None and the metrics that read it are left out.
@@ -86,7 +89,7 @@ def idle_by_layer(run) -> Optional[Dict[str, float]]:
     out = None
     if segments:
         idle, cur = [], tr.t0
-        for a, b in tr.busy_intervals():
+        for a, b in tr.busy_intervals(work=True):
             if a > cur:
                 idle.append((cur, a))
             cur = max(cur, b)
@@ -112,9 +115,8 @@ def idle_by_layer(run) -> Optional[Dict[str, float]]:
 def share(run, entry: str, layer: str) -> Optional[float]:
     """100 x the window's device idle seconds charged to ``layer`` over
     the window's length, in a run of ``entry``; None elsewhere."""
-    if run.entry != entry or run.trace.window_s <= 0:
+    if run.entry != entry:
         return None
-    by = idle_by_layer(run)
-    if by is None:
-        return None
-    return 100.0 * by.get(layer, 0.0) / run.trace.window_s
+    by = idle_by_layer(run) if run.trace.window_s > 0 else None
+    mine = None if by is None else 100.0 * by.get(layer, 0.0) / run.trace.window_s
+    return run.rank_mean(mine)

@@ -13,7 +13,10 @@ exported as Chrome JSON into a temporary directory and read back:
 - device operations: events of the categories ``kernel``, ``gpu_memcpy``
   and ``gpu_memset`` (start and length in µs);
 - ``busy_s``: the union of those intervals inside the span; ``window_s``:
-  the span's length;
+  the span's length; ``work_s``: the same union without the NCCL kernels
+  of a sharded step's exchange (``exchange_op``), which spin on the
+  device while their rank waits for the others (equal to ``busy_s`` on
+  one card);
 - ``device_ops``: the ten operations that took most device time;
 - ``idle_gaps``: the time the device sat idle inside the span, by the
   innermost host operation (``cpu_op`` or ``cuda_runtime``) running at
@@ -47,6 +50,11 @@ def short_name(name: str) -> str:
     return name.split("(")[0].split("<")[0]
 
 
+def exchange_op(name: str) -> bool:
+    """A kernel of the exchange between ranks: an NCCL kernel."""
+    return short_name(name).startswith("nccl")
+
+
 class Trace:
     def __init__(self, events: List[dict]):
         span = [e for e in events if e.get("name") == WINDOW and e.get("ph") == "X"
@@ -70,9 +78,13 @@ class Trace:
     def window_s(self) -> float:
         return (self.t1 - self.t0) * 1e-6
 
-    def busy_intervals(self) -> List[Tuple[float, float]]:
+    def busy_intervals(self, work: bool = False) -> List[Tuple[float, float]]:
+        """The union of the device operations' intervals inside the span;
+        ``work``: without the exchange's (``exchange_op``)."""
         out: List[Tuple[float, float]] = []
-        for ts, dur, _ in self.device:
+        for ts, dur, name in self.device:
+            if work and exchange_op(name):
+                continue
             a, b = max(ts, self.t0), min(ts + dur, self.t1)
             if b <= a:
                 continue
@@ -85,6 +97,10 @@ class Trace:
     @property
     def busy_s(self) -> float:
         return sum(b - a for a, b in self.busy_intervals()) * 1e-6
+
+    @property
+    def work_s(self) -> float:
+        return sum(b - a for a, b in self.busy_intervals(work=True)) * 1e-6
 
     def kernel_seconds(self, match: Callable[[str], bool]) -> Tuple[float, int]:
         """Device seconds and count of the operations whose short name

@@ -18,10 +18,19 @@ module reads it and makes the mix's batches on the device from the seed:
   come from one watch time of e 60 s U(0.5, 1.5): > 7 s, > 18 s, and the
   400-bin Gaussian-smoothed (sigma 4 bins) distribution of the time cut at
   160 s with the time as a 401st column.  Sample weights are 1.
+- ``dense``, only for a configuration whose reference defines ``dense(m)``
+  (its dense-feature keys and widths): ``{"mu": mu, "sigma": sigma}``
+  draws each feature as a non-negative integer count
+  floor(exp(mu + sigma z)), z ~ N(0, 1), a discretised log-normal, and
+  passes it as log(1 + count), as the DLRM loader passes Criteo's counts.  The batch
+  then carries ``dense``: {key: (rows, width) float32}.
 
 Rows ``[row0, row0 + rows)`` of batch ``index`` come from a generator
 seeded by (seed, index, row0), so a rank of a sharded cell makes its own
-rows and the reference makes the whole batch from the same draws.
+rows and the reference makes the whole batch from the same draws.  The
+dense features come from a generator of their own, seeded by (seed,
+index, row0, ``DENSE_TAG``), so the other draws are the same whether a
+configuration has dense features or not.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ import torch
 
 _M64 = (1 << 64) - 1
 BIN_LEFT, BIN_WIDTH, BINS, SIGMA = -19.0, 0.5, 400, 4.0
+DENSE_TAG = 0x64656E7365
 
 
 def mix(*words: int) -> int:
@@ -71,6 +81,12 @@ class Traffic:
                 self.cdf[rows] = cdf / cdf[-1]
         if ids["dist"] not in ("zipf", "uniform"):
             raise ValueError(f"ids dist {ids['dist']!r}: expected 'zipf' or 'uniform'")
+        self.dense = model.dense(m) if hasattr(model, "dense") else {}
+        if self.dense:
+            law = traffic.get("dense")
+            if law is None or not {"mu", "sigma"} <= set(law):
+                raise ValueError("the configuration has dense features: the mix needs "
+                                 "\"dense\": {\"mu\": .., \"sigma\": ..}")
 
     def _ranks(self, rows: int, shape, gen) -> torch.Tensor:
         if self.t["ids"]["dist"] == "uniform":
@@ -104,8 +120,24 @@ class Traffic:
             stay = staytime_labels(wt_ms)
         for task, kind in kinds.items():
             labels[task] = labels_click if kind == "click" else stay[kind]
-        return {"ids": ids, "mask": masks, "labels": labels,
-                "weight": torch.ones((rows, 1), device=dev)}
+        out = {"ids": ids, "mask": masks, "labels": labels,
+               "weight": torch.ones((rows, 1), device=dev)}
+        if self.dense:
+            out["dense"] = self._dense(index, rows, row0)
+        return out
+
+    def _dense(self, index: int, rows: int, row0: int) -> Dict[str, torch.Tensor]:
+        """log(1 + count) of each dense feature, the counts drawn from the
+        mix's discretised log-normal, keys in sorted order."""
+        law = self.t["dense"]
+        gen = torch.Generator(device=self.device).manual_seed(
+            mix(self.seed, index, row0, DENSE_TAG))
+        out = {}
+        for key in sorted(self.dense):
+            z = torch.randn((rows, self.dense[key]), generator=gen, device=self.device)
+            count = torch.floor(torch.exp(z * float(law["sigma"]) + float(law["mu"])))
+            out[key] = torch.log1p(count)
+        return out
 
 
 def staytime_labels(wt_ms: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -1,6 +1,8 @@
 """The reference's train steps and scoring, for any configuration whose
 module (``reference/<name>.py``) gives ``columns``, ``tables``,
-``forward``, ``loss`` and ``predict_view``.
+``forward``, ``loss`` and ``predict_view``; a module that also gives
+``dense`` (its dense features' keys and widths) gets the batch's dense
+features as ``forward``'s ``dense``.
 
 A train step: each column's rows gathered as a leaf, combined (a mean
 column's masked mean; a sequence's masked rows and its mask), the tower
@@ -37,6 +39,13 @@ def embed(model, m: dict, raw: Dict[str, torch.Tensor], batch: dict) -> dict:
         else:
             embs[key] = (raw[key] * mask[..., None], mask)
     return embs
+
+
+def dense_kwargs(model, batch: dict) -> dict:
+    """``forward``'s dense features, ``{"dense": {key: (B, width)}}``, for
+    a configuration whose module defines ``dense``; nothing for one that
+    has none."""
+    return {"dense": batch["dense"]} if hasattr(model, "dense") else {}
 
 
 def _gather_all(model, m, tables, batch) -> Dict[str, torch.Tensor]:
@@ -82,7 +91,8 @@ def train(model, m: dict, init: dict, batches: List[dict], seeds: List[int], dev
         for step, (batch, seed) in enumerate(zip(batches, seeds)):
             raw = _gather_all(model, m, tables, batch)
             leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
-            outputs = model.forward(m, leaves, embed(model, m, raw, batch), True, seed, sample0)
+            outputs = model.forward(m, leaves, embed(model, m, raw, batch), True, seed, sample0,
+                                    **dense_kwargs(model, batch))
             loss = model.loss(m, outputs, batch["labels"], batch["weight"])
             grads = torch.autograd.grad(loss, list(leaves.values()) + list(raw.values()),
                                         allow_unused=True, materialize_grads=True)
@@ -128,5 +138,6 @@ def predict(model, m: dict, init: dict, batch: dict, device, tf32: bool = False
     with torch.no_grad(), C.precision(tf32):
         raw = {key: tables[tkey][batch["ids"][key].long()]
                for key, tkey, _, _ in model.columns(m)}
-        outputs = model.forward(m, params, embed(model, m, raw, batch), False)
+        outputs = model.forward(m, params, embed(model, m, raw, batch), False,
+                                **dense_kwargs(model, batch))
         return {k: v.float() for k, v in model.predict_view(m, outputs).items()}

@@ -22,8 +22,7 @@ TINY_BATCH = 64
 def tiny_cell(name: str, traffic: str = None, chips: int = None):
     """Cell ``name`` with tables of ``TINY_BUCKET`` rows, ``TINY_BATCH``
     rows a batch, a pool of 4 and short warm-up and trace; with
-    ``traffic`` and ``chips``, run under that mix on that many ranks (a
-    mix kept for a later cell)."""
+    ``traffic`` and ``chips``, run under that mix on that many ranks."""
     import json
 
     from harness import cells

@@ -83,7 +83,7 @@ class _Trace:
     def __init__(self, t0, t1, busy):
         self.t0, self.t1, self._busy = t0, t1, busy
 
-    def busy_intervals(self):
+    def busy_intervals(self, work=False):
         return self._busy
 
     @property
@@ -94,6 +94,9 @@ class _Trace:
 class _Run:
     def __init__(self, trace, entry="train"):
         self.trace, self.entry = trace, entry
+
+    def rank_mean(self, value):
+        return value
 
 
 def test_idle_charged_to_the_innermost_layer(monkeypatch):
