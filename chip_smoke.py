@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --phase 14     # one phase alone (14, 15, 16, 17 or 18)
+    python3 chip_smoke.py --phase 14     # one phase alone (14 to 19)
 
 1. builds the port's CUDA kernels from ``recommendsystem_tpu_torch/csrc/``
    (one nvcc per source, all at once);
@@ -238,6 +238,17 @@
    its steps and predict calls: the float32 test AUC within
    ``CRITEO_AUC_BOUND`` of the JAX mean and its trained predict outputs
    equal to the CPU's, the bf16 modes' AUC above ``CRITEO_MIN_AUC``.
+19. drives DLRM-DCNv2 at the ``dlrm_dcnv2.train`` cell's size
+   (``dlrm_path``): 51,883,621 rows of 128 in 26 storages, all on the fold
+   path, B 16,384 with every column full to its hotness (214 ids an
+   example); K10 on (16,384, 3,456) rows in its three modes against its
+   plain version (du and dx0 equal, db's partials within
+   ``DCN_PARTIAL_TOL``); K1 over the 15 multi-hot columns (L 2-100, a 10
+   M-row member), K2 over the 11 single-id ones, K3 and K4 into the
+   engine's accumulators, K9 over the 26 storages, each held to its plain
+   version and timed; three train steps counted from a reset of the launch
+   counts, held to ``DLRM_TRAIN_LAUNCHES`` (K10 3 a step), show grown by
+   the live counts; examples/s.
 
 Prints the card's name and power limit, one JSON line each for the autoint
 predict step, the train step, the staytime predict step, the predict
@@ -251,8 +262,9 @@ phase 14's train and predict times under the policy (``bf16_compute``) and
 phase 15's loaded-program and predict-step times and dispatch µs
 (``export``), phase 16's sharded and local step times (``sharded``), phase
 17's 2-D and local step times, collectives and checkpoint (``mesh2d``),
-phase 18's trained AUC, logloss and examples/s (``criteo_quality``), then
-``{"kernels": ...}`` (10 kernels), and last
+phase 18's trained AUC, logloss and examples/s (``criteo_quality``), phase
+19's kernel cases and DLRM train step (``dlrm``), then
+``{"kernels": ...}`` (11 kernels), and last
 ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Any failure ends the run with a traceback
 and a non-zero exit; without CUDA it exits non-zero before printing.
@@ -6433,6 +6445,362 @@ def _criteo_line(out):
         "data_s": out["data_s"], "phase_s": out["phase_s"], "card": out["card"]}
 
 
+# -- phase 19: DLRM-DCNv2 at the dlrm_dcnv2.train cell's size ------------------
+DLRM_BATCH = 16384
+# one card of the four-card host that the dlrm_dcnv2.train cell stands for
+# (benchmark/configs/dlrm_dcnv2.json): a table of over a million rows is
+# row-sharded four ways, a quarter of it here; the smaller ones are whole
+DLRM_SHARDED_ABOVE = 1_000_000
+# a DLRM train step: K1 over the 15 multi-hot columns and K2 over the 11
+# single-id ones, their gradients through K3 and K4, K9 over the 26
+# storages, K10 at each of the 3 cross layers
+DLRM_TRAIN_LAUNCHES = {"fold_mean": 1, "fold_rows": 1, "unfold_mean": 1, "unfold_rows": 1,
+                       "sparse_adagrad_update": 1, "dcn_cross": 3}
+DLRM_ZIPF = 1.05                  # the cell's id law: P(rank r) proportional to (r + 1)^-s
+DCN_PARTIAL_TOL = 1e-4            # K10's db partials: 32 rows summed in another order
+
+
+def dlrm_rows():
+    """Each DLRM table's rows on the card, in ``TABLES`` order (51,883,621)."""
+    from recommendsystem_tpu_torch.models.dlrm_dcnv2 import ROWS
+
+    return [-(-r // 4) if r > DLRM_SHARDED_ABOVE else r for r in ROWS]
+
+
+def dlrm_batch(bundle, b, seed):
+    """(batch, dense, labels, weight) in the dlrm_dcnv2.train cell's shape:
+    every column full to its table's hotness (214 ids an example), ids
+    drawn by rank from the continuous Zipf law of exponent ``DLRM_ZIPF``
+    and each rank mapped through a random permutation of the table's rows,
+    each table's last row present; 13 dense features log(1 + floor(exp(1 +
+    1.5 z))); clicks at 1 in 4."""
+    from recommendsystem_tpu_torch.embedding.engine import IdBatch
+    from recommendsystem_tpu_torch.models.dlrm_dcnv2 import DENSE_KEYS, HOTNESS, TABLES, TASK
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cols = bundle.embedding.columns
+    batch = {}
+    for t, h in zip(TABLES, HOTNESS):
+        rows = cols[t].categorical_column.bucket_size
+        perm = torch.randperm(rows, generator=gen, device="cuda")
+        u = torch.rand((b, h), generator=gen, device="cuda", dtype=torch.float64)
+        # the inverse of the law's CDF over [1, rows + 1), less 1
+        top = (rows + 1.0) ** (1.0 - DLRM_ZIPF) - 1.0
+        rank = ((1.0 + u * top) ** (1.0 / (1.0 - DLRM_ZIPF)) - 1.0).long().clamp_(0, rows - 1)
+        ids = perm[rank].int()
+        ids[0, 0] = rows - 1
+        batch[t] = IdBatch(rows=ids, mask=torch.ones((b, h), device="cuda"))
+    z = torch.randn((len(DENSE_KEYS), b, 1), generator=gen, device="cuda")
+    dense = dict(zip(DENSE_KEYS, torch.log1p(torch.floor(torch.exp(1.0 + 1.5 * z))).unbind(0)))
+    labels = {TASK: (torch.rand((b, 1), generator=gen, device="cuda") < 0.25).float()}
+    return batch, dense, labels, torch.ones((b, 1), device="cuda")
+
+
+def dcn_cross_case(b, f, accumulate, residual, seed, cycles_per_ms):
+    """K10 on one cross layer's (B, F) rows against its plain version on the
+    card: du and x0's gradient equal (each product and sum rounds once, in
+    the plain version's order), db's partial sums within
+    ``DCN_PARTIAL_TOL``.  Bound: g, x0 and u read, dx0 read where it
+    accumulates, du and dx0 written, the partials written; a product for du
+    and for x0's share, an add for each further term of dx0 and for db."""
+    from recommendsystem_tpu_torch.kernels import dcn_cross
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g, x0, u, dx0 = (t.contiguous() for t in
+                     torch.randn((4, b, f), generator=gen, device="cuda").unbind(0))
+    want_dx0 = dx0.clone()
+    du, partial = dcn_cross.dcn_cross_bwd(g, x0, u, dx0, accumulate, residual)
+    want_du, want_partial = dcn_cross.dcn_cross_bwd_plain(g, x0, u, want_dx0, accumulate,
+                                                          residual)
+    torch.cuda.synchronize()
+    what = f"dcn_cross b={b} f={f} accumulate={accumulate} residual={residual}"
+    if not (torch.equal(du, want_du) and torch.equal(dx0, want_dx0)):
+        raise AssertionError(f"{what}: du or dx0 differ from the plain version's")
+    if partial.shape != want_partial.shape:
+        raise AssertionError(f"{what}: partials {tuple(partial.shape)}, expected "
+                             f"{tuple(want_partial.shape)}")
+    err = float((partial - want_partial).abs().max())
+    if not err <= DCN_PARTIAL_TOL:
+        raise AssertionError(f"{what}: db's partials max abs err {err} > {DCN_PARTIAL_TOL}")
+    nbytes = 4 * f * (b * (5 + int(accumulate)) + dcn_cross.tiles_of(b))
+    ops = b * f * (3 + int(accumulate) + int(residual))
+    bms, by = bound(nbytes, ops)
+    iters = 48
+    ms, host_ms = timed(lambda: dcn_cross.dcn_cross_bwd(g, x0, u, dx0, accumulate, residual),
+                        iters, cycles_per_ms)
+    plain = lambda: dcn_cross.dcn_cross_bwd_plain(g, x0, u, want_dx0,   # noqa: E731
+                                                  accumulate, residual)
+    return {"name": "dcn_cross", "b": b, "f": f, "accumulate": accumulate,
+            "residual": residual, "max_abs_err": err, "ms": ms, "host_ms": host_ms,
+            "plain_ms": timed(plain, iters, cycles_per_ms)[0],
+            "library_ms": None, "library": "none: no single PyTorch call computes it",
+            "bound_ms": bms, "bound_by": by, "bytes": nbytes, "ops": ops}
+
+
+def _check_dlrm_scatter(member, l, what):
+    """One K3 (``l`` > 1) or K4 member's gradient sums and counts, in its
+    accumulator zeroed before, against ``index_add_`` over its live ids:
+    counts equal and none elsewhere; sums within ``UNFOLD_TOL`` plus 2
+    count units of 2^-24 of the row's sum of |g| (either side adds count
+    terms in its own order).  Returns the max abs error of the sums."""
+    grads, counts, g, ids, mask = member[:5]
+    live = mask > 0
+    uniq, inv = torch.unique(ids[live].long(), return_inverse=True)
+    src = g.repeat(l, 1)[live]                # l-major: slot j of sample i is entry j B + i
+    want = torch.zeros((uniq.numel(), g.shape[1]), device=g.device).index_add_(0, inv, src)
+    scale = torch.zeros_like(want).index_add_(0, inv, src.abs())
+    n = torch.zeros((uniq.numel(), 1), device=g.device).index_add_(
+        0, inv, torch.ones((inv.numel(), 1), device=g.device))
+    if not torch.equal(counts[uniq], n) or float(counts.sum()) != float(live.sum()):
+        raise AssertionError(f"{what}: counts differ from the live ids'")
+    diff = (grads[uniq] - want).abs()
+    excess = float((diff - 2.0 * n * 2.0 ** -24 * scale).max())
+    if not excess <= UNFOLD_TOL:
+        raise AssertionError(f"{what}: error {excess} above the sums' bound > {UNFOLD_TOL}")
+    return float(diff.max())
+
+
+def _dlrm_scatter_case(name, members, l_of, b, cycles_per_ms):
+    """K3 or K4 over ``members`` as the DLRM step makes it (one grouped
+    call), held by ``_check_dlrm_scatter`` (accumulators zeroed before) and
+    timed, its accumulators taking every call's sums.  Bound: the sum of
+    the per-member bounds (``unfold_case``'s formula)."""
+    from recommendsystem_tpu_torch.embedding import packed
+
+    group = (packed.unfold_mean_scatter_group if name == "unfold_mean"
+             else packed.unfold_rows_scatter_group)
+    plain_one = (packed.unfold_mean_scatter_plain if name == "unfold_mean"
+                 else packed.unfold_rows_scatter_plain)
+    group(members)
+    torch.cuda.synchronize()
+    err = max(_check_dlrm_scatter(m, l_of(m), f"{name} dlrm member {i}")
+              for i, m in enumerate(members))
+    bound_ms, nbytes, ops = 0.0, 0, 0
+    for m in members:
+        one = _unfold_bytes_ops(m[3], m[4], b, m[2].shape[1])
+        bound_ms += bound(*one)[0]
+        nbytes, ops = nbytes + one[0], ops + one[1]
+    ms, host_ms = timed(lambda: group(members), 24, cycles_per_ms)
+    return {"name": name, "group": len(members), "b": b,
+            "l": sorted({l_of(m) for m in members}), "d": [m[2].shape[1] for m in members][:1],
+            "max_abs_err": err, "ms": ms, "host_ms": host_ms,
+            "plain_ms": timed(lambda: [plain_one(*m) for m in members], 8, cycles_per_ms)[0],
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound(nbytes, ops)[1],
+            "bytes": nbytes, "ops": ops}
+
+
+def _dlrm_adagrad_case(eng, tstates, accs, fill, cycles_per_ms):
+    """K9 over the DLRM storages with the counts and sums that ``fill`` (K3
+    and K4 of one batch) leaves, against ``sparse_adagrad_update_plain``
+    over copies of each storage's live rows (the state is too large to copy
+    whole): w within ``ADAGRAD_W_TOL``, g2sum within ``ADAGRAD_G2_RTOL``,
+    show exact, 4,096 drawn rows with count 0 bit-identical, every
+    accumulator left zero.  ``ms``: fill + pass less fill alone.  Bound:
+    ``_adagrad_bytes``."""
+    from recommendsystem_tpu_torch.embedding import packed
+
+    opt = eng.sparse_opt
+    dims = [t["w"].shape[1] for t in tstates]
+    for a in accs:
+        a.zero_()
+    fill()
+    nbytes, ops = _adagrad_bytes(accs, dims)
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    kept, n_live = [], 0
+    for t, a, d in zip(tstates, accs, dims):
+        grads, cnt = _acc_views(a, d)
+        live = torch.nonzero(cnt[:, 0] > 0).squeeze(1)
+        n_live += live.numel()
+        want = {"w": t["w"][live].clone(), "opt": {k: v[live].clone() for k, v in t["opt"].items()},
+                "show": t["show"][live].clone()}
+        packed.sparse_adagrad_update_plain(
+            opt, want, torch.cat([grads[live].reshape(-1), cnt[live].reshape(-1)]))
+        dead = torch.randint(0, cnt.shape[0], (4096,), generator=gen, device="cuda")
+        dead = dead[cnt[dead, 0] == 0]
+        kept.append((live, want, dead, [t["w"][dead].clone(), t["show"][dead].clone()]
+                     + [v[dead].clone() for v in t["opt"].values()]))
+    packed.sparse_adagrad_update_group(opt, tstates, accs)
+    torch.cuda.synchronize()
+    err = 0.0
+    for i, (t, (live, want, dead, before)) in enumerate(zip(tstates, kept)):
+        what = f"sparse_adagrad_update dlrm storage {i}"
+        err = max(err, float((t["w"][live] - want["w"]).abs().max()))
+        torch.testing.assert_close(t["w"][live], want["w"], rtol=0, atol=ADAGRAD_W_TOL, msg=what)
+        for k, v in want["opt"].items():
+            torch.testing.assert_close(t["opt"][k][live], v, rtol=ADAGRAD_G2_RTOL, atol=0,
+                                       msg=what)
+        if not torch.equal(t["show"][live], want["show"]):
+            raise AssertionError(f"{what}: show differs from the plain version's")
+        now = [t["w"][dead], t["show"][dead]] + [v[dead] for v in t["opt"].values()]
+        if not all(torch.equal(x, y) for x, y in zip(now, before)):
+            raise AssertionError(f"{what}: a row with count 0 changed")
+    if any(bool(a.any()) for a in accs):
+        raise AssertionError("sparse_adagrad_update left a DLRM accumulator non-zero")
+    del kept
+    iters = 8
+    ms_fill = timed(fill, iters, cycles_per_ms)[0]
+    ms, host_ms = timed(lambda: (fill(), packed.sparse_adagrad_update_group(opt, tstates, accs)),
+                        iters, cycles_per_ms)
+    bms, by = bound(nbytes, ops)
+    return {"name": "sparse_adagrad_update", "storages": len(tstates),
+            "rows": sum(t["w"].shape[0] for t in tstates), "d": sorted(set(dims)),
+            "live_rows": n_live, "max_abs_err": err, "ms": ms - ms_fill, "restore_ms": ms_fill,
+            "host_ms": host_ms, "plain_ms": None, "library_ms": None,
+            "bound_ms": bms, "bound_by": by, "bytes": nbytes, "ops": ops}
+
+
+def dlrm_kernel_cases(bundle, state, batch, cycles_per_ms):
+    """K1, K2, K3, K4 and K9 at the dlrm_dcnv2.train cell's shapes, one
+    grouped call each as its step makes it, over the card's tables and the
+    engine's own accumulators (the step's): K1 over the 15 multi-hot
+    columns (L 2-100; C21's 100 ids over 10 M rows), K2 over the 11
+    single-id ones, K3 and K4 their random (B, 128) gradients (scale 1e-3)
+    into the accumulators, K9 over the 26 storages.  The folds go through
+    ``fold_items_case`` and ``rows_group_case`` (no second copy of the
+    tables: 26.6 GB, far out of L2 anyway)."""
+    from recommendsystem_tpu_torch.embedding import packed
+
+    eng = bundle.embedding
+    b = DLRM_BATCH
+    plans = packed.plan_segments(eng, batch)
+    gen = torch.Generator(device="cuda").manual_seed(b + 19)
+    skeys = sorted(plans)
+    dev = next(iter(batch.values())).rows.device       # the step's key of its accumulators
+    accs = [eng.accumulator(k, dev) for k in skeys]
+    means, singles, unf_means, unf_rows, lengths = [], [], [], [], {}
+    for skey, acc in zip(skeys, accs):
+        (seg,) = plans[skey]
+        ids, mask = packed.storage_stream(eng, skey, plans[skey], batch)
+        w = state.tables[skey]["w"]
+        g = torch.randn((b, w.shape[1]), generator=gen, device="cuda") * 1e-3
+        views = _acc_views(acc, w.shape[1])
+        if seg.l > 1:
+            means.append((w, ids, mask, 1, seg.l))
+            unf_means.append((*views, g, ids, mask, seg.l))
+        else:
+            singles.append((w, ids, mask))
+            unf_rows.append((*views, g, ids, mask))
+    cases = [fold_items_case(f"fold_mean dlrm b={b}", means, b, lambda: means, cycles_per_ms),
+             rows_group_case(f"dlrm {len(singles)} single-id columns, b={b}", singles,
+                             lambda: singles, cycles_per_ms)]
+    cases[1]["b"] = b
+    for a in accs:
+        a.zero_()
+    cases.append(_dlrm_scatter_case("unfold_mean", unf_means, lambda m: m[5], b,
+                                    cycles_per_ms))
+    cases.append(_dlrm_scatter_case("unfold_rows", unf_rows, lambda m: 1, b, cycles_per_ms))
+
+    def fill():
+        packed.unfold_mean_scatter_group(unf_means)
+        packed.unfold_rows_scatter_group(unf_rows)
+
+    cases.append(_dlrm_adagrad_case(eng, [state.tables[k] for k in skeys], accs, fill,
+                                    cycles_per_ms))
+    return cases
+
+
+def dlrm_path(card, cycles_per_ms):
+    """Phase 19: DLRM-DCNv2 at the dlrm_dcnv2.train cell's size on one card
+    (``dlrm_rows``: 51,883,621 rows of 128 in 26 storages, every one on the
+    fold path and none classic; B 16,384, 214 ids an example,
+    ``dlrm_batch``).  K10 on the cell's (16,384, 3,456) rows in its three
+    modes (the top layer writing dx0, a middle one accumulating, the first
+    one adding g too) against its plain version; K1, K2, K3, K4 and K9 at
+    the cell's shapes (``dlrm_kernel_cases``); then ``TRAIN_STEPS`` train
+    steps counted from a reset of the launch counts and held to
+    ``DLRM_TRAIN_LAUNCHES`` (K10 3 a step), losses finite, show grown by
+    the live counts; examples/s."""
+    from recommendsystem_tpu_torch.embedding import packed
+    from recommendsystem_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from recommendsystem_tpu_torch.models import create_model
+    from recommendsystem_tpu_torch.models.dlrm_dcnv2 import DIM, TABLES
+    from recommendsystem_tpu_torch.train import make_train_step
+    from recommendsystem_tpu_torch.train.state import create_train_state
+
+    t_phase = time.perf_counter()
+    b, f = DLRM_BATCH, (len(TABLES) + 1) * DIM
+    cases = [dcn_cross_case(b, f, accumulate, residual, 61 + i, cycles_per_ms)
+             for i, (accumulate, residual) in enumerate(((False, False), (True, False),
+                                                         (True, True)))]
+    torch.cuda.empty_cache()
+    bundle = create_model("dlrm_dcnv2", rows=dlrm_rows(), device="cuda")
+    eng = bundle.embedding
+    pk, classic = packed.storages_packed(eng)
+    if classic or sorted(pk) != sorted(eng.storage):
+        raise AssertionError(f"dlrm: storages {sorted(classic)} on the classic path")
+    state = create_train_state(bundle, seed=0)
+    batch, dense, labels, weight = dlrm_batch(bundle, b, seed=19)
+    out = {"card": card, "batch": b, "storages": len(eng.storage),
+           "rows": sum(r for r, _ in eng.storage.values()), "classic": classic}
+    cases += dlrm_kernel_cases(bundle, state, batch, cycles_per_ms)
+    for c in cases:
+        c["model"] = "dlrm_dcnv2"
+        log(json.dumps(c))
+    out["cases"] = cases
+    torch.cuda.empty_cache()
+
+    step = make_train_step(bundle)
+    live = eng.row_counts(batch)
+    shows = {k: t["show"].clone() for k, t in state.tables.items()}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    infos = []
+    for i in range(TRAIN_STEPS):
+        state, info = step(state, batch, labels, weight, dense, seed=i)
+        infos.append(info)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    per_step = {k: v / TRAIN_STEPS for k, v in counts.items() if v}
+    if per_step != DLRM_TRAIN_LAUNCHES:
+        raise AssertionError(f"dlrm train: launches a step {per_step}, expected "
+                             f"{DLRM_TRAIN_LAUNCHES}")
+    losses = [{k: float(v) for k, v in x.items()} for x in infos]
+    if not all(np.isfinite(list(x.values())).all() for x in losses):
+        raise AssertionError(f"dlrm train: losses {losses}")
+    for skey, tstate in state.tables.items():
+        if not torch.equal(tstate["show"] - shows[skey], TRAIN_STEPS * live[skey]):
+            raise AssertionError(f"dlrm {skey}: show grew by other than the live counts")
+    del live, shows
+    ms, windows = train_ms(step, state, batch, labels, weight, dense, per_window=5)
+    out["train"] = {"metric": "torch_dlrm_dcnv2_train_examples_per_sec", "unit": "examples/s",
+                    "value": b / ms * 1e3, "ms_per_step": ms, "window_ms": windows, "batch": b,
+                    "launches_per_step": per_step, "losses": losses,
+                    "memory_peak_bytes": torch.cuda.max_memory_allocated()}
+    log("dlrm train:", json.dumps(out["train"]))
+    out["launches"] = counts
+    del state, bundle, step
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"dlrm phase: {out['phase_s']:.1f} s")
+    return out
+
+
+def _dlrm_line(out):
+    """Phase 19's JSON line: each kernel case's times, bound and error, the
+    train step's rate and launches."""
+    keys = ("name", "group", "l", "accumulate", "residual", "ms", "host_ms", "plain_ms",
+            "bound_ms", "bound_by", "max_abs_err", "live_rows")
+    return {"cases": [{k: c[k] for k in keys if k in c} for c in out["cases"]],
+            "train": {k: out["train"][k] for k in ("value", "unit", "ms_per_step", "window_ms",
+                                                   "launches_per_step", "memory_peak_bytes")},
+            "rows": out["rows"], "storages": out["storages"], "phase_s": out["phase_s"],
+            "card": out["card"]}
+
+
+def phase19_alone(card) -> int:
+    """``--phase 19``: build the kernels and run phase 19 alone, its JSON
+    line printed; no kernels line and no ok line (a whole run gives them)."""
+    from recommendsystem_tpu_torch.kernels import build_all
+
+    build_all()
+    out = dlrm_path(card, _spin_cycles_per_ms())
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_phase19.json"), "w") as fh:
+        json.dump(out, fh, indent=1)
+    print(json.dumps({"dlrm": _dlrm_line(out)}), flush=True)
+    return 0
+
+
 def phase18_alone(card) -> int:
     """``--phase 18``: build the kernels and run phase 18 alone, its JSON
     line printed; no kernels line and no ok line (a whole run gives them)."""
@@ -6558,6 +6926,8 @@ def main() -> int:
         return phase17_alone(card)
     if sys.argv[1:] == ["--phase", "18"]:
         return phase18_alone(card)
+    if sys.argv[1:] == ["--phase", "19"]:
+        return phase19_alone(card)
 
     # -- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -6809,12 +7179,18 @@ def main() -> int:
     criteo = report["criteo"]["launches"]
     print(json.dumps({"criteo_quality": _criteo_line(report["criteo"])}), flush=True)
 
+    # -- 19. the main path: DLRM-DCNv2 at its cell's size ---------------------
+    report["dlrm"] = dlrm_path(card, cycles_per_ms)
+    dlrm = report["dlrm"]["launches"]
+    cases += report["dlrm"]["cases"]
+    print(json.dumps({"dlrm": _dlrm_line(report["dlrm"])}), flush=True)
+
     # -- report ----------------------------------------------------------------
     # the serving folds at the largest serving bucket, the train kernels
     # (K5 among them: the serving paths take K6) at the train batch, the
     # last case there being K5f with dropout; attention at autoint's F = 24;
     # the DIN pool at the staytime bulk batch; K6 at autoint's predict batch
-    # and F = 24
+    # and F = 24; K10 on a middle cross layer of the DLRM step
     headline = {}
     fp32 = [c for c in cases
             if c.get("dtype", "fp32") == "fp32" and c.get("compute", "fp32") == "fp32"]
@@ -6831,6 +7207,10 @@ def main() -> int:
             grouped = c.get("entry") == "gather"
         if c["name"] == "sparse_adagrad_update":
             if c.get("storages") == 46:        # staytime's train step
+                headline[c["name"]] = c
+            continue
+        if c["name"] == "dcn_cross":
+            if c["accumulate"] and not c["residual"]:
                 headline[c["name"]] = c
             continue
         if c.get("b", BIG_BATCH) == want_b and c.get("f", 24) == 24 and grouped:
@@ -6857,15 +7237,15 @@ def main() -> int:
                    "recommendsystem_tpu_torch/csrc/interacting.cu",
                    "recommendsystem_tpu/kernels/interacting_pallas.py:107"),
                "sparse_adagrad_update": ("recommendsystem_tpu_torch/csrc/sparse_adagrad.cu",
-                                         "recommendsystem_tpu/embedding/optimizers.py:99")}
+                                         "recommendsystem_tpu/embedding/optimizers.py:99"),
+               "dcn_cross": ("recommendsystem_tpu_torch/csrc/dcn_cross.cu",
+                             "none: the JAX package has no low-rank cross")}
     kernels = []
     for name, (source, replaces) in sources.items():
         c = headline[name]
-        launches = (serving[name] + training[name] + staytime[name] + interacting[name]
-                    + towers[name] + rough[name] + stacked[name] + staytime_train[name]
-                    + evaluation[name] + daily[name] + bf16.get(name, 0)
-                    + compute.get(name, 0) + exported.get(name, 0)
-                    + sharded.get(name, 0) + mesh2d.get(name, 0) + criteo.get(name, 0))
+        launches = sum(counts.get(name, 0) for counts in (
+            serving, training, staytime, interacting, towers, rough, stacked, staytime_train,
+            evaluation, daily, bf16, compute, exported, sharded, mesh2d, criteo, dlrm))
         if launches < 1:
             raise AssertionError(f"{name} was not launched on the main paths")
         kernels.append({

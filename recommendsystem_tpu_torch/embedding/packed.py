@@ -48,9 +48,10 @@ block of gradient sums followed by a (rows,) block of counts
 (``accumulator_views``), where the JAX package interleaves [grad | count]
 rows; the split keeps each gradient row 16-byte aligned for the card's
 vector reductions and lets the lazy-Adam pass read a dead row's count
-alone.  The 128-lane pack
-sizes survive only to size the engine's storages as the JAX engine does
-(``gather_pack``, ``scatter_pack``).
+alone.  So the 128-lane limit of the JAX layout is not the port's: a
+storage of D >= 128 takes the fold path too (``storages_packed``).  The
+128-lane pack sizes survive only to size the engine's storages as the JAX
+engine does (``gather_pack``, ``scatter_pack``).
 
 ``row_update_packed_storage`` is the JAX package's touched-rows update
 (sort, segment sum, update of the unique rows only), which the step takes
@@ -101,8 +102,10 @@ def scatter_pack(d: int) -> int:
 
 
 def packable(d: int) -> bool:
-    """Dims whose [grad | count] group fits one 128-lane row (d <= 127)
-    take the fold path, as in the JAX package."""
+    """Dims whose [grad | count] group fits one 128-lane row (d <= 127):
+    the JAX package packs these alone (the engine's ``stride_of`` aligns
+    their storages as it does); the port's fold path takes wider ones too
+    (``storages_packed``)."""
     return d + 1 <= _LANES
 
 
@@ -1015,12 +1018,19 @@ def classic_columns(eng, batch, plans):
 
 
 def storages_packed(eng) -> Tuple[List[str], List[str]]:
-    """Split storages into (fold path, classic) sets, by the JAX package's
-    rule: float32 or bf16 storage, packable dim, and pack-aligned rows and
-    member offsets (an engine built with ``packed=True`` aligns both)."""
+    """Split storages into (fold path, classic) sets.  A float32 or bf16
+    storage takes the fold path where its rows and member offsets are
+    aligned to the JAX package's packings (an engine built with
+    ``packed=True`` aligns both): for a packable D (<= 127), the JAX
+    package's rule.  A wider storage, which the JAX package sends to the
+    classic path because its [grad | count] row would not fit one
+    128-lane row, takes the fold path wherever the engine is built
+    packed: the port keeps its rows (rows, D) and its accumulator split
+    (``accumulator_views``), and its kernels take any D.  An engine built
+    with ``packed=False`` packs no wide storage."""
     packed, classic = [], []
     for skey, (rows, d) in eng.storage.items():
-        ok = (packable(d)
+        ok = ((packable(d) or eng.packed)
               and eng.storage_dtype(d) in ROW_DTYPES
               and rows % gather_pack(d) == 0
               and all(off % gather_pack(d) == 0 and off % scatter_pack(d) == 0

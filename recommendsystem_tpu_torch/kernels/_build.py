@@ -73,6 +73,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "interacting": {
         "interacting_attention": [_P] * 12 + [_L, _I, _I, _F, _F, _I, _I, _P],
     },
+    "dcn_cross": {
+        "dcn_cross_bwd": [_P] * 6 + [_L, _L, _I, _I, _P],
+    },
 }
 
 # the float types the kernels take as inputs under the bf16 compute policy
@@ -80,7 +83,7 @@ FLOATS = (torch.float32, torch.bfloat16)
 
 KERNELS = ("fold_mean", "fold_rows", "field_attention", "field_attention_bwd",
            "unfold_mean", "unfold_rows", "sparse_adam_update", "din_pool",
-           "interacting_attention", "sparse_adagrad_update")
+           "interacting_attention", "sparse_adagrad_update", "dcn_cross")
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 

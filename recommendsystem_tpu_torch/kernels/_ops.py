@@ -15,10 +15,11 @@ plain version's ``aten`` ops.  A tensor on any other device has no
 implementation and raises.  The ops are the forward launchers of K1 and
 K2 (``embedding/packed.py``), K7 with its facts given and gathering them
 (``kernels/din.py``), K6 (``kernels/interacting.py``) and K5f
-(``kernels/field_attention.py``); each wrapper there checks shapes and
-types before it calls its op, and each launcher checks alignment on the
-card.  The training kernels (K3, K4, K5b, K8, K9) stay direct ``ctypes``
-calls.
+(``kernels/field_attention.py``), and K10, the low-rank cross layer's
+elementwise backward (``kernels/dcn_cross.py``), which mutates its
+``dx0``; each wrapper there checks shapes and types before it calls its
+op, and each launcher checks alignment on the card.  The other training
+kernels (K3, K4, K5b, K8, K9) stay direct ``ctypes`` calls.
 
 The launchers and plain versions are imported inside each implementation:
 their modules import this one.  Importing this module registers the ops;
@@ -198,3 +199,29 @@ def _field_attention_fwd_fake(q, k, v, seed, rate, want_lse, sample0=0):
     lse = (h, f, b) if want_lse else (0,)
     return (q.new_empty(q.shape, dtype=torch.float32),
             q.new_empty(lse, dtype=torch.float32))
+
+
+# ---------------------------------------------------------------------------
+# K10: the low-rank cross layer's elementwise backward
+# ---------------------------------------------------------------------------
+
+@torch.library.custom_op(f"{NAMESPACE}::dcn_cross_bwd", mutates_args=("dx0",),
+                         device_types="cuda")
+def dcn_cross_bwd(g: torch.Tensor, x0: torch.Tensor, u: torch.Tensor, dx0: torch.Tensor,
+                  accumulate: bool, residual: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(du, the partial sums of db); x_0's gradient accumulated into
+    ``dx0``."""
+    from . import dcn_cross
+    return dcn_cross.dcn_cross_bwd_launch(g, x0, u, dx0, accumulate, residual)
+
+
+@dcn_cross_bwd.register_kernel("cpu")
+def _dcn_cross_bwd_cpu(g, x0, u, dx0, accumulate, residual):
+    from .dcn_cross import dcn_cross_bwd_plain
+    return dcn_cross_bwd_plain(g, x0, u, dx0, accumulate, residual)
+
+
+@dcn_cross_bwd.register_fake
+def _dcn_cross_bwd_fake(g, x0, u, dx0, accumulate, residual):
+    from .dcn_cross import tiles_of
+    return torch.empty_like(g), g.new_empty((tiles_of(g.shape[0]), g.shape[1]))

@@ -1,6 +1,6 @@
 """Layers of the port."""
 
-from .dcn import CrossNet, DeepCrossLayer  # noqa: F401
+from .dcn import CrossNet, DeepCrossLayer, LowRankCrossNet  # noqa: F401
 from .din import MASK_PAD, DINAttention, DINPool, sequence_mask  # noqa: F401
 from .fm import DeepFMLayer, FFMBlock, FMLayer3D, fm_cross_term  # noqa: F401
 from .interacting import InteractingLayer  # noqa: F401

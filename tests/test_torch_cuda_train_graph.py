@@ -27,7 +27,7 @@ from torch.overrides import TorchFunctionMode
 from chip_smoke import TRAIN_LOSS_RTOL, TRAIN_MOMENT_TOL, TRAIN_W_ATOL
 from recommendsystem_tpu_torch.data import synthetic_batch
 from recommendsystem_tpu_torch.kernels import launch_counts, reset_launch_counts
-from recommendsystem_tpu_torch.models import create_model
+from recommendsystem_tpu_torch.models import create_model, dlrm_dcnv2
 from recommendsystem_tpu_torch.models.base import MODEL_REGISTRY
 from recommendsystem_tpu_torch.models.staytime import StaytimeConfig
 from recommendsystem_tpu_torch.train import create_train_state, fit, make_train_step
@@ -61,6 +61,8 @@ def _bundle(name):
     if name == "autoint_bf16":
         return create_model("autoint", bucket_size=4096, compute_dtype=torch.bfloat16,
                             device="cuda")
+    if name == "dlrm_dcnv2":
+        return create_model(name, rows=[min(r, 4096) for r in dlrm_dcnv2.ROWS], device="cuda")
     return create_model(name, bucket_size=4096, device="cuda")
 
 

@@ -7,7 +7,8 @@ autoint's and a tiny staytime's ``fit`` of 2 steps and ``predict`` of 2
 calls record the span tree in order: each ``harness.step`` holds one
 ``step.train``, which holds the six stages; each record encloses the
 exported ``user_annotation`` event of its name, on the profiler's own
-clock.  The scatter and dense updates name the stages they have; the
+clock.  A tiny DLRM-DCNv2's ``model.forward`` holds its
+``model.cross``.  The scatter and dense updates name the stages they have; the
 store keeps at most its bound.
 """
 
@@ -123,6 +124,18 @@ def test_records_enclose_their_trace_events(model, tmp_path):
             ea, ez = float(e["ts"]), float(e["ts"]) + float(e["dur"])
             assert a <= ea + CLOCK_US and z >= ez - CLOCK_US, (name, a, ea, z, ez)
             assert ea - a < EDGE_US and z - ez < EDGE_US, (name, ea - a, z - ez)
+
+
+def test_cross_span_nests_in_the_forward():
+    bundle = create_model("dlrm_dcnv2", rows=[64] * 26, device="cpu")
+    _profiled(lambda: _run(bundle))
+    roots = [_shape(n) for n in _tree(spans.recorded())]
+    forward = ("model.forward", [("model.cross", [])])
+    step = ("harness.step", [("step.train", [forward if s == "model.forward" else (s, [])
+                                             for s in STAGES])])
+    call = ("harness.predict", [forward if s == "model.forward" else (s, [])
+                                for s in PREDICT])
+    assert roots == [("harness.fit", [step, step]), call, call, ("harness.predict", [])]
 
 
 @pytest.mark.parametrize("update,stages", [
