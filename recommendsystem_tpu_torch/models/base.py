@@ -23,7 +23,7 @@ from torch import nn
 
 from ..embedding.engine import EmbeddingFeatures
 from ..train.adam import Adam
-from ..train.graph import TrainGraphs
+from ..train.graph import PredictGraphs, TrainGraphs
 
 
 @dataclasses.dataclass
@@ -52,6 +52,9 @@ class ModelBundle:
     # made by ``dataclasses.replace`` starts with none
     train_graphs: TrainGraphs = dataclasses.field(default_factory=TrainGraphs, init=False,
                                                   repr=False, compare=False)
+    # the CUDA graphs of the local predict step, kept the same way
+    predict_graphs: PredictGraphs = dataclasses.field(default_factory=PredictGraphs,
+                                                      init=False, repr=False, compare=False)
 
     def init(self, seed: int):
         """(params, tables) drawn from one ``torch.Generator`` on the

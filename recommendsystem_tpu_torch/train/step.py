@@ -93,8 +93,9 @@ On a card the local packed step replays its stage 2 (the combine, the
 tower, the loss and the autograd backward) as one CUDA graph, captured at
 the first step of each signature and kept with the bundle
 (``train/graph.py``): the same kernels on the same work, with their
-launches off the host.  The sharded step, the classic updates and the CPU
-run stage 2 eagerly.
+launches off the host.  The local predict step replays its whole body,
+the lookup and the forward, from the second call of each signature on.
+The sharded steps, the classic updates and the CPU run eagerly.
 
 While a ``torch.profiler`` is active the steps record their stages as
 spans (``utils/spans.py``): the train step's call in ``step.train``,
@@ -102,7 +103,8 @@ holding ``embedding.plan``, ``embedding.gather`` (stage 1),
 ``model.forward``, ``model.backward`` (with the dense all-reduce), or
 ``model.graph`` where stage 2 replays, ``step.dense_update`` and
 ``embedding.update`` (stage 3), each where the sparse update has the
-stage; the predict step's ``embedding.lookup`` and ``model.forward``.
+stage; the predict step's ``embedding.lookup`` and ``model.forward``, or
+``step.graph`` where it replays.
 
 Keras-compile semantics as in the JAX package: the loss is the sum over
 tasks of ``loss_weight * loss``, where a loss that returns a scalar is taken
@@ -738,18 +740,37 @@ def make_predict_step(bundle: "ModelBundle", mode: str = "local",
     pool (K7) gathers the rows it reads.  Sharded (``mode="sharded",
     mesh=``): each rank passes its shards and rows and gets its rows'
     outputs; K7 gathers its facts from the rows the exchange brought.  On a
-    2-D mesh ``shardings`` as ``make_train_step`` takes it."""
+    2-D mesh ``shardings`` as ``make_train_step`` takes it.
+
+    On a card the local step runs its whole body (the lookup and the
+    forward) as one CUDA graph (``train/graph.py``, kept with the bundle
+    in ``bundle.predict_graphs``): the first call of a signature (the
+    batch's and ``dense_inputs``' structure, shapes and dtypes) over a
+    state's storage runs eagerly, the second captures, and every call from
+    then on copies its inputs into the graph's buffers and replays it.
+    The outputs are copies, which later calls leave alone.  The sharded
+    step, the CPU and a call under a torch function or dispatch mode run
+    eagerly."""
     _check_mode(mode, mesh)
     _check_shardings(shardings, mode == "sharded")
     axis = _model_axis(bundle, mesh if mode == "sharded" else None, shardings)
+    graphs = bundle.predict_graphs if graph_mod.uses_graph(bundle.device, mode) else None
+
+    def body(state: TrainState, batch, dense_inputs):
+        with span("embedding.lookup"):
+            embs = _lookup_for_mode(bundle, state.tables, batch, mode, mesh)
+        with span("model.forward"):
+            outputs = apply_model(bundle, state.params, embs, dense_inputs,
+                                  training=False, axis=axis)
+            return bundle.predict_view(outputs)
 
     def step(state: TrainState, batch, dense_inputs=None):
         with torch.inference_mode():
-            with span("embedding.lookup"):
-                embs = _lookup_for_mode(bundle, state.tables, batch, mode, mesh)
-            with span("model.forward"):
-                outputs = apply_model(bundle, state.params, embs, dense_inputs,
-                                      training=False, axis=axis)
-                return bundle.predict_view(outputs)
+            if graphs is None or graph_mod.observed():
+                return body(state, batch, dense_inputs)
+            reads = dict(state.params)
+            reads.update((f"table/{k}", w) for k, w in
+                         bundle.embedding.weights(state.tables).items())
+            return graphs.run(functools.partial(body, state), (batch, dense_inputs), reads)
 
     return step
